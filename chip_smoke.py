@@ -1,25 +1,30 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's serving paths on one NVIDIA card.
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line:
+Phases, each printing JSON lines:
 
 1. ``device`` — the card's name and count, and nvidia-smi's name and power
    limit (also printed as nvidia-smi gives them).
-2. ``build`` — build every kernel of the path from ``csrc/`` (nvcc for
-   sm_90a) and print the compiler's register and shared-memory report.
+2. ``build`` — build every kernel from ``csrc/`` (one nvcc for each source,
+   all started together, for sm_90a), one line per library with the
+   compiler's register and shared-memory report.
 3. ``kernel`` — each kernel against its plain PyTorch version on the card,
-   at the flagship forest (T=100, depth 8) and B = 65,536 and a ragged
-   B = 300, in every z mode, with its time, the plain version's time and
-   the bound.
+   with its time, the plain version's time and its bound: the fused
+   featurize→forest kernel and the leaf-sum kernel at the flagship forest
+   (T=100, depth 8) in every z mode, and the fused featurize→logreg
+   kernel, each at a ragged B = 300 and the serving bucket B = 65,536.
 4. ``main_path`` — the default dataset (``DataConfig()``, seed 0) served
    through ``ScoringEngine.run`` at 65,536-row batches into a
-   ``MemorySink``, with rows/s, latency and the median time of each loop
-   stage; every launch counter is set to 0 just before the run and read
-   just after, and the first two batches are held against a CPU-device
-   engine on the same batches.
-5. ``profile`` — a few batches of the same path under ``torch.profiler``:
+   ``MemorySink``, once per model kind: forest (the fused forest kernel),
+   logreg (the fused logreg kernel) and gbt (the unfused step with the
+   leaf-sum kernel). The weights are synthetic, seeded from 0, and reach
+   the engine through the port's own artifact writer and reader. Every
+   launch counter is set to 0 just before each run and read just after:
+   the path's own kernel must launch once per batch and the others not at
+   all. The first two batches are held against a CPU-device engine.
+5. ``profile`` — a few batches of each path under ``torch.profiler``:
    device time by kernel and the device's idle share.
 6. ``kernels`` — one line per the measurement contract.
 
@@ -34,6 +39,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -41,16 +47,35 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
-# H100 SXM float32 rate outside the tensor cores, taken for the kernel's
+# H100 SXM float32 rate outside the tensor cores, taken for the kernels'
 # 32-bit integer and compare operations too (their own rate is lower, so
 # the bound errs short)
 INT32_OPS_PER_S = 67e12
 START_EPOCH_S = 1_743_465_600  # 2025-04-01, DataConfig.start_date
 ATOL_LEAF = 1e-5  # leaf sums (both sides add trees in order: expect 0)
+ATOL_SIGMOID = 1e-6  # logreg and gbt probabilities: expf against PyTorch's
 RTOL_FEATURE = 1e-6  # float32 window sums in another order
 KERNEL_ROWS = (300, 65536)  # a ragged batch, then the serving bucket
 BATCH_ROWS = 65536  # the main path's batch bucket
 PROFILE_BATCHES = 4
+PATHS = ("forest", "logreg", "gbt")
+# The kernel each path's step must launch once per batch.
+OWN_KERNEL = {"forest": "fused_forest_leaf_sum",
+              "logreg": "fused_featurize_score",
+              "gbt": "leaf_sum"}
+COUNT_COLS = [0, 1, 2, 3, 5, 7, 9, 11, 13]  # counts, flags, TX_AMOUNT
+PKG = "real_time_fraud_detection_system_tpu_torch"
+KERNELS = {  # name → (port source, the TPU kernel it replaces)
+    "fused_forest_leaf_sum": (
+        f"{PKG}/csrc/fused_forest.cu",
+        "real_time_fraud_detection_system_tpu/ops/pallas_forest.py:398"),
+    "leaf_sum": (
+        f"{PKG}/csrc/leaf_sum.cu",
+        "real_time_fraud_detection_system_tpu/ops/pallas_forest.py:283"),
+    "fused_featurize_score": (
+        f"{PKG}/csrc/fused_score.cu",
+        "real_time_fraud_detection_system_tpu/ops/pallas_kernels.py:129"),
+}
 
 
 def emit(obj) -> None:
@@ -76,6 +101,18 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def counters() -> dict:
+    """Each kernel wrapper, by kernel name (its ``launches`` counter)."""
+    from real_time_fraud_detection_system_tpu_torch.ops import (
+        forest_kernels,
+        score_kernels,
+    )
+
+    return {"fused_forest_leaf_sum": forest_kernels.fused_forest_leaf_sum,
+            "leaf_sum": forest_kernels.leaf_sum,
+            "fused_featurize_score": score_kernels.fused_featurize_score}
+
+
 def phase_device() -> dict:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -92,16 +129,35 @@ def phase_device() -> dict:
 
 
 def phase_build() -> None:
-    from real_time_fraud_detection_system_tpu_torch.ops import forest_kernels
+    from real_time_fraud_detection_system_tpu_torch.ops import (
+        cuda_lib,
+        forest_kernels,
+        score_kernels,
+    )
+
+    sources = {"fused_forest_leaf_sum": forest_kernels.SOURCE,
+               "leaf_sum": forest_kernels.LEAF_SUM_SOURCE,
+               "fused_featurize_score": score_kernels.SOURCE}
+
+    def build(src):
+        t0 = time.perf_counter()
+        path, report = cuda_lib.build_library(src)
+        return path, report, time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    path, report = forest_kernels.build_library()
+    with ThreadPoolExecutor(len(sources)) as pool:
+        futures = {k: pool.submit(build, s) for k, s in sources.items()}
+        built = {k: f.result() for k, f in futures.items()}
+    wall = time.perf_counter() - t0
     forest_kernels._library()
-    emit({"phase": "build", "kernel": "fused_forest",
-          "seconds": time.perf_counter() - t0,
-          "library": str(path.relative_to(ROOT)),
-          "ptxas": [ln.strip() for ln in report.splitlines()
-                    if "registers" in ln or "spill" in ln]})
+    forest_kernels._leaf_sum_library()
+    score_kernels._library()
+    for name, (path, report, seconds) in built.items():
+        emit({"phase": "build", "kernel": name, "seconds": seconds,
+              "all_builds_wall_s": wall,
+              "library": str(path.relative_to(ROOT)),
+              "ptxas": [ln.strip() for ln in report.splitlines()
+                        if "registers" in ln or "spill" in ln]})
 
 
 def _gathered_rows(rng, b: int, nb: int, dev):
@@ -125,40 +181,40 @@ def _gathered_rows(rng, b: int, nb: int, dev):
     )
 
 
-def _bound_ms(args, tables, feats, n_real_trees: int) -> dict:
-    """Least time for the function on this card: the larger of the bytes
-    (each input read once, each output written once) over the memory rate
-    and the operations these inputs need over the 32-bit rate.
+def _bound(inputs, outputs, needed_ops: int, **extra) -> dict:
+    """Least time for a kernel's function on this card: the larger of its
+    bytes (each of ITS inputs read once, each of its outputs written once)
+    over the memory rate and the operations these inputs need over the
+    32-bit rate."""
+    nbytes = sum(t.numel() * t.element_size() for t in (*inputs, *outputs))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = needed_ops / INT32_OPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "needed_ops": needed_ops, **extra}
 
-    Needed operations: per row the feature assembly (per table and bucket
-    an age, two liveness compares and, per window, a compare and two adds;
-    the ratios, the flags and the standardization), and per tree one
+
+def _feature_ops(b: int, nb: int, n_win: int, n_feat: int) -> int:
+    """Operations the feature assembly needs: per table and bucket an age,
+    two liveness compares and, per window, a compare and two adds; the
+    ratios and flags; the standardization (a subtract and a divide per
+    feature)."""
+    return b * (2 * nb * (3 + 3 * n_win) + 2 * n_win + 4 + 2 * n_feat)
+
+
+def _walk_ops(tables, x, n_real_trees: int) -> dict:
+    """Operations the tree half needs on this run's data: per tree one
     compare per level of the path the row takes plus the add of its leaf.
-    The levels are counted on this run's data: the dense form with each
-    leaf's value replaced by its depth sums, per row, the depth of the
-    leaf it reaches in every tree. ``algorithm_ops`` is what the kernel's
-    compact algorithm does instead (a compare per real node, an add per
-    path entry, a compare per real leaf): reported, not the bound."""
+    The levels are counted through the dense form with each leaf's value
+    replaced by its depth. ``algorithm_ops`` is what the kernels' compact
+    walk does instead (a compare per real node, an add per path entry, a
+    compare per real leaf): reported, not the bound."""
     from real_time_fraud_detection_system_tpu_torch.models.forest import (
         gemm_leaf_sum,
     )
-    from real_time_fraud_detection_system_tpu_torch.models.scaler import (
-        Scaler,
-        transform,
-    )
 
-    b, nb = args["c_rows"][0].shape
-    n_feat = feats.shape[1]
-    n_win = (n_feat - 3) // 4
-    tensors = [*args["c_rows"], *args["t_rows"], args["day"], args["tod_s"],
-               args["amount"], args["scaler_mean"], args["scaler_scale"],
-               tables.node_feat, tables.gemm.thresh, tables.leaf_entries,
-               tables.leaf_target, tables.gemm.leaf_val]
-    nbytes = sum(t.numel() * t.element_size() for t in tensors) \
-        + b * 4 + b * n_feat * 4
-
-    x = transform(Scaler(args["scaler_mean"], args["scaler_scale"]), feats)
-    x = torch.nn.functional.pad(x, (0, tables.gemm.sel.shape[1] - n_feat))
+    b = x.shape[0]
+    x = torch.nn.functional.pad(x, (0, tables.gemm.sel.shape[1] - x.shape[1]))
     real_leaf = (tables.leaf_target < 10 ** 9).to(torch.float32)
     depth = (tables.leaf_entries >= 0).sum(dim=2).to(torch.float32)
     reached = gemm_leaf_sum(tables.gemm._replace(leaf_val=real_leaf), x,
@@ -167,20 +223,24 @@ def _bound_ms(args, tables, feats, n_real_trees: int) -> dict:
           "a row does not reach exactly one leaf per tree")
     levels = int(gemm_leaf_sum(tables.gemm._replace(leaf_val=depth), x,
                                tables.z_mode).sum())
-    feature_ops = b * (2 * nb * (3 + 3 * n_win) + 2 * n_win + 4 + 2 * n_feat)
-    needed_ops = feature_ops + levels + b * n_real_trees
-
     real = slice(0, n_real_trees)
     algorithm_ops = b * int((tables.node_feat[real] >= 0).sum()
                             + (tables.leaf_entries[real] >= 0).sum()
                             + real_leaf[real].sum())
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = needed_ops / INT32_OPS_PER_S * 1e3
-    return {"bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "needed_ops": needed_ops,
+    return {"ops": levels + b * n_real_trees,
             "mean_levels_per_tree": levels / (b * n_real_trees),
             "algorithm_ops": algorithm_ops}
+
+
+def _tables_of(tables):
+    return [tables.node_feat, tables.gemm.thresh, tables.leaf_entries,
+            tables.leaf_target, tables.gemm.leaf_val]
+
+
+def _time(kernel, plain, bound: dict) -> dict:
+    """The kernel's and its plain version's mean ms, beside its bound."""
+    return {"ms": cuda_ms(kernel, 20), "plain_ms": cuda_ms(plain, 3),
+            **bound, "library_ms": None}
 
 
 def phase_kernel(dev) -> dict:
@@ -189,19 +249,37 @@ def phase_kernel(dev) -> dict:
         to_gemm,
     )
     from real_time_fraud_detection_system_tpu_torch.models.scaler import (
+        Scaler,
         fit_scaler,
+        transform,
     )
-    from real_time_fraud_detection_system_tpu_torch.ops import forest_kernels
+    from real_time_fraud_detection_system_tpu_torch.ops import (
+        forest_kernels,
+        score_kernels,
+    )
     from real_time_fraud_detection_system_tpu_torch.ops.features_fused import (
         assemble_features,
     )
 
     g = to_gemm(synthetic_ensemble(100, 8, 15, seed=0, device=dev), 15)
     check(forest_kernels.admit_tables(g).fits, "flagship forest not admitted")
+    check(forest_kernels.admit_leaf_sum(g).fits,
+          "flagship forest not admitted to the leaf-sum kernel")
     tables = {z: forest_kernels.to_kernel_tables(g, z)
               for z in ("f32", "bf16", "int8")}
     rng = np.random.default_rng(0)
-    out = {"max_abs_err": 0.0}
+    out = {k: {"max_abs_err": 0.0} for k in KERNELS}
+
+    def record(name, b, line):
+        """Emit a kernel line; the serving bucket in the serving z mode
+        (int8 on CUDA) is what the kernels line reports."""
+        out[name]["max_abs_err"] = max(out[name]["max_abs_err"],
+                                       line["max_abs_err"])
+        if b == KERNEL_ROWS[-1] and line.get("z_mode", "int8") == "int8":
+            out[name].update({k: line[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by")})
+        emit({"phase": "kernel", "kernel": name, "rows": b, **line})
+
     for b in KERNEL_ROWS:
         args = _gathered_rows(rng, b, 40, dev)
         feats = assemble_features(args["c_rows"], args["t_rows"], args["day"],
@@ -210,49 +288,146 @@ def phase_kernel(dev) -> dict:
                                   weekend_start=5, night_end=6)
         scaler = fit_scaler(feats.cpu().numpy(), device=dev)
         args.update(scaler_mean=scaler.mean, scaler_scale=scaler.scale)
-        leaves, plains = {}, {}
+        x = transform(Scaler(scaler.mean, scaler.scale), feats).contiguous()
+        gathered = [*args["c_rows"], *args["t_rows"], args["day"],
+                    args["tod_s"], args["amount"]]
+        feature_ops = _feature_ops(b, 40, 3, 15)
+        walk = _walk_ops(tables["int8"], x, 100)  # the same in every mode
+
+        # -- fused featurize → forest, and leaf sum, in every z mode
+        sums = {"fused_forest_leaf_sum": {}, "leaf_sum": {},
+                "plain fused_forest_leaf_sum": {}, "plain leaf_sum": {}}
         for z, tab in tables.items():
             leaf, kfeats = forest_kernels.fused_forest_leaf_sum(tab, **args)
+            lsum = forest_kernels.leaf_sum(tab, x)
             torch.cuda.synchronize()
             pleaf, pfeats = forest_kernels.fused_forest_leaf_sum_plain(
                 tab, **args)
-            err_leaf = float((leaf - pleaf).abs().max())
-            check(err_leaf <= ATOL_LEAF, f"leaf sums differ by {err_leaf}")
-            check(bool(((leaf / 100 >= 0.5) == (pleaf / 100 >= 0.5)).all()),
-                  "decisions differ from the plain version")
-            counts = [0, 1, 2, 3, 5, 7, 9, 11, 13]
-            check(torch.equal(kfeats[:, counts], pfeats[:, counts]),
+            psum = forest_kernels.leaf_sum_plain(tab, x)
+            check(torch.equal(kfeats[:, COUNT_COLS], pfeats[:, COUNT_COLS]),
                   "count/flag features differ from the plain version")
             torch.testing.assert_close(kfeats, pfeats, rtol=RTOL_FEATURE,
                                        atol=0.0)
-            out["max_abs_err"] = max(out["max_abs_err"], err_leaf,
-                                     float((kfeats - pfeats).abs().max()))
-            leaves[z], plains[z] = leaf, pleaf
-        for z in ("bf16", "int8"):
-            check(torch.equal(leaves[z], leaves["f32"]),
-                  f"kernel z_mode {z} is not bit-identical to f32")
-            check(torch.equal(plains[z], plains["f32"]),
-                  f"plain z_mode {z} is not bit-identical to f32")
-        line = {"phase": "kernel", "rows": b,
-                "max_abs_err": out["max_abs_err"],
-                "decision_share_fraud": float((leaves["f32"] / 100 >= 0.5)
-                                              .float().mean())}
-        if b == KERNEL_ROWS[-1]:
-            tab = tables["int8"]
-            out["ms"] = cuda_ms(
-                lambda: forest_kernels.fused_forest_leaf_sum(tab, **args), 20)
-            out["plain_ms"] = cuda_ms(
-                lambda: forest_kernels.fused_forest_leaf_sum_plain(
-                    tab, **args), 3)
-            bound = _bound_ms(args, tab, feats, 100)
-            out.update(bound_ms=bound["bound_ms"], bound_by=bound["bound_by"])
-            line.update(ms=out["ms"], plain_ms=out["plain_ms"], **bound,
-                        library_ms=None)
-        emit(line)
+            runs = {
+                "fused_forest_leaf_sum": (
+                    leaf, pleaf, float((kfeats - pfeats).abs().max()),
+                    lambda: forest_kernels.fused_forest_leaf_sum(tab, **args),
+                    lambda: forest_kernels.fused_forest_leaf_sum_plain(
+                        tab, **args),
+                    _bound(gathered + [scaler.mean, scaler.scale]
+                           + _tables_of(tab), [leaf, kfeats],
+                           feature_ops + walk["ops"],
+                           mean_levels_per_tree=walk["mean_levels_per_tree"],
+                           algorithm_ops=walk["algorithm_ops"])),
+                "leaf_sum": (
+                    lsum, psum, 0.0,
+                    lambda: forest_kernels.leaf_sum(tab, x),
+                    lambda: forest_kernels.leaf_sum_plain(tab, x),
+                    _bound([x] + _tables_of(tab), [lsum], walk["ops"],
+                           mean_levels_per_tree=walk["mean_levels_per_tree"],
+                           algorithm_ops=walk["algorithm_ops"])),
+            }
+            for name, (got, want, feat_err, kernel, plain, bound) \
+                    in runs.items():
+                err = float((got - want).abs().max())
+                check(err <= ATOL_LEAF, f"{name} sums differ by {err}")
+                check(bool(((got / 100 >= 0.5) == (want / 100 >= 0.5)).all()),
+                      f"{name} decisions differ from the plain version")
+                sums[name][z] = got
+                sums[f"plain {name}"][z] = want
+                record(name, b, {
+                    "z_mode": z, "max_abs_err": max(err, feat_err),
+                    "decision_share_fraud": float((got / 100 >= 0.5)
+                                                  .float().mean()),
+                    **_time(kernel, plain, bound)})
+        for name, by_mode in sums.items():
+            for z in ("bf16", "int8"):
+                check(torch.equal(by_mode[z], by_mode["f32"]),
+                      f"{name} z_mode {z} is not bit-identical to f32")
+        check(torch.equal(sums["leaf_sum"]["f32"],
+                          sums["fused_forest_leaf_sum"]["f32"]),
+              "the two forest kernels' sums differ on the same rows")
+
+        # -- fused featurize → logreg
+        w = torch.as_tensor(np.random.default_rng(0).normal(size=15)
+                            .astype(np.float32), device=dev)
+        valid = torch.as_tensor(rng.random(b) < 0.95, device=dev)
+        sargs = dict(args, valid=valid, w=w,
+                     b=torch.tensor(0.0, device=dev))
+        probs, sfeats = score_kernels.fused_featurize_score(**sargs)
+        torch.cuda.synchronize()
+        pprobs, psfeats = score_kernels.fused_featurize_score_plain(**sargs)
+        check(torch.equal(sfeats[:, COUNT_COLS], psfeats[:, COUNT_COLS]),
+              "fused logreg count/flag features differ from the plain one")
+        torch.testing.assert_close(sfeats, psfeats, rtol=RTOL_FEATURE,
+                                   atol=0.0)
+        check(torch.equal(sfeats, kfeats),
+              "the two fused kernels' features differ on the same rows")
+        err = float((probs - pprobs).abs().max())
+        check(err <= ATOL_SIGMOID, f"fused logreg probs differ by {err}")
+        check(bool(((probs >= 0.5) == (pprobs >= 0.5)).all()),
+              "fused logreg decisions differ from the plain version")
+        record("fused_featurize_score", b, {
+            "max_abs_err": max(err, float((sfeats - psfeats).abs().max())),
+            "decision_share_fraud": float((probs >= 0.5).float().mean()),
+            **_time(
+                lambda: score_kernels.fused_featurize_score(**sargs),
+                lambda: score_kernels.fused_featurize_score_plain(**sargs),
+                # per row beyond the features: 15 products and adds, the
+                # bias, the sigmoid (negate, exp, add, divide), the mask
+                _bound(gathered + [valid, scaler.mean, scaler.scale, w,
+                                   sargs["b"]], [probs, sfeats],
+                       feature_ops + b * (2 * 15 + 1 + 4 + 1)))})
     return out
 
 
-def phase_main_path(dev, device_info) -> dict:
+def _artifact_models(scaler, dev):
+    """Each path's synthetic model, seeded from 0, written and read back
+    through the port's own artifact format: (model on ``dev``, model on
+    the CPU)."""
+    from real_time_fraud_detection_system_tpu_torch.io.artifacts import (
+        TrainedModel,
+        dump_model_bytes,
+        load_model_bytes,
+    )
+    from real_time_fraud_detection_system_tpu_torch.models.forest import (
+        synthetic_ensemble,
+    )
+    from real_time_fraud_detection_system_tpu_torch.models.gbt import (
+        synthetic_gbt,
+    )
+    from real_time_fraud_detection_system_tpu_torch.models.logreg import (
+        LogRegParams,
+    )
+
+    gbt = synthetic_gbt(100, 8, 15, seed=0, device="cpu")
+    # A booster's raw leaf scores carry either sign and the learning rate
+    # (0.1); synthetic_gbt's are uniform on [0, 1], whose sum over 100
+    # trees (~50) puts sigmoid at 1.0 in float32 for every row and would
+    # make the comparison with the CPU engine vacuous.
+    gbt = gbt._replace(trees=gbt.trees._replace(
+        prob=0.1 * (gbt.trees.prob - 0.5)))
+    params = {
+        "forest": synthetic_ensemble(100, 8, 15, seed=0, device="cpu"),
+        "logreg": LogRegParams(
+            torch.as_tensor(np.random.default_rng(0).normal(size=15)
+                            .astype(np.float32)),
+            torch.tensor(0.0)),
+        "gbt": gbt,
+    }
+    models = {}
+    for kind, p in params.items():
+        data = dump_model_bytes(TrainedModel(kind, scaler.to("cpu"), p))
+        models[kind] = (load_model_bytes(data, device=dev),
+                        load_model_bytes(data, device="cpu"))
+        check(models[kind][0].content_sha256
+              == models[kind][1].content_sha256, "artifact hash differs")
+    return models
+
+
+def phase_data(dev) -> dict:
+    """The default dataset, the config, and a scaler fitted on the stream's
+    own features (the first 4 batches, served by a throwaway engine)."""
     from real_time_fraud_detection_system_tpu_torch.config import (
         Config,
         RuntimeConfig,
@@ -260,14 +435,12 @@ def phase_main_path(dev, device_info) -> dict:
     from real_time_fraud_detection_system_tpu_torch.data import (
         generate_dataset,
     )
-    from real_time_fraud_detection_system_tpu_torch.io.sink import MemorySink
     from real_time_fraud_detection_system_tpu_torch.models.forest import (
         synthetic_ensemble,
     )
     from real_time_fraud_detection_system_tpu_torch.models.scaler import (
         fit_scaler,
     )
-    from real_time_fraud_detection_system_tpu_torch.ops import forest_kernels
     from real_time_fraud_detection_system_tpu_torch.runtime.engine import (
         ScoringEngine,
     )
@@ -282,31 +455,46 @@ def phase_main_path(dev, device_info) -> dict:
     check(txs.customer_id.max() < cfg.features.customer_capacity
           and txs.terminal_id.max() < cfg.features.terminal_capacity,
           "ids exceed the direct-mode capacities")
-    ens = synthetic_ensemble(cfg.model.forest_n_trees,
-                             cfg.model.forest_max_depth, 15, seed=0,
-                             device="cpu")
-
-    # Scaler: fitted on a numpy sample of the stream's own features (the
-    # first 4 batches, served by a throwaway engine).
-    probe = ScoringEngine(cfg, "forest", ens,
+    probe = ScoringEngine(cfg, "forest",
+                          synthetic_ensemble(2, 2, 15, device="cpu"),
                           fit_scaler(np.ones((2, 15)), device=dev),
                           device=dev)
     src = ReplaySource(txs, START_EPOCH_S, batch_rows=BATCH_ROWS)
     sample = [probe.process_batch(src.poll_batch()).features
               for _ in range(4)]
     scaler = fit_scaler(np.concatenate(sample), device=dev)
-    del probe
+    return {"cfg": cfg, "txs": txs, "datagen_s": gen_s,
+            "models": _artifact_models(scaler, dev)}
 
-    eng = ScoringEngine(cfg, "forest", ens, scaler, device=dev)
-    check(eng.tables is not None, "fused kernel not admitted")
+
+def phase_main_path(dev, device_info, data: dict, kind: str) -> dict:
+    from real_time_fraud_detection_system_tpu_torch.io.sink import MemorySink
+    from real_time_fraud_detection_system_tpu_torch.runtime.engine import (
+        ScoringEngine,
+    )
+    from real_time_fraud_detection_system_tpu_torch.runtime.sources import (
+        ReplaySource,
+    )
+
+    cfg, txs = data["cfg"], data["txs"]
+    model, cpu_model = data["models"][kind]
+    eng = ScoringEngine(cfg, kind, model.params, model.scaler, device=dev)
+    check((eng.tables is not None) == (kind == "forest"),
+          f"{kind}: the fused forest branch is {eng.tables is not None}")
+    check((eng.leaf_tables is not None) == (kind == "gbt"),
+          f"{kind}: the leaf-sum branch is {eng.leaf_tables is not None}")
     sink = MemorySink()
+    wrappers = counters()
     torch.cuda.synchronize()
-    forest_kernels.fused_forest_leaf_sum.launches = 0
+    for fn in wrappers.values():
+        fn.launches = 0
     stats = eng.run(ReplaySource(txs, START_EPOCH_S, batch_rows=BATCH_ROWS),
                     sink)
-    launches = forest_kernels.fused_forest_leaf_sum.launches
-    check(launches == stats["batches"],
-          f"{launches} kernel launches for {stats['batches']} batches")
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    for name, n in launches.items():
+        want = stats["batches"] if name == OWN_KERNEL[kind] else 0
+        check(n == want, f"{kind}: {n} launches of {name} for "
+                         f"{stats['batches']} batches (want {want})")
     check(stats["rows"] == txs.n, "not every row was scored")
 
     out = sink.concat()
@@ -314,6 +502,7 @@ def phase_main_path(dev, device_info) -> dict:
     check(probs.shape == (txs.n,) and bool(np.isfinite(probs).all())
           and probs.min() >= 0.0 and probs.max() <= 1.0,
           "probabilities not finite in [0, 1]")
+    check(probs.std() > 0, "every row has the same probability")
     feat_cols = [k for k in out if k.startswith(("tx_during", "customer_id_",
                                                  "terminal_id_"))]
     check(len(feat_cols) == 14 and all(np.isfinite(out[k]).all()
@@ -321,11 +510,12 @@ def phase_main_path(dev, device_info) -> dict:
           "feature columns missing or not finite")
 
     # The first two batches against a CPU-device engine on the same batches.
-    cpu_scaler = scaler.to("cpu")
-    ref = ScoringEngine(cfg, "forest", ens, cpu_scaler, device="cpu")
+    ref = ScoringEngine(cfg, kind, cpu_model.params, cpu_model.scaler,
+                        device="cpu")
     ref_sink = MemorySink()
     ref.run(ReplaySource(txs, START_EPOCH_S, batch_rows=BATCH_ROWS), ref_sink,
             max_batches=2)
+    atol = ATOL_LEAF / 100 if kind == "forest" else ATOL_SIGMOID
     max_err = 0.0
     for got, want in zip(sink.batches[:2], ref_sink.batches):
         for k in feat_cols:
@@ -335,30 +525,30 @@ def phase_main_path(dev, device_info) -> dict:
             else:
                 np.testing.assert_allclose(got[k], want[k], rtol=RTOL_FEATURE)
         np.testing.assert_allclose(got["prediction"], want["prediction"],
-                                   atol=ATOL_LEAF / 100)
+                                   rtol=0.0, atol=atol)
         check(np.array_equal(got["prediction"] >= 0.5,
                              want["prediction"] >= 0.5),
               "decisions differ from the CPU engine")
         max_err = max(max_err, float(np.abs(got["prediction"]
                                             - want["prediction"]).max()))
-    emit({"phase": "main_path", "rows": stats["rows"],
+    emit({"phase": "main_path", "path": kind, "rows": stats["rows"],
           "batches": stats["batches"], "kernel_launches": launches,
           "rows_per_s": stats["rows_per_s"],
           "latency_p50_ms": stats["latency_p50_ms"],
           "latency_p99_ms": stats["latency_p99_ms"],
           "stage_ms_p50": stats["stage_ms_p50"],
-          "wall_s": stats["wall_s"], "datagen_s": gen_s,
+          "wall_s": stats["wall_s"], "datagen_s": data["datagen_s"],
           "z_mode": stats["z_mode"],
+          "prob_mean": float(probs.mean()),
           "fraud_share": float((probs >= 0.5).mean()),
           "max_abs_err_vs_cpu_engine": max_err,
           "card": device_info["smi_name"],
           "power_limit": device_info["power_limit"]})
-    return {"launches": launches, "cfg": cfg, "ens": ens, "scaler": scaler,
-            "txs": txs}
+    return {"launches": launches[OWN_KERNEL[kind]]}
 
 
-def phase_profile(dev, served) -> None:
-    """Device time by kernel over a few batches of the main path under
+def phase_profile(dev, data: dict, kind: str) -> None:
+    """Device time by kernel over a few batches of a path under
     torch.profiler, and the device's idle share of that window."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -370,9 +560,10 @@ def phase_profile(dev, served) -> None:
         ReplaySource,
     )
 
-    eng = ScoringEngine(served["cfg"], "forest", served["ens"],
-                        served["scaler"], device=dev)
-    src = ReplaySource(served["txs"], START_EPOCH_S, batch_rows=BATCH_ROWS)
+    model = data["models"][kind][0]
+    eng = ScoringEngine(data["cfg"], kind, model.params, model.scaler,
+                        device=dev)
+    src = ReplaySource(data["txs"], START_EPOCH_S, batch_rows=BATCH_ROWS)
     eng.run(src, max_batches=1)  # warm-up
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -388,7 +579,8 @@ def phase_profile(dev, served) -> None:
     n = PROFILE_BATCHES
     busy = sum(device.values())
     top = sorted(device.items(), key=lambda kv: -kv[1])[:8]
-    emit({"phase": "profile", "batches": n, "rows_per_batch": BATCH_ROWS,
+    emit({"phase": "profile", "path": kind, "batches": n,
+          "rows_per_batch": BATCH_ROWS,
           "wall_ms_per_batch": wall_ms / n,
           "device_ms_per_batch": ({k[:80]: v / n for k, v in top}
                                   if device else "not measured"),
@@ -410,23 +602,26 @@ def main() -> int:
     info = phase_device()
     phase_build()
     k = phase_kernel(dev)
-    m = phase_main_path(dev, info)
-    phase_profile(dev, m)
+    data = phase_data(dev)
+    launches = {}
+    for kind in PATHS:
+        launches[OWN_KERNEL[kind]] = phase_main_path(
+            dev, info, data, kind)["launches"]
+    for kind in PATHS:
+        phase_profile(dev, data, kind)
     emit({"kernels": [{
-        "name": "fused_forest_leaf_sum",
+        "name": name,
         "route": "cuda",
-        "source": "real_time_fraud_detection_system_tpu_torch/csrc/"
-                  "fused_forest.cu",
-        "replaces": "real_time_fraud_detection_system_tpu/ops/"
-                    "pallas_forest.py:398",
-        "launches": m["launches"],
-        "max_abs_err": k["max_abs_err"],
-        "ms": k["ms"],
-        "plain_ms": k["plain_ms"],
-        "bound_ms": k["bound_ms"],
-        "bound_by": k["bound_by"],
+        "source": source,
+        "replaces": replaces,
+        "launches": launches[name],
+        "max_abs_err": k[name]["max_abs_err"],
+        "ms": k[name]["ms"],
+        "plain_ms": k[name]["plain_ms"],
+        "bound_ms": k[name]["bound_ms"],
+        "bound_by": k[name]["bound_by"],
         "library_ms": None,
-    }]})
+    } for name, (source, replaces) in KERNELS.items()]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],
                                  "count": info["count"]}})
     return 0

@@ -31,6 +31,9 @@ from real_time_fraud_detection_system_tpu_torch.ops.forest_kernels import (
     ForestTables,
     fused_forest_leaf_sum,
 )
+from real_time_fraud_detection_system_tpu_torch.ops.score_kernels import (
+    fused_featurize_score,
+)
 from real_time_fraud_detection_system_tpu_torch.ops.windows import (
     WindowState,
     gather_state_rows,
@@ -184,3 +187,32 @@ def update_and_score_fused_forest(
         night_end=cfg.night_end_hour,
     )
     return state, leaf_sum, feats
+
+
+def update_and_score_fused_logreg(
+    state: FeatureState,
+    batch: TxBatch,
+    cfg: FeatureConfig,
+    scaler_mean: torch.Tensor,
+    scaler_scale: torch.Tensor,
+    w: torch.Tensor,
+    b: torch.Tensor,
+) -> Tuple[FeatureState, torch.Tensor, torch.Tensor]:
+    """Scatter-update the state (in place), gather both tables' rows, and
+    run the fused featurize→logreg step
+    (``ops/score_kernels.py::fused_featurize_score``) on them.
+
+    Counterpart of the JAX ``update_and_score_pallas``: returns (state,
+    probs [B], features [B, 15]); padded rows score 0.
+    """
+    state, cust_slot, term_slot = _update_state(state, batch, cfg)
+    c_rows, t_rows = _gathered(state, cust_slot, term_slot)
+    probs, feats = fused_featurize_score(
+        c_rows, t_rows, batch.day, batch.tod_s, batch.amount, batch.valid,
+        scaler_mean, scaler_scale, w, b,
+        windows=tuple(cfg.windows),
+        delay=cfg.delay_days,
+        weekend_start=cfg.weekend_start_weekday,
+        night_end=cfg.night_end_hour,
+    )
+    return state, probs, feats

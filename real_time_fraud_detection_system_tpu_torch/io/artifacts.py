@@ -1,0 +1,228 @@
+"""Model artifacts — port of the JAX package's ``io/artifacts.py``: the
+pickle-free ``.npz`` format v1, for the kinds the port serves.
+
+An artifact is an ``.npz`` of plain arrays plus a JSON header
+(``__meta__``). Format v1 stamps a content hash (sha256 over the kind
+metadata and each array's key, shape, dtype and bytes, in sorted key
+order); the loader recomputes it over what it read and raises
+:class:`CorruptModelError` on a mismatch. The hash is computed exactly as
+the JAX package computes it, so an artifact that its ``rtfds train``
+writes loads here with the same ``content_sha256``, and one written here
+loads there. v0 artifacts (no hash) load on the zip layer's own entry
+CRCs.
+
+Kinds: ``logreg`` (w, b), ``tree`` and ``forest`` (the flat node tables),
+``gbt`` (the node tables and ``base_score``). The mlp, autoencoder and
+sequence kinds raise ``NotImplementedError`` (ROADMAP A8); object-store
+URLs, ``save_model`` and the corrupt-artifact counter come with the store
+and the metrics registry (A9, A4).
+"""
+
+from __future__ import annotations
+
+import hashlib
+import io as _io
+import json
+import os
+import uuid
+import zipfile
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from real_time_fraud_detection_system_tpu_torch.device import resolve_device
+from real_time_fraud_detection_system_tpu_torch.models.forest import (
+    TreeEnsemble,
+)
+from real_time_fraud_detection_system_tpu_torch.models.gbt import GBTModel
+from real_time_fraud_detection_system_tpu_torch.models.logreg import (
+    LogRegParams,
+)
+from real_time_fraud_detection_system_tpu_torch.models.scaler import Scaler
+
+ARTIFACT_FORMAT = 1
+
+ARTIFACT_CORRUPT_REASONS = ("checksum", "truncated")
+
+_KINDS = ("logreg", "tree", "forest", "gbt")
+_TREE_FIELDS = ("feat", "thresh", "left", "right", "prob")
+
+
+class CorruptModelError(Exception):
+    """A model artifact failed load-time verification.
+
+    ``reason`` is ``checksum`` (bytes present but the content hash does
+    not match what the writer stamped — bit-flip, tampering) or
+    ``truncated`` (bytes missing/unreadable — torn write, partial PUT).
+    """
+
+    def __init__(self, reason: str, detail: str = ""):
+        if reason not in ARTIFACT_CORRUPT_REASONS:
+            raise ValueError(f"unknown corruption reason {reason!r}")
+        self.reason = reason
+        self.detail = detail
+        super().__init__(f"{reason}: {detail}" if detail else reason)
+
+
+@dataclass(frozen=True)
+class TrainedModel:
+    """Scaler + classifier params, ready for ``ScoringEngine``.
+    ``content_sha256`` is the hash a loaded v1 artifact was verified
+    against (None for v0 artifacts and unsaved models)."""
+
+    kind: str
+    scaler: Scaler
+    params: object  # LogRegParams | TreeEnsemble | GBTModel
+    content_sha256: Optional[str] = None
+
+
+def _require_kind(kind: str) -> None:
+    if kind not in _KINDS:
+        raise NotImplementedError(
+            f"model kind {kind!r} is not ported yet: the port's artifacts "
+            f"hold {_KINDS} (the rest of the zoo waits for ROADMAP A8)")
+
+
+def _corrupt_from_badzip(e: zipfile.BadZipFile) -> CorruptModelError:
+    """An entry CRC mismatch is bit-rot (``checksum``); anything else —
+    bad magic, short central directory — is missing bytes
+    (``truncated``)."""
+    reason = "checksum" if "CRC-32" in str(e) else "truncated"
+    return CorruptModelError(reason, str(e))
+
+
+def _content_sha256(meta: dict, arrays: dict) -> str:
+    """Content hash over the kind metadata (minus the hash and format
+    fields) and each array's key, shape, dtype and raw bytes, in sorted
+    key order — byte for byte the JAX package's."""
+    h = hashlib.sha256()
+    clean = {k: v for k, v in sorted(meta.items())
+             if k not in ("content_sha256", "format")}
+    h.update(json.dumps(clean, sort_keys=True,
+                        separators=(",", ":")).encode())
+    for k in sorted(arrays):
+        a = np.ascontiguousarray(arrays[k])
+        h.update(k.encode())
+        h.update(str(a.shape).encode())
+        h.update(str(a.dtype).encode())
+        h.update(memoryview(a).cast("B"))
+    return h.hexdigest()
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+def dump_model_bytes(model: TrainedModel) -> bytes:
+    """Serialize a model to npz bytes (format v1, pickle-free). Tree kinds
+    are written from their node tables (:class:`TreeEnsemble`), as the
+    JAX package writes them."""
+    _require_kind(model.kind)
+    arrays = {"scaler_mean": _np(model.scaler.mean),
+              "scaler_scale": _np(model.scaler.scale)}
+    meta = {"kind": model.kind}
+    p = model.params
+    if model.kind == "logreg":
+        arrays["w"] = _np(p.w)
+        arrays["b"] = _np(p.b)
+    else:
+        trees = p.trees if model.kind == "gbt" else p
+        if not isinstance(trees, TreeEnsemble):
+            raise ValueError("tree kinds are written from their node tables "
+                             f"(TreeEnsemble), got {type(trees).__name__}")
+        meta["max_depth"] = int(trees.max_depth)
+        if model.kind == "gbt":
+            arrays["base_score"] = _np(p.base_score)
+        for f in _TREE_FIELDS:
+            arrays[f] = _np(getattr(trees, f))
+    meta["format"] = ARTIFACT_FORMAT
+    meta["content_sha256"] = _content_sha256(meta, arrays)
+    buf = _io.BytesIO()
+    np.savez(buf, __meta__=json.dumps(meta), **arrays)
+    return buf.getvalue()
+
+
+def load_model_bytes(data: bytes, device=None) -> TrainedModel:
+    """Parse and verify artifact bytes into a model on ``device`` (None =
+    CUDA). Raises :class:`CorruptModelError` (``truncated`` for unreadable
+    bytes, ``checksum`` when the stamped content hash does not match what
+    was read)."""
+    device = resolve_device(device)
+    try:
+        with np.load(_io.BytesIO(data), allow_pickle=False) as z:
+            return _load_model_npz(z, device)
+    except zipfile.BadZipFile as e:
+        raise _corrupt_from_badzip(e) from None
+
+
+def _quarantine_artifact(path: str) -> str:
+    """Rename a corrupt local artifact to ``stale-<id>-<name>`` beside it
+    (never delete: the bytes are forensics); return the new path."""
+    d, base = os.path.split(path)
+    stale = os.path.join(d, f"stale-{uuid.uuid4().hex[:8]}-{base}")
+    try:
+        os.replace(path, stale)
+    except OSError:
+        return path  # best-effort: the raise that follows still stops serving
+    return stale
+
+
+def load_model(path: str, device=None) -> TrainedModel:
+    """Load a local artifact onto ``device`` (None = CUDA).
+
+    An artifact that fails its content hash is quarantined (``stale-…``
+    rename) before :class:`CorruptModelError` propagates; a ``truncated``
+    one is left in place (it may be a copy still being written)."""
+    if path.startswith("s3://"):
+        raise NotImplementedError("object-store artifacts are not ported "
+                                  "yet (ROADMAP A9, io/store.py)")
+    device = resolve_device(device)
+    try:
+        try:
+            with np.load(path, allow_pickle=False) as z:
+                return _load_model_npz(z, device)
+        except zipfile.BadZipFile as e:
+            raise _corrupt_from_badzip(e) from None
+    except CorruptModelError as e:
+        if e.reason != "checksum":
+            raise
+        stale = _quarantine_artifact(path)
+        raise CorruptModelError(
+            e.reason, f"{e.detail} (quarantined to {stale})") from None
+
+
+def _load_model_npz(npz, device: torch.device) -> TrainedModel:
+    # Read and verify everything before building any params: the zip
+    # layer's entry CRCs fire here on bit-flips, and the v1 content hash
+    # is recomputed over exactly what was read.
+    try:
+        meta = json.loads(str(npz["__meta__"]))
+        z = {k: npz[k] for k in npz.files if k != "__meta__"}
+    except zipfile.BadZipFile as e:
+        raise _corrupt_from_badzip(e) from None
+    except (KeyError, EOFError, OSError, ValueError) as e:
+        raise CorruptModelError(
+            "truncated", f"{type(e).__name__}: {e}") from None
+    want = meta.get("content_sha256")
+    if want is not None and _content_sha256(meta, z) != want:
+        raise CorruptModelError(
+            "checksum", "content hash does not match the stamped "
+            f"sha256 {want[:12]}…")
+    kind = meta["kind"]
+    _require_kind(kind)
+
+    def t(key: str) -> torch.Tensor:
+        return torch.as_tensor(np.array(z[key], copy=True), device=device)
+
+    scaler = Scaler(mean=t("scaler_mean"), scale=t("scaler_scale"))
+    if kind == "logreg":
+        params = LogRegParams(w=t("w"), b=t("b"))
+    else:
+        params = TreeEnsemble(*(t(f) for f in _TREE_FIELDS),
+                              max_depth=int(meta["max_depth"]))
+        if kind == "gbt":
+            params = GBTModel(trees=params, base_score=t("base_score"))
+    return TrainedModel(kind=kind, scaler=scaler, params=params,
+                        content_sha256=want)

@@ -1,1 +1,2 @@
-"""Scaler and tree-ensemble scorers."""
+"""Scaler, logistic regression and the tree-ensemble scorers (forest and
+gbt)."""

@@ -2,11 +2,11 @@
 
 Counterpart of the JAX package's ``ops/pallas_kernels.py::assemble_features``
 (the feature half shared by its two fused Pallas kernels). Here it is the
-plain composition that the fused forest kernel (``ops/forest_kernels.py``,
-``csrc/fused_forest.cu``) is held against, and the feature half of the
-unfused step (``features/online.py::update_and_featurize``). The logreg
-kernel of ``ops/pallas_kernels.py`` (``fused_featurize_score``) is not
-ported yet.
+plain composition that both fused kernels are held against — the forest's
+(``ops/forest_kernels.py``) and the logreg's (``ops/score_kernels.py``),
+whose CUDA sources share one device copy of it (``csrc/features.cuh``) —
+and the feature half of the unfused step
+(``features/online.py::update_and_featurize``).
 
 Feature order matches ``features/spec.py::FEATURE_NAMES``.
 """

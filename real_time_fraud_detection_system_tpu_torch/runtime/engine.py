@@ -1,20 +1,30 @@
 """Micro-batch scoring engine — port of the JAX package's
-``runtime/engine.py`` for the forest serving path.
+``runtime/engine.py`` for the logreg, tree, forest and gbt serving paths.
 
 Per micro-batch: source poll → host dedup and pad → one packed int32
 ``[7, B]`` host-to-device copy → the device step → host result → sink.
-The step mirrors the JAX engine's fused forest branch: unpack the batch,
-scatter it into the window state (in place), gather both tables' rows,
-run the fused featurize→forest kernel, and take
-``probs = where(valid, leaf / n_trees, 0)``. The kernel serves whenever
-its static admission predicate holds (``ops/forest_kernels.py::
-admit_tables``); otherwise the step runs the unfused composition. On the
-CPU the kernel's wrapper runs its plain version.
+The step takes the JAX step's branches in its order: unpack the batch,
+scatter it into the window state (in place), then
+
+- logreg: gather both tables' rows and run the fused featurize→logreg
+  kernel (``ops/score_kernels.py::fused_featurize_score``);
+- tree and forest, when the fused kernel's static admission predicate
+  holds (``ops/forest_kernels.py::admit_tables``): the fused
+  featurize→forest kernel, and ``leaf / n_trees``;
+- otherwise: ``update_and_featurize`` → ``transform`` → the predict. For
+  GEMM-form tree kinds that predict is the leaf-sum kernel
+  (``ops/forest_kernels.py::leaf_sum``) whenever ``admit_leaf_sum``
+  holds — forest takes ``leaf / n_trees``, gbt ``sigmoid(base + leaf)``
+  — and the plain predict only where the shapes are not admitted.
+
+Every branch ends in ``probs = where(valid, probs, 0)``. On the CPU each
+kernel wrapper runs its plain version; on the card a kernel that does not
+build or launch raises, and no branch catches it.
 
 Not ported yet: the software pipeline, pinned async copies and the native
 host-prep loader (ROADMAP A2); checkpoints and fault supervision (A3);
 selective and bf16 emission, the nan-guard, CUDA-graph precompile (A4);
-online SGD (A6); the model kinds other than tree and forest.
+online SGD (A6); the mlp, autoencoder and sequence kinds (A8).
 """
 
 from __future__ import annotations
@@ -39,6 +49,7 @@ from real_time_fraud_detection_system_tpu_torch.features.online import (
     init_feature_state,
     update_and_featurize,
     update_and_score_fused_forest,
+    update_and_score_fused_logreg,
 )
 from real_time_fraud_detection_system_tpu_torch.features.spec import N_FEATURES
 from real_time_fraud_detection_system_tpu_torch.models.forest import (
@@ -47,6 +58,14 @@ from real_time_fraud_detection_system_tpu_torch.models.forest import (
     for_device,
     predict_proba,
     resolve_z_mode,
+)
+from real_time_fraud_detection_system_tpu_torch.models.gbt import (
+    GBTModel,
+    gbt_for_device,
+    gbt_predict_proba,
+)
+from real_time_fraud_detection_system_tpu_torch.models.logreg import (
+    logreg_predict_proba,
 )
 from real_time_fraud_detection_system_tpu_torch.models.scaler import (
     Scaler,
@@ -57,32 +76,42 @@ from real_time_fraud_detection_system_tpu_torch.ops.dedup import (
 )
 from real_time_fraud_detection_system_tpu_torch.ops.forest_kernels import (
     ForestTables,
+    admit_leaf_sum,
     admit_tables,
+    leaf_sum,
+    leaf_sum_predict_proba,
     to_kernel_tables,
 )
 
-_KINDS = ("tree", "forest")
+_KINDS = ("logreg", "tree", "forest", "gbt")
 
 
 def _require_kind(kind: str) -> None:
     if kind not in _KINDS:
         raise NotImplementedError(
             f"model kind {kind!r} is not ported yet: the port serves "
-            f"{_KINDS} (logreg waits for its fused kernel, ROADMAP B3; the "
-            f"rest of the zoo for A8)")
+            f"{_KINDS} (the rest of the zoo waits for ROADMAP A8)")
 
 
 def device_params_for(kind: str, params):
-    """Engine-ready params: tree ensembles convert to the GEMM form once."""
+    """Engine-ready params: tree ensembles (a gbt's trees too) convert to
+    the GEMM form once, where their depth allows it."""
     _require_kind(kind)
+    if kind == "gbt":
+        return gbt_for_device(params, N_FEATURES)
     if isinstance(params, TreeEnsemble):
         return for_device(params, N_FEATURES)
     return params
 
 
 def predict_fn_for(kind: str, z_mode: Optional[str] = None) -> Callable:
-    """Device predict for ``kind`` with a RESOLVED ``z_mode``."""
+    """Plain device predict for ``kind`` with a RESOLVED ``z_mode`` (the
+    logreg kind has no contraction and ignores it)."""
     _require_kind(kind)
+    if kind == "logreg":
+        return logreg_predict_proba
+    if kind == "gbt":
+        return lambda p, x: gbt_predict_proba(p, x, z_mode)
     return lambda p, x: predict_proba(p, x, z_mode)
 
 
@@ -132,7 +161,8 @@ def validate_ingest_rows(cols: dict) -> None:
 
 
 class ScoringEngine:
-    """Drives source → device step → sink for a tree ensemble.
+    """Drives source → device step → sink for a logreg, tree, forest or
+    gbt model.
 
     ``device=None`` means CUDA (raises without a card); ``device="cpu"``
     runs the plain PyTorch path. The feature state is updated in place.
@@ -147,6 +177,7 @@ class ScoringEngine:
         feature_state: Optional[FeatureState] = None,
         device=None,
     ):
+        _require_kind(kind)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.kind = kind
@@ -159,20 +190,43 @@ class ScoringEngine:
             scaler=scaler.to(self.device),
         )
         self._predict = predict_fn_for(kind, self.z_mode)
-        # The fused kernel's tables, or None when the admission predicate
-        # refuses the params (descent form, or tables too large).
-        self.tables: Optional[ForestTables] = (
-            to_kernel_tables(params, self.z_mode)
-            if isinstance(params, GemmEnsemble) and admit_tables(params).fits
-            else None)
+        # The kernels' tables, decided once from the params' shapes:
+        # ``tables`` for the fused forest kernel (tree and forest kinds
+        # that ``admit_tables`` admits), else ``leaf_tables`` for the
+        # leaf-sum kernel (GEMM-form tree kinds that ``admit_leaf_sum``
+        # admits); both None for logreg, the descent form, and tables too
+        # large for either kernel.
+        self.tables: Optional[ForestTables] = None
+        self.leaf_tables: Optional[ForestTables] = None
+        trees = params.trees if isinstance(params, GBTModel) else params
+        if isinstance(trees, GemmEnsemble):
+            if kind != "gbt" and admit_tables(trees).fits:
+                self.tables = to_kernel_tables(trees, self.z_mode)
+            elif admit_leaf_sum(trees).fits:
+                self.leaf_tables = to_kernel_tables(trees, self.z_mode)
+
+    def _unfused_predict(self, x: torch.Tensor) -> torch.Tensor:
+        """The predict of the unfused step on scaled features ``x``."""
+        tables = self.leaf_tables
+        if tables is None:
+            return self._predict(self.state.params, x)
+        if self.kind == "gbt":
+            return torch.sigmoid(self.state.params.base_score
+                                 + leaf_sum(tables, x))
+        return leaf_sum_predict_proba(tables, x)
 
     def _step(self, packed: torch.Tensor):
         """One device step on a packed batch; returns (probs, features)."""
         batch = unpack_batch(packed)
         fcfg = self.cfg.features
         scaler = self.state.scaler
+        params = self.state.params
         tables = self.tables
-        if tables is not None:
+        if self.kind == "logreg":
+            fstate, probs, feats = update_and_score_fused_logreg(
+                self.state.feature_state, batch, fcfg, scaler.mean,
+                scaler.scale, params.w, params.b)
+        elif tables is not None:
             fstate, leaf, feats = update_and_score_fused_forest(
                 self.state.feature_state, batch, fcfg, scaler.mean,
                 scaler.scale, tables)
@@ -180,7 +234,7 @@ class ScoringEngine:
         else:
             fstate, feats = update_and_featurize(
                 self.state.feature_state, batch, fcfg)
-            probs = self._predict(self.state.params, transform(scaler, feats))
+            probs = self._unfused_predict(transform(scaler, feats))
         self.state.feature_state = fstate
         return torch.where(batch.valid, probs, torch.zeros_like(probs)), feats
 

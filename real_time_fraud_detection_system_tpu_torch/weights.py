@@ -6,8 +6,11 @@ records with its arrays turned into numpy (for example
 names, and builds the port's object on ``device``. The record is
 recognised by its field names:
 
+- ``LogRegParams`` (w, b);
 - ``TreeEnsemble`` (feat, thresh, left, right, prob, max_depth);
 - ``GemmEnsemble`` (sel, thresh, path, target, leaf_val);
+- ``GBTModel`` (trees — itself a ``TreeEnsemble`` or ``GemmEnsemble``
+  record — and base_score);
 - ``Scaler`` (mean, scale);
 - ``WindowState`` (bucket_day, count, amount, fraud);
 - ``FeatureState`` (customer, terminal; the sketch and key-directory
@@ -30,10 +33,14 @@ from real_time_fraud_detection_system_tpu_torch.models.forest import (
     GemmEnsemble,
     TreeEnsemble,
 )
+from real_time_fraud_detection_system_tpu_torch.models.gbt import GBTModel
+from real_time_fraud_detection_system_tpu_torch.models.logreg import (
+    LogRegParams,
+)
 from real_time_fraud_detection_system_tpu_torch.models.scaler import Scaler
 from real_time_fraud_detection_system_tpu_torch.ops.windows import WindowState
 
-_RECORDS = (TreeEnsemble, GemmEnsemble, Scaler, WindowState)
+_RECORDS = (LogRegParams, TreeEnsemble, GemmEnsemble, Scaler, WindowState)
 
 
 def from_numpy(obj, device=None):
@@ -51,6 +58,11 @@ def from_numpy(obj, device=None):
             customer=from_numpy(fields["customer"], device),
             terminal=from_numpy(fields["terminal"], device),
             cms=None)
+    if names == set(GBTModel._fields):
+        return GBTModel(
+            trees=from_numpy(fields["trees"], device),
+            base_score=torch.as_tensor(
+                np.array(fields["base_score"], copy=True), device=device))
     for cls in _RECORDS:
         if names == set(cls._fields):
             return cls(**{

@@ -139,5 +139,5 @@ def test_resolve_z_mode():
 
 def test_from_numpy_refuses_unknown_records():
     with pytest.raises(ValueError, match="fields"):
-        weights.from_numpy({"w": np.zeros(3), "b": np.zeros(())},
+        weights.from_numpy({"w0": np.zeros(3), "b0": np.zeros(())},
                            device="cpu")

@@ -1,5 +1,6 @@
-"""Tests that need an NVIDIA card: the fused forest kernel against its
-plain version, and the engine on CUDA against the engine on the CPU.
+"""Tests that need an NVIDIA card: each kernel (fused forest, leaf sum,
+fused logreg) against its plain version, the wrappers' refusals, and the
+engine of each model kind on CUDA against the engine on the CPU.
 
 They import neither jax nor the JAX package, so they also run on a machine
 that has only PyTorch and the CUDA toolkit (the suite's ``conftest.py``
@@ -11,9 +12,12 @@ Without a card they skip. Tolerances: features bit-identical (kernel and
 plain version add the window buckets in the same order, with IEEE division
 and no FMA contraction); leaf sums within ``atol=1e-5`` of the plain
 version with identical decisions, and bit-identical across the z modes
-(z is an exact integer in each). Engine against engine: amount averages
-within ``rtol=1e-6`` (the card's ``index_add_`` adds a day's amounts in
-any order), probabilities within ``1e-7``, the rest bit-identical.
+(z is an exact integer in each); logreg probabilities within ``1e-6`` of
+the plain version (the kernel's ``expf`` and PyTorch's sigmoid differ by
+ulps). Engine against engine: amount averages within ``rtol=1e-6`` (the
+card's ``index_add_`` adds a day's amounts in any order), probabilities
+within ``1e-7`` (forest) and ``1e-6`` (logreg, gbt: a sigmoid of sums that
+carry that order), the rest bit-identical.
 """
 
 import numpy as np
@@ -32,10 +36,17 @@ from real_time_fraud_detection_system_tpu_torch.models.forest import (
     synthetic_ensemble,
     to_gemm,
 )
+from real_time_fraud_detection_system_tpu_torch.models.gbt import (
+    synthetic_gbt,
+)
+from real_time_fraud_detection_system_tpu_torch.models.logreg import (
+    LogRegParams,
+)
 from real_time_fraud_detection_system_tpu_torch.models.scaler import (
     fit_scaler,
 )
 from real_time_fraud_detection_system_tpu_torch.ops import forest_kernels as fk
+from real_time_fraud_detection_system_tpu_torch.ops import score_kernels as sk
 from real_time_fraud_detection_system_tpu_torch.runtime.engine import (
     ScoringEngine,
 )
@@ -48,6 +59,7 @@ pytestmark = pytest.mark.gpu
 N_FEAT = 15
 ATOL_LEAF = 1e-5
 ATOL_PROB = 1e-7
+ATOL_SIGMOID = 1e-6
 RTOL_AMOUNT = 1e-6
 START = 1_743_465_600
 
@@ -117,8 +129,9 @@ def test_kernel_wrapper_refuses_what_the_kernel_does_not_take(cuda):
 @pytest.mark.parametrize("n_trees,max_depth", [(10, 5), (1, 12)])
 def test_engine_on_cuda_matches_cpu_engine(cuda, n_trees, max_depth):
     """Depth 5 is admitted to the fused kernel; depth 12 is not (its
-    tables exceed the kernel's shared memory), so it takes the unfused
-    step on the card."""
+    tables exceed the kernel's 48 KB of shared memory), so it takes the
+    unfused step on the card, with the leaf-sum kernel (which opts in to
+    more)."""
     cfg = Config(data=DataConfig(n_customers=120, n_terminals=240,
                                  n_days=45, seed=7),
                  features=FeatureConfig(customer_capacity=128,
@@ -139,12 +152,16 @@ def test_engine_on_cuda_matches_cpu_engine(cuda, n_trees, max_depth):
                             fit_scaler(feats, device=dev), device=dev)
         admitted = eng.tables is not None
         assert admitted == (max_depth <= 8)
+        assert (eng.leaf_tables is not None) == (not admitted)
         sinks[dev] = MemorySink()
-        before = fk.fused_forest_leaf_sum.launches
+        before = (fk.fused_forest_leaf_sum.launches, fk.leaf_sum.launches)
         stats = eng.run(ReplaySource(txs, START, batch_rows=1000),
                         sinks[dev])
-        assert fk.fused_forest_leaf_sum.launches - before \
-            == (stats["batches"] if admitted and dev == "cuda" else 0)
+        on_card = stats["batches"] if dev == "cuda" else 0
+        assert fk.fused_forest_leaf_sum.launches - before[0] \
+            == (on_card if admitted else 0)
+        assert fk.leaf_sum.launches - before[1] \
+            == (0 if admitted else on_card)
     got, want = sinks["cuda"].concat(), sinks["cpu"].concat()
     for k in want:
         if k == "processed_at_us":
@@ -152,6 +169,136 @@ def test_engine_on_cuda_matches_cpu_engine(cuda, n_trees, max_depth):
         if k == "prediction":
             np.testing.assert_allclose(got[k], want[k], rtol=0.0,
                                        atol=ATOL_PROB)
+            assert np.array_equal(got[k] >= 0.5, want[k] >= 0.5)
+        elif "avg_amount" in k:  # the card's index_add_ adds in any order
+            np.testing.assert_allclose(got[k], want[k], rtol=RTOL_AMOUNT)
+        else:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+@pytest.mark.parametrize("rows", [1, 300, 4096])
+def test_leaf_sum_kernel_matches_plain_version(cuda, rows):
+    g = to_gemm(synthetic_ensemble(13, 6, N_FEAT, seed=4, device=cuda),
+                N_FEAT)
+    rng = np.random.default_rng(rows)
+    x = torch.as_tensor(rng.normal(size=(rows, N_FEAT)).astype(np.float32),
+                        device=cuda)
+    leaves = []
+    for z_mode in ("f32", "bf16", "int8"):
+        tables = fk.to_kernel_tables(g, z_mode)
+        before = fk.leaf_sum.launches
+        leaf = fk.leaf_sum(tables, x)
+        torch.cuda.synchronize()
+        assert fk.leaf_sum.launches == before + 1
+        want = fk.leaf_sum_plain(tables, x)
+        torch.testing.assert_close(leaf, want, rtol=0.0, atol=ATOL_LEAF)
+        assert torch.equal(leaf / 13 >= 0.5, want / 13 >= 0.5)
+        # a row padded to Fp by the caller scores the same
+        xp = torch.nn.functional.pad(x, (0, 1))
+        assert torch.equal(fk.leaf_sum(tables, xp), leaf)
+        leaves.append(leaf)
+    assert torch.equal(leaves[0], leaves[1])
+    assert torch.equal(leaves[0], leaves[2])
+
+
+@pytest.mark.parametrize("rows", [1, 300, 4096])
+def test_fused_score_kernel_matches_plain_version(cuda, rows):
+    rng = np.random.default_rng(rows)
+    args = _gathered(rng, rows, cuda)
+    args.update(
+        valid=torch.as_tensor(rng.random(rows) < 0.9, device=cuda),
+        w=torch.as_tensor(rng.normal(0, 0.3, N_FEAT).astype(np.float32),
+                          device=cuda),
+        b=torch.tensor(-1.5, device=cuda))
+    before = sk.fused_featurize_score.launches
+    probs, feats = sk.fused_featurize_score(**args)
+    torch.cuda.synchronize()
+    assert sk.fused_featurize_score.launches == before + 1
+    pprobs, pfeats = sk.fused_featurize_score_plain(**args)
+    assert torch.equal(feats, pfeats)
+    torch.testing.assert_close(probs, pprobs, rtol=0.0, atol=ATOL_SIGMOID)
+    assert torch.equal(probs >= 0.5, pprobs >= 0.5)
+    assert bool((probs[~args["valid"]] == 0).all())
+
+
+def test_new_wrappers_refuse_what_their_kernels_do_not_take(cuda):
+    g = to_gemm(synthetic_ensemble(3, 3, N_FEAT, seed=1, device=cuda),
+                N_FEAT)
+    tables = fk.to_kernel_tables(g, "int8")
+    x = torch.zeros((8, N_FEAT), device=cuda)
+    with pytest.raises(ValueError, match="^x:"):
+        fk.leaf_sum(tables, x.double())
+    with pytest.raises(ValueError, match="^x:"):
+        fk.leaf_sum(tables, torch.zeros((8, 17), device=cuda))
+    with pytest.raises(ValueError, match="^x:"):
+        fk.leaf_sum(tables, torch.zeros((16, N_FEAT), device=cuda)[::2])
+    # depth-13 shapes (no data: a stride-0 view) exceed even 227 KB
+    wide = torch.zeros((1, 1, 1), device=cuda)
+    deep = tables._replace(gemm=tables.gemm._replace(
+        sel=wide.expand(10, 16, 8192), path=wide.expand(10, 8192, 8192)))
+    with pytest.raises(ValueError, match="shared-memory"):
+        fk.leaf_sum(deep, x)
+    args = _gathered(np.random.default_rng(0), 8, cuda)
+    args.update(valid=torch.ones(8, dtype=torch.bool, device=cuda),
+                w=torch.zeros(N_FEAT, device=cuda),
+                b=torch.tensor(0.0, device=cuda))
+    with pytest.raises(ValueError, match="^valid:"):
+        sk.fused_featurize_score(**{**args, "valid": args["valid"].int()})
+    with pytest.raises(ValueError, match="^b:"):
+        sk.fused_featurize_score(**{**args, "b": args["b"].reshape(1)})
+    with pytest.raises(ValueError, match="^w:"):
+        sk.fused_featurize_score(**{**args, "w": args["w"][:14]})
+    with pytest.raises(ValueError, match="windows"):
+        sk.fused_featurize_score(**args, windows=(1, 2, 3, 4, 5))
+
+
+@pytest.mark.parametrize("kind", ["logreg", "gbt"])
+def test_logreg_and_gbt_engines_on_cuda_match_cpu_engine(cuda, kind):
+    cfg = Config(data=DataConfig(n_customers=120, n_terminals=240,
+                                 n_days=45, seed=7),
+                 features=FeatureConfig(customer_capacity=128,
+                                        terminal_capacity=256),
+                 runtime=RuntimeConfig(batch_buckets=(256, 1024)))
+    _, _, txs = generate_dataset(cfg.data)
+    txs = txs.slice(slice(0, 3000))
+    rng = np.random.default_rng(5)
+    if kind == "logreg":
+        params = LogRegParams(
+            torch.as_tensor(rng.normal(0, 0.8, N_FEAT).astype(np.float32)),
+            torch.tensor(-1.0))
+    else:
+        params = synthetic_gbt(10, 5, N_FEAT, seed=3, device="cpu")
+    probe = ScoringEngine(cfg, kind, params,
+                          fit_scaler(np.zeros((2, N_FEAT)), device="cpu"),
+                          device="cpu")
+    feats = probe.process_batch(
+        ReplaySource(txs, START, batch_rows=1024).poll_batch()).features
+    counters = (sk.fused_featurize_score, fk.leaf_sum,
+                fk.fused_forest_leaf_sum)
+    own = 0 if kind == "logreg" else 1
+    sinks = {}
+    for dev in ("cpu", "cuda"):
+        eng = ScoringEngine(cfg, kind, params, fit_scaler(feats, device=dev),
+                            device=dev)
+        assert eng.tables is None
+        assert (eng.leaf_tables is not None) == (kind == "gbt")
+        sinks[dev] = MemorySink()
+        before = [c.launches for c in counters]
+        stats = eng.run(ReplaySource(txs, START, batch_rows=1000),
+                        sinks[dev])
+        launched = [c.launches - n for c, n in zip(counters, before)]
+        want = [0, 0, 0]
+        if dev == "cuda":
+            want[own] = stats["batches"]
+        assert launched == want
+    got, want = sinks["cuda"].concat(), sinks["cpu"].concat()
+    assert want["prediction"].std() > 0
+    for k in want:
+        if k == "processed_at_us":
+            continue
+        if k == "prediction":
+            np.testing.assert_allclose(got[k], want[k], rtol=0.0,
+                                       atol=ATOL_SIGMOID)
             assert np.array_equal(got[k] >= 0.5, want[k] >= 0.5)
         elif "avg_amount" in k:  # the card's index_add_ adds in any order
             np.testing.assert_allclose(got[k], want[k], rtol=RTOL_AMOUNT)

@@ -1,9 +1,10 @@
 """The port stands alone: it imports neither jax nor the JAX package.
 
 One check imports the port in a fresh interpreter where ``import jax``
-fails, and serves a batch on the CPU; the other reads the port's sources
-and ``chip_smoke.py`` for an import of jax or a dotted reference into the
-JAX package.
+fails, and serves a batch of each model kind on the CPU (the gbt weights
+through the port's own artifact writer and reader); the other reads the
+port's sources (Python, CUDA and CUDA headers) and ``chip_smoke.py`` for
+an import of jax or a dotted reference into the JAX package.
 """
 
 import os
@@ -21,12 +22,19 @@ _SERVE_WITHOUT_JAX = r"""
 import sys
 sys.modules["jax"] = None  # any import of jax now raises ImportError
 import numpy as np
+import torch
 from real_time_fraud_detection_system_tpu_torch.config import (
     Config, DataConfig, FeatureConfig, RuntimeConfig)
 from real_time_fraud_detection_system_tpu_torch.data import generate_dataset
+from real_time_fraud_detection_system_tpu_torch.io.artifacts import (
+    TrainedModel, dump_model_bytes, load_model_bytes)
 from real_time_fraud_detection_system_tpu_torch.io.sink import MemorySink
 from real_time_fraud_detection_system_tpu_torch.models.forest import (
     synthetic_ensemble)
+from real_time_fraud_detection_system_tpu_torch.models.gbt import (
+    synthetic_gbt)
+from real_time_fraud_detection_system_tpu_torch.models.logreg import (
+    LogRegParams)
 from real_time_fraud_detection_system_tpu_torch.models.scaler import (
     fit_scaler)
 from real_time_fraud_detection_system_tpu_torch.runtime.engine import (
@@ -40,12 +48,18 @@ cfg = Config(data=DataConfig(n_customers=40, n_terminals=80, n_days=10),
                                     terminal_capacity=128),
              runtime=RuntimeConfig(batch_buckets=(256,)))
 _, _, txs = generate_dataset(cfg.data)
-eng = ScoringEngine(cfg, "forest", synthetic_ensemble(3, 3, device="cpu"),
-                    fit_scaler(np.ones((2, 15)), device="cpu"), device="cpu")
-sink = MemorySink()
-stats = eng.run(ReplaySource(txs, 1_743_465_600, batch_rows=200), sink,
-                max_batches=1)
-assert stats["batches"] == 1 and len(sink.concat()["prediction"]) == 200
+scaler = fit_scaler(np.ones((2, 15)), device="cpu")
+logreg = LogRegParams(torch.full((15,), 0.1), torch.tensor(-1.0))
+gbt = synthetic_gbt(3, 3, device="cpu")
+model = load_model_bytes(dump_model_bytes(TrainedModel("gbt", scaler, gbt)),
+                         device="cpu")
+for kind, params in (("forest", synthetic_ensemble(3, 3, device="cpu")),
+                     ("logreg", logreg), ("gbt", model.params)):
+    eng = ScoringEngine(cfg, kind, params, scaler, device="cpu")
+    sink = MemorySink()
+    stats = eng.run(ReplaySource(txs, 1_743_465_600, batch_rows=200), sink,
+                    max_batches=1)
+    assert stats["batches"] == 1 and len(sink.concat()["prediction"]) == 200
 assert not any(m.split(".")[0] in ("jax", "real_time_fraud_detection_system_tpu")
                for m, mod in sys.modules.items() if mod is not None)
 print("served without jax")
@@ -70,7 +84,8 @@ _FORBIDDEN = [
 @pytest.mark.parametrize(
     "path",
     sorted(str(p.relative_to(ROOT)) for p in PORT.rglob("*")
-           if p.suffix in (".py", ".cu") and "_build" not in p.parts)
+           if p.suffix in (".py", ".cu", ".cuh")
+           and "_build" not in p.parts)
     + ["chip_smoke.py"])
 def test_sources_name_neither_jax_nor_the_jax_package(path):
     text = (ROOT / path).read_text()
