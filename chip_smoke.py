@@ -12,9 +12,13 @@ Phases, each printing JSON lines:
    compiler's register and shared-memory report.
 3. ``kernel`` — each kernel against its plain PyTorch version on the card,
    with its time, the plain version's time and its bound: the fused
-   featurize→forest kernel and the leaf-sum kernel at the flagship forest
-   (T=100, depth 8) in every z mode, and the fused featurize→logreg
-   kernel, each at a ragged B = 300 and the serving bucket B = 65,536.
+   featurize→forest kernel and the leaf-sum kernel, bit for bit, in every
+   z mode, on three forests of T=100 — the flagship shape (complete trees
+   of depth 8), ragged trees of depths 1..8 and ragged trees of depths
+   1..12 (``models/forest.py::ragged_ensemble``, seeded numpy: leaves at
+   many depths, trees of different depths side by side), and ten complete
+   trees of depth 11 — and the fused featurize→logreg kernel, each at a
+   ragged B = 300 and the serving bucket B = 65,536.
 4. ``main_path`` — the default dataset (``DataConfig()``, seed 0) served
    through ``ScoringEngine.run`` at 65,536-row batches into a
    ``MemorySink``, once per model kind: forest (the fused forest kernel),
@@ -56,6 +60,12 @@ ATOL_LEAF = 1e-5  # leaf sums (both sides add trees in order: expect 0)
 ATOL_SIGMOID = 1e-6  # logreg and gbt probabilities: expf against PyTorch's
 RTOL_FEATURE = 1e-6  # float32 window sums in another order
 KERNEL_ROWS = (300, 65536)  # a ragged batch, then the serving bucket
+# The forests of phase ``kernel``: (trees, max depth, ragged); the first
+# is the flagship shape the kernels line reports.
+FORESTS = {"complete_depth8": (100, 8, False),
+           "ragged_depth8": (100, 8, True),
+           "ragged_depth12": (100, 12, True),
+           "complete_depth11": (10, 11, False)}
 BATCH_ROWS = 65536  # the main path's batch bucket
 PROFILE_BATCHES = 4
 PATHS = ("forest", "logreg", "gbt")
@@ -181,12 +191,14 @@ def _gathered_rows(rng, b: int, nb: int, dev):
     )
 
 
-def _bound(inputs, outputs, needed_ops: int, **extra) -> dict:
+def _bound(inputs, outputs, needed_ops: int, tree_bytes: int = 0,
+           **extra) -> dict:
     """Least time for a kernel's function on this card: the larger of its
-    bytes (each of ITS inputs read once, each of its outputs written once)
-    over the memory rate and the operations these inputs need over the
-    32-bit rate."""
-    nbytes = sum(t.numel() * t.element_size() for t in (*inputs, *outputs))
+    bytes (each of ITS inputs read once, each of its outputs written once;
+    the trees counted by ``tree_bytes``) over the memory rate and the
+    operations these inputs need over the 32-bit rate."""
+    nbytes = tree_bytes + sum(t.numel() * t.element_size()
+                              for t in (*inputs, *outputs))
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = needed_ops / INT32_OPS_PER_S * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
@@ -206,35 +218,43 @@ def _walk_ops(tables, x, n_real_trees: int) -> dict:
     """Operations the tree half needs on this run's data: per tree one
     compare per level of the path the row takes plus the add of its leaf.
     The levels are counted through the dense form with each leaf's value
-    replaced by its depth. ``algorithm_ops`` is what the kernels' compact
-    walk does instead (a compare per real node, an add per path entry, a
-    compare per real leaf): reported, not the bound."""
+    replaced by its depth. ``algorithm_ops`` is what the kernels' descent
+    does instead: per row, each group of ``TREES_IN_FLIGHT`` trees steps
+    for the group's largest depth (a row on a shallower leaf loops on it),
+    one compare per tree and step, then one leaf add per tree walked (the
+    padded trees too). Reported, not the bound."""
     from real_time_fraud_detection_system_tpu_torch.models.forest import (
         gemm_leaf_sum,
+    )
+    from real_time_fraud_detection_system_tpu_torch.ops.forest_kernels import (
+        TREES_IN_FLIGHT,
     )
 
     b = x.shape[0]
     x = torch.nn.functional.pad(x, (0, tables.gemm.sel.shape[1] - x.shape[1]))
-    real_leaf = (tables.leaf_target < 10 ** 9).to(torch.float32)
-    depth = (tables.leaf_entries >= 0).sum(dim=2).to(torch.float32)
+    real_leaf = (tables.gemm.target < 10 ** 9).to(torch.float32)
+    depth = (tables.gemm.path != 0).sum(dim=1).to(torch.float32)
     reached = gemm_leaf_sum(tables.gemm._replace(leaf_val=real_leaf), x,
                             tables.z_mode)
     check(bool((reached == n_real_trees).all()),
           "a row does not reach exactly one leaf per tree")
     levels = int(gemm_leaf_sum(tables.gemm._replace(leaf_val=depth), x,
                                tables.z_mode).sum())
-    real = slice(0, n_real_trees)
-    algorithm_ops = b * int((tables.node_feat[real] >= 0).sum()
-                            + (tables.leaf_entries[real] >= 0).sum()
-                            + real_leaf[real].sum())
+    steps = int(tables.depth.reshape(-1, TREES_IN_FLIGHT).amax(dim=1).sum())
     return {"ops": levels + b * n_real_trees,
             "mean_levels_per_tree": levels / (b * n_real_trees),
-            "algorithm_ops": algorithm_ops}
+            "algorithm_ops": b * (TREES_IN_FLIGHT * steps
+                                  + tables.depth.numel())}
 
 
-def _tables_of(tables):
-    return [tables.node_feat, tables.gemm.thresh, tables.leaf_entries,
-            tables.leaf_target, tables.gemm.leaf_val]
+def _tree_bytes(tables) -> int:
+    """Bytes of the trees the function reads, whatever layout a kernel
+    keeps them in: per internal node its feature and threshold, per leaf
+    its value (4 B each), over the real trees of the dense form."""
+    g, n = tables.gemm, tables.n_trees
+    internal = int((g.path[:n] != 0).any(dim=2).sum())
+    leaves = int((g.target[:n] < 10 ** 9 / 2).sum())
+    return 8 * internal + 4 * leaves
 
 
 def _time(kernel, plain, bound: dict) -> dict:
@@ -245,6 +265,7 @@ def _time(kernel, plain, bound: dict) -> dict:
 
 def phase_kernel(dev) -> dict:
     from real_time_fraud_detection_system_tpu_torch.models.forest import (
+        ragged_ensemble,
         synthetic_ensemble,
         to_gemm,
     )
@@ -261,21 +282,26 @@ def phase_kernel(dev) -> dict:
         assemble_features,
     )
 
-    g = to_gemm(synthetic_ensemble(100, 8, 15, seed=0, device=dev), 15)
-    check(forest_kernels.admit_tables(g).fits, "flagship forest not admitted")
-    check(forest_kernels.admit_leaf_sum(g).fits,
-          "flagship forest not admitted to the leaf-sum kernel")
-    tables = {z: forest_kernels.to_kernel_tables(g, z)
-              for z in ("f32", "bf16", "int8")}
+    flagship = next(iter(FORESTS))
+    tables = {}
+    for fname, (n_trees, depth, ragged) in FORESTS.items():
+        make = ragged_ensemble if ragged else synthetic_ensemble
+        g = to_gemm(make(n_trees, depth, 15, seed=0, device=dev), 15)
+        check(forest_kernels.admit_tables(g).fits,
+              f"{fname} forest not admitted to the forest kernels")
+        tables[fname] = {z: forest_kernels.to_kernel_tables(g, z)
+                         for z in ("f32", "bf16", "int8")}
     rng = np.random.default_rng(0)
     out = {k: {"max_abs_err": 0.0} for k in KERNELS}
 
     def record(name, b, line):
         """Emit a kernel line; the serving bucket in the serving z mode
-        (int8 on CUDA) is what the kernels line reports."""
+        (int8 on CUDA) on the flagship forest is what the kernels line
+        reports."""
         out[name]["max_abs_err"] = max(out[name]["max_abs_err"],
                                        line["max_abs_err"])
-        if b == KERNEL_ROWS[-1] and line.get("z_mode", "int8") == "int8":
+        if b == KERNEL_ROWS[-1] and line.get("z_mode", "int8") == "int8" \
+                and line.get("forest", flagship) == flagship:
             out[name].update({k: line[k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by")})
         emit({"phase": "kernel", "kernel": name, "rows": b, **line})
@@ -292,61 +318,72 @@ def phase_kernel(dev) -> dict:
         gathered = [*args["c_rows"], *args["t_rows"], args["day"],
                     args["tod_s"], args["amount"]]
         feature_ops = _feature_ops(b, 40, 3, 15)
-        walk = _walk_ops(tables["int8"], x, 100)  # the same in every mode
 
-        # -- fused featurize → forest, and leaf sum, in every z mode
-        sums = {"fused_forest_leaf_sum": {}, "leaf_sum": {},
-                "plain fused_forest_leaf_sum": {}, "plain leaf_sum": {}}
-        for z, tab in tables.items():
-            leaf, kfeats = forest_kernels.fused_forest_leaf_sum(tab, **args)
-            lsum = forest_kernels.leaf_sum(tab, x)
-            torch.cuda.synchronize()
-            pleaf, pfeats = forest_kernels.fused_forest_leaf_sum_plain(
-                tab, **args)
-            psum = forest_kernels.leaf_sum_plain(tab, x)
-            check(torch.equal(kfeats[:, COUNT_COLS], pfeats[:, COUNT_COLS]),
-                  "count/flag features differ from the plain version")
-            torch.testing.assert_close(kfeats, pfeats, rtol=RTOL_FEATURE,
-                                       atol=0.0)
-            runs = {
-                "fused_forest_leaf_sum": (
-                    leaf, pleaf, float((kfeats - pfeats).abs().max()),
-                    lambda: forest_kernels.fused_forest_leaf_sum(tab, **args),
-                    lambda: forest_kernels.fused_forest_leaf_sum_plain(
-                        tab, **args),
-                    _bound(gathered + [scaler.mean, scaler.scale]
-                           + _tables_of(tab), [leaf, kfeats],
-                           feature_ops + walk["ops"],
-                           mean_levels_per_tree=walk["mean_levels_per_tree"],
-                           algorithm_ops=walk["algorithm_ops"])),
-                "leaf_sum": (
-                    lsum, psum, 0.0,
-                    lambda: forest_kernels.leaf_sum(tab, x),
-                    lambda: forest_kernels.leaf_sum_plain(tab, x),
-                    _bound([x] + _tables_of(tab), [lsum], walk["ops"],
-                           mean_levels_per_tree=walk["mean_levels_per_tree"],
-                           algorithm_ops=walk["algorithm_ops"])),
-            }
-            for name, (got, want, feat_err, kernel, plain, bound) \
-                    in runs.items():
-                err = float((got - want).abs().max())
-                check(err <= ATOL_LEAF, f"{name} sums differ by {err}")
-                check(bool(((got / 100 >= 0.5) == (want / 100 >= 0.5)).all()),
-                      f"{name} decisions differ from the plain version")
-                sums[name][z] = got
-                sums[f"plain {name}"][z] = want
-                record(name, b, {
-                    "z_mode": z, "max_abs_err": max(err, feat_err),
-                    "decision_share_fraud": float((got / 100 >= 0.5)
-                                                  .float().mean()),
-                    **_time(kernel, plain, bound)})
-        for name, by_mode in sums.items():
-            for z in ("bf16", "int8"):
-                check(torch.equal(by_mode[z], by_mode["f32"]),
-                      f"{name} z_mode {z} is not bit-identical to f32")
-        check(torch.equal(sums["leaf_sum"]["f32"],
-                          sums["fused_forest_leaf_sum"]["f32"]),
-              "the two forest kernels' sums differ on the same rows")
+        # -- fused featurize → forest, and leaf sum, on every forest in
+        # every z mode: bit for bit against the plain versions
+        for fname, by_mode in tables.items():
+            n_trees = FORESTS[fname][0]
+            walk = _walk_ops(by_mode["int8"], x, n_trees)  # alike in all modes
+            tree_bytes = _tree_bytes(by_mode["int8"])
+            sums = {"fused_forest_leaf_sum": {}, "leaf_sum": {}}
+            for z, tab in by_mode.items():
+                leaf, kfeats = forest_kernels.fused_forest_leaf_sum(tab,
+                                                                    **args)
+                lsum = forest_kernels.leaf_sum(tab, x)
+                torch.cuda.synchronize()
+                pleaf, pfeats = forest_kernels.fused_forest_leaf_sum_plain(
+                    tab, **args)
+                psum = forest_kernels.leaf_sum_plain(tab, x)
+                check(torch.equal(kfeats[:, COUNT_COLS],
+                                  pfeats[:, COUNT_COLS]),
+                      "count/flag features differ from the plain version")
+                torch.testing.assert_close(kfeats, pfeats, rtol=RTOL_FEATURE,
+                                           atol=0.0)
+                runs = {
+                    "fused_forest_leaf_sum": (
+                        leaf, pleaf, float((kfeats - pfeats).abs().max()),
+                        lambda: forest_kernels.fused_forest_leaf_sum(
+                            tab, **args),
+                        lambda: forest_kernels.fused_forest_leaf_sum_plain(
+                            tab, **args),
+                        _bound(gathered + [scaler.mean, scaler.scale],
+                               [leaf, kfeats], feature_ops + walk["ops"],
+                               tree_bytes,
+                               mean_levels_per_tree=walk[
+                                   "mean_levels_per_tree"],
+                               algorithm_ops=walk["algorithm_ops"])),
+                    "leaf_sum": (
+                        lsum, psum, 0.0,
+                        lambda: forest_kernels.leaf_sum(tab, x),
+                        lambda: forest_kernels.leaf_sum_plain(tab, x),
+                        _bound([x], [lsum], walk["ops"], tree_bytes,
+                               mean_levels_per_tree=walk[
+                                   "mean_levels_per_tree"],
+                               algorithm_ops=walk["algorithm_ops"])),
+                }
+                for name, (got, want, feat_err, kernel, plain, bound) \
+                        in runs.items():
+                    err = float((got - want).abs().max())
+                    check(torch.equal(got, want),
+                          f"{name} sums differ on {fname} by {err}")
+                    check(bool(((got / n_trees >= 0.5)
+                                == (want / n_trees >= 0.5)).all()),
+                          f"{name} decisions differ from the plain version")
+                    sums[name][z] = got
+                    record(name, b, {
+                        "forest": fname, "z_mode": z,
+                        "max_abs_err": max(err, feat_err),
+                        "decision_share_fraud": float((got / n_trees >= 0.5)
+                                                      .float().mean()),
+                        **_time(kernel, plain, bound)})
+            for name, by_z in sums.items():
+                for z in ("bf16", "int8"):
+                    check(torch.equal(by_z[z], by_z["f32"]),
+                          f"{name} z_mode {z} is not bit-identical to f32 "
+                          f"on {fname}")
+            check(torch.equal(sums["leaf_sum"]["f32"],
+                              sums["fused_forest_leaf_sum"]["f32"]),
+                  f"the two forest kernels' sums differ on {fname}")
 
         # -- fused featurize → logreg
         w = torch.as_tensor(np.random.default_rng(0).normal(size=15)

@@ -97,9 +97,9 @@ class RuntimeConfig:
     """
 
     # Dtype of the dense path table: "auto" = int8 on CUDA, f32 elsewhere.
-    # On the fused kernel's path it only chooses the dtype of the plain
-    # version's table: the kernel reads the compact leaf entries, and its
-    # integer z gives bit-identical sums in every mode.
+    # On the forest kernels' paths it only chooses the dtype of the plain
+    # version's table: the kernels descend node tables that do not depend
+    # on it, and every mode gives bit-identical sums.
     z_mode: str = "auto"
     # False = alerts-only serving: BatchResult.features is zeros and the
     # [B, 15] matrix never leaves the device.

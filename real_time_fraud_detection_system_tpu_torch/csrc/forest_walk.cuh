@@ -1,117 +1,117 @@
-// The per-row tree walk over compact forest tables, shared by the two
-// forest kernels (fused_forest.cu and leaf_sum.cu).
+// The per-row tree descent shared by the two forest kernels
+// (fused_forest.cu and leaf_sum.cu).
 //
 // Device twin of the JAX package's traversal core `_tree_block_leaf_sum`
 // (ops/pallas_forest.py), which both of its forest kernels share. The
 // Pallas core runs two dense products per tree; here the tables come in
-// the compact form ops/forest_kernels.py::to_kernel_tables builds (one
-// feature per node, <= depth (node, +-1) entries per leaf, an integer
-// target), so per tree and row the walk computes
+// the descent form ops/forest_kernels.py::to_kernel_tables derives from
+// the same dense tables: per tree, its nodes in breadth-first order from
+// the root (node 0), each one 16-byte record
 //
-//   d_i = (x[feat_i] <= thresh_i) for every internal node i,
-//   z_l = sum of the leaf's entries (+d or -d of its node),
-//   and adds leaf_val[l] where z_l == target_l.
+//   {feature, threshold bits, left child, right child}
 //
-// One thread per row, kForestRows rows per block. The per-row decisions of
-// a tree live in shared memory as bit words, laid out thread-minor so a
-// warp's loads hit 32 consecutive words (no bank conflicts). A tree's node
-// and leaf tables are staged in shared memory; its leaf entry lists are
-// read through the read-only cache (every thread of a warp reads the same
-// word, a broadcast). Trees are added in order t = 0..T-1, the order the
-// plain models/forest.py::gemm_leaf_sum uses, so the two agree bit for
-// bit; z is an exact integer, so the int8, bf16 and f32 forms of the dense
-// path table give the same sums.
+// where a leaf is {0, value bits, itself, itself}, and the tree's depth.
+// Per tree and row the walk descends from the root, `depth` times
+//
+//   node = x[feature] <= threshold ? left : right,
+//
+// the same gather and the same IEEE compare as the dense form's
+// d = proj <= thresh, and then reads the value of the leaf it stands on.
+// That is the function's own work: one compare per level of the row's
+// path (the old walk evaluated all Ip nodes and rebuilt z for all Lp
+// leaves of every tree, ~1.7e10 operations per 65,536 rows at T=100,
+// depth 8, against ~5.9e7 here).
+//
+// Level-synchronous: every tree runs its full depth and a row that lands
+// on a shallower leaf loops on it, so the lanes of a warp never diverge
+// in the loop (the trip count is uniform). Each thread walks
+// kTreesInFlight trees at once as independent chains of dependent loads,
+// which hides the load latency, and then adds their values to its sum
+// one after another, so the trees are added in order t = 0..T-1 as the
+// plain models/forest.py::gemm_leaf_sum adds them: the two agree bit for
+// bit, in every z mode (the descent tables do not depend on it).
+//
+// The node records are read through the read-only data path (__ldg) from
+// device memory: L2 holds the whole forest (~0.8 MB at T=100, depth 8)
+// and L1 the trees in use, with no barrier and no copy. A block's shared
+// memory holds only its scaled feature tile, so the trees' size never
+// limits admission. Staging groups of trees in shared memory with
+// cp.async was measured too and saved ~0.04 ms per 65,536-row batch,
+// which no path shows end to end; ten trees in flight took the fused
+// kernel from ~0.29 to ~0.17 ms at that size (tools/torch_walk_forms.py
+// times this form against others; PERF.md, section 6).
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-// Rows (threads) per block of both forest kernels; BLOCK_ROWS in
-// ops/forest_kernels.py.
+// Rows (threads) per block; BLOCK_ROWS in ops/forest_kernels.py.
 constexpr int kForestRows = 128;
+// Trees each thread walks at once; TREES_IN_FLIGHT in
+// ops/forest_kernels.py. The tree count is padded to a multiple of 10.
+constexpr int kTreesInFlight = 10;
+// The most dynamic shared memory a block of an sm_90 kernel may opt in to.
+constexpr int kMaxSmem = 227 * 1024;
 
-// A forest in the compact form (ops/forest_kernels.py::ForestTables).
-struct CompactForest {
-  const int* node_feat;      // [T, Ip]; -1 = no feature (projection is 0)
-  const float* node_thresh;  // [T, Ip]
-  const int* leaf_entries;   // [T, Lp, D], D % 4 == 0; 2*node + (sign > 0), -1 pads
-  const int* leaf_target;    // [T, Lp]
-  const float* leaf_value;   // [T, Lp]
-  int T, Ip, Lp, D;
+// A forest in the descent form (ops/forest_kernels.py::ForestTables).
+struct DescentForest {
+  const int4* nodes;  // [T, N] {feature, threshold bits, left, right}
+  const int* depth;   // [T] trip count of each tree's descent
+  int T, N;           // T % kTreesInFlight == 0
 };
 
-// Shared-memory bytes of one block: the scaled feature tile [Fp][rows],
-// the decision bit words [Ip/32][rows], and one tree's node and leaf
-// tables. ops/forest_kernels.py::smem_bytes computes the same number for
-// the admission predicates.
-__host__ __device__ inline int forest_smem_bytes(int Fp, int Ip, int Lp) {
-  return kForestRows * (Fp * 4 + (Ip / 32) * 4) + Ip * 8 + Lp * 8;
-}
-
-// One leaf entry's term of z: +d or -d of its node, 0 for padding (-1).
-__device__ __forceinline__ int entry_term(int code, const uint32_t* dbits,
-                                          int tid) {
-  const int node = max(code, 0) >> 1;
-  const int bit = (dbits[(node >> 5) * kForestRows + tid] >> (node & 31)) & 1;
-  return code < 0 ? 0 : ((code & 1) ? bit : -bit);
+// Shared-memory bytes of one block: the scaled feature tile [Fp][rows].
+// ops/forest_kernels.py::smem_bytes computes the same number for the
+// admission predicate.
+__host__ __device__ inline int forest_smem_bytes(int Fp) {
+  return kForestRows * Fp * 4;
 }
 
 // Sum over trees t = 0..T-1, in order, of the value of the leaf that this
 // thread's row reaches. `xs` is the block's scaled feature tile
-// [Fp][kForestRows] at the start of the dynamic shared memory (a thread
-// reads its own column only); the walk's scratch follows it. Every thread
-// of the block must call this: it synchronises.
-__device__ __forceinline__ float forest_leaf_sum(const CompactForest& f,
-                                                 float* xs, int Fp, int tid) {
-  uint32_t* dbits = reinterpret_cast<uint32_t*>(xs + Fp * kForestRows);
-  const int words = f.Ip >> 5;                                       // [words][rows]
-  int* s_feat = reinterpret_cast<int*>(dbits + words * kForestRows);  // [Ip]
-  float* s_th = reinterpret_cast<float*>(s_feat + f.Ip);              // [Ip]
-  int* s_tgt = reinterpret_cast<int*>(s_th + f.Ip);                   // [Lp]
-  float* s_val = reinterpret_cast<float*>(s_tgt + f.Lp);              // [Lp]
-
+// [Fp][kForestRows]; the thread reads its own column only.
+__device__ __forceinline__ float forest_leaf_sum(const DescentForest& f,
+                                                 const float* xs, int tid) {
   float acc = 0.f;
-  for (int t = 0; t < f.T; ++t) {
-    __syncthreads();  // the previous tree's staged tables are no longer read
-    for (int i = tid; i < f.Ip; i += kForestRows) {
-      s_feat[i] = f.node_feat[(size_t)t * f.Ip + i];
-      s_th[i] = f.node_thresh[(size_t)t * f.Ip + i];
+  for (int t0 = 0; t0 < f.T; t0 += kTreesInFlight) {
+    const int4* root[kTreesInFlight];
+    const int4* at[kTreesInFlight];
+    int steps = 0;
+#pragma unroll
+    for (int k = 0; k < kTreesInFlight; ++k) {
+      root[k] = at[k] = f.nodes + (size_t)(t0 + k) * f.N;
+      steps = max(steps, __ldg(f.depth + t0 + k));
     }
-    for (int l = tid; l < f.Lp; l += kForestRows) {
-      s_tgt[l] = f.leaf_target[(size_t)t * f.Lp + l];
-      s_val[l] = f.leaf_value[(size_t)t * f.Lp + l];
-    }
-    __syncthreads();
-
-    for (int w = 0; w < words; ++w) {
-      uint32_t bits = 0;
-#pragma unroll 8
-      for (int k = 0; k < 32; ++k) {
-        const int node = (w << 5) + k;
-        const int feat = s_feat[node];
-        const float v = feat >= 0 ? xs[feat * kForestRows + tid] : 0.f;
-        bits |= (uint32_t)(v <= s_th[node]) << k;
+    for (int s = 0; s < steps; ++s) {
+#pragma unroll
+      for (int k = 0; k < kTreesInFlight; ++k) {
+        const int4 n = __ldg(at[k]);
+        const float v = xs[n.x * kForestRows + tid];
+        at[k] = root[k] + (v <= __int_as_float(n.y) ? n.z : n.w);
       }
-      dbits[w * kForestRows + tid] = bits;
     }
-
-    // A leaf's entries come as 16-byte vectors and the padding (-1) adds 0
-    // by a select, so a leaf's loads issue together and neighbouring
-    // leaves' chains interleave (no data-dependent exit).
-    const int q = f.D >> 2;
-    const int4* ent = reinterpret_cast<const int4*>(f.leaf_entries) +
-                      (size_t)t * f.Lp * q;
-#pragma unroll 4
-    for (int l = 0; l < f.Lp; ++l) {
-      int z = 0;
-      for (int j = 0; j < q; ++j) {
-        const int4 c = __ldg(ent + l * q + j);
-        z += entry_term(c.x, dbits, tid) + entry_term(c.y, dbits, tid) +
-             entry_term(c.z, dbits, tid) + entry_term(c.w, dbits, tid);
-      }
-      if (z == s_tgt[l]) acc += s_val[l];
+#pragma unroll
+    for (int k = 0; k < kTreesInFlight; ++k) {
+      acc += __int_as_float(__ldg(&at[k]->y));
     }
   }
   return acc;
+}
+
+// Checks a launch's shape and opts `kernel` in to more than the default
+// 48 KB of dynamic shared memory where it needs it. Returns the CUDA error
+// (0 = ok).
+template <typename Kernel>
+inline cudaError_t forest_launch_setup(Kernel kernel, int smem, int T,
+                                       int N, int B) {
+  if (B < 1 || N < 1 || T < kTreesInFlight || T % kTreesInFlight != 0 ||
+      smem > kMaxSmem) {
+    return cudaErrorInvalidValue;
+  }
+  if (smem > 48 * 1024) {
+    return cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  }
+  return cudaSuccess;
 }

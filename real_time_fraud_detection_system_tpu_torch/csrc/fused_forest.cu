@@ -16,9 +16,11 @@
 // the traversal as two dense products per tree ([B,16]x[16,I] and
 // [B,I]x[I,L]); on CUDA cores that is ~8.6e11 multiply-adds per 65,536-row
 // batch at T=100, depth 8. Both tables are extremely sparse, so the host
-// compacts them once (ops/forest_kernels.py::to_kernel_tables) and the walk
-// of forest_walk.cuh does ~2.6k integer operations per tree per row. The
-// scaled feature tile never leaves shared memory.
+// derives a per-tree node table from them once
+// (ops/forest_kernels.py::to_kernel_tables) and each row descends each
+// tree (forest_walk.cuh): one node load through the read-only path and
+// one compare per level. The scaled feature tile never leaves shared
+// memory.
 //
 // What bounds it. Data in: ~1 KB of gathered rows per row (6 x 40 words)
 // plus 12 B of scalars; out: 64 B (15 features + the leaf sum). At 65,536
@@ -26,13 +28,15 @@
 // operations: ~1k per row for the features and, per tree, one compare per
 // level of the path the row takes plus the leaf add (~0.9k per row at
 // T=100, depth 8), ~1.2e8 in all, ~2 us at the card's 32-bit rate. So the
-// function is memory-bound at ~20 us per 65,536 rows. This first kernel is
-// far from that bound: its compact algorithm evaluates every node and
-// walks every leaf's entries (~2.6k integer operations per tree per row,
-// ~1.7e10 in all, each also paying a shared-memory or L1 load) instead of
-// descending one path. A descent per row (or warp-cooperative traversal),
-// an int8 mma for a dense z, and moving the slot gather into the kernel
-// are later work.
+// function is memory-bound at ~20 us per 65,536 rows. The first version of
+// this kernel evaluated every node and walked every leaf's entries of
+// every tree (~1.7e10 operations; its times are in PERF.md), restaging
+// each tree's tables in shared memory behind two barriers; the descent does
+// the ~5.9e7 the function needs, with no barrier, and keeps ten trees'
+// chains of dependent loads in flight per thread. What remains between it
+// and the bound: the node loads of a warp scatter over up to 32 lines at
+// the deep levels, and at 65,536 rows a card of 132 SMs holds only ~15.5
+// warps per SM. Moving the slot gather into the kernel is later work.
 //
 // Exactness. Decisions must match the plain PyTorch path bit for bit, so
 // this file is built without --use_fast_math, with the defaults
@@ -53,7 +57,7 @@ struct FusedForestArgs {
   FeatureArgs in;
   const float* mean;   // [F]
   const float* scale;  // [F]
-  CompactForest forest;
+  DescentForest forest;
   float* leaf_sum;  // [B]
   float* feats;     // [B, F]
   int B, F, Fp;
@@ -61,8 +65,7 @@ struct FusedForestArgs {
 
 __global__ void __launch_bounds__(kForestRows)
 fused_forest_kernel(FusedForestArgs a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* xs = reinterpret_cast<float*>(smem);  // [Fp][rows]
+  extern __shared__ float xs[];  // [Fp][kForestRows]
 
   const int tid = threadIdx.x;
   const int row = blockIdx.x * kForestRows + tid;
@@ -79,8 +82,9 @@ fused_forest_kernel(FusedForestArgs a) {
     });
   }
 
-  // ---- 2. trees, in order t = 0..T-1
-  const float acc = forest_leaf_sum(a.forest, xs, a.Fp, tid);
+  // ---- 2. trees, in order t = 0..T-1 (the thread reads its own column
+  // of the tile)
+  const float acc = forest_leaf_sum(a.forest, xs, tid);
   if (live_row) a.leaf_sum[row] = acc;
 }
 
@@ -90,11 +94,13 @@ extern "C" {
 
 // Shared-memory bytes of one block; ops/forest_kernels.py::smem_bytes
 // computes the same number for the admission predicate.
-int fused_forest_smem_bytes(int Fp, int Ip, int Lp) {
-  return forest_smem_bytes(Fp, Ip, Lp);
-}
+int fused_forest_smem_bytes(int Fp) { return forest_smem_bytes(Fp); }
 
 int fused_forest_block_rows() { return kForestRows; }
+
+int fused_forest_trees_in_flight() { return kTreesInFlight; }
+
+int fused_forest_max_smem() { return kMaxSmem; }
 
 // Launches the kernel on `stream` and returns cudaGetLastError() (0 = ok).
 int fused_forest_launch(
@@ -102,18 +108,13 @@ int fused_forest_launch(
     const int* t_bd, const float* t_cnt, const float* t_frd,
     const int* day, const int* tod, const float* amount,
     const float* mean, const float* scale,
-    const int* node_feat, const float* node_thresh,
-    const int* leaf_entries, const int* leaf_target, const float* leaf_value,
+    const int* nodes, const int* depth,
     float* leaf_sum, float* feats,
-    int B, int NB, int T, int Ip, int Lp, int D, int F, int Fp,
+    int B, int NB, int T, int N, int F, int Fp,
     int n_win, int w0, int w1, int w2, int w3,
     int delay, int weekend_start, int night_end,
     void* stream) {
-  // The block's shared memory stays within the 48 KB a launch gets without
-  // opting in to more (ops/forest_kernels.py::admit_tables holds to it).
-  const int smem = forest_smem_bytes(Fp, Ip, Lp);
-  if (n_win < 1 || n_win > kMaxWindows || F != 3 + 4 * n_win || Fp < F ||
-      Ip % 32 != 0 || B < 1 || D < 4 || D % 4 != 0 || smem > 48 * 1024) {
+  if (n_win < 1 || n_win > kMaxWindows || F != 3 + 4 * n_win || Fp < F) {
     return (int)cudaErrorInvalidValue;
   }
   FusedForestArgs a;
@@ -127,16 +128,16 @@ int fused_forest_launch(
   a.in.weekend_start = weekend_start;
   a.in.night_end = night_end;
   a.mean = mean; a.scale = scale;
-  a.forest.node_feat = node_feat; a.forest.node_thresh = node_thresh;
-  a.forest.leaf_entries = leaf_entries; a.forest.leaf_target = leaf_target;
-  a.forest.leaf_value = leaf_value;
-  a.forest.T = T; a.forest.Ip = Ip; a.forest.Lp = Lp; a.forest.D = D;
+  a.forest.nodes = reinterpret_cast<const int4*>(nodes);
+  a.forest.depth = depth;
+  a.forest.T = T; a.forest.N = N;
   a.leaf_sum = leaf_sum; a.feats = feats;
   a.B = B; a.F = F; a.Fp = Fp;
-
-  const int grid = (B + kForestRows - 1) / kForestRows;
-  fused_forest_kernel<<<grid, kForestRows, smem,
-                        static_cast<cudaStream_t>(stream)>>>(a);
+  const int smem = forest_smem_bytes(Fp);
+  const cudaError_t e = forest_launch_setup(fused_forest_kernel, smem, T, N, B);
+  if (e != cudaSuccess) return (int)e;
+  fused_forest_kernel<<<(B + kForestRows - 1) / kForestRows, kForestRows,
+                        smem, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -311,3 +311,73 @@ def synthetic_ensemble(
         prob=as_t(prob),
         max_depth=max_depth,
     )
+
+
+def ragged_ensemble(
+    n_trees: int = 4,
+    max_depth: int = 8,
+    n_features: int = 15,
+    seed: int = 0,
+    max_leaves: int = 256,
+    device=None,
+) -> TreeEnsemble:
+    """Irregular trees with NO training dependency, from seeded numpy:
+    tree t has a depth d_t in 1..``max_depth`` (the first tree
+    ``max_depth``), a spine of random turns down to d_t, and then random
+    splits of leaves above d_t until it holds between d_t + 1 and
+    min(2**d_t, ``max_leaves``) leaves, so its leaves sit at many depths
+    and its shape differs from its neighbours'. Features, thresholds and
+    leaf probabilities are random as in :func:`synthetic_ensemble`."""
+    device = resolve_device(device)
+    if max_leaves < max_depth + 1:
+        raise ValueError("max_leaves must exceed max_depth")
+    rng = np.random.default_rng(seed)
+    trees = []
+    for t in range(n_trees):
+        d = max_depth if t == 0 else int(rng.integers(1, max_depth + 1))
+        n_leaves = int(rng.integers(d + 1, min(2 ** d, max_leaves) + 1))
+        left, right, level = [0], [0], [0]
+        open_leaves = []  # leaves above depth d
+
+        def split(nd):
+            k = len(level)
+            left[nd], right[nd] = k, k + 1
+            for c in (k, k + 1):
+                left.append(c)
+                right.append(c)
+                level.append(level[nd] + 1)
+                if level[c] < d:
+                    open_leaves.append(c)
+
+        nd = 0
+        for _ in range(d):  # the spine
+            split(nd)
+            nd = left[nd] if rng.random() < 0.5 else right[nd]
+            if nd in open_leaves:
+                open_leaves.remove(nd)
+        while (len(level) + 1) // 2 < n_leaves:
+            j = int(rng.integers(len(open_leaves)))
+            open_leaves[j], open_leaves[-1] = open_leaves[-1], open_leaves[j]
+            split(open_leaves.pop())
+        trees.append((np.array(left), np.array(right)))
+    n = max(len(lt) for lt, _ in trees)
+    idx = np.arange(n, dtype=np.int32)
+    left = np.tile(idx, (n_trees, 1))
+    right = left.copy()
+    for t, (lt, rt) in enumerate(trees):
+        left[t, :len(lt)] = lt
+        right[t, :len(rt)] = rt
+    is_leaf = left == idx
+    feat = np.where(is_leaf, 0, rng.integers(0, n_features, (n_trees, n)))
+    thresh = np.where(is_leaf, 0.0, rng.normal(size=(n_trees, n)))
+    prob = rng.uniform(size=(n_trees, n))
+    as_t = lambda a, dt: torch.as_tensor(  # noqa: E731
+        np.ascontiguousarray(a, dtype=dt), device=device)
+    return TreeEnsemble(
+        feat=as_t(feat, np.int32),
+        thresh=as_t(ftz_safe_thresholds(thresh), np.float32),
+        left=as_t(left, np.int32),
+        right=as_t(right, np.int32),
+        prob=as_t(prob, np.float32),
+        max_depth=max_depth,
+    )

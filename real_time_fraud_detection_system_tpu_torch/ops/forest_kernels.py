@@ -10,19 +10,20 @@ about that.
 - :func:`to_kernel_tables` is the counterpart of ``to_pallas``: it pads a
   :class:`~..models.forest.GemmEnsemble` the same way (T → ×10, F → ×8,
   I and L → ×128, with the same inert padding: ``thresh=+inf``,
-  ``target=1e9``, zero leaves) and compacts the sparse tables into the
-  kernels' form (one feature per node, ≤ depth entries per leaf, an
-  integer target).
-- :func:`admit_tables` and :func:`admit_leaf_sum` are the counterparts of
-  ``admit_block``: static predicates on the ensemble's shapes, sized in
-  shared-memory bytes, one per kernel.
+  ``target=1e9``, zero leaves) for the plain version, and derives from the
+  dense tables the kernels' descent form: per tree, a node table in
+  breadth-first order (feature, threshold, two children; a leaf loops to
+  itself and carries its value) and the tree's depth.
+- :func:`admit_tables` is the counterpart of ``admit_block``: a static
+  predicate on the ensemble's shapes, sized by :func:`smem_bytes` in
+  shared-memory bytes, for both kernels (they have one block layout).
 - :func:`fused_forest_leaf_sum` (``csrc/fused_forest.cu``, replacing
   ``fused_forest_leaf_sum``): gathered state rows → features → Σ_t leaf
   value. Its plain version is the literal composition of
   ``assemble_features``, ``transform`` and ``gemm_leaf_sum``.
 - :func:`leaf_sum` (``csrc/leaf_sum.cu``, replacing ``pallas_leaf_sum``):
-  scaled features → Σ_t leaf value, for gbt and for the forest's unfused
-  step. Its plain version is ``gemm_leaf_sum`` on the padded tables.
+  scaled features → Σ_t leaf value, for gbt. Its plain version is
+  ``gemm_leaf_sum`` on the padded tables.
 
 Each wrapper runs its plain version for CPU tensors; for CUDA tensors it
 launches its kernel or raises, and counts the launches on itself.
@@ -34,6 +35,7 @@ import ctypes
 import functools
 from typing import NamedTuple, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -55,16 +57,17 @@ from real_time_fraud_detection_system_tpu_torch.ops.features_fused import (
 )
 
 # Tree-count padding multiple, kept from the TPU layout so both packages
-# pad an ensemble alike (the kernels walk trees one at a time).
+# pad an ensemble alike.
 TREE_BLOCK = 10
-# Rows (threads) per CUDA block; kForestRows in csrc/forest_walk.cuh.
+# Rows (threads) per CUDA block of both kernels; kForestRows in
+# csrc/forest_walk.cuh.
 BLOCK_ROWS = 128
-# Shared memory a block gets without opting in to more; the fused kernel
-# stays within it. The flagship forest needs 16 KB.
-SMEM_BUDGET = 48 * 1024
-# The most a block may opt in to on sm_90 (227 KB); the leaf-sum kernel
-# does, so it admits trees up to depth 12.
-LEAF_SUM_SMEM_BUDGET = 227 * 1024
+# Trees each thread of the kernels walks at once; kTreesInFlight in
+# csrc/forest_walk.cuh. It divides TREE_BLOCK.
+TREES_IN_FLIGHT = 10
+# The most shared memory a block may opt in to on sm_90 (227 KB). A block
+# holds only the scaled feature tile (8 KB at 15 features).
+SMEM_BUDGET = 227 * 1024
 MAX_WINDOWS = 4
 _NO_TARGET = 1_000_000_000  # padded leaves' target; never matched
 
@@ -80,10 +83,10 @@ class ForestTables(NamedTuple):
     """A forest in the kernels' layout (see :func:`to_kernel_tables`)."""
 
     gemm: GemmEnsemble  # padded dense tables; path in the z dtype
-    node_feat: torch.Tensor  # int32 [Tp, Ip]; -1 where sel's column is 0
-    leaf_entries: torch.Tensor  # int32 [Tp, Lp, D], D % 4 == 0;
-    #                             2·node + (sign > 0), -1 padding
-    leaf_target: torch.Tensor  # int32 [Tp, Lp]; 1e9 on padding
+    nodes: torch.Tensor  # int32 [Tp, N, 4], breadth-first from the root:
+    #                      feature, threshold bits, left, right; a leaf is
+    #                      (0, value bits, itself, itself)
+    depth: torch.Tensor  # int32 [Tp]: trip count of each tree's descent
     n_trees: int  # REAL tree count (bagging divisor)
     z_mode: str
 
@@ -100,17 +103,95 @@ def padded_shape(g: GemmEnsemble) -> Tuple[int, int, int, int]:
             _ceil_to(int(i), 128), _ceil_to(int(l), 128))
 
 
+def _descent_tree(feat: np.ndarray, th_bits: np.ndarray, path: np.ndarray,
+                  target: np.ndarray, val_bits: np.ndarray
+                  ) -> Tuple[np.ndarray, int]:
+    """One tree's descent form from its dense form: (node rows int32
+    [n, 4] breadth-first from the root, depth).
+
+    ``feat`` [I] (-1: no feature), ``th_bits`` [I] and ``val_bits`` [L]
+    (float32 bits), ``path`` int8 [I, L], ``target`` [L]. A node's subtree
+    holds strictly fewer leaves than its parent's, so a leaf's path
+    entries sorted by the number of leaves whose path holds them, most
+    first, run from the root to the leaf, and consecutive entries link a
+    parent to a child. Raises ``ValueError`` when the tables are not a
+    tree, or when a target is not its leaf's count of left turns (the
+    dense form would then compute another function)."""
+    i_count = path.shape[0]
+    real = np.flatnonzero(target < _NO_TARGET / 2)
+    if len(real) == 0:  # no leaf is ever matched: the tree adds 0
+        return np.zeros((1, 4), np.int32), 0
+    p = path[:, real].astype(np.int64)  # [I, nL]
+    on = p != 0
+    n_on = on.sum(axis=0)  # entries of each leaf
+    if not np.array_equal(target[real], (p > 0).sum(axis=0)):
+        raise ValueError("path: a leaf's target is not its count of left "
+                         "turns")
+    depth = int(n_on.max())
+    if len(real) == 1 or depth == 0:
+        if depth:
+            raise ValueError("path: a lone leaf has conditions")
+        if len(real) > 1:
+            raise ValueError("path: more than one leaf has no conditions")
+        root = i_count + int(real[0])
+        kids = {}
+    else:
+        if (n_on == 0).any():
+            raise ValueError("path: a leaf without conditions beside others")
+        key = np.where(on, on.sum(axis=1)[:, None], -1)
+        order = np.argsort(-key, axis=0, kind="stable")[:depth]
+        ranked = np.take_along_axis(key, order, axis=0)
+        live = np.arange(depth)[:, None] < n_on[None, :]
+        if (live[1:] & (ranked[1:] >= ranked[:-1])).any():
+            raise ValueError("path: the nodes above a leaf do not nest")
+        if (order[0] != order[0, 0]).any():
+            raise ValueError("path: the leaves have no common root")
+        root = int(order[0, 0])
+        # each entry's child: the next entry, or the leaf after the last
+        nxt = np.concatenate([order[1:], np.zeros_like(order[:1])])
+        last = np.arange(depth)[:, None] == (n_on - 1)[None, :]
+        child = np.where(last, i_count + real[None, :], nxt)
+        side = np.take_along_axis(p, order, axis=0)
+        links = np.unique(np.stack([order[live], side[live], child[live]],
+                                   axis=1), axis=0)
+        if len(np.unique(links[:, :2], axis=0)) < len(links):
+            raise ValueError("path: a node has two children on one side")
+        if len(np.unique(links[:, 2])) < len(links):
+            raise ValueError("path: a node has two parents")
+        if len(links) != 2 * len(np.unique(links[:, 0])):
+            raise ValueError("path: a node lacks a child")
+        kids = {(int(a), int(s)): int(c) for a, s, c in links}
+
+    bfs = [root]
+    for code in bfs:  # grows as it goes
+        if code < i_count:
+            bfs += [kids[code, 1], kids[code, -1]]
+    ident = {code: n for n, code in enumerate(bfs)}
+    rows = np.zeros((len(bfs), 4), np.int32)
+    for n, code in enumerate(bfs):
+        if code >= i_count:
+            rows[n] = (0, val_bits[code - i_count], n, n)
+            continue
+        left, right = ident[kids[code, 1]], ident[kids[code, -1]]
+        if feat[code] < 0:  # no feature: every row projects to 0
+            th = th_bits[code:code + 1].view(np.float32)[0]
+            left = right = left if np.float32(0.0) <= th else right
+        rows[n] = (max(int(feat[code]), 0), th_bits[code], left, right)
+    return rows, depth
+
+
 def to_kernel_tables(g: GemmEnsemble, z_mode: str) -> ForestTables:
-    """Pad ``g`` like ``to_pallas`` and compact it for the kernels.
+    """Pad ``g`` like ``to_pallas`` and derive the kernels' descent form.
 
     Raises ``ValueError`` when a ``sel`` column is neither one-hot nor all
-    zero, when ``path`` holds a value other than -1, 0 and 1, or when a
-    real leaf's target is not an integer: the compact form would then
-    compute another function than the dense one. An all-zero ``sel``
-    column (padding) projects to 0, which decides 1 against ``+inf``.
-    The compact tables are built from the real trees and then padded
-    (padded trees: no features, no entries, no target). A few host syncs
-    (the checks, and the deepest leaf sizes the entry table).
+    zero, when ``path`` holds a value other than -1, 0 and 1, when a real
+    leaf's target is not an integer, or when ``path`` does not describe a
+    tree (see :func:`_descent_tree`): the descent would then compute
+    another function than the dense form. A node whose ``sel`` column is
+    all zero projects to 0, so it decides alike for every row and both its
+    links go to the child that decision takes. Padded trees are a single
+    leaf of value 0 with depth 0, padded node rows leaves of value 0 that
+    nothing links to. Built on the host from the real trees.
     """
     if z_mode not in _Z_DTYPES:
         raise ValueError(f"unknown z_mode {z_mode!r}")
@@ -126,30 +207,23 @@ def to_kernel_tables(g: GemmEnsemble, z_mode: str) -> ForestTables:
     if not bool((g.target[real] == torch.round(g.target[real])).all()):
         raise ValueError("leaf targets must be integers")
 
-    # compact form of the real trees, nodes and leaves padded to Ip, Lp
-    sel = F.pad(g.sel, (0, ip - i))  # [T, F, Ip]
-    node_feat = torch.where(sel.sum(dim=1) > 0,
-                            sel.argmax(dim=1).to(torch.int32),
-                            torch.full((t, ip), -1, dtype=torch.int32,
-                                       device=sel.device))
-    path = F.pad(g.path, (0, lp - l, 0, ip - i))  # [T, Ip, Lp]
-    nz = (path != 0).transpose(1, 2)  # [T, Lp, Ip]
-    # entries per leaf, padded to a multiple of 4 (the kernels read them
-    # as 16-byte vectors)
-    depth = 4 * max(1, -(-int(nz.sum(dim=2).max()) // 4))
-    # the nonzero nodes of each leaf first, in node order
-    order = torch.sort((~nz).to(torch.int8), dim=2, stable=True).indices
-    node = order[:, :, :depth]
-    sign = torch.gather(path.transpose(1, 2), 2, node)
-    leaf_entries = torch.where(sign != 0, 2 * node + (sign > 0).long(),
-                               torch.full_like(node, -1)).to(torch.int32)
-    target = F.pad(g.target, (0, lp - l), value=float(_NO_TARGET))
-    leaf_target = torch.where(target < _NO_TARGET / 2, target.round(),
-                              torch.full_like(target, _NO_TARGET)
-                              ).to(torch.int32)
-    del sel, path, nz, order, node, sign
+    feat = torch.where(g.sel.sum(dim=1) > 0, g.sel.argmax(dim=1),
+                       -1).cpu().numpy()
+    th_bits = g.thresh.float().cpu().numpy().view(np.int32)
+    path = g.path.to(torch.int8).cpu().numpy()
+    target = g.target.cpu().numpy()
+    val_bits = g.leaf_val.float().cpu().numpy().view(np.int32)
+    trees = [_descent_tree(feat[k], th_bits[k], path[k], target[k],
+                           val_bits[k]) for k in range(t)]
+    n_max = max(len(rows) for rows, _ in trees)
+    nodes = np.zeros((tp, n_max, 4), np.int32)
+    nodes[:, :, 2] = nodes[:, :, 3] = np.arange(n_max)  # self-loops
+    depth = np.zeros(tp, np.int32)
+    for k, (rows, d) in enumerate(trees):
+        nodes[k, :len(rows)] = rows
+        depth[k] = d
 
-    # the tree dimension padded to the TPU layout's multiple
+    # the dense tables padded to the TPU layout, for the plain version
     gemm = GemmEnsemble(
         sel=F.pad(g.sel, (0, ip - i, 0, fp - f, 0, tp - t)),
         thresh=F.pad(g.thresh, (0, ip - i, 0, tp - t), value=float("inf")),
@@ -158,21 +232,19 @@ def to_kernel_tables(g: GemmEnsemble, z_mode: str) -> ForestTables:
         target=F.pad(g.target, (0, lp - l, 0, tp - t),
                      value=float(_NO_TARGET)),
         leaf_val=F.pad(g.leaf_val, (0, lp - l, 0, tp - t)))
-    return ForestTables(
-        gemm=gemm,
-        node_feat=F.pad(node_feat, (0, 0, 0, tp - t), value=-1).contiguous(),
-        leaf_entries=F.pad(leaf_entries, (0, 0, 0, 0, 0, tp - t),
-                           value=-1).contiguous(),
-        leaf_target=F.pad(leaf_target, (0, 0, 0, tp - t),
-                          value=_NO_TARGET).contiguous(),
-        n_trees=int(t), z_mode=z_mode)
+    dev = g.sel.device
+    return ForestTables(gemm=gemm,
+                        nodes=torch.as_tensor(nodes, device=dev),
+                        depth=torch.as_tensor(depth, device=dev),
+                        n_trees=int(t), z_mode=z_mode)
 
 
-def smem_bytes(fp: int, ip: int, lp: int) -> int:
+def smem_bytes(fp: int) -> int:
     """Shared memory of one block of either forest kernel: the scaled
-    feature tile, the decision bit words, and one tree's node and leaf
-    tables (``forest_smem_bytes`` in ``csrc/forest_walk.cuh``)."""
-    return BLOCK_ROWS * (fp * 4 + (ip // 32) * 4) + ip * 8 + lp * 8
+    feature tile (``forest_smem_bytes`` in ``csrc/forest_walk.cuh``). The
+    node records stay in device memory, so the trees' depth does not
+    enter it."""
+    return BLOCK_ROWS * fp * 4
 
 
 class KernelAdmission(NamedTuple):
@@ -184,29 +256,16 @@ class KernelAdmission(NamedTuple):
     padded: Tuple[int, int, int, int]  # (Tp, Fp, Ip, Lp)
 
 
-def _admit(g: GemmEnsemble, budget: int) -> KernelAdmission:
-    tp, fp, ip, lp = padded_shape(g)
-    nbytes = smem_bytes(fp, ip, lp)
-    return KernelAdmission(fits=nbytes <= budget, smem_bytes=nbytes,
-                           budget=budget, padded=(tp, fp, ip, lp))
-
-
 def admit_tables(g: GemmEnsemble, budget: int = SMEM_BUDGET
                  ) -> KernelAdmission:
-    """Decide, from ``g``'s shapes alone, whether the fused kernel serves
-    it: one block's shared memory must fit ``budget`` (48 KB, no opt-in).
-    T=100 at depth 8 (Ip = Lp = 256) takes 16 KB; depth 10 fits, depth
-    11 does not."""
-    return _admit(g, budget)
-
-
-def admit_leaf_sum(g: GemmEnsemble, budget: int = LEAF_SUM_SMEM_BUDGET
-                   ) -> KernelAdmission:
-    """Decide, from ``g``'s shapes alone, whether the leaf-sum kernel
-    serves it: the same block layout as the fused kernel, against the
-    227 KB a block may opt in to. Depth 12 (Ip = Lp = 4096) takes 136 KB;
-    depth 13 does not fit."""
-    return _admit(g, budget)
+    """Decide, from ``g``'s shapes alone, whether the forest kernels (the
+    fused one and the leaf sum, which share one block layout) serve it:
+    one block's shared memory must fit ``budget``. 15 features take 8 KB
+    at any depth."""
+    tp, fp, ip, lp = padded_shape(g)
+    nbytes = smem_bytes(fp)
+    return KernelAdmission(fits=nbytes <= budget, smem_bytes=nbytes,
+                           budget=budget, padded=(tp, fp, ip, lp))
 
 
 def fused_forest_leaf_sum_plain(
@@ -247,58 +306,46 @@ def _bind(source, prefix: str, launch_args) -> ctypes.CDLL:
     launch = getattr(lib, f"{prefix}_launch")
     launch.argtypes = launch_args
     launch.restype = i
-    smem = getattr(lib, f"{prefix}_smem_bytes")
-    smem.argtypes = [i, i, i]
-    smem.restype = i
-    rows = getattr(lib, f"{prefix}_block_rows")
-    rows.argtypes = []
-    rows.restype = i
-    if rows() != BLOCK_ROWS \
-            or smem(16, 256, 256) != smem_bytes(16, 256, 256):
+    layout = {}
+    for name, args in (("block_rows", ()), ("trees_in_flight", ()),
+                       ("max_smem", ()), ("smem_bytes", (16,))):
+        fn = getattr(lib, f"{prefix}_{name}")
+        fn.argtypes = [i] * len(args)
+        fn.restype = i
+        layout[name] = fn(*args)
+    if layout != {"block_rows": BLOCK_ROWS,
+                  "trees_in_flight": TREES_IN_FLIGHT,
+                  "max_smem": SMEM_BUDGET, "smem_bytes": smem_bytes(16)}:
         raise RuntimeError(f"csrc/{source.name} and ops/forest_kernels.py "
-                           "disagree on the block layout")
+                           f"disagree on the block layout: {layout}")
     return lib
 
 
 @functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
+def _library(source=SOURCE) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
-    return _bind(SOURCE, "fused_forest", [p] * 18 + [i] * 16 + [p])
+    return _bind(source, "fused_forest", [p] * 15 + [i] * 14 + [p])
 
 
 @functools.lru_cache(maxsize=None)
-def _leaf_sum_library() -> ctypes.CDLL:
+def _leaf_sum_library(source=LEAF_SUM_SOURCE) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib = _bind(LEAF_SUM_SOURCE, "leaf_sum", [p] * 7 + [i] * 7 + [p])
-    lib.leaf_sum_max_smem.argtypes = []
-    lib.leaf_sum_max_smem.restype = i
-    if lib.leaf_sum_max_smem() != LEAF_SUM_SMEM_BUDGET:
-        raise RuntimeError("csrc/leaf_sum.cu and ops/forest_kernels.py "
-                           "disagree on the shared-memory budget")
-    return lib
+    return _bind(source, "leaf_sum", [p] * 4 + [i] * 5 + [p])
 
 
-def _check_tables(tables: ForestTables, budget: int,
-                  dev: torch.device) -> Tuple[int, int, int, int, int]:
-    """Check the compact tables a kernel reads; return (Tp, Fp, Ip, Lp, D)."""
-    tp, fp, ip = tables.gemm.sel.shape
-    lp = tables.gemm.path.shape[2]
-    depth = tables.leaf_entries.shape[2]
-    if smem_bytes(fp, ip, lp) > budget:
-        raise ValueError("forest tables exceed the kernel's shared-memory "
-                         "budget (see admit_tables and admit_leaf_sum)")
-    check_tensor(tables.node_feat, "node_feat", torch.int32, (tp, ip), dev)
-    check_tensor(tables.gemm.thresh, "thresh", torch.float32, (tp, ip), dev)
-    check_tensor(tables.leaf_entries, "leaf_entries", torch.int32,
-                 (tp, lp, depth), dev)
-    if depth % 4 or tables.leaf_entries.data_ptr() % 16:
-        raise ValueError("leaf_entries: the kernels read them as 16-byte "
-                         "vectors (depth % 4 == 0, 16-byte aligned)")
-    check_tensor(tables.leaf_target, "leaf_target", torch.int32, (tp, lp),
-                 dev)
-    check_tensor(tables.gemm.leaf_val, "leaf_val", torch.float32, (tp, lp),
-                 dev)
-    return tp, fp, ip, lp, depth
+def _check_tables(tables: ForestTables, dev: torch.device
+                  ) -> Tuple[int, int, int]:
+    """Check the descent tables a kernel reads; return (Tp, Fp, N)."""
+    tp, fp = tables.gemm.sel.shape[:2]
+    n = tables.nodes.shape[1]
+    if smem_bytes(fp) > SMEM_BUDGET:
+        raise ValueError("forest tables exceed the kernels' shared-memory "
+                         "budget (see admit_tables)")
+    check_tensor(tables.nodes, "nodes", torch.int32, (tp, n, 4), dev)
+    check_tensor(tables.depth, "depth", torch.int32, (tp,), dev)
+    if tables.nodes.data_ptr() % 16:
+        raise ValueError("nodes: the kernels read them as 16-byte records")
+    return tp, fp, n
 
 
 def fused_forest_leaf_sum(
@@ -334,7 +381,7 @@ def fused_forest_leaf_sum(
     if not 1 <= n_win <= MAX_WINDOWS:
         raise ValueError(f"the kernel takes 1..{MAX_WINDOWS} windows, "
                          f"got {n_win}")
-    tp, fp, ip, lp, depth = _check_tables(tables, SMEM_BUDGET, dev)
+    tp, fp, n = _check_tables(tables, dev)
     for name, tns, dt in (("c_bd", c_rows[0], torch.int32),
                           ("c_cnt", c_rows[1], torch.float32),
                           ("c_amt", c_rows[2], torch.float32),
@@ -354,11 +401,9 @@ def fused_forest_leaf_sum(
     win = list(windows) + [0] * (MAX_WINDOWS - n_win)
     err = _library().fused_forest_launch(
         *(x.data_ptr() for x in (*c_rows, *t_rows, day, tod_s, amount,
-                                 scaler_mean, scaler_scale,
-                                 tables.node_feat, tables.gemm.thresh,
-                                 tables.leaf_entries, tables.leaf_target,
-                                 tables.gemm.leaf_val, leaf, feats)),
-        b, nb, tp, ip, lp, depth, n_feat, fp, n_win, *win,
+                                 scaler_mean, scaler_scale, tables.nodes,
+                                 tables.depth, leaf, feats)),
+        b, nb, tp, n, n_feat, fp, n_win, *win,
         delay, weekend_start, night_end,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
@@ -384,7 +429,7 @@ def leaf_sum(tables: ForestTables, x: torch.Tensor) -> torch.Tensor:
     if x.device.type != "cuda":
         raise ValueError(f"no leaf-sum kernel for {x.device}")
     dev = x.device
-    tp, fp, ip, lp, depth = _check_tables(tables, LEAF_SUM_SMEM_BUDGET, dev)
+    tp, fp, n = _check_tables(tables, dev)
     if x.dim() != 2 or not 1 <= x.shape[1] <= fp:
         raise ValueError(f"x: expected [B, F] with 1 <= F <= {fp}, got "
                          f"{tuple(x.shape)}")
@@ -394,10 +439,8 @@ def leaf_sum(tables: ForestTables, x: torch.Tensor) -> torch.Tensor:
     if b == 0:
         return out
     err = _leaf_sum_library().leaf_sum_launch(
-        *(t.data_ptr() for t in (x, tables.node_feat, tables.gemm.thresh,
-                                 tables.leaf_entries, tables.leaf_target,
-                                 tables.gemm.leaf_val, out)),
-        b, f, fp, tp, ip, lp, depth,
+        *(t.data_ptr() for t in (x, tables.nodes, tables.depth, out)),
+        b, f, fp, tp, n,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"leaf-sum kernel launch failed: CUDA error "
@@ -407,10 +450,3 @@ def leaf_sum(tables: ForestTables, x: torch.Tensor) -> torch.Tensor:
 
 
 leaf_sum.launches = 0
-
-
-def leaf_sum_predict_proba(tables: ForestTables,
-                           x: torch.Tensor) -> torch.Tensor:
-    """[B, F] → fraud probability [B] (bagging mean over the real trees);
-    the counterpart of ``pallas_predict_proba``."""
-    return leaf_sum(tables, x) / tables.n_trees

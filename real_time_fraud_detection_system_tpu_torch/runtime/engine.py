@@ -8,14 +8,13 @@ scatter it into the window state (in place), then
 
 - logreg: gather both tables' rows and run the fused featurize→logreg
   kernel (``ops/score_kernels.py::fused_featurize_score``);
-- tree and forest, when the fused kernel's static admission predicate
+- tree and forest, when the forest kernels' static admission predicate
   holds (``ops/forest_kernels.py::admit_tables``): the fused
   featurize→forest kernel, and ``leaf / n_trees``;
 - otherwise: ``update_and_featurize`` → ``transform`` → the predict. For
-  GEMM-form tree kinds that predict is the leaf-sum kernel
-  (``ops/forest_kernels.py::leaf_sum``) whenever ``admit_leaf_sum``
-  holds — forest takes ``leaf / n_trees``, gbt ``sigmoid(base + leaf)``
-  — and the plain predict only where the shapes are not admitted.
+  gbt, when the same predicate holds, that predict is the leaf-sum kernel
+  (``ops/forest_kernels.py::leaf_sum``) and ``sigmoid(base + leaf)``;
+  the plain predict serves the shapes it does not admit.
 
 Every branch ends in ``probs = where(valid, probs, 0)``. On the CPU each
 kernel wrapper runs its plain version; on the card a kernel that does not
@@ -76,10 +75,8 @@ from real_time_fraud_detection_system_tpu_torch.ops.dedup import (
 )
 from real_time_fraud_detection_system_tpu_torch.ops.forest_kernels import (
     ForestTables,
-    admit_leaf_sum,
     admit_tables,
     leaf_sum,
-    leaf_sum_predict_proba,
     to_kernel_tables,
 )
 
@@ -190,30 +187,26 @@ class ScoringEngine:
             scaler=scaler.to(self.device),
         )
         self._predict = predict_fn_for(kind, self.z_mode)
-        # The kernels' tables, decided once from the params' shapes:
-        # ``tables`` for the fused forest kernel (tree and forest kinds
-        # that ``admit_tables`` admits), else ``leaf_tables`` for the
-        # leaf-sum kernel (GEMM-form tree kinds that ``admit_leaf_sum``
-        # admits); both None for logreg, the descent form, and tables too
-        # large for either kernel.
+        # The kernels' tables, decided once from the params' shapes where
+        # ``admit_tables`` admits a GEMM-form ensemble: ``tables`` for the
+        # fused forest kernel (tree and forest kinds), ``leaf_tables`` for
+        # the leaf-sum kernel (gbt); both None otherwise.
         self.tables: Optional[ForestTables] = None
         self.leaf_tables: Optional[ForestTables] = None
         trees = params.trees if isinstance(params, GBTModel) else params
-        if isinstance(trees, GemmEnsemble):
-            if kind != "gbt" and admit_tables(trees).fits:
-                self.tables = to_kernel_tables(trees, self.z_mode)
-            elif admit_leaf_sum(trees).fits:
+        if isinstance(trees, GemmEnsemble) and admit_tables(trees).fits:
+            if kind == "gbt":
                 self.leaf_tables = to_kernel_tables(trees, self.z_mode)
+            else:
+                self.tables = to_kernel_tables(trees, self.z_mode)
 
     def _unfused_predict(self, x: torch.Tensor) -> torch.Tensor:
         """The predict of the unfused step on scaled features ``x``."""
         tables = self.leaf_tables
         if tables is None:
             return self._predict(self.state.params, x)
-        if self.kind == "gbt":
-            return torch.sigmoid(self.state.params.base_score
-                                 + leaf_sum(tables, x))
-        return leaf_sum_predict_proba(tables, x)
+        return torch.sigmoid(self.state.params.base_score
+                             + leaf_sum(tables, x))
 
     def _step(self, packed: torch.Tensor):
         """One device step on a packed batch; returns (probs, features)."""

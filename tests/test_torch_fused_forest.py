@@ -3,9 +3,9 @@
 The port's plain ``fused_forest_leaf_sum`` (what the CUDA kernel is held
 against) is run against the JAX ``update_and_score_pallas_forest``, whose
 Pallas kernel runs in interpret mode here. The CUDA kernel itself runs only
-on a card (``tests/test_torch_gpu.py``); its algorithm — the compact
-tables — is written out in torch below and held against the dense form
-here.
+on a card (``tests/test_torch_gpu.py``); its algorithm — the descent over
+the node tables, walked in numpy by ``tests/test_torch_forest_descent.py``
+— is held against the dense form here too.
 
 Tolerances: counts, flags and ``TX_AMOUNT`` bit-identical; averages within
 ``rtol=1e-6`` (float32 window sums in another order); leaf sums within
@@ -34,6 +34,7 @@ from real_time_fraud_detection_system_tpu_torch.features import (
 )
 from real_time_fraud_detection_system_tpu_torch.models import forest as tforest
 from real_time_fraud_detection_system_tpu_torch.ops import forest_kernels as fk
+from test_torch_forest_descent import descent_leaf_sum  # pytest adds tests/
 
 # Tiny shapes: one intra-op thread each keeps the parallel test workers'
 # cores free for the timing-sensitive tests beside them.
@@ -124,23 +125,24 @@ def test_table_prep_padding_is_inert():
     assert (tp, fp) == (fk.TREE_BLOCK, 16) and tables.n_trees == 3
     assert tables.gemm.sel.shape == (tp, fp, ip)
     assert tables.gemm.path.dtype == torch.int8
-    # padded trees: no feature, +inf thresholds, no entries, never matched
-    assert (tables.node_feat[3:] == -1).all()
+    # padded trees: +inf thresholds and zero leaves in the dense form; a
+    # single leaf of value 0 and depth 0 in the descent form
     assert torch.isinf(tables.gemm.thresh[3:]).all()
-    assert (tables.leaf_entries[3:] == -1).all()
-    assert (tables.leaf_target[3:] == 1_000_000_000).all()
+    assert (tables.gemm.target[3:] == 1_000_000_000).all()
     assert (tables.gemm.leaf_val[3:] == 0).all()
+    assert (tables.depth[3:] == 0).all()
+    assert (tables.nodes[3:, :, :2] == 0).all()
     # padded nodes and leaves of the real trees are inert too
     i, l = g.sel.shape[2], g.path.shape[2]
-    assert (tables.node_feat[:3, i:] == -1).all()
-    assert (tables.leaf_target[:3, l:] == 1_000_000_000).all()
+    assert torch.isinf(tables.gemm.thresh[:3, i:]).all()
+    assert (tables.gemm.target[:3, l:] == 1_000_000_000).all()
     x = torch.as_tensor(rng.normal(size=(9, N_FEAT)).astype(np.float32))
     want = tforest.gemm_leaf_sum(g, x, "f32")
     xp = torch.nn.functional.pad(x, (0, fp - N_FEAT))
     np.testing.assert_allclose(
         tforest.gemm_leaf_sum(tables.gemm, xp, "int8").numpy(),
         want.numpy(), atol=ATOL_SUM_ORDER)
-    np.testing.assert_allclose(_compact_leaf_sum(tables, xp).numpy(),
+    np.testing.assert_allclose(descent_leaf_sum(tables, xp.numpy()),
                                want.numpy(), atol=ATOL_SUM_ORDER)
 
 
@@ -168,12 +170,18 @@ def test_admission_is_static_and_sized_in_shared_memory():
         N_FEAT)
     adm = fk.admit_tables(flagship)
     assert adm.fits and adm.padded == (100, 16, 256, 256)
-    assert adm.smem_bytes == fk.smem_bytes(16, 256, 256) == 16384
+    assert adm.smem_bytes == fk.smem_bytes(16) == 8192
+    # the node tables stay in device memory: depth does not enter it
     deep = tforest.GemmEnsemble(
         sel=torch.zeros(1, N_FEAT, 4095), thresh=torch.zeros(1, 4095),
         path=torch.zeros(1, 4095, 4096), target=torch.zeros(1, 4096),
         leaf_val=torch.zeros(1, 4096))
-    assert not fk.admit_tables(deep).fits
+    assert fk.admit_tables(deep).fits
+    assert fk.admit_tables(deep).smem_bytes == adm.smem_bytes
+    # the feature tile does: 500 features (504 padded) need 252 KB
+    wide = deep._replace(sel=torch.zeros(1, 500, 4095))
+    assert not fk.admit_tables(wide).fits
+    assert fk.admit_tables(wide).smem_bytes == 128 * 504 * 4
 
 
 def _rows_and_tables(rng, z_mode="f32", b=40):
@@ -208,28 +216,6 @@ def test_cpu_wrapper_takes_the_plain_version():
         fk.fused_forest_leaf_sum(tables, **meta)
 
 
-def _compact_leaf_sum(tables, x):
-    """The kernel's algorithm in torch: one feature per node, the leaf's
-    (node, ±1) entries, an integer target; trees summed in order."""
-    b = x.shape[0]
-    feat = tables.node_feat.long()  # [T, Ip]
-    xv = torch.where(feat >= 0, x[:, feat.clamp(min=0)],
-                     torch.zeros((), dtype=x.dtype))  # [B, T, Ip]
-    d = (xv <= tables.gemm.thresh).to(torch.int32)
-    ent = tables.leaf_entries.long()  # [T, Lp, D]
-    node = (ent.clamp(min=0) >> 1)
-    sign = torch.where(ent < 0, 0, torch.where(ent % 2 == 1, 1, -1))
-    t_idx = torch.arange(feat.shape[0])[:, None, None]
-    z = (d[:, t_idx, node] * sign).sum(dim=3)  # [B, T, Lp]
-    hit = z == tables.leaf_target
-    acc = torch.zeros(b)
-    for t in range(feat.shape[0]):
-        for l in range(hit.shape[2]):
-            acc = acc + torch.where(hit[:, t, l], tables.gemm.leaf_val[t, l],
-                                    torch.zeros(()))
-    return acc
-
-
 @pytest.mark.parametrize("n_trees,max_depth", [(7, 5), (10, 3), (13, 6)])
 def test_compact_form_matches_dense_form(n_trees, max_depth):
     rng = np.random.default_rng(21)
@@ -242,12 +228,9 @@ def test_compact_form_matches_dense_form(n_trees, max_depth):
     for z_mode in ("f32", "bf16", "int8"):
         tables = fk.to_kernel_tables(g, z_mode)
         dense = tforest.gemm_leaf_sum(tables.gemm, x, z_mode)
-        compact = _compact_leaf_sum(tables, x)
-        np.testing.assert_allclose(compact.numpy(), dense.numpy(),
-                                   atol=ATOL_SUM_ORDER)
-        assert np.array_equal(compact.numpy() / n_trees >= 0.5,
-                              dense.numpy() / n_trees >= 0.5)
-        sums.append(compact.numpy())
+        compact = descent_leaf_sum(tables, x.numpy())
+        np.testing.assert_array_equal(compact, dense.numpy())
+        sums.append(compact)
     np.testing.assert_array_equal(sums[0], sums[1])
     np.testing.assert_array_equal(sums[0], sums[2])
 

@@ -12,7 +12,8 @@ Without a card they skip. Tolerances: features bit-identical (kernel and
 plain version add the window buckets in the same order, with IEEE division
 and no FMA contraction); leaf sums within ``atol=1e-5`` of the plain
 version with identical decisions, and bit-identical across the z modes
-(z is an exact integer in each); logreg probabilities within ``1e-6`` of
+(z is an exact integer in each) — bit-identical to the plain version too
+on the serving-size forests (both add the trees in order); logreg probabilities within ``1e-6`` of
 the plain version (the kernel's ``expf`` and PyTorch's sigmoid differ by
 ulps). Engine against engine: amount averages within ``rtol=1e-6`` (the
 card's ``index_add_`` adds a day's amounts in any order), probabilities
@@ -33,6 +34,7 @@ from real_time_fraud_detection_system_tpu_torch.config import (
 from real_time_fraud_detection_system_tpu_torch.data import generate_dataset
 from real_time_fraud_detection_system_tpu_torch.io.sink import MemorySink
 from real_time_fraud_detection_system_tpu_torch.models.forest import (
+    ragged_ensemble,
     synthetic_ensemble,
     to_gemm,
 )
@@ -128,10 +130,9 @@ def test_kernel_wrapper_refuses_what_the_kernel_does_not_take(cuda):
 
 @pytest.mark.parametrize("n_trees,max_depth", [(10, 5), (1, 12)])
 def test_engine_on_cuda_matches_cpu_engine(cuda, n_trees, max_depth):
-    """Depth 5 is admitted to the fused kernel; depth 12 is not (its
-    tables exceed the kernel's 48 KB of shared memory), so it takes the
-    unfused step on the card, with the leaf-sum kernel (which opts in to
-    more)."""
+    """Both depths take the fused kernel: its block holds only the feature
+    tile in shared memory and reads the node tables from device memory,
+    so depth does not limit its admission."""
     cfg = Config(data=DataConfig(n_customers=120, n_terminals=240,
                                  n_days=45, seed=7),
                  features=FeatureConfig(customer_capacity=128,
@@ -150,18 +151,14 @@ def test_engine_on_cuda_matches_cpu_engine(cuda, n_trees, max_depth):
     for dev in ("cpu", "cuda"):
         eng = ScoringEngine(cfg, "forest", ens,
                             fit_scaler(feats, device=dev), device=dev)
-        admitted = eng.tables is not None
-        assert admitted == (max_depth <= 8)
-        assert (eng.leaf_tables is not None) == (not admitted)
+        assert eng.tables is not None and eng.leaf_tables is None
         sinks[dev] = MemorySink()
         before = (fk.fused_forest_leaf_sum.launches, fk.leaf_sum.launches)
         stats = eng.run(ReplaySource(txs, START, batch_rows=1000),
                         sinks[dev])
         on_card = stats["batches"] if dev == "cuda" else 0
-        assert fk.fused_forest_leaf_sum.launches - before[0] \
-            == (on_card if admitted else 0)
-        assert fk.leaf_sum.launches - before[1] \
-            == (0 if admitted else on_card)
+        assert fk.fused_forest_leaf_sum.launches - before[0] == on_card
+        assert fk.leaf_sum.launches == before[1]
     got, want = sinks["cuda"].concat(), sinks["cpu"].concat()
     for k in want:
         if k == "processed_at_us":
@@ -201,6 +198,52 @@ def test_leaf_sum_kernel_matches_plain_version(cuda, rows):
     assert torch.equal(leaves[0], leaves[2])
 
 
+FORESTS = {  # (trees, depth, ragged): the flagship shape, irregular trees
+    # of depths 1..8 and 1..12, and complete trees deeper than any the
+    # fused kernel was admitted before the descent (depth 10)
+    "complete-depth8": (100, 8, False),
+    "ragged-depth8": (100, 8, True),
+    "ragged-depth12": (100, 12, True),
+    "complete-depth11": (10, 11, False),
+}
+
+
+@pytest.mark.parametrize("rows", [300, 65536])
+@pytest.mark.parametrize("forest", sorted(FORESTS))
+def test_forest_kernels_equal_plain_versions_at_serving_size(cuda, forest,
+                                                             rows):
+    """Both forest kernels against their plain versions, bit for bit with
+    identical decisions, in every z mode; the ragged forests have leaves
+    at every depth from 1 to their depth, and trees of different depths
+    side by side, so a wrong child link or trip count shows."""
+    n_trees, depth, ragged = FORESTS[forest]
+    make = ragged_ensemble if ragged else synthetic_ensemble
+    g = to_gemm(make(n_trees, depth, N_FEAT, seed=1, device=cuda), N_FEAT)
+    rng = np.random.default_rng(rows)
+    args = _gathered(rng, rows, cuda)
+    x = torch.as_tensor(rng.normal(size=(rows, N_FEAT)).astype(np.float32),
+                        device=cuda)
+    sums = {"fused": [], "leaf": []}
+    for z_mode in ("f32", "bf16", "int8"):
+        tables = fk.to_kernel_tables(g, z_mode)
+        before = (fk.fused_forest_leaf_sum.launches, fk.leaf_sum.launches)
+        leaf, feats = fk.fused_forest_leaf_sum(tables, **args)
+        lsum = fk.leaf_sum(tables, x)
+        torch.cuda.synchronize()
+        assert (fk.fused_forest_leaf_sum.launches,
+                fk.leaf_sum.launches) == (before[0] + 1, before[1] + 1)
+        pleaf, pfeats = fk.fused_forest_leaf_sum_plain(tables, **args)
+        assert torch.equal(feats, pfeats)
+        assert torch.equal(leaf, pleaf)
+        assert torch.equal(lsum, fk.leaf_sum_plain(tables, x))
+        sums["fused"].append(leaf)
+        sums["leaf"].append(lsum)
+    for got in sums.values():
+        assert torch.equal(got[0], got[1]) and torch.equal(got[0], got[2])
+    share = float((sums["leaf"][0] / n_trees >= 0.5).float().mean())
+    assert 0 < share < 1
+
+
 @pytest.mark.parametrize("rows", [1, 300, 4096])
 def test_fused_score_kernel_matches_plain_version(cuda, rows):
     rng = np.random.default_rng(rows)
@@ -232,12 +275,13 @@ def test_new_wrappers_refuse_what_their_kernels_do_not_take(cuda):
         fk.leaf_sum(tables, torch.zeros((8, 17), device=cuda))
     with pytest.raises(ValueError, match="^x:"):
         fk.leaf_sum(tables, torch.zeros((16, N_FEAT), device=cuda)[::2])
-    # depth-13 shapes (no data: a stride-0 view) exceed even 227 KB
-    wide = torch.zeros((1, 1, 1), device=cuda)
-    deep = tables._replace(gemm=tables.gemm._replace(
-        sel=wide.expand(10, 16, 8192), path=wide.expand(10, 8192, 8192)))
+    # 512 features (no data: a stride-0 view) need a 256 KB feature tile,
+    # past the 227 KB a block may have
+    one = torch.zeros((1, 1, 1), device=cuda)
+    wide = tables._replace(gemm=tables.gemm._replace(
+        sel=one.expand(10, 512, 8)))
     with pytest.raises(ValueError, match="shared-memory"):
-        fk.leaf_sum(deep, x)
+        fk.leaf_sum(wide, x)
     args = _gathered(np.random.default_rng(0), 8, cuda)
     args.update(valid=torch.ones(8, dtype=torch.bool, device=cuda),
                 w=torch.zeros(N_FEAT, device=cuda),

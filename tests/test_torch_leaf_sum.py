@@ -6,8 +6,8 @@ its Pallas kernel in interpret mode — and against the JAX
 ``gemm_leaf_sum``, mirroring ``tests/test_pallas_forest.py``. Ensembles are
 fitted with sklearn in the JAX package and carried across with
 ``weights.from_numpy``; the kernel itself runs only on a card
-(``tests/test_torch_gpu.py``), and its walk over the compact tables is
-held against the dense form in ``tests/test_torch_fused_forest.py``.
+(``tests/test_torch_gpu.py``), and its descent over the node tables is
+held against the dense form in ``tests/test_torch_forest_descent.py``.
 
 Tolerances: leaf sums within ``atol=1e-5`` of the JAX package (float32
 sums over trees in another order: the Pallas kernel adds blocks of ten);
@@ -75,7 +75,7 @@ def test_leaf_sum_matches_jax_pallas(n_trees, max_depth):
                                                  z_mode="f32"))
     np.testing.assert_allclose(got, want_pallas, rtol=0.0, atol=ATOL_LEAF)
     np.testing.assert_allclose(got, want_gemm, rtol=0.0, atol=ATOL_LEAF)
-    p = fk.leaf_sum_predict_proba(tables, torch.as_tensor(xq)).numpy()
+    p = (fk.leaf_sum(tables, torch.as_tensor(xq)) / n_trees).numpy()
     np.testing.assert_allclose(p, clf.predict_proba(xq)[:, 1],
                                rtol=0.0, atol=ATOL_PROB)
 
@@ -91,8 +91,7 @@ def test_threshold_edge_inputs(z_mode):
     th = th[np.isfinite(th) & (th != 0)]
     k = min(len(th), 64)
     xq = np.tile(th[:k, None], (1, N_FEAT)).astype(np.float32)
-    p = fk.leaf_sum_predict_proba(_tables(jg, z_mode),
-                                  torch.as_tensor(xq)).numpy()
+    p = (fk.leaf_sum(_tables(jg, z_mode), torch.as_tensor(xq)) / 5).numpy()
     p_skl = clf.predict_proba(xq)[:, 1]
     np.testing.assert_allclose(p, p_skl, rtol=0.0, atol=ATOL_PROB)
     p_jax = np.asarray(pallas_leaf_sum(to_pallas(jg, z_mode),
@@ -129,7 +128,7 @@ def test_padding_is_inert():
     tables = _tables(jg)
     assert tables.gemm.sel.shape[0] == fk.TREE_BLOCK and tables.n_trees == 3
     xq = rng.normal(size=(9, N_FEAT)).astype(np.float32)
-    got = fk.leaf_sum_predict_proba(tables, torch.as_tensor(xq)).numpy()
+    got = (fk.leaf_sum(tables, torch.as_tensor(xq)) / 3).numpy()
     want = np.asarray(jforest.gemm_predict_proba(jg, jnp.asarray(xq),
                                                  z_mode="f32"))
     np.testing.assert_allclose(got, want, rtol=0.0, atol=ATOL_PROB)
@@ -168,21 +167,20 @@ def _meta_gemm(n_trees, n_internal, n_leaves):
         leaf_val=z(n_trees, n_leaves))
 
 
-@pytest.mark.parametrize("depth,fused,leaf", [
-    (8, True, True), (10, True, True), (11, False, True), (12, False, True),
-    (13, False, False)])
-def test_leaf_sum_admission_is_static_and_sized_in_shared_memory(
-        depth, fused, leaf):
+@pytest.mark.parametrize("depth", [8, 10, 11, 12, 13])
+def test_leaf_sum_admission_is_static_and_sized_in_shared_memory(depth):
+    """The leaf-sum kernel has the fused kernel's block layout and one
+    admission predicate with it: both read the node tables from device
+    memory and hold only the feature tile in shared memory, so every depth
+    is admitted."""
     g = _meta_gemm(100, 2 ** depth - 1, 2 ** depth)
-    adm = fk.admit_leaf_sum(g)
+    adm = fk.admit_tables(g)
     side = 2 ** depth if depth > 7 else 128
     assert adm.padded == (100, 16, side, side)
-    assert adm.smem_bytes == fk.smem_bytes(16, side, side)
-    assert adm.budget == fk.LEAF_SUM_SMEM_BUDGET == 227 * 1024
-    assert adm.fits == leaf
-    assert fk.admit_tables(g).fits == fused
-    if depth == 12:
-        assert adm.smem_bytes == 139264  # 136 KB: opts in past 48 KB
+    assert adm.smem_bytes == fk.smem_bytes(16) == 8192
+    assert adm.budget == fk.SMEM_BUDGET == 227 * 1024
+    assert adm.fits
+    assert not fk.admit_tables(g, budget=8191).fits
 
 
 def test_cpu_leaf_sum_wrapper_takes_the_plain_version():

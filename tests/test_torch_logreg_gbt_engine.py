@@ -63,6 +63,9 @@ from real_time_fraud_detection_system_tpu_torch.io.sink import MemorySink
 from real_time_fraud_detection_system_tpu_torch.models.forest import (
     synthetic_ensemble,
 )
+from real_time_fraud_detection_system_tpu_torch.models.gbt import (
+    synthetic_gbt,
+)
 from real_time_fraud_detection_system_tpu_torch.models.logreg import (
     LogRegParams,
 )
@@ -215,30 +218,35 @@ def test_engine_takes_its_kernel_branch_and_counts_no_cpu_launch(served):
 
 @pytest.mark.parametrize("branch", ["fused", "leaf_sum", "plain"])
 def test_forest_branches_agree(branch, small_dataset, monkeypatch):
-    """The forest step's three branches, in the JAX order: the fused
-    kernel when admit_tables holds, else the leaf-sum kernel when
-    admit_leaf_sum holds, else the plain predict. The admission is forced
-    here; on the CPU the three give the same probabilities, bit for bit
-    (one matched leaf per tree; padded trees add 0)."""
+    """The tree steps' branches, in the JAX order: forest takes the fused
+    kernel and gbt the leaf-sum kernel when admit_tables holds, else the
+    plain predict ("plain": a forest refused admission). Each is held
+    against its kind's plain predict, forced by refusing admission; on the
+    CPU they give the same probabilities, bit for bit (one matched leaf
+    per tree; padded trees add 0)."""
     _, tcfg = _configs(False)
     txs = _port_txs(small_dataset[3]).slice(slice(0, 300))
-    ens = synthetic_ensemble(6, 4, 15, seed=5, device="cpu")
+    kind = "gbt" if branch == "leaf_sum" else "forest"
+    model = (synthetic_gbt if kind == "gbt" else synthetic_ensemble)(
+        6, 4, 15, seed=5, device="cpu")
     scaler = _stream_scaler(tcfg, txs)
 
     def serve():
-        eng = ScoringEngine(tcfg, "forest", ens, scaler, device="cpu")
+        eng = ScoringEngine(tcfg, kind, model, scaler, device="cpu")
         sink = MemorySink()
         eng.run(ReplaySource(txs, START, batch_rows=128), sink)
         return eng, sink.concat()
 
-    _, want = serve()
-    refuse = lambda g, budget=0: forest_kernels.admit_tables(g, 0)  # noqa
-    if branch != "fused":
-        monkeypatch.setattr(engine, "admit_tables", refuse)
+    got_eng, got = serve()
     if branch == "plain":
-        monkeypatch.setattr(engine, "admit_leaf_sum", refuse)
-    eng, got = serve()
-    assert (eng.tables is not None) == (branch == "fused")
-    assert (eng.leaf_tables is not None) == (branch == "leaf_sum")
+        monkeypatch.setattr(engine, "admit_tables",
+                            lambda g: forest_kernels.admit_tables(g, 0))
+        got_eng, got = serve()
+    assert (got_eng.tables is not None) == (branch == "fused")
+    assert (got_eng.leaf_tables is not None) == (branch == "leaf_sum")
+    monkeypatch.setattr(engine, "admit_tables",
+                        lambda g: forest_kernels.admit_tables(g, 0))
+    plain_eng, want = serve()
+    assert plain_eng.tables is None and plain_eng.leaf_tables is None
     np.testing.assert_array_equal(got["prediction"], want["prediction"])
     assert got["prediction"].std() > 0
