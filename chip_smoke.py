@@ -11,14 +11,18 @@ Phases, each printing JSON lines:
    all started together, for sm_90a), one line per library with the
    compiler's register and shared-memory report.
 3. ``kernel`` — each kernel against its plain PyTorch version on the card,
-   with its time, the plain version's time and its bound: the fused
+   with its device time (``graph_ms``), the plain version's time and its
+   bound: the fused
    featurize→forest kernel and the leaf-sum kernel, bit for bit, in every
    z mode, on three forests of T=100 — the flagship shape (complete trees
    of depth 8), ragged trees of depths 1..8 and ragged trees of depths
    1..12 (``models/forest.py::ragged_ensemble``, seeded numpy: leaves at
    many depths, trees of different depths side by side), and ten complete
    trees of depth 11 — and the fused featurize→logreg kernel, each at a
-   ragged B = 300 and the serving bucket B = 65,536.
+   ragged B = 300 and the serving bucket B = 65,536, and at B = 300 with
+   NB = 38. The fused kernels read feature-state tables of the default
+   capacities by slots drawn over the default dataset's id ranges; beside
+   them ``gathers_ms`` times the row gathers they make unnecessary.
 4. ``main_path`` — the default dataset (``DataConfig()``, seed 0) served
    through ``ScoringEngine.run`` at 65,536-row batches into a
    ``MemorySink``, once per model kind: forest (the fused forest kernel),
@@ -29,7 +33,8 @@ Phases, each printing JSON lines:
    the path's own kernel must launch once per batch and the others not at
    all. The first two batches are held against a CPU-device engine.
 5. ``profile`` — a few batches of each path under ``torch.profiler``:
-   device time by kernel and the device's idle share.
+   device time by kernel, the device's idle share, and the ``[B, NB]``
+   row gathers (none on the fused paths).
 6. ``kernels`` — one line per the measurement contract.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises and
@@ -59,7 +64,10 @@ START_EPOCH_S = 1_743_465_600  # 2025-04-01, DataConfig.start_date
 ATOL_LEAF = 1e-5  # leaf sums (both sides add trees in order: expect 0)
 ATOL_SIGMOID = 1e-6  # logreg and gbt probabilities: expf against PyTorch's
 RTOL_FEATURE = 1e-6  # float32 window sums in another order
-KERNEL_ROWS = (300, 65536)  # a ragged batch, then the serving bucket
+# (rows, NB): a ragged batch, the serving bucket, and NB = 38 (the 7-day
+# delay + the 30-day window + 1); the second is what the kernels line
+# reports.
+KERNEL_CASES = ((300, 40), (65536, 40), (300, 38))
 # The forests of phase ``kernel``: (trees, max depth, ragged); the first
 # is the flagship shape the kernels line reports.
 FORESTS = {"complete_depth8": (100, 8, False),
@@ -73,7 +81,6 @@ PATHS = ("forest", "logreg", "gbt")
 OWN_KERNEL = {"forest": "fused_forest_leaf_sum",
               "logreg": "fused_featurize_score",
               "gbt": "leaf_sum"}
-COUNT_COLS = [0, 1, 2, 3, 5, 7, 9, 11, 13]  # counts, flags, TX_AMOUNT
 PKG = "real_time_fraud_detection_system_tpu_torch"
 KERNELS = {  # name → (port source, the TPU kernel it replaces)
     "fused_forest_leaf_sum": (
@@ -109,6 +116,31 @@ def cuda_ms(fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def graph_ms(fn, reps: int, replays: int = 3) -> float:
+    """Mean device milliseconds per call of a kernel wrapper ``fn``:
+    ``reps`` calls captured back to back into one CUDA graph, replayed
+    ``replays`` times between CUDA events. The host's cost of a call (the
+    wrapper's checks, the launch through ctypes; ~0.03-0.08 ms) is paid at
+    capture, so a kernel shorter than it is not timed as the host's rate
+    of launches."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / (reps * replays)
 
 
 def counters() -> dict:
@@ -170,35 +202,69 @@ def phase_build() -> None:
                         if "registers" in ln or "spill" in ln]})
 
 
-def _gathered_rows(rng, b: int, nb: int, dev):
-    """Gathered window rows like the serving path's: stamps within the
-    last ~45 days (some empty), small counts, cent amounts, fraud ≤ count."""
-    day = np.full(b, 20200, np.int32)
-    bd = (20200 - rng.integers(-1, 46, (b, nb))).astype(np.int32)
-    bd[rng.random((b, nb)) < 0.3] = -1
-    c_cnt = rng.integers(0, 4, (b, nb)).astype(np.float32)
-    c_amt = (c_cnt * rng.integers(100, 20000, (b, nb)) / 100.0
-             ).astype(np.float32)
-    t_cnt = rng.integers(0, 30, (b, nb)).astype(np.float32)
-    t_frd = np.minimum(rng.integers(0, 3, (b, nb)), t_cnt).astype(np.float32)
+def _state_tables(rng, nb: int, dev):
+    """Customer and terminal feature-state tables at the default
+    capacities, filled like the serving path's: stamps within the last ~45
+    days (some empty), small counts, cent amounts, fraud ≤ count."""
+    from real_time_fraud_detection_system_tpu_torch.config import (
+        FeatureConfig,
+    )
+    from real_time_fraud_detection_system_tpu_torch.ops.windows import (
+        WindowState,
+    )
+
+    fcfg = FeatureConfig()
+    out = []
+    for cap, hi in ((fcfg.customer_capacity, 4), (fcfg.terminal_capacity,
+                                                  30)):
+        bd = (20200 - rng.integers(-1, 46, (cap, nb))).astype(np.int32)
+        bd[rng.random((cap, nb)) < 0.3] = -1
+        cnt = rng.integers(0, hi, (cap, nb)).astype(np.float32)
+        amt = (cnt * rng.integers(100, 20000, (cap, nb)) / 100.0
+               ).astype(np.float32)
+        frd = np.minimum(rng.integers(0, 3, (cap, nb)), cnt).astype(
+            np.float32)
+        out.append(WindowState(*(torch.as_tensor(a, device=dev)
+                                 for a in (bd, cnt, amt, frd))))
+    return out
+
+
+def _feature_inputs(rng, b: int, nb: int, dev) -> dict:
+    """The fused kernels' feature arguments, by keyword: state tables of
+    the default capacities and a batch of slots drawn, with repeats, over
+    the default dataset's customer and terminal ids."""
+    from real_time_fraud_detection_system_tpu_torch.config import DataConfig
+
+    dcfg = DataConfig()
+    customer, terminal = _state_tables(rng, nb, dev)
     as_t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
     return dict(
-        c_rows=(as_t(bd), as_t(c_cnt), as_t(c_amt)),
-        t_rows=(as_t(bd.copy()), as_t(t_cnt), as_t(t_frd)),
-        day=as_t(day),
+        customer=customer, terminal=terminal,
+        cust_slot=as_t(rng.integers(0, dcfg.n_customers, b)),
+        term_slot=as_t(rng.integers(0, dcfg.n_terminals, b)),
+        day=as_t(np.full(b, 20200, np.int32)),
         tod_s=as_t(rng.integers(0, 86400, b).astype(np.int32)),
         amount=as_t((rng.integers(100, 30000, b) / 100.0).astype(np.float32)),
     )
 
 
+def _row_bytes(args) -> int:
+    """Bytes of the table rows the feature half needs: each distinct slot's
+    NB words of the three arrays a feature reads, once per table."""
+    nb = args["customer"].n_buckets
+    return sum(int(torch.unique(args[k]).numel()) * 3 * nb * 4
+               for k in ("cust_slot", "term_slot"))
+
+
 def _bound(inputs, outputs, needed_ops: int, tree_bytes: int = 0,
-           **extra) -> dict:
+           row_bytes: int = 0, **extra) -> dict:
     """Least time for a kernel's function on this card: the larger of its
     bytes (each of ITS inputs read once, each of its outputs written once;
-    the trees counted by ``tree_bytes``) over the memory rate and the
-    operations these inputs need over the 32-bit rate."""
-    nbytes = tree_bytes + sum(t.numel() * t.element_size()
-                              for t in (*inputs, *outputs))
+    the trees counted by ``tree_bytes``, the table rows by ``row_bytes``)
+    over the memory rate and the operations these inputs need over the
+    32-bit rate."""
+    nbytes = tree_bytes + row_bytes + sum(t.numel() * t.element_size()
+                                          for t in (*inputs, *outputs))
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = needed_ops / INT32_OPS_PER_S * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
@@ -257,10 +323,11 @@ def _tree_bytes(tables) -> int:
     return 8 * internal + 4 * leaves
 
 
-def _time(kernel, plain, bound: dict) -> dict:
-    """The kernel's and its plain version's mean ms, beside its bound."""
-    return {"ms": cuda_ms(kernel, 20), "plain_ms": cuda_ms(plain, 3),
-            **bound, "library_ms": None}
+def _time(kernel, plain, bound: dict, **extra) -> dict:
+    """The kernel's mean device ms (``graph_ms``) and its plain version's
+    mean ms, beside its bound."""
+    return {"ms": graph_ms(kernel, 20), "plain_ms": cuda_ms(plain, 3),
+            **bound, "library_ms": None, **extra}
 
 
 def phase_kernel(dev) -> dict:
@@ -280,6 +347,10 @@ def phase_kernel(dev) -> dict:
     )
     from real_time_fraud_detection_system_tpu_torch.ops.features_fused import (
         assemble_features,
+        gather_feature_rows,
+    )
+    from real_time_fraud_detection_system_tpu_torch.ops.windows import (
+        gather_state_rows,
     )
 
     flagship = next(iter(FORESTS))
@@ -294,30 +365,45 @@ def phase_kernel(dev) -> dict:
     rng = np.random.default_rng(0)
     out = {k: {"max_abs_err": 0.0} for k in KERNELS}
 
-    def record(name, b, line):
+    def record(name, b, nb, line):
         """Emit a kernel line; the serving bucket in the serving z mode
         (int8 on CUDA) on the flagship forest is what the kernels line
         reports."""
         out[name]["max_abs_err"] = max(out[name]["max_abs_err"],
                                        line["max_abs_err"])
-        if b == KERNEL_ROWS[-1] and line.get("z_mode", "int8") == "int8" \
+        if (b, nb) == KERNEL_CASES[1] \
+                and line.get("z_mode", "int8") == "int8" \
                 and line.get("forest", flagship) == flagship:
             out[name].update({k: line[k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by")})
-        emit({"phase": "kernel", "kernel": name, "rows": b, **line})
+        emit({"phase": "kernel", "kernel": name, "rows": b, "nb": nb,
+              **line})
 
-    for b in KERNEL_ROWS:
-        args = _gathered_rows(rng, b, 40, dev)
-        feats = assemble_features(args["c_rows"], args["t_rows"], args["day"],
-                                  args["tod_s"], args["amount"],
-                                  windows=(1, 7, 30), delay=7,
-                                  weekend_start=5, night_end=6)
+    for b, nb in KERNEL_CASES:
+        args = _feature_inputs(rng, b, nb, dev)
+        feats = assemble_features(
+            *gather_feature_rows(args["customer"], args["terminal"],
+                                 args["cust_slot"], args["term_slot"]),
+            args["day"], args["tod_s"], args["amount"], windows=(1, 7, 30),
+            delay=7, weekend_start=5, night_end=6)
         scaler = fit_scaler(feats.cpu().numpy(), device=dev)
         args.update(scaler_mean=scaler.mean, scaler_scale=scaler.scale)
         x = transform(Scaler(scaler.mean, scaler.scale), feats).contiguous()
-        gathered = [*args["c_rows"], *args["t_rows"], args["day"],
-                    args["tod_s"], args["amount"]]
-        feature_ops = _feature_ops(b, 40, 3, 15)
+        # what the function reads beside the table rows (_row_bytes)
+        scalars = [args[k] for k in ("cust_slot", "term_slot", "day",
+                                     "tod_s", "amount")]
+        row_bytes = _row_bytes(args)
+        feature_ops = _feature_ops(b, nb, 3, 15)
+        # the row gathers (the port's plain gather_state_rows of both
+        # tables) that the fused kernels make unnecessary
+        gathers_ms = cuda_ms(lambda: (
+            gather_state_rows(args["customer"], args["cust_slot"]),
+            gather_state_rows(args["terminal"], args["term_slot"])), 20)
+        distinct = {"distinct_customers":
+                    int(torch.unique(args["cust_slot"]).numel()),
+                    "distinct_terminals":
+                    int(torch.unique(args["term_slot"]).numel()),
+                    "row_bytes": row_bytes, "gathers_ms": gathers_ms}
 
         # -- fused featurize → forest, and leaf sum, on every forest in
         # every z mode: bit for bit against the plain versions
@@ -334,11 +420,9 @@ def phase_kernel(dev) -> dict:
                 pleaf, pfeats = forest_kernels.fused_forest_leaf_sum_plain(
                     tab, **args)
                 psum = forest_kernels.leaf_sum_plain(tab, x)
-                check(torch.equal(kfeats[:, COUNT_COLS],
-                                  pfeats[:, COUNT_COLS]),
-                      "count/flag features differ from the plain version")
-                torch.testing.assert_close(kfeats, pfeats, rtol=RTOL_FEATURE,
-                                           atol=0.0)
+                check(torch.equal(kfeats, pfeats),
+                      f"fused forest features differ from the plain version "
+                      f"by {float((kfeats - pfeats).abs().max())}")
                 runs = {
                     "fused_forest_leaf_sum": (
                         leaf, pleaf, float((kfeats - pfeats).abs().max()),
@@ -346,9 +430,9 @@ def phase_kernel(dev) -> dict:
                             tab, **args),
                         lambda: forest_kernels.fused_forest_leaf_sum_plain(
                             tab, **args),
-                        _bound(gathered + [scaler.mean, scaler.scale],
+                        _bound(scalars + [scaler.mean, scaler.scale],
                                [leaf, kfeats], feature_ops + walk["ops"],
-                               tree_bytes,
+                               tree_bytes, row_bytes,
                                mean_levels_per_tree=walk[
                                    "mean_levels_per_tree"],
                                algorithm_ops=walk["algorithm_ops"])),
@@ -370,12 +454,14 @@ def phase_kernel(dev) -> dict:
                                 == (want / n_trees >= 0.5)).all()),
                           f"{name} decisions differ from the plain version")
                     sums[name][z] = got
-                    record(name, b, {
+                    record(name, b, nb, {
                         "forest": fname, "z_mode": z,
                         "max_abs_err": max(err, feat_err),
                         "decision_share_fraud": float((got / n_trees >= 0.5)
                                                       .float().mean()),
-                        **_time(kernel, plain, bound)})
+                        **_time(kernel, plain, bound,
+                                **(distinct if name == "fused_forest_leaf_sum"
+                                   else {}))})
             for name, by_z in sums.items():
                 for z in ("bf16", "int8"):
                     check(torch.equal(by_z[z], by_z["f32"]),
@@ -394,17 +480,16 @@ def phase_kernel(dev) -> dict:
         probs, sfeats = score_kernels.fused_featurize_score(**sargs)
         torch.cuda.synchronize()
         pprobs, psfeats = score_kernels.fused_featurize_score_plain(**sargs)
-        check(torch.equal(sfeats[:, COUNT_COLS], psfeats[:, COUNT_COLS]),
-              "fused logreg count/flag features differ from the plain one")
-        torch.testing.assert_close(sfeats, psfeats, rtol=RTOL_FEATURE,
-                                   atol=0.0)
+        check(torch.equal(sfeats, psfeats),
+              f"fused logreg features differ from the plain version by "
+              f"{float((sfeats - psfeats).abs().max())}")
         check(torch.equal(sfeats, kfeats),
               "the two fused kernels' features differ on the same rows")
         err = float((probs - pprobs).abs().max())
         check(err <= ATOL_SIGMOID, f"fused logreg probs differ by {err}")
         check(bool(((probs >= 0.5) == (pprobs >= 0.5)).all()),
               "fused logreg decisions differ from the plain version")
-        record("fused_featurize_score", b, {
+        record("fused_featurize_score", b, nb, {
             "max_abs_err": max(err, float((sfeats - psfeats).abs().max())),
             "decision_share_fraud": float((probs >= 0.5).float().mean()),
             **_time(
@@ -412,9 +497,10 @@ def phase_kernel(dev) -> dict:
                 lambda: score_kernels.fused_featurize_score_plain(**sargs),
                 # per row beyond the features: 15 products and adds, the
                 # bias, the sigmoid (negate, exp, add, divide), the mask
-                _bound(gathered + [valid, scaler.mean, scaler.scale, w,
-                                   sargs["b"]], [probs, sfeats],
-                       feature_ops + b * (2 * 15 + 1 + 4 + 1)))})
+                _bound(scalars + [valid, scaler.mean, scaler.scale, w,
+                                  sargs["b"]], [probs, sfeats],
+                       feature_ops + b * (2 * 15 + 1 + 4 + 1),
+                       row_bytes=row_bytes), **distinct)})
     return out
 
 
@@ -586,7 +672,10 @@ def phase_main_path(dev, device_info, data: dict, kind: str) -> dict:
 
 def phase_profile(dev, data: dict, kind: str) -> None:
     """Device time by kernel over a few batches of a path under
-    torch.profiler, and the device's idle share of that window."""
+    torch.profiler, the device's idle share of that window, and the
+    ``[B, NB]`` row gathers (``aten::index`` on a 2-D state table): the
+    fused paths' kernels read the rows by slot, so only gbt's unfused step
+    gathers them."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -603,17 +692,24 @@ def phase_profile(dev, data: dict, kind: str) -> None:
     src = ReplaySource(data["txs"], START_EPOCH_S, batch_rows=BATCH_ROWS)
     eng.run(src, max_batches=1)  # warm-up
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
         t0 = time.perf_counter()
         eng.run(src, max_batches=PROFILE_BATCHES)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     device = {}
+    gathers, gather_ms = 0, 0.0
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             device[e.name] = device.get(e.name, 0.0) + e.device_time_total / 1e3
+        elif e.name == "aten::index" and e.input_shapes \
+                and len(e.input_shapes[0]) == 2:
+            gathers += 1
+            gather_ms += e.device_time_total / 1e3
     n = PROFILE_BATCHES
+    check((gathers == 0) == (kind != "gbt"),
+          f"{kind}: {gathers} [B, NB] row gathers in {n} batches")
     busy = sum(device.values())
     top = sorted(device.items(), key=lambda kv: -kv[1])[:8]
     emit({"phase": "profile", "path": kind, "batches": n,
@@ -622,6 +718,8 @@ def phase_profile(dev, data: dict, kind: str) -> None:
           "device_ms_per_batch": ({k[:80]: v / n for k, v in top}
                                   if device else "not measured"),
           "device_busy_ms_per_batch": busy / n if device else None,
+          "row_gathers_per_batch": gathers / n,
+          "row_gather_ms_per_batch": gather_ms / n if device else None,
           "device_idle_share": 1.0 - busy / wall_ms if device else None})
 
 

@@ -3,8 +3,10 @@
 Port of the JAX package's ``features/online.py`` for the serving path's
 configuration: ``key_mode="direct"`` with ``customer_source="table"``.
 One call per micro-batch scatters the batch into the rolling-window state,
-then gathers the feature vector of every row (update-then-query: a row's
-windows include itself and its batch-mates of the same key and day).
+then reads the feature vector of every row from it (update-then-query: a
+row's windows include itself and its batch-mates of the same key and day).
+The fused steps hand the tables and slots to their kernels, which read the
+rows by slot; the unfused step gathers the rows first.
 
 Terminal fraud labels arrive late; the risk windows are delay-shifted, so
 current-batch labels never reach the queried window.
@@ -24,6 +26,7 @@ from real_time_fraud_detection_system_tpu_torch.config import FeatureConfig
 from real_time_fraud_detection_system_tpu_torch.core.batch import TxBatch
 from real_time_fraud_detection_system_tpu_torch.ops.features_fused import (
     flags,
+    gather_feature_rows,
     ratio,
     stack_features,
 )
@@ -36,7 +39,6 @@ from real_time_fraud_detection_system_tpu_torch.ops.score_kernels import (
 )
 from real_time_fraud_detection_system_tpu_torch.ops.windows import (
     WindowState,
-    gather_state_rows,
     init_window_state,
     update_windows,
     window_sums,
@@ -127,12 +129,6 @@ def _update_state(
     return state, cust_slot, term_slot
 
 
-def _gathered(state: FeatureState, cust_slot, term_slot):
-    c_bd, c_cnt, c_amt, _ = gather_state_rows(state.customer, cust_slot)
-    t_bd, t_cnt, _, t_frd = gather_state_rows(state.terminal, term_slot)
-    return (c_bd, c_cnt, c_amt), (t_bd, t_cnt, t_frd)
-
-
 def update_and_featurize(
     state: FeatureState,
     batch: TxBatch,
@@ -141,8 +137,8 @@ def update_and_featurize(
     """Returns (state, features [B, 15]); the state is updated in place."""
     windows = tuple(cfg.windows)
     state, cust_slot, term_slot = _update_state(state, batch, cfg)
-    (c_bd, c_cnt, c_amt), (t_bd, t_cnt, t_frd) = _gathered(
-        state, cust_slot, term_slot)
+    (c_bd, c_cnt, c_amt), (t_bd, t_cnt, t_frd) = gather_feature_rows(
+        state.customer, state.terminal, cust_slot, term_slot)
     c_count, c_amount = window_sums(c_bd, (c_cnt, c_amt), batch.day, windows)
     t_count, t_fraud = window_sums(t_bd, (t_cnt, t_frd), batch.day, windows,
                                    cfg.delay_days)
@@ -168,19 +164,19 @@ def update_and_score_fused_forest(
     scaler_scale: torch.Tensor,
     tables: ForestTables,
 ) -> Tuple[FeatureState, torch.Tensor, torch.Tensor]:
-    """Scatter-update the state (in place), gather both tables' rows, and
-    run the fused featurize→forest step
-    (``ops/forest_kernels.py::fused_forest_leaf_sum``) on them.
+    """Scatter-update the state (in place), then run the fused
+    featurize→forest step (``ops/forest_kernels.py::fused_forest_leaf_sum``)
+    on both tables and the batch's slots: its kernel reads the updated
+    rows by slot.
 
     Counterpart of the JAX ``update_and_score_pallas_forest``: returns
     (state, leaf_sum [B], features [B, 15]); the caller divides by
     ``tables.n_trees`` and masks invalid rows.
     """
     state, cust_slot, term_slot = _update_state(state, batch, cfg)
-    c_rows, t_rows = _gathered(state, cust_slot, term_slot)
     leaf_sum, feats = fused_forest_leaf_sum(
-        tables, c_rows, t_rows, batch.day, batch.tod_s, batch.amount,
-        scaler_mean, scaler_scale,
+        tables, state.customer, state.terminal, cust_slot, term_slot,
+        batch.day, batch.tod_s, batch.amount, scaler_mean, scaler_scale,
         windows=tuple(cfg.windows),
         delay=cfg.delay_days,
         weekend_start=cfg.weekend_start_weekday,
@@ -198,18 +194,19 @@ def update_and_score_fused_logreg(
     w: torch.Tensor,
     b: torch.Tensor,
 ) -> Tuple[FeatureState, torch.Tensor, torch.Tensor]:
-    """Scatter-update the state (in place), gather both tables' rows, and
-    run the fused featurize→logreg step
-    (``ops/score_kernels.py::fused_featurize_score``) on them.
+    """Scatter-update the state (in place), then run the fused
+    featurize→logreg step (``ops/score_kernels.py::fused_featurize_score``)
+    on both tables and the batch's slots: its kernel reads the updated
+    rows by slot.
 
     Counterpart of the JAX ``update_and_score_pallas``: returns (state,
     probs [B], features [B, 15]); padded rows score 0.
     """
     state, cust_slot, term_slot = _update_state(state, batch, cfg)
-    c_rows, t_rows = _gathered(state, cust_slot, term_slot)
     probs, feats = fused_featurize_score(
-        c_rows, t_rows, batch.day, batch.tod_s, batch.amount, batch.valid,
-        scaler_mean, scaler_scale, w, b,
+        state.customer, state.terminal, cust_slot, term_slot, batch.day,
+        batch.tod_s, batch.amount, batch.valid, scaler_mean, scaler_scale,
+        w, b,
         windows=tuple(cfg.windows),
         delay=cfg.delay_days,
         weekend_start=cfg.weekend_start_weekday,

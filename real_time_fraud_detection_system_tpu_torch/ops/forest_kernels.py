@@ -18,9 +18,10 @@ about that.
   predicate on the ensemble's shapes, sized by :func:`smem_bytes` in
   shared-memory bytes, for both kernels (they have one block layout).
 - :func:`fused_forest_leaf_sum` (``csrc/fused_forest.cu``, replacing
-  ``fused_forest_leaf_sum``): gathered state rows → features → Σ_t leaf
-  value. Its plain version is the literal composition of
-  ``assemble_features``, ``transform`` and ``gemm_leaf_sum``.
+  ``fused_forest_leaf_sum``): state tables and slots → features → Σ_t
+  leaf value. Its plain version is the literal composition of
+  ``gather_feature_rows``, ``assemble_features``, ``transform`` and
+  ``gemm_leaf_sum``; the kernel reads the rows by slot itself.
 - :func:`leaf_sum` (``csrc/leaf_sum.cu``, replacing ``pallas_leaf_sum``):
   scaled features → Σ_t leaf value, for gbt. Its plain version is
   ``gemm_leaf_sum`` on the padded tables.
@@ -54,6 +55,12 @@ from real_time_fraud_detection_system_tpu_torch.ops.cuda_lib import (
 )
 from real_time_fraud_detection_system_tpu_torch.ops.features_fused import (
     assemble_features,
+    check_feature_inputs,
+    check_slots,
+    gather_feature_rows,
+)
+from real_time_fraud_detection_system_tpu_torch.ops.windows import (
+    WindowState,
 )
 
 # Tree-count padding multiple, kept from the TPU layout so both packages
@@ -270,8 +277,10 @@ def admit_tables(g: GemmEnsemble, budget: int = SMEM_BUDGET
 
 def fused_forest_leaf_sum_plain(
     tables: ForestTables,
-    c_rows: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
-    t_rows: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
+    customer: WindowState,
+    terminal: WindowState,
+    cust_slot: torch.Tensor,
+    term_slot: torch.Tensor,
     day: torch.Tensor,
     tod_s: torch.Tensor,
     amount: torch.Tensor,
@@ -282,7 +291,11 @@ def fused_forest_leaf_sum_plain(
     weekend_start: int = 5,
     night_end: int = 6,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version: (Σ_t leaf value [B], raw features [B, F])."""
+    """Plain PyTorch version: (Σ_t leaf value [B], raw features [B, F]).
+    Raises ``IndexError`` for a slot outside [0, capacity)."""
+    check_slots(customer, terminal, cust_slot, term_slot)
+    c_rows, t_rows = gather_feature_rows(customer, terminal, cust_slot,
+                                         term_slot)
     feats = assemble_features(
         c_rows, t_rows, day, tod_s, amount, windows=tuple(windows),
         delay=delay, weekend_start=weekend_start, night_end=night_end)
@@ -324,7 +337,7 @@ def _bind(source, prefix: str, launch_args) -> ctypes.CDLL:
 @functools.lru_cache(maxsize=None)
 def _library(source=SOURCE) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
-    return _bind(source, "fused_forest", [p] * 15 + [i] * 14 + [p])
+    return _bind(source, "fused_forest", [p] * 17 + [i] * 14 + [p])
 
 
 @functools.lru_cache(maxsize=None)
@@ -350,8 +363,10 @@ def _check_tables(tables: ForestTables, dev: torch.device
 
 def fused_forest_leaf_sum(
     tables: ForestTables,
-    c_rows: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],  # bd, cnt, amt
-    t_rows: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],  # bd, cnt, frd
+    customer: WindowState,  # [c_cap, NB]: bd, cnt, amt read
+    terminal: WindowState,  # [t_cap, NB]: bd, cnt, frd read
+    cust_slot: torch.Tensor,  # int64 [B] in [0, c_cap)
+    term_slot: torch.Tensor,  # int64 [B] in [0, t_cap)
     day: torch.Tensor,  # int32 [B]
     tod_s: torch.Tensor,  # int32 [B]
     amount: torch.Tensor,  # float32 [B]
@@ -362,36 +377,30 @@ def fused_forest_leaf_sum(
     weekend_start: int = 5,
     night_end: int = 6,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Gathered state rows → (Σ_t leaf value [B], raw features [B, F]).
+    """State tables and slots → (Σ_t leaf value [B], raw features [B, F]).
 
     CPU tensors go through :func:`fused_forest_leaf_sum_plain`. CUDA
     tensors launch the kernel on the current stream (no synchronisation)
-    or raise; ``fused_forest_leaf_sum.launches`` counts the launches.
+    or raise; ``fused_forest_leaf_sum.launches`` counts the launches. The
+    kernel reads the tables' rows by slot as they stand on the stream; a
+    slot outside [0, capacity) is the caller's error.
     """
     if day.device.type == "cpu":
         return fused_forest_leaf_sum_plain(
-            tables, c_rows, t_rows, day, tod_s, amount, scaler_mean,
-            scaler_scale, windows, delay, weekend_start, night_end)
+            tables, customer, terminal, cust_slot, term_slot, day, tod_s,
+            amount, scaler_mean, scaler_scale, windows, delay,
+            weekend_start, night_end)
     if day.device.type != "cuda":
         raise ValueError(f"no fused forest kernel for {day.device}")
     dev = day.device
-    b, nb = c_rows[0].shape
     n_win = len(windows)
     n_feat = 3 + 4 * n_win
     if not 1 <= n_win <= MAX_WINDOWS:
         raise ValueError(f"the kernel takes 1..{MAX_WINDOWS} windows, "
                          f"got {n_win}")
     tp, fp, n = _check_tables(tables, dev)
-    for name, tns, dt in (("c_bd", c_rows[0], torch.int32),
-                          ("c_cnt", c_rows[1], torch.float32),
-                          ("c_amt", c_rows[2], torch.float32),
-                          ("t_bd", t_rows[0], torch.int32),
-                          ("t_cnt", t_rows[1], torch.float32),
-                          ("t_frd", t_rows[2], torch.float32)):
-        check_tensor(tns, name, dt, (b, nb), dev)
-    check_tensor(day, "day", torch.int32, (b,), dev)
-    check_tensor(tod_s, "tod_s", torch.int32, (b,), dev)
-    check_tensor(amount, "amount", torch.float32, (b,), dev)
+    b, nb = check_feature_inputs(customer, terminal, cust_slot, term_slot,
+                                 day, tod_s, amount, dev)
     check_tensor(scaler_mean, "scaler_mean", torch.float32, (n_feat,), dev)
     check_tensor(scaler_scale, "scaler_scale", torch.float32, (n_feat,), dev)
     leaf = torch.empty(b, dtype=torch.float32, device=dev)
@@ -400,9 +409,11 @@ def fused_forest_leaf_sum(
         return leaf, feats
     win = list(windows) + [0] * (MAX_WINDOWS - n_win)
     err = _library().fused_forest_launch(
-        *(x.data_ptr() for x in (*c_rows, *t_rows, day, tod_s, amount,
-                                 scaler_mean, scaler_scale, tables.nodes,
-                                 tables.depth, leaf, feats)),
+        *(x.data_ptr() for x in (
+            customer.bucket_day, customer.count, customer.amount,
+            terminal.bucket_day, terminal.count, terminal.fraud, cust_slot,
+            term_slot, day, tod_s, amount, scaler_mean, scaler_scale,
+            tables.nodes, tables.depth, leaf, feats)),
         b, nb, tp, n, n_feat, fp, n_win, *win,
         delay, weekend_start, night_end,
         torch.cuda.current_stream(dev).cuda_stream)

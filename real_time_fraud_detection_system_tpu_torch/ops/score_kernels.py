@@ -8,10 +8,14 @@ it shares the feature assembly of the fused forest kernel
 (``csrc/features.cuh``). Its header says what bounds it and what its
 design does about that.
 
+Both functions start from the feature-state tables and the batch's slots:
+the Pallas kernel takes the rows XLA gathered for it, the CUDA kernel
+reads them by slot itself.
+
 - :func:`fused_featurize_score_plain` is the plain PyTorch version:
-  ``assemble_features``, then ``(x−mean)/scale``, then the logit with the
-  products added in feature order (``models/logreg.py::logreg_logits``),
-  then ``sigmoid(z)·valid``.
+  ``gather_feature_rows``, ``assemble_features``, then ``(x−mean)/scale``,
+  then the logit with the products added in feature order
+  (``models/logreg.py::logreg_logits``), then ``sigmoid(z)·valid``.
 - :func:`fused_featurize_score` is the wrapper: the plain version for CPU
   tensors; for CUDA tensors it launches the kernel or raises, and counts
   the launches on itself. Unlike the Pallas kernel, any B is taken.
@@ -40,6 +44,12 @@ from real_time_fraud_detection_system_tpu_torch.ops.cuda_lib import (
 )
 from real_time_fraud_detection_system_tpu_torch.ops.features_fused import (
     assemble_features,
+    check_feature_inputs,
+    check_slots,
+    gather_feature_rows,
+)
+from real_time_fraud_detection_system_tpu_torch.ops.windows import (
+    WindowState,
 )
 
 # Rows (threads) per CUDA block; kScoreRows in csrc/fused_score.cu.
@@ -49,8 +59,10 @@ SOURCE = CSRC / "fused_score.cu"
 
 
 def fused_featurize_score_plain(
-    c_rows: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
-    t_rows: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
+    customer: WindowState,
+    terminal: WindowState,
+    cust_slot: torch.Tensor,
+    term_slot: torch.Tensor,
     day: torch.Tensor,
     tod_s: torch.Tensor,
     amount: torch.Tensor,
@@ -64,7 +76,11 @@ def fused_featurize_score_plain(
     weekend_start: int = 5,
     night_end: int = 6,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version: (probs [B], raw features [B, F])."""
+    """Plain PyTorch version: (probs [B], raw features [B, F]). Raises
+    ``IndexError`` for a slot outside [0, capacity)."""
+    check_slots(customer, terminal, cust_slot, term_slot)
+    c_rows, t_rows = gather_feature_rows(customer, terminal, cust_slot,
+                                         term_slot)
     feats = assemble_features(
         c_rows, t_rows, day, tod_s, amount, windows=tuple(windows),
         delay=delay, weekend_start=weekend_start, night_end=night_end)
@@ -74,22 +90,24 @@ def fused_featurize_score_plain(
 
 
 @functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build_library(SOURCE)[0]))
+def _library(source=SOURCE) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build_library(source)[0]))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.fused_score_launch.argtypes = [p] * 16 + [i] * 11 + [p]
+    lib.fused_score_launch.argtypes = [p] * 18 + [i] * 11 + [p]
     lib.fused_score_launch.restype = i
     lib.fused_score_block_rows.argtypes = []
     lib.fused_score_block_rows.restype = i
     if lib.fused_score_block_rows() != BLOCK_ROWS:
-        raise RuntimeError("csrc/fused_score.cu and ops/score_kernels.py "
-                           "disagree on the block layout")
+        raise RuntimeError(f"csrc/{source.name} and ops/score_kernels.py "
+                           f"disagree on the block layout")
     return lib
 
 
 def fused_featurize_score(
-    c_rows: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],  # bd, cnt, amt
-    t_rows: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],  # bd, cnt, frd
+    customer: WindowState,  # [c_cap, NB]: bd, cnt, amt read
+    terminal: WindowState,  # [t_cap, NB]: bd, cnt, frd read
+    cust_slot: torch.Tensor,  # int64 [B] in [0, c_cap)
+    term_slot: torch.Tensor,  # int64 [B] in [0, t_cap)
     day: torch.Tensor,  # int32 [B]
     tod_s: torch.Tensor,  # int32 [B]
     amount: torch.Tensor,  # float32 [B]
@@ -103,35 +121,30 @@ def fused_featurize_score(
     weekend_start: int = 5,
     night_end: int = 6,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Gathered state rows → (probs [B], raw features [B, F]).
+    """State tables and slots → (probs [B], raw features [B, F]).
 
     CPU tensors go through :func:`fused_featurize_score_plain`. CUDA
     tensors launch the kernel on the current stream (no synchronisation)
-    or raise; ``fused_featurize_score.launches`` counts the launches.
+    or raise; ``fused_featurize_score.launches`` counts the launches. The
+    kernel reads the tables' rows by slot as they stand on the stream, so
+    it sees the state that the stream's earlier update left; a slot
+    outside [0, capacity) is the caller's error.
     """
     if day.device.type == "cpu":
         return fused_featurize_score_plain(
-            c_rows, t_rows, day, tod_s, amount, valid, scaler_mean,
-            scaler_scale, w, b, windows, delay, weekend_start, night_end)
+            customer, terminal, cust_slot, term_slot, day, tod_s, amount,
+            valid, scaler_mean, scaler_scale, w, b, windows, delay,
+            weekend_start, night_end)
     if day.device.type != "cuda":
         raise ValueError(f"no fused logreg kernel for {day.device}")
     dev = day.device
-    bsz, nb = c_rows[0].shape
     n_win = len(windows)
     n_feat = 3 + 4 * n_win
     if not 1 <= n_win <= MAX_WINDOWS:
         raise ValueError(f"the kernel takes 1..{MAX_WINDOWS} windows, "
                          f"got {n_win}")
-    for name, tns, dt in (("c_bd", c_rows[0], torch.int32),
-                          ("c_cnt", c_rows[1], torch.float32),
-                          ("c_amt", c_rows[2], torch.float32),
-                          ("t_bd", t_rows[0], torch.int32),
-                          ("t_cnt", t_rows[1], torch.float32),
-                          ("t_frd", t_rows[2], torch.float32)):
-        check_tensor(tns, name, dt, (bsz, nb), dev)
-    check_tensor(day, "day", torch.int32, (bsz,), dev)
-    check_tensor(tod_s, "tod_s", torch.int32, (bsz,), dev)
-    check_tensor(amount, "amount", torch.float32, (bsz,), dev)
+    bsz, nb = check_feature_inputs(customer, terminal, cust_slot, term_slot,
+                                   day, tod_s, amount, dev)
     check_tensor(valid, "valid", torch.bool, (bsz,), dev)
     for name, tns in (("scaler_mean", scaler_mean),
                       ("scaler_scale", scaler_scale), ("w", w)):
@@ -143,9 +156,11 @@ def fused_featurize_score(
         return probs, feats
     win = list(windows) + [0] * (MAX_WINDOWS - n_win)
     err = _library().fused_score_launch(
-        *(x.data_ptr() for x in (*c_rows, *t_rows, day, tod_s, amount, valid,
-                                 scaler_mean, scaler_scale, w, b, probs,
-                                 feats)),
+        *(x.data_ptr() for x in (
+            customer.bucket_day, customer.count, customer.amount,
+            terminal.bucket_day, terminal.count, terminal.fraud, cust_slot,
+            term_slot, day, tod_s, amount, valid, scaler_mean, scaler_scale,
+            w, b, probs, feats)),
         bsz, nb, n_feat, n_win, *win, delay, weekend_start, night_end,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:

@@ -6,11 +6,13 @@ Per micro-batch: source poll → host dedup and pad → one packed int32
 The step takes the JAX step's branches in its order: unpack the batch,
 scatter it into the window state (in place), then
 
-- logreg: gather both tables' rows and run the fused featurize→logreg
-  kernel (``ops/score_kernels.py::fused_featurize_score``);
+- logreg: the fused featurize→logreg kernel
+  (``ops/score_kernels.py::fused_featurize_score``), which reads both
+  tables' rows by slot;
 - tree and forest, when the forest kernels' static admission predicate
   holds (``ops/forest_kernels.py::admit_tables``): the fused
-  featurize→forest kernel, and ``leaf / n_trees``;
+  featurize→forest kernel, which reads them the same way, and
+  ``leaf / n_trees``;
 - otherwise: ``update_and_featurize`` → ``transform`` → the predict. For
   gbt, when the same predicate holds, that predict is the leaf-sum kernel
   (``ops/forest_kernels.py::leaf_sum``) and ``sigmoid(base + leaf)``;

@@ -2,15 +2,17 @@
 
 The port's plain ``fused_forest_leaf_sum`` (what the CUDA kernel is held
 against) is run against the JAX ``update_and_score_pallas_forest``, whose
-Pallas kernel runs in interpret mode here. The CUDA kernel itself runs only
-on a card (``tests/test_torch_gpu.py``); its algorithm — the descent over
-the node tables, walked in numpy by ``tests/test_torch_forest_descent.py``
-— is held against the dense form here too.
+Pallas kernel runs in interpret mode here, and, on feature-state tables
+and slots, against the JAX kernel on the rows the JAX ``gather_state_rows``
+takes from the same tables. The CUDA kernel itself runs only on a card
+(``tests/test_torch_gpu.py``); its algorithm — the descent over the node
+tables, walked in numpy by ``tests/test_torch_forest_descent.py`` — is
+held against the dense form here too.
 
-Tolerances: counts, flags and ``TX_AMOUNT`` bit-identical; averages within
-``rtol=1e-6`` (float32 window sums in another order); leaf sums within
-``atol=1e-5`` (float32 sums over trees in another order) with identical
-decisions.
+Tolerances: counts, flags, risks and ``TX_AMOUNT`` bit-identical; amount
+averages within ``rtol=1e-6`` (the JAX kernel sums the NB buckets in
+another order than the port's ring order); leaf sums within ``atol=1e-5``
+(float32 sums over trees in another order) with identical decisions.
 """
 
 import jax
@@ -25,6 +27,9 @@ from real_time_fraud_detection_system_tpu.config import (
 from real_time_fraud_detection_system_tpu.core import batch as jbatch
 from real_time_fraud_detection_system_tpu.features import online as jonline
 from real_time_fraud_detection_system_tpu.models import forest as jforest
+from real_time_fraud_detection_system_tpu.ops.pallas_forest import (
+    fused_forest_leaf_sum as jfused_forest_leaf_sum,
+)
 from real_time_fraud_detection_system_tpu.ops.pallas_forest import to_pallas
 from real_time_fraud_detection_system_tpu_torch import weights
 from real_time_fraud_detection_system_tpu_torch.config import FeatureConfig
@@ -35,6 +40,11 @@ from real_time_fraud_detection_system_tpu_torch.features import (
 from real_time_fraud_detection_system_tpu_torch.models import forest as tforest
 from real_time_fraud_detection_system_tpu_torch.ops import forest_kernels as fk
 from test_torch_forest_descent import descent_leaf_sum  # pytest adds tests/
+from test_torch_score_kernel import (
+    jax_gathered_rows,
+    port_feature_args,
+    state_inputs,
+)
 
 # Tiny shapes: one intra-op thread each keeps the parallel test workers'
 # cores free for the timing-sensitive tests beside them.
@@ -184,21 +194,47 @@ def test_admission_is_static_and_sized_in_shared_memory():
     assert fk.admit_tables(wide).smem_bytes == 128 * 504 * 4
 
 
-def _rows_and_tables(rng, z_mode="f32", b=40):
+def _rows_and_tables(rng, z_mode="f32", b=40, nb=40):
     jg = jforest.to_gemm(_fit(rng, n_trees=4, max_depth=3), N_FEAT)
     tables = fk.to_kernel_tables(_port_gemm(jg), z_mode)
-    nb = 40
-    day = torch.full((b,), 20200, dtype=torch.int32)
-    bd = 20200 - torch.as_tensor(rng.integers(-1, 45, (b, nb)),
-                                 dtype=torch.int32)
-    vals = [torch.as_tensor(rng.integers(0, 5, (b, nb)).astype(np.float32))
-            for _ in range(4)]
-    return tables, dict(
-        c_rows=(bd, vals[0], vals[1]), t_rows=(bd.clone(), vals[2], vals[3]),
-        day=day, tod_s=torch.as_tensor(rng.integers(0, 86400, b),
-                                       dtype=torch.int32),
-        amount=torch.as_tensor(rng.uniform(1, 300, b).astype(np.float32)),
-        scaler_mean=torch.zeros(N_FEAT), scaler_scale=torch.ones(N_FEAT))
+    return tables, dict(port_feature_args(state_inputs(rng, b, nb)),
+                        scaler_mean=torch.zeros(N_FEAT),
+                        scaler_scale=torch.ones(N_FEAT))
+
+
+@pytest.mark.parametrize("nb", [38, 40])  # 38: 7-day delay + 30-day window + 1
+@pytest.mark.parametrize("b", [1, 37, 64])  # 37: ragged tail rows
+def test_plain_on_tables_matches_jax_kernel_on_gathered_rows(b, nb):
+    """The port's plain version and its CPU wrapper take the tables and
+    the slots; the JAX kernel (interpret mode) takes the rows that the JAX
+    ``gather_state_rows`` gathers from the same tables by the same slots."""
+    rng = np.random.default_rng(1000 * nb + b)
+    jg = jforest.to_gemm(_fit(rng), N_FEAT)
+    mean = rng.normal(size=N_FEAT).astype(np.float32)
+    scale = (1.0 + rng.random(N_FEAT)).astype(np.float32)
+    inp = state_inputs(rng, b, nb)
+    c_rows, t_rows = jax_gathered_rows(inp)
+    jleaf, jfeats = jfused_forest_leaf_sum(
+        to_pallas(jg, "int8"), c_rows, t_rows, jnp.asarray(inp["day"]),
+        jnp.asarray(inp["tod_s"]), jnp.asarray(inp["amount"]),
+        jnp.asarray(mean), jnp.asarray(scale))
+    tables = fk.to_kernel_tables(_port_gemm(jg), "int8")
+    args = dict(port_feature_args(inp), scaler_mean=torch.from_numpy(mean),
+                scaler_scale=torch.from_numpy(scale))
+    pleaf, pfeats = fk.fused_forest_leaf_sum_plain(tables, **args)
+    leaf, feats = fk.fused_forest_leaf_sum(tables, **args)
+    np.testing.assert_array_equal(feats.numpy(), pfeats.numpy())
+    np.testing.assert_array_equal(leaf.numpy(), pleaf.numpy())
+    jleaf, jfeats = np.asarray(jleaf), np.asarray(jfeats)
+    # counts, flags, risks and amount bit-identical; the amount averages
+    # to rtol 1e-6, as the JAX kernel sums the buckets in another order
+    np.testing.assert_array_equal(pfeats.numpy()[:, EXACT_COLS],
+                                  jfeats[:, EXACT_COLS])
+    np.testing.assert_allclose(pfeats.numpy(), jfeats, rtol=RTOL_SUM_ORDER)
+    np.testing.assert_allclose(pleaf.numpy(), jleaf, atol=ATOL_SUM_ORDER)
+    n_trees = jg.sel.shape[0]
+    assert np.array_equal(pleaf.numpy() / n_trees >= 0.5,
+                          jleaf / n_trees >= 0.5)
 
 
 def test_cpu_wrapper_takes_the_plain_version():
@@ -210,10 +246,14 @@ def test_cpu_wrapper_takes_the_plain_version():
     pleaf, pfeats = fk.fused_forest_leaf_sum_plain(tables, **args)
     np.testing.assert_array_equal(leaf.numpy(), pleaf.numpy())
     np.testing.assert_array_equal(feats.numpy(), pfeats.numpy())
-    meta = {k: (tuple(t.to("meta") for t in v) if isinstance(v, tuple)
+    meta = {k: (type(v)(*(t.to("meta") for t in v)) if isinstance(v, tuple)
                 else v.to("meta")) for k, v in args.items()}
     with pytest.raises(ValueError, match="no fused forest kernel"):
         fk.fused_forest_leaf_sum(tables, **meta)
+    slot = args["cust_slot"].clone()
+    slot[0] = args["customer"].capacity
+    with pytest.raises(IndexError, match="cust_slot"):
+        fk.fused_forest_leaf_sum(tables, **{**args, "cust_slot": slot})
 
 
 @pytest.mark.parametrize("n_trees,max_depth", [(7, 5), (10, 3), (13, 6)])

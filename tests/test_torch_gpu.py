@@ -1,6 +1,8 @@
 """Tests that need an NVIDIA card: each kernel (fused forest, leaf sum,
-fused logreg) against its plain version, the wrappers' refusals, and the
-engine of each model kind on CUDA against the engine on the CPU.
+fused logreg) against its plain version — the fused kernels on
+feature-state tables and slots, at several NB and with repeated slots —
+the wrappers' refusals, and the engine of each model kind on CUDA against
+the engine on the CPU.
 
 They import neither jax nor the JAX package, so they also run on a machine
 that has only PyTorch and the CUDA toolkit (the suite's ``conftest.py``
@@ -49,6 +51,9 @@ from real_time_fraud_detection_system_tpu_torch.models.scaler import (
 )
 from real_time_fraud_detection_system_tpu_torch.ops import forest_kernels as fk
 from real_time_fraud_detection_system_tpu_torch.ops import score_kernels as sk
+from real_time_fraud_detection_system_tpu_torch.ops.windows import (
+    WindowState,
+)
 from real_time_fraud_detection_system_tpu_torch.runtime.engine import (
     ScoringEngine,
 )
@@ -74,20 +79,31 @@ def cuda():
     return torch.device("cuda")
 
 
-def _gathered(rng, b, dev):
-    """Gathered window rows: stamps within the last ~45 days (some empty),
-    small counts, cent amounts, fraud sums no larger than the counts."""
-    nb = 40
-    bd = (20200 - rng.integers(-1, 46, (b, nb))).astype(np.int32)
-    bd[rng.random((b, nb)) < 0.3] = -1
-    cnt = rng.integers(0, 30, (2, b, nb)).astype(np.float32)
-    amt = (cnt[0] * rng.integers(100, 20000, (b, nb)) / 100.0)
-    frd = np.minimum(rng.integers(0, 3, (b, nb)), cnt[1])
+def _state_args(rng, b, dev, nb=40, caps=(2048, 4096), ids=None):
+    """Feature-state tables and a batch's slots into them: stamps within
+    the last ~45 days (some empty), small counts, cent amounts, fraud sums
+    no larger than the counts; slots drawn with repeats from the first
+    ``ids`` slots of each table (all of it by default), slot 0 and the
+    last slot included."""
+    tables, slots = [], []
+    for cap, n_ids in zip(caps, ids or caps):
+        bd = (20200 - rng.integers(-1, 46, (cap, nb))).astype(np.int32)
+        bd[rng.random((cap, nb)) < 0.3] = -1
+        cnt = rng.integers(0, 30, (cap, nb)).astype(np.float32)
+        amt = (cnt * rng.integers(100, 20000, (cap, nb)) / 100.0)
+        frd = np.minimum(rng.integers(0, 3, (cap, nb)), cnt)
+        tables.append(WindowState(*(
+            torch.as_tensor(np.asarray(a, dt), device=dev)
+            for a, dt in ((bd, np.int32), (cnt, np.float32),
+                          (amt, np.float32), (frd, np.float32)))))
+        slot = rng.integers(0, n_ids, b)
+        slot[:2] = (cap - 1, 0)[:b]
+        slots.append(torch.as_tensor(slot, dtype=torch.int64, device=dev))
     as_t = lambda a, dt=np.float32: torch.as_tensor(  # noqa: E731
         np.asarray(a, dt), device=dev)
     return dict(
-        c_rows=(as_t(bd, np.int32), as_t(cnt[0]), as_t(amt)),
-        t_rows=(as_t(bd, np.int32), as_t(cnt[1]), as_t(frd)),
+        customer=tables[0], terminal=tables[1],
+        cust_slot=slots[0], term_slot=slots[1],
         day=as_t(np.full(b, 20200), np.int32),
         tod_s=as_t(rng.integers(0, 86400, b), np.int32),
         amount=as_t(rng.integers(100, 30000, b) / 100.0),
@@ -99,7 +115,7 @@ def _gathered(rng, b, dev):
 def test_fused_forest_kernel_matches_plain_version(cuda, rows):
     g = to_gemm(synthetic_ensemble(13, 6, N_FEAT, seed=2, device=cuda),
                 N_FEAT)
-    args = _gathered(np.random.default_rng(rows), rows, cuda)
+    args = _state_args(np.random.default_rng(rows), rows, cuda)
     leaves = []
     for z_mode in ("f32", "bf16", "int8"):
         tables = fk.to_kernel_tables(g, z_mode)
@@ -120,7 +136,7 @@ def test_kernel_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     g = to_gemm(synthetic_ensemble(3, 3, N_FEAT, seed=1, device=cuda),
                 N_FEAT)
     tables = fk.to_kernel_tables(g, "int8")
-    args = _gathered(np.random.default_rng(0), 8, cuda)
+    args = _state_args(np.random.default_rng(0), 8, cuda)
     with pytest.raises(ValueError, match="day"):
         fk.fused_forest_leaf_sum(tables, **{**args,
                                             "day": args["day"].long()})
@@ -220,7 +236,7 @@ def test_forest_kernels_equal_plain_versions_at_serving_size(cuda, forest,
     make = ragged_ensemble if ragged else synthetic_ensemble
     g = to_gemm(make(n_trees, depth, N_FEAT, seed=1, device=cuda), N_FEAT)
     rng = np.random.default_rng(rows)
-    args = _gathered(rng, rows, cuda)
+    args = _state_args(rng, rows, cuda)
     x = torch.as_tensor(rng.normal(size=(rows, N_FEAT)).astype(np.float32),
                         device=cuda)
     sums = {"fused": [], "leaf": []}
@@ -247,7 +263,7 @@ def test_forest_kernels_equal_plain_versions_at_serving_size(cuda, forest,
 @pytest.mark.parametrize("rows", [1, 300, 4096])
 def test_fused_score_kernel_matches_plain_version(cuda, rows):
     rng = np.random.default_rng(rows)
-    args = _gathered(rng, rows, cuda)
+    args = _state_args(rng, rows, cuda)
     args.update(
         valid=torch.as_tensor(rng.random(rows) < 0.9, device=cuda),
         w=torch.as_tensor(rng.normal(0, 0.3, N_FEAT).astype(np.float32),
@@ -262,6 +278,61 @@ def test_fused_score_kernel_matches_plain_version(cuda, rows):
     torch.testing.assert_close(probs, pprobs, rtol=0.0, atol=ATOL_SIGMOID)
     assert torch.equal(probs >= 0.5, pprobs >= 0.5)
     assert bool((probs[~args["valid"]] == 0).all())
+
+
+def _both_fused(cuda, args, n_trees=13):
+    """Both fused kernels on ``args``, each against its plain version:
+    features bit-identical, leaf sums bit-identical, probabilities within
+    ATOL_SIGMOID; returns the kernels' (features, leaf sums, probs)."""
+    g = to_gemm(synthetic_ensemble(n_trees, 6, N_FEAT, seed=2, device=cuda),
+                N_FEAT)
+    tables = fk.to_kernel_tables(g, "int8")
+    rng = np.random.default_rng(9)
+    b = args["day"].shape[0]
+    sargs = dict(args,
+                 valid=torch.as_tensor(rng.random(b) < 0.9, device=cuda),
+                 w=torch.as_tensor(rng.normal(0, 0.3, N_FEAT)
+                                   .astype(np.float32), device=cuda),
+                 b=torch.tensor(-1.5, device=cuda))
+    before = (fk.fused_forest_leaf_sum.launches,
+              sk.fused_featurize_score.launches)
+    leaf, feats = fk.fused_forest_leaf_sum(tables, **args)
+    probs, sfeats = sk.fused_featurize_score(**sargs)
+    torch.cuda.synchronize()
+    assert (fk.fused_forest_leaf_sum.launches,
+            sk.fused_featurize_score.launches) == (before[0] + 1,
+                                                   before[1] + 1)
+    pleaf, pfeats = fk.fused_forest_leaf_sum_plain(tables, **args)
+    pprobs, _ = sk.fused_featurize_score_plain(**sargs)
+    assert torch.equal(feats, pfeats) and torch.equal(sfeats, pfeats)
+    assert torch.equal(leaf, pleaf)
+    torch.testing.assert_close(probs, pprobs, rtol=0.0, atol=ATOL_SIGMOID)
+    return feats, leaf, probs
+
+
+@pytest.mark.parametrize("nb", [1, 5, 37, 38, 40, 41])
+def test_fused_kernels_read_rows_of_any_nb(cuda, nb):
+    """NB = 38 is the 7-day delay + the 30-day window + 1; 1 and 5 fit in
+    less than one chunk of the loader, 37 and 41 leave a ragged last chunk
+    and runs that start off 8-byte boundaries."""
+    _both_fused(cuda, _state_args(np.random.default_rng(nb), 300, cuda,
+                                  nb=nb))
+
+
+@pytest.mark.parametrize("n_ids", [1, 3, 40])
+def test_fused_kernels_read_repeated_slots(cuda, n_ids):
+    """Rows of a batch that share a slot read the same run: with the same
+    day they get the same window features, in both kernels."""
+    args = _state_args(np.random.default_rng(n_ids), 4096, cuda,
+                     ids=(n_ids, n_ids))
+    feats, _, _ = _both_fused(cuda, args)
+    key = args["cust_slot"] * 4096 + args["term_slot"]
+    first = {}
+    for i, k in enumerate(key.tolist()):
+        first.setdefault(k, i)
+    want = feats[torch.as_tensor([first[k] for k in key.tolist()],
+                                 device=cuda)]
+    assert torch.equal(feats[:, 3:], want[:, 3:])
 
 
 def test_new_wrappers_refuse_what_their_kernels_do_not_take(cuda):
@@ -282,7 +353,7 @@ def test_new_wrappers_refuse_what_their_kernels_do_not_take(cuda):
         sel=one.expand(10, 512, 8)))
     with pytest.raises(ValueError, match="shared-memory"):
         fk.leaf_sum(wide, x)
-    args = _gathered(np.random.default_rng(0), 8, cuda)
+    args = _state_args(np.random.default_rng(0), 8, cuda)
     args.update(valid=torch.ones(8, dtype=torch.bool, device=cuda),
                 w=torch.zeros(N_FEAT, device=cuda),
                 b=torch.tensor(0.0, device=cuda))
@@ -294,6 +365,27 @@ def test_new_wrappers_refuse_what_their_kernels_do_not_take(cuda):
         sk.fused_featurize_score(**{**args, "w": args["w"][:14]})
     with pytest.raises(ValueError, match="windows"):
         sk.fused_featurize_score(**args, windows=(1, 2, 3, 4, 5))
+    with pytest.raises(ValueError, match="^cust_slot:"):
+        sk.fused_featurize_score(**{**args,
+                                    "cust_slot": args["cust_slot"].int()})
+    with pytest.raises(ValueError, match="^term_slot:"):
+        fk.fused_forest_leaf_sum(tables, **{
+            **{k: v for k, v in args.items() if k not in ("valid", "w", "b")},
+            "term_slot": args["term_slot"][:4]})
+    bad = args["terminal"]._replace(fraud=args["terminal"].fraud.double())
+    with pytest.raises(ValueError, match="^terminal.fraud:"):
+        sk.fused_featurize_score(**{**args, "terminal": bad})
+    wrong_nb = args["customer"]._replace(
+        count=args["customer"].count[:, :39].contiguous())
+    with pytest.raises(ValueError, match="^customer.count:"):
+        sk.fused_featurize_score(**{**args, "customer": wrong_nb})
+    count = args["customer"].count
+    shifted = torch.zeros(count.numel() + 1, device=cuda)[1:].view(
+        count.shape)  # contiguous, 4 bytes past a 16-byte boundary
+    with pytest.raises(ValueError, match="^customer.count: .*aligned"):
+        fk.fused_forest_leaf_sum(tables, **{
+            **{k: v for k, v in args.items() if k not in ("valid", "w", "b")},
+            "customer": args["customer"]._replace(count=shifted)})
 
 
 @pytest.mark.parametrize("kind", ["logreg", "gbt"])

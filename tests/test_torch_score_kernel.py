@@ -4,13 +4,16 @@ The port's plain ``fused_featurize_score`` (what the CUDA kernel of
 ``csrc/fused_score.cu`` is held against on the card) runs against the JAX
 ``update_and_score_pallas`` — its Pallas kernel in interpret mode — and
 against the JAX composition ``update_and_featurize`` → ``transform`` →
-``logreg_predict_proba``, on the same numpy-seeded batches. The kernel
-itself runs only on a card (``tests/test_torch_gpu.py``).
+``logreg_predict_proba``, on the same numpy-seeded batches; and, on
+feature-state tables and slots, against the JAX kernel on the rows the JAX
+``gather_state_rows`` takes from the same tables. The kernel itself runs
+only on a card (``tests/test_torch_gpu.py``).
 
-Tolerances: counts, flags and ``TX_AMOUNT`` bit-identical; the other
-features within ``rtol=1e-6`` (float32 window sums in another order);
-probabilities within ``atol=1e-6`` (the JAX dot sums the 15 products in
-another order, and the two sigmoids differ by ulps).
+Tolerances: counts, flags, risks and ``TX_AMOUNT`` bit-identical; the
+amount averages within ``rtol=1e-6`` (the JAX kernel sums the NB buckets
+in another order than the port's ring order); probabilities within
+``atol=1e-6`` (the JAX dot sums the 15 products in another order, and the
+two sigmoids differ by ulps).
 """
 
 import jax
@@ -35,6 +38,9 @@ from real_time_fraud_detection_system_tpu.ops.pallas_kernels import (
     fused_featurize_score as jfused_featurize_score,
 )
 from real_time_fraud_detection_system_tpu.ops.windows import (
+    WindowState as JWindowState,
+)
+from real_time_fraud_detection_system_tpu.ops.windows import (
     gather_state_rows as jgather_state_rows,
 )
 from real_time_fraud_detection_system_tpu_torch.config import FeatureConfig
@@ -44,6 +50,9 @@ from real_time_fraud_detection_system_tpu_torch.features import (
 )
 from real_time_fraud_detection_system_tpu_torch.models import logreg as tlogreg
 from real_time_fraud_detection_system_tpu_torch.ops import score_kernels as sk
+from real_time_fraud_detection_system_tpu_torch.ops.windows import (
+    WindowState,
+)
 
 # Tiny shapes: one intra-op thread each keeps the parallel test workers'
 # cores free for the timing-sensitive tests beside them.
@@ -211,24 +220,113 @@ def test_plain_logit_adds_in_feature_order():
     np.testing.assert_array_equal(got, want)
 
 
-def _gathered_args(rng, b=40, nb=40):
-    bd = 20200 - torch.as_tensor(rng.integers(-1, 45, (b, nb)),
-                                 dtype=torch.int32)
-    vals = [torch.as_tensor(rng.integers(0, 5, (b, nb)).astype(np.float32))
-            for _ in range(4)]
+def state_inputs(rng, b, nb, caps=(64, 128)):
+    """Customer and terminal feature-state tables ([cap, nb] bucket_day,
+    count, amount, fraud: stamps within the last ~45 days of day 20200, a
+    third empty; small counts, cent amounts, fraud sums no larger than the
+    counts), a batch's slots into them (repeats, slot cap-1 and, for b > 1,
+    slot 0) and its per-row scalars (days around 20200, so some stamps lie
+    ahead of a row's day), as numpy."""
+    tables, slots = [], []
+    for cap in caps:
+        bd = (20200 - rng.integers(-1, 46, (cap, nb))).astype(np.int32)
+        bd[rng.random((cap, nb)) < 0.3] = -1
+        cnt = rng.integers(0, 6, (cap, nb)).astype(np.float32)
+        amt = (cnt * rng.integers(100, 20000, (cap, nb)) / 100.0
+               ).astype(np.float32)
+        frd = np.minimum(rng.integers(0, 3, (cap, nb)), cnt).astype(
+            np.float32)
+        tables.append((bd, cnt, amt, frd))
+        slot = rng.integers(0, cap, b)
+        slot[0] = cap - 1
+        slot[1:2] = 0
+        slot[2:4] = slot[0]  # a repeat
+        slots.append(slot.astype(np.int64))
     return dict(
-        c_rows=(bd, vals[0], vals[1]), t_rows=(bd.clone(), vals[2], vals[3]),
-        day=torch.full((b,), 20200, dtype=torch.int32),
-        tod_s=torch.as_tensor(rng.integers(0, 86400, b), dtype=torch.int32),
-        amount=torch.as_tensor(rng.uniform(1, 300, b).astype(np.float32)),
-        valid=torch.as_tensor(rng.random(b) < 0.8),
+        tables=tables, slots=slots,
+        day=(20200 + rng.integers(-2, 3, b)).astype(np.int32),
+        tod_s=rng.integers(0, 86400, b).astype(np.int32),
+        amount=(rng.integers(100, 30000, b) / 100.0).astype(np.float32))
+
+
+def port_feature_args(inp):
+    """``state_inputs`` as the port's feature arguments (CPU tensors)."""
+    (c, t), (cs, ts) = inp["tables"], inp["slots"]
+    return dict(customer=WindowState(*map(torch.from_numpy, c)),
+                terminal=WindowState(*map(torch.from_numpy, t)),
+                cust_slot=torch.from_numpy(cs), term_slot=torch.from_numpy(ts),
+                **{k: torch.from_numpy(inp[k])
+                   for k in ("day", "tod_s", "amount")})
+
+
+def jax_gathered_rows(inp):
+    """``state_inputs``' rows as the JAX ``gather_state_rows`` takes them
+    from the same tables: ((bd, cnt, amt), (bd, cnt, frd))."""
+    (c, t), (cs, ts) = inp["tables"], inp["slots"]
+    c_bd, c_cnt, c_amt, _ = jgather_state_rows(
+        JWindowState(*map(jnp.asarray, c)), jnp.asarray(cs))
+    t_bd, t_cnt, _, t_frd = jgather_state_rows(
+        JWindowState(*map(jnp.asarray, t)), jnp.asarray(ts))
+    return (c_bd, c_cnt, c_amt), (t_bd, t_cnt, t_frd)
+
+
+@pytest.mark.parametrize("nb", [38, 40])  # 38: 7-day delay + 30-day window + 1
+@pytest.mark.parametrize("b", [1, 37, 64])  # 37: no ×8 tile
+def test_plain_on_tables_matches_jax_kernel_on_gathered_rows(b, nb):
+    """The port's plain version and its CPU wrapper take the tables and
+    the slots; the JAX kernel (interpret mode) takes the rows that the JAX
+    ``gather_state_rows`` gathers from the same tables by the same slots."""
+    rng = np.random.default_rng(1000 * nb + b)
+    w, bias, mean, scale = _params(rng)
+    inp = state_inputs(rng, b, nb)
+    valid = rng.random(b) < 0.8
+    c_rows, t_rows = jax_gathered_rows(inp)
+    jprobs, jfeats = jfused_featurize_score(
+        c_rows, t_rows, jnp.asarray(inp["day"]), jnp.asarray(inp["tod_s"]),
+        jnp.asarray(inp["amount"]), jnp.asarray(valid), jnp.asarray(mean),
+        jnp.asarray(scale), jnp.asarray(w), jnp.asarray(bias),
+        block_rows=b)
+    args = dict(port_feature_args(inp), valid=torch.from_numpy(valid),
+                scaler_mean=torch.from_numpy(mean),
+                scaler_scale=torch.from_numpy(scale),
+                w=torch.from_numpy(w), b=torch.tensor(bias))
+    pprobs, pfeats = sk.fused_featurize_score_plain(**args)
+    probs, feats = sk.fused_featurize_score(**args)
+    np.testing.assert_array_equal(feats.numpy(), pfeats.numpy())
+    np.testing.assert_array_equal(probs.numpy(), pprobs.numpy())
+    # counts, flags, risks and amount bit-identical; the amount averages
+    # to rtol 1e-6, as the JAX kernel sums the buckets in another order
+    _check_feats(pfeats.numpy(), np.asarray(jfeats))
+    np.testing.assert_allclose(pprobs.numpy(), np.asarray(jprobs),
+                               rtol=0.0, atol=ATOL_PROB)
+    assert (pprobs.numpy()[~valid] == 0.0).all()
+
+
+def test_plain_refuses_a_slot_outside_the_table():
+    rng = np.random.default_rng(3)
+    args = dict(port_feature_args(state_inputs(rng, 8, 40)),
+                valid=torch.ones(8, dtype=torch.bool),
+                scaler_mean=torch.zeros(N_FEAT),
+                scaler_scale=torch.ones(N_FEAT), w=torch.zeros(N_FEAT),
+                b=torch.tensor(0.0))
+    for name, bad in (("cust_slot", 64), ("term_slot", -1)):
+        slot = args[name].clone()
+        slot[5] = bad
+        with pytest.raises(IndexError, match=name):
+            sk.fused_featurize_score_plain(**{**args, name: slot})
+
+
+def _kernel_args(rng, b=40, nb=40):
+    args = port_feature_args(state_inputs(rng, b, nb))
+    return dict(
+        args, valid=torch.as_tensor(rng.random(b) < 0.8),
         scaler_mean=torch.zeros(N_FEAT), scaler_scale=torch.ones(N_FEAT),
         w=torch.as_tensor(rng.normal(0, 0.1, N_FEAT).astype(np.float32)),
         b=torch.tensor(-1.0))
 
 
 def test_cpu_wrapper_takes_the_plain_version():
-    args = _gathered_args(np.random.default_rng(4))
+    args = _kernel_args(np.random.default_rng(4))
     before = sk.fused_featurize_score.launches
     probs, feats = sk.fused_featurize_score(**args)
     assert sk.fused_featurize_score.launches == before
@@ -236,7 +334,7 @@ def test_cpu_wrapper_takes_the_plain_version():
     np.testing.assert_array_equal(probs.numpy(), pprobs.numpy())
     np.testing.assert_array_equal(feats.numpy(), pfeats.numpy())
     assert (probs.numpy()[~args["valid"].numpy()] == 0.0).all()
-    meta = {k: (tuple(t.to("meta") for t in v) if isinstance(v, tuple)
+    meta = {k: (type(v)(*(t.to("meta") for t in v)) if isinstance(v, tuple)
                 else v.to("meta")) for k, v in args.items()}
     with pytest.raises(ValueError, match="no fused logreg kernel"):
         sk.fused_featurize_score(**meta)

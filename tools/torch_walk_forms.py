@@ -17,7 +17,8 @@ copies of that header that differ in one respect each:
 binds each build through the port's own wrappers (``ops/forest_kernels.py``,
 so the launch interface is the port's), checks that every build's sums and
 features equal the port's bit for bit, then times them in turns (in order,
-then in reverse order) at B = 65,536 rows on the T=100 forests of
+then in reverse order; device time of launches captured in a CUDA graph,
+``chip_smoke.graph_ms``) at B = 65,536 rows on the T=100 forests of
 ``chip_smoke.py``'s phase ``kernel``, int8 tables. Prints one JSON line per
 forest, kernel and form, with the card's name and power limit. Exits
 non-zero without CUDA.
@@ -153,6 +154,7 @@ def main() -> int:
     )
     from real_time_fraud_detection_system_tpu_torch.ops.features_fused import (
         assemble_features,
+        gather_feature_rows,
     )
 
     dev = torch.device("cuda", 0)
@@ -162,11 +164,13 @@ def main() -> int:
         futures = {f: pool.submit(_build, cuda_lib, f) for f in FORMS}
         libs = {f: _bind(fk, f, fut.result()) for f, fut in futures.items()}
 
-    args = chip_smoke._gathered_rows(np.random.default_rng(0), ROWS, 40, dev)
-    feats = assemble_features(args["c_rows"], args["t_rows"], args["day"],
-                              args["tod_s"], args["amount"],
-                              windows=(1, 7, 30), delay=7, weekend_start=5,
-                              night_end=6)
+    # the fused kernel's arguments by keyword, as chip_smoke.py builds them
+    args = chip_smoke._feature_inputs(np.random.default_rng(0), ROWS, 40, dev)
+    feats = assemble_features(
+        *gather_feature_rows(args["customer"], args["terminal"],
+                             args["cust_slot"], args["term_slot"]),
+        args["day"], args["tod_s"], args["amount"], windows=(1, 7, 30),
+        delay=7, weekend_start=5, night_end=6)
     scaler = fit_scaler(feats.cpu().numpy(), device=dev)
     args.update(scaler_mean=scaler.mean, scaler_scale=scaler.scale)
     x = transform(scaler, feats).contiguous()
@@ -204,7 +208,7 @@ def main() -> int:
                              f"form {form} differs from the port on {fname}")
         order = list(times) + list(times)[::-1]
         for form, kern in order:
-            times[form, kern].append(chip_smoke.cuda_ms(
+            times[form, kern].append(chip_smoke.graph_ms(
                 lambda: run(form, kern), REPS))
         for (form, kern), ms in times.items():
             print(json.dumps({
