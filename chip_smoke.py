@@ -32,10 +32,31 @@ Phases, each printing JSON lines:
    launch counter is set to 0 just before each run and read just after:
    the path's own kernel must launch once per batch and the others not at
    all. The first two batches are held against a CPU-device engine.
-5. ``profile`` — a few batches of each path under ``torch.profiler``:
-   device time by kernel, the device's idle share, and the ``[B, NB]``
-   row gathers (none on the fused paths).
-6. ``kernels`` — one line per the measurement contract.
+   Each path runs at the engine's default ``pipeline_depth=2``; the host
+   prep must take the native route (``native/hostprep.cc``).
+5. ``serving_loop`` — the forest path over the full dataset at pipeline
+   depths 1, 2 and 3, and at depth 2 with ``coalesce_rows=65536`` over a
+   16,384-row source: the sink output bit-identical across depths, and the
+   coalesced output identical to the 65,536-row source's; rows/s, latency
+   and stage medians of each run. Then a few batches at depth 1 and depth
+   2 under ``torch.profiler``: the packed batch's copy must be ``Pinned ->
+   Device`` and the result copies ``Device -> Pinned``, with the device's
+   idle share of each.
+6. ``hash_path`` — forest, logreg and gbt with ``key_mode="hash"`` at the
+   default capacities; ``cms_path`` — forest and gbt with
+   ``customer_source="cms"`` (the leaf-sum kernel serves both). The same
+   checks as ``main_path``: each path's own kernel once per batch, the
+   others never, the first two batches equal to a CPU-device engine.
+7. ``cli`` — ``cli.main(["score", ...])`` on the card over the default
+   dataset and the forest artifact written to a temporary directory:
+   columnar over every row, and envelope mode on a slice through the
+   native decoder.
+8. ``profile`` — a few batches of each main path, and of the forest path
+   on the customer sketch, under ``torch.profiler``: device time by
+   kernel, the device's idle share, and the ``[B, NB]`` row gathers (none
+   on the fused paths).
+9. ``kernels`` — one line per the measurement contract, each kernel's
+   launches summed over every driven path that launched it.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises and
 exits non-zero without that line. Without CUDA, or outside a checkout of
@@ -44,9 +65,13 @@ the repository, it exits non-zero before printing any result.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import io
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -76,6 +101,9 @@ FORESTS = {"complete_depth8": (100, 8, False),
            "complete_depth11": (10, 11, False)}
 BATCH_ROWS = 65536  # the main path's batch bucket
 PROFILE_BATCHES = 4
+SERVING_DEPTHS = (1, 2, 3)
+COALESCE_POLL_ROWS = 16384
+ENVELOPE_ROWS = 262144  # the slice the cli phase serves in envelope mode
 PATHS = ("forest", "logreg", "gbt")
 # The kernel each path's step must launch once per batch.
 OWN_KERNEL = {"forest": "fused_forest_leaf_sum",
@@ -507,7 +535,7 @@ def phase_kernel(dev) -> dict:
 def _artifact_models(scaler, dev):
     """Each path's synthetic model, seeded from 0, written and read back
     through the port's own artifact format: (model on ``dev``, model on
-    the CPU)."""
+    the CPU, the artifact's bytes)."""
     from real_time_fraud_detection_system_tpu_torch.io.artifacts import (
         TrainedModel,
         dump_model_bytes,
@@ -542,7 +570,7 @@ def _artifact_models(scaler, dev):
     for kind, p in params.items():
         data = dump_model_bytes(TrainedModel(kind, scaler.to("cpu"), p))
         models[kind] = (load_model_bytes(data, device=dev),
-                        load_model_bytes(data, device="cpu"))
+                        load_model_bytes(data, device="cpu"), data)
         check(models[kind][0].content_sha256
               == models[kind][1].content_sha256, "artifact hash differs")
     return models
@@ -586,11 +614,39 @@ def phase_data(dev) -> dict:
     sample = [probe.process_batch(src.poll_batch()).features
               for _ in range(4)]
     scaler = fit_scaler(np.concatenate(sample), device=dev)
-    return {"cfg": cfg, "txs": txs, "datagen_s": gen_s,
-            "models": _artifact_models(scaler, dev)}
+    # The same table with every amount rounded to whole dollars: float32
+    # sums of whole dollars are exact in any order, so the card's atomic
+    # adds (index_add_) give the same state on every run, and outputs of
+    # two runs can be held bit for bit (phase serving_loop).
+    whole = txs.slice(slice(None))
+    whole.amount_cents = np.round(txs.amount_cents / 100).astype(
+        np.int64) * 100
+    return {"cfg": cfg, "txs": txs, "txs_whole_dollars": whole,
+            "datagen_s": gen_s, "models": _artifact_models(scaler, dev)}
 
 
-def phase_main_path(dev, device_info, data: dict, kind: str) -> dict:
+def drive(run):
+    """Run ``run()`` with every kernel's launch counter set to 0 just
+    before it; return (its result, the launches it made, by kernel)."""
+    wrappers = counters()
+    torch.cuda.synchronize()
+    for fn in wrappers.values():
+        fn.launches = 0
+    out = run()
+    torch.cuda.synchronize()
+    return out, {name: fn.launches for name, fn in wrappers.items()}
+
+
+def own_kernel(cfg, kind: str) -> str:
+    """The kernel a path's step launches once per batch: the leaf sum
+    serves every tree kind on the customer sketch."""
+    if cfg.features.customer_source == "cms":
+        return "leaf_sum"
+    return OWN_KERNEL[kind]
+
+
+def phase_main_path(dev, device_info, data: dict, kind: str,
+                    phase: str = "main_path", cfg=None) -> dict:
     from real_time_fraud_detection_system_tpu_torch.io.sink import MemorySink
     from real_time_fraud_detection_system_tpu_torch.runtime.engine import (
         ScoringEngine,
@@ -599,24 +655,25 @@ def phase_main_path(dev, device_info, data: dict, kind: str) -> dict:
         ReplaySource,
     )
 
-    cfg, txs = data["cfg"], data["txs"]
-    model, cpu_model = data["models"][kind]
+    cfg = cfg or data["cfg"]
+    txs = data["txs"]
+    model, cpu_model, _ = data["models"][kind]
+    own = own_kernel(cfg, kind)
     eng = ScoringEngine(cfg, kind, model.params, model.scaler, device=dev)
-    check((eng.tables is not None) == (kind == "forest"),
-          f"{kind}: the fused forest branch is {eng.tables is not None}")
-    check((eng.leaf_tables is not None) == (kind == "gbt"),
-          f"{kind}: the leaf-sum branch is {eng.leaf_tables is not None}")
+    check((eng.tables is not None) == (own == "fused_forest_leaf_sum"),
+          f"{phase} {kind}: the fused forest branch is "
+          f"{eng.tables is not None}")
+    check((eng.leaf_tables is not None) == (own == "leaf_sum"),
+          f"{phase} {kind}: the leaf-sum branch is "
+          f"{eng.leaf_tables is not None}")
+    check(eng.host_prep == "native",
+          f"{phase} {kind}: host prep took the {eng.host_prep} route")
     sink = MemorySink()
-    wrappers = counters()
-    torch.cuda.synchronize()
-    for fn in wrappers.values():
-        fn.launches = 0
-    stats = eng.run(ReplaySource(txs, START_EPOCH_S, batch_rows=BATCH_ROWS),
-                    sink)
-    launches = {name: fn.launches for name, fn in wrappers.items()}
+    stats, launches = drive(lambda: eng.run(
+        ReplaySource(txs, START_EPOCH_S, batch_rows=BATCH_ROWS), sink))
     for name, n in launches.items():
-        want = stats["batches"] if name == OWN_KERNEL[kind] else 0
-        check(n == want, f"{kind}: {n} launches of {name} for "
+        want = stats["batches"] if name == own else 0
+        check(n == want, f"{phase} {kind}: {n} launches of {name} for "
                          f"{stats['batches']} batches (want {want})")
     check(stats["rows"] == txs.n, "not every row was scored")
 
@@ -654,31 +711,62 @@ def phase_main_path(dev, device_info, data: dict, kind: str) -> dict:
               "decisions differ from the CPU engine")
         max_err = max(max_err, float(np.abs(got["prediction"]
                                             - want["prediction"]).max()))
-    emit({"phase": "main_path", "path": kind, "rows": stats["rows"],
+    emit({"phase": phase, "path": kind,
+          "key_mode": cfg.features.key_mode,
+          "customer_source": cfg.features.customer_source,
+          "rows": stats["rows"],
           "batches": stats["batches"], "kernel_launches": launches,
           "rows_per_s": stats["rows_per_s"],
           "latency_p50_ms": stats["latency_p50_ms"],
           "latency_p99_ms": stats["latency_p99_ms"],
           "stage_ms_p50": stats["stage_ms_p50"],
-          "wall_s": stats["wall_s"], "datagen_s": data["datagen_s"],
+          "pipeline_depth": stats["pipeline_depth"],
+          "host_prep_route": stats["host_prep_route"],
+          "wall_s": stats["wall_s"], "cpu_s": stats["cpu_s"],
+          "datagen_s": data["datagen_s"],
           "z_mode": stats["z_mode"],
           "prob_mean": float(probs.mean()),
           "fraud_share": float((probs >= 0.5).mean()),
           "max_abs_err_vs_cpu_engine": max_err,
           "card": device_info["smi_name"],
           "power_limit": device_info["power_limit"]})
-    return {"launches": launches[OWN_KERNEL[kind]]}
+    return launches
 
 
-def phase_profile(dev, data: dict, kind: str) -> None:
-    """Device time by kernel over a few batches of a path under
-    torch.profiler, the device's idle share of that window, and the
-    ``[B, NB]`` row gathers (``aten::index`` on a 2-D state table): the
-    fused paths' kernels read the rows by slot, so only gbt's unfused step
-    gathers them."""
+def _profiled(eng, src, batches: int):
+    """Serve ``batches`` batches of ``src`` under torch.profiler after one
+    warm-up batch: (device ms by event name, wall ms, the chrome trace's
+    memcpy events as (name, bytes), the profiler's events)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    eng.run(src, max_batches=1)  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        t0 = time.perf_counter()
+        eng.run(src, max_batches=batches)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    device = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            device[e.name] = device.get(e.name, 0.0) + e.device_time_total / 1e3
+    with tempfile.TemporaryDirectory() as tmp:
+        prof.export_chrome_trace(f"{tmp}/trace.json")
+        with open(f"{tmp}/trace.json") as f:
+            trace = json.load(f)
+    copies = [(ev["name"], int(ev.get("args", {}).get("bytes", -1)))
+              for ev in trace.get("traceEvents", [])
+              if str(ev.get("name", "")).startswith("Memcpy")]
+    return device, wall_ms, copies, prof.events()
+
+
+def phase_serving_loop(dev, device_info, data: dict) -> dict:
+    """The forest path at pipeline depths 1, 2 and 3 and coalesced, over
+    the whole-dollar copy of the dataset (see ``phase_data``): outputs bit
+    for bit equal; then depth 1 and depth 2 under the profiler."""
+    from real_time_fraud_detection_system_tpu_torch.io.sink import MemorySink
     from real_time_fraud_detection_system_tpu_torch.runtime.engine import (
         ScoringEngine,
     )
@@ -686,33 +774,204 @@ def phase_profile(dev, data: dict, kind: str) -> None:
         ReplaySource,
     )
 
+    cfg, txs = data["cfg"], data["txs_whole_dollars"]
+    model = data["models"]["forest"][0]
+    totals = {name: 0 for name in KERNELS}
+
+    def engine(depth: int, coalesce: int = 0):
+        rcfg = dataclasses.replace(cfg.runtime, pipeline_depth=depth,
+                                   coalesce_rows=coalesce)
+        return ScoringEngine(dataclasses.replace(cfg, runtime=rcfg),
+                             "forest", model.params, model.scaler,
+                             device=dev)
+
+    def serve(depth: int, coalesce: int = 0, poll_rows: int = BATCH_ROWS):
+        eng = engine(depth, coalesce)
+        sink = MemorySink()
+        stats, launches = drive(lambda: eng.run(
+            ReplaySource(txs, START_EPOCH_S, batch_rows=poll_rows), sink))
+        for name, n in launches.items():
+            want = stats["batches"] if name == "fused_forest_leaf_sum" else 0
+            check(n == want, f"serving_loop depth {depth}: {n} launches of "
+                             f"{name} for {stats['batches']} batches")
+            totals[name] += n
+        check(stats["rows"] == txs.n and stats["pipeline_depth"] == depth
+              and stats["host_prep_route"] == "native",
+              f"serving_loop depth {depth}: {stats['rows']} rows, depth "
+              f"{stats['pipeline_depth']}, {stats['host_prep_route']} prep")
+        out = sink.concat()
+        out.pop("processed_at_us")  # the wall clock at the sink
+        emit({"phase": "serving_loop", "path": "forest",
+              "pipeline_depth": depth, "coalesce_rows": coalesce,
+              "poll_rows": poll_rows, "rows": stats["rows"],
+              "batches": stats["batches"], "rows_per_s": stats["rows_per_s"],
+              "latency_p50_ms": stats["latency_p50_ms"],
+              "latency_p99_ms": stats["latency_p99_ms"],
+              "stage_ms_p50": stats["stage_ms_p50"],
+              "wall_s": stats["wall_s"], "cpu_s": stats["cpu_s"],
+              "card": device_info["smi_name"],
+              "power_limit": device_info["power_limit"]})
+        return out, stats
+
+    def same(a: dict, b: dict, what: str) -> None:
+        for k in a:
+            check(a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]),
+                  f"serving_loop: column {k} differs, {what}")
+
+    base, base_stats = serve(1)
+    for depth in SERVING_DEPTHS[1:]:
+        out, _ = serve(depth)
+        same(base, out, f"depth {depth} against depth 1")
+    out, st = serve(2, coalesce=BATCH_ROWS, poll_rows=COALESCE_POLL_ROWS)
+    check(st["batches"] == base_stats["batches"],
+          f"coalesced run served {st['batches']} batches, the 65,536-row "
+          f"source {base_stats['batches']}")
+    same(base, out, "coalesced 16,384-row polls against 65,536-row polls")
+    del base, out
+
+    idle = {}
+    for depth in (1, 2):
+        eng = engine(depth)
+        src = ReplaySource(txs, START_EPOCH_S, batch_rows=BATCH_ROWS)
+        device, wall_ms, copies, _ = _profiled(eng, src, PROFILE_BATCHES)
+        busy = sum(device.values())
+        idle[depth] = 1.0 - busy / wall_ms if device else None
+        names = {}
+        for name, nbytes in copies:
+            names.setdefault(name, []).append(nbytes)
+        # The packed batch (7 int32 rows of the bucket) once per batch, and
+        # the results (probabilities, 4 B a row, and the [n, 15]
+        # features), must be pinned copies; smaller ones (a scalar, a
+        # count read back by a boolean index) are reported. A copy whose
+        # size the trace does not give counts as large.
+        big_h2d = [name for name, b in copies if "HtoD" in name
+                   and (b < 0 or b >= 7 * 4 * BATCH_ROWS)]
+        big_d2h = [name for name, b in copies if "DtoH" in name
+                   and (b < 0 or b >= 4 * BATCH_ROWS)]
+        check(len(big_h2d) >= PROFILE_BATCHES and all(
+            n == "Memcpy HtoD (Pinned -> Device)" for n in big_h2d),
+              f"depth {depth}: packed-batch copies {big_h2d}")
+        check(len(big_d2h) >= 2 * PROFILE_BATCHES and all(
+            n == "Memcpy DtoH (Device -> Pinned)" for n in big_d2h),
+              f"depth {depth}: result copies {big_d2h}")
+        emit({"phase": "serving_loop_profile", "path": "forest",
+              "pipeline_depth": depth, "batches": PROFILE_BATCHES,
+              "wall_ms_per_batch": wall_ms / PROFILE_BATCHES,
+              "device_busy_ms_per_batch": busy / PROFILE_BATCHES,
+              "device_idle_share": idle[depth],
+              "memcpy": {name: {"count": len(b), "bytes": sorted(set(b)),
+                                "device_ms_per_batch":
+                                device.get(name, 0.0) / PROFILE_BATCHES}
+                         for name, b in names.items()},
+              "card": device_info["smi_name"],
+              "power_limit": device_info["power_limit"]})
+    return totals
+
+
+def phase_cli(dev, device_info, data: dict) -> dict:
+    """``cli.main(["score", ...])`` on the card: columnar over every row
+    of the default dataset, envelope mode over a slice, from files the
+    port's own writers put in a temporary directory."""
+    from real_time_fraud_detection_system_tpu_torch import cli
+    from real_time_fraud_detection_system_tpu_torch.core import native
+    from real_time_fraud_detection_system_tpu_torch.io.artifacts import (
+        save_transactions,
+    )
+
+    txs = data["txs"]
+    decodes = {"native": 0}
+    native_decode = native.decode_transaction_envelopes_native
+
+    def counted(*args, **kw):
+        decodes["native"] += 1
+        return native_decode(*args, **kw)
+
+    totals = {name: 0 for name in KERNELS}
+    native.decode_transaction_envelopes_native = counted
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            model = f"{tmp}/forest.npz"
+            with open(model, "wb") as f:
+                f.write(data["models"]["forest"][2])
+            t0 = time.perf_counter()
+            save_transactions(f"{tmp}/txs.npz", txs)
+            save_transactions(f"{tmp}/slice.npz",
+                              txs.slice(slice(0, ENVELOPE_ROWS)))
+            write_s = time.perf_counter() - t0
+            for mode, path, rows in (("columnar", "txs.npz", txs.n),
+                                     ("envelope", "slice.npz",
+                                      ENVELOPE_ROWS)):
+                out = io.StringIO()
+                decodes["native"] = 0
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(out):
+                    rc, launches = drive(lambda: cli.main([
+                        "score", "--data", f"{tmp}/{path}",
+                        "--model-file", model, "--mode", mode,
+                        "--batch-rows", str(BATCH_ROWS)]))
+                seconds = time.perf_counter() - t0
+                check(rc == 0, f"cli score --mode {mode} exited {rc}")
+                stats = json.loads(out.getvalue().strip().splitlines()[-1])
+                check(stats["rows"] == rows and stats["device"] == "cuda"
+                      and stats["host_prep_route"] == "native",
+                      f"cli score --mode {mode}: {stats}")
+                check(launches["fused_forest_leaf_sum"] == stats["batches"],
+                      f"cli score --mode {mode}: {launches}")
+                if mode == "envelope":
+                    check(decodes["native"] >= stats["batches"],
+                          f"the native envelope decoder ran "
+                          f"{decodes['native']} times")
+                for name, n in launches.items():
+                    totals[name] += n
+                emit({"phase": "cli", "mode": mode, "rc": rc,
+                      "rows": stats["rows"], "batches": stats["batches"],
+                      "native_decodes": decodes["native"],
+                      "rows_per_s": stats["rows_per_s"],
+                      "latency_p50_ms": stats["latency_p50_ms"],
+                      "stage_ms_p50": stats["stage_ms_p50"],
+                      "seconds_with_load": seconds,
+                      "tables_written_s": write_s,
+                      "card": device_info["smi_name"],
+                      "power_limit": device_info["power_limit"]})
+    finally:
+        native.decode_transaction_envelopes_native = native_decode
+    return totals
+
+
+def phase_profile(dev, data: dict, kind: str, cfg=None) -> None:
+    """Device time by kernel over a few batches of a path under
+    torch.profiler, the device's idle share of that window, and the
+    ``[B, NB]`` row gathers (``aten::index`` on a 2-D state table): the
+    fused paths' kernels read the rows by slot, so only the unfused steps
+    (gbt; every kind on the customer sketch, terminal rows only) gather
+    them."""
+    from real_time_fraud_detection_system_tpu_torch.runtime.engine import (
+        ScoringEngine,
+    )
+    from real_time_fraud_detection_system_tpu_torch.runtime.sources import (
+        ReplaySource,
+    )
+
+    cfg = cfg or data["cfg"]
     model = data["models"][kind][0]
-    eng = ScoringEngine(data["cfg"], kind, model.params, model.scaler,
-                        device=dev)
+    eng = ScoringEngine(cfg, kind, model.params, model.scaler, device=dev)
     src = ReplaySource(data["txs"], START_EPOCH_S, batch_rows=BATCH_ROWS)
-    eng.run(src, max_batches=1)  # warm-up
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=True) as prof:
-        t0 = time.perf_counter()
-        eng.run(src, max_batches=PROFILE_BATCHES)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    device = {}
+    device, wall_ms, _, events = _profiled(eng, src, PROFILE_BATCHES)
     gathers, gather_ms = 0, 0.0
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            device[e.name] = device.get(e.name, 0.0) + e.device_time_total / 1e3
-        elif e.name == "aten::index" and e.input_shapes \
+    for e in events:
+        if e.name == "aten::index" and e.input_shapes \
                 and len(e.input_shapes[0]) == 2:
             gathers += 1
             gather_ms += e.device_time_total / 1e3
     n = PROFILE_BATCHES
-    check((gathers == 0) == (kind != "gbt"),
+    fused = eng.tables is not None or (
+        kind == "logreg" and cfg.features.customer_source == "table")
+    check((gathers == 0) == fused,
           f"{kind}: {gathers} [B, NB] row gathers in {n} batches")
     busy = sum(device.values())
     top = sorted(device.items(), key=lambda kv: -kv[1])[:8]
-    emit({"phase": "profile", "path": kind, "batches": n,
+    emit({"phase": "profile", "path": kind,
+          "customer_source": cfg.features.customer_source, "batches": n,
           "rows_per_batch": BATCH_ROWS,
           "wall_ms_per_batch": wall_ms / n,
           "device_ms_per_batch": ({k[:80]: v / n for k, v in top}
@@ -738,12 +997,29 @@ def main() -> int:
     phase_build()
     k = phase_kernel(dev)
     data = phase_data(dev)
-    launches = {}
+    launches = {name: 0 for name in KERNELS}
+
+    def add(counts: dict) -> None:
+        for name, n in counts.items():
+            launches[name] += n
+
     for kind in PATHS:
-        launches[OWN_KERNEL[kind]] = phase_main_path(
-            dev, info, data, kind)["launches"]
+        add(phase_main_path(dev, info, data, kind))
+    add(phase_serving_loop(dev, info, data))
+    cfg = data["cfg"]
+    for phase, features, kinds in (
+            ("hash_path", {"key_mode": "hash"}, PATHS),
+            ("cms_path", {"customer_source": "cms"}, ("forest", "gbt"))):
+        pcfg = dataclasses.replace(cfg, features=dataclasses.replace(
+            cfg.features, **features))
+        for kind in kinds:
+            add(phase_main_path(dev, info, data, kind, phase, pcfg))
+    add(phase_cli(dev, info, data))
     for kind in PATHS:
         phase_profile(dev, data, kind)
+    phase_profile(dev, data, "forest", dataclasses.replace(
+        cfg, features=dataclasses.replace(cfg.features,
+                                          customer_source="cms")))
     emit({"kernels": [{
         "name": name,
         "route": "cuda",

@@ -1,0 +1,184 @@
+"""Command line of the port — ``score``, the serving entry point:
+
+    python -m real_time_fraud_detection_system_tpu_torch.cli score \\
+        --data txs.npz --model-file model.npz --out analyzed/
+
+It reads the artifacts that the JAX package's ``datagen`` and ``train``
+commands write (a transactions ``.npz`` and a model ``.npz``), replays the
+table through :class:`~.runtime.engine.ScoringEngine` and prints the run's
+stats as one JSON line at the end. The flags it shares with the JAX
+``score`` take their names, defaults and checks; ``--device`` (default
+``cuda``) is the port's own. Not ported yet: the Kafka and raw-table
+sources and object-store output (ROADMAP A2, A9), checkpoints and the
+fault supervisor (A3), the CPU oracle, ``--key-mode exact`` (A5) and the
+serving extras (A4, A6).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import logging
+import math
+import sys
+from typing import List, Optional
+
+log = logging.getLogger("score")
+
+
+def _json_line(obj) -> str:
+    """Strict JSON: NaN and infinite floats become null."""
+
+    def clean(v):
+        if isinstance(v, dict):
+            return {k: clean(x) for k, x in v.items()}
+        if isinstance(v, (list, tuple)):
+            return [clean(x) for x in v]
+        if isinstance(v, float) and not math.isfinite(v):
+            return None
+        return v
+
+    return json.dumps(clean(obj))
+
+
+def cmd_score(args) -> int:
+    from real_time_fraud_detection_system_tpu_torch.config import Config
+    from real_time_fraud_detection_system_tpu_torch.io.artifacts import (
+        load_model,
+        load_transactions,
+    )
+    from real_time_fraud_detection_system_tpu_torch.io.sink import (
+        AsyncSink,
+        make_parquet_sink,
+    )
+    from real_time_fraud_detection_system_tpu_torch.runtime.engine import (
+        ScoringEngine,
+    )
+    from real_time_fraud_detection_system_tpu_torch.runtime.sources import (
+        ReplaySource,
+    )
+    from real_time_fraud_detection_system_tpu_torch.utils.timing import (
+        date_to_epoch_s,
+    )
+
+    if args.key_mode == "exact":
+        log.error("--key-mode exact (the tiered feature store) is not "
+                  "ported yet: ROADMAP A5")
+        return 2
+    if not args.data:
+        log.error("--data is required (the port replays a generated "
+                  "table; --source kafka is not ported yet)")
+        return 2
+    if args.decode_workers < 0:
+        log.error("--decode-workers must be >= 0, got %s",
+                  args.decode_workers)
+        return 2
+    cfg = Config()
+    cfg = dataclasses.replace(
+        cfg,
+        runtime=dataclasses.replace(
+            cfg.runtime,
+            emit_features=not args.alerts_only,
+            pipeline_depth=args.pipeline_depth,
+            coalesce_rows=args.coalesce_rows,
+            z_mode=args.z_mode,
+            async_sink=args.async_sink,
+            sink_queue_batches=args.sink_queue_batches,
+            decode_workers=args.decode_workers,
+            fetch_overlap=not args.no_fetch_overlap,
+        ),
+        features=dataclasses.replace(cfg.features, key_mode=args.key_mode),
+    )
+    if args.alerts_only and args.out:
+        log.warning("--alerts-only: the analyzed output at %s will carry "
+                    "zero feature columns (predictions only)", args.out)
+    txs = load_transactions(args.data)
+    model = load_model(args.model_file, device=args.device)
+    engine = ScoringEngine(cfg, model.kind, model.params, model.scaler,
+                           device=args.device)
+    source = ReplaySource(txs, date_to_epoch_s(args.start_date),
+                          batch_rows=args.batch_rows, mode=args.mode,
+                          decode_workers=cfg.runtime.decode_workers)
+    sink = make_parquet_sink(args.out) if args.out else None
+    if cfg.runtime.async_sink and sink is not None:
+        sink = AsyncSink(sink, max_queue=cfg.runtime.sink_queue_batches)
+    try:
+        stats = engine.run(source, sink=sink, max_batches=args.max_batches)
+    finally:
+        if isinstance(sink, AsyncSink):
+            sink.close()
+    print(_json_line({"device": str(engine.device), "kind": model.kind,
+                      **stats}))
+    return 0
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        prog="python -m real_time_fraud_detection_system_tpu_torch.cli",
+        description="PyTorch/CUDA port of the real-time fraud detection "
+                    "serving path")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+    p = sub.add_parser("score", help="stream-score a table through the "
+                                     "engine")
+    p.add_argument("--data", default="",
+                   help="transactions .npz (as the JAX datagen writes)")
+    p.add_argument("--model-file", required=True)
+    p.add_argument("--device", default="cuda",
+                   help="torch device to serve on (cuda, cuda:N or cpu; "
+                        "the port never falls back to the CPU unasked)")
+    p.add_argument("--mode", default="columnar",
+                   choices=["columnar", "envelope"])
+    p.add_argument("--source", default="replay", choices=["replay"],
+                   help="replay a generated table (.npz); the Kafka and "
+                        "raw-table sources are not ported yet")
+    p.add_argument("--out", default="",
+                   help="analyzed output: a local directory of Parquet "
+                        "parts")
+    p.add_argument("--batch-rows", type=int, default=4096)
+    p.add_argument("--max-batches", type=int, default=0)
+    p.add_argument("--key-mode", default="direct",
+                   choices=["direct", "hash", "exact"],
+                   help="feature-state key→slot placement: direct (dense "
+                        "serial ids), hash (bounded memory, colliding "
+                        "keys merge windows); exact is not ported yet")
+    p.add_argument("--alerts-only", action="store_true",
+                   help="serve predictions only: the feature matrix never "
+                        "leaves the device")
+    p.add_argument("--pipeline-depth", type=int, default=2,
+                   help="micro-batches in flight (2 = double-buffering)")
+    p.add_argument("--coalesce-rows", type=int, default=0,
+                   help="merge consecutive source polls into one device "
+                        "batch up to this many rows (0 = off)")
+    p.add_argument("--async-sink", action="store_true",
+                   help="offload sink appends to a background writer "
+                        "thread behind a bounded queue")
+    p.add_argument("--sink-queue-batches", type=int, default=8,
+                   help="bounded queue depth (batch results) for "
+                        "--async-sink")
+    p.add_argument("--decode-workers", type=int, default=0,
+                   help="envelope decode threads (0 = auto, min(8, "
+                        "cores); 1 = serial)")
+    p.add_argument("--no-fetch-overlap", action="store_true",
+                   help="fetch results with blocking copies instead of "
+                        "the side-stream copies into pinned memory")
+    p.add_argument("--z-mode", default="auto",
+                   choices=["auto", "f32", "bf16", "int8"],
+                   help="dtype of the tree ensembles' dense path table "
+                        "(auto = int8 on CUDA, f32 elsewhere); every mode "
+                        "gives the same sums")
+    p.add_argument("--start-date", default="2025-04-01")
+    p.set_defaults(fn=cmd_score)
+    return ap
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    args = build_parser().parse_args(argv)
+    if not logging.getLogger().handlers:
+        logging.basicConfig(level=logging.INFO,
+                            format="%(asctime)s %(name)s %(message)s")
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

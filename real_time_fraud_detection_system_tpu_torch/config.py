@@ -40,10 +40,10 @@ class FeatureConfig:
 
     Customer {1,7,30}-day count+avg-amount; terminal {1,7,30}-day
     count+risk shifted back by ``delay_days`` (fraud labels arrive late).
-    The port serves ``key_mode="direct"`` with ``customer_source="table"``;
-    the JAX package's other modes are accepted here and refused by
-    ``features/online.py`` until they are ported, and their tuning fields
-    come with them.
+    The port serves ``key_mode`` "direct" and "hash" with
+    ``customer_source`` "table" or "cms"; ``key_mode="exact"`` is accepted
+    here and refused by ``features/online.py`` until the tiered store is
+    ported (ROADMAP A5), and its tuning fields come with it.
     """
 
     windows: Sequence[int] = (1, 7, 30)
@@ -54,8 +54,16 @@ class FeatureConfig:
     customer_capacity: int = 8192
     terminal_capacity: int = 16384
     # "direct" (key & (cap-1)) is collision-free for dense serial ids below
-    # the capacity; "hash" and "exact" are not ported yet.
+    # the capacity; "hash" mixes the key first (colliding keys share a
+    # slot); "exact" is not ported yet.
     key_mode: str = "direct"
+    # Count-min sketch for unbounded key cardinality (velocity features).
+    cms_depth: int = 4
+    cms_width: int = 1 << 15
+    # Where customer velocity features come from: "table" = the dense
+    # window state; "cms" = the count-min sketch (BASELINE config 3),
+    # bounded memory with overestimate-only error. Terminal risk always
+    # uses the table.
     customer_source: str = "table"
     night_end_hour: int = 6
     weekend_start_weekday: int = 5  # Monday == 0
@@ -93,7 +101,6 @@ class RuntimeConfig:
     The JAX package's ``use_pallas`` has no field here: the port serves
     the fused featurize→forest step whenever the kernel's admission
     predicate holds (on the CPU the wrapper runs its plain version).
-    ``max_batch_rows`` comes with the CLI that reads it (ROADMAP A2).
     """
 
     # Dtype of the dense path table: "auto" = int8 on CUDA, f32 elsewhere.
@@ -106,6 +113,28 @@ class RuntimeConfig:
     emit_features: bool = True
     # Pad micro-batches to these row counts.
     batch_buckets: Sequence[int] = (256, 1024, 4096, 16384, 65536)
+    max_batch_rows: int = 65536
+    trigger_seconds: float = 0.0  # 0 => score as fast as batches arrive
+    # Max micro-batches in flight at once (the engine's software
+    # pipeline). 2 = double-buffering: batch N+1's host prep and H2D copy
+    # overlap batch N's device step. Steps still chain through the
+    # feature state on one stream, so depth buys host/device overlap,
+    # not device concurrency.
+    pipeline_depth: int = 2
+    # Coalesce consecutive source polls into one device batch of up to
+    # this many rows, never past the largest bucket (0 = off).
+    coalesce_rows: int = 0
+    # Copy results to the host on a side stream as soon as the step is
+    # enqueued, into pinned memory, so the copy overlaps later batches'
+    # host work (on the CPU there is nothing to overlap).
+    fetch_overlap: bool = True
+    # Sink appends on a background writer thread behind a bounded queue
+    # of sink_queue_batches results (io/sink.py::AsyncSink).
+    async_sink: bool = False
+    sink_queue_batches: int = 8
+    # Ingest-decode worker threads for envelope batches (core/native.py):
+    # 0 = auto (min(8, cores)); 1 = serial.
+    decode_workers: int = 0
 
     def __post_init__(self):
         if self.z_mode not in ("auto", "f32", "bf16", "int8"):

@@ -1,0 +1,237 @@
+"""Debezium CDC envelope codec for transactions — port of the JAX
+package's ``core/envelope.py``.
+
+The reference consumes Debezium JSON envelopes from Kafka and decodes them
+row at a time in Spark UDFs: the big-endian signed unscaled-int encoding of
+``DECIMAL(10,2)`` (``kafka_s3_sink_transactions.py:63-73``) and µs-epoch
+timestamps (``:167``). Here the decode is columnar: parse the envelopes,
+gather the base64 amount payloads, and convert all amounts in one NumPy
+pass. The C++ scanner (``native/envelope.cc``, loaded by
+``core/native.py``) sits behind the same interface
+(:func:`decode_transaction_envelopes_fast`).
+
+``encode_*`` builds byte-identical envelopes for fixtures and replay, so
+sources and tests round-trip without a live Debezium. The profile
+(customers/terminals) envelopes are not ported yet.
+
+Envelope shape (reference schema at ``kafka_s3_sink_transactions.py:77-126``)::
+
+    {"schema": {...}, "payload": {"before": ..., "after": {"tx_id": ...,
+     "tx_datetime": <µs epoch int>, "customer_id": ..., "terminal_id": ...,
+     "tx_amount": "<base64 big-endian signed unscaled int>"},
+     "source": {...}, "op": "c"|"u"|"d"|"r", "ts_ms": ...}}
+"""
+
+from __future__ import annotations
+
+import base64
+import json
+from typing import Iterable, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+DECIMAL_SCALE = 2  # DECIMAL(10,2): unscaled int = cents
+
+
+def encode_decimal_cents(cents: int) -> str:
+    """int cents -> base64(big-endian signed minimal bytes), Debezium-style."""
+    n = int(cents)
+    length = max(1, (n.bit_length() + 8) // 8)  # +8 keeps room for sign bit
+    raw = n.to_bytes(length, byteorder="big", signed=True)
+    # Minimalize: strip redundant leading sign bytes like Debezium does.
+    while len(raw) > 1 and (
+        (raw[0] == 0x00 and raw[1] < 0x80) or (raw[0] == 0xFF and raw[1] >= 0x80)
+    ):
+        raw = raw[1:]
+    return base64.b64encode(raw).decode("ascii")
+
+
+def decode_decimal_bytes(raw: bytes) -> int:
+    """big-endian signed bytes -> int cents (scalar reference decoder)."""
+    return int.from_bytes(raw, byteorder="big", signed=True)
+
+
+def decode_decimal_batch(raws: Sequence[bytes]) -> np.ndarray:
+    """Vectorized decode of many big-endian signed byte strings to int64 cents.
+
+    One packed pass: join every value into a single byte buffer, view it
+    with ``np.frombuffer``, and scatter bytes right-aligned into an
+    ``[n, 8]`` grid by (row, column) index arithmetic — no per-row Python
+    loop (the old fallback paid a short memcpy + branch per row). Sign
+    extension fills the leading pad bytes of negative values with 0xFF in
+    one masked assignment, then the grid reinterprets as big-endian
+    int64. Bit-identical to the scalar reference decoder and the C++
+    scanner (differential-pinned in tests).
+    """
+    n = len(raws)
+    if n == 0:
+        return np.zeros(0, dtype=np.int64)
+    lens = np.fromiter((len(r) for r in raws), dtype=np.int64, count=n)
+    if lens.max() > 8:
+        raise ValueError(
+            f"decimal wider than 8 bytes: {int(lens.max())}")
+    flat = np.frombuffer(b"".join(raws), dtype=np.uint8)
+    buf = np.zeros((n, 8), dtype=np.uint8)
+    if len(flat):
+        ends = np.cumsum(lens)
+        starts = ends - lens
+        # right-aligned scatter: byte j of row i lands at column
+        # 8 - len_i + j
+        row = np.repeat(np.arange(n), lens)
+        col = (np.arange(len(flat)) - np.repeat(starts, lens)
+               + np.repeat(8 - lens, lens))
+        buf[row, col] = flat
+        # sign-extend: rows whose first byte has the sign bit set get
+        # their leading pad bytes filled with 0xFF
+        nonempty = lens > 0
+        first = np.zeros(n, dtype=np.uint8)
+        first[nonempty] = flat[starts[nonempty]]
+        neg = nonempty & (first >= 0x80)
+        pad_cols = np.arange(8)[None, :] < (8 - lens)[:, None]
+        buf[neg[:, None] & pad_cols] = 0xFF
+    return buf.view(">i8").astype(np.int64).ravel()
+
+
+def encode_transaction_envelope(
+    tx_id: int,
+    tx_datetime_us: int,
+    customer_id: int,
+    terminal_id: int,
+    amount_cents: int,
+    op: str = "c",
+    ts_ms: int = 0,
+    before: Optional[dict] = None,
+) -> bytes:
+    """Build one Debezium-style transaction envelope (fixture/replay format)."""
+    after = {
+        "tx_id": int(tx_id),
+        "tx_datetime": int(tx_datetime_us),
+        "customer_id": int(customer_id),
+        "terminal_id": int(terminal_id),
+        "tx_amount": encode_decimal_cents(amount_cents),
+    }
+    env = {
+        "schema": {"type": "struct", "name": "debezium.payment.transactions.Envelope"},
+        "payload": {
+            "before": before,
+            "after": after,
+            "source": {
+                "connector": "postgresql",
+                "db": "postgres",
+                "schema": "payment",
+                "table": "transactions",
+                "ts_ms": int(ts_ms),
+            },
+            "op": op,
+            "ts_ms": int(ts_ms),
+        },
+    }
+    return json.dumps(env, separators=(",", ":")).encode("utf-8")
+
+
+def encode_transaction_envelopes(
+    tx_id: np.ndarray,
+    tx_datetime_us: np.ndarray,
+    customer_id: np.ndarray,
+    terminal_id: np.ndarray,
+    amount_cents: np.ndarray,
+    ts_ms: Optional[np.ndarray] = None,
+) -> List[bytes]:
+    """Columnar arrays -> list of envelope messages (the load-gen hot path)."""
+    if ts_ms is None:
+        ts_ms = tx_datetime_us // 1000
+    return [
+        encode_transaction_envelope(i, t, c, m, a, ts_ms=s)
+        for i, t, c, m, a, s in zip(
+            tx_id.tolist(), tx_datetime_us.tolist(), customer_id.tolist(),
+            terminal_id.tolist(), amount_cents.tolist(), ts_ms.tolist()
+        )
+    ]
+
+
+def decode_transaction_envelopes(
+    messages: Iterable[bytes],
+    kafka_timestamps_ms: Optional[Sequence[int]] = None,
+) -> Tuple[dict, np.ndarray]:
+    """Decode a micro-batch of envelopes into columnar int64 arrays.
+
+    Returns ``(columns, tombstone_mask)`` where columns match the
+    ``TRANSACTIONS`` schema plus ``op`` (int8: 0=c,1=u,2=d,3=r) and
+    ``kafka_ts_ms``. Delete events (``op=='d'`` with ``after==null``) take
+    their row image from ``before``; pure tombstones (null payload) are
+    masked out.
+
+    Semantics match the reference sink job's extraction SQL
+    (``kafka_s3_sink_transactions.py:160-190``): take ``payload.after``,
+    µs-epoch ``tx_datetime``, binary-decimal ``tx_amount``.
+    """
+    msgs = list(messages)
+    n = len(msgs)
+    tx_id = np.zeros(n, dtype=np.int64)
+    t_us = np.zeros(n, dtype=np.int64)
+    cust = np.zeros(n, dtype=np.int64)
+    term = np.zeros(n, dtype=np.int64)
+    op = np.zeros(n, dtype=np.int8)
+    valid = np.zeros(n, dtype=bool)
+    raw_amounts: List[bytes] = []
+    op_codes = {"c": 0, "u": 1, "d": 2, "r": 3}
+
+    for i, m in enumerate(msgs):
+        try:
+            payload = json.loads(m)["payload"]
+        except (ValueError, KeyError, TypeError):
+            raw_amounts.append(b"\x00")
+            continue
+        if payload is None:
+            raw_amounts.append(b"\x00")
+            continue
+        row = payload.get("after") or payload.get("before")
+        if row is None:
+            raw_amounts.append(b"\x00")
+            continue
+        try:
+            tx_id[i] = row["tx_id"]
+            t_us[i] = row["tx_datetime"]
+            cust[i] = row["customer_id"]
+            term[i] = row["terminal_id"]
+            amt = row.get("tx_amount")
+            raw = base64.b64decode(amt) if amt is not None else b"\x00"
+        except (KeyError, TypeError, ValueError):
+            # incomplete/mistyped row image: mask, don't crash the batch
+            # (matches the native decoder's behavior)
+            raw_amounts.append(b"\x00")
+            continue
+        op[i] = op_codes.get(payload.get("op", "c"), 0)
+        raw_amounts.append(raw)
+        valid[i] = True
+
+    cents = decode_decimal_batch(raw_amounts)
+    if kafka_timestamps_ms is None:
+        kts = t_us // 1000
+    else:
+        kts = np.asarray(kafka_timestamps_ms, dtype=np.int64)
+    cols = {
+        "tx_id": tx_id,
+        "tx_datetime_us": t_us,
+        "customer_id": cust,
+        "terminal_id": term,
+        "tx_amount_cents": cents,
+        "op": op,
+        "kafka_ts_ms": kts,
+    }
+    return cols, ~valid
+
+
+def decode_transaction_envelopes_fast(
+    messages: Iterable[bytes],
+    kafka_timestamps_ms: Optional[Sequence[int]] = None,
+    workers: int = 0,
+) -> Tuple[dict, np.ndarray]:
+    """Dispatcher: the C++ scanner where it builds (``workers`` decode
+    threads, 0 = auto), the Python decoder otherwise."""
+    from real_time_fraud_detection_system_tpu_torch.core import native
+
+    if native.native_available():
+        return native.decode_transaction_envelopes_native(
+            messages, kafka_timestamps_ms, workers)
+    return decode_transaction_envelopes(messages, kafka_timestamps_ms)

@@ -15,7 +15,9 @@ Kinds: ``logreg`` (w, b), ``tree`` and ``forest`` (the flat node tables),
 ``gbt`` (the node tables and ``base_score``). The mlp, autoencoder and
 sequence kinds raise ``NotImplementedError`` (ROADMAP A8); object-store
 URLs, ``save_model`` and the corrupt-artifact counter come with the store
-and the metrics registry (A9, A4).
+and the metrics registry (A9, A4). :func:`save_transactions` and
+:func:`load_transactions` read and write the transactions tables of
+``rtfds datagen``.
 """
 
 from __future__ import annotations
@@ -32,6 +34,9 @@ from typing import Optional
 import numpy as np
 import torch
 
+from real_time_fraud_detection_system_tpu_torch.data.generator import (
+    Transactions,
+)
 from real_time_fraud_detection_system_tpu_torch.device import resolve_device
 from real_time_fraud_detection_system_tpu_torch.models.forest import (
     TreeEnsemble,
@@ -226,3 +231,25 @@ def _load_model_npz(npz, device: torch.device) -> TrainedModel:
             params = GBTModel(trees=params, base_score=t("base_score"))
     return TrainedModel(kind=kind, scaler=scaler, params=params,
                         content_sha256=want)
+
+
+_TX_FIELDS = (
+    "tx_id", "tx_time_seconds", "tx_time_days", "customer_id",
+    "terminal_id", "amount_cents", "tx_fraud", "tx_fraud_scenario",
+)
+
+
+def save_transactions(path: str, txs: Transactions) -> None:
+    """Write a transactions table as the JAX package's ``rtfds datagen``
+    does: a compressed ``.npz`` of the eight columns, renamed into place."""
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        np.savez_compressed(f, **{k: getattr(txs, k) for k in _TX_FIELDS})
+    os.replace(tmp, path)
+
+
+def load_transactions(path: str) -> Transactions:
+    """Read a table that :func:`save_transactions` or ``rtfds datagen``
+    wrote."""
+    with np.load(path, allow_pickle=False) as z:
+        return Transactions(*[z[k] for k in _TX_FIELDS])

@@ -1,13 +1,27 @@
-"""Result sinks — port of the JAX package's ``io/sink.py::MemorySink``.
+"""Result sinks — port of the JAX package's ``io/sink.py``: the
+``analyzed_transactions`` append path.
 
-Parquet, object-store and dead-letter sinks are ported with the serving
-loop and durability work (ROADMAP A2, A3).
+- :class:`ParquetSink` — one Parquet part file per micro-batch under a
+  local directory (``pyarrow`` is imported when one is built, so the
+  package imports without it);
+- :class:`MemorySink` — keeps every batch's columns in memory;
+- :class:`ConsoleSink` — the reference's ``.show()`` analogue;
+- :class:`FanoutSink` — several sinks in order;
+- :class:`AsyncSink` — appends on a background writer thread behind a
+  bounded queue.
+
+Object-store sinks wait for ``io/store.py`` (ROADMAP A9); the dead-letter
+sinks for the fault supervisor (A3); the sink telemetry for the metrics
+registry (A4).
 """
 
 from __future__ import annotations
 
+import os
+import queue
+import threading
 import time
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 
@@ -38,6 +52,136 @@ def _result_to_columns(res) -> dict:
     return cols
 
 
+class FanoutSink:
+    """Append to several sinks; ``flush`` and ``truncate_after`` reach
+    those that have them."""
+
+    def __init__(self, *sinks):
+        self.sinks = [s for s in sinks if s is not None]
+
+    def append(self, res) -> None:
+        for s in self.sinks:
+            s.append(res)
+
+    def flush(self) -> None:
+        for s in self.sinks:
+            f = getattr(s, "flush", None)
+            if f is not None:
+                f()
+
+    def truncate_after(self, batch_index: int) -> None:
+        for s in self.sinks:
+            f = getattr(s, "truncate_after", None)
+            if f is not None:
+                f(batch_index)
+
+
+WRITER_STACK_BYTES = 64 << 20
+
+
+class AsyncSink:
+    """Offload ``append`` to a background writer thread: the serving
+    loop's sink write becomes one enqueue on a bounded queue.
+
+    - Ordered: one writer drains a FIFO, so the inner sink sees appends in
+      the loop's order.
+    - Bounded: at most ``max_queue`` results wait; a full queue blocks the
+      loop thread, and ``backpressure_s`` adds up the time it blocked.
+    - Errors propagate: the writer's first failure is raised on the loop
+      thread at the next ``append``, ``drain``, ``flush`` or ``close``, as
+      its original exception; while it is pending the writer discards
+      what is queued, and the raise clears it.
+    - ``drain()`` blocks until every queued append has landed;
+      ``flush``, ``truncate_after``, ``read_all`` and ``concat`` drain
+      first, and the engine drains at the end of every run.
+    """
+
+    _STOP = object()
+
+    def __init__(self, inner, max_queue: int = 8):
+        if inner is None:
+            raise ValueError("AsyncSink needs an inner sink")
+        self.inner = inner
+        self._q: "queue.Queue" = queue.Queue(maxsize=max(1, int(max_queue)))
+        self._error: Optional[BaseException] = None
+        self.backpressure_s = 0.0
+        # pyarrow's ParquetWriter, run on a thread with the default 8 MB
+        # stack in a process that also runs torch and XLA, crashed at
+        # random (SIGSEGV in its constructor; pyarrow 25.0, Linux; 16 MB
+        # crashed too, 64 MB never did)
+        default = threading.stack_size(WRITER_STACK_BYTES)
+        try:
+            self._thread = threading.Thread(target=self._writer, daemon=True,
+                                            name="sink-writer")
+            self._thread.start()
+        finally:
+            threading.stack_size(default)
+
+    def _writer(self) -> None:
+        while True:
+            item = self._q.get()
+            try:
+                if item is self._STOP:
+                    return
+                if self._error is None:
+                    try:
+                        self.inner.append(item)
+                    # the thread boundary: park the original exception
+                    # for the loop thread, which re-raises it
+                    except BaseException as e:  # noqa: BLE001
+                        self._error = e
+            finally:
+                self._q.task_done()
+
+    def _raise_pending(self) -> None:
+        err = self._error
+        if err is not None:
+            self._error = None
+            raise err
+
+    def append(self, res) -> None:
+        self._raise_pending()
+        t0 = time.perf_counter()
+        self._q.put(res)  # blocks when full
+        waited = time.perf_counter() - t0
+        if waited > 1e-4:  # an uncontended put is ~µs; count only blocks
+            self.backpressure_s += waited
+
+    def drain(self) -> None:
+        """Block until every queued append has landed (or failed); raise
+        a writer failure here."""
+        self._q.join()
+        self._raise_pending()
+
+    def flush(self) -> None:
+        self.drain()
+        f = getattr(self.inner, "flush", None)
+        if f is not None:
+            f()
+
+    def truncate_after(self, batch_index: int) -> None:
+        self.drain()
+        f = getattr(self.inner, "truncate_after", None)
+        if f is not None:
+            f(batch_index)
+
+    def read_all(self) -> dict:
+        self.drain()
+        return self.inner.read_all()
+
+    def concat(self) -> dict:
+        self.drain()
+        return self.inner.concat()
+
+    def close(self) -> None:
+        """Drain, stop the writer thread, and raise a pending error."""
+        if self._thread.is_alive():
+            self._q.join()
+            self._q.put(self._STOP)
+            self._thread.join(timeout=30.0)
+        self._raise_pending()
+
+
 class MemorySink:
     """Keeps every batch's analyzed columns in memory."""
 
@@ -52,3 +196,100 @@ class MemorySink:
             return {}
         keys = self.batches[0].keys()
         return {k: np.concatenate([b[k] for b in self.batches]) for k in keys}
+
+
+class ConsoleSink:
+    """Prints every ``every``-th batch: its size, mean and max
+    probability, and its first ``limit`` rows."""
+
+    def __init__(self, every: int = 1, limit: int = 5):
+        self.every = every
+        self.limit = limit
+        self._n = 0
+
+    def append(self, res) -> None:
+        self._n += 1
+        if self._n % self.every:
+            return
+        n = len(res.tx_id)
+        print(f"[batch {self._n}] rows={n} p(fraud): "
+              f"mean={res.probs.mean():.4f} max={res.probs.max():.4f}")
+        for i in range(min(self.limit, n)):
+            print(f"  tx {res.tx_id[i]} cust {res.customer_id[i]} "
+                  f"amt {res.amount_cents[i] / 100:.2f} -> "
+                  f"{res.probs[i]:.4f}")
+
+
+def _part_order(name: str):
+    """Indexed parts (``part-<batch_index>``) numerically first, then
+    timestamp-named parts by name (their stems are zero-padded)."""
+    base = name.rsplit("/", 1)[-1]
+    stem = base[len("part-"):-len(".parquet")] \
+        if base.startswith("part-") and base.endswith(".parquet") else ""
+    if stem.isdigit():
+        return (0, int(stem), "")
+    return (1, 0, name)
+
+
+class ParquetSink:
+    """One part file per batch: ``<dir>/part-<batch_index>.parquet``.
+
+    A replayed batch carries the same ``batch_index`` and overwrites its
+    own part instead of appending a duplicate. Writes go to a temporary
+    name and are renamed into place, so a reader never sees a torn part.
+    Results without an index fall back to timestamp naming.
+    """
+
+    def __init__(self, directory: str):
+        # imported on the thread that builds the sink, not on an
+        # AsyncSink's writer thread
+        import pyarrow as pa
+        import pyarrow.parquet as pq
+
+        self._pa, self._pq = pa, pq
+        self.directory = directory
+        os.makedirs(directory, exist_ok=True)
+        self._seq = 0
+
+    def append(self, res) -> None:
+        pa, pq = self._pa, self._pq
+        cols = _result_to_columns(res)
+        table = pa.table({k: pa.array(v) for k, v in cols.items()})
+        idx = getattr(res, "batch_index", -1)
+        if idx >= 0:
+            name = f"part-{idx:08d}.parquet"
+        else:
+            name = f"part-{int(time.time() * 1e3)}-{self._seq:06d}.parquet"
+            self._seq += 1
+        path = os.path.join(self.directory, name)
+        tmp = path + ".tmp"
+        pq.write_table(table, tmp)
+        os.replace(tmp, path)
+
+    def truncate_after(self, batch_index: int) -> None:
+        """Drop indexed parts beyond ``batch_index`` (the restore fence)."""
+        for f in os.listdir(self.directory):
+            if not (f.startswith("part-") and f.endswith(".parquet")):
+                continue
+            stem = f[len("part-"):-len(".parquet")]
+            if stem.isdigit() and int(stem) > batch_index:
+                os.remove(os.path.join(self.directory, f))
+
+    def read_all(self) -> dict:
+        pa, pq = self._pa, self._pq
+        files = sorted((os.path.join(self.directory, f)
+                        for f in os.listdir(self.directory)
+                        if f.endswith(".parquet")), key=_part_order)
+        if not files:
+            return {}
+        table = pa.concat_tables([pq.read_table(f) for f in files])
+        return {c: table[c].to_numpy() for c in table.column_names}
+
+
+def make_parquet_sink(path: str) -> ParquetSink:
+    """A local directory → :class:`ParquetSink`. Object-store URLs
+    (``s3://``) wait for the port's ``io/store.py`` (ROADMAP A9)."""
+    if "://" in path:
+        raise NotImplementedError(
+            f"object-store sinks are not ported yet (ROADMAP A9): {path!r}")
+    return ParquetSink(path)

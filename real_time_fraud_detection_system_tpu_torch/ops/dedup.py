@@ -1,12 +1,11 @@
 """Latest-wins dedup on the host — port of the JAX package's
-``ops/dedup.py::latest_wins_mask_np``.
+``ops/dedup.py::latest_wins_mask_np`` and ``latest_wins_mask_host``.
 
 The reference dedups every micro-batch with
 ``ROW_NUMBER() OVER (PARTITION BY tx_id ORDER BY timestamp DESC)`` and keeps
 rank 1 (``kafka_s3_sink_transactions.py:173-190``). Here: keep, for each
 key, the row with the greatest timestamp, ties broken by the latest batch
-position (Kafka log order). The native C++ pass of the JAX package
-(``native/hostprep.cc``) is ported with the serving loop.
+position (Kafka log order).
 """
 
 from __future__ import annotations
@@ -31,3 +30,14 @@ def latest_wins_mask_np(
     mask = np.zeros(b, dtype=bool)
     mask[order] = win_sorted
     return mask
+
+
+def latest_wins_mask_host(key: np.ndarray, ts: np.ndarray) -> np.ndarray:
+    """The serving loop's dedup: the C++ O(n) hash pass
+    (``native/hostprep.cc`` through ``core/native.py``) where it builds,
+    else :func:`latest_wins_mask_np` — the same mask either way."""
+    from real_time_fraud_detection_system_tpu_torch.core import native
+
+    if native.hostprep_available():
+        return native.latest_wins_keep(key, ts)
+    return latest_wins_mask_np(key, ts)

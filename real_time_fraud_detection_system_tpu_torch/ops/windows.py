@@ -88,7 +88,9 @@ def update_windows(
     amt = state.amount.view(-1)
     frd = state.fraud.view(-1)
     for col in (count, amt, frd):
-        col[stale] = 0.0
+        # index_fill_ takes the value as a kernel argument; ``col[stale] =
+        # 0.0`` would copy a 0-dim host tensor to the card per column
+        col.index_fill_(0, stale, 0.0)
 
     w = (valid & (day_in == after)).to(torch.float32)
     count.index_add_(0, flat, w)

@@ -440,3 +440,123 @@ def test_logreg_and_gbt_engines_on_cuda_match_cpu_engine(cuda, kind):
             np.testing.assert_allclose(got[k], want[k], rtol=RTOL_AMOUNT)
         else:
             np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+def _whole_dollar_stream(n_rows=6000):
+    """A small generated stream whose amounts are whole dollars: float32
+    sums of them are exact in any order, so the card's atomic adds give
+    the same state on every run and two runs compare bit for bit."""
+    cfg = Config(data=DataConfig(n_customers=300, n_terminals=600,
+                                 n_days=30, seed=11),
+                 features=FeatureConfig(customer_capacity=512,
+                                        terminal_capacity=1024),
+                 runtime=RuntimeConfig(batch_buckets=(256, 1024)))
+    _, _, txs = generate_dataset(cfg.data)
+    txs = txs.slice(slice(0, n_rows))
+    txs.amount_cents = np.round(txs.amount_cents / 100).astype(np.int64) \
+        * 100
+    return cfg, txs
+
+
+@pytest.mark.parametrize("kind", ["forest", "logreg"])
+def test_pipeline_depths_equal_depth_one_bit_for_bit_on_cuda(cuda, kind):
+    """Depths 2 and 3 keep batches in flight through the pinned staging
+    ring (depth + 1 buffers per bucket, reused many times over) and the
+    side-stream result copies into pinned blocks; a buffer reused too
+    early, or a result that shares memory with a later batch's, would
+    change the sink's rows. Coalesced small polls equal the same batches
+    polled whole, and blocking result copies (``fetch_overlap`` off) the
+    side-stream ones."""
+    import dataclasses
+
+    cfg, txs = _whole_dollar_stream()
+    rng = np.random.default_rng(2)
+    params = (synthetic_ensemble(10, 5, N_FEAT, seed=3, device="cpu")
+              if kind == "forest" else
+              LogRegParams(torch.as_tensor(rng.normal(0, 0.8, N_FEAT)
+                                           .astype(np.float32)),
+                           torch.tensor(-1.0)))
+    scaler = fit_scaler(rng.normal(5, 3, (64, N_FEAT)), device=cuda)
+
+    def serve(depth, coalesce=0, poll=1000, overlap=True):
+        rcfg = dataclasses.replace(cfg.runtime, pipeline_depth=depth,
+                                   coalesce_rows=coalesce,
+                                   fetch_overlap=overlap)
+        eng = ScoringEngine(dataclasses.replace(cfg, runtime=rcfg), kind,
+                            params, scaler, device=cuda)
+        sink = MemorySink()
+        stats = eng.run(ReplaySource(txs, START, batch_rows=poll), sink)
+        assert stats["pipeline_depth"] == depth
+        assert stats["rows"] == txs.n
+        out = sink.concat()
+        out.pop("processed_at_us")
+        return out, [len(b["tx_id"]) for b in sink.batches]
+
+    base, sizes = serve(1)
+    assert base["prediction"].std() > 0
+    for depth, coalesce, poll, overlap in ((2, 0, 1000, True),
+                                           (3, 0, 1000, True),
+                                           (2, 1000, 250, True),
+                                           (2, 0, 1000, False)):
+        got, got_sizes = serve(depth, coalesce, poll, overlap)
+        assert got_sizes == sizes
+        for k in base:
+            np.testing.assert_array_equal(got[k], base[k],
+                                          err_msg=f"{k} at depth {depth}")
+
+
+@pytest.mark.parametrize("features,kind", [
+    ({"key_mode": "hash"}, "forest"), ({"key_mode": "hash"}, "logreg"),
+    ({"key_mode": "hash"}, "gbt"), ({"customer_source": "cms"}, "forest"),
+    ({"customer_source": "cms"}, "gbt"),
+    ({"customer_source": "cms"}, "logreg")])
+def test_hash_and_sketch_engines_on_cuda_match_cpu_engine(cuda, features,
+                                                          kind):
+    """Hash keys take each kind's fused kernel; the customer sketch serves
+    the tree kinds through the leaf-sum kernel and logreg through its
+    plain predict. Whole-dollar amounts: the sketch's and the tables'
+    sums are exact in any order, so every column is bit-identical but the
+    probabilities (the kernels' sigmoid and the trees' order, 1e-6)."""
+    import dataclasses
+
+    cfg, txs = _whole_dollar_stream(3000)
+    cfg = dataclasses.replace(cfg, features=dataclasses.replace(
+        cfg.features, cms_width=1 << 10, **features))
+    rng = np.random.default_rng(4)
+    params = {
+        "forest": synthetic_ensemble(10, 5, N_FEAT, seed=3, device="cpu"),
+        "gbt": synthetic_gbt(10, 5, N_FEAT, seed=3, device="cpu"),
+        "logreg": LogRegParams(torch.as_tensor(
+            rng.normal(0, 0.8, N_FEAT).astype(np.float32)),
+            torch.tensor(-1.0)),
+    }[kind]
+    scaler = rng.normal(5, 3, (64, N_FEAT))
+    sinks, launched = {}, {}
+    for dev in ("cpu", "cuda"):
+        eng = ScoringEngine(cfg, kind, params, fit_scaler(scaler, device=dev),
+                            device=dev)
+        sinks[dev] = MemorySink()
+        before = {f: f.launches for f in (fk.fused_forest_leaf_sum,
+                                          fk.leaf_sum,
+                                          sk.fused_featurize_score)}
+        stats = eng.run(ReplaySource(txs, START, batch_rows=1000),
+                        sinks[dev])
+        launched[dev] = {f.__name__: f.launches - n
+                         for f, n in before.items()}
+    sketch = features.get("customer_source") == "cms"
+    own = {"forest": "leaf_sum" if sketch else "fused_forest_leaf_sum",
+           "gbt": "leaf_sum",
+           "logreg": None if sketch else "fused_featurize_score"}[kind]
+    assert launched["cpu"] == {k: 0 for k in launched["cpu"]}
+    assert launched["cuda"] == {k: stats["batches"] if k == own else 0
+                                for k in launched["cuda"]}
+    got, want = sinks["cuda"].concat(), sinks["cpu"].concat()
+    for k in want:
+        if k == "processed_at_us":
+            continue
+        if k == "prediction":
+            np.testing.assert_allclose(got[k], want[k], rtol=0.0,
+                                       atol=ATOL_SIGMOID)
+            assert np.array_equal(got[k] >= 0.5, want[k] >= 0.5)
+        else:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)

@@ -2,7 +2,9 @@
 
 One check imports the port in a fresh interpreter where ``import jax``
 fails, and serves a batch of each model kind on the CPU (the gbt weights
-through the port's own artifact writer and reader); the other reads the
+through the port's own artifact writer and reader), a batch under hash
+keys and under the customer sketch from envelopes, and one through the
+``score`` command; the other reads the
 port's sources (Python, CUDA and CUDA headers) and ``chip_smoke.py`` for
 an import of jax or a dotted reference into the JAX package.
 """
@@ -42,6 +44,15 @@ from real_time_fraud_detection_system_tpu_torch.runtime.engine import (
 from real_time_fraud_detection_system_tpu_torch.runtime.sources import (
     ReplaySource)
 import real_time_fraud_detection_system_tpu_torch.weights  # noqa: F401
+import dataclasses
+from real_time_fraud_detection_system_tpu_torch import cli
+from real_time_fraud_detection_system_tpu_torch.core import native
+from real_time_fraud_detection_system_tpu_torch.io.artifacts import (
+    save_transactions)
+from real_time_fraud_detection_system_tpu_torch.io.sink import (
+    AsyncSink, ConsoleSink, FanoutSink, ParquetSink)  # noqa: F401
+from real_time_fraud_detection_system_tpu_torch.runtime.sources import (
+    SyntheticSource)  # noqa: F401
 
 cfg = Config(data=DataConfig(n_customers=40, n_terminals=80, n_days=10),
              features=FeatureConfig(customer_capacity=64,
@@ -60,6 +71,27 @@ for kind, params in (("forest", synthetic_ensemble(3, 3, device="cpu")),
     stats = eng.run(ReplaySource(txs, 1_743_465_600, batch_rows=200), sink,
                     max_batches=1)
     assert stats["batches"] == 1 and len(sink.concat()["prediction"]) == 200
+# hash keys and the customer sketch, envelope ingest through the native
+# decoder, and the score command
+for features in ({"key_mode": "hash"}, {"customer_source": "cms",
+                                        "cms_width": 256}):
+    fcfg = dataclasses.replace(cfg.features, **features)
+    eng = ScoringEngine(dataclasses.replace(cfg, features=fcfg), "forest",
+                        synthetic_ensemble(3, 3, device="cpu"), scaler,
+                        device="cpu")
+    stats = eng.run(ReplaySource(txs, 1_743_465_600, batch_rows=200,
+                                 mode="envelope"), MemorySink(),
+                    max_batches=1)
+    assert stats["batches"] == 1 and stats["host_prep_route"] == "native"
+assert native.native_available()
+import tempfile
+with tempfile.TemporaryDirectory() as tmp:
+    save_transactions(f"{tmp}/txs.npz", txs)
+    with open(f"{tmp}/gbt.npz", "wb") as f:
+        f.write(dump_model_bytes(TrainedModel("gbt", scaler, gbt)))
+    assert cli.main(["score", "--device", "cpu", "--data", f"{tmp}/txs.npz",
+                     "--model-file", f"{tmp}/gbt.npz", "--max-batches",
+                     "1", "--batch-rows", "200"]) == 0
 assert not any(m.split(".")[0] in ("jax", "real_time_fraud_detection_system_tpu")
                for m, mod in sys.modules.items() if mod is not None)
 print("served without jax")

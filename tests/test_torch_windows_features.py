@@ -191,11 +191,17 @@ def test_update_and_featurize_two_batches_match(whole_dollar):
 
 
 def test_unported_modes_raise_with_roadmap_item():
-    for kw, item in (({"key_mode": "hash"}, "A1"),
-                     ({"key_mode": "exact"}, "A5"),
-                     ({"customer_source": "cms"}, "A5")):
-        with pytest.raises(NotImplementedError, match=item):
+    """Only key_mode='exact' is still refused (ROADMAP A5); hash keys and
+    the customer sketch build their state."""
+    for kw in ({"key_mode": "exact"},
+               {"key_mode": "exact", "customer_source": "cms"}):
+        with pytest.raises(NotImplementedError, match="A5"):
             tonline.init_feature_state(FeatureConfig(**kw), CPU)
+    assert tonline.init_feature_state(FeatureConfig(key_mode="hash"),
+                                      CPU).cms is None
+    sk = tonline.init_feature_state(
+        FeatureConfig(customer_source="cms", cms_width=1 << 6), CPU).cms
+    assert (sk.n_days, sk.depth, sk.width) == (40, 4, 64)
 
 
 def test_state_bytes_matches_jax():
