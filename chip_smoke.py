@@ -51,11 +51,25 @@ Phases, each printing JSON lines:
    dataset and the forest artifact written to a temporary directory:
    columnar over every row, and envelope mode on a slice through the
    native decoder.
-8. ``profile`` — a few batches of each main path, and of the forest path
+8. ``recovery`` — exactly-once durability on the forest path (whole-dollar
+   amounts, checkpoints every 8 batches, a full every 4 saves, a local
+   ``Checkpointer`` in a temporary directory; results kept by
+   ``batch_index``, a replay overwriting its entry): (a) the clean run
+   with and without checkpoints — save ms and bytes (full, delta), restore
+   ms (a full, a delta chain), rows/s of both, and one full save and one
+   restore taken apart (the copies, CRC32, the npz write and read); (b) one supervised run with
+   a crash (poll 13) and a stall (poll 22, 5 s watchdog), equal to (a) bit
+   for bit with one restart of each cause; (c) the newest checkpoint with
+   a flipped byte: one ``checksum`` corruption, one fallback, the resumed
+   output equal to (a); (d) 3 poisoned rows in batch 20 under
+   ``crash_loop_k=2``: the dead-letter queue holds exactly them and every
+   other row equals a clean run without them. Steps run (replays and
+   bisection probes included) against the fused kernel's launches.
+9. ``profile`` — a few batches of each main path, and of the forest path
    on the customer sketch, under ``torch.profiler``: device time by
    kernel, the device's idle share, and the ``[B, NB]`` row gathers (none
    on the fused paths).
-9. ``kernels`` — one line per the measurement contract, each kernel's
+10. ``kernels`` — one line per the measurement contract, each kernel's
    launches summed over every driven path that launched it.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises and
@@ -69,9 +83,11 @@ import contextlib
 import dataclasses
 import io
 import json
+import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -101,6 +117,14 @@ FORESTS = {"complete_depth8": (100, 8, False),
            "complete_depth11": (10, 11, False)}
 BATCH_ROWS = 65536  # the main path's batch bucket
 PROFILE_BATCHES = 4
+# Phase recovery: the checkpoint cadence, the scripted faults' poll
+# indices, the watchdog's budget, and the poisoned batch.
+RECOVERY_EVERY = 8
+RECOVERY_FULL_EVERY = 4
+RECOVERY_CRASH_POLL = 13
+RECOVERY_HANG_POLL = 22
+RECOVERY_STALL_S = 5.0
+RECOVERY_POISON_BATCH = 20
 SERVING_DEPTHS = (1, 2, 3)
 COALESCE_POLL_ROWS = 16384
 ENVELOPE_ROWS = 262144  # the slice the cli phase serves in envelope mode
@@ -938,6 +962,346 @@ def phase_cli(dev, device_info, data: dict) -> dict:
     return totals
 
 
+class IndexedSink:
+    """Results by ``batch_index`` (the card machine has no pyarrow for the
+    Parquet sink): a replayed batch overwrites its entry, and
+    ``truncate_after`` drops the entries past a restored counter, as the
+    Parquet sink's restore fence drops parts."""
+
+    def __init__(self):
+        self.batches = {}
+
+    def append(self, res) -> None:
+        self.batches[res.batch_index] = (res.tx_id.copy(), res.probs.copy(),
+                                         res.features.copy())
+
+    def truncate_after(self, batch_index: int) -> None:
+        for i in [i for i in self.batches if i > batch_index]:
+            del self.batches[i]
+
+
+def _same_batches(got: dict, want: dict, what: str, first: int = 1) -> None:
+    keys = sorted(k for k in want if k >= first)
+    check(sorted(k for k in got if k >= first) == keys,
+          f"recovery {what}: batches {sorted(got)} against {sorted(want)}")
+    for k in keys:
+        for a, b in zip(got[k], want[k]):
+            check(a.dtype == b.dtype and np.array_equal(a, b),
+                  f"recovery {what}: batch {k} differs")
+
+
+def _same_state(a, b, what: str) -> None:
+    from real_time_fraud_detection_system_tpu_torch.io.checkpoint import (
+        _leaves,
+    )
+
+    for (path, x), (_, y) in zip(_leaves(a.feature_state),
+                                 _leaves(b.feature_state)):
+        check(x.device == y.device and torch.equal(x, y),
+              f"recovery {what}: feature state {path} differs")
+    check(a.offsets == b.offsets and a.batches_done == b.batches_done
+          and a.rows_done == b.rows_done,
+          f"recovery {what}: counters {a.offsets, a.batches_done} against "
+          f"{b.offsets, b.batches_done}")
+
+
+def phase_recovery(dev, device_info, data: dict) -> dict:
+    """Checkpoints, the supervisor, fallback and poison isolation on the
+    forest path at full width (see the module docstring, phase 8)."""
+    from real_time_fraud_detection_system_tpu_torch.io.checkpoint import (
+        Checkpointer,
+    )
+    from real_time_fraud_detection_system_tpu_torch.io.sink import (
+        DeadLetterSink,
+    )
+    from real_time_fraud_detection_system_tpu_torch.runtime.engine import (
+        ScoringEngine,
+    )
+    from real_time_fraud_detection_system_tpu_torch.runtime.faults import (
+        FlakySource,
+        HangingSource,
+        PoisonSource,
+        run_with_recovery,
+    )
+    from real_time_fraud_detection_system_tpu_torch.runtime.sources import (
+        ReplaySource,
+    )
+    from real_time_fraud_detection_system_tpu_torch.utils.metrics import (
+        get_registry,
+    )
+
+    txs = data["txs_whole_dollars"]
+    model = data["models"]["forest"][0]
+    cfg = dataclasses.replace(data["cfg"], runtime=dataclasses.replace(
+        data["cfg"].runtime, checkpoint_every_batches=RECOVERY_EVERY))
+    totals = {name: 0 for name in KERNELS}
+    steps = {"n": 0}
+    engines = []
+
+    def make_engine():
+        eng = ScoringEngine(cfg, "forest", model.params, model.scaler,
+                            device=dev)
+        check(eng.tables is not None, "recovery: the fused forest branch")
+        step = eng._step
+
+        def counted(packed):
+            steps["n"] += 1
+            return step(packed)
+
+        eng._step = counted
+        engines.append(eng)
+        return eng
+
+    def source(**kw):
+        return ReplaySource(txs, START_EPOCH_S, batch_rows=BATCH_ROWS, **kw)
+
+    def driven(run):
+        out, launches = drive(run)
+        for name, n in launches.items():
+            totals[name] += n
+        return out
+
+    # (a) the clean run, without and with checkpoints
+    clean = IndexedSink()
+    eng = make_engine()
+    stats_plain = driven(lambda: eng.run(source(), clean))
+    want_state = eng.state
+    check(stats_plain["rows"] == txs.n, "recovery: not every row scored")
+    n_batches = stats_plain["batches"]
+    tmp = tempfile.mkdtemp(prefix="recovery-")
+    try:
+        ckpt = Checkpointer(f"{tmp}/ck", full_every=RECOVERY_FULL_EVERY)
+        saves = []
+        save = ckpt.save
+
+        def timed_save(state):
+            t0 = time.perf_counter()
+            path = save(state)
+            saves.append((path, (time.perf_counter() - t0) * 1e3))
+            return path
+
+        ckpt.save = timed_save
+        with_ckpt = IndexedSink()
+        eng = make_engine()
+        stats_ckpt = driven(lambda: eng.run(source(), with_ckpt,
+                                            checkpointer=ckpt))
+        # each save's kind, size and stored leaves, read after the timed run
+        mans = [(ckpt.manifest(path), ms, Path(path).stat().st_size)
+                for path, ms in saves]
+        saves = [(m["kind"], ms, size) for m, ms, size in mans]
+        delta_stored = sorted({m["meta"]["fs_leaves"].get(k, k)
+                               for m, _, _ in mans if m["kind"] == "delta"
+                               for k in m["stored"]})
+        _same_batches(with_ckpt.batches, clean.batches, "(a) checkpointed")
+        _same_state(eng.state, want_state, "(a) checkpointed")
+        kinds = [k for k, _, _ in saves]
+        check(kinds == ["full", "delta", "delta", "delta"],
+              f"recovery: saves {kinds}")
+        breakdown = _checkpoint_breakdown(eng, cfg, model, dev, tmp)
+        restore_ms = {}
+        for kind, name in (("full", "ckpt-0000000008.npz"),
+                           ("delta_chain", "ckpt-0000000032-delta.npz")):
+            fresh = ScoringEngine(cfg, "forest", model.params, model.scaler,
+                                  device=dev)
+            ptrs = [t.data_ptr() for t in fresh.state.feature_state.terminal]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            check(ckpt.restore(fresh.state, path=f"{tmp}/ck/{name}")
+                  is not None, f"recovery: restore of {name}")
+            torch.cuda.synchronize()
+            restore_ms[kind] = (time.perf_counter() - t0) * 1e3
+            check([t.data_ptr() for t in fresh.state.feature_state.terminal]
+                  == ptrs and fresh.state.feature_state.terminal.count
+                  .device == dev, "recovery: the restore moved a tensor")
+            del fresh
+
+        # (b) one supervised run with a crash and a stall
+        reg = get_registry()
+        m_crash = reg.counter("rtfds_engine_restarts_total", cause="crash")
+        m_stall = reg.counter("rtfds_engine_restarts_total", cause="stall")
+        base = (m_crash.value, m_stall.value)
+        hang = HangingSource(FlakySource(source(),
+                                         fail_at=(RECOVERY_CRASH_POLL,)),
+                             hang_at=(RECOVERY_HANG_POLL,),
+                             max_hang_s=120.0)
+        supervised = IndexedSink()
+        steps_b = steps["n"]
+        t0 = time.perf_counter()
+        try:
+            stats_b = driven(lambda: run_with_recovery(
+                make_engine, hang,
+                Checkpointer(f"{tmp}/ck-b", full_every=RECOVERY_FULL_EVERY),
+                sink=supervised, max_restarts=3,
+                stall_timeout_s=RECOVERY_STALL_S))
+        finally:
+            hang.release.set()
+            for t in threading.enumerate():
+                if t.name == "engine-incarnation" \
+                        and t is not threading.current_thread():
+                    t.join(60.0)
+        seconds_b = time.perf_counter() - t0
+        restarts = {"crash": int(m_crash.value - base[0]),
+                    "stall": int(m_stall.value - base[1])}
+        check(restarts == {"crash": 1, "stall": 1}
+              and stats_b["restarts"] == 2, f"recovery (b): {restarts}")
+        _same_batches(supervised.batches, clean.batches, "(b)")
+        _same_state(engines[-1].state, want_state, "(b)")
+        steps_b = steps["n"] - steps_b
+
+        # (c) a corrupt newest checkpoint
+        newest = ckpt.latest()
+        raw = bytearray(Path(newest).read_bytes())
+        raw[len(raw) // 2] ^= 0xFF
+        Path(newest).write_bytes(bytes(raw))
+        corrupt = reg.counter("rtfds_checkpoint_corrupt_total",
+                              reason="checksum")
+        fallbacks = reg.counter("rtfds_checkpoint_fallbacks_total")
+        base = (corrupt.value, fallbacks.value)
+        resumed = IndexedSink()
+        resumed.batches = dict(with_ckpt.batches)
+        driven(lambda: run_with_recovery(
+            make_engine, source(),
+            Checkpointer(f"{tmp}/ck", full_every=RECOVERY_FULL_EVERY),
+            sink=resumed, max_restarts=1))
+        corrupt_newest = {"checksum": corrupt.value - base[0],
+                          "fallbacks": fallbacks.value - base[1]}
+        check(corrupt_newest == {"checksum": 1, "fallbacks": 1},
+              f"recovery (c): {corrupt_newest}")
+        _same_batches(resumed.batches, clean.batches, "(c)")
+        _same_state(engines[-1].state, want_state, "(c)")
+
+        # (d) poison rows in one batch
+        lo = (RECOVERY_POISON_BATCH - 1) * BATCH_ROWS
+        poison = [int(txs.tx_id[lo + k])
+              for k in (11, BATCH_ROWS // 2 - 1, BATCH_ROWS - 7)]
+        without = IndexedSink()
+        eng = make_engine()
+        driven(lambda: eng.run(_WithoutRows(source(), poison), without))
+        want_poison_state = eng.state
+        dlq = DeadLetterSink(f"{tmp}/dlq.jsonl")
+        isolated = IndexedSink()
+        steps_d = steps["n"]
+        stats_d = driven(lambda: run_with_recovery(
+            make_engine, PoisonSource(source(), poison),
+            Checkpointer(f"{tmp}/ck-d", full_every=RECOVERY_FULL_EVERY),
+            sink=isolated, max_restarts=3, crash_loop_k=2,
+            dead_letter=dlq))
+        steps_d = steps["n"] - steps_d
+        check(dlq.tx_ids() == sorted(poison)
+              and all(r["batch_index"] == RECOVERY_POISON_BATCH
+                      for r in dlq.read_all()),
+              f"recovery (d): dead-letter queue {dlq.tx_ids()}")
+        dlq_rows = len(dlq)
+        dlq.close()
+        _same_batches(isolated.batches, without.batches, "(d)")
+        _same_state(engines[-1].state, want_poison_state, "(d)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del engines[:]
+
+    # every step ran the fused kernel once, replays and probes included
+    check(totals["fused_forest_leaf_sum"] == steps["n"]
+          and totals["leaf_sum"] == totals["fused_featurize_score"] == 0,
+          f"recovery: {totals} launches for {steps['n']} steps")
+    save_ms = {k: [ms for kind, ms, _ in saves if kind == k]
+               for k in ("full", "delta")}
+    save_bytes = {k: [b for kind, _, b in saves if kind == k]
+                  for k in ("full", "delta")}
+    emit({"phase": "recovery", "path": "forest", "batches": n_batches,
+          "checkpoint_every_batches": RECOVERY_EVERY,
+          "checkpoint_full_every": RECOVERY_FULL_EVERY,
+          "save_ms": {k: float(np.mean(v)) for k, v in save_ms.items()},
+          "save_ms_each": saves,
+          "save_bytes": {k: int(np.mean(v)) for k, v in save_bytes.items()},
+          "delta_stored_leaves": delta_stored,
+          "restore_ms": restore_ms,
+          **breakdown,
+          "rows_per_s": {"without_checkpoints": stats_plain["rows_per_s"],
+                         "with_checkpoints": stats_ckpt["rows_per_s"]},
+          "supervised": {"restarts": restarts, "seconds": seconds_b,
+                         "stall_timeout_s": RECOVERY_STALL_S,
+                         "steps_run": steps_b,
+                         "batches": stats_b["batches"]},
+          "corrupt_newest": corrupt_newest,
+          "poison": {"dead_letter_rows": dlq_rows,
+                     "restarts": stats_d["restarts"],
+                     "steps_run": steps_d},
+          "kernel_launches": totals,
+          "card": device_info["smi_name"],
+          "power_limit": device_info["power_limit"]})
+    return totals
+
+
+def _checkpoint_breakdown(eng, cfg, model, dev, tmp: str) -> dict:
+    """One full save and one restore of ``eng``'s state taken apart, each
+    step timed with the card synchronized around it: the device-to-host
+    copy of every leaf, the CRC32s, the npz write; the read, the npz
+    parse, the CRC32 verification, the live params' CRC32 (device to
+    host), and the copy into a fresh engine's tensors."""
+    from real_time_fraud_detection_system_tpu_torch.io import checkpoint
+    from real_time_fraud_detection_system_tpu_torch.runtime.engine import (
+        ScoringEngine,
+    )
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    path = f"{tmp}/breakdown.npz"
+    (arrays, meta), d2h = timed(lambda: checkpoint._state_arrays(eng.state))
+    crcs, crc = timed(lambda: {k: checkpoint._crc(a)
+                               for k, a in arrays.items()})
+
+    def write():
+        with open(path, "wb") as f:
+            np.savez(f, __meta__=json.dumps(meta), **arrays)
+
+    _, npz_write = timed(write)
+    data, read = timed(lambda: Path(path).read_bytes())
+    (_, _, _, parsed), parse = timed(lambda: checkpoint._parse_entry(data))
+    _, verify = timed(lambda: [checkpoint._crc(a) for a in parsed.values()])
+    fresh = ScoringEngine(cfg, "forest", model.params, model.scaler,
+                          device=dev)
+    live, live_crc = timed(lambda: checkpoint._param_crcs(
+        fresh.state.params))
+    fresh.state.params_crcs = live
+    _, h2d = timed(lambda: checkpoint._apply_arrays(fresh.state, meta,
+                                                    parsed, crcs))
+    return {"save_breakdown_ms": {"d2h": d2h, "crc32": crc,
+                                  "npz_write": npz_write},
+            "restore_breakdown_ms": {"read": read, "npz_parse": parse,
+                                     "crc32_verify": verify,
+                                     "live_params_crc32": live_crc,
+                                     "h2d_in_place": h2d},
+            "breakdown_bytes": sum(a.nbytes for a in arrays.values())}
+
+
+class _WithoutRows:
+    """A source that drops the given ``tx_id`` rows from every poll: the
+    batches keep their boundaries, less those rows."""
+
+    def __init__(self, inner, tx_ids):
+        self.inner = inner
+        self._ids = np.asarray(sorted(tx_ids), np.int64)
+
+    def poll_batch(self):
+        cols = self.inner.poll_batch()
+        if cols is None:
+            return None
+        keep = ~np.isin(cols["tx_id"], self._ids)
+        return {k: v[keep] for k, v in cols.items()}
+
+    @property
+    def offsets(self):
+        return self.inner.offsets
+
+    def seek(self, offsets):
+        self.inner.seek(offsets)
+
+
 def phase_profile(dev, data: dict, kind: str, cfg=None) -> None:
     """Device time by kernel over a few batches of a path under
     torch.profiler, the device's idle share of that window, and the
@@ -1015,6 +1379,7 @@ def main() -> int:
         for kind in kinds:
             add(phase_main_path(dev, info, data, kind, phase, pcfg))
     add(phase_cli(dev, info, data))
+    add(phase_recovery(dev, info, data))
     for kind in PATHS:
         phase_profile(dev, data, kind)
     phase_profile(dev, data, "forest", dataclasses.replace(

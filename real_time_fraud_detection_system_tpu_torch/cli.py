@@ -8,10 +8,14 @@ commands write (a transactions ``.npz`` and a model ``.npz``), replays the
 table through :class:`~.runtime.engine.ScoringEngine` and prints the run's
 stats as one JSON line at the end. The flags it shares with the JAX
 ``score`` take their names, defaults and checks; ``--device`` (default
-``cuda``) is the port's own. Not ported yet: the Kafka and raw-table
-sources and object-store output (ROADMAP A2, A9), checkpoints and the
-fault supervisor (A3), the CPU oracle, ``--key-mode exact`` (A5) and the
-serving extras (A4, A6).
+``cuda``) is the port's own. ``--checkpoint-dir`` checkpoints the stream
+(``--resume`` continues from it); ``--max-restarts`` runs it under the
+fault supervisor (``runtime/faults.py``) with the stall watchdog
+(``--stall-timeout``) and poison isolation into ``--dead-letter``. The
+checkpoints are the JAX package's format: either package resumes the
+other's. Not ported yet: the Kafka and raw-table sources and object-store
+output (ROADMAP A2, A9), ``--resume-merge`` (A7), the CPU oracle,
+``--key-mode exact`` (A5) and the serving extras (A4, A6).
 """
 
 from __future__ import annotations
@@ -44,16 +48,24 @@ def _json_line(obj) -> str:
 
 def cmd_score(args) -> int:
     from real_time_fraud_detection_system_tpu_torch.config import Config
+    from real_time_fraud_detection_system_tpu_torch.device import (
+        resolve_device,
+    )
     from real_time_fraud_detection_system_tpu_torch.io.artifacts import (
         load_model,
         load_transactions,
     )
+    from real_time_fraud_detection_system_tpu_torch.io.checkpoint import (
+        make_checkpointer,
+    )
     from real_time_fraud_detection_system_tpu_torch.io.sink import (
         AsyncSink,
+        make_dead_letter_sink,
         make_parquet_sink,
     )
     from real_time_fraud_detection_system_tpu_torch.runtime.engine import (
         ScoringEngine,
+        batches_left,
     )
     from real_time_fraud_detection_system_tpu_torch.runtime.sources import (
         ReplaySource,
@@ -74,6 +86,37 @@ def cmd_score(args) -> int:
         log.error("--decode-workers must be >= 0, got %s",
                   args.decode_workers)
         return 2
+    if args.resume_merge or args.resume_merge_cold:
+        log.error("--resume-merge and --resume-merge-cold (adopting a "
+                  "drained fleet's checkpoints) are not ported yet: "
+                  "ROADMAP A7")
+        return 2
+    if args.crash_loop_k < 1:
+        log.error("--crash-loop-k must be >= 1, got %s", args.crash_loop_k)
+        return 2
+    if args.restart_backoff_ms < 0:
+        log.error("--restart-backoff-ms must be >= 0, got %s",
+                  args.restart_backoff_ms)
+        return 2
+    if args.checkpoint_full_every < 1:
+        log.error("--checkpoint-full-every must be >= 1, got %s",
+                  args.checkpoint_full_every)
+        return 2
+    if args.checkpoint_op_attempts < 1 or args.checkpoint_op_timeout < 0:
+        log.error("--checkpoint-op-attempts must be >= 1 and "
+                  "--checkpoint-op-timeout >= 0, got %s / %s",
+                  args.checkpoint_op_attempts, args.checkpoint_op_timeout)
+        return 2
+    if args.max_restarts > 0 and not args.checkpoint_dir:
+        log.error("--max-restarts requires --checkpoint-dir "
+                  "(there is nothing to recover from without checkpoints)")
+        return 2
+    if args.stall_timeout > 0 and not (args.max_restarts > 0
+                                       and args.checkpoint_dir):
+        log.error("--stall-timeout requires supervised mode "
+                  "(--max-restarts with --checkpoint-dir); without it the "
+                  "watchdog has no restart path to escalate into")
+        return 2
     cfg = Config()
     cfg = dataclasses.replace(
         cfg,
@@ -87,6 +130,11 @@ def cmd_score(args) -> int:
             sink_queue_batches=args.sink_queue_batches,
             decode_workers=args.decode_workers,
             fetch_overlap=not args.no_fetch_overlap,
+            checkpoint_dir=args.checkpoint_dir,
+            checkpoint_full_every=args.checkpoint_full_every,
+            checkpoint_op_timeout_s=args.checkpoint_op_timeout,
+            checkpoint_op_attempts=args.checkpoint_op_attempts,
+            restart_backoff_ms=args.restart_backoff_ms,
         ),
         features=dataclasses.replace(cfg.features, key_mode=args.key_mode),
     )
@@ -95,21 +143,70 @@ def cmd_score(args) -> int:
                     "zero feature columns (predictions only)", args.out)
     txs = load_transactions(args.data)
     model = load_model(args.model_file, device=args.device)
-    engine = ScoringEngine(cfg, model.kind, model.params, model.scaler,
-                           device=args.device)
+
+    def make_engine():
+        return ScoringEngine(cfg, model.kind, model.params, model.scaler,
+                             device=args.device)
+
     source = ReplaySource(txs, date_to_epoch_s(args.start_date),
                           batch_rows=args.batch_rows, mode=args.mode,
                           decode_workers=cfg.runtime.decode_workers)
     sink = make_parquet_sink(args.out) if args.out else None
     if cfg.runtime.async_sink and sink is not None:
         sink = AsyncSink(sink, max_queue=cfg.runtime.sink_queue_batches)
+    rt = cfg.runtime
+    ckpt = make_checkpointer(
+        rt.checkpoint_dir,
+        full_every=rt.checkpoint_full_every,
+        op_timeout_s=rt.checkpoint_op_timeout_s,
+        op_attempts=rt.checkpoint_op_attempts,
+    ) if rt.checkpoint_dir else None
+    dead_letter = None
+    if args.dead_letter:
+        dead_letter = make_dead_letter_sink(args.dead_letter)
+        log.info("dead-letter queue: %s (%d row(s) already quarantined)",
+                 args.dead_letter, len(dead_letter))
     try:
-        stats = engine.run(source, sink=sink, max_batches=args.max_batches)
+        if ckpt is not None and args.max_restarts > 0:
+            from real_time_fraud_detection_system_tpu_torch.runtime.faults \
+                import RetryPolicy, run_with_recovery
+
+            backoff = None
+            if rt.restart_backoff_ms > 0:
+                # doubling, full jitter, capped at 30 s
+                backoff = RetryPolicy(
+                    base_delay_s=rt.restart_backoff_ms / 1000.0,
+                    multiplier=2.0, max_delay_s=30.0, jitter=1.0)
+            stats = run_with_recovery(
+                make_engine, source, ckpt, sink=sink,
+                max_restarts=args.max_restarts,
+                max_batches=args.max_batches, resume=args.resume,
+                stall_timeout_s=args.stall_timeout,
+                crash_loop_k=args.crash_loop_k, dead_letter=dead_letter,
+                restart_backoff=backoff)
+        else:
+            engine = make_engine()
+            if ckpt is not None and args.resume:
+                if ckpt.restore(engine.state) is not None:
+                    source.seek(engine.state.offsets)
+                    log.info("resumed from batch %d",
+                             engine.state.batches_done)
+                truncate = getattr(sink, "truncate_after", None)
+                if truncate is not None:
+                    truncate(engine.state.batches_done)
+            # --max-batches counts the engine's lifetime batches, restored
+            # ones included, as the JAX score does
+            stats = engine.run(
+                source, sink=sink, checkpointer=ckpt,
+                max_batches=batches_left(engine.state, args.max_batches))
     finally:
         if isinstance(sink, AsyncSink):
             sink.close()
-    print(_json_line({"device": str(engine.device), "kind": model.kind,
-                      **stats}))
+    if dead_letter is not None:
+        stats["dead_letter_rows"] = len(dead_letter)
+        dead_letter.close()
+    print(_json_line({"device": str(resolve_device(args.device)),
+                      "kind": model.kind, **stats}))
     return 0
 
 
@@ -168,6 +265,47 @@ def build_parser() -> argparse.ArgumentParser:
                         "(auto = int8 on CUDA, f32 elsewhere); every mode "
                         "gives the same sums")
     p.add_argument("--start-date", default="2025-04-01")
+    p.add_argument("--checkpoint-dir", default="",
+                   help="checkpoint the stream here (a local directory, or "
+                        "file://dir for the object-store plane); the JAX "
+                        "package's format, so either package resumes it")
+    p.add_argument("--checkpoint-full-every", type=int, default=1,
+                   help="write a FULL checkpoint every K saves and deltas "
+                        "(changed leaves only, checksum-chained to their "
+                        "base) in between (1 = every save full)")
+    p.add_argument("--checkpoint-op-timeout", type=float, default=0.0,
+                   help="per-op timeout in seconds for object-store "
+                        "checkpoint ops (0 = wait)")
+    p.add_argument("--checkpoint-op-attempts", type=int, default=3,
+                   help="retry attempts per object-store checkpoint op "
+                        "(1 = no retry)")
+    p.add_argument("--resume", action="store_true",
+                   help="continue from the newest valid checkpoint in "
+                        "--checkpoint-dir")
+    p.add_argument("--resume-merge", default="",
+                   help="not ported yet (ROADMAP A7): exits 2")
+    p.add_argument("--resume-merge-cold", default="",
+                   help="not ported yet (ROADMAP A7): exits 2")
+    p.add_argument("--max-restarts", type=int, default=0,
+                   help="supervised mode: restart on failure with "
+                        "checkpoint replay (requires --checkpoint-dir)")
+    p.add_argument("--stall-timeout", type=float, default=0.0,
+                   help="watchdog: restart the engine if it makes no "
+                        "progress for this many seconds (supervised mode "
+                        "only; 0 = off)")
+    p.add_argument("--dead-letter", default="",
+                   help="dead-letter queue for poison rows (*.jsonl = a "
+                        "JSONL file, else a Parquet directory): the "
+                        "supervisor bisects a crash-looping batch down to "
+                        "its failing rows and quarantines them here")
+    p.add_argument("--crash-loop-k", type=int, default=2,
+                   help="consecutive supervised crashes at the same "
+                        "progress point before the failure counts as "
+                        "poison")
+    p.add_argument("--restart-backoff-ms", type=float, default=0.0,
+                   help="base backoff between crash restarts (doubles per "
+                        "restart, full jitter, 30 s cap; 0 = restart at "
+                        "once)")
     p.set_defaults(fn=cmd_score)
     return ap
 

@@ -135,6 +135,20 @@ class RuntimeConfig:
     # Ingest-decode worker threads for envelope batches (core/native.py):
     # 0 = auto (min(8, cores)); 1 = serial.
     decode_workers: int = 0
+    # Checkpoints (io/checkpoint.py): where, and every how many finished
+    # batches run() saves one.
+    checkpoint_dir: str = "checkpoints"
+    checkpoint_every_batches: int = 50
+    # A FULL checkpoint every K saves, deltas of the changed leaves in
+    # between, chained to their base by checksum (1 = every save full).
+    checkpoint_full_every: int = 1
+    # Object-store checkpointers: per-op timeout in seconds (0 = wait)
+    # and attempts per op (1 = no retry).
+    checkpoint_op_timeout_s: float = 0.0
+    checkpoint_op_attempts: int = 3
+    # Base backoff between crash restarts (doubling, full jitter, capped;
+    # 0 = restart at once). Stall restarts never back off.
+    restart_backoff_ms: float = 0.0
 
     def __post_init__(self):
         if self.z_mode not in ("auto", "f32", "bf16", "int8"):

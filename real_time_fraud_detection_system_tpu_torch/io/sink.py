@@ -8,15 +8,19 @@
 - :class:`ConsoleSink` — the reference's ``.show()`` analogue;
 - :class:`FanoutSink` — several sinks in order;
 - :class:`AsyncSink` — appends on a background writer thread behind a
-  bounded queue.
+  bounded queue;
+- :class:`DeadLetterSink` (JSONL) and :class:`ParquetDeadLetterSink` —
+  the dead-letter queue that the fault supervisor's poison isolation
+  writes, idempotent by ``tx_id``.
 
-Object-store sinks wait for ``io/store.py`` (ROADMAP A9); the dead-letter
-sinks for the fault supervisor (A3); the sink telemetry for the metrics
-registry (A4).
+Object-store sinks wait for the S3 store (ROADMAP A9); the telemetry of
+the analyzed-output sinks for the serving extras (A4b).
 """
 
 from __future__ import annotations
 
+import base64
+import json
 import os
 import queue
 import threading
@@ -27,6 +31,10 @@ import numpy as np
 
 from real_time_fraud_detection_system_tpu_torch.features.spec import (
     FEATURE_NAMES,
+)
+from real_time_fraud_detection_system_tpu_torch.utils.metrics import (
+    active_recorder,
+    get_registry,
 )
 
 
@@ -284,6 +292,268 @@ class ParquetSink:
             return {}
         table = pa.concat_tables([pq.read_table(f) for f in files])
         return {c: table[c].to_numpy() for c in table.column_names}
+
+
+def _dlq_row_record(cols: dict, i: int, *, reason: str, error: str,
+                    batch_index: int, offsets, trace_id: str,
+                    envelope: Optional[bytes]) -> dict:
+    """One quarantined row as a JSON-able record: its decoded columns,
+    the raw envelope where the caller still has it, and the error and
+    lineage an operator needs to triage it."""
+    def scalar(v):
+        x = v[i]
+        try:
+            return x.item()
+        except AttributeError:
+            return x
+
+    rec = {
+        "tx_id": int(cols["tx_id"][i]),
+        "reason": reason,
+        "error": str(error)[:500],
+        "batch_index": int(batch_index),
+        "offsets": [int(o) for o in offsets] if offsets is not None
+        else None,
+        "trace_id": trace_id or "",
+        "t": time.time(),
+        "columns": {k: scalar(v) for k, v in cols.items()},
+    }
+    if envelope is not None:
+        rec["envelope_b64"] = base64.b64encode(bytes(envelope)).decode()
+    return rec
+
+
+class _DeadLetterTelemetry:
+    """Dead-letter counters (``rtfds_dead_letter_rows_total{reason}``),
+    the row gauge (``rtfds_dead_letter_rows``) and flight-record events;
+    ``registry`` and ``recorder_fn`` override where they land."""
+
+    def _init_dlq_metrics(self, registry=None, recorder_fn=None) -> None:
+        self._reg = registry if registry is not None else get_registry()
+        self._recorder = (recorder_fn if recorder_fn is not None
+                          else active_recorder)
+        self._m_gauge = self._reg.gauge(
+            "rtfds_dead_letter_rows",
+            "rows currently quarantined in the dead-letter queue")
+
+    def _observe_put(self, written: int, reason: str, batch_index: int,
+                     total: int) -> None:
+        if written:
+            self._reg.counter(
+                "rtfds_dead_letter_rows_total",
+                "rows quarantined to the dead-letter queue by reason",
+                reason=reason).inc(written)
+        self._m_gauge.set(total)
+        rec = self._recorder()
+        if rec is not None and written:
+            rec.record_event("dead_letter", rows=written, reason=reason,
+                             batch=int(batch_index))
+
+
+class DeadLetterSink(_DeadLetterTelemetry):
+    """JSONL dead-letter queue, one record per quarantined row.
+
+    Idempotent by ``tx_id``: a row already quarantined is skipped (the
+    seen-set is rebuilt from the file on open), so a crash during a
+    bisection and the replay after it neither lose nor duplicate rows;
+    ``read_all`` also keeps the latest record per ``tx_id``.
+    """
+
+    def __init__(self, path: str, registry=None, recorder_fn=None):
+        self.path = path
+        d = os.path.dirname(path)
+        if d:
+            os.makedirs(d, exist_ok=True)
+        self._lock = threading.Lock()
+        self._seen: set = set()
+        self._init_dlq_metrics(registry, recorder_fn)
+        if os.path.exists(path):
+            for rec in self._iter_file():
+                self._seen.add(int(rec["tx_id"]))
+        self._f = open(path, "a", encoding="utf-8")
+        self._m_gauge.set(len(self._seen))
+
+    def _iter_file(self):
+        with open(self.path, encoding="utf-8") as f:
+            for line in f:
+                line = line.strip()
+                if not line:
+                    continue
+                try:
+                    rec = json.loads(line)
+                except ValueError:
+                    continue  # a torn tail after a crash
+                if "tx_id" in rec:
+                    yield rec
+
+    def put_rows(self, cols: dict, *, reason: str, error: str = "",
+                 errors: Optional[List[str]] = None, batch_index: int = -1,
+                 offsets=None, trace_id: str = "",
+                 envelopes: Optional[List[bytes]] = None) -> int:
+        """Quarantine every row of ``cols`` not quarantined yet;
+        ``errors`` is a message per row (``error`` the shared one).
+        Returns the rows written."""
+        n = len(cols["tx_id"])
+        written = 0
+        with self._lock:
+            for i in range(n):
+                tx = int(cols["tx_id"][i])
+                if tx in self._seen:
+                    continue
+                rec = _dlq_row_record(
+                    cols, i, reason=reason,
+                    error=errors[i] if errors is not None else error,
+                    batch_index=batch_index, offsets=offsets,
+                    trace_id=trace_id,
+                    envelope=envelopes[i] if envelopes is not None
+                    else None)
+                self._f.write(json.dumps(rec, separators=(",", ":"),
+                                         default=str) + "\n")
+                self._seen.add(tx)
+                written += 1
+            self._f.flush()
+        self._observe_put(written, reason, batch_index, len(self._seen))
+        return written
+
+    def read_all(self) -> List[dict]:
+        """Quarantined rows, the latest record per ``tx_id``, ordered by
+        (batch_index, tx_id)."""
+        with self._lock:
+            self._f.flush()
+        by_tx = {}
+        for rec in self._iter_file():
+            by_tx[int(rec["tx_id"])] = rec
+        return sorted(by_tx.values(),
+                      key=lambda r: (r.get("batch_index", -1), r["tx_id"]))
+
+    def tx_ids(self) -> List[int]:
+        return sorted(self._seen)
+
+    def __len__(self) -> int:
+        return len(self._seen)
+
+    def close(self) -> None:
+        with self._lock:
+            if not self._f.closed:
+                self._f.close()
+
+
+class ParquetDeadLetterSink(_DeadLetterTelemetry):
+    """:class:`DeadLetterSink` as Parquet parts under a directory, one
+    per quarantine call (``dlq-<batch_index>-<reason>.parquet``): a
+    replay that isolates the same batch again overwrites its own part.
+    A later call for the same (batch, reason) merges with the part."""
+
+    def __init__(self, directory: str, registry=None, recorder_fn=None):
+        self.directory = directory
+        os.makedirs(directory, exist_ok=True)
+        self._lock = threading.Lock()
+        self._seen: set = set()
+        self._init_dlq_metrics(registry, recorder_fn)
+        for rec in self.read_all():
+            self._seen.add(int(rec["tx_id"]))
+        self._m_gauge.set(len(self._seen))
+
+    def put_rows(self, cols: dict, *, reason: str, error: str = "",
+                 errors: Optional[List[str]] = None, batch_index: int = -1,
+                 offsets=None, trace_id: str = "",
+                 envelopes: Optional[List[bytes]] = None) -> int:
+        import pyarrow as pa
+        import pyarrow.parquet as pq
+
+        n = len(cols["tx_id"])
+        recs = []
+        with self._lock:
+            for i in range(n):
+                tx = int(cols["tx_id"][i])
+                if tx in self._seen:
+                    continue
+                recs.append(_dlq_row_record(
+                    cols, i, reason=reason,
+                    error=errors[i] if errors is not None else error,
+                    batch_index=batch_index, offsets=offsets,
+                    trace_id=trace_id,
+                    envelope=envelopes[i] if envelopes is not None
+                    else None))
+            if recs:
+                flat = [{
+                    **{k: v for k, v in r.items()
+                       if k not in ("columns", "offsets")},
+                    "columns_json": json.dumps(r["columns"], default=str),
+                    "offsets_json": json.dumps(r["offsets"]),
+                } for r in recs]
+                name = f"dlq-{max(int(batch_index), 0):08d}-{reason}.parquet"
+                path = os.path.join(self.directory, name)
+                if os.path.exists(path):
+                    new_ids = {int(r["tx_id"]) for r in flat}
+                    keys = list(flat[0])
+                    flat = [{k: row.get(k) for k in keys}
+                            for row in pq.read_table(path).to_pylist()
+                            if int(row.get("tx_id", -1)) not in new_ids
+                            ] + flat
+                table = pa.table({
+                    k: pa.array([r.get(k) for r in flat])
+                    for k in flat[0]
+                })
+                tmp = path + ".tmp"
+                pq.write_table(table, tmp)
+                os.replace(tmp, path)
+                for r in recs:
+                    self._seen.add(int(r["tx_id"]))
+        self._observe_put(len(recs), reason, batch_index, len(self._seen))
+        return len(recs)
+
+    def read_all(self) -> List[dict]:
+        import pyarrow.parquet as pq
+
+        by_tx = {}
+        if not os.path.isdir(self.directory):
+            return []
+        for f in sorted(os.listdir(self.directory)):
+            if not (f.startswith("dlq-") and f.endswith(".parquet")):
+                continue
+            table = pq.read_table(os.path.join(self.directory, f))
+            for row in table.to_pylist():
+                rec = dict(row)
+                rec["columns"] = json.loads(rec.pop("columns_json", "{}"))
+                off = rec.pop("offsets_json", "null")
+                rec["offsets"] = json.loads(off) if off else None
+                by_tx[int(rec["tx_id"])] = rec
+        return sorted(by_tx.values(),
+                      key=lambda r: (r.get("batch_index", -1), r["tx_id"]))
+
+    def tx_ids(self) -> List[int]:
+        return sorted(self._seen)
+
+    def __len__(self) -> int:
+        return len(self._seen)
+
+    def close(self) -> None:
+        pass
+
+
+def make_dead_letter_sink(path: str, registry=None, recorder_fn=None):
+    """``*.jsonl`` (or an existing plain file) → :class:`DeadLetterSink`;
+    anything else → a :class:`ParquetDeadLetterSink` directory."""
+    if path.endswith(".jsonl") or os.path.isfile(path):
+        return DeadLetterSink(path, registry=registry,
+                              recorder_fn=recorder_fn)
+    return ParquetDeadLetterSink(path, registry=registry,
+                                 recorder_fn=recorder_fn)
+
+
+def read_dead_letter(path: str) -> List[dict]:
+    """Read a dead-letter queue without creating it; raises
+    ``FileNotFoundError`` when there is none."""
+    if os.path.isfile(path):
+        s = DeadLetterSink(path)
+        try:
+            return s.read_all()
+        finally:
+            s.close()
+    if os.path.isdir(path):
+        return ParquetDeadLetterSink(path).read_all()
+    raise FileNotFoundError(f"no dead-letter queue at {path!r}")
 
 
 def make_parquet_sink(path: str) -> ParquetSink:

@@ -4,12 +4,18 @@ Each kernel is a ``.cu`` file under ``csrc/`` with a plain C interface.
 :func:`build_library` compiles it with ``nvcc`` for sm_90a into a shared
 library under ``_build/`` at first use (once per content of the source,
 the shared headers and the flags); the kernel's module loads it with
-``ctypes``. Nothing here runs when a module is imported: the CPU has no
-``nvcc``, and the tests import every module.
+``ctypes`` (:func:`load_library`). Nothing here runs when a module is
+imported: the CPU has no ``nvcc``, and the tests import every module.
+
+A kernel that does not build or load raises ``RuntimeError``, never
+``OSError``: the recovery supervisor (``runtime/faults.py``) restarts on
+an ``OSError`` as on a transient fault, and a missing toolkit, an
+unwritable build directory or a library that will not load is none.
 """
 
 from __future__ import annotations
 
+import ctypes
 import hashlib
 import os
 import subprocess
@@ -52,25 +58,41 @@ def build_library(source: Path) -> Tuple[Path, str]:
     """Compile ``source`` into ``_build/lib<stem>-<digest>.so`` unless it
     is there already; return (path, the compiler's report: registers,
     shared memory and spills, or "" when the library was already built).
-    Raises ``RuntimeError`` with the compiler's output when nvcc fails."""
-    out = BUILD_DIR / f"lib{source.stem}-{_digest(source)}.so"
-    if out.exists():
-        return out, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    Raises ``RuntimeError`` with the compiler's output when nvcc fails,
+    and with the system's error when nvcc or the build directory cannot
+    be reached."""
     try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(source)],
-                              capture_output=True, text=True, check=False)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {source.name} "
-                               f"({proc.returncode}):\n"
-                               f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        out = BUILD_DIR / f"lib{source.stem}-{_digest(source)}.so"
+        if out.exists():
+            return out, ""
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        try:
+            proc = subprocess.run(
+                [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(source)],
+                capture_output=True, text=True, check=False)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {source.name} "
+                                   f"({proc.returncode}):\n"
+                                   f"{proc.stdout}{proc.stderr}")
+            os.replace(tmp, out)
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    except OSError as e:
+        raise RuntimeError(f"cannot build {source.name}: {e}") from e
     return out, proc.stdout + proc.stderr
+
+
+def load_library(source: Path) -> ctypes.CDLL:
+    """Build ``source`` (:func:`build_library`) and load the library;
+    ``RuntimeError`` when it will not load."""
+    path = build_library(source)[0]
+    try:
+        return ctypes.CDLL(str(path))
+    except OSError as e:
+        raise RuntimeError(f"cannot load {path.name}: {e}") from e
 
 
 def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype,

@@ -50,8 +50,8 @@ from real_time_fraud_detection_system_tpu_torch.models.scaler import (
 )
 from real_time_fraud_detection_system_tpu_torch.ops.cuda_lib import (
     CSRC,
-    build_library,
     check_tensor,
+    load_library,
 )
 from real_time_fraud_detection_system_tpu_torch.ops.features_fused import (
     assemble_features,
@@ -314,7 +314,7 @@ def leaf_sum_plain(tables: ForestTables, x: torch.Tensor) -> torch.Tensor:
 
 
 def _bind(source, prefix: str, launch_args) -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build_library(source)[0]))
+    lib = load_library(source)
     i = ctypes.c_int
     launch = getattr(lib, f"{prefix}_launch")
     launch.argtypes = launch_args

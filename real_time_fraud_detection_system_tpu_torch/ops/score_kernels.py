@@ -39,8 +39,8 @@ from real_time_fraud_detection_system_tpu_torch.models.scaler import (
 )
 from real_time_fraud_detection_system_tpu_torch.ops.cuda_lib import (
     CSRC,
-    build_library,
     check_tensor,
+    load_library,
 )
 from real_time_fraud_detection_system_tpu_torch.ops.features_fused import (
     assemble_features,
@@ -91,7 +91,7 @@ def fused_featurize_score_plain(
 
 @functools.lru_cache(maxsize=None)
 def _library(source=SOURCE) -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build_library(source)[0]))
+    lib = load_library(source)
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.fused_score_launch.argtypes = [p] * 18 + [i] * 11 + [p]
     lib.fused_score_launch.restype = i

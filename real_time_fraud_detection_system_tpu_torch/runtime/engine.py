@@ -11,7 +11,12 @@ event recorded after the step; then the sink. :meth:`ScoringEngine.run`
 keeps ``runtime.pipeline_depth`` batches in flight, so batch N+1's host
 prep, copy and launches overlap batch N's device work, and can coalesce
 small polls (``runtime.coalesce_rows``) and pace batch starts
-(``runtime.trigger_seconds``).
+(``runtime.trigger_seconds``). With a checkpointer (``io/checkpoint.py``)
+it saves every ``runtime.checkpoint_every_batches`` finished batches, as
+the JAX engine orders it: an async sink drains, the state is saved, then
+the source commits; and it drains the pipeline before launching a batch
+while a queued one will checkpoint, so a save never records a batch's
+offsets with a later batch's state. ``runtime/faults.py`` supervises it.
 
 The step takes the JAX step's branches in its order: unpack the batch,
 scatter it into the feature state (in place), then
@@ -34,13 +39,18 @@ scatter it into the feature state (in place), then
 Every branch ends in ``probs = where(valid, probs, 0)``. Every step is
 enqueued on the current stream, which is what chains the in-place state
 updates from one batch to the next. On the CPU each kernel wrapper runs
-its plain version; on the card a kernel that does not build or launch
-raises, and no branch catches it.
+its plain version; on the card the kernels the step launches are built
+and loaded when the engine is built, and a kernel that does not build,
+load or launch raises ``RuntimeError``, which no branch catches.
 
-Not ported yet: checkpoints and fault supervision (A3); selective and
-bf16 emission, the nan-guard, CUDA-graph precompile, autobatch and the
-overload ladder (A4); feedback, online SGD and model reload (A6); the
-mlp, autoencoder and sequence kinds (A8).
+A restore (``io/checkpoint.py``) writes into the engine's own tensors in
+place; when it brings other params than the live ones it advances
+``state.params_epoch``, and the next step re-derives the kernel tables
+from them.
+
+Not ported yet: selective and bf16 emission, the nan-guard, CUDA-graph
+precompile, autobatch and the overload ladder (A4); feedback, online SGD
+and model reload (A6); the mlp, autoencoder and sequence kinds (A8).
 """
 
 from __future__ import annotations
@@ -89,6 +99,10 @@ from real_time_fraud_detection_system_tpu_torch.models.scaler import (
     Scaler,
     transform,
 )
+from real_time_fraud_detection_system_tpu_torch.ops import (
+    forest_kernels,
+    score_kernels,
+)
 from real_time_fraud_detection_system_tpu_torch.ops.dedup import (
     latest_wins_mask_host,
 )
@@ -97,6 +111,9 @@ from real_time_fraud_detection_system_tpu_torch.ops.forest_kernels import (
     admit_tables,
     leaf_sum,
     to_kernel_tables,
+)
+from real_time_fraud_detection_system_tpu_torch.runtime.faults import (
+    PoisonRowError,
 )
 from real_time_fraud_detection_system_tpu_torch.utils.timing import (
     LatencyTracker,
@@ -144,6 +161,14 @@ class EngineState:
     offsets: List[int] = field(default_factory=list)
     batches_done: int = 0
     rows_done: int = 0
+    # CUDA event recorded behind the last step that wrote the state; a
+    # checkpoint save waits for it before reading (None on the CPU).
+    ready: Optional[object] = None
+    # CRC32 of each params leaf as a restore last wrote them (None: not
+    # known yet), and a counter a restore advances when it brings other
+    # params, so the engine re-derives its kernel tables.
+    params_crcs: Optional[dict] = None
+    params_epoch: int = 0
 
 
 @dataclass
@@ -161,10 +186,21 @@ class BatchResult:
     batch_index: int = -1
 
 
-class PoisonRowError(ValueError):
-    """A batch holds rows that decoded but carry impossible content (a
-    negative amount). The fault supervisor that quarantines them is
-    ported with ROADMAP A3."""
+def empty_batch_result(batch_index: int) -> BatchResult:
+    """A zero-row result claiming ``batch_index``: what a batch whose every
+    row went to the dead-letter queue leaves, so the sink's
+    ``batch_index`` lineage has no gap."""
+    return BatchResult(
+        tx_id=np.empty(0, np.int64),
+        tx_datetime_us=np.empty(0, np.int64),
+        customer_id=np.empty(0, np.int64),
+        terminal_id=np.empty(0, np.int64),
+        amount_cents=np.empty(0, np.int64),
+        features=np.zeros((0, N_FEATURES), np.float32),
+        probs=np.empty(0, np.float32),
+        latency_s=0.0,
+        batch_index=int(batch_index),
+    )
 
 
 def validate_ingest_rows(cols: dict) -> None:
@@ -179,6 +215,23 @@ def validate_ingest_rows(cols: dict) -> None:
             f"{int(bad.sum())} row(s), tx_id(s) {ids[:5].tolist()}")
 
 
+def _owned(tree):
+    """A copy of a NamedTuple of tensors (and Python scalars) that shares
+    no storage with the caller's: a restore writes into it in place."""
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_owned(getattr(tree, n)) for n in tree._fields))
+    return tree.clone() if isinstance(tree, torch.Tensor) else tree
+
+
+def batches_left(state: EngineState, lifetime_max: int) -> int:
+    """``ScoringEngine.run``'s ``max_batches`` for a cap on the engine's
+    lifetime batch count, restored batches included, which is how the
+    JAX engine counts ``max_batches`` (the supervisor's and a resumed
+    ``score``'s): 0 (no cap) for 0, else the batches still to go, or -1
+    (none) once the count is reached."""
+    if not lifetime_max:
+        return 0
+    return max(lifetime_max - state.batches_done, 0) or -1
 
 
 class _StagingRing:
@@ -212,9 +265,10 @@ class ScoringEngine:
     gbt model.
 
     ``device=None`` means CUDA (raises without a card); ``device="cpu"``
-    runs the plain PyTorch path. The feature state is updated in place.
-    ``host_prep`` names the host-prep route: ``"native"`` (the C++ unit
-    built) or ``"numpy"``.
+    runs the plain PyTorch path. The feature state is updated in place;
+    the params and the scaler are the engine's own copies (a restore
+    writes into them). ``host_prep`` names the host-prep route:
+    ``"native"`` (the C++ unit built) or ``"numpy"``.
     """
 
     def __init__(
@@ -231,28 +285,16 @@ class ScoringEngine:
         self.cfg = cfg
         self.kind = kind
         self.z_mode = resolve_z_mode(cfg.runtime.z_mode, self.device)
-        params = device_params_for(kind, params.to(self.device))
+        params = _owned(device_params_for(kind, params.to(self.device)))
         self.state = EngineState(
             feature_state=feature_state
             or init_feature_state(cfg.features, self.device),
             params=params,
-            scaler=scaler.to(self.device),
+            scaler=_owned(scaler.to(self.device)),
         )
         self._predict = predict_fn_for(kind, self.z_mode)
         self._table_source = cfg.features.customer_source == "table"
-        # The kernels' tables, decided once from the params' shapes where
-        # ``admit_tables`` admits a GEMM-form ensemble: ``tables`` for the
-        # fused forest kernel (tree and forest kinds on the customer
-        # table), ``leaf_tables`` for the leaf-sum kernel (gbt, and tree
-        # and forest on the sketch); both None otherwise.
-        self.tables: Optional[ForestTables] = None
-        self.leaf_tables: Optional[ForestTables] = None
-        trees = params.trees if isinstance(params, GBTModel) else params
-        if isinstance(trees, GemmEnsemble) and admit_tables(trees).fits:
-            if kind == "gbt" or not self._table_source:
-                self.leaf_tables = to_kernel_tables(trees, self.z_mode)
-            else:
-                self.tables = to_kernel_tables(trees, self.z_mode)
+        self._derive_tables()
         self.host_prep = ("native" if native.hostprep_available()
                           else "numpy")
         cuda = self.device.type == "cuda"
@@ -260,6 +302,42 @@ class ScoringEngine:
                          if cuda else None)
         self._d2h_stream = (torch.cuda.Stream(self.device)
                             if cuda and cfg.runtime.fetch_overlap else None)
+
+    def _derive_tables(self) -> None:
+        """The kernels' tables, from the live params' shapes where
+        ``admit_tables`` admits a GEMM-form ensemble: ``tables`` for the
+        fused forest kernel (tree and forest kinds on the customer
+        table), ``leaf_tables`` for the leaf-sum kernel (gbt, and tree
+        and forest on the sketch); both None otherwise. Derived at build
+        and again after a restore that brought other params."""
+        self.tables: Optional[ForestTables] = None
+        self.leaf_tables: Optional[ForestTables] = None
+        params = self.state.params
+        trees = params.trees if isinstance(params, GBTModel) else params
+        if isinstance(trees, GemmEnsemble) and admit_tables(trees).fits:
+            if self.kind == "gbt" or not self._table_source:
+                self.leaf_tables = to_kernel_tables(trees, self.z_mode)
+            else:
+                self.tables = to_kernel_tables(trees, self.z_mode)
+        self._tables_epoch = self.state.params_epoch
+        if self.device.type == "cuda":
+            self._load_kernels()
+
+    def _load_kernels(self) -> None:
+        """Build and load the kernel libraries the step launches (once per
+        process), so one that does not build or load raises here: from
+        the constructor, outside the recovery supervisor's restarts, and
+        never from a supervised step."""
+        if self.kind == "logreg" and self._table_source:
+            score_kernels._library()
+        if self.tables is not None:
+            forest_kernels._library()
+        if self.leaf_tables is not None:
+            forest_kernels._leaf_sum_library()
+
+    def checkpoint_state(self) -> EngineState:
+        """The state a checkpoint save persists (the engine's own)."""
+        return self.state
 
     def _unfused_predict(self, x: torch.Tensor) -> torch.Tensor:
         """The predict of the unfused step on scaled features ``x``."""
@@ -273,6 +351,8 @@ class ScoringEngine:
 
     def _step(self, packed: torch.Tensor):
         """One device step on a packed batch; returns (probs, features)."""
+        if self._tables_epoch != self.state.params_epoch:
+            self._derive_tables()
         batch = unpack_batch(packed)
         fcfg = self.cfg.features
         scaler = self.state.scaler
@@ -318,18 +398,16 @@ class ScoringEngine:
         return entry if entry is not None else torch.from_numpy(packed)
 
     def _issue_host_fetch(self, probs: torch.Tensor, feats: torch.Tensor,
-                          n: int) -> Optional[dict]:
+                          n: int, step_done) -> Optional[dict]:
         """Start the device-to-host copies of the ``n`` real rows'
         probabilities (and features, when emitted) on the side stream,
-        after an event recorded behind the step, into pinned blocks of the
-        caching host allocator: each batch gets its own, so a result never
-        shares memory with a later batch's. None without the side stream
-        (the CPU, or ``fetch_overlap`` off)."""
+        after ``step_done`` (the event recorded behind the step), into
+        pinned blocks of the caching host allocator: each batch gets its
+        own, so a result never shares memory with a later batch's. None
+        without the side stream (the CPU, or ``fetch_overlap`` off)."""
         side = self._d2h_stream
         if side is None:
             return None
-        step_done = torch.cuda.Event()
-        step_done.record()
         side.wait_event(step_done)
         host = {"probs": torch.empty(n, dtype=torch.float32,
                                      pin_memory=True)}
@@ -367,7 +445,14 @@ class ScoringEngine:
         else:
             packed = host.to(self.device)
         probs, feats = self._step(packed)
-        fetch = self._issue_host_fetch(probs, feats, n)
+        step_done = None
+        if self.device.type == "cuda":
+            # behind the step that wrote the state: the side-stream copies
+            # and a checkpoint save wait for it
+            step_done = torch.cuda.Event()
+            step_done.record()
+            self.state.ready = step_done
+        fetch = self._issue_host_fetch(probs, feats, n, step_done)
         return {"cols": cols, "n": n, "probs": probs, "feats": feats,
                 "fetch": fetch, "t0": t0, "prep_s": t1 - t0,
                 "dispatch_s": time.perf_counter() - t1}
@@ -408,9 +493,12 @@ class ScoringEngine:
         return self._finish_batch(self._start_batch(cols))
 
     def run(self, source, sink=None, max_batches: int = 0,
-            trigger_seconds: Optional[float] = None) -> dict:
-        """Stream until the source is exhausted, or ``max_batches`` batches
-        of this run have started.
+            checkpointer=None, trigger_seconds: Optional[float] = None,
+            heartbeat=None) -> dict:
+        """Stream until the source is exhausted or ``max_batches`` batches
+        of this run have started (0: no cap; a negative count starts
+        none). :func:`batches_left` turns a cap on the engine's lifetime
+        batches, as the JAX engine counts them, into this one.
 
         Up to ``runtime.pipeline_depth`` batches are in flight: a batch is
         finished (results waited for, sink appended) once ``depth``
@@ -423,6 +511,15 @@ class ScoringEngine:
         poll side; the time slept, like source polls, is credited as wait
         so latencies measure the pipeline. An empty poll (an idle live
         source) drains the pipeline and waits one trigger.
+
+        ``checkpointer``: after every ``runtime.checkpoint_every_batches``
+        finished batches an async sink drains, the state is saved and the
+        source commits (where it can), in that order, so offsets trail
+        durable output and broker commits trail the checkpoint. A batch
+        launches only once no queued batch will checkpoint (the pipeline
+        drains first), so a save never holds a later batch's state.
+        ``heartbeat`` is beaten once per loop pass (the stall watchdog's
+        progress signal).
 
         Returns this run's stats: rows, batches, wall and CPU seconds,
         rows/s, the per-batch latency p50/p99 (host prep through the
@@ -446,6 +543,7 @@ class ScoringEngine:
         t_cpu0 = time.process_time()
         rows0 = self.state.rows_done
         batches0 = self.state.batches_done
+        every = rt.checkpoint_every_batches
         q: deque = deque()  # in-flight handles, FIFO, at most ``depth``
 
         def _finish(handle: dict) -> None:
@@ -460,6 +558,17 @@ class ScoringEngine:
                 t = time.perf_counter()
                 sink.append(res)
                 trackers["sink_write"].record(time.perf_counter() - t)
+            if checkpointer is not None \
+                    and self.state.batches_done % every == 0:
+                # offsets trail durable sink output: drain an async sink
+                # first; a broker commits only after the save landed
+                drain = getattr(sink, "drain", None)
+                if drain is not None:
+                    drain()
+                checkpointer.save(self.checkpoint_state())
+                commit = getattr(source, "commit", None)
+                if commit is not None:
+                    commit()
 
         def _add_wait(dt: float) -> None:
             for h in q:
@@ -485,8 +594,10 @@ class ScoringEngine:
         carry = None  # (cols, offsets): a poll beyond the coalesce cap
         t_last_start = None
         while not exhausted:
-            if max_batches and (self.state.batches_done - batches0
-                                + len(q)) >= max_batches:
+            if heartbeat is not None:
+                heartbeat.beat()
+            started = self.state.batches_done + len(q)
+            if max_batches and started - batches0 >= max_batches:
                 break
             if trigger > 0 and t_last_start is not None:
                 dt = trigger - (time.perf_counter() - t_last_start)
@@ -527,8 +638,12 @@ class ScoringEngine:
                 if len(parts) > 1:
                     cols = {k: np.concatenate([p[k] for p in parts])
                             for k in parts[0]}
+            if checkpointer is not None and any(
+                    h["index"] % every == 0 for h in q):
+                _drain()  # a queued batch will checkpoint: nothing newer
             handle = self._start_batch(cols)
             t_last_start = time.perf_counter()
+            handle["index"] = self.state.batches_done + len(q) + 1
             handle["source_offsets"] = offs
             q.append(handle)
             while len(q) >= depth:

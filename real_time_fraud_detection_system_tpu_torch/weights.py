@@ -13,8 +13,12 @@ recognised by its field names:
   record — and base_score);
 - ``Scaler`` (mean, scale);
 - ``WindowState`` (bucket_day, count, amount, fraud);
-- ``FeatureState`` (customer, terminal; the sketch and key-directory
-  fields must be None — those modes are not ported yet).
+- ``CountMinSketch`` (slice_day, count, amount);
+- ``FeatureState`` (customer, terminal and, under
+  ``customer_source="cms"``, the customer sketch ``cms``). The fields of
+  the tiered store — ``customer_dir``, ``terminal_dir``, ``terminal_cms``
+  and a sketch's ``fraud`` column — must be None: that mode is not ported
+  yet (ROADMAP A5).
 
 Arrays keep their dtypes and values, so both packages then compute the
 same thing.
@@ -38,9 +42,12 @@ from real_time_fraud_detection_system_tpu_torch.models.logreg import (
     LogRegParams,
 )
 from real_time_fraud_detection_system_tpu_torch.models.scaler import Scaler
+from real_time_fraud_detection_system_tpu_torch.ops.cms import CountMinSketch
 from real_time_fraud_detection_system_tpu_torch.ops.windows import WindowState
 
-_RECORDS = (LogRegParams, TreeEnsemble, GemmEnsemble, Scaler, WindowState)
+_RECORDS = (LogRegParams, TreeEnsemble, GemmEnsemble, Scaler, WindowState,
+            CountMinSketch)
+_TIERED = {"customer_dir", "terminal_dir", "terminal_cms"}
 
 
 def from_numpy(obj, device=None):
@@ -50,14 +57,20 @@ def from_numpy(obj, device=None):
     fields = {k: v for k, v in fields.items() if v is not None}
     names = set(fields)
     if "customer" in names or "terminal" in names:
-        if names != {"customer", "terminal"}:
+        if names & _TIERED or not names <= {"customer", "terminal", "cms"}:
             raise NotImplementedError(
-                "feature state with sketches or key directories (cms and "
-                "exact modes) is not ported yet (ROADMAP A5)")
+                f"feature state with {sorted(names & _TIERED)}: the tiered "
+                f"store's key directories and terminal sketch (key_mode="
+                f"'exact') are not ported yet (ROADMAP A5)")
         return FeatureState(
             customer=from_numpy(fields["customer"], device),
             terminal=from_numpy(fields["terminal"], device),
-            cms=None)
+            cms=(from_numpy(fields["cms"], device)
+                 if "cms" in fields else None))
+    if "slice_day" in names and "fraud" in names:
+        raise NotImplementedError(
+            "a count-min sketch with a fraud column (the tiered store's) "
+            "is not ported yet (ROADMAP A5)")
     if names == set(GBTModel._fields):
         return GBTModel(
             trees=from_numpy(fields["trees"], device),

@@ -10,7 +10,10 @@ imports jax, hence ``--noconftest`` there):
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
-Without a card they skip. Tolerances: features bit-identical (kernel and
+The checkpoint tests restore on the card what the CPU wrote (and the
+reverse), check that a restore writes into the engine's own tensors, and
+run a supervised crash and stall on the card against its uninterrupted
+run. Without a card they skip. Tolerances: features bit-identical (kernel and
 plain version add the window buckets in the same order, with IEEE division
 and no FMA contraction); leaf sums within ``atol=1e-5`` of the plain
 version with identical decisions, and bit-identical across the z modes
@@ -560,3 +563,256 @@ def test_hash_and_sketch_engines_on_cuda_match_cpu_engine(cuda, features,
             assert np.array_equal(got[k] >= 0.5, want[k] >= 0.5)
         else:
             np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+class _IndexedSink:
+    """Results by ``batch_index``: a replay overwrites its entry (the card
+    machine has no pyarrow for the Parquet sink)."""
+
+    def __init__(self):
+        self.batches = {}
+
+    def append(self, res):
+        self.batches[res.batch_index] = (res.tx_id.copy(), res.probs.copy(),
+                                         res.features.copy())
+
+    def truncate_after(self, batch_index):
+        for i in [i for i in self.batches if i > batch_index]:
+            del self.batches[i]
+
+
+def _recovery_models(kind):
+    rng = np.random.default_rng(6)
+    return {
+        "forest": synthetic_ensemble(10, 5, N_FEAT, seed=3, device="cpu"),
+        "gbt": synthetic_gbt(10, 5, N_FEAT, seed=3, device="cpu"),
+        "logreg": LogRegParams(torch.as_tensor(
+            rng.normal(0, 0.8, N_FEAT).astype(np.float32)),
+            torch.tensor(-1.0)),
+    }[kind]
+
+
+@pytest.mark.parametrize("kind,features", [
+    ("forest", {}), ("gbt", {}), ("logreg", {}),
+    ("forest", {"customer_source": "cms"})])
+def test_restore_on_cuda_equals_restore_on_cpu(cuda, tmp_path, kind,
+                                               features):
+    """A checkpoint the CPU engine wrote restores on the card bit for bit,
+    into the card engine's own tensors (same addresses, on the card), and
+    the card engine then serves what the CPU engine restored from it
+    serves; the card's own checkpoint restores on the CPU bit for bit."""
+    import dataclasses
+
+    from real_time_fraud_detection_system_tpu_torch.io.checkpoint import (
+        Checkpointer,
+        _leaves,
+    )
+
+    cfg, txs = _whole_dollar_stream(4000)
+    cfg = dataclasses.replace(
+        cfg, features=dataclasses.replace(cfg.features, cms_width=1 << 10,
+                                          **features),
+        runtime=dataclasses.replace(cfg.runtime, checkpoint_every_batches=2))
+    params = _recovery_models(kind)
+    scaler = np.random.default_rng(4).normal(5, 3, (64, N_FEAT))
+
+    def engine(dev):
+        return ScoringEngine(cfg, kind, params, fit_scaler(scaler, dev),
+                             device=dev)
+
+    def leaves(state):
+        return [(p, t) for tree in (state.feature_state, state.params,
+                                    state.scaler)
+                for p, t in _leaves(tree)]
+
+    for writer, reader in (("cpu", "cuda"), ("cuda", "cpu")):
+        ckpt = Checkpointer(str(tmp_path / writer))
+        w = engine(writer)
+        w.run(ReplaySource(txs, START, batch_rows=1000), checkpointer=ckpt,
+              max_batches=2)
+        for dev in (reader, writer):
+            r = engine(dev)
+            ptrs = [t.data_ptr() for _, t in leaves(r.state)
+                    if isinstance(t, torch.Tensor)]
+            assert ckpt.restore(r.state) is not None
+            assert [t.data_ptr() for _, t in leaves(r.state)
+                    if isinstance(t, torch.Tensor)] == ptrs
+            for (path, got), (_, want) in zip(leaves(r.state),
+                                              leaves(w.state)):
+                if isinstance(got, torch.Tensor):
+                    assert got.device.type == dev, path
+                    assert torch.equal(got.cpu(), want.cpu()), path
+                else:
+                    assert got == want, path
+        outs = {}
+        for dev in ("cpu", "cuda"):
+            r = engine(dev)
+            ckpt.restore(r.state)
+            src = ReplaySource(txs, START, batch_rows=1000)
+            src.seek(r.state.offsets)
+            sink = MemorySink()
+            r.run(src, sink)
+            outs[dev] = sink.concat()
+        for k in outs["cpu"]:
+            if k == "processed_at_us":
+                continue
+            if k == "prediction":
+                np.testing.assert_allclose(outs["cuda"][k], outs["cpu"][k],
+                                           rtol=0.0, atol=ATOL_SIGMOID)
+            else:
+                np.testing.assert_array_equal(outs["cuda"][k],
+                                              outs["cpu"][k], err_msg=k)
+
+
+def test_restore_of_other_params_rederives_the_tables_on_cuda(cuda,
+                                                              tmp_path):
+    """A card engine built with other weights restores a checkpoint: the
+    weights land in its own tensors and the next step's kernel descends
+    the restored forest (its tables are re-derived)."""
+    from real_time_fraud_detection_system_tpu_torch.io.checkpoint import (
+        Checkpointer,
+    )
+
+    cfg, txs = _whole_dollar_stream(3000)
+    scaler = fit_scaler(np.random.default_rng(4).normal(5, 3, (64, N_FEAT)),
+                        device=cuda)
+    p1 = synthetic_ensemble(10, 5, N_FEAT, seed=1, device="cpu")
+    p2 = synthetic_ensemble(10, 5, N_FEAT, seed=2, device="cpu")
+    ref = ScoringEngine(cfg, "forest", p1, scaler, device=cuda)
+    ref_sink = _IndexedSink()
+    ref.run(ReplaySource(txs, START, batch_rows=1000), ref_sink)
+    ckpt = Checkpointer(str(tmp_path / "ck"))
+    first = ScoringEngine(cfg, "forest", p1, scaler, device=cuda)
+    first.run(ReplaySource(txs, START, batch_rows=1000), max_batches=1)
+    ckpt.save(first.state)
+    other = ScoringEngine(cfg, "forest", p2, scaler, device=cuda)
+    sel = other.state.params.sel
+    ptr = sel.data_ptr()
+    ckpt.restore(other.state)
+    assert other.state.params.sel is sel and sel.data_ptr() == ptr
+    src = ReplaySource(txs, START, batch_rows=1000)
+    src.seek(other.state.offsets)
+    sink = _IndexedSink()
+    before = fk.fused_forest_leaf_sum.launches
+    other.run(src, sink)
+    assert fk.fused_forest_leaf_sum.launches - before == 2
+    assert torch.equal(other.tables.nodes, ref.tables.nodes)
+    for i in (2, 3):
+        for a, b in zip(sink.batches[i], ref_sink.batches[i]):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_supervised_crash_and_stall_on_cuda_equal_the_clean_run(cuda,
+                                                                tmp_path):
+    """A crash and a stall under the supervisor on the card: the results
+    by batch index and the final feature state equal the uninterrupted
+    card run bit for bit (whole-dollar amounts), with one restart of each
+    cause; the abandoned incarnation's engine is released once its hang
+    ends, and the kernel libraries are loaded once for all the engines."""
+    import dataclasses
+    import gc
+    import threading
+    import weakref
+
+    from real_time_fraud_detection_system_tpu_torch.io.checkpoint import (
+        Checkpointer,
+        _leaves,
+    )
+    from real_time_fraud_detection_system_tpu_torch.runtime.faults import (
+        FlakySource,
+        HangingSource,
+        run_with_recovery,
+    )
+
+    cfg, txs = _whole_dollar_stream(6000)
+    cfg = dataclasses.replace(cfg, runtime=dataclasses.replace(
+        cfg.runtime, checkpoint_every_batches=2))
+    params = synthetic_ensemble(10, 5, N_FEAT, seed=3, device="cpu")
+    scaler = fit_scaler(np.random.default_rng(4).normal(5, 3, (64, N_FEAT)),
+                        device=cuda)
+    engines = []
+
+    def make_engine():
+        eng = ScoringEngine(cfg, "forest", params, scaler, device=cuda)
+        engines.append(weakref.ref(eng))
+        return eng
+
+    clean = ScoringEngine(cfg, "forest", params, scaler, device=cuda)
+    want = _IndexedSink()
+    clean.run(ReplaySource(txs, START, batch_rows=1000), want)
+    hang = HangingSource(FlakySource(
+        ReplaySource(txs, START, batch_rows=1000), fail_at=(3,)),
+        hang_at=(7,), max_hang_s=60.0)
+    got = _IndexedSink()
+    final = {}
+
+    def keep():
+        final["eng"] = make_engine()
+        return final["eng"]
+
+    try:
+        stats = run_with_recovery(keep, hang,
+                                  Checkpointer(str(tmp_path / "ck")),
+                                  sink=got, max_restarts=3,
+                                  stall_timeout_s=3.0)
+    finally:
+        hang.release.set()
+        for t in threading.enumerate():
+            if t.name == "engine-incarnation" \
+                    and t is not threading.current_thread():
+                t.join(30.0)
+                assert not t.is_alive()
+    assert stats["restarts"] == 2 and stats["batches"] == 6
+    assert sorted(got.batches) == sorted(want.batches)
+    for i in want.batches:
+        for a, b in zip(got.batches[i], want.batches[i]):
+            np.testing.assert_array_equal(a, b)
+    for (path, a), (_, b) in zip(_leaves(final["eng"].state.feature_state),
+                                 _leaves(clean.state.feature_state)):
+        assert a.device.type == "cuda" and torch.equal(a, b), path
+    last = final.pop("eng")
+    gc.collect()
+    assert sum(r() is not None for r in engines) == 1
+    del last
+    assert fk._library.cache_info().currsize == 1
+
+
+def test_a_kernel_that_cannot_build_raises_from_the_engine(cuda, tmp_path,
+                                                           monkeypatch):
+    """A card engine loads its kernels when it is built: with no nvcc
+    where the toolkit should be, the constructor raises ``RuntimeError``,
+    so the supervisor (which builds engines outside its restarts) raises
+    it at once, with no restart counted."""
+    from real_time_fraud_detection_system_tpu_torch.io.checkpoint import (
+        Checkpointer,
+    )
+    from real_time_fraud_detection_system_tpu_torch.ops import cuda_lib
+    from real_time_fraud_detection_system_tpu_torch.runtime.faults import (
+        run_with_recovery,
+    )
+    from real_time_fraud_detection_system_tpu_torch.utils.metrics import (
+        get_registry,
+    )
+
+    cfg, txs = _whole_dollar_stream(2000)
+    params = synthetic_ensemble(10, 5, N_FEAT, seed=3, device="cpu")
+    scaler = fit_scaler(np.random.default_rng(4).normal(5, 3, (64, N_FEAT)),
+                        device=cuda)
+    monkeypatch.setattr(cuda_lib, "_nvcc",
+                        lambda: str(tmp_path / "no-cuda" / "bin" / "nvcc"))
+    monkeypatch.setattr(cuda_lib, "BUILD_DIR", tmp_path / "build")
+    fk._library.cache_clear()
+    reg = get_registry()
+    before = reg.family_total("rtfds_engine_restarts_total") or 0.0
+    try:
+        with pytest.raises(RuntimeError, match="cannot build"):
+            ScoringEngine(cfg, "forest", params, scaler, device=cuda)
+        with pytest.raises(RuntimeError, match="cannot build"):
+            run_with_recovery(
+                lambda: ScoringEngine(cfg, "forest", params, scaler,
+                                      device=cuda),
+                ReplaySource(txs, START, batch_rows=1000),
+                Checkpointer(str(tmp_path / "ck")), max_restarts=3)
+    finally:
+        fk._library.cache_clear()
+    assert (reg.family_total("rtfds_engine_restarts_total") or 0.0) == before

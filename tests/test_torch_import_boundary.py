@@ -4,7 +4,8 @@ One check imports the port in a fresh interpreter where ``import jax``
 fails, and serves a batch of each model kind on the CPU (the gbt weights
 through the port's own artifact writer and reader), a batch under hash
 keys and under the customer sketch from envelopes, and one through the
-``score`` command; the other reads the
+``score`` command, and a supervised checkpointed run that crashes and
+replays; the other reads the
 port's sources (Python, CUDA and CUDA headers) and ``chip_smoke.py`` for
 an import of jax or a dotted reference into the JAX package.
 """
@@ -92,6 +93,23 @@ with tempfile.TemporaryDirectory() as tmp:
     assert cli.main(["score", "--device", "cpu", "--data", f"{tmp}/txs.npz",
                      "--model-file", f"{tmp}/gbt.npz", "--max-batches",
                      "1", "--batch-rows", "200"]) == 0
+# a supervised, checkpointed run: a crash, a restore, a replay
+from real_time_fraud_detection_system_tpu_torch.io.checkpoint import (
+    Checkpointer)
+from real_time_fraud_detection_system_tpu_torch.io.sink import (
+    DeadLetterSink)
+from real_time_fraud_detection_system_tpu_torch.runtime.faults import (
+    FlakySource, run_with_recovery)
+rcfg = dataclasses.replace(cfg, runtime=dataclasses.replace(
+    cfg.runtime, checkpoint_every_batches=1))
+with tempfile.TemporaryDirectory() as tmp:
+    stats = run_with_recovery(
+        lambda: ScoringEngine(rcfg, "logreg", logreg, scaler, device="cpu"),
+        FlakySource(ReplaySource(txs, 1_743_465_600, batch_rows=100),
+                    fail_at=(1,)),
+        Checkpointer(f"{tmp}/ck"), sink=MemorySink(), max_restarts=1,
+        dead_letter=DeadLetterSink(f"{tmp}/dlq.jsonl"), max_batches=2)
+    assert stats["restarts"] == 1 and stats["batches"] == 2
 assert not any(m.split(".")[0] in ("jax", "real_time_fraud_detection_system_tpu")
                for m, mod in sys.modules.items() if mod is not None)
 print("served without jax")
