@@ -65,11 +65,30 @@ Phases, each printing JSON lines:
    ``crash_loop_k=2``: the dead-letter queue holds exactly them and every
    other row equals a clean run without them. Steps run (replays and
    bisection probes included) against the fused kernel's launches.
-9. ``profile`` — a few batches of each main path, and of the forest path
+9. ``exact_path`` — the tiered store (``key_mode="exact"``), which
+   serves tree kinds through the leaf-sum kernel: (a) the whole-dollar
+   dataset with the forest at the default capacities (the hot tier holds
+   every key) equals the direct path's fused-kernel run bit for bit;
+   (b) the JAX bench's ``state_scale`` deployment (capacities and sketch
+   width 32,768, compaction every 4 batches, a 256 MB budget) under
+   Zipf(1.1) traffic over 65,536, 1,048,576 and 10M keys (the forest;
+   gbt on the 1M universe too): rows/s, latency, stage medians, the dense
+   hit rate, reclaims, occupancy and the state's bytes, the two warm
+   batches against a CPU-device engine (directories bit for bit), and
+   dense + cms reads = 2 × rows in every batch; (c) 48 batches of the 1M
+   universe with the day advancing every batch: reclaims > 0, and the
+   compaction's device ms; (d) the 10M universe with a hot tier of 2^22
+   slots per table (~5.4 GB of window tables); (e) the 100M universe with
+   the host cold tier: demotions, cold keys and promotions > 0, a
+   checkpoint with the cold lineage restored into a fresh engine; (f) a
+   few batches under ``torch.profiler``. The leaf-sum kernel launches once
+   per batch, the fused kernels never.
+10. ``profile`` — a few batches of each main path, and of the forest path
    on the customer sketch, under ``torch.profiler``: device time by
-   kernel, the device's idle share, and the ``[B, NB]`` row gathers (none
-   on the fused paths).
-10. ``kernels`` — one line per the measurement contract, each kernel's
+   kernel, the device's idle share, the ``[B, NB]`` row gathers (none on
+   the fused paths) and the small device-to-host copies (none of four
+   bytes on the forest path: the window update makes no host sync).
+11. ``kernels`` — one line per the measurement contract, each kernel's
    launches summed over every driven path that launched it.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises and
@@ -126,6 +145,17 @@ RECOVERY_HANG_POLL = 22
 RECOVERY_STALL_S = 5.0
 RECOVERY_POISON_BATCH = 20
 SERVING_DEPTHS = (1, 2, 3)
+# Phase exact_path: the JAX bench's state_scale deployment (bench.py
+# _state_scale_block): Zipf(1.1) traffic over these key universes, 2 warm
+# batches, then 24 with the day advancing every 4 batches.
+ZIPF_SKEW = 1.1
+EXACT_UNIVERSES = (65_536, 1 << 20, 10_000_000)
+EXACT_COLD_UNIVERSE = 100_000_000
+EXACT_WARM = 2
+EXACT_BATCHES = 24
+EXACT_DAY_EVERY = 4
+EXACT_RECLAIM_BATCHES = 48  # day advancing every batch: past the horizon
+EXACT_BIG_CAPACITY = 1 << 22  # the hot tier of a 10M-card issuer
 COALESCE_POLL_ROWS = 16384
 ENVELOPE_ROWS = 262144  # the slice the cli phase serves in envelope mode
 PATHS = ("forest", "logreg", "gbt")
@@ -760,7 +790,8 @@ def phase_main_path(dev, device_info, data: dict, kind: str,
 def _profiled(eng, src, batches: int):
     """Serve ``batches`` batches of ``src`` under torch.profiler after one
     warm-up batch: (device ms by event name, wall ms, the chrome trace's
-    memcpy events as (name, bytes), the profiler's events)."""
+    memcpy events as (name, bytes), the profiler's events, the run's
+    stats)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -769,7 +800,7 @@ def _profiled(eng, src, batches: int):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=True) as prof:
         t0 = time.perf_counter()
-        eng.run(src, max_batches=batches)
+        stats = eng.run(src, max_batches=batches)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     device = {}
@@ -783,7 +814,7 @@ def _profiled(eng, src, batches: int):
     copies = [(ev["name"], int(ev.get("args", {}).get("bytes", -1)))
               for ev in trace.get("traceEvents", [])
               if str(ev.get("name", "")).startswith("Memcpy")]
-    return device, wall_ms, copies, prof.events()
+    return device, wall_ms, copies, prof.events(), stats
 
 
 def phase_serving_loop(dev, device_info, data: dict) -> dict:
@@ -857,7 +888,7 @@ def phase_serving_loop(dev, device_info, data: dict) -> dict:
     for depth in (1, 2):
         eng = engine(depth)
         src = ReplaySource(txs, START_EPOCH_S, batch_rows=BATCH_ROWS)
-        device, wall_ms, copies, _ = _profiled(eng, src, PROFILE_BATCHES)
+        device, wall_ms, copies, _, _ = _profiled(eng, src, PROFILE_BATCHES)
         busy = sum(device.values())
         idle[depth] = 1.0 - busy / wall_ms if device else None
         names = {}
@@ -1320,7 +1351,8 @@ def phase_profile(dev, data: dict, kind: str, cfg=None) -> None:
     model = data["models"][kind][0]
     eng = ScoringEngine(cfg, kind, model.params, model.scaler, device=dev)
     src = ReplaySource(data["txs"], START_EPOCH_S, batch_rows=BATCH_ROWS)
-    device, wall_ms, _, events = _profiled(eng, src, PROFILE_BATCHES)
+    device, wall_ms, copies, events, _ = _profiled(eng, src,
+                                                   PROFILE_BATCHES)
     gathers, gather_ms = 0, 0.0
     for e in events:
         if e.name == "aten::index" and e.input_shapes \
@@ -1332,6 +1364,12 @@ def phase_profile(dev, data: dict, kind: str, cfg=None) -> None:
         kind == "logreg" and cfg.features.customer_source == "table")
     check((gathers == 0) == fused,
           f"{kind}: {gathers} [B, NB] row gathers in {n} batches")
+    small_d2h = _small_d2h(copies)
+    if kind == "forest" and cfg.features.customer_source == "table":
+        # the window update's stale reset is a fixed-shape write: no
+        # four-byte count comes back per step any more
+        check(not small_d2h, f"{kind}: small device-to-host copies "
+                             f"{small_d2h} in {n} batches")
     busy = sum(device.values())
     top = sorted(device.items(), key=lambda kv: -kv[1])[:8]
     emit({"phase": "profile", "path": kind,
@@ -1343,7 +1381,411 @@ def phase_profile(dev, data: dict, kind: str, cfg=None) -> None:
           "device_busy_ms_per_batch": busy / n if device else None,
           "row_gathers_per_batch": gathers / n,
           "row_gather_ms_per_batch": gather_ms / n if device else None,
+          "small_d2h_copies": small_d2h,
           "device_idle_share": 1.0 - busy / wall_ms if device else None})
+
+
+def _small_d2h(copies) -> list:
+    """Device-to-host copies of at most 8 bytes (a count or flag read back
+    by the host) as (name, bytes)."""
+    return [(name, b) for name, b in copies
+            if "DtoH" in name and 0 <= b <= 8]
+
+
+class _ListSource:
+    """Pre-made column batches (made before the timed run, as the JAX
+    bench's ``_ZipfSource``)."""
+
+    def __init__(self, batches):
+        self.batches, self.i = batches, 0
+
+    def poll_batch(self):
+        if self.i >= len(self.batches):
+            return None
+        self.i += 1
+        return self.batches[self.i - 1]
+
+    @property
+    def offsets(self):
+        return [self.i]
+
+    def seek(self, offsets):
+        self.i = int(offsets[0])
+
+
+class _TierSink:
+    """A ``MemorySink`` that also keeps each batch's tier reads (the
+    registry's counters read at the append, after the batch's copies)."""
+
+    def __init__(self, reg):
+        from real_time_fraud_detection_system_tpu_torch.io.sink import (
+            MemorySink,
+        )
+
+        self.inner, self.reg, self.per_batch = MemorySink(), reg, []
+        self._last = self._reads()
+
+    def _reads(self):
+        return tuple(self.reg.get("rtfds_feature_tier_rows_total",
+                                  tier=t).value for t in ("dense", "cms"))
+
+    def append(self, res):
+        now = self._reads()
+        self.per_batch.append((len(res.tx_id), now[0] - self._last[0],
+                               now[1] - self._last[1]))
+        self._last = now
+        self.inner.append(res)
+
+
+def _zipf_batches(sampler, n: int, day_every: int, seed: int,
+                  rows: int = BATCH_ROWS) -> list:
+    """The JAX bench's Zipf source: ``n`` batches over ``sampler``'s
+    universe, terminals over a universe 8× smaller, the day advancing
+    every ``day_every`` batches. Amounts are rounded to whole dollars:
+    a hot key's day sums thousands of them, and float32 sums of whole
+    dollars are exact in any order, so the card's atomic adds and the CPU
+    engine's ordered ones agree within the main path's tolerances."""
+    from real_time_fraud_detection_system_tpu_torch.data.generator import (
+        zipf_stream_cols,
+    )
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for b in range(n):
+        cols = zipf_stream_cols(rng, rows, sampler,
+                                n_terminals=max(sampler.n_keys // 8, 64),
+                                day=20200 + b // day_every,
+                                tx_id_start=b * rows)
+        cols["tx_amount_cents"] = (cols["tx_amount_cents"] + 50) // 100 * 100
+        out.append(cols)
+    return out
+
+
+def _bench_cfg(cfg, **features):
+    """The JAX bench's ``state_scale`` deployment (bench.py
+    ``_state_scale_block``) on the serving bucket."""
+    base = dict(key_mode="exact", customer_capacity=1 << 15,
+                terminal_capacity=1 << 15, cms_width=1 << 15,
+                compact_every=4, state_hbm_budget_mb=256.0)
+    base.update(features)
+    return dataclasses.replace(cfg, features=dataclasses.replace(
+        cfg.features, **base))
+
+
+def _dir_leaves(fs) -> dict:
+    return {f"{t}.{n}": getattr(getattr(fs, f"{t}_dir"), n).cpu()
+            .view(torch.int32) if n == "keys" else
+            getattr(getattr(fs, f"{t}_dir"), n).cpu()
+            for t in ("customer", "terminal")
+            for n in ("keys", "slots", "free", "free_top")}
+
+
+def _occupancy(fs) -> dict:
+    return {t: int(getattr(fs, f"{t}_dir").slot_capacity
+                   - int(getattr(fs, f"{t}_dir").free_top))
+            for t in ("customer", "terminal")}
+
+
+def _vs_cpu_engine(cfg, kind, data, batches, card_sink, card_state,
+                   what: str) -> float:
+    """The card's run of ``batches`` against a CPU-device engine's:
+    every directory leaf bit for bit, counts and risks bit for bit,
+    averages within ``RTOL_FEATURE``, probabilities within the main
+    path's tolerance. Returns the largest probability difference."""
+    from real_time_fraud_detection_system_tpu_torch.io.sink import MemorySink
+    from real_time_fraud_detection_system_tpu_torch.runtime.engine import (
+        ScoringEngine,
+    )
+
+    cpu_model = data["models"][kind][1]
+    ref = ScoringEngine(cfg, kind, cpu_model.params, cpu_model.scaler,
+                        device="cpu")
+    ref_sink = MemorySink()
+    ref.run(_ListSource([dict(b) for b in batches]), ref_sink)
+    for k, v in _dir_leaves(ref.state.feature_state).items():
+        check(torch.equal(_dir_leaves(card_state)[k], v),
+              f"{what}: directory leaf {k} differs from the CPU engine")
+    got, want = card_sink.concat(), ref_sink.concat()
+    max_err = 0.0
+    for k in want:
+        if k == "processed_at_us":
+            continue
+        if k == "prediction":
+            atol = ATOL_LEAF / 100 if kind == "forest" else ATOL_SIGMOID
+            np.testing.assert_allclose(got[k], want[k], rtol=0.0, atol=atol)
+            max_err = float(np.abs(got[k] - want[k]).max())
+        elif "avg_amount" in k:
+            np.testing.assert_allclose(got[k], want[k], rtol=RTOL_FEATURE)
+        else:
+            check(np.array_equal(got[k], want[k]),
+                  f"{what}: column {k} differs from the CPU engine")
+    return max_err
+
+
+def phase_exact_path(dev, device_info, data: dict) -> dict:
+    """The tiered store on the card; see the module docstring, phase 9."""
+    from real_time_fraud_detection_system_tpu_torch.data.generator import (
+        ZipfKeySampler,
+    )
+    from real_time_fraud_detection_system_tpu_torch.features.online import (
+        compact_feature_state,
+        state_bytes,
+    )
+    from real_time_fraud_detection_system_tpu_torch.io.checkpoint import (
+        Checkpointer,
+    )
+    from real_time_fraud_detection_system_tpu_torch.io.sink import MemorySink
+    from real_time_fraud_detection_system_tpu_torch.runtime.engine import (
+        ScoringEngine,
+    )
+    from real_time_fraud_detection_system_tpu_torch.runtime.sources import (
+        ReplaySource,
+    )
+    from real_time_fraud_detection_system_tpu_torch.utils.metrics import (
+        MetricsRegistry,
+    )
+
+    cfg = data["cfg"]
+    card = {"card": device_info["smi_name"],
+            "power_limit": device_info["power_limit"]}
+    totals = {name: 0 for name in KERNELS}
+
+    def served(eng, src, sink, what: str, kind: str = "forest"):
+        stats, launches = drive(lambda: eng.run(src, sink))
+        own = None if kind == "logreg" else "leaf_sum"
+        for name, n in launches.items():
+            want = stats["batches"] if name == own else 0
+            check(n == want, f"{what}: {n} launches of {name} for "
+                             f"{stats['batches']} batches (want {want})")
+            totals[name] += n
+        return stats
+
+    def run_line(stats) -> dict:
+        return {k: stats[k] for k in (
+            "rows", "batches", "rows_per_s", "latency_p50_ms",
+            "latency_p99_ms", "stage_ms_p50", "wall_s")}
+
+    # (a) the hot tier holds every key: exact equals direct bit for bit
+    txs = data["txs_whole_dollars"]
+    model = data["models"]["forest"][0]
+    ecfg = dataclasses.replace(cfg, features=dataclasses.replace(
+        cfg.features, key_mode="exact"))
+    outs = {}
+    for mode, mcfg in (("direct", cfg), ("exact", ecfg)):
+        reg = MetricsRegistry()
+        eng = ScoringEngine(mcfg, "forest", model.params, model.scaler,
+                            device=dev, metrics=reg)
+        sink = MemorySink()
+        stats, launches = drive(lambda: eng.run(
+            ReplaySource(txs, START_EPOCH_S, batch_rows=BATCH_ROWS), sink))
+        own = "leaf_sum" if mode == "exact" else "fused_forest_leaf_sum"
+        for name, n in launches.items():
+            want = stats["batches"] if name == own else 0
+            check(n == want, f"exact_path (a) {mode}: {n} launches of "
+                             f"{name} (want {want})")
+            totals[name] += n
+        out = sink.concat()
+        out.pop("processed_at_us")
+        outs[mode] = out
+        if mode == "exact":
+            dense = reg.get("rtfds_feature_tier_rows_total",
+                            tier="dense").value
+            cms = reg.get("rtfds_feature_tier_rows_total", tier="cms").value
+            check(dense == 2 * stats["rows"] and cms == 0,
+                  f"exact_path (a): {dense} dense and {cms} sketch reads "
+                  f"for {stats['rows']} rows")
+        emit({"phase": "exact_path", "part": "a_parity_with_direct",
+              "key_mode": mode, "kernel_launches": launches,
+              **run_line(stats), **card})
+    for k, v in outs["direct"].items():
+        check(v.dtype == outs["exact"][k].dtype
+              and np.array_equal(v, outs["exact"][k]),
+              f"exact_path (a): column {k} differs from the direct path")
+    del outs
+
+    # (b) the JAX bench's deployment over three universes
+    bcfg = _bench_cfg(cfg)
+    sb = state_bytes(bcfg.features)
+    for n_keys in EXACT_UNIVERSES:
+        sampler = ZipfKeySampler(n_keys, ZIPF_SKEW)
+        warm = _zipf_batches(sampler, EXACT_WARM, day_every=1, seed=7)
+        main = _zipf_batches(sampler, EXACT_BATCHES,
+                             day_every=EXACT_DAY_EVERY, seed=2)
+        for kind in (("forest", "gbt") if n_keys == 1 << 20
+                     else ("forest",)):
+            m = data["models"][kind][0]
+            reg = MetricsRegistry()
+            torch.cuda.reset_peak_memory_stats()
+            eng = ScoringEngine(bcfg, kind, m.params, m.scaler, device=dev,
+                                metrics=reg)
+            what = f"exact_path (b) {kind} {n_keys} keys"
+            wsink = MemorySink()
+            served(eng, _ListSource([dict(b) for b in warm]), wsink, what,
+                   kind)
+            err = _vs_cpu_engine(bcfg, kind, data, warm, wsink,
+                                 eng.state.feature_state, what)
+            sink = _TierSink(reg)
+            stats = served(eng, _ListSource(main), sink, what, kind)
+            for rows, dense, cms in sink.per_batch:
+                check(dense + cms == 2 * rows,
+                      f"{what}: {dense} dense + {cms} sketch reads for "
+                      f"{rows} rows")
+            d = sum(x[1] for x in sink.per_batch)
+            c = sum(x[2] for x in sink.per_batch)
+            emit({"phase": "exact_path", "part": "b_bench_deployment",
+                  "path": kind, "n_keys": n_keys, "skew": ZIPF_SKEW,
+                  **run_line(stats),
+                  "dense_hit_rate": d / (d + c),
+                  "slots_reclaimed": reg.family_total(
+                      "rtfds_feature_slots_reclaimed_total"),
+                  "occupancy": _occupancy(eng.state.feature_state),
+                  "capacity": bcfg.features.customer_capacity,
+                  "state_bytes": sb,
+                  "memory_allocated": torch.cuda.memory_allocated(),
+                  "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                  "max_abs_err_vs_cpu_engine": err, **card})
+            del eng
+    torch.cuda.empty_cache()
+
+    # (c) the day advancing every batch: history passes the horizon
+    sampler = ZipfKeySampler(1 << 20, ZIPF_SKEW)
+    batches = _zipf_batches(sampler, EXACT_RECLAIM_BATCHES, day_every=1,
+                            seed=3)
+    reg = MetricsRegistry()
+    eng = ScoringEngine(bcfg, "forest", model.params, model.scaler,
+                        device=dev, metrics=reg)
+    stats = served(eng, _ListSource(batches), MemorySink(),
+                   "exact_path (c)")
+    rec = reg.family_total("rtfds_feature_slots_reclaimed_total")
+    occ = _occupancy(eng.state.feature_state)
+    check(rec > 0, "exact_path (c): no slot was reclaimed")
+    check(all(0 <= o <= bcfg.features.customer_capacity
+              for o in occ.values()), f"exact_path (c): occupancy {occ}")
+    compact_ms = cuda_ms(lambda: compact_feature_state(
+        eng.state.feature_state, eng._max_day, bcfg.features), 5)
+    emit({"phase": "exact_path", "part": "c_reclaim", **run_line(stats),
+          "days": EXACT_RECLAIM_BATCHES, "slots_reclaimed": rec,
+          "occupancy": occ, "compaction_ms": compact_ms, **card})
+    del eng
+
+    # (d) the hot tier of a 10M-card issuer: 2^22 slots per table
+    big = EXACT_BIG_CAPACITY
+    dcfg = _bench_cfg(cfg, customer_capacity=big, terminal_capacity=big,
+                      state_hbm_budget_mb=8192.0)
+    sampler = ZipfKeySampler(10_000_000, ZIPF_SKEW)
+    batches = (_zipf_batches(sampler, EXACT_WARM, day_every=1, seed=7)
+               + _zipf_batches(sampler, EXACT_BATCHES,
+                               day_every=EXACT_DAY_EVERY, seed=2))
+    reg = MetricsRegistry()
+    torch.cuda.reset_peak_memory_stats()
+    eng = ScoringEngine(dcfg, "forest", model.params, model.scaler,
+                        device=dev, metrics=reg)
+    sink = _TierSink(reg)
+    stats = served(eng, _ListSource(batches), sink, "exact_path (d)")
+    d = sum(x[1] for x in sink.per_batch)
+    c = sum(x[2] for x in sink.per_batch)
+    compact_ms = cuda_ms(lambda: compact_feature_state(
+        eng.state.feature_state, eng._max_day, dcfg.features), 3)
+    emit({"phase": "exact_path", "part": "d_10m_issuer",
+          "n_keys": 10_000_000, "capacity": big, **run_line(stats),
+          "dense_hit_rate": d / (d + c),
+          "occupancy": _occupancy(eng.state.feature_state),
+          "state_bytes": state_bytes(dcfg.features),
+          "memory_allocated": torch.cuda.memory_allocated(),
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "compaction_ms": compact_ms, **card})
+    del eng
+    torch.cuda.empty_cache()
+
+    # (e) the host cold tier over 100M keys
+    sampler = ZipfKeySampler(EXACT_COLD_UNIVERSE, ZIPF_SKEW)
+    warm = _zipf_batches(sampler, EXACT_WARM, day_every=1, seed=7)
+    main = _zipf_batches(sampler, EXACT_BATCHES, day_every=EXACT_DAY_EVERY,
+                         seed=2)
+    with tempfile.TemporaryDirectory() as tmp:
+        ccfg = _bench_cfg(cfg, cold_store=f"{tmp}/cold",
+                          cold_demote_slots=1024, cold_promote_queue=256)
+        reg = MetricsRegistry()
+        eng = ScoringEngine(ccfg, "forest", model.params, model.scaler,
+                            device=dev, metrics=reg)
+        served(eng, _ListSource(warm), MemorySink(), "exact_path (e)")
+        stats = served(eng, _ListSource(main), MemorySink(),
+                       "exact_path (e)")
+        check(eng.drain_promotions(timeout_s=60.0),
+              "exact_path (e): promotions did not drain")
+        counts = {n: reg.get(n).value for n in (
+            "rtfds_feature_cold_demotions_total", "rtfds_feature_cold_keys",
+            "rtfds_feature_cold_promotions_total")}
+        check(all(v > 0 for v in counts.values()),
+              f"exact_path (e): cold tier counters {counts}")
+        eng._cold.flush()
+        eng.state.cold_lineage = eng._cold.lineage()
+        ck = Checkpointer(f"{tmp}/ck")
+        t0 = time.perf_counter()
+        ck.save(eng.checkpoint_state())
+        save_ms = (time.perf_counter() - t0) * 1e3
+        fresh = ScoringEngine(ccfg, "forest", model.params, model.scaler,
+                              device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        check(ck.restore(fresh.state) is not None,
+              "exact_path (e): no checkpoint restored")
+        fresh._sync_cold_after_restore()
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        lineage = eng.state.cold_lineage
+        check(fresh.state.cold_lineage == lineage,
+              "exact_path (e): the restored cold lineage differs")
+        # the restored index is the listed segments' manifests: every
+        # key still cold at the save, and the promoted keys whose
+        # segment no gc has dropped yet (their next touch merges rows
+        # the hot tier already holds, an idempotent no-op)
+        for t in ("customer", "terminal"):
+            check(np.isin(eng._cold.index_snapshot(t),
+                          fresh._cold.index_snapshot(t)).all(),
+                  f"exact_path (e): a cold {t} key was lost at restore")
+        for k, v in _dir_leaves(eng.state.feature_state).items():
+            check(torch.equal(_dir_leaves(fresh.state.feature_state)[k], v),
+                  f"exact_path (e): restored directory leaf {k} differs")
+        emit({"phase": "exact_path", "part": "e_cold_tier",
+              "n_keys": EXACT_COLD_UNIVERSE, **run_line(stats), **counts,
+              "exactness_degraded_keys": stats["exactness_degraded_keys"],
+              "cold_segments": len(lineage["segments"]),
+              "cold_bytes": lineage["total_bytes"],
+              "checkpoint_save_ms": save_ms, "restore_ms": restore_ms,
+              **card})
+        eng.fence_cold()
+        fresh.fence_cold()
+        del eng, fresh
+
+    # (f) a few batches under the profiler
+    sampler = ZipfKeySampler(1 << 20, ZIPF_SKEW)
+    batches = _zipf_batches(sampler, PROFILE_BATCHES + 1,
+                            day_every=EXACT_DAY_EVERY, seed=5)
+    eng = ScoringEngine(bcfg, "forest", model.params, model.scaler,
+                        device=dev, metrics=MetricsRegistry())
+    device, wall_ms, copies, _, pstats = _profiled(eng, _ListSource(batches),
+                                                   PROFILE_BATCHES)
+    small = _small_d2h(copies)
+    # one 8-byte copy per batch: the tier counts riding the result copies
+    check(all(b == 8 for _, b in small) and len(small) == PROFILE_BATCHES
+          and all(name == "Memcpy DtoH (Device -> Pinned)"
+                  for name, _ in small),
+          f"exact_path (f): small device-to-host copies {small}")
+    busy = sum(device.values())
+    top = sorted(device.items(), key=lambda kv: -kv[1])[:8]
+    emit({"phase": "exact_path", "part": "f_profile",
+          "batches": PROFILE_BATCHES, "wall_ms_per_batch":
+          wall_ms / PROFILE_BATCHES,
+          "dispatch_p50_ms": pstats["dispatch_p50_ms"],
+          "device_ms_per_batch": ({k[:80]: v / PROFILE_BATCHES
+                                   for k, v in top}
+                                  if device else "not measured"),
+          "device_busy_ms_per_batch": busy / PROFILE_BATCHES
+          if device else None,
+          "device_idle_share": 1.0 - busy / wall_ms if device else None,
+          "small_d2h_copies": small, **card})
+    return totals
 
 
 def main() -> int:
@@ -1380,6 +1822,7 @@ def main() -> int:
             add(phase_main_path(dev, info, data, kind, phase, pcfg))
     add(phase_cli(dev, info, data))
     add(phase_recovery(dev, info, data))
+    add(phase_exact_path(dev, info, data))
     for kind in PATHS:
         phase_profile(dev, data, kind)
     phase_profile(dev, data, "forest", dataclasses.replace(

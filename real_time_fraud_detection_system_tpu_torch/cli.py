@@ -13,9 +13,12 @@ stats as one JSON line at the end. The flags it shares with the JAX
 fault supervisor (``runtime/faults.py``) with the stall watchdog
 (``--stall-timeout``) and poison isolation into ``--dead-letter``. The
 checkpoints are the JAX package's format: either package resumes the
-other's. Not ported yet: the Kafka and raw-table sources and object-store
-output (ROADMAP A2, A9), ``--resume-merge`` (A7), the CPU oracle,
-``--key-mode exact`` (A5) and the serving extras (A4, A6).
+other's. ``--key-mode exact`` serves the tiered feature store, with
+``--state-compact-every``, ``--state-hbm-budget-mb`` and the host cold
+tier (``--cold-store``, ``--cold-promote-queue``, ``--cold-segment-mb``).
+Not ported yet: the Kafka and raw-table sources and object-store output
+(ROADMAP A2, A9), ``--resume-merge`` and ``--resume-merge-cold`` (A7), the
+CPU oracle and the serving extras (A4, A6).
 """
 
 from __future__ import annotations
@@ -74,10 +77,6 @@ def cmd_score(args) -> int:
         date_to_epoch_s,
     )
 
-    if args.key_mode == "exact":
-        log.error("--key-mode exact (the tiered feature store) is not "
-                  "ported yet: ROADMAP A5")
-        return 2
     if not args.data:
         log.error("--data is required (the port replays a generated "
                   "table; --source kafka is not ported yet)")
@@ -136,8 +135,47 @@ def cmd_score(args) -> int:
             checkpoint_op_attempts=args.checkpoint_op_attempts,
             restart_backoff_ms=args.restart_backoff_ms,
         ),
-        features=dataclasses.replace(cfg.features, key_mode=args.key_mode),
     )
+    # the feature-plane knobs (the tiered feature store)
+    if args.state_compact_every > 0 and args.key_mode != "exact":
+        log.error("--state-compact-every only applies to --key-mode "
+                  "exact (direct/hash tables have no slot allocator to "
+                  "reclaim into)")
+        return 2
+    try:
+        cfg = dataclasses.replace(cfg, features=dataclasses.replace(
+            cfg.features,
+            key_mode=args.key_mode,
+            compact_every=args.state_compact_every,
+            state_hbm_budget_mb=args.state_hbm_budget_mb,
+            cold_store=args.cold_store,
+            cold_promote_queue=args.cold_promote_queue,
+            cold_segment_mb=args.cold_segment_mb,
+        ))
+    except ValueError as e:
+        log.error("feature-plane config: %s", e)
+        return 2
+    if args.key_mode == "exact" or args.state_hbm_budget_mb > 0:
+        from real_time_fraud_detection_system_tpu_torch.features.online \
+            import state_bytes
+
+        sb = state_bytes(cfg.features)
+        if 0 < args.state_hbm_budget_mb * 2 ** 20 < sb["total"]:
+            log.error(
+                "--state-hbm-budget-mb %g cannot hold the configured "
+                "feature state (%.1f MB: run with a larger budget, or "
+                "shrink customer/terminal capacity or cms_width)",
+                args.state_hbm_budget_mb, sb["total"] / 2 ** 20)
+            return 2
+        if args.key_mode == "exact":
+            log.info(
+                "tiered feature store: hot tier %d+%d slots, compaction "
+                "every %s batches, state %.1f MB (dense %.1f, directory "
+                "%.1f, cms %.1f)", cfg.features.customer_capacity,
+                cfg.features.terminal_capacity,
+                args.state_compact_every or "off", sb["total"] / 2 ** 20,
+                sb["dense"] / 2 ** 20, sb["directory"] / 2 ** 20,
+                sb["cms"] / 2 ** 20)
     if args.alerts_only and args.out:
         log.warning("--alerts-only: the analyzed output at %s will carry "
                     "zero feature columns (predictions only)", args.out)
@@ -238,7 +276,27 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["direct", "hash", "exact"],
                    help="feature-state key→slot placement: direct (dense "
                         "serial ids), hash (bounded memory, colliding "
-                        "keys merge windows); exact is not ported yet")
+                        "keys merge windows), exact (the tiered store: a "
+                        "key directory, a hot tier sized to the working "
+                        "set, admission misses read the count-min sketch)")
+    p.add_argument("--state-compact-every", type=int, default=0,
+                   help="recency compaction cadence for --key-mode exact: "
+                        "every N batches reclaim the hot-tier slots whose "
+                        "newest day is older than delay + max(window). "
+                        "0 = off")
+    p.add_argument("--state-hbm-budget-mb", type=float, default=0.0,
+                   help="device-memory budget for the whole feature state, "
+                        "checked at engine build. 0 = unchecked")
+    p.add_argument("--cold-store", default="",
+                   help="host cold tier for --key-mode exact: a directory "
+                        "where compaction demotes evicted keys' window "
+                        "rows; returning keys promote back between steps. "
+                        "Requires --state-compact-every. Empty = off")
+    p.add_argument("--cold-promote-queue", type=int, default=64,
+                   help="bounded depth of the promoter's request queue")
+    p.add_argument("--cold-segment-mb", type=float, default=4.0,
+                   help="buffered demotions become one segment past this "
+                        "many MB")
     p.add_argument("--alerts-only", action="store_true",
                    help="serve predictions only: the feature matrix never "
                         "leaves the device")

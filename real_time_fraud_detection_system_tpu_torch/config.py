@@ -40,10 +40,8 @@ class FeatureConfig:
 
     Customer {1,7,30}-day count+avg-amount; terminal {1,7,30}-day
     count+risk shifted back by ``delay_days`` (fraud labels arrive late).
-    The port serves ``key_mode`` "direct" and "hash" with
-    ``customer_source`` "table" or "cms"; ``key_mode="exact"`` is accepted
-    here and refused by ``features/online.py`` until the tiered store is
-    ported (ROADMAP A5), and its tuning fields come with it.
+    The port serves every ``key_mode`` ("direct", "hash", "exact") with
+    ``customer_source`` "table" or "cms".
     """
 
     windows: Sequence[int] = (1, 7, 30)
@@ -55,8 +53,32 @@ class FeatureConfig:
     terminal_capacity: int = 16384
     # "direct" (key & (cap-1)) is collision-free for dense serial ids below
     # the capacity; "hash" mixes the key first (colliding keys share a
-    # slot); "exact" is not ported yet.
+    # slot); "exact" routes through the key directory (ops/keydir.py): the
+    # hot tier holds the active working set, admitted keys are
+    # collision-exact, and rows that miss admission read the count-min
+    # sketch tier.
     key_mode: str = "direct"
+    # key_mode="exact" knobs: the directory's fixed probe depth (it is 2x
+    # the slot capacity, load factor <= 0.5), and the recency-compaction
+    # cadence in batches (0 = off): compaction reclaims slots whose newest
+    # bucket is older than delay_days + max(windows).
+    keydir_probes: int = 8
+    compact_every: int = 0
+    # Device-memory budget for the whole feature state, checked at engine
+    # build against features/online.py::state_bytes (0 = unchecked).
+    state_hbm_budget_mb: float = 0.0
+    # Host cold tier (io/coldstore.py) for key_mode="exact": compaction
+    # demotes up to cold_demote_slots of the oldest keys per table while
+    # occupancy sits above cold_highwater * capacity, and a returning key
+    # is promoted back between steps. "" = off (evictions discard).
+    cold_store: str = ""
+    # Bounded promoter request queue (a full queue drops the request; the
+    # key re-enqueues on its next touch).
+    cold_promote_queue: int = 64
+    # MB of buffered demoted rows before a segment is written.
+    cold_segment_mb: float = 4.0
+    cold_demote_slots: int = 1024
+    cold_highwater: float = 0.75
     # Count-min sketch for unbounded key cardinality (velocity features).
     cms_depth: int = 4
     cms_width: int = 1 << 15
@@ -84,6 +106,42 @@ class FeatureConfig:
                     f"{name} must be a power of two (direct mode masks "
                     f"with capacity-1; non-pow2 silently aliases keys), "
                     f"got {cap}")
+        if self.keydir_probes < 1:
+            raise ValueError(
+                f"keydir_probes must be >= 1, got {self.keydir_probes}")
+        if self.compact_every < 0:
+            raise ValueError(
+                f"compact_every must be >= 0 (0 = off), "
+                f"got {self.compact_every}")
+        if self.state_hbm_budget_mb < 0:
+            raise ValueError(
+                f"state_hbm_budget_mb must be >= 0 (0 = unchecked), "
+                f"got {self.state_hbm_budget_mb}")
+        if self.cold_promote_queue < 1:
+            raise ValueError(
+                f"cold_promote_queue must be >= 1 (the promoter queue is "
+                f"bounded), got {self.cold_promote_queue}")
+        if self.cold_segment_mb <= 0:
+            raise ValueError(
+                f"cold_segment_mb must be > 0, got {self.cold_segment_mb}")
+        if self.cold_demote_slots < 1:
+            raise ValueError(
+                f"cold_demote_slots must be >= 1, "
+                f"got {self.cold_demote_slots}")
+        if not 0 < self.cold_highwater <= 1:
+            raise ValueError(
+                f"cold_highwater must be in (0, 1], "
+                f"got {self.cold_highwater}")
+        if self.cold_store:
+            if self.key_mode != "exact":
+                raise ValueError(
+                    "cold_store requires key_mode='exact' (only the "
+                    "keyed hot tier has per-key rows to demote), got "
+                    f"key_mode={self.key_mode!r}")
+            if self.compact_every <= 0:
+                raise ValueError(
+                    "cold_store requires compact_every > 0 (demotion "
+                    "rides the compaction cadence)")
 
 
 @dataclass(frozen=True)

@@ -1,9 +1,14 @@
 """Online feature computation: update device state, emit the 15 features.
 
-Port of the JAX package's ``features/online.py`` for ``key_mode="direct"``
-and ``"hash"``, with ``customer_source="table"`` or ``"cms"`` (the
-count-min sketch of ``ops/cms.py`` in place of the customer table);
-``key_mode="exact"`` waits for the tiered store (ROADMAP A5).
+Port of the JAX package's ``features/online.py``, with
+``customer_source="table"`` or ``"cms"`` (the count-min sketch of
+``ops/cms.py`` in place of the customer table), for every ``key_mode``:
+"direct" and "hash" map a key to its slot statically; "exact" is the
+tiered store (:func:`update_and_featurize_exact`): slots come from the key
+directories of ``ops/keydir.py``, rows that miss admission read the sketch
+tier, :func:`compact_feature_state` reclaims dead history on a cadence
+(and demotes the oldest keys to the host cold tier under pressure), and
+:func:`promote_rows` merges cold rows back.
 One call per micro-batch scatters the batch into the rolling-window state,
 then reads the feature vector of every row from it (update-then-query: a
 row's windows include itself and its batch-mates of the same key and day).
@@ -31,6 +36,7 @@ from real_time_fraud_detection_system_tpu_torch.ops.cms import (
     CountMinSketch,
     cms_init,
     cms_query,
+    cms_query_fraud,
     cms_update,
 )
 from real_time_fraud_detection_system_tpu_torch.ops.features_fused import (
@@ -44,6 +50,13 @@ from real_time_fraud_detection_system_tpu_torch.ops.forest_kernels import (
     fused_forest_leaf_sum,
 )
 from real_time_fraud_detection_system_tpu_torch.ops.hashing import slot_of
+from real_time_fraud_detection_system_tpu_torch.ops.keydir import (
+    KeyDirectory,
+    admit_slots,
+    init_keydir,
+    put_kept_,
+    reclaim_entries,
+)
 from real_time_fraud_detection_system_tpu_torch.ops.score_kernels import (
     fused_featurize_score,
 )
@@ -55,32 +68,47 @@ from real_time_fraud_detection_system_tpu_torch.ops.windows import (
 )
 
 
-def _require_ported(cfg: FeatureConfig) -> None:
-    if cfg.key_mode == "exact":
-        raise NotImplementedError(
-            "key_mode='exact' is not ported yet (ROADMAP A5, tiered "
-            "feature store)")
-
-
 class FeatureState(NamedTuple):
     """All device-resident feature state. ``cms`` is the customer sketch
     under ``customer_source="cms"`` (the customer table is then allocated
-    but never read or written, as in the JAX package), else None."""
+    but never read or written, as in the JAX package) and under
+    ``key_mode="exact"``, else None. The three trailing fields exist only
+    under ``key_mode="exact"``: the key directories of both hot-tier
+    tables (no customer directory under ``customer_source="cms"``) and the
+    terminal sketch with its fraud column. They come last, as in the JAX
+    package, so direct and hash states keep their leaves."""
 
     customer: WindowState
     terminal: WindowState
     cms: Optional[CountMinSketch] = None
+    customer_dir: Optional[KeyDirectory] = None
+    terminal_dir: Optional[KeyDirectory] = None
+    terminal_cms: Optional[CountMinSketch] = None
 
 
 def init_feature_state(cfg: FeatureConfig, device) -> FeatureState:
-    _require_ported(cfg)
+    exact = cfg.key_mode == "exact"
+    nb = cfg.n_day_buckets
+    customer_dir = terminal_dir = terminal_cms = None
+    if exact:
+        # directory at 2x the slot capacity: load factor <= 0.5 keeps the
+        # fixed-depth probing lossless until the free stack runs dry
+        if cfg.customer_source != "cms":
+            customer_dir = init_keydir(2 * cfg.customer_capacity,
+                                       cfg.customer_capacity, device)
+        terminal_dir = init_keydir(2 * cfg.terminal_capacity,
+                                   cfg.terminal_capacity, device)
+        terminal_cms = cms_init(cfg.cms_depth, cfg.cms_width, nb, device,
+                                track_fraud=True)
     return FeatureState(
-        customer=init_window_state(cfg.customer_capacity, cfg.n_day_buckets,
-                                   device),
-        terminal=init_window_state(cfg.terminal_capacity, cfg.n_day_buckets,
-                                   device),
-        cms=cms_init(cfg.cms_depth, cfg.cms_width, cfg.n_day_buckets, device)
-        if cfg.customer_source == "cms" else None,
+        customer=init_window_state(cfg.customer_capacity, nb, device),
+        terminal=init_window_state(cfg.terminal_capacity, nb, device),
+        # exact mode always carries the customer sketch: the overflow tier
+        cms=cms_init(cfg.cms_depth, cfg.cms_width, nb, device)
+        if cfg.customer_source == "cms" or exact else None,
+        customer_dir=customer_dir,
+        terminal_dir=terminal_dir,
+        terminal_cms=terminal_cms,
     )
 
 
@@ -96,22 +124,33 @@ def _slot(key: torch.Tensor, capacity: int, mode: str) -> torch.Tensor:
         return slot_of(key, capacity)
     raise ValueError(
         f"key_mode={mode!r} has no static slot map (key_mode='exact' "
-        f"routes through the key directory, ROADMAP A5)")
+        f"routes through the key directory, ops/keydir.py::admit_slots)")
 
 
 def state_bytes(cfg: FeatureConfig) -> dict:
     """Static device accounting of the feature state
-    :func:`init_feature_state` builds: window tables hold bucket_day i32 +
-    count/amount/fraud f32 = 16 B per bucket; the sketch a slice_day i32
-    per day and two f32 tables of depth × width per day."""
-    _require_ported(cfg)
+    :func:`init_feature_state` builds (the JAX package's numbers, which
+    the engine's ``state_hbm_budget_mb`` check reads): window tables hold
+    bucket_day i32 + count/amount/fraud f32 = 16 B per bucket; a sketch a
+    slice_day i32 per day and two f32 tables of depth × width per day,
+    the terminal sketch a third; a directory keys u32 + slots i32 over 2×
+    the slots, free i32 per slot and free_top."""
+    exact = cfg.key_mode == "exact"
     nb = cfg.n_day_buckets
     dense = (cfg.customer_capacity + cfg.terminal_capacity) * nb * 16
-    cms = 0
-    if cfg.customer_source == "cms":
-        cms = nb * 4 + 2 * nb * cfg.cms_depth * cfg.cms_width * 4
-    return {"dense": int(dense), "directory": 0, "cms": int(cms),
-            "total": int(dense + cms)}
+    n_sketches = int(cfg.customer_source == "cms" or exact) + int(exact)
+    table = nb * cfg.cms_depth * cfg.cms_width * 4
+    cms = n_sketches * (nb * 4 + 2 * table)
+    directory = 0
+    if exact:
+        cms += table  # the terminal sketch's fraud column
+        for cap, present in ((cfg.customer_capacity,
+                              cfg.customer_source != "cms"),
+                             (cfg.terminal_capacity, True)):
+            if present:
+                directory += 2 * cap * 8 + cap * 4 + 4
+    return {"dense": int(dense), "directory": int(directory),
+            "cms": int(cms), "total": int(dense + directory + cms)}
 
 
 def _flags(batch: TxBatch, cfg: FeatureConfig
@@ -133,7 +172,6 @@ def _update_state(
     reads them. Under ``customer_source="cms"`` the customer rows go into
     the sketch instead of the customer table.
     """
-    _require_ported(cfg)
     cust_slot = _slot(batch.customer_key, cfg.customer_capacity, cfg.key_mode)
     term_slot = _slot(batch.terminal_key, cfg.terminal_capacity, cfg.key_mode)
     fraud = torch.clamp(batch.label, min=0).to(torch.float32)
@@ -191,6 +229,90 @@ def update_and_featurize(
                          t_count, ratio(t_fraud, t_count), is_weekend,
                          is_night)
     return state, features
+
+
+def _update_state_exact(
+    state: FeatureState, batch: TxBatch, cfg: FeatureConfig
+) -> Tuple[FeatureState, torch.Tensor, torch.Tensor, torch.Tensor,
+           torch.Tensor]:
+    """Tiered scatter-update half (``key_mode="exact"``), in place.
+
+    Returns (state, cust_slot, c_adm, term_slot, t_adm): slots come from
+    the key directories; rows that miss admission (``*_adm`` False) stay
+    out of the hot-tier scatters and the caller serves them from the
+    sketch tier. The sketches take every row (they shadow the whole
+    stream), so a key's estimate stays an overestimate whether or not it
+    holds a slot now.
+    """
+    fraud = torch.clamp(batch.label, min=0).to(torch.float32)
+    probes = cfg.keydir_probes
+    if cfg.customer_source == "cms":
+        cust_slot = torch.zeros_like(batch.day, dtype=torch.int64)
+        c_adm = torch.zeros_like(batch.valid)
+    else:
+        _, cust_slot, c_adm = admit_slots(
+            state.customer_dir, batch.customer_key, batch.valid, probes)
+        update_windows(state.customer, cust_slot, batch.day, batch.amount,
+                       fraud, batch.valid & c_adm, track_fraud=False)
+    _, term_slot, t_adm = admit_slots(
+        state.terminal_dir, batch.terminal_key, batch.valid, probes)
+    update_windows(state.terminal, term_slot, batch.day, batch.amount, fraud,
+                   batch.valid & t_adm, track_amount=False)
+    cms_update(state.cms, batch.customer_key, batch.amount, batch.day,
+               batch.valid)
+    cms_update(state.terminal_cms, batch.terminal_key, batch.amount,
+               batch.day, batch.valid, fraud=fraud)
+    return state, cust_slot, c_adm, term_slot, t_adm
+
+
+def update_and_featurize_exact(
+    state: FeatureState,
+    batch: TxBatch,
+    cfg: FeatureConfig,
+) -> Tuple[FeatureState, torch.Tensor, torch.Tensor]:
+    """Tiered twin of :func:`update_and_featurize` (``key_mode="exact"``).
+
+    Returns (state, features [B, 15], tier_rows float32 [2]) where
+    ``tier_rows = [dense, cms]`` counts this batch's (row × keyspace)
+    reads per tier, the source of ``rtfds_feature_tier_rows_total``.
+
+    An admitted key reads its private hot-tier row (with the hot tier
+    holding every key, this is ``direct`` mode bit for bit); a row that
+    missed admission reads the count-min sketch (overestimate-only counts
+    and amounts; terminal risk a ratio of two overestimates).
+    """
+    windows = tuple(cfg.windows)
+    state, cust_slot, c_adm, term_slot, t_adm = _update_state_exact(
+        state, batch, cfg)
+    valid = batch.valid
+    c_count, c_amount = cms_query(state.cms, batch.customer_key, batch.day,
+                                  windows)
+    zero = torch.zeros((), dtype=torch.float32, device=valid.device)
+    c_dense = c_miss = zero
+    if cfg.customer_source != "cms":
+        c = state.customer
+        cc_t, ca_t = window_sums(
+            c.bucket_day[cust_slot], (c.count[cust_slot], c.amount[cust_slot]),
+            batch.day, windows)
+        c_count = torch.where(c_adm[:, None], cc_t, c_count)
+        c_amount = torch.where(c_adm[:, None], ca_t, c_amount)
+        c_dense = (valid & c_adm).sum().to(torch.float32)
+        c_miss = (valid & ~c_adm).sum().to(torch.float32)
+    t = state.terminal
+    tc_t, tf_t = window_sums(
+        t.bucket_day[term_slot], (t.count[term_slot], t.fraud[term_slot]),
+        batch.day, windows, cfg.delay_days)
+    tc_s, _, tf_s = cms_query_fraud(state.terminal_cms, batch.terminal_key,
+                                    batch.day, windows, cfg.delay_days)
+    t_count = torch.where(t_adm[:, None], tc_t, tc_s)
+    t_fraud = torch.where(t_adm[:, None], tf_t, tf_s)
+    is_weekend, is_night = _flags(batch, cfg)
+    features = _assemble(batch, cfg, c_count, ratio(c_amount, c_count),
+                         t_count, ratio(t_fraud, t_count), is_weekend,
+                         is_night)
+    dense = c_dense + (valid & t_adm).sum().to(torch.float32)
+    cms_rows = c_miss + (valid & ~t_adm).sum().to(torch.float32)
+    return state, features, torch.stack([dense, cms_rows])
 
 
 def _assemble(batch, cfg, c_count, c_avg, t_count, t_risk,
@@ -259,3 +381,194 @@ def update_and_score_fused_logreg(
         night_end=cfg.night_end_hour,
     )
     return state, probs, feats
+
+
+def _reset_slots(ws: WindowState, slots: torch.Tensor,
+                 dead: torch.Tensor) -> None:
+    """Reset the window rows of ``slots[dead]`` (empty stamps, zero sums),
+    IN PLACE, through a per-slot mask: one pass over the table."""
+    cap = ws.capacity
+    idx = torch.where(dead, slots.long().clamp(0, cap - 1),
+                      torch.full_like(slots, cap, dtype=torch.int64))
+    mask = torch.zeros(cap + 1, dtype=torch.bool, device=slots.device)
+    mask.index_fill_(0, idx, True)
+    m = mask[:cap, None]
+    ws.bucket_day.masked_fill_(m, -1)
+    for col in (ws.count, ws.amount, ws.fraud):
+        col.masked_fill_(m, 0.0)
+
+
+def compact_feature_state(
+    state: FeatureState,
+    now_day,  # int or int32 [] — the newest day the stream has seen
+    cfg: FeatureConfig,
+    demote_slots: int = 0,
+):
+    """Recency compaction (``key_mode="exact"``), IN PLACE: one vector
+    pass per table reclaiming the hot-tier slots that hold only dead
+    history.
+
+    A slot whose newest ``bucket_day`` is older than ``now_day -
+    (delay_days + max(windows))`` can never reach a window query again:
+    its directory entry is vacated, the slot goes back on the free stack
+    and its window row is reset. Returns (state, reclaimed int32 [2] =
+    [customer, terminal]).
+
+    ``demote_slots > 0`` adds the cold tier's pressure eviction
+    (:func:`_demote_oldest`): while a table sits above ``cold_highwater *
+    capacity`` occupied slots after the dead reclaim, up to
+    ``demote_slots`` of its oldest entries are demoted, and the return is
+    ``(state, reclaimed, payload)`` with ``payload[table] = (keys uint32
+    [K], bucket_day int32 [K, NB], count/amount/fraud float32 [K, NB])``,
+    unselected lanes ``EMPTY_KEY`` with empty rows.
+    """
+    horizon = cfg.delay_days + max(cfg.windows)
+    now = now_day
+    cutoff = now - horizon
+    counts = []
+    payload = {}
+    for dir_name, ws_name in (("customer_dir", "customer"),
+                              ("terminal_dir", "terminal")):
+        kd = getattr(state, dir_name)
+        ws = getattr(state, ws_name)
+        payload[ws_name] = None
+        if kd is None:
+            counts.append(torch.zeros((), dtype=torch.int32,
+                                      device=ws.count.device))
+            continue
+        newest = ws.bucket_day.amax(dim=1)  # [slot_cap]
+        live = kd.slots >= 0
+        newest_e = newest[kd.slots.long().clamp(0, ws.capacity - 1)]
+        dead_entry = live & (newest_e < cutoff)
+        if demote_slots > 0:
+            # the eviction extends the dead mask: one combined reclaim
+            # and one table sweep
+            n, payload[ws_name] = _demote_oldest(
+                kd, ws, dead_entry, newest_e, live, now, horizon,
+                int(demote_slots), cfg.cold_highwater)
+        else:
+            _reset_slots(ws, kd.slots, dead_entry)
+            _, _, n = reclaim_entries(kd, dead_entry)
+        counts.append(n)
+    reclaimed = torch.stack(counts)
+    if demote_slots > 0:
+        return state, reclaimed, payload
+    return state, reclaimed
+
+
+def _demote_oldest(
+    kd: KeyDirectory,
+    ws: WindowState,
+    dead_entry: torch.Tensor,  # bool [dir_cap] — the dead-history mask
+    newest_e: torch.Tensor,  # int32 [dir_cap] — newest bucket per entry
+    live: torch.Tensor,  # bool [dir_cap]
+    now_day,  # int or int32 []
+    horizon: int,  # days — the dead-history cutoff distance
+    demote_slots: int,
+    highwater: float,
+):
+    """Pressure eviction for one table, fused with the dead reclaim, IN
+    PLACE: the ``demote_slots`` oldest live entries whose newest bucket is
+    strictly before ``now_day`` (an entry touched today is never evicted
+    under the batch that wrote it), but only as many as post-reclaim
+    occupancy sits above ``highwater * capacity``. Their rows are gathered
+    into a fixed-shape payload first; then the dead mask and the
+    selection are vacated in one reclaim and one table sweep.
+
+    The selection is the set ``lax.top_k`` would pick (oldest first, ties
+    to the lowest index), found without a sort: eligible ages lie in
+    ``[1, horizon]``, so an age histogram and a suffix sum give the
+    threshold age, and a cumsum rank breaks the tie there by index.
+    Returns ``(n_reclaimed, (keys, bd, cnt, amt, frd))``.
+    """
+    slot_cap = ws.capacity
+    dir_cap = kd.dir_capacity
+    dev = newest_e.device
+    k = min(int(demote_slots), dir_cap)
+    hzn = max(int(horizon), 1)
+    n_dead = (dead_entry & live).sum().to(torch.int32)
+    occ = slot_cap - kd.free_top - n_dead
+    n_evict = torch.clamp(occ - int(highwater * slot_cap), 0, k)
+    eligible = live & ~dead_entry & (newest_e < now_day)
+    age = torch.clamp(torch.where(eligible, now_day - newest_e,
+                                  torch.zeros_like(newest_e)), 0, hzn).long()
+    hist = torch.zeros(hzn + 3, dtype=torch.int32, device=dev)
+    hist.index_add_(0, age, torch.ones_like(age, dtype=torch.int32))
+    incl = torch.flip(torch.cumsum(torch.flip(hist, (0,)), 0), (0,))
+    # threshold t* = the oldest age with incl >= n_evict (floor 1 covers
+    # n_evict > #eligible: every eligible entry is taken)
+    thresh = torch.clamp(
+        (incl >= n_evict)[1:hzn + 2].sum().to(torch.int32), min=1)
+    # a 1-element index: a 0-d one would read ``thresh`` back to the host
+    quota = n_evict - incl[thresh.long().view(1) + 1]
+    at_t = age == thresh
+    rank_t = torch.cumsum(at_t.to(torch.int32), 0) - 1
+    sel = (age > thresh) | (at_t & (rank_t < quota))
+    # selected entry indices packed into the k payload lanes in index
+    # order (lane k is the scratch lane of the unselected entries)
+    lane = torch.where(sel, torch.cumsum(sel.to(torch.int64), 0) - 1,
+                       torch.full_like(age, k))
+    eidx = torch.full((k + 1,), dir_cap, dtype=torch.int64, device=dev)
+    eidx.index_put_((lane,), torch.arange(dir_cap, dtype=torch.int64,
+                                          device=dev))
+    eidx = eidx[:k].clamp(0, dir_cap - 1)
+    lane_live = torch.arange(k, device=dev) < sel.sum()
+    # the payload is gathered BEFORE the vacate: keys and full rows
+    kv = kd.keys.view(torch.int32)
+    keys = torch.where(lane_live, kv[eidx],
+                       torch.full((k,), -1, dtype=torch.int32,
+                                  device=dev)).view(torch.uint32)
+    slot_g = kd.slots[eidx].long().clamp(0, slot_cap - 1)
+    m = lane_live[:, None]
+    bd = torch.where(m, ws.bucket_day[slot_g],
+                     torch.full_like(ws.bucket_day[slot_g], -1))
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    cnt = torch.where(m, ws.count[slot_g], zero)
+    amt = torch.where(m, ws.amount[slot_g], zero)
+    frd = torch.where(m, ws.fraud[slot_g], zero)
+    vacate = dead_entry | sel
+    _reset_slots(ws, kd.slots, vacate & live)
+    _, _, n = reclaim_entries(kd, vacate)
+    return n, (keys, bd, cnt, amt, frd)
+
+
+def promote_rows(
+    state: FeatureState,
+    payload: dict,  # {"customer": (keys, bd, cnt, amt, frd) | None, ...}
+    cfg: FeatureConfig,
+) -> Tuple[FeatureState, torch.Tensor]:
+    """Land cold-store rows back in the hot tier between steps, IN PLACE.
+
+    Per table: ``admit_slots`` grants (or finds) a slot for every
+    non-``EMPTY_KEY`` lane, then a per-bucket day-dominance merge takes
+    the cold bucket only where its ``bucket_day`` is strictly newer than
+    the resident one, never a float add: promotion is idempotent, and a
+    key that took fresh hot rows while its promotion was in flight
+    converges to the never-evicted state (eviction needed every cold
+    bucket strictly before the eviction day, later writes land on later
+    days). Returns ``(state, stats int32 [2, 2])`` = per table
+    ``[admitted, dropped]`` (dropped: the free stack ran dry; the host
+    re-requests on the key's next touch). Keys are unique per call.
+    """
+    stats = []
+    for dir_name, ws_name in (("customer_dir", "customer"),
+                              ("terminal_dir", "terminal")):
+        kd = getattr(state, dir_name)
+        ws = getattr(state, ws_name)
+        pay = payload.get(ws_name)
+        if kd is None or pay is None:
+            stats.append(torch.zeros(2, dtype=torch.int32,
+                                     device=ws.count.device))
+            continue
+        keys, bd, cnt, amt, frd = pay
+        valid = keys.view(torch.int32) != -1
+        _, slot, adm = admit_slots(kd, keys, valid, cfg.keydir_probes)
+        cur = (ws.bucket_day[slot], ws.count[slot], ws.amount[slot],
+               ws.fraud[slot])
+        take = adm[:, None] & (bd > cur[0])
+        for col, new, old in zip((ws.bucket_day, ws.count, ws.amount,
+                                  ws.fraud), (bd, cnt, amt, frd), cur):
+            put_kept_(col, slot, adm, torch.where(take, new, old))
+        stats.append(torch.stack([adm.sum().to(torch.int32),
+                                  (valid & ~adm).sum().to(torch.int32)]))
+    return state, torch.stack(stats)

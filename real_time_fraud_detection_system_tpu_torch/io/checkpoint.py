@@ -24,10 +24,15 @@ checkpoint moves between the two packages in both directions:
 the engine's state; on any mismatch it quarantines the entry
 (``stale-<token>-…``), counts ``rtfds_checkpoint_corrupt_total{reason}``
 and falls back down the lineage (``rtfds_checkpoint_fallbacks_total``).
-A healthy checkpoint that carries state the port cannot serve yet (key
-directories, a cold tier, a sketch fraud column; another process
-topology) is refused with an error naming the ROADMAP item, never
-quarantined.
+A healthy checkpoint that carries state the port cannot serve yet
+(another process topology, a fleet resize) is refused with an error
+naming the ROADMAP item, never quarantined. The tiered store's leaves
+(key directories, the terminal sketch with its fraud column) move both
+ways like any other, and the meta carries the directories' occupancy
+(``feature_state_occupancy``) and the cold tier's segment lineage
+(``cold_lineage``), which a restore hands back to the engine
+(``EngineState.cold_lineage``); :func:`feature_state_report` and
+:func:`cold_tier_report` read them from a manifest alone.
 
 Restore writes in place: every restored array is copied into the tensor
 the engine already holds (``Tensor.copy_``), so the state never leaves
@@ -38,9 +43,8 @@ before the next step. A save first makes the current stream wait for the
 event recorded behind the step that last wrote the state
 (``EngineState.ready``), then reads it.
 
-Left out until later slices: the feature-state report of the exact mode
-and the cold-tier report (ROADMAP A5), ``--resume-merge`` (A7) and the
-``ckpt`` command (A9).
+Left out until later slices: ``--resume-merge`` (A7) and the ``ckpt``
+command (A9).
 """
 
 from __future__ import annotations
@@ -87,11 +91,6 @@ class CheckpointTopologyError(ValueError):
     device width than the port serves (one process, one device). Restore
     refuses it instead of quarantining it: every entry of the lineage
     shares the topology, so falling back would only rewind."""
-
-
-class UnportedCheckpointError(NotImplementedError):
-    """A healthy checkpoint that carries state the port cannot serve yet;
-    the message names the ROADMAP item. Refused, never quarantined."""
 
 
 def _observe_checkpoint(op: str, backend: str, t0: float, nbytes: int,
@@ -204,7 +203,26 @@ def _state_arrays(engine_state) -> Tuple[dict, dict]:
         "process_id": 0,
         "model_version": None,
     }
+    occ = _directory_occupancy(engine_state.feature_state)
+    if occ:
+        # hot-tier occupancy at save time, readable from the manifest
+        meta["feature_state_occupancy"] = occ
+    lineage = getattr(engine_state, "cold_lineage", None)
+    if lineage:
+        # the live cold segments this state pairs with (io/coldstore.py)
+        meta["cold_lineage"] = lineage
     return arrays, meta
+
+
+def _directory_occupancy(feature_state) -> dict:
+    """Occupied hot-tier slots per table with a key directory (one shard
+    each: the JAX package's per-shard lists); ``{}`` without one."""
+    out = {}
+    for table in ("customer", "terminal"):
+        kd = getattr(feature_state, f"{table}_dir", None)
+        if kd is not None:
+            out[table] = [int(kd.free.shape[0]) - int(kd.free_top)]
+    return out
 
 
 def _crc(arr: np.ndarray) -> int:
@@ -261,6 +279,8 @@ def _apply_arrays(engine_state, meta: dict, arrays: dict,
     engine_state.offsets = list(meta["offsets"])
     engine_state.batches_done = int(meta["batches_done"])
     engine_state.rows_done = int(meta["rows_done"])
+    if meta.get("cold_lineage") is not None:
+        engine_state.cold_lineage = meta["cold_lineage"]
     return engine_state
 
 
@@ -374,16 +394,6 @@ def _refuse_unserved(name: str, meta: dict) -> None:
         raise CheckpointTopologyError(
             f"{name} carries elastic-fleet resize epochs; the fleet is "
             f"not ported yet (ROADMAP A7)")
-    if meta.get("cold_lineage"):
-        raise UnportedCheckpointError(
-            f"{name} carries a cold-tier lineage; the cold tier is not "
-            f"ported yet (ROADMAP A5)")
-    for path in (meta.get("fs_leaves") or {}).values():
-        if "_dir" in path or "terminal_cms" in path \
-                or path.startswith(".cms.fraud"):
-            raise UnportedCheckpointError(
-                f"{name} carries {path}: key directories and the tiered "
-                f"store's sketches are not ported yet (ROADMAP A5)")
 
 
 # ---------------------------------------------------------------------------
@@ -978,3 +988,121 @@ def make_checkpointer(path_or_url: str, keep: int = 3, full_every: int = 1,
                                  op_timeout_s=op_timeout_s,
                                  op_attempts=op_attempts)
     return Checkpointer(path_or_url, keep=keep, full_every=full_every)
+
+
+def feature_state_report(man: dict) -> Optional[dict]:
+    """Operator view of a checkpoint's feature-state plane from the
+    MANIFEST alone (no array loads): named leaves with per-shard byte
+    attribution, plus the per-shard directory occupancy the writer
+    recorded — the JAX package's ``ckpt --inspect`` report, for either
+    package's checkpoints.
+
+    Returns None when the entry predates leaf naming (v1, or a pre-
+    sharded-state v2 manifest)."""
+    meta = man.get("meta") or {}
+    names = meta.get("fs_leaves") or {}
+    spec = man.get("spec") or {}
+    if not names or not spec:
+        return None
+    layout = int(meta.get("layout_devices", 1) or 1)
+    stored = set(man.get("stored") or [])
+    leaves = []
+    total = 0
+    for k in sorted(names, key=lambda k: int(k.split("_")[1])):
+        if k not in spec:
+            continue
+        shape, dtype = spec[k]
+        nbytes = int(np.prod(shape, dtype=np.int64) if shape else 1) \
+            * np.dtype(dtype).itemsize
+        total += nbytes
+        row = {"leaf": k, "path": names[k], "shape": shape,
+               "dtype": dtype, "bytes": nbytes}
+        if stored:
+            # delta checkpoints: which state leaves actually churned
+            row["stored_in_entry"] = k in stored
+        if layout > 1 and shape and int(shape[0]) == layout:
+            # stacked per-shard leaf (directories, sketch replicas)
+            row["per_shard_bytes"] = nbytes // layout
+        leaves.append(row)
+    out: dict = {"layout_devices": layout, "total_bytes": total,
+                 "leaves": leaves}
+    pc = int(meta.get("process_count", 1) or 1)
+    if pc > 1:
+        # fleet writer: this entry holds ONE process's residue block
+        out["process_count"] = pc
+        out["process_id"] = int(meta.get("process_id", 0) or 0)
+        out["fleet_shards_total"] = pc * layout
+    occ = meta.get("feature_state_occupancy")
+    if occ:
+        out["occupancy_per_shard"] = occ
+        worst = {
+            t: int(max(range(len(v)), key=lambda s: v[s]))
+            for t, v in occ.items() if v}
+        out["worst_shard"] = {
+            t: {"shard": s, "occupied": occ[t][s]}
+            for t, s in worst.items()}
+    cold = cold_tier_report(meta.get("cold_lineage"))
+    if cold is not None:
+        out["cold"] = cold
+    return out
+
+
+def cold_tier_report(lineage: Optional[dict]) -> Optional[dict]:
+    """Cold-tier plane of the inspect report, from MANIFESTS alone
+    (no segment-blob reads): the lineage the checkpoint recorded, plus a
+    per-segment CRC VERDICT against the cold store's on-disk manifests —
+    ``ok`` (manifest present, crc matches the lineage), ``mismatch``
+    (the segment was rewritten/corrupted since the save), ``missing``
+    (segment gone — e.g. gc after a newer checkpoint; its keys degrade
+    to CMS on restore), ``unavailable`` (cold store unreachable)."""
+    if not lineage:
+        return None
+    segs = list(lineage.get("segments", []))
+    out = {
+        "cold_store": lineage.get("cold_store", ""),
+        "segments": len(segs),
+        "total_keys": int(lineage.get("total_keys", 0) or 0),
+        "total_bytes": int(lineage.get("total_bytes", 0) or 0),
+    }
+    rows = []
+    for s in segs:
+        seq = int(s["seq"])
+        row = {"seq": seq, "blob": s.get("blob"),
+               "bytes": int(s.get("bytes", 0) or 0),
+               "keys": s.get("keys", {})}
+        row["crc_verdict"] = _cold_seg_verdict(
+            lineage.get("cold_store", ""), seq, s.get("crc"))
+        rows.append(row)
+    out["segment_rows"] = rows
+    verdicts = {r["crc_verdict"] for r in rows}
+    out["crc_verdict"] = ("ok" if not verdicts or verdicts == {"ok"}
+                          else "mismatch" if "mismatch" in verdicts
+                          else "missing" if "missing" in verdicts
+                          else "unavailable")
+    return out
+
+
+def _cold_seg_verdict(cold_store: str, seq: int, crc) -> str:
+    """Best-effort on-disk manifest check for one lineage segment."""
+    if not cold_store:
+        return "unavailable"
+    name = f"seg-{seq:08d}.json"
+    try:
+        if cold_store.startswith("s3://"):
+            from real_time_fraud_detection_system_tpu_torch.io.store import (
+                make_store,
+            )
+
+            data = _StoreBackend(make_store(cold_store),
+                                 prefix="").read(name)
+        else:
+            data = _LocalBackend(cold_store).read(name)
+        man = json.loads(data.decode("utf-8"))
+    except KeyError:
+        return "missing"
+    # read-only forensics: any failure to reach or parse the cold store is
+    # a verdict, never a crash
+    except Exception:  # noqa: BLE001
+        return "unavailable"
+    return "ok" if crc is not None and int(man.get("crc", -1)) == \
+        int(crc) else "mismatch"

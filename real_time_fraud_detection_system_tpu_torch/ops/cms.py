@@ -9,9 +9,11 @@ with the window semantics of ``ops/windows.py``.
 
 This is BASELINE config 3 ("HBM-resident count-min sketch per-card /
 per-merchant velocity features"), served under
-``FeatureConfig.customer_source="cms"``. The fraud column of the tiered
-store's terminal sketch (``cms_add_fraud``, ``cms_query_fraud``) comes
-with ``key_mode="exact"`` (ROADMAP A5).
+``FeatureConfig.customer_source="cms"``, and the sketch tier of
+``key_mode="exact"``, whose terminal sketch carries a third column of
+fraud-label sums (``cms_init(track_fraud=True)``, ``cms_add_fraud``,
+``cms_query_fraud``). Without that column every result is the two-column
+sketch's, bit for bit.
 
 As everywhere in the port, :func:`cms_update` updates the tensors in place
 and returns the same sketch. On CUDA its ``index_add_`` adds a slice's
@@ -24,7 +26,7 @@ BLAS blocking enters it.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -32,11 +34,15 @@ from real_time_fraud_detection_system_tpu_torch.ops.hashing import multi_hash
 
 
 class CountMinSketch(NamedTuple):
-    """Ring of daily sketch slices."""
+    """Ring of daily sketch slices. ``fraud`` (fraud-label sums) is the
+    optional third column of the tiered store's terminal sketch; it comes
+    last, as in the JAX package's flatten order, and None keeps the
+    two-column leaves (and checkpoints)."""
 
     slice_day: torch.Tensor  # int32 [ND] — absolute day held by each slice
     count: torch.Tensor  # float32 [ND, depth, width]
     amount: torch.Tensor  # float32 [ND, depth, width]
+    fraud: Optional[torch.Tensor] = None  # float32 [ND, depth, width]
 
     @property
     def n_days(self) -> int:
@@ -52,13 +58,15 @@ class CountMinSketch(NamedTuple):
 
 
 def cms_init(depth: int, width: int, n_days: int = 40,
-             device=None) -> CountMinSketch:
+             device=None, track_fraud: bool = False) -> CountMinSketch:
     shape = (n_days, depth, width)
     return CountMinSketch(
         slice_day=torch.full((n_days,), -1, dtype=torch.int32,
                              device=device),
         count=torch.zeros(shape, dtype=torch.float32, device=device),
         amount=torch.zeros(shape, dtype=torch.float32, device=device),
+        fraud=torch.zeros(shape, dtype=torch.float32, device=device)
+        if track_fraud else None,
     )
 
 
@@ -80,11 +88,14 @@ def cms_update(
     amount: torch.Tensor,  # float32 [B]
     day: torch.Tensor,  # int32 [B]
     valid: torch.Tensor,  # bool [B]
+    fraud: Optional[torch.Tensor] = None,  # float32 [B] 0/1 (labeled rows)
 ) -> CountMinSketch:
     """Add one micro-batch to the sketch, IN PLACE.
 
     A slice is reset the first time a newer day maps onto it; rows older
-    than the day a slice holds are dropped; duplicate keys all add."""
+    than the day a slice holds are dropped; duplicate keys all add. A
+    sketch with a fraud column resets it with the others and adds
+    ``fraud`` (0 where None) to it."""
     nd = sk.n_days
     sl = torch.remainder(day, nd).long()
     day_in = torch.where(valid, day, torch.full_like(day, -1))
@@ -99,6 +110,32 @@ def cms_update(
     depth = sk.depth
     sk.count.view(-1).index_add_(0, flat, w.repeat(depth))
     sk.amount.view(-1).index_add_(0, flat, (w * amount).repeat(depth))
+    if sk.fraud is not None:
+        sk.fraud.masked_fill_(advanced, 0.0)
+        if fraud is not None:
+            sk.fraud.view(-1).index_add_(
+                0, flat, (w * fraud.to(torch.float32)).repeat(depth))
+    return sk
+
+
+def cms_add_fraud(
+    sk: CountMinSketch,
+    key: torch.Tensor,  # uint32 [B]
+    day: torch.Tensor,  # int32 [B] — the original transaction's day
+    label: torch.Tensor,  # int32/float32 [B] 0/1
+    valid: torch.Tensor,  # bool [B]
+) -> CountMinSketch:
+    """Late fraud labels into the sketch tier, IN PLACE: add to the fraud
+    column of the slice still holding ``day`` (counts unchanged; labels
+    for days the ring has wrapped past are dropped). A sketch without the
+    column is returned as it is."""
+    if sk.fraud is None:
+        return sk
+    sl = torch.remainder(day, sk.n_days).long()
+    live = valid & (sk.slice_day[sl] == day)
+    w = live.to(torch.float32) * label.to(torch.float32)
+    flat = _flat_cells(sk, key, sl).reshape(-1)
+    sk.fraud.view(-1).index_add_(0, flat, w.repeat(sk.depth))
     return sk
 
 
@@ -144,3 +181,21 @@ def cms_query(
     """Windowed velocity estimates: (counts, amount_sums), each [B, NW]."""
     return _cms_query_tables(sk, (sk.count, sk.amount), key, day, windows,
                              delay)
+
+
+def cms_query_fraud(
+    sk: CountMinSketch,
+    key: torch.Tensor,  # uint32 [B]
+    day: torch.Tensor,  # int32 [B]
+    windows: Sequence[int],
+    delay: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(counts, amount_sums, fraud_sums), each [B, NW], from a sketch with
+    a fraud column. Count and fraud both overestimate, so a risk ratio of
+    the two is an estimate, not a bound."""
+    if sk.fraud is None:
+        raise ValueError(
+            "cms_query_fraud needs a fraud-tracking sketch "
+            "(cms_init(..., track_fraud=True))")
+    return _cms_query_tables(sk, (sk.count, sk.amount, sk.fraud), key, day,
+                             windows, delay)

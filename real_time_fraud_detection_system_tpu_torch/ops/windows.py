@@ -68,8 +68,10 @@ def update_windows(
 
     Three steps: ``scatter_reduce_(amax)`` stamps each touched bucket with
     max(existing, incoming); touched buckets whose stamp advanced are
-    reset; ``index_add_`` adds the rows whose day is the bucket's stamp.
-    Only touched buckets can advance, so the reset reads them alone.
+    reset, by a fixed-shape rewrite of the touched buckets (no boolean
+    index, so no host sync); ``index_add_`` adds the rows whose day is the
+    bucket's stamp. Only touched buckets can advance, so the reset reads
+    them alone.
     ``track_amount`` / ``track_fraud`` skip a column's add (the 15-feature
     spec reads customer count+amount and terminal count+fraud only); a
     skipped column still gets the reset, so its buckets never mix days.
@@ -83,14 +85,15 @@ def update_windows(
     before = bd[flat]
     bd.scatter_reduce_(0, flat, day_in, "amax", include_self=True)
     after = bd[flat]
-    stale = flat[after > before]
+    advanced = after > before
     count = state.count.view(-1)
     amt = state.amount.view(-1)
     frd = state.fraud.view(-1)
     for col in (count, amt, frd):
-        # index_fill_ takes the value as a kernel argument; ``col[stale] =
-        # 0.0`` would copy a 0-dim host tensor to the card per column
-        col.index_fill_(0, stale, 0.0)
+        # a fixed-shape write, no host sync: every row rewrites its bucket,
+        # zero where the stamp advanced (duplicate rows of one bucket read
+        # the same before/after, so they write the same value)
+        col.index_put_((flat,), torch.where(advanced, 0.0, col[flat]))
 
     w = (valid & (day_in == after)).to(torch.float32)
     count.index_add_(0, flat, w)

@@ -36,6 +36,20 @@ scatter it into the feature state (in place), then
   the plain predict serves logreg under the sketch and the shapes the
   predicate does not admit.
 
+Under ``key_mode="exact"`` (the tiered store) the step is
+``update_and_featurize_exact`` → ``transform`` → the predict, as the JAX
+engine keeps both fused kernels off that path: tree, forest and gbt take
+the leaf-sum kernel, logreg its plain predict. The step also returns the
+batch's tier counts ``[dense, cms]``, which ride the result copies to the
+host. Between steps, on the step's stream, ``_maybe_compact`` runs the
+recency compaction every ``features.compact_every`` batches, and with a
+``features.cold_store`` demotes the oldest keys to the host cold tier
+(``io/coldstore.py``); ``_maybe_promote`` lands the rows the promoter
+thread has read back for returning keys. The compaction's counts reach
+the metrics through a side-stream copy, never a sync; the cold tier's
+payloads and promotion stats come to the host when a compaction demotes
+or a promotion lands, as in the JAX engine.
+
 Every branch ends in ``probs = where(valid, probs, 0)``. Every step is
 enqueued on the current stream, which is what chains the in-place state
 updates from one batch to the next. On the CPU each kernel wrapper runs
@@ -50,7 +64,9 @@ from them.
 
 Not ported yet: selective and bf16 emission, the nan-guard, CUDA-graph
 precompile, autobatch and the overload ladder (A4); feedback, online SGD
-and model reload (A6); the mlp, autoencoder and sequence kinds (A8).
+and model reload (A6); the sharded engine and the fleet, with their
+stacked directories and cold-store re-homing (A7); the mlp, autoencoder
+and sequence kinds (A8).
 """
 
 from __future__ import annotations
@@ -66,7 +82,9 @@ import torch
 from real_time_fraud_detection_system_tpu_torch.config import Config
 from real_time_fraud_detection_system_tpu_torch.core import native
 from real_time_fraud_detection_system_tpu_torch.core.batch import (
+    US_PER_DAY,
     bucket_size,
+    fold_key,
     make_batch,
     pack_batch,
     unpack_batch,
@@ -74,8 +92,12 @@ from real_time_fraud_detection_system_tpu_torch.core.batch import (
 from real_time_fraud_detection_system_tpu_torch.device import resolve_device
 from real_time_fraud_detection_system_tpu_torch.features.online import (
     FeatureState,
+    compact_feature_state,
     init_feature_state,
+    promote_rows,
+    state_bytes,
     update_and_featurize,
+    update_and_featurize_exact,
     update_and_score_fused_forest,
     update_and_score_fused_logreg,
 )
@@ -114,6 +136,10 @@ from real_time_fraud_detection_system_tpu_torch.ops.forest_kernels import (
 )
 from real_time_fraud_detection_system_tpu_torch.runtime.faults import (
     PoisonRowError,
+)
+from real_time_fraud_detection_system_tpu_torch.utils.metrics import (
+    active_recorder,
+    get_registry,
 )
 from real_time_fraud_detection_system_tpu_torch.utils.timing import (
     LatencyTracker,
@@ -169,6 +195,10 @@ class EngineState:
     # params, so the engine re-derives its kernel tables.
     params_crcs: Optional[dict] = None
     params_epoch: int = 0
+    # The live cold-tier segments this state pairs with (io/coldstore.py
+    # ColdStore.lineage; None without a cold tier): a checkpoint carries
+    # it, and a restore prunes the store to it.
+    cold_lineage: Optional[dict] = None
 
 
 @dataclass
@@ -268,7 +298,8 @@ class ScoringEngine:
     runs the plain PyTorch path. The feature state is updated in place;
     the params and the scaler are the engine's own copies (a restore
     writes into them). ``host_prep`` names the host-prep route:
-    ``"native"`` (the C++ unit built) or ``"numpy"``.
+    ``"native"`` (the C++ unit built) or ``"numpy"``. ``metrics`` is the
+    registry the tiered store reports to (default: the process-wide one).
     """
 
     def __init__(
@@ -279,12 +310,35 @@ class ScoringEngine:
         scaler: Scaler,
         feature_state: Optional[FeatureState] = None,
         device=None,
+        metrics=None,
     ):
         _require_kind(kind)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.kind = kind
         self.z_mode = resolve_z_mode(cfg.runtime.z_mode, self.device)
+        self.metrics = metrics if metrics is not None else get_registry()
+        fcfg = cfg.features
+        # Tiered store (key_mode="exact"): slots through the key
+        # directories, misses from the sketch tier, compaction every
+        # compact_every batches between steps.
+        self._exact = fcfg.key_mode == "exact"
+        self._compact_every = fcfg.compact_every if self._exact else 0
+        self._max_day = 0
+        self._check_state_budget()
+        self._init_state_telemetry()
+        # pending host copies of compaction counts: (event, host, apply)
+        self._meters: deque = deque()
+        # The host cold tier, armed by _init_cold below.
+        self._cold = None  # io.coldstore.ColdStore
+        self._promoter = None  # io.coldstore.ColdPromoter
+        self._demote_slots = (int(fcfg.cold_demote_slots)
+                              if self._exact and fcfg.cold_store else 0)
+        self._cold_pending: set = set()  # (table, key) requested, not landed
+        self._degraded_keys: set = set()  # served from the sketch meanwhile
+        self._cold_index: dict = {}  # table -> sorted uint32 key snapshot
+        self._cold_index_version = -1
+        self._cold_synced = False
         params = _owned(device_params_for(kind, params.to(self.device)))
         self.state = EngineState(
             feature_state=feature_state
@@ -293,7 +347,10 @@ class ScoringEngine:
             scaler=_owned(scaler.to(self.device)),
         )
         self._predict = predict_fn_for(kind, self.z_mode)
-        self._table_source = cfg.features.customer_source == "table"
+        # the fused kernels read the customer table and know nothing of
+        # the sketch tier: only direct and hash keys on the table take them
+        self._fused = (cfg.features.customer_source == "table"
+                       and not self._exact)
         self._derive_tables()
         self.host_prep = ("native" if native.hostprep_available()
                           else "numpy")
@@ -302,20 +359,23 @@ class ScoringEngine:
                          if cuda else None)
         self._d2h_stream = (torch.cuda.Stream(self.device)
                             if cuda and cfg.runtime.fetch_overlap else None)
+        if self._demote_slots:
+            self._init_cold(fcfg)
 
     def _derive_tables(self) -> None:
         """The kernels' tables, from the live params' shapes where
         ``admit_tables`` admits a GEMM-form ensemble: ``tables`` for the
         fused forest kernel (tree and forest kinds on the customer
         table), ``leaf_tables`` for the leaf-sum kernel (gbt, and tree
-        and forest on the sketch); both None otherwise. Derived at build
-        and again after a restore that brought other params."""
+        and forest on the sketch or the tiered store); both None
+        otherwise. Derived at build and again after a restore that
+        brought other params."""
         self.tables: Optional[ForestTables] = None
         self.leaf_tables: Optional[ForestTables] = None
         params = self.state.params
         trees = params.trees if isinstance(params, GBTModel) else params
         if isinstance(trees, GemmEnsemble) and admit_tables(trees).fits:
-            if self.kind == "gbt" or not self._table_source:
+            if self.kind == "gbt" or not self._fused:
                 self.leaf_tables = to_kernel_tables(trees, self.z_mode)
             else:
                 self.tables = to_kernel_tables(trees, self.z_mode)
@@ -328,7 +388,7 @@ class ScoringEngine:
         process), so one that does not build or load raises here: from
         the constructor, outside the recovery supervisor's restarts, and
         never from a supervised step."""
-        if self.kind == "logreg" and self._table_source:
+        if self.kind == "logreg" and self._fused:
             score_kernels._library()
         if self.tables is not None:
             forest_kernels._library()
@@ -350,7 +410,9 @@ class ScoringEngine:
         return leaf / tables.n_trees
 
     def _step(self, packed: torch.Tensor):
-        """One device step on a packed batch; returns (probs, features)."""
+        """One device step on a packed batch; returns (probs, features,
+        tier) with ``tier`` the ``[dense, cms]`` counts of the exact
+        path, else None."""
         if self._tables_epoch != self.state.params_epoch:
             self._derive_tables()
         batch = unpack_batch(packed)
@@ -358,7 +420,12 @@ class ScoringEngine:
         scaler = self.state.scaler
         params = self.state.params
         tables = self.tables
-        if self.kind == "logreg" and self._table_source:
+        tier = None
+        if self._exact:
+            fstate, feats, tier = update_and_featurize_exact(
+                self.state.feature_state, batch, fcfg)
+            probs = self._unfused_predict(transform(scaler, feats))
+        elif self.kind == "logreg" and self._fused:
             fstate, probs, feats = update_and_score_fused_logreg(
                 self.state.feature_state, batch, fcfg, scaler.mean,
                 scaler.scale, params.w, params.b)
@@ -372,7 +439,372 @@ class ScoringEngine:
                 self.state.feature_state, batch, fcfg)
             probs = self._unfused_predict(transform(scaler, feats))
         self.state.feature_state = fstate
-        return torch.where(batch.valid, probs, torch.zeros_like(probs)), feats
+        return (torch.where(batch.valid, probs, torch.zeros_like(probs)),
+                feats, tier)
+
+    # -- tiered feature store (key_mode="exact") ---------------------------
+
+    def _check_state_budget(self) -> None:
+        """``features.state_hbm_budget_mb``: fail the build, not the
+        stream, when the configured feature state cannot fit the budget
+        (``features/online.py::state_bytes``)."""
+        fcfg = self.cfg.features
+        if fcfg.state_hbm_budget_mb <= 0:
+            return
+        sb = state_bytes(fcfg)
+        budget = int(fcfg.state_hbm_budget_mb * 2 ** 20)
+        if sb["total"] > budget:
+            raise ValueError(
+                f"feature state needs {sb['total']} bytes "
+                f"(dense {sb['dense']}, directory {sb['directory']}, "
+                f"cms {sb['cms']}) against a state_hbm_budget_mb="
+                f"{fcfg.state_hbm_budget_mb:g} budget ({budget} bytes) — "
+                "shrink the hot tier (customer_capacity/"
+                "terminal_capacity), the sketch (cms_width), or raise "
+                "the budget")
+
+    def _init_state_telemetry(self) -> None:
+        """The tiered store's series, under the JAX engine's names:
+        registered only when the tiers are live (bytes gauges also when a
+        budget is set)."""
+        reg = self.metrics
+        fcfg = self.cfg.features
+        self._m_tier = None
+        self._m_slots_occ: dict = {}
+        self._m_slots_rec: dict = {}
+        if self._exact:
+            self._m_tier = {
+                t: reg.counter(
+                    "rtfds_feature_tier_rows_total",
+                    "row x keyspace feature reads served per tier "
+                    "(dense = private hot-tier slot; cms = count-min "
+                    "sketch fallback after an admission miss)", tier=t)
+                for t in ("dense", "cms")}
+            for t in self._dir_tables():
+                self._m_slots_occ[t] = reg.gauge(
+                    "rtfds_feature_slots_occupied",
+                    "hot-tier slots currently owned by a key "
+                    "(updated at compaction cadence)", table=t)
+                self._m_slots_rec[t] = reg.counter(
+                    "rtfds_feature_slots_reclaimed_total",
+                    "hot-tier slots reclaimed by recency compaction "
+                    "(the slot held only history older than "
+                    "delay + max(window))", table=t)
+        if self._exact or fcfg.state_hbm_budget_mb > 0:
+            sb = state_bytes(fcfg)
+            for tier in ("dense", "directory", "cms", "total"):
+                reg.gauge(
+                    "rtfds_feature_state_bytes",
+                    "device bytes of the configured feature state per "
+                    "tier (static accounting, features/online.state_bytes)",
+                    tier=tier).set(float(sb[tier]))
+            reg.gauge(
+                "rtfds_feature_state_budget_bytes",
+                "configured feature-state budget "
+                "(state_hbm_budget_mb; 0 = unchecked)").set(
+                float(fcfg.state_hbm_budget_mb * 2 ** 20))
+
+    def _dir_tables(self) -> tuple:
+        """The tables with a key directory (demotable, promotable)."""
+        if self.cfg.features.customer_source == "cms":
+            return ("terminal",)
+        return ("customer", "terminal")
+
+    def _note_batch_days(self, cols: dict) -> None:
+        """The newest day the stream has seen: compaction's cutoff."""
+        if not self._compact_every:
+            return
+        us = cols.get("tx_datetime_us")
+        if us is not None and len(us):
+            self._max_day = max(self._max_day, int(np.max(us) // US_PER_DAY))
+
+    def _maybe_compact(self) -> None:
+        """The recency compaction, every ``compact_every`` finished
+        batches, between steps and on the step's stream: it is enqueued
+        behind every step launched so far (at depth 2, batch N+1's too,
+        as the JAX engine's data dependence orders it), and the next
+        step serves the compacted state."""
+        if (not self._compact_every
+                or self.state.batches_done % self._compact_every != 0):
+            return
+        # the day goes in as a kernel argument: no host-to-device copy
+        out = compact_feature_state(
+            self.state.feature_state, self._max_day, self.cfg.features,
+            demote_slots=self._demote_slots)
+        if self._demote_slots:
+            self._append_demotions(out[2])
+        self._record_compaction(out[1])
+
+    def _record_compaction(self, reclaimed: torch.Tensor) -> None:
+        """Meter one compaction: the reclaimed counts and the occupancy
+        come to the host through a side-stream copy, read once it has
+        landed (:meth:`_drain_meters`), never through a sync."""
+        fs = self.state.feature_state
+        dirs = {t: getattr(fs, f"{t}_dir") for t in self._dir_tables()}
+        vals = torch.cat([reclaimed.to(torch.int32), torch.stack(
+            [(kd.slot_capacity - kd.free_top).to(torch.int32)
+             for kd in dirs.values()])])
+        batch = self.state.batches_done
+
+        def apply(v: np.ndarray) -> None:
+            for i, table in enumerate(("customer", "terminal")):
+                if table in dirs:
+                    self._m_slots_rec[table].inc(int(v[i]))
+            occupied = dict(zip(dirs, map(int, v[2:])))
+            for table, o in occupied.items():
+                self._m_slots_occ[table].set(o)
+            recorder = active_recorder()
+            if recorder is not None:
+                extra = {}
+                if self._cold is not None:
+                    extra = {"cold_keys": int(self._cold.keys_count),
+                             "cold_bytes": int(self._cold.bytes),
+                             "promote_backlog": int(
+                                 self._promoter.backlog())}
+                recorder.record_event(
+                    "feature_state", reclaimed=int(v[:2].sum()),
+                    occupied=sum(occupied.values()),
+                    capacity=sum(kd.slot_capacity for kd in dirs.values()),
+                    dense_rows=self._m_tier["dense"].value,
+                    cms_rows=self._m_tier["cms"].value, batch=batch,
+                    **extra)
+
+        if self.device.type != "cuda":
+            apply(vals.numpy())
+            return
+        done = torch.cuda.Event()
+        done.record()
+        side = self._d2h_stream or torch.cuda.current_stream(self.device)
+        side.wait_event(done)
+        host = torch.empty(vals.shape, dtype=vals.dtype, pin_memory=True)
+        with torch.cuda.stream(side):
+            host.copy_(vals, non_blocking=True)
+        landed = torch.cuda.Event()
+        landed.record(side)
+        # vals stays referenced until the copy has landed
+        self._meters.append((landed, host, apply, vals))
+
+    def _drain_meters(self, wait: bool = False) -> None:
+        """Apply the compaction meters whose host copies have landed (all
+        of them, waiting, with ``wait``)."""
+        while self._meters:
+            landed, host, apply, _ = self._meters[0]
+            if not wait and not landed.query():
+                return
+            landed.synchronize()
+            self._meters.popleft()
+            apply(host.numpy())
+
+    # -- host cold tier (features.cold_store) ------------------------------
+
+    def _init_cold(self, fcfg) -> None:
+        """Arm the host cold tier: the keyed store, the promoter thread
+        and their metrics."""
+        from real_time_fraud_detection_system_tpu_torch.io.coldstore import (
+            ColdPromoter,
+            ColdStore,
+        )
+
+        self._cold = ColdStore(fcfg.cold_store,
+                               segment_mb=fcfg.cold_segment_mb)
+        self._promoter = ColdPromoter(self._cold,
+                                      depth=fcfg.cold_promote_queue)
+        reg = self.metrics
+        self._m_cold_keys = reg.gauge(
+            "rtfds_feature_cold_keys",
+            "keys resident in the host cold tier (demoted, not yet "
+            "promoted back)")
+        self._m_cold_bytes = reg.gauge(
+            "rtfds_feature_cold_bytes",
+            "host bytes of live cold-tier segments + flush buffer")
+        self._m_cold_prom = reg.counter(
+            "rtfds_feature_cold_promotions_total",
+            "cold-tier keys promoted back into the hot tier")
+        self._m_cold_dem = reg.counter(
+            "rtfds_feature_cold_demotions_total",
+            "hot-tier keys demoted to the cold tier by compaction "
+            "pressure eviction")
+        self._m_cold_wait = reg.counter(
+            "rtfds_feature_cold_promote_wait_seconds_total",
+            "seconds between a returning key's promotion request and "
+            "its rows landing in the hot tier")
+        self._m_cold_backlog = reg.gauge(
+            "rtfds_feature_cold_promote_backlog",
+            "promotion requests enqueued or resolved but not yet "
+            "landed on device (overload-ladder pressure input)")
+        reg.gauge(
+            "rtfds_feature_cold_promote_queue_limit",
+            "bounded capacity of the cold promoter request queue "
+            "(features.cold_promote_queue)").set(
+            float(fcfg.cold_promote_queue))
+
+    def _cold_gauges(self) -> None:
+        self._m_cold_keys.set(float(self._cold.keys_count))
+        self._m_cold_bytes.set(float(self._cold.bytes))
+
+    def _note_cold_touches(self, cols: dict) -> None:
+        """Returning-key detection on the host: the host wrote the cold
+        store, so it intersects the batch's folded keys with a sorted
+        snapshot of the cold index (rebuilt when the index changes) and
+        requests the hits from the promoter. The rows are served from
+        the sketch tier meanwhile (``exactness_degraded_keys``) and
+        become exact again when the promotion lands."""
+        if self._cold is None:
+            return
+        ver = self._cold.version()
+        if ver != self._cold_index_version:
+            self._cold_index = {t: self._cold.index_snapshot(t)
+                                for t in self._dir_tables()}
+            self._cold_index_version = ver
+        for table, col in (("customer", "customer_id"),
+                           ("terminal", "terminal_id")):
+            snap = self._cold_index.get(table)
+            ids = cols.get(col)
+            if snap is None or not snap.size or ids is None or not len(ids):
+                continue
+            keys = fold_key(np.asarray(ids))
+            # the directory's canonical form of EMPTY_KEY (ops/keydir.py)
+            keys = np.where(keys == np.uint32(0xFFFFFFFF),
+                            np.uint32(0xFFFFFFFE), keys)
+            for k in np.unique(keys[np.isin(keys, snap)]):
+                ki = int(k)
+                self._degraded_keys.add((table, ki))
+                if (table, ki) in self._cold_pending:
+                    continue  # already in flight
+                if self._promoter.request(table, ki):
+                    self._cold_pending.add((table, ki))
+                # a full queue drops the request: the key asks again on
+                # its next touch
+        self._m_cold_backlog.set(float(self._promoter.backlog()))
+
+    def _append_demotions(self, payload: dict) -> None:
+        """Land one compaction's demotion payload in the cold store (the
+        copy to the host waits for the compaction). A demoted key with a
+        promotion in flight has it cancelled: its resolved rows predate
+        this demotion, and its next touch promotes the newer ones."""
+        total = 0
+        for table in ("customer", "terminal"):
+            pay = payload.get(table)
+            if pay is None:
+                continue
+            keys, bd, cnt, amt, frd = (t.cpu().numpy() for t in pay)
+            total += self._cold.append(table, keys, bd, cnt, amt, frd)
+            for k in keys[keys != np.uint32(0xFFFFFFFF)]:
+                self._cold_pending.discard((table, int(k)))
+        if total:
+            self._m_cold_dem.inc(total)
+        self._cold_gauges()
+
+    def _build_promote_payload(self, rows_by_table: dict) -> dict:
+        """Resolved cold rows → the fixed-shape promote payload
+        (``EMPTY_KEY``-padded ``[K, ...]`` per table with a directory),
+        on the device."""
+        k = self._demote_slots
+        nb = self.cfg.features.n_day_buckets
+        tables = self._dir_tables()
+        payload = {}
+        for table in ("customer", "terminal"):
+            if table not in tables:
+                payload[table] = None
+                continue
+            keys = np.full((k,), 0xFFFFFFFF, np.uint32)
+            bd = np.full((k, nb), -1, np.int32)
+            cnt = np.zeros((k, nb), np.float32)
+            amt = np.zeros((k, nb), np.float32)
+            frd = np.zeros((k, nb), np.float32)
+            for i, (key, r) in enumerate(
+                    (rows_by_table.get(table) or {}).items()):
+                keys[i] = key
+                bd[i], cnt[i], amt[i], frd[i] = r
+            dev = self.device
+            payload[table] = (
+                torch.from_numpy(keys.view(np.int32)).to(dev)
+                .view(torch.uint32),
+                *(torch.from_numpy(a).to(dev) for a in (bd, cnt, amt, frd)))
+        return payload
+
+    def _maybe_promote(self) -> None:
+        """Land resolved promotions between steps (after
+        ``_maybe_compact``): drain the promoter's ready queue up to the
+        payload width, merge the rows on the step's stream, and retire
+        the landed keys from the cold index."""
+        if self._promoter is None:
+            return
+        ready = self._promoter.poll_ready(max_items=self._demote_slots)
+        self._m_cold_backlog.set(float(self._promoter.backlog()))
+        if not ready:
+            return
+        rows_by_table: dict = {"customer": {}, "terminal": {}}
+        wait = 0.0
+        now = time.perf_counter()
+        for table, key, rows, t_enq in ready:
+            if (table, key) not in self._cold_pending:
+                continue  # cancelled (demoted again) or fenced
+            self._cold_pending.discard((table, key))
+            wait += now - t_enq
+            if rows is None:
+                continue  # corrupt segment: stays on the sketch, counted
+            rows_by_table[table][key] = rows
+        if wait > 0.0:
+            self._m_cold_wait.inc(wait)
+        if not any(rows_by_table.values()):
+            return
+        _, stats = promote_rows(self.state.feature_state,
+                                self._build_promote_payload(rows_by_table),
+                                self.cfg.features)
+        st = stats.cpu().numpy()
+        self._m_cold_prom.inc(int(st[:, 0].sum()))
+        for i, table in enumerate(("customer", "terminal")):
+            landed = list(rows_by_table[table])
+            if landed and int(st[i, 1]) == 0:
+                # every lane admitted: retire the keys from the index
+                # (else they stay cold and promote on their next touch;
+                # the merge is idempotent)
+                self._cold.mark_promoted(table, landed)
+        self._cold_gauges()
+
+    def drain_promotions(self, timeout_s: float = 10.0) -> bool:
+        """Block until every pending promotion has landed (tests and
+        shutdown; the serving loop never waits for one). True when the
+        pending set drained within the timeout."""
+        if self._promoter is None:
+            return True
+        t0 = time.perf_counter()
+        while self._cold_pending:
+            self._maybe_promote()
+            if not self._cold_pending:
+                break
+            if time.perf_counter() - t0 > timeout_s:
+                return False
+            time.sleep(0.005)
+        return True
+
+    def _sync_cold_after_restore(self) -> None:
+        """Adopt a restored checkpoint's cold lineage once: prune the
+        segments written after it (replay writes them again), fence the
+        promoter's generation and drop the pending requests."""
+        if self._cold is None or self._cold_synced:
+            return
+        lineage = self.state.cold_lineage
+        if lineage is None:
+            return
+        self._cold_synced = True
+        self._cold.sync_to(lineage)
+        self._promoter.reset()
+        self._cold_pending.clear()
+        self._cold_index_version = -1
+        self._cold_gauges()
+        self._m_cold_backlog.set(0.0)
+
+    def fence_cold(self) -> None:
+        """Cut this engine off the cold store: stop its promoter and
+        refuse its further writes. The recovery supervisor calls it on an
+        incarnation it abandons or that crashed, so a zombie never writes
+        a segment under the next incarnation's store."""
+        if self._cold is None:
+            return
+        self._promoter.close()
+        self._cold.fence()
 
     def _pack(self, cols: dict, n: int, pad: int):
         """The packed ``[7, pad]`` batch on the host: a pinned staging
@@ -398,9 +830,12 @@ class ScoringEngine:
         return entry if entry is not None else torch.from_numpy(packed)
 
     def _issue_host_fetch(self, probs: torch.Tensor, feats: torch.Tensor,
-                          n: int, step_done) -> Optional[dict]:
+                          n: int, step_done,
+                          tier: Optional[torch.Tensor] = None
+                          ) -> Optional[dict]:
         """Start the device-to-host copies of the ``n`` real rows'
-        probabilities (and features, when emitted) on the side stream,
+        probabilities (and features, when emitted, and the exact path's
+        tier counts) on the side stream,
         after ``step_done`` (the event recorded behind the step), into
         pinned blocks of the caching host allocator: each batch gets its
         own, so a result never shares memory with a later batch's. None
@@ -414,10 +849,15 @@ class ScoringEngine:
         if self.cfg.runtime.emit_features:
             host["feats"] = torch.empty((n, N_FEATURES), dtype=torch.float32,
                                         pin_memory=True)
+        if tier is not None:
+            host["tier"] = torch.empty(2, dtype=torch.float32,
+                                       pin_memory=True)
         with torch.cuda.stream(side):
             host["probs"].copy_(probs[:n], non_blocking=True)
             if "feats" in host:
                 host["feats"].copy_(feats[:n], non_blocking=True)
+            if tier is not None:
+                host["tier"].copy_(tier, non_blocking=True)
         done = torch.cuda.Event()
         done.record(side)
         host["done"] = done
@@ -444,7 +884,9 @@ class ScoringEngine:
             host[1].record()
         else:
             packed = host.to(self.device)
-        probs, feats = self._step(packed)
+        probs, feats, tier = self._step(packed)
+        self._note_batch_days(cols)
+        self._note_cold_touches(cols)
         step_done = None
         if self.device.type == "cuda":
             # behind the step that wrote the state: the side-stream copies
@@ -452,29 +894,40 @@ class ScoringEngine:
             step_done = torch.cuda.Event()
             step_done.record()
             self.state.ready = step_done
-        fetch = self._issue_host_fetch(probs, feats, n, step_done)
+        fetch = self._issue_host_fetch(probs, feats, n, step_done, tier)
         return {"cols": cols, "n": n, "probs": probs, "feats": feats,
-                "fetch": fetch, "t0": t0, "prep_s": t1 - t0,
+                "tier": tier, "fetch": fetch, "t0": t0, "prep_s": t1 - t0,
                 "dispatch_s": time.perf_counter() - t1}
 
     def _finish_batch(self, handle: dict) -> BatchResult:
         """Wait for this batch's result copies (the event behind them on
-        the side stream, never the whole device) and build its result."""
+        the side stream, never the whole device) and build its result;
+        then, between steps, the tiered store's compaction and
+        promotions."""
         n = handle["n"]
         emit = self.cfg.runtime.emit_features
         fetch = handle["fetch"]
+        tier = handle.get("tier")
         if fetch is not None:
             fetch["done"].synchronize()
             probs_np = fetch["probs"].numpy()
             feats_np = fetch["feats"].numpy() if emit else None
+            tier_np = fetch["tier"].numpy() if "tier" in fetch else None
         else:
             probs_np = handle["probs"][:n].cpu().numpy()
             feats_np = handle["feats"][:n].cpu().numpy() if emit else None
+            tier_np = tier.cpu().numpy() if tier is not None else None
         if feats_np is None:
             feats_np = np.zeros((n, N_FEATURES), np.float32)
+        if tier_np is not None and self._m_tier is not None:
+            self._m_tier["dense"].inc(float(tier_np[0]))
+            self._m_tier["cms"].inc(float(tier_np[1]))
         cols = handle["cols"]
         self.state.batches_done += 1
         self.state.rows_done += n
+        self._drain_meters()
+        self._maybe_compact()
+        self._maybe_promote()
         return BatchResult(
             tx_id=cols["tx_id"],
             tx_datetime_us=cols["tx_datetime_us"],
@@ -530,6 +983,10 @@ class ScoringEngine:
         medians as ``*_p50_ms`` keys, ``pipeline_depth``,
         ``host_prep_route`` and ``z_mode``.
         """
+        # a restored state's cold lineage: reconcile the store (and fence
+        # the promoter) before any batch can touch a demoted key
+        self._sync_cold_after_restore()
+        degraded0 = len(self._degraded_keys)
         rt = self.cfg.runtime
         trigger = rt.trigger_seconds if trigger_seconds is None \
             else trigger_seconds
@@ -565,10 +1022,19 @@ class ScoringEngine:
                 drain = getattr(sink, "drain", None)
                 if drain is not None:
                     drain()
+                if self._cold is not None:
+                    # buffered demotions become segments now, so the
+                    # lineage the checkpoint records is on disk
+                    self._cold.flush()
+                    self.state.cold_lineage = self._cold.lineage()
                 checkpointer.save(self.checkpoint_state())
                 commit = getattr(source, "commit", None)
                 if commit is not None:
                     commit()
+                if self._cold is not None:
+                    # fully promoted segments go only once a checkpoint
+                    # that no longer lists them has landed
+                    self._cold.gc()
 
         def _add_wait(dt: float) -> None:
             for h in q:
@@ -652,6 +1118,13 @@ class ScoringEngine:
         sink_drain = getattr(sink, "drain", None)
         if sink_drain is not None:
             sink_drain()
+        if self._cold is not None:
+            # land in-flight promotions and persist buffered demotions, so
+            # the caller's next save records the fresh lineage
+            self.drain_promotions()
+            self._cold.flush()
+            self.state.cold_lineage = self._cold.lineage()
+        self._drain_meters(wait=True)
         wall = time.perf_counter() - t_start
         snaps = {k: t.snapshot() for k, t in trackers.items()}
         p50 = {k: snaps[k].get("p50_ms", 0.0) for k in trackers}
@@ -674,4 +1147,9 @@ class ScoringEngine:
             "pipeline_depth": depth,
             "host_prep_route": self.host_prep,
             "z_mode": self.z_mode,
+            # keys scored from the sketch while their promotion was in
+            # flight: the scope of the bit-identity claim (cold tier only)
+            **({"exactness_degraded_keys":
+                len(self._degraded_keys) - degraded0}
+               if self._cold is not None else {}),
         }

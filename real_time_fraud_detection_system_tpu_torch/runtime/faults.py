@@ -499,6 +499,7 @@ def _run_watched(engine, source, sink, checkpointer, run_batches: int,
         worker.join(poll)
         if worker.is_alive() and not heartbeat.healthy():
             fence.abandoned = True
+            _retire(engine)
             raise StallError(
                 f"no engine progress for "
                 f"{heartbeat.seconds_since_beat():.1f}s (stall budget "
@@ -507,6 +508,15 @@ def _run_watched(engine, source, sink, checkpointer, run_batches: int,
     if "err" in box:
         raise box["err"]
     return box["stats"]
+
+
+def _retire(engine) -> None:
+    """Fence a finished incarnation off the shared cold store: its
+    promoter stops and its store handle refuses writes (the next
+    incarnation opens the store afresh)."""
+    fence_cold = getattr(engine, "fence_cold", None)
+    if fence_cold is not None:
+        fence_cold()
 
 
 def _subset_cols(cols: dict, idx) -> dict:
@@ -777,6 +787,7 @@ def run_with_recovery(
                 poison_pending = False
                 fail_key, fail_count = None, 0
                 budget_used = 0
+                _retire(engine)
                 continue
             if heartbeat is not None:
                 stats = _run_watched(
@@ -803,6 +814,7 @@ def run_with_recovery(
             )
             return stats
         except recover_on as e:
+            _retire(engine)
             restarts += 1
             budget_used += 1
             last_was_stall = isinstance(e, StallError)

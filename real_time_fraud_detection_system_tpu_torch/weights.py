@@ -13,12 +13,12 @@ recognised by its field names:
   record — and base_score);
 - ``Scaler`` (mean, scale);
 - ``WindowState`` (bucket_day, count, amount, fraud);
-- ``CountMinSketch`` (slice_day, count, amount);
-- ``FeatureState`` (customer, terminal and, under
-  ``customer_source="cms"``, the customer sketch ``cms``). The fields of
-  the tiered store — ``customer_dir``, ``terminal_dir``, ``terminal_cms``
-  and a sketch's ``fraud`` column — must be None: that mode is not ported
-  yet (ROADMAP A5).
+- ``CountMinSketch`` (slice_day, count, amount and, on the tiered
+  store's terminal sketch, fraud);
+- ``KeyDirectory`` (keys, slots, free, free_top);
+- ``FeatureState`` (customer, terminal and, where present, the customer
+  sketch ``cms`` and the tiered store's ``customer_dir``,
+  ``terminal_dir`` and ``terminal_cms``).
 
 Arrays keep their dtypes and values, so both packages then compute the
 same thing.
@@ -43,11 +43,18 @@ from real_time_fraud_detection_system_tpu_torch.models.logreg import (
 )
 from real_time_fraud_detection_system_tpu_torch.models.scaler import Scaler
 from real_time_fraud_detection_system_tpu_torch.ops.cms import CountMinSketch
+from real_time_fraud_detection_system_tpu_torch.ops.keydir import KeyDirectory
 from real_time_fraud_detection_system_tpu_torch.ops.windows import WindowState
 
 _RECORDS = (LogRegParams, TreeEnsemble, GemmEnsemble, Scaler, WindowState,
-            CountMinSketch)
-_TIERED = {"customer_dir", "terminal_dir", "terminal_cms"}
+            CountMinSketch, KeyDirectory)
+
+
+def _matches(cls, names: set) -> bool:
+    """``names`` holds every field of ``cls`` without a default and no
+    field it lacks (a None field was dropped by the caller)."""
+    required = set(cls._fields) - set(cls._field_defaults)
+    return required <= names <= set(cls._fields)
 
 
 def from_numpy(obj, device=None):
@@ -56,28 +63,16 @@ def from_numpy(obj, device=None):
     fields = obj._asdict() if hasattr(obj, "_asdict") else dict(obj)
     fields = {k: v for k, v in fields.items() if v is not None}
     names = set(fields)
-    if "customer" in names or "terminal" in names:
-        if names & _TIERED or not names <= {"customer", "terminal", "cms"}:
-            raise NotImplementedError(
-                f"feature state with {sorted(names & _TIERED)}: the tiered "
-                f"store's key directories and terminal sketch (key_mode="
-                f"'exact') are not ported yet (ROADMAP A5)")
-        return FeatureState(
-            customer=from_numpy(fields["customer"], device),
-            terminal=from_numpy(fields["terminal"], device),
-            cms=(from_numpy(fields["cms"], device)
-                 if "cms" in fields else None))
-    if "slice_day" in names and "fraud" in names:
-        raise NotImplementedError(
-            "a count-min sketch with a fraud column (the tiered store's) "
-            "is not ported yet (ROADMAP A5)")
+    if _matches(FeatureState, names):
+        return FeatureState(**{k: from_numpy(v, device)
+                               for k, v in fields.items()})
     if names == set(GBTModel._fields):
         return GBTModel(
             trees=from_numpy(fields["trees"], device),
             base_score=torch.as_tensor(
                 np.array(fields["base_score"], copy=True), device=device))
     for cls in _RECORDS:
-        if names == set(cls._fields):
+        if _matches(cls, names):
             return cls(**{
                 k: int(v) if k == "max_depth"
                 else torch.as_tensor(np.array(v, copy=True), device=device)

@@ -38,6 +38,8 @@ from real_time_fraud_detection_system_tpu.config import (
 from real_time_fraud_detection_system_tpu.config import (
     RuntimeConfig as JRuntimeConfig,
 )
+from real_time_fraud_detection_system_tpu.core import batch as jbatch
+from real_time_fraud_detection_system_tpu.features import online as jonline
 from real_time_fraud_detection_system_tpu.io import checkpoint as jckpt
 from real_time_fraud_detection_system_tpu.io.sink import (
     MemorySink as JMemorySink,
@@ -88,7 +90,8 @@ TOL_PROB = {"logreg": dict(rtol=0.0, atol=1e-6),
             "forest": dict(rtol=0.0, atol=1e-6),
             "tree": dict(rtol=0.0, atol=1e-6),
             "gbt": dict(rtol=1e-5, atol=1e-6)}
-EXACT_STATE = ("bucket_day", "count", "fraud", "slice_day")
+EXACT_STATE = ("bucket_day", "count", "fraud", "slice_day", "keys", "slots",
+               "free", "free_top")
 
 # (id, kind, feature fields). "tree-deep" is one depth-13 tree, too large
 # for the GEMM form: both engines keep the descent form, whose Python
@@ -103,6 +106,11 @@ CASES = [
     ("gbt-hash", "gbt", {"key_mode": "hash"}),
     ("gbt-cms", "gbt", {"customer_source": "cms"}),
     ("tree-deep-direct", "tree", {}),
+    # the tiered store: key directories, the terminal sketch's fraud
+    # column and a compaction pass per checkpoint interval
+    ("logreg-exact", "logreg", {"key_mode": "exact", "compact_every": 2}),
+    ("forest-exact", "forest", {"key_mode": "exact", "compact_every": 2}),
+    ("gbt-exact", "gbt", {"key_mode": "exact", "compact_every": 2}),
 ]
 
 
@@ -278,37 +286,54 @@ def test_checkpoint_meta_spec_and_fingerprint_match_jax(crossed):
 
 def test_cms_state_carries_across_leaf_for_leaf(crossed):
     """``weights.from_numpy`` carries the JAX engine's whole feature state
-    across — the customer sketch too — bit for bit."""
+    across — the customer sketch and the tiered store's directories and
+    terminal sketch too — bit for bit."""
     jstate = crossed["jeng"].state.feature_state
     moved = weights.from_numpy(jax.tree.map(np.asarray, jstate),
                                device="cpu")
     jleaves = jax.tree_util.tree_leaves(jstate)
     tleaves = [leaf for _, leaf in tckpt._leaves(moved)]
+    tiered = 12 if jstate.terminal_dir is not None else 0
     assert len(tleaves) == len(jleaves) == (
-        11 if jstate.cms is not None else 8)
+        11 if jstate.cms is not None else 8) + tiered
     for t, j in zip(tleaves, jleaves):
         assert t.numpy().dtype == np.asarray(j).dtype
         np.testing.assert_array_equal(t.numpy(), np.asarray(j))
 
 
 def test_weights_refuse_the_tiered_store():
-    ws = dict(bucket_day=np.zeros((2, 3), np.int32),
-              count=np.zeros((2, 3), np.float32),
-              amount=np.zeros((2, 3), np.float32),
-              fraud=np.zeros((2, 3), np.float32))
-    sketch = dict(slice_day=np.zeros(3, np.int32),
-                  count=np.zeros((3, 2, 4), np.float32),
-                  amount=np.zeros((3, 2, 4), np.float32))
-    with pytest.raises(NotImplementedError, match="A5"):
-        weights.from_numpy(dict(customer=ws, terminal=ws, cms=sketch,
-                                customer_dir={"keys": np.zeros(4)}),
-                           device="cpu")
-    with pytest.raises(NotImplementedError, match="A5"):
-        weights.from_numpy(dict(customer=ws, terminal=ws,
-                                terminal_cms=sketch), device="cpu")
-    with pytest.raises(NotImplementedError, match="A5"):
-        weights.from_numpy(dict(sketch, fraud=np.zeros((3, 2, 4),
-                                                        np.float32)),
+    """The tiered store's records carry across since the port serves it:
+    a JAX ``key_mode="exact"`` feature state after a batch (key
+    directories, the terminal sketch's fraud column), and each record on
+    its own, arrive leaf for leaf with the JAX dtypes and values; a
+    record of fields no port record has is still refused."""
+    jcfg = JFeatureConfig(key_mode="exact", customer_capacity=16,
+                          terminal_capacity=16, cms_width=1 << 6)
+    rng = np.random.default_rng(4)
+    n = 64
+    jstate, _, _ = jonline.update_and_featurize_exact(
+        jonline.init_feature_state(jcfg),
+        jax.tree.map(jnp.asarray, jbatch.make_batch(
+            customer_id=rng.integers(0, 40, n).astype(np.int64),
+            terminal_id=rng.integers(0, 40, n).astype(np.int64),
+            tx_datetime_us=np.full(n, 20200 * 86_400_000_000, np.int64),
+            amount_cents=np.full(n, 500, np.int64),
+            label=rng.integers(0, 2, n))), jcfg)
+    host = jax.tree.map(np.asarray, jstate)
+    moved = weights.from_numpy(host, device="cpu")
+    jleaves = jax.tree_util.tree_leaves(host)
+    tleaves = [leaf for _, leaf in tckpt._leaves(moved)]
+    assert len(tleaves) == len(jleaves) == 23
+    for t, j in zip(tleaves, jleaves):
+        assert t.numpy().dtype == j.dtype
+        np.testing.assert_array_equal(t.numpy(), j)
+    assert int(moved.terminal_dir.free_top) < 16  # the batch took slots
+    kd = weights.from_numpy(host.terminal_dir, device="cpu")
+    assert kd.keys.dtype == torch.uint32 and kd.free_top.shape == ()
+    sk = weights.from_numpy(host.terminal_cms, device="cpu")
+    np.testing.assert_array_equal(sk.fraud.numpy(), host.terminal_cms.fraud)
+    with pytest.raises(ValueError, match="no port record"):
+        weights.from_numpy(dict(customer_dir={"keys": np.zeros(4)}),
                            device="cpu")
 
 
@@ -331,13 +356,13 @@ def _rewrite_meta(path: str, **meta_fields) -> None:
     (dict(layout_devices=4), tckpt.CheckpointTopologyError, "A7"),
     (dict(resize_epochs=[{"generation": 1}]),
      tckpt.CheckpointTopologyError, "A7"),
-    (dict(cold_lineage={"segments": [{"seq": 0}]}),
-     tckpt.UnportedCheckpointError, "A5"),
+    (dict(cold_lineage={"segments": [{"seq": 0}]}), None, None),
 ], ids=["processes", "devices", "resized", "cold-tier"])
 def test_restore_refuses_what_the_port_cannot_serve(tmp_path, stamps, error,
                                                     item):
-    """A healthy checkpoint of a topology or tier the port does not serve
-    raises and names the ROADMAP item; it is never quarantined."""
+    """A healthy checkpoint of a topology the port does not serve raises
+    and names the ROADMAP item; it is never quarantined. A cold-tier
+    lineage is served: the restore hands it back to the engine."""
     cfg = Config(features=FeatureConfig(customer_capacity=64,
                                         terminal_capacity=128))
     params = weights.from_numpy(jax.tree.map(np.asarray, _jax_params(
@@ -348,9 +373,13 @@ def test_restore_refuses_what_the_port_cannot_serve(tmp_path, stamps, error,
     path = ck.save(eng.state)
     _rewrite_meta(path, **stamps)
     before = get_registry().family_total("rtfds_checkpoint_corrupt_total")
-    with pytest.raises(error, match=item):
-        ck.restore(ScoringEngine(cfg, "logreg", params, scaler,
-                                 device="cpu").state)
+    fresh = ScoringEngine(cfg, "logreg", params, scaler, device="cpu")
+    if error is None:
+        assert ck.restore(fresh.state) is fresh.state
+        assert fresh.state.cold_lineage == stamps["cold_lineage"]
+    else:
+        with pytest.raises(error, match=item):
+            ck.restore(fresh.state)
     assert ck.latest() == path and os.path.exists(path)
     assert get_registry().family_total(
         "rtfds_checkpoint_corrupt_total") == before
@@ -358,29 +387,42 @@ def test_restore_refuses_what_the_port_cannot_serve(tmp_path, stamps, error,
 
 def test_restore_refuses_a_jax_exact_mode_checkpoint(tmp_path,
                                                      small_dataset):
-    """The JAX package's tiered store (``key_mode="exact"``): its key
-    directories are refused with A5, not quarantined as incompatible."""
-    jtxs = small_dataset[3].slice(slice(0, BATCH))
-    fields = dict(customer_capacity=256, terminal_capacity=512,
-                  cms_width=1 << 8)
-    jcfg = JConfig(features=JFeatureConfig(key_mode="exact", **fields),
+    """The JAX package's tiered store (``key_mode="exact"``) with a hot
+    tier too small for the slice, so rows overflow to the sketch tier:
+    its checkpoint at batch 2 restores into the port (directories bit for
+    bit, nothing quarantined) and the port serves the rest of the slice as
+    the JAX engine did."""
+    jtxs = small_dataset[3].slice(slice(0, ROWS))
+    fields = dict(customer_capacity=64, terminal_capacity=64,
+                  cms_width=1 << 8, key_mode="exact", compact_every=2)
+    jcfg = JConfig(features=JFeatureConfig(**fields),
                    runtime=JRuntimeConfig(batch_buckets=(BATCH,),
                                           max_batch_rows=BATCH,
-                                          checkpoint_every_batches=1))
+                                          checkpoint_every_batches=2))
     mean, scale = _scaler()
     jeng = JScoringEngine(jcfg, kind="logreg",
                           params=_jax_params("logreg", "logreg"),
                           scaler=JScaler(jnp.asarray(mean),
                                          jnp.asarray(scale)))
-    jeng.run(JReplaySource(jtxs, START, batch_rows=BATCH),
+    jsink = JMemorySink()
+    jeng.run(JReplaySource(jtxs, START, batch_rows=BATCH), sink=jsink,
              checkpointer=jckpt.Checkpointer(str(tmp_path)))
-    tcfg = Config(features=FeatureConfig(**fields))
+    tcfg = Config(features=FeatureConfig(**fields),
+                  runtime=RuntimeConfig(batch_buckets=(BATCH,)))
     eng = ScoringEngine(tcfg, "logreg", weights.from_numpy(
         jax.tree.map(np.asarray, jeng.state.params), device="cpu"),
         Scaler(torch.from_numpy(mean), torch.from_numpy(scale)),
         device="cpu")
     ck = tckpt.Checkpointer(str(tmp_path))
     latest = ck.latest()
-    with pytest.raises(tckpt.UnportedCheckpointError, match="A5"):
-        ck.restore(eng.state)
+    path = f"{tmp_path}/ckpt-0000000002.npz"
+    assert ck.restore(eng.state, path=path) is eng.state
+    assert eng.state.batches_done == 2
+    src = ReplaySource(_port_txs(jtxs), START, batch_rows=BATCH)
+    src.seek(eng.state.offsets)
+    tail = MemorySink()
+    eng.run(src, tail)
+    _assert_outputs(tail.concat(), _concat_from(jsink.batches, 2), "logreg")
+    _assert_state(eng.state.feature_state, jeng.state.feature_state)
+    assert int(eng.state.feature_state.customer_dir.free_top) == 0
     assert ck.latest() == latest

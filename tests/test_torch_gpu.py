@@ -816,3 +816,207 @@ def test_a_kernel_that_cannot_build_raises_from_the_engine(cuda, tmp_path,
     finally:
         fk._library.cache_clear()
     assert (reg.family_total("rtfds_engine_restarts_total") or 0.0) == before
+
+
+def _keydir_pair(cuda, dir_cap, slot_cap):
+    from real_time_fraud_detection_system_tpu_torch.ops import keydir
+
+    return (keydir.init_keydir(dir_cap, slot_cap, "cpu"),
+            keydir.init_keydir(dir_cap, slot_cap, cuda))
+
+
+def _same_keydir(a, b):
+    for name in ("keys", "slots", "free", "free_top"):
+        got, want = getattr(b, name).cpu(), getattr(a, name)
+        assert got.dtype == want.dtype, name
+        assert torch.equal(got.view(torch.int32) if name == "keys" else got,
+                           want.view(torch.int32) if name == "keys"
+                           else want), name
+
+
+@pytest.mark.parametrize("n_probes", [1, 8])
+def test_admit_slots_on_cuda_equals_cpu_bit_for_bit(cuda, n_probes):
+    """The claim rounds (scatter-min through the sign flip), the owner
+    pick and the grants in cumsum order run on the card as on the CPU:
+    slots, admitted masks and every directory leaf bit for bit, through
+    duplicates, uint32 edge keys, probe overflow, free-stack exhaustion
+    and reclaims, at a batch the size of the serving bucket."""
+    from real_time_fraud_detection_system_tpu_torch.ops import keydir
+
+    rng = np.random.default_rng(n_probes)
+    cpu, gpu = _keydir_pair(cuda, 1 << 15, 1 << 14)
+    for step in range(6):
+        keys = rng.integers(0, 2 ** 32, 65536, dtype=np.uint64).astype(
+            np.uint32)
+        keys[:30000] = rng.integers(0, 12000, 30000)  # duplicates
+        keys[30000:30004] = [2 ** 31 - 1, 2 ** 31, 0xFFFFFFFE, 0xFFFFFFFF]
+        valid = rng.random(65536) < 0.95
+        tk, tv = torch.from_numpy(keys), torch.from_numpy(valid)
+        _, cs, ca = keydir.admit_slots(cpu, tk, tv, n_probes)
+        _, gs, ga = keydir.admit_slots(gpu, tk.to(cuda), tv.to(cuda),
+                                       n_probes)
+        assert torch.equal(gs.cpu(), cs) and torch.equal(ga.cpu(), ca)
+        _same_keydir(cpu, gpu)
+        dead = torch.from_numpy(rng.random(1 << 15) < 0.3)
+        _, _, cn = keydir.reclaim_entries(cpu, dead)
+        _, _, gn = keydir.reclaim_entries(gpu, dead.to(cuda))
+        assert int(gn) == int(cn)
+        _same_keydir(cpu, gpu)
+    assert int(cpu.free_top) < (1 << 14)
+
+
+@pytest.mark.parametrize("kind", ["forest", "gbt", "logreg"])
+def test_exact_engine_on_cuda_matches_cpu_engine(cuda, kind):
+    """``key_mode="exact"`` with a hot tier smaller than the key universe
+    (sketch-tier reads), compaction every 2 batches, whole-dollar
+    amounts: every column bit for bit but the probabilities (1e-6), the
+    directories and window tables bit for bit, and the tree kinds launch
+    the leaf-sum kernel once per batch, the fused kernels never."""
+    import dataclasses
+
+    cfg, txs = _whole_dollar_stream(4000)
+    cfg = dataclasses.replace(cfg, features=dataclasses.replace(
+        cfg.features, key_mode="exact", customer_capacity=128,
+        terminal_capacity=256, cms_width=1 << 10, compact_every=2))
+    rng = np.random.default_rng(4)
+    params = {
+        "forest": synthetic_ensemble(10, 5, N_FEAT, seed=3, device="cpu"),
+        "gbt": synthetic_gbt(10, 5, N_FEAT, seed=3, device="cpu"),
+        "logreg": LogRegParams(torch.as_tensor(
+            rng.normal(0, 0.8, N_FEAT).astype(np.float32)),
+            torch.tensor(-1.0)),
+    }[kind]
+    scaler = rng.normal(5, 3, (64, N_FEAT))
+    sinks, states, launched = {}, {}, {}
+    for dev in ("cpu", "cuda"):
+        eng = ScoringEngine(cfg, kind, params, fit_scaler(scaler, device=dev),
+                            device=dev)
+        assert eng.tables is None
+        sinks[dev] = MemorySink()
+        before = {f: f.launches for f in (fk.fused_forest_leaf_sum,
+                                          fk.leaf_sum,
+                                          sk.fused_featurize_score)}
+        stats = eng.run(ReplaySource(txs, START, batch_rows=1000),
+                        sinks[dev])
+        launched[dev] = {f.__name__: f.launches - n
+                         for f, n in before.items()}
+        states[dev] = eng.state.feature_state
+    own = None if kind == "logreg" else "leaf_sum"
+    assert launched["cuda"] == {k: stats["batches"] if k == own else 0
+                                for k in launched["cuda"]}
+    got, want = sinks["cuda"].concat(), sinks["cpu"].concat()
+    for k in want:
+        if k == "processed_at_us":
+            continue
+        if k == "prediction":
+            np.testing.assert_allclose(got[k], want[k], rtol=0.0,
+                                       atol=ATOL_SIGMOID)
+        else:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    for table in ("customer_dir", "terminal_dir"):
+        _same_keydir(getattr(states["cpu"], table),
+                     getattr(states["cuda"], table))
+    for table in ("customer", "terminal"):
+        for name in ("bucket_day", "count", "amount", "fraud"):
+            assert torch.equal(getattr(getattr(states["cuda"], table),
+                                       name).cpu(),
+                               getattr(getattr(states["cpu"], table), name))
+
+
+def test_cold_tier_on_cuda_equals_cpu(cuda, tmp_path):
+    """Demotion, the returning keys' promotion and the next touch on the
+    card equal the same flow on the CPU: features, probabilities, the
+    counters and every directory leaf."""
+    from real_time_fraud_detection_system_tpu_torch.utils.metrics import (
+        MetricsRegistry,
+    )
+
+    def cols(cust, term, day):
+        cust = np.asarray(cust, np.int64)
+        n = len(cust)
+        us = (day * 86400 + np.arange(n) % 86400).astype(np.int64) \
+            * 1_000_000
+        return {"tx_id": np.arange(n, dtype=np.int64), "tx_datetime_us": us,
+                "customer_id": cust,
+                "terminal_id": np.asarray(term, np.int64),
+                "tx_amount_cents": np.full(n, 1200, np.int64),
+                "kafka_ts_ms": us // 1000}
+
+    a, b, day = np.arange(0, 48), np.arange(1000, 1032), 20200
+    batches = [cols(a, a + 10000, day), cols(a, a + 10000, day),
+               cols(b, b + 10000, day + 2), cols(b, b + 10000, day + 3),
+               cols(b, b + 10000, day + 4),
+               cols(a[:16], a[:16] + 10000, day + 5)]
+    params = LogRegParams(torch.linspace(-0.1, 0.1, N_FEAT),
+                          torch.tensor(-0.5))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        cfg = Config(features=FeatureConfig(
+            customer_capacity=128, terminal_capacity=128, cms_width=1 << 12,
+            key_mode="exact", compact_every=2,
+            cold_store=str(tmp_path / dev), cold_demote_slots=16,
+            cold_highwater=0.25), runtime=RuntimeConfig(batch_buckets=(64,)))
+        reg = MetricsRegistry()
+        eng = ScoringEngine(cfg, "logreg", params,
+                            fit_scaler(np.ones((2, N_FEAT)), device=dev),
+                            device=dev, metrics=reg)
+        res = [eng.process_batch({k: v.copy() for k, v in c.items()})
+               for c in batches]
+        assert eng.drain_promotions(timeout_s=30.0)
+        res.append(eng.process_batch({k: v.copy() for k, v in
+                                      batches[-1].items()}))
+        counts = {n: reg.get(n).value for n in (
+            "rtfds_feature_cold_demotions_total",
+            "rtfds_feature_cold_promotions_total")}
+        assert all(v > 0 for v in counts.values())
+        out[dev] = (res, counts, eng.state.feature_state)
+        eng.fence_cold()
+    for r_cpu, r_gpu in zip(out["cpu"][0], out["cuda"][0]):
+        np.testing.assert_array_equal(r_gpu.features, r_cpu.features)
+        np.testing.assert_allclose(r_gpu.probs, r_cpu.probs, rtol=0.0,
+                                   atol=ATOL_SIGMOID)
+    assert out["cpu"][1] == out["cuda"][1]
+    for table in ("customer_dir", "terminal_dir"):
+        _same_keydir(getattr(out["cpu"][2], table),
+                     getattr(out["cuda"][2], table))
+
+
+def test_exact_step_compaction_and_promotion_never_sync_on_cuda(cuda):
+    """The exact step (admission, the window and sketch updates, both
+    tiers' reads), the direct step's window update, compaction with and
+    without demotion, and promotion run under
+    ``torch.cuda.set_sync_debug_mode("error")``: no ``.item()``, no
+    boolean index, no ``nonzero``, no read-back of a 0-d index."""
+    from real_time_fraud_detection_system_tpu_torch.core import batch as cb
+    from real_time_fraud_detection_system_tpu_torch.features import online
+
+    fcfg = FeatureConfig(key_mode="exact", customer_capacity=64,
+                         terminal_capacity=64, cms_width=1 << 8,
+                         cold_highwater=0.25)
+    dcfg = FeatureConfig(customer_capacity=512, terminal_capacity=512)
+    est = online.init_feature_state(fcfg, cuda)
+    dst = online.init_feature_state(dcfg, cuda)
+    rng = np.random.default_rng(7)
+    batches = []
+    for d in range(4):
+        packed = cb.pack_batch(cb.make_batch(
+            customer_id=rng.integers(0, 300, 1000),
+            terminal_id=rng.integers(0, 300, 1000),
+            tx_datetime_us=(np.full(1000, 20200 + d, np.int64) * 86400
+                            + rng.integers(0, 86400, 1000)) * 1_000_000,
+            amount_cents=rng.integers(1, 500, 1000) * 100,
+            label=rng.integers(-1, 2, 1000), pad_to=1024))
+        batches.append(cb.unpack_batch(torch.from_numpy(packed).to(cuda)))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for b in batches:
+            online.update_and_featurize_exact(est, b, fcfg)
+            online.update_and_featurize(dst, b, dcfg)
+        online.compact_feature_state(est, 20203, fcfg)
+        _, _, payload = online.compact_feature_state(est, 20204, fcfg,
+                                                     demote_slots=32)
+        _, stats = online.promote_rows(est, payload, fcfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert int(stats[:, 0].sum()) > 0

@@ -1,7 +1,8 @@
 """The port's exactly-once durability against the JAX package's contract.
 
 - **The recovery matrix** of ``tests/test_recovery_smoke.py`` (its cold
-  cells wait for the cold tier, ROADMAP A5), on both durable planes — a
+  tier's cells too: a crash mid-promotion, a torn segment manifest,
+  flipped segment bytes), on both durable planes — a
   local checkpoint directory and ``StoreCheckpointer(LocalStore)`` —
   with the same exact counter deltas (``rtfds_checkpoint_corrupt_total``
   by reason, ``rtfds_checkpoint_fallbacks_total``,
@@ -1125,3 +1126,120 @@ def test_score_refuses_what_the_jax_score_refuses(cli_files, capsys,
     assert _score("port", common, capsys) == (2, [])
     if flags[0] == "--resume-merge":
         assert "A7" in caplog.text
+
+
+# -- the cold tier's cells of tests/test_recovery_smoke.py -------------------
+
+
+def _mk_cold(small_dataset, rows: int, cold_dir: str):
+    """An oversubscribed exact hot tier (64 customer slots, 120
+    customers): compaction demotes under pressure every batch and the
+    returning customers keep promotions in flight."""
+    part = _port_txs(small_dataset[3].slice(slice(0, rows)))
+    cfg = Config(
+        features=FeatureConfig(
+            key_mode="exact", customer_capacity=64, terminal_capacity=128,
+            cms_width=1 << 10, compact_every=1, cold_store=cold_dir,
+            cold_demote_slots=16, cold_highwater=0.5,
+            cold_promote_queue=64),
+        runtime=RuntimeConfig(checkpoint_every_batches=2,
+                              batch_buckets=(256,)))
+
+    def make_engine():
+        return ScoringEngine(cfg, "logreg", _LOGREG,
+                             Scaler(torch.zeros(15), torch.ones(15)),
+                             device="cpu")
+
+    return part, make_engine
+
+
+def test_cold_crash_mid_promotion_resume_exactly_once(tmp_path,
+                                                      small_dataset):
+    """A dying incarnation leaves a segment written after its last
+    checkpoint and a promotion request that never lands; the resume
+    prunes the segment (replay writes its demotions again), fences the
+    promoter, survives a second crash mid-replay and completes with a
+    gap- and duplicate-free sink and no corruption counted."""
+    from real_time_fraud_detection_system_tpu_torch.io.coldstore import (
+        ColdStore,
+    )
+
+    cold_dir = str(tmp_path / "cold")
+    part, make_engine = _mk_cold(small_dataset, 1536, cold_dir)
+    d, sink_dir = str(tmp_path / "ck"), str(tmp_path / "analyzed")
+    eng = _phase1(make_engine, part, Checkpointer(d), sink_dir,
+                  max_batches=4)
+    assert eng._cold.keys_count > 0
+    lineage = Checkpointer(d).manifest(
+        Checkpointer(d).latest())["meta"]["cold_lineage"]
+    assert lineage["segments"]
+    nb = eng.cfg.features.n_day_buckets
+    eng._cold.append("customer", np.array([999_999], np.uint32),
+                     np.full((1, nb), 20_000, np.int32),
+                     np.ones((1, nb), np.float32),
+                     np.ones((1, nb), np.float32),
+                     np.zeros((1, nb), np.float32))
+    assert eng._cold.flush() is not None
+    assert eng._promoter.request("customer", 999_999)  # never lands
+    base = _counters()
+    stats = run_with_recovery(
+        make_engine, FlakySource(ReplaySource(part, EPOCH0, batch_rows=256),
+                                 fail_at=(1,)),
+        Checkpointer(d), sink=ParquetSink(sink_dir), max_restarts=3)
+    after = _counters()
+    assert stats["batches"] == 6 and stats["restarts"] == 1
+    for r in REASONS + ("fallbacks",):
+        assert after[r] == base[r]
+    _assert_lineage(sink_dir, part, 6)
+    for n in os.listdir(cold_dir):
+        if n.startswith("seg-") and n.endswith(".json"):
+            with open(os.path.join(cold_dir, n)) as f:
+                assert 999_999 not in json.load(f)["keys"].get(
+                    "customer", [])
+    assert not ColdStore(cold_dir).contains("customer", 999_999)
+    eng.fence_cold()
+
+
+@pytest.mark.parametrize("damage", ["torn-manifest", "byte-flip"])
+def test_cold_damage_degrades_honestly(tmp_path, small_dataset, damage):
+    """A torn segment manifest is quarantined at open; flipped segment
+    bytes are caught at the promotion read and quarantined there. Either
+    way the affected keys serve from the sketch, nothing counts as
+    checkpoint corruption, and the resumed stream completes gap- and
+    duplicate-free."""
+    cold_dir = str(tmp_path / "cold")
+    part, make_engine = _mk_cold(small_dataset, 1536, cold_dir)
+    d, sink_dir = str(tmp_path / "ck"), str(tmp_path / "analyzed")
+    eng = _phase1(make_engine, part, Checkpointer(d), sink_dir,
+                  max_batches=4)
+    eng.fence_cold()
+    lineage = Checkpointer(d).manifest(
+        Checkpointer(d).latest())["meta"]["cold_lineage"]
+    seq = int(lineage["segments"][0]["seq"])
+    if damage == "torn-manifest":
+        victims = [os.path.join(cold_dir, f"seg-{seq:08d}.json")]
+        for f in victims:
+            data = open(f, "rb").read()
+            with open(f, "wb") as fh:
+                fh.write(data[: len(data) // 2])
+    else:
+        victims = [os.path.join(cold_dir, n) for n in os.listdir(cold_dir)
+                   if n.endswith(".npz")]
+        assert victims
+        for f in victims:
+            data = open(f, "rb").read()
+            with open(f, "r+b") as fh:
+                fh.seek(len(data) // 2)
+                fh.write(bytes([data[len(data) // 2] ^ 0xFF]))
+    base = _counters()
+    stats = _phase2(make_engine, part, Checkpointer(d), sink_dir)
+    after = _counters()
+    assert stats["batches"] == 6
+    for r in REASONS:
+        assert after[r] == base[r]
+    _assert_lineage(sink_dir, part, 6)
+    names = os.listdir(cold_dir)
+    assert any(n.startswith("quarantine-seg-") for n in names)
+    if damage == "torn-manifest":
+        assert f"quarantine-seg-{seq:08d}.json" in names
+        assert f"seg-{seq:08d}.npz" not in names

@@ -922,10 +922,18 @@ def test_score_cli_writes_the_parquet_of_the_jax_score(score_files, capsys,
 def test_score_cli_refuses_exact_keys_and_missing_data(score_files, capsys,
                                                        caplog):
     d = score_files
-    assert tcli.main(["score", "--device", "cpu", "--data",
-                      str(d / "txs.npz"), "--model-file",
-                      str(d / "forest.npz"), "--key-mode", "exact"]) == 2
-    assert "A5" in caplog.text
+    base = ["score", "--device", "cpu", "--data", str(d / "txs.npz"),
+            "--model-file", str(d / "forest.npz")]
+    # --key-mode exact serves (tests/test_torch_cold_store.py); what the
+    # JAX score refuses around it, the port refuses with rc 2 too
+    assert tcli.main(base + ["--key-mode", "exact", "--cold-store",
+                             str(d / "cold")]) == 2
+    assert "compact_every" in caplog.text
+    assert tcli.main(base + ["--state-compact-every", "2"]) == 2
+    assert tcli.main(base + ["--key-mode", "exact",
+                             "--state-hbm-budget-mb", "0.01"]) == 2
+    assert tcli.main(base + ["--resume-merge-cold", str(d / "x")]) == 2
+    assert "A7" in caplog.text
     assert tcli.main(["score", "--device", "cpu", "--model-file",
                       str(d / "forest.npz")]) == 2
     assert tcli.main(["score", "--device", "cpu", "--data",

@@ -191,12 +191,25 @@ def test_update_and_featurize_two_batches_match(whole_dollar):
 
 
 def test_unported_modes_raise_with_roadmap_item():
-    """Only key_mode='exact' is still refused (ROADMAP A5); hash keys and
-    the customer sketch build their state."""
+    """Every key mode builds its state: key_mode='exact' (the tiered
+    store) builds the JAX package's leaves in its order, with its dtypes
+    and initial values; hash keys and the customer sketch build theirs."""
     for kw in ({"key_mode": "exact"},
                {"key_mode": "exact", "customer_source": "cms"}):
-        with pytest.raises(NotImplementedError, match="A5"):
-            tonline.init_feature_state(FeatureConfig(**kw), CPU)
+        fields = dict(customer_capacity=64, terminal_capacity=128,
+                      cms_width=1 << 6, **kw)
+        st = tonline.init_feature_state(FeatureConfig(**fields), CPU)
+        jleaves = jax.tree_util.tree_leaves(
+            jonline.init_feature_state(JFeatureConfig(**fields)))
+        tleaves = [t for t in jax.tree_util.tree_leaves(
+            st, is_leaf=lambda x: isinstance(x, torch.Tensor))]
+        assert len(tleaves) == len(jleaves)
+        for t, j in zip(tleaves, jleaves):
+            tn = (t.view(torch.int32).numpy().view(np.uint32)
+                  if t.dtype == torch.uint32 else t.numpy())
+            assert tn.dtype == np.asarray(j).dtype
+            np.testing.assert_array_equal(tn, np.asarray(j))
+        assert (st.customer_dir is None) == ("customer_source" in kw)
     assert tonline.init_feature_state(FeatureConfig(key_mode="hash"),
                                       CPU).cms is None
     sk = tonline.init_feature_state(
