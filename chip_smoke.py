@@ -83,12 +83,38 @@ Phases, each printing JSON lines:
    checkpoint with the cold lineage restored into a fresh engine; (f) a
    few batches under ``torch.profiler``. The leaf-sum kernel launches once
    per batch, the fused kernels never.
-10. ``profile`` — a few batches of each main path, and of the forest path
+10. ``learning`` — the learning loop, 12 batches per part over the
+   whole-dollar dataset: (a) logreg with in-step SGD on in-band labels
+   (``online_lr=1e-3``) at depths 1 and 2 — the fused logreg kernel once
+   per batch, ``w`` never rebound, depth 1 equal to depth 2 bit for bit,
+   4 batches' params and probabilities against a CPU engine, rows/s
+   against ``online_lr=0``; (b) the direct forest with a
+   ``FeedbackLoop`` whose labels arrive 3 batches late through an
+   ``InProcBroker`` and a 1M-row ``FeatureCache`` — the fused forest
+   kernel once per batch, the loop's stats and the window state equal a
+   CPU engine's bit for bit, probabilities against the plain predict over
+   the CPU engine's features, ms per ``apply_state_feedback`` and rows/s
+   against no feedback; (c) the same on the tiered store (exact_path (b)'s
+   1M-key deployment, labels at 5%) — the leaf-sum kernel once per batch,
+   the directories, the dense fraud sums and the sketch's fraud column
+   equal a CPU engine's, both tiers > 0; (d) logreg with the feedback's
+   backtracking SGD — params against a CPU engine, ms per
+   ``apply_feedback``, halvings; (e) the learning loop (a blind champion,
+   a registry in a temporary directory, ``StreamingLearner`` on its own
+   stream, ``ShadowScorer``, ``LearningLoop``) — ≥ 2 versions published,
+   shadow rows, exactly one promotion, the next batch equal to a fresh
+   engine on the promoted artifact, shadow and learner ms, rows/s against
+   the same chunks without the loop; (f) a second forest hot-reloaded
+   after batch 6 — ``params_epoch`` advances, the tables are re-derived,
+   every batch equal to the plain predict of the params it was launched
+   with — and an externally published forest candidate shadow-scored
+   through the leaf-sum kernel, bit for bit with its plain version.
+11. ``profile`` — a few batches of each main path, and of the forest path
    on the customer sketch, under ``torch.profiler``: device time by
    kernel, the device's idle share, the ``[B, NB]`` row gathers (none on
    the fused paths) and the small device-to-host copies (none of four
    bytes on the forest path: the window update makes no host sync).
-11. ``kernels`` — one line per the measurement contract, each kernel's
+12. ``kernels`` — one line per the measurement contract, each kernel's
    launches summed over every driven path that launched it.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises and
@@ -1784,7 +1810,715 @@ def phase_exact_path(dev, device_info, data: dict) -> dict:
           "device_busy_ms_per_batch": busy / PROFILE_BATCHES
           if device else None,
           "device_idle_share": 1.0 - busy / wall_ms if device else None,
+          # the leaf-sum kernel's device time on this path, on its own
+          # (it can fall outside the top 8)
+          "leaf_sum_ms_per_batch": sum(
+              v for k, v in device.items() if "leaf_sum_kernel" in k)
+          / PROFILE_BATCHES if device else "not measured",
           "small_d2h_copies": small, **card})
+    return totals
+
+
+# -- phase learning -----------------------------------------------------------
+
+LEARN_BATCHES = 12
+LEARN_LAG = 3  # a batch's labels arrive this many batches later
+LEARN_LR = 1e-3
+LEARN_CACHE_ROWS = 1 << 20
+LEARN_PARITY_BATCHES = 4
+ATOL_PARAMS = 2e-6  # tests/test_torch_online_sgd.py: the gradient's ulps
+
+
+def _label_messages(batches) -> list:
+    """Each batch's labels as feedback envelopes, encoded once, before any
+    timed run (the producer's work, not the engine's)."""
+    from real_time_fraud_detection_system_tpu_torch.runtime.feedback import (
+        encode_feedback_envelopes,
+    )
+
+    return [encode_feedback_envelopes(b["tx_id"], b["label"])
+            for b in batches]
+
+
+class _DelayedLabels:
+    """The labels of the batch polled ``LEARN_LAG`` polls earlier
+    (pre-encoded, :func:`_label_messages`) go to the feedback topic as
+    this poll is served; the batches themselves carry no in-band label."""
+
+    def __init__(self, inner, broker, messages):
+        from real_time_fraud_detection_system_tpu_torch.runtime.feedback \
+            import FEEDBACK_TOPIC
+
+        self.inner, self.broker, self.messages = inner, broker, messages
+        self._topic, self._polls = FEEDBACK_TOPIC, 0
+
+    def poll_batch(self):
+        cols = self.inner.poll_batch()
+        if cols is None:
+            return None
+        k = self._polls
+        self._polls += 1
+        if k >= LEARN_LAG:
+            msgs = self.messages[k - LEARN_LAG]
+            self.broker.produce_many(self._topic, [b""] * len(msgs), msgs)
+        return {c: v for c, v in cols.items() if c != "label"}
+
+    @property
+    def offsets(self):
+        return self.inner.offsets
+
+    def seek(self, offsets):
+        self.inner.seek(offsets)
+
+
+def _labeled_batches(txs) -> list:
+    """The first ``LEARN_BATCHES`` serving batches of ``txs``, with their
+    fraud labels in band."""
+    from real_time_fraud_detection_system_tpu_torch.runtime.sources import (
+        ReplaySource,
+    )
+
+    src = ReplaySource(txs.slice(slice(0, LEARN_BATCHES * BATCH_ROWS)),
+                       START_EPOCH_S, batch_rows=BATCH_ROWS,
+                       with_labels=True)
+    out = []
+    while (cols := src.poll_batch()) is not None:
+        out.append(cols)
+    return out
+
+
+def _copies(batches) -> list:
+    return [dict(b) for b in batches]
+
+
+class _Results:
+    """A sink that keeps each batch's features and probabilities as the
+    engine returned them."""
+
+    def __init__(self):
+        self.batches = []
+
+    def append(self, res):
+        self.batches.append(res)
+
+    def feats(self) -> np.ndarray:
+        return np.concatenate([r.features for r in self.batches])
+
+    def probs(self) -> np.ndarray:
+        return np.concatenate([r.probs for r in self.batches])
+
+
+def _timed(obj, name: str, log: list):
+    """Wrap ``obj.name`` to log its host milliseconds per call."""
+    fn = getattr(obj, name)
+
+    def wrapped(*a, **k):
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        log.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    setattr(obj, name, wrapped)
+    return log
+
+
+def _state_feedback_ms(eng, batch: dict) -> float:
+    """Device ms of one state feedback of a whole batch's labels
+    (``features/online.py::apply_feedback`` on the engine's state, inputs
+    already on the card), by CUDA events over 20 calls: the events around
+    the engine's call would also count the host's time between them."""
+    from real_time_fraud_detection_system_tpu_torch.core.batch import (
+        US_PER_DAY,
+        fold_key,
+    )
+    from real_time_fraud_detection_system_tpu_torch.features.online import (
+        apply_feedback,
+    )
+
+    dev = eng.device
+    key = torch.from_numpy(fold_key(batch["terminal_id"]).view(np.int32)) \
+        .to(dev).view(torch.uint32)
+    day = torch.from_numpy((batch["tx_datetime_us"] // US_PER_DAY)
+                           .astype(np.int32)).to(dev)
+    label = torch.from_numpy(batch["label"].astype(np.int32)).to(dev)
+    valid = torch.ones_like(label, dtype=torch.bool)
+    return cuda_ms(lambda: apply_feedback(eng.state.feature_state, key, day,
+                                          label, valid, eng.cfg.features),
+                   20)
+
+
+def _median(xs):
+    return float(np.median(xs)) if len(xs) else None
+
+
+def _same_windows(card_fs, cpu_fs, what: str) -> None:
+    """Bucket days, counts and fraud sums bit for bit (amount sums of
+    whole dollars are exact in any order: bit for bit as well)."""
+    for table in ("customer", "terminal"):
+        for name in ("bucket_day", "count", "amount", "fraud"):
+            check(torch.equal(getattr(getattr(card_fs, table), name).cpu(),
+                              getattr(getattr(cpu_fs, table), name)),
+                  f"{what}: {table}.{name} differs from the CPU engine")
+
+
+def _same_features(card: "_Results", cpu: "_Results", what: str) -> None:
+    """Counts, flags, amounts and risks bit for bit; averages within
+    ``RTOL_FEATURE``."""
+    from real_time_fraud_detection_system_tpu_torch.features.spec import (
+        FEATURE_NAMES,
+    )
+
+    got, want = card.feats(), cpu.feats()
+    check(got.shape == want.shape, f"{what}: feature shapes differ")
+    for i, name in enumerate(FEATURE_NAMES):
+        if "AVG_AMOUNT" in name:
+            np.testing.assert_allclose(got[:, i], want[:, i],
+                                       rtol=RTOL_FEATURE)
+        else:
+            check(np.array_equal(got[:, i], want[:, i]),
+                  f"{what}: {name} differs from the CPU engine")
+
+
+def _plain_probs(kind, params, scaler, feats: np.ndarray, dev, z_mode):
+    """The plain predict (no kernel) on the card over host feature rows."""
+    from real_time_fraud_detection_system_tpu_torch.models.scaler import (
+        transform,
+    )
+    from real_time_fraud_detection_system_tpu_torch.runtime.engine import (
+        predict_fn_for,
+    )
+
+    x = transform(scaler, torch.from_numpy(feats).to(dev))
+    return predict_fn_for(kind, z_mode)(params, x).cpu().numpy()
+
+
+def _learning_loop(dev, card: dict, cfg, batches: list, served) -> None:
+    """Phase ``learning`` (e): the traffic of ``tests/test_learn_smoke.py``
+    at the serving bucket — a blind logreg champion (bias -4, raw
+    features), labels ``amount > p70`` fed after each one-batch chunk,
+    the streaming learner drained after every chunk, until one promotion
+    and one more chunk, which a fresh engine on the promoted artifact
+    serves too."""
+    from real_time_fraud_detection_system_tpu_torch.config import (
+        LearnConfig,
+        TrainConfig,
+    )
+    from real_time_fraud_detection_system_tpu_torch.io.artifacts import (
+        TrainedModel,
+    )
+    from real_time_fraud_detection_system_tpu_torch.io.registry import (
+        make_model_registry,
+    )
+    from real_time_fraud_detection_system_tpu_torch.models.logreg import (
+        LogRegParams,
+    )
+    from real_time_fraud_detection_system_tpu_torch.models.scaler import (
+        Scaler,
+    )
+    from real_time_fraud_detection_system_tpu_torch.runtime.engine import (
+        ScoringEngine,
+        copy_into,
+    )
+    from real_time_fraud_detection_system_tpu_torch.runtime.feedback import (
+        FEEDBACK_TOPIC,
+        FeatureCache,
+        FeedbackLoop,
+        encode_feedback_envelopes,
+    )
+    from real_time_fraud_detection_system_tpu_torch.runtime.learner import (
+        LearningLoop,
+        StreamingLearner,
+    )
+    from real_time_fraud_detection_system_tpu_torch.runtime.sources import (
+        InProcBroker,
+    )
+    from real_time_fraud_detection_system_tpu_torch.utils.metrics import (
+        get_registry,
+    )
+
+    # the champion stays blind (its feedback SGD takes steps of 0: a
+    # champion that learns online as fast as the candidate leaves no
+    # margin to promote on); the learner steps at LEARN_LR
+    lcfg = dataclasses.replace(
+        cfg, train=TrainConfig(online_learning_rate=0.0),
+        learn=LearnConfig(
+            publish_every_labels=128, promote_min_labels=96,
+            promote_margin=0.01, precision_tolerance=0.05,
+            rollback_min_labels=96, window_rows=4096, epochs=2,
+            learning_rate=LEARN_LR,
+            # the score cache must outlive the label lag: at the default
+            # 65,536 rows, one batch overwrites it before its labels come
+            shadow_cache_rows=LEARN_CACHE_ROWS))
+    blind = LogRegParams(torch.as_tensor(np.random.default_rng(0).normal(
+        0, 0.01, 15).astype(np.float32)), torch.tensor(-4.0))
+    scaler_cpu = Scaler(torch.zeros(15), torch.ones(15))
+    amounts = np.concatenate([b["tx_amount_cents"] for b in batches])
+    amt_thresh = float(np.percentile(amounts, 70))
+    reg = get_registry()
+
+    def metric(name, **labels):
+        m = reg.get(name, **labels)
+        return float(m.value) if m is not None else 0.0
+
+    with tempfile.TemporaryDirectory() as tmp:
+        registry = make_model_registry(f"{tmp}/registry")
+        learner = StreamingLearner("logreg", blind, scaler_cpu, lcfg,
+                                   registry, publish_every_labels=128,
+                                   window_rows=4096, epochs=2,
+                                   learning_rate=LEARN_LR, device=dev)
+        learning = LearningLoop(registry, lcfg, "logreg", model=TrainedModel(
+            "logreg", scaler_cpu, blind), learner=learner, device=dev)
+        eng = ScoringEngine(lcfg, "logreg", blind, scaler_cpu, device=dev,
+                            feature_cache=FeatureCache(LEARN_CACHE_ROWS))
+        broker = InProcBroker(4)
+        fb = FeedbackLoop(eng, broker)
+        shadow_ms = _timed(learning.shadow, "score_batch", [])
+        train_ms = _timed(learner, "_train", [])
+        base = {"promoted": metric("rtfds_model_promotions_total",
+                                   outcome="promoted"),
+                "shadow_rows": metric("rtfds_shadow_rows_total"),
+                "published": metric("rtfds_learner_published_total")}
+        t_learn, chunks, promoted_at, fresh_err = 0.0, 0, None, None
+        try:
+            for i, b in enumerate(batches):
+                fresh = None
+                if promoted_at is not None:
+                    # the promoted artifact in a fresh engine, on a copy
+                    # of the serving engine's feature state
+                    m = registry.get(learning.champion_version)
+                    fresh = ScoringEngine(lcfg, "logreg", m.params,
+                                          m.scaler, device=dev)
+                    check(copy_into(fresh.state.feature_state,
+                                    eng.state.feature_state),
+                          "learning (e): feature state copy")
+                    for x, y in zip(eng.state.params, m.params):
+                        check(torch.equal(x.cpu(), y),
+                              "learning (e): served params are not the "
+                              "promoted artifact's")
+                sink = _Results()
+                t0 = time.perf_counter()
+                _, launches = served(lambda: eng.run(
+                    _ListSource([{c: v for c, v in b.items()
+                                  if c != "label"}]), sink, feedback=fb,
+                    learning=learning), "(e)", {"fused_featurize_score": 1})
+                t_learn += time.perf_counter() - t0
+                chunks += 1
+                y = (b["tx_amount_cents"] > amt_thresh).astype(np.int32)
+                broker.produce_many(FEEDBACK_TOPIC, [b""] * len(y),
+                                    encode_feedback_envelopes(
+                                        b["tx_id"], y))
+                check(learner.drain(300.0), "learning (e): learner stuck")
+                if fresh is not None:
+                    fsink = _Results()
+                    served(lambda: fresh.run(_ListSource([{
+                        c: v for c, v in b.items() if c != "label"}]),
+                        fsink), "(e) fresh", {"fused_featurize_score": 1})
+                    got, want = sink.probs(), fsink.probs()
+                    check(np.array_equal(got, want),
+                          "learning (e): the promoted engine differs from "
+                          "a fresh engine on the promoted artifact")
+                    fresh_err = float(np.abs(got - want).max())
+                    break
+                if promoted_at is None and metric(
+                        "rtfds_model_promotions_total",
+                        outcome="promoted") > base["promoted"]:
+                    promoted_at = i + 1
+        finally:
+            learning.close()
+        promotions = metric("rtfds_model_promotions_total",
+                            outcome="promoted") - base["promoted"]
+        published = metric("rtfds_learner_published_total") \
+            - base["published"]
+        shadow_rows = metric("rtfds_shadow_rows_total") - base["shadow_rows"]
+        versions = registry.versions()
+    check(promotions == 1, f"learning (e): {promotions} promotions")
+    check(published >= 2 and len(versions) >= 3,
+          f"learning (e): {published} published, versions {versions}")
+    check(shadow_rows > 0, "learning (e): no shadow rows")
+    check(fresh_err == 0.0, "learning (e): no comparison after promotion")
+    # the control: the same chunks with feedback, without the loop
+    ctl = ScoringEngine(lcfg, "logreg", blind, scaler_cpu, device=dev,
+                        feature_cache=FeatureCache(LEARN_CACHE_ROWS))
+    cbroker = InProcBroker(4)
+    cfb = FeedbackLoop(ctl, cbroker)
+    t_ctl = 0.0
+    for b in batches[:chunks]:
+        t0 = time.perf_counter()
+        served(lambda: ctl.run(_ListSource([{
+            c: v for c, v in b.items() if c != "label"}]), _Results(),
+            feedback=cfb), "(e) control", {"fused_featurize_score": 1})
+        t_ctl += time.perf_counter() - t0
+        cbroker.produce_many(FEEDBACK_TOPIC, [b""] * len(b["tx_id"]),
+                             encode_feedback_envelopes(
+                                 b["tx_id"], (b["tx_amount_cents"]
+                                              > amt_thresh).astype(
+                                     np.int32)))
+    rows = chunks * BATCH_ROWS
+    emit({"phase": "learning", "part": "e_learning_loop",
+          "chunks": chunks, "promoted_after_chunk": promoted_at,
+          "promotions": promotions, "published": published,
+          "registry_versions": versions, "shadow_rows": shadow_rows,
+          "shadow_ms_p50": _median(shadow_ms),
+          "learner_ms_per_chunk_p50": _median(train_ms),
+          "rows_per_s": rows / t_learn,
+          "rows_per_s_without_the_loop": rows / t_ctl,
+          "fresh_engine_max_abs_err": fresh_err, **card})
+    del eng, ctl
+
+
+
+def phase_learning(dev, device_info, data: dict) -> dict:
+    """The learning loop on the card; see the module docstring, phase 10."""
+    from real_time_fraud_detection_system_tpu_torch.config import (
+        LearnConfig,
+    )
+    from real_time_fraud_detection_system_tpu_torch.data.generator import (
+        ZipfKeySampler,
+    )
+    from real_time_fraud_detection_system_tpu_torch.io.artifacts import (
+        TrainedModel,
+    )
+    from real_time_fraud_detection_system_tpu_torch.io.registry import (
+        make_model_registry,
+    )
+    from real_time_fraud_detection_system_tpu_torch.models.forest import (
+        synthetic_ensemble,
+        to_gemm,
+    )
+    from real_time_fraud_detection_system_tpu_torch.models.logreg import (
+        LogRegParams,
+    )
+    from real_time_fraud_detection_system_tpu_torch.runtime import engine \
+        as engine_mod
+    from real_time_fraud_detection_system_tpu_torch.runtime.engine import (
+        ScoringEngine,
+        copy_into,
+        device_params_for,
+    )
+    from real_time_fraud_detection_system_tpu_torch.runtime.feedback import (
+        FEEDBACK_TOPIC,
+        FeatureCache,
+        FeedbackLoop,
+        encode_feedback_envelopes,
+    )
+    from real_time_fraud_detection_system_tpu_torch.runtime.learner import (
+        LearningLoop,
+        StreamingLearner,
+    )
+    from real_time_fraud_detection_system_tpu_torch.runtime.sources import (
+        InProcBroker,
+    )
+    from real_time_fraud_detection_system_tpu_torch.utils.metrics import (
+        MetricsRegistry,
+        get_registry,
+    )
+
+    cfg = data["cfg"]
+    card = {"card": device_info["smi_name"],
+            "power_limit": device_info["power_limit"]}
+    totals = {name: 0 for name in KERNELS}
+    batches = _labeled_batches(data["txs_whole_dollars"])
+
+    def served(run, what: str, own: dict) -> tuple:
+        """``drive`` the run; each kernel launches ``own[name]`` times
+        (0 when absent)."""
+        stats, launches = drive(run)
+        for name, n in launches.items():
+            want = own.get(name, 0)
+            check(n == want, f"learning {what}: {n} launches of {name} "
+                             f"(want {want})")
+            totals[name] += n
+        return stats, launches
+
+    def line(stats) -> dict:
+        return {k: stats[k] for k in ("rows", "batches", "rows_per_s",
+                                      "latency_p50_ms", "stage_ms_p50")}
+
+    # (a) in-step SGD, logreg with in-band labels, depth 1 and 2
+    lmodel, lcpu, _ = data["models"]["logreg"]
+    runs = {}
+    for depth in (1, 2):
+        dcfg = dataclasses.replace(cfg, runtime=dataclasses.replace(
+            cfg.runtime, pipeline_depth=depth))
+        for lr in (LEARN_LR, 0.0):
+            eng = ScoringEngine(dcfg, "logreg", lmodel.params, lmodel.scaler,
+                                device=dev, online_lr=lr)
+            ptr = eng.state.params.w.data_ptr()
+            sink = _Results()
+            n = len(batches)
+            stats, launches = served(
+                lambda: eng.run(_ListSource(_copies(batches)), sink),
+                f"(a) depth {depth} lr {lr}", {"fused_featurize_score": n})
+            check(eng.state.params.w.data_ptr() == ptr,
+                  "learning (a): the SGD rebound w")
+            runs[(depth, lr)] = (eng, sink.probs(), stats, launches)
+    a1, a2 = runs[(1, LEARN_LR)], runs[(2, LEARN_LR)]
+    for x, y in zip(a1[0].state.params, a2[0].state.params):
+        check(torch.equal(x, y), "learning (a): params differ at depth 1/2")
+    check(np.array_equal(a1[1], a2[1]),
+          "learning (a): probabilities differ at depth 1 and 2")
+    check(not torch.equal(a2[0].state.params.w, lmodel.params.w),
+          "learning (a): the in-step SGD never moved w")
+    # parity: LEARN_PARITY_BATCHES batches against a CPU-device engine
+    par = {}
+    for d, m in ((dev, lmodel), ("cpu", lcpu)):
+        eng = ScoringEngine(cfg, "logreg", m.params, m.scaler, device=d,
+                            online_lr=LEARN_LR)
+        sink = _Results()
+        stats, _ = served(lambda: eng.run(
+            _ListSource(_copies(batches[:LEARN_PARITY_BATCHES])), sink),
+            "(a) parity", {"fused_featurize_score": LEARN_PARITY_BATCHES}
+            if d == dev else {})
+        par[str(d)] = (eng, sink.probs())
+    gpu, cpu = par[str(dev)], par["cpu"]
+    perr = max(float((x.cpu() - y).abs().max())
+               for x, y in zip(gpu[0].state.params, cpu[0].state.params))
+    check(perr <= ATOL_PARAMS, f"learning (a): params {perr} from the CPU")
+    np.testing.assert_allclose(gpu[1], cpu[1], rtol=0.0, atol=ATOL_SIGMOID)
+    emit({"phase": "learning", "part": "a_in_step_sgd", **line(a2[2]),
+          "online_lr": LEARN_LR,
+          "rows_per_s": {f"depth{d}": runs[(d, LEARN_LR)][2]["rows_per_s"]
+                         for d in (1, 2)},
+          "rows_per_s_online_lr_0": {f"depth{d}": runs[(d, 0.0)][2][
+              "rows_per_s"] for d in (1, 2)},
+          "dispatch_p50_ms": {f"depth{d}": runs[(d, LEARN_LR)][2][
+              "dispatch_p50_ms"] for d in (1, 2)},
+          "dispatch_p50_ms_online_lr_0": {f"depth{d}": runs[(d, 0.0)][2][
+              "dispatch_p50_ms"] for d in (1, 2)},
+          "kernel_launches": a2[3], "depth1_equals_depth2": True,
+          "max_abs_param_err_vs_cpu": perr,
+          "max_abs_prob_err_vs_cpu": float(np.abs(gpu[1] - cpu[1]).max()),
+          **card})
+    del runs, par
+
+    messages = {}
+
+    def feedback_run(kind, model, bcfg, blist, d, **eng_kw):
+        """One engine on ``d`` over ``blist`` with the delayed labels."""
+        eng = ScoringEngine(bcfg, kind, model.params, model.scaler,
+                            device=d, feature_cache=FeatureCache(
+                                LEARN_CACHE_ROWS), **eng_kw)
+        broker = InProcBroker(4)
+        loop = FeedbackLoop(eng, broker)
+        if id(blist) not in messages:
+            messages[id(blist)] = _label_messages(blist)
+        msgs = messages[id(blist)]
+        src = _DelayedLabels(_ListSource(_copies(blist)), broker, msgs)
+        sink = _Results()
+        return eng, loop, src, sink
+
+    # (b) delayed labels on the direct forest (fused forest kernel)
+    fmodel, _, _ = data["models"]["forest"]
+    n = len(batches)
+    eng, loop, src, sink = feedback_run("forest", fmodel, cfg, batches, dev)
+    sf_host = _timed(eng, "apply_state_feedback", [])
+    poll_ms = _timed(loop, "poll_and_apply", [])
+    stats, launches = served(lambda: eng.run(src, sink, feedback=loop),
+                             "(b)", {"fused_forest_leaf_sum": n})
+    ref, rloop, rsrc, rsink = feedback_run("logreg", lcpu, cfg, batches,
+                                           "cpu")
+    ref.run(rsrc, rsink, feedback=rloop)
+    check(loop.stats == rloop.stats,
+          f"learning (b): loop stats {loop.stats} != {rloop.stats}")
+    check(loop.stats["applied"] > 0, "learning (b): no label applied")
+    _same_windows(eng.state.feature_state, ref.state.feature_state, "(b)")
+    _same_features(sink, rsink, "(b)")
+    want = np.concatenate([_plain_probs(
+        "forest", eng.state.params, eng.state.scaler, r.features, dev,
+        eng.z_mode) for r in rsink.batches])
+    np.testing.assert_allclose(sink.probs(), want, rtol=0.0,
+                               atol=ATOL_LEAF / 100)
+    ctl = ScoringEngine(cfg, "forest", fmodel.params, fmodel.scaler,
+                        device=dev)
+    cstats, _ = served(lambda: ctl.run(_ListSource(_copies(batches)),
+                                       _Results()),
+                       "(b) control", {"fused_forest_leaf_sum": n})
+    emit({"phase": "learning", "part": "b_delayed_labels_direct_forest",
+          "lag_batches": LEARN_LAG, "feature_cache_rows": LEARN_CACHE_ROWS,
+          "feedback": loop.stats, "kernel_launches": launches,
+          "feedback_poll_ms_p50": _median(poll_ms),
+          "state_feedback_host_ms_p50": _median(sf_host),
+          "state_feedback_device_ms": _state_feedback_ms(eng, batches[0]),
+          "state_feedback_calls": len(sf_host),
+          "terminal_fraud_sum": float(
+              eng.state.feature_state.terminal.fraud.sum()),
+          "rows_per_s_without_feedback": cstats["rows_per_s"],
+          "max_abs_prob_err_vs_plain": float(np.abs(
+              sink.probs() - want).max()),
+          **line(stats), **card})
+    del eng, ref, ctl
+
+    # (c) the same traffic shape on the tiered store (1M keys, the JAX
+    # bench's state_scale deployment): hits to the dense rows, misses to
+    # the terminal sketch's fraud column
+    bcfg = _bench_cfg(cfg)
+    zb = _zipf_batches(ZipfKeySampler(1 << 20, ZIPF_SKEW), LEARN_BATCHES,
+                       day_every=EXACT_DAY_EVERY, seed=11, rows=BATCH_ROWS)
+    rng = np.random.default_rng(11)
+    for b in zb:
+        b["label"] = (rng.random(len(b["tx_id"])) < 0.05).astype(np.int32)
+    eng, loop, src, sink = feedback_run("forest", fmodel, bcfg, zb, dev,
+                                        metrics=MetricsRegistry())
+    sf_host = _timed(eng, "apply_state_feedback", [])
+    poll_ms = _timed(loop, "poll_and_apply", [])
+    stats, launches = served(lambda: eng.run(src, sink, feedback=loop),
+                             "(c)", {"leaf_sum": n})
+    ref, rloop, rsrc, rsink = feedback_run("logreg", lcpu, bcfg, zb, "cpu",
+                                           metrics=MetricsRegistry())
+    ref.run(rsrc, rsink, feedback=rloop)
+    check(loop.stats == rloop.stats,
+          f"learning (c): loop stats {loop.stats} != {rloop.stats}")
+    fs, rfs = eng.state.feature_state, ref.state.feature_state
+    for k, v in _dir_leaves(rfs).items():
+        check(torch.equal(_dir_leaves(fs)[k], v),
+              f"learning (c): directory leaf {k} differs from the CPU")
+    check(torch.equal(fs.terminal.fraud.cpu(), rfs.terminal.fraud),
+          "learning (c): the dense terminal fraud sums differ")
+    check(torch.equal(fs.terminal_cms.fraud.cpu(), rfs.terminal_cms.fraud),
+          "learning (c): the sketch's fraud column differs")
+    dense_fraud = float(fs.terminal.fraud.sum())
+    sketch_fraud = float(fs.terminal_cms.fraud.sum())
+    # the stream carries no in-band label: every fraud unit is feedback
+    check(dense_fraud > 0 and sketch_fraud > 0,
+          f"learning (c): dense {dense_fraud}, sketch {sketch_fraud}")
+    _same_features(sink, rsink, "(c)")
+    emit({"phase": "learning", "part": "c_delayed_labels_exact_forest",
+          "n_keys": 1 << 20, "feedback": loop.stats,
+          "kernel_launches": launches,
+          "dense_fraud_sum": dense_fraud, "sketch_fraud_sum": sketch_fraud,
+          "feedback_poll_ms_p50": _median(poll_ms),
+          "state_feedback_host_ms_p50": _median(sf_host),
+          "state_feedback_device_ms": _state_feedback_ms(eng, zb[0]),
+          **line(stats), **card})
+    del eng, ref
+
+    # (d) feedback SGD on logreg (no in-step SGD: cfg.train's step size)
+    tries = []
+    step = engine_mod.feedback_step
+
+    def counted(*a, **k):
+        out = step(*a, **k)
+        tries.append(out)
+        return out
+
+    engine_mod.feedback_step = counted
+    try:
+        eng, loop, src, sink = feedback_run("logreg", lmodel, cfg, batches,
+                                            dev)
+        fb_ms = _timed(eng, "apply_feedback", [])
+        stats, launches = served(lambda: eng.run(src, sink, feedback=loop),
+                                 "(d)", {"fused_featurize_score": n})
+        card_tries = len(tries)
+        accepted = sum(bool(t[2] <= t[1]) for t in tries)
+        ref, rloop, rsrc, rsink = feedback_run("logreg", lcpu, cfg, batches,
+                                               "cpu")
+        ref.run(rsrc, rsink, feedback=rloop)
+    finally:
+        engine_mod.feedback_step = step
+    check(loop.stats == rloop.stats, "learning (d): loop stats differ")
+    perr = max(float((x.cpu() - y).abs().max())
+               for x, y in zip(eng.state.params, ref.state.params))
+    check(perr <= ATOL_PARAMS, f"learning (d): params {perr} from the CPU")
+    check(not torch.equal(eng.state.params.w, lmodel.params.w),
+          "learning (d): the feedback SGD never moved w")
+    emit({"phase": "learning", "part": "d_feedback_sgd",
+          "feedback": loop.stats, "kernel_launches": launches,
+          "apply_feedback_ms_p50": _median(fb_ms),
+          "apply_feedback_calls": len(fb_ms),
+          "sgd_tries": card_tries, "sgd_steps_accepted": accepted,
+          "halvings": card_tries - accepted,
+          "max_abs_param_err_vs_cpu": perr, **line(stats), **card})
+    del eng, ref
+
+    # (e) the learning loop
+    _learning_loop(dev, card, cfg, batches, served)
+
+    # (f) hot reload of a second forest mid-stream, and an externally
+    # published forest candidate shadow-scored through the leaf sum
+    f2 = synthetic_ensemble(100, 8, 15, seed=1, device="cpu")
+    f3 = synthetic_ensemble(100, 8, 15, seed=2, device="cpu")
+    reload_at = LEARN_BATCHES // 2
+    fsc = data["models"]["forest"][1].scaler
+    fcfg = dataclasses.replace(cfg, learn=LearnConfig(
+        external_poll_batches=1, promote_min_labels=10 ** 9))
+    with tempfile.TemporaryDirectory() as tmp:
+        registry = make_model_registry(f"{tmp}/registry")
+        f1 = synthetic_ensemble(100, 8, 15, seed=0, device="cpu")
+        learning = LearningLoop(registry, fcfg, "forest", model=TrainedModel(
+            "forest", fsc, f1), device=dev)
+        registry.publish(TrainedModel("forest", fsc, f3), parent=1,
+                         source="cli")
+        eng = ScoringEngine(fcfg, "forest", fmodel.params, fmodel.scaler,
+                            device=dev)
+        epoch0 = eng.state.params_epoch
+        seen = {}
+        orig_step = eng._step
+
+        def step(packed):
+            out = orig_step(packed)
+            seen.setdefault(eng.state.params_epoch, eng.tables)
+            return out
+
+        eng._step = step
+        last = {}
+        score = learning.shadow.score_batch
+
+        def keep_last(tx, feats, champ):
+            score(tx, feats, champ)
+            last["feats"] = np.array(feats)
+            last["cand"] = learning.shadow._cand_p[
+                np.asarray(tx) % learning.shadow.capacity].copy()
+
+        learning.shadow.score_batch = keep_last
+
+        def reload():
+            if eng.state.batches_done == reload_at:
+                return f2, None
+            return None
+
+        sink = _Results()
+        try:
+            stats, launches = served(lambda: eng.run(
+                _ListSource(_copies(batches)), sink, model_reload=reload,
+                learning=learning), "(f)",
+                {"fused_forest_leaf_sum": n, "leaf_sum": n - 1})
+        finally:
+            learning.close()
+    check(eng.state.params_epoch == epoch0 + 1,
+          f"learning (f): params_epoch {eng.state.params_epoch}")
+    check(len(seen) == 2 and seen[epoch0] is not seen[epoch0 + 1],
+          "learning (f): the kernel tables were not re-derived")
+    check(learning.shadow.candidate_version == 2,
+          "learning (f): the external candidate was not installed")
+    cand = to_gemm(f3, 15).to(dev)
+    want = _plain_probs("forest", cand, eng.state.scaler, last["feats"],
+                        dev, eng.z_mode)
+    check(np.array_equal(last["cand"], want.astype(np.float32)),
+          "learning (f): the shadow's leaf sum differs from the plain "
+          "predict")
+    ref = ScoringEngine(cfg, "logreg", lcpu.params, lcpu.scaler,
+                        device="cpu")
+    rsink = _Results()
+    ref.run(_ListSource(_copies(batches)), rsink)
+    _same_features(sink, rsink, "(f)")
+    ferr = 0.0
+    old, new = (device_params_for("forest", p.to(dev))
+                for p in (fmodel.params, f2))
+    # at depth 2 the batch after the reload was already launched on the
+    # old tables (eventual swap, as in the JAX engine)
+    for i, (res, ref_res) in enumerate(zip(sink.batches, rsink.batches)):
+        want = _plain_probs("forest", new if i > reload_at else old,
+                            eng.state.scaler, ref_res.features, dev,
+                            eng.z_mode)
+        np.testing.assert_allclose(res.probs, want, rtol=0.0,
+                                   atol=ATOL_LEAF / 100)
+        ferr = max(ferr, float(np.abs(res.probs - want).max()))
+    emit({"phase": "learning", "part": "f_reload_and_tree_candidate",
+          "reload_after_batch": reload_at,
+          "params_epoch": eng.state.params_epoch,
+          "kernel_launches": launches,
+          "shadow_candidate_version": 2,
+          "max_abs_prob_err_vs_plain": ferr, **line(stats), **card})
     return totals
 
 
@@ -1823,6 +2557,7 @@ def main() -> int:
     add(phase_cli(dev, info, data))
     add(phase_recovery(dev, info, data))
     add(phase_exact_path(dev, info, data))
+    add(phase_learning(dev, info, data))
     for kind in PATHS:
         phase_profile(dev, data, kind)
     phase_profile(dev, data, "forest", dataclasses.replace(

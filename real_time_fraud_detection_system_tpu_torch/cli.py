@@ -16,9 +16,14 @@ checkpoints are the JAX package's format: either package resumes the
 other's. ``--key-mode exact`` serves the tiered feature store, with
 ``--state-compact-every``, ``--state-hbm-budget-mb`` and the host cold
 tier (``--cold-store``, ``--cold-promote-queue``, ``--cold-segment-mb``).
+The learning loop: ``--online-lr`` (in-step SGD), ``--feedback-bootstrap``
+and ``--feedback-topic`` (delayed labels from Kafka), ``--reload-model-every``
+(hot reload of ``--model-file``, gated on its mtime), and ``--learn-registry``
+with its promotion flags (the versioned registry, the streaming learner,
+shadow scoring, promotion and rollback).
 Not ported yet: the Kafka and raw-table sources and object-store output
 (ROADMAP A2, A9), ``--resume-merge`` and ``--resume-merge-cold`` (A7), the
-CPU oracle and the serving extras (A4, A6).
+CPU oracle and the serving extras (A4), the ``registry`` subcommand (A9).
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import dataclasses
 import json
 import logging
 import math
+import os
 import sys
 from typing import List, Optional
 
@@ -47,6 +53,66 @@ def _json_line(obj) -> str:
         return v
 
     return json.dumps(clean(obj))
+
+
+def _make_model_reloader(path: str, kind: str, every_batches: int, log,
+                         seed_initial: bool = False, sig_state=None,
+                         device=None):
+    """Hot model reload: every ``every_batches`` batches re-read the
+    artifact at ``path`` and return ``(params, scaler)`` for the engine to
+    swap in between steps, or None. The file's mtime gates the read, so an
+    unchanged artifact costs one stat per interval (the JAX reloader's
+    ETag and digest gates are for object-store artifacts, ROADMAP A9).
+
+    ``seed_initial=False``: the first due interval always reloads (a
+    supervisor's fresh reloader must re-apply the newest artifact over a
+    restored checkpoint). ``seed_initial=True`` (``--learn-registry``):
+    the mtime at startup is the baseline and only a change reloads (the
+    registry's champion, not the bootstrap file, is what serves);
+    ``sig_state``, one dict shared across incarnations and seeded once,
+    keeps that baseline. An artifact of another kind is refused."""
+    from real_time_fraud_detection_system_tpu_torch.io.artifacts import (
+        load_model,
+    )
+    from real_time_fraud_detection_system_tpu_torch.runtime.engine import (
+        device_params_for,
+    )
+
+    # "n" (the cadence) is per incarnation; "sig" lives in sig_state
+    state = sig_state if sig_state is not None else {}
+    state.setdefault("sig", None)
+    state["n"] = 0
+    if seed_initial and state["sig"] is None:
+        try:
+            state["sig"] = os.stat(path).st_mtime_ns
+        except OSError as e:
+            log.warning("could not baseline %s for change-gated reload "
+                        "(%s); the first interval will reload it", path, e)
+
+    def poll():
+        state["n"] += 1
+        if state["n"] % every_batches:
+            return None
+        try:
+            sig = os.stat(path).st_mtime_ns
+            if state["sig"] is not None and sig == state["sig"]:
+                return None
+            m = load_model(path, device=device)
+        # a failed poll keeps serving on the current weights
+        except Exception as e:  # noqa: BLE001
+            log.warning("model reload from %s failed (%s); serving "
+                        "continues on the current weights", path, e)
+            return None
+        if m.kind != kind:
+            log.warning("model reload skipped: artifact kind %r != "
+                        "serving kind %r", m.kind, kind)
+            return None
+        state["sig"] = sig
+        log.info("hot-swapped model weights from %s", path)
+        return device_params_for(kind, m.params), m.scaler
+
+    poll.sig_state = state
+    return poll
 
 
 def cmd_score(args) -> int:
@@ -176,19 +242,80 @@ def cmd_score(args) -> int:
                 args.state_compact_every or "off", sb["total"] / 2 ** 20,
                 sb["dense"] / 2 ** 20, sb["directory"] / 2 ** 20,
                 sb["cms"] / 2 ** 20)
+    if args.alerts_only and args.feedback_bootstrap:
+        log.error("--alerts-only keeps features on the device; it does not "
+                  "compose with the feedback loop (it consumes host-side "
+                  "feature rows)")
+        return 2
     if args.alerts_only and args.out:
         log.warning("--alerts-only: the analyzed output at %s will carry "
                     "zero feature columns (predictions only)", args.out)
+    cfg = dataclasses.replace(cfg, learn=dataclasses.replace(
+        cfg.learn,
+        registry_path=args.learn_registry,
+        publish_every_labels=args.publish_every_labels,
+        promote_min_labels=args.promote_min_labels,
+        promote_margin=args.promote_margin,
+        rollback_min_labels=args.rollback_min_labels,
+        rollback_margin=args.rollback_margin,
+    ))
+    if args.learn_registry:
+        if args.alerts_only:
+            log.error("shadow scoring re-consumes every row's features "
+                      "host-side; it does not compose with --alerts-only")
+            return 2
+        if not args.feedback_bootstrap:
+            log.warning(
+                "continuous learning without --feedback-bootstrap: no "
+                "live labels arrive, so the shadow's live precision/"
+                "recall windows stay empty and promotion never fires "
+                "(the registry lineage still records reloads)")
     txs = load_transactions(args.data)
     model = load_model(args.model_file, device=args.device)
+    # with --learn-registry the registry's champion, not the bootstrap
+    # file, is what serves: the reloader swaps only on a CHANGE after
+    # startup, against one baseline shared across incarnations
+    reload_sig: dict = {}
+    make_reloader = (
+        (lambda: _make_model_reloader(
+            args.model_file, model.kind, args.reload_model_every, log,
+            seed_initial=bool(args.learn_registry),
+            sig_state=reload_sig if args.learn_registry else None,
+            device=args.device))
+        if args.reload_model_every > 0 else None)
+    feature_cache = None
+    make_feedback = None
+    if args.feedback_bootstrap:
+        from real_time_fraud_detection_system_tpu_torch.runtime.feedback \
+            import FeatureCache, FeedbackLoop, KafkaFeedbackSource
+
+        feature_cache = FeatureCache()
+
+        def make_feedback(engine):
+            # a fresh consumer session per incarnation; non-blocking polls
+            # (the loop polls between batches, the topic is usually quiet)
+            return FeedbackLoop(
+                engine,
+                KafkaFeedbackSource(args.feedback_bootstrap,
+                                    topic=args.feedback_topic,
+                                    poll_timeout_s=0.0))
+
+    learning = None
+    if args.learn_registry:
+        learning, model = _make_learning(args, cfg, model)
+        if learning is None:
+            return 2
 
     def make_engine():
         return ScoringEngine(cfg, model.kind, model.params, model.scaler,
-                             device=args.device)
+                             device=args.device, online_lr=args.online_lr,
+                             feature_cache=feature_cache)
 
+    # the in-step SGD learns from the table's labels, in band
     source = ReplaySource(txs, date_to_epoch_s(args.start_date),
                           batch_rows=args.batch_rows, mode=args.mode,
-                          decode_workers=cfg.runtime.decode_workers)
+                          decode_workers=cfg.runtime.decode_workers,
+                          with_labels=args.online_lr > 0)
     sink = make_parquet_sink(args.out) if args.out else None
     if cfg.runtime.async_sink and sink is not None:
         sink = AsyncSink(sink, max_queue=cfg.runtime.sink_queue_batches)
@@ -204,6 +331,7 @@ def cmd_score(args) -> int:
         dead_letter = make_dead_letter_sink(args.dead_letter)
         log.info("dead-letter queue: %s (%d row(s) already quarantined)",
                  args.dead_letter, len(dead_letter))
+    fb = None
     try:
         if ckpt is not None and args.max_restarts > 0:
             from real_time_fraud_detection_system_tpu_torch.runtime.faults \
@@ -221,7 +349,8 @@ def cmd_score(args) -> int:
                 max_batches=args.max_batches, resume=args.resume,
                 stall_timeout_s=args.stall_timeout,
                 crash_loop_k=args.crash_loop_k, dead_letter=dead_letter,
-                restart_backoff=backoff)
+                restart_backoff=backoff, make_feedback=make_feedback,
+                make_model_reload=make_reloader, learning=learning)
         else:
             engine = make_engine()
             if ckpt is not None and args.resume:
@@ -232,20 +361,95 @@ def cmd_score(args) -> int:
                 truncate = getattr(sink, "truncate_after", None)
                 if truncate is not None:
                     truncate(engine.state.batches_done)
+            fb = make_feedback(engine) if make_feedback else None
             # --max-batches counts the engine's lifetime batches, restored
             # ones included, as the JAX score does
             stats = engine.run(
                 source, sink=sink, checkpointer=ckpt,
-                max_batches=batches_left(engine.state, args.max_batches))
+                max_batches=batches_left(engine.state, args.max_batches),
+                feedback=fb,
+                model_reload=make_reloader() if make_reloader else None,
+                learning=learning)
     finally:
         if isinstance(sink, AsyncSink):
             sink.close()
+        if fb is not None:
+            fb.close()
+        if learning is not None:
+            learning.close()
     if dead_letter is not None:
         stats["dead_letter_rows"] = len(dead_letter)
         dead_letter.close()
     print(_json_line({"device": str(resolve_device(args.device)),
                       "kind": model.kind, **stats}))
     return 0
+
+
+def _make_learning(args, cfg, model):
+    """``--learn-registry``: the registry (a champion there supersedes
+    ``--model-file``), the streaming learner for kinds with a gradient
+    path, and the learning loop. Returns ``(loop, serving model)``, or
+    ``(None, model)`` when the champion is of another kind (exit 2)."""
+    from real_time_fraud_detection_system_tpu_torch.io.registry import (
+        make_model_registry,
+    )
+    from real_time_fraud_detection_system_tpu_torch.runtime.engine import (
+        loss_fn_for,
+    )
+    from real_time_fraud_detection_system_tpu_torch.runtime.learner import (
+        LearningLoop,
+        StreamingLearner,
+    )
+
+    registry = make_model_registry(
+        args.learn_registry,
+        op_timeout_s=cfg.runtime.checkpoint_op_timeout_s,
+        op_attempts=cfg.runtime.checkpoint_op_attempts)
+    champ_v = registry.champion_version()
+    # False when a champion exists but could not be adopted: the engines
+    # then serve --model-file params and the stamp must not claim otherwise
+    model_is_champion = True
+    if champ_v is not None:
+        model_is_champion = False
+        try:
+            champ = registry.champion()
+        # a corrupt or missing champion falls back to --model-file
+        except Exception as e:  # noqa: BLE001
+            log.warning(
+                "registry champion v%s failed verification (%s: %s); "
+                "serving the --model-file params instead",
+                champ_v, type(e).__name__, e)
+        else:
+            if champ.kind != model.kind:
+                log.error(
+                    "registry champion v%s is kind=%r but --model-file is "
+                    "kind=%r; point --learn-registry at this model's "
+                    "registry or retrain", champ_v, champ.kind, model.kind)
+                return None, model
+            log.info("serving registry champion v%s (supersedes "
+                     "--model-file)", champ_v)
+            model = champ
+            model_is_champion = True
+    learner = None
+    if loss_fn_for(model.kind) is not None:
+        learner = StreamingLearner(
+            model.kind, model.params, model.scaler, cfg, registry,
+            publish_every_labels=cfg.learn.publish_every_labels,
+            window_rows=cfg.learn.window_rows, epochs=cfg.learn.epochs,
+            max_queue=cfg.learn.queue_chunks,
+            learning_rate=cfg.learn.learning_rate or None,
+            device=args.device)
+    else:
+        log.info("model kind %r has no gradient path: the registry records "
+                 "lineage and shadow-scores externally published "
+                 "candidates, but no streaming learner runs", model.kind)
+    learning = LearningLoop(registry, cfg, model.kind, model=model,
+                            learner=learner,
+                            model_is_champion=model_is_champion,
+                            device=args.device)
+    log.info("continuous learning on: registry %s (champion v%s)",
+             args.learn_registry, learning.champion_version)
+    return learning, model
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -364,6 +568,39 @@ def build_parser() -> argparse.ArgumentParser:
                    help="base backoff between crash restarts (doubles per "
                         "restart, full jitter, 30 s cap; 0 = restart at "
                         "once)")
+    p.add_argument("--online-lr", type=float, default=0.0,
+                   help="in-step online SGD from in-band labels at this "
+                        "step size (kinds with a gradient path; 0 = off)")
+    p.add_argument("--feedback-bootstrap", default="",
+                   help="consume delayed fraud labels from this Kafka "
+                        "cluster's feedback topic between micro-batches")
+    p.add_argument("--feedback-topic", default="payment.feedback")
+    p.add_argument("--reload-model-every", type=int, default=0,
+                   help="hot model reload: every N batches re-read "
+                        "--model-file (mtime-gated) and swap the weights "
+                        "into the live loop (0 = off)")
+    p.add_argument("--learn-registry", default="",
+                   help="continuous learning: versioned model registry at "
+                        "this directory. The serving model bootstraps as "
+                        "v1; a streaming learner trains a candidate on "
+                        "labeled feedback, shadow-scores it beside the "
+                        "champion, and promotes or rolls back on live "
+                        "precision-recall")
+    p.add_argument("--publish-every-labels", type=int, default=512,
+                   help="publish a candidate version after this many new "
+                        "labeled rows trained since the last publish")
+    p.add_argument("--promote-min-labels", type=int, default=256,
+                   help="labeled rows BOTH models need in the live "
+                        "comparison window before promotion can fire")
+    p.add_argument("--promote-margin", type=float, default=0.01,
+                   help="live recall improvement the candidate must show "
+                        "over the champion to be promoted")
+    p.add_argument("--rollback-min-labels", type=int, default=256,
+                   help="labeled rows after a promotion before the canary "
+                        "verdict (hold baseline or roll back)")
+    p.add_argument("--rollback-margin", type=float, default=0.05,
+                   help="live recall drop below the promotion baseline "
+                        "that triggers automatic rollback")
     p.set_defaults(fn=cmd_score)
     return ap
 

@@ -1,9 +1,8 @@
 """Typed configuration for the PyTorch/CUDA serving path.
 
 A copy of the parts of ``real_time_fraud_detection_system_tpu/config.py``
-that the forest serving path reads: a subset of its fields, with the same
-names, defaults and validation, so one set of values configures both
-packages. Canonical
+that the port reads: a subset of its fields, with the same names, defaults
+and validation, so one set of values configures both packages. Canonical
 feature definitions (night = ``hour <= 6``, weekend = ``weekday >= 5``
 with Monday == 0) are the JAX package's; see its module docstring.
 """
@@ -153,6 +152,16 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
+class TrainConfig:
+    """The training knob the serving path reads: the step size of the
+    feedback SGD when the engine has no ``online_lr`` (the offline
+    protocol's fields come with the offline side, ROADMAP A8)."""
+
+    # Online SGD (BASELINE.json config 4).
+    online_learning_rate: float = 1e-3
+
+
+@dataclass(frozen=True)
 class RuntimeConfig:
     """Micro-batch engine knobs that the port reads.
 
@@ -216,8 +225,62 @@ class RuntimeConfig:
 
 
 @dataclass(frozen=True)
+class LearnConfig:
+    """Continuous learning: streaming retrain → versioned registry →
+    shadow scoring → gated canary promotion (``runtime/learner.py``,
+    ``io/registry.py``). A candidate warm-starts from the champion, fits
+    the labeled-feedback window off the loop thread, shadow-scores the
+    same live batches, and is promoted (and rolled back) from live
+    precision/recall."""
+
+    # Registry location: a local directory ("" = no registry; s3://
+    # waits for ROADMAP A9).
+    registry_path: str = ""
+    # Publish a candidate version after this many NEW labeled rows have
+    # been trained since the last publish.
+    publish_every_labels: int = 512
+    # Bounded replay window of recent labeled rows the learner re-fits
+    # per submission (host memory ≈ window_rows × 15 × 4 bytes).
+    window_rows: int = 4096
+    # Fit passes over the replay window per submitted label chunk.
+    epochs: int = 2
+    # Bounded learner queue (label chunks); a full queue DROPS (counted
+    # in rtfds_learner_dropped_labels_total) — serving never waits.
+    queue_chunks: int = 8
+    # Learner SGD step size (0 = inherit train.online_learning_rate).
+    learning_rate: float = 0.0
+    # Shadow score cache rows (tx_id → champion/candidate probs kept
+    # until the label arrives; direct-mapped like the FeatureCache).
+    shadow_cache_rows: int = 1 << 16
+    # Fraud decision threshold used for live precision/recall and for
+    # divergence (decision-flip) counting.
+    decision_threshold: float = 0.5
+    # |p_candidate − p_champion| above this counts as divergence even
+    # without a decision flip.
+    divergence_threshold: float = 0.25
+    # Promotion gate: BOTH models must have this many labeled rows in
+    # the current comparison window, AND the candidate's live recall
+    # must beat the champion's by promote_margin without giving up more
+    # than precision_tolerance of live precision.
+    promote_min_labels: int = 256
+    promote_margin: float = 0.01
+    precision_tolerance: float = 0.02
+    # Post-promotion canary watch: after rollback_min_labels labeled
+    # rows, the new champion must hold its pre-promotion recall baseline
+    # within rollback_margin or the promotion is rolled back.
+    rollback_min_labels: int = 256
+    rollback_margin: float = 0.05
+    # Without an in-stream learner (tree kinds), the loop polls the
+    # registry for externally published candidates every this many
+    # batches (one backend listing per poll). 0 disables.
+    external_poll_batches: int = 64
+
+
+@dataclass(frozen=True)
 class Config:
     data: DataConfig = field(default_factory=DataConfig)
     features: FeatureConfig = field(default_factory=FeatureConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
     runtime: RuntimeConfig = field(default_factory=RuntimeConfig)
+    learn: LearnConfig = field(default_factory=LearnConfig)

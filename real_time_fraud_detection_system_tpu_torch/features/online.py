@@ -8,7 +8,9 @@ tiered store (:func:`update_and_featurize_exact`): slots come from the key
 directories of ``ops/keydir.py``, rows that miss admission read the sketch
 tier, :func:`compact_feature_state` reclaims dead history on a cadence
 (and demotes the oldest keys to the host cold tier under pressure), and
-:func:`promote_rows` merges cold rows back.
+:func:`promote_rows` merges cold rows back. :func:`apply_feedback` lands
+delayed fraud labels in the terminal risk windows (in exact mode by a
+directory lookup, the misses in the terminal sketch's fraud column).
 One call per micro-batch scatters the batch into the rolling-window state,
 then reads the feature vector of every row from it (update-then-query: a
 row's windows include itself and its batch-mates of the same key and day).
@@ -34,6 +36,7 @@ from real_time_fraud_detection_system_tpu_torch.config import FeatureConfig
 from real_time_fraud_detection_system_tpu_torch.core.batch import TxBatch
 from real_time_fraud_detection_system_tpu_torch.ops.cms import (
     CountMinSketch,
+    cms_add_fraud,
     cms_init,
     cms_query,
     cms_query_fraud,
@@ -54,6 +57,7 @@ from real_time_fraud_detection_system_tpu_torch.ops.keydir import (
     KeyDirectory,
     admit_slots,
     init_keydir,
+    lookup_slots,
     put_kept_,
     reclaim_entries,
 )
@@ -572,3 +576,53 @@ def promote_rows(
         stats.append(torch.stack([adm.sum().to(torch.int32),
                                   (valid & ~adm).sum().to(torch.int32)]))
     return state, torch.stack(stats)
+
+
+def apply_feedback(
+    state: FeatureState,
+    terminal_key: torch.Tensor,  # uint32 [B]
+    day: torch.Tensor,  # int32 [B] — the day of the original transaction
+    label: torch.Tensor,  # int32 [B] 0/1
+    valid: torch.Tensor,  # bool [B]
+    cfg: FeatureConfig,
+) -> FeatureState:
+    """Late fraud-label feedback, in place: add the labels to the fraud
+    sums of past day buckets (counts unchanged: the transaction was
+    counted when it streamed through); the delay-shifted risk windows
+    pick them up.
+
+    ``key_mode="exact"``: labels route by a directory LOOKUP, never an
+    insert (feedback must not take a slot from live traffic). Hits land
+    in the dense terminal rows; misses (never admitted, or compacted
+    away) land in the terminal sketch's fraud column."""
+    if cfg.key_mode == "exact":
+        term_slot, hit = lookup_slots(
+            state.terminal_dir, terminal_key, valid, cfg.keydir_probes)
+        state = apply_feedback_at_slot(state, term_slot, day, label,
+                                       valid & hit)
+        cms_add_fraud(state.terminal_cms, terminal_key, day, label,
+                      valid & ~hit)
+        return state
+    term_slot = _slot(terminal_key, cfg.terminal_capacity, cfg.key_mode)
+    return apply_feedback_at_slot(state, term_slot, day, label, valid)
+
+
+def apply_feedback_at_slot(
+    state: FeatureState,
+    term_slot: torch.Tensor,  # int64 [B] — row into the terminal table
+    day: torch.Tensor,
+    label: torch.Tensor,
+    valid: torch.Tensor,
+) -> FeatureState:
+    """Slot-addressed core of :func:`apply_feedback`, in place: a label
+    lands only where the bucket still holds its day (the ring has not
+    wrapped past it). 0/1 adds are exact in any order."""
+    t = state.terminal
+    nb = t.n_buckets
+    bucket = torch.remainder(day, nb).long()
+    flat = term_slot.long() * nb + bucket
+    live = valid & (t.bucket_day.view(-1)[flat] == day)
+    t.fraud.view(-1).index_put_(
+        (flat,), label.to(torch.float32) * live.to(torch.float32),
+        accumulate=True)
+    return state

@@ -14,7 +14,8 @@ checkpoint moves between the two packages in both directions:
   order — NamedTuple fields in order, ``None`` fields dropped, a Python
   ``int`` field (``TreeEnsemble.max_depth`` of the descent form) a 0-d
   leaf — and ``__meta__`` carries the JAX keys (``layout_devices`` 1,
-  ``process_count`` 1, ``process_id`` 0, ``model_version`` None here);
+  ``process_count`` 1, ``process_id`` 0, and the state's registry
+  ``model_version``, which a restore hands back);
 - ``__manifest__`` carries a CRC32 per leaf, the structural fingerprint
   (sha256 over every leaf's key, shape and dtype), the writer's
   incarnation token and, for a delta, its base and the CRC32 of the base's
@@ -201,7 +202,9 @@ def _state_arrays(engine_state) -> Tuple[dict, dict]:
         "layout_devices": 1,
         "process_count": 1,
         "process_id": 0,
-        "model_version": None,
+        # the registry version the params descend from (the learning
+        # loop's resync stamp)
+        "model_version": getattr(engine_state, "model_version", None),
     }
     occ = _directory_occupancy(engine_state.feature_state)
     if occ:
@@ -281,6 +284,8 @@ def _apply_arrays(engine_state, meta: dict, arrays: dict,
     engine_state.rows_done = int(meta["rows_done"])
     if meta.get("cold_lineage") is not None:
         engine_state.cold_lineage = meta["cold_lineage"]
+    if meta.get("model_version") is not None:
+        engine_state.model_version = int(meta["model_version"])
     return engine_state
 
 

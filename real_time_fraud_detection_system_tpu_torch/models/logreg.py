@@ -1,18 +1,21 @@
 """Logistic-regression scorer — port of the JAX package's
-``models/logreg.py`` (inference only).
+``models/logreg.py``: the predict, the loss and the online SGD step.
 
 The logit adds the 15 products in feature order, one after another: the
 order the fused logreg kernel (``csrc/fused_score.cu``) uses, so the plain
-path and the kernel agree bit for bit before the sigmoid. Training, the
-loss and the online SGD step come with the learning loop (ROADMAP A6,
-A8).
+path and the kernel agree bit for bit before the sigmoid. The loss is the
+JAX package's weighted BCE-with-logits in optax's form
+(``-y·log σ(z) − (1−y)·log σ(−z)``) over the same in-order logit, and its
+gradient comes from ``torch.autograd`` on the plain loss: no kernel has a
+backward. Offline training waits for ROADMAP A8.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 
 
 class LogRegParams(NamedTuple):
@@ -34,3 +37,37 @@ def logreg_logits(params: LogRegParams, x: torch.Tensor) -> torch.Tensor:
 def logreg_predict_proba(params: LogRegParams,
                          x: torch.Tensor) -> torch.Tensor:
     return torch.sigmoid(logreg_logits(params, x))
+
+
+def logreg_loss(params: LogRegParams, x: torch.Tensor, y: torch.Tensor,
+                valid: Optional[torch.Tensor] = None,
+                pos_weight: float = 1.0) -> torch.Tensor:
+    """Weighted BCE-with-logits; padded rows (``valid`` False) masked out."""
+    z = logreg_logits(params, x)
+    yf = y.to(torch.float32)
+    per = -yf * F.logsigmoid(z) - (1.0 - yf) * F.logsigmoid(-z)
+    w = torch.where(y > 0, torch.full_like(yf, pos_weight),
+                    torch.ones_like(yf))
+    if valid is not None:
+        w = w * valid.to(torch.float32)
+    return torch.sum(per * w) / torch.clamp(torch.sum(w), min=1.0)
+
+
+def loss_grad(loss_fn, params: LogRegParams, *args):
+    """(loss, gradient) of ``loss_fn(params, *args)`` with respect to
+    every params leaf, through ``torch.autograd`` on detached leaves
+    (the caller's tensors are never marked as requiring grad)."""
+    leaves = [t.detach().requires_grad_(True) for t in params]
+    with torch.enable_grad():
+        loss = loss_fn(type(params)(*leaves), *args)
+        grads = torch.autograd.grad(loss, leaves)
+    return loss.detach(), type(params)(*grads)
+
+
+def sgd_update(params: LogRegParams, x: torch.Tensor, y: torch.Tensor,
+               valid: torch.Tensor, lr: float,
+               pos_weight: float = 1.0) -> LogRegParams:
+    """One plain-SGD step (out of place): ``p − lr·∇loss``."""
+    _, g = loss_grad(lambda p, *a: logreg_loss(p, *a, pos_weight=pos_weight),
+                     params, x, y, valid)
+    return LogRegParams(*(p - lr * gi for p, gi in zip(params, g)))

@@ -62,11 +62,32 @@ place; when it brings other params than the live ones it advances
 ``state.params_epoch``, and the next step re-derives the kernel tables
 from them.
 
+The learning hooks (``runtime/feedback.py``, ``runtime/learner.py``):
+
+- ``online_lr > 0`` (logreg): after every branch the step takes one SGD
+  step on the batch's in-band labels, ``p -= lr·has·∇loss`` in place on
+  the step's stream, with ``has = any(labeled)`` kept on the device (no
+  host sync); the gradient is ``torch.autograd`` on the plain loss over
+  the step's features, as the JAX step takes ``jax.grad`` outside its
+  kernels;
+- a ``feature_cache`` keeps every emitted row for the feedback join;
+  :meth:`ScoringEngine.apply_state_feedback` lands delayed labels in the
+  terminal risk windows and :meth:`ScoringEngine.apply_feedback` takes a
+  backtracking SGD step (one host read of ``l1 <= l0`` per halving, as
+  in JAX), both enqueued on the serving stream between steps;
+- :meth:`ScoringEngine.swap_params` is the one way params change
+  wholesale (hot reload, promotion, rollback, resync): leaves of the same
+  shape and dtype are copied in place (the fused kernel reads ``w`` and
+  ``b`` by pointer), others rebound; either way ``params_epoch``
+  advances, so the next step re-derives the kernel tables;
+- ``run(feedback=, model_reload=, learning=)`` polls feedback, then the
+  reloader, then the learning loop once per finished batch, and commits
+  feedback offsets after the checkpoint, in the JAX engine's order.
+
 Not ported yet: selective and bf16 emission, the nan-guard, CUDA-graph
-precompile, autobatch and the overload ladder (A4); feedback, online SGD
-and model reload (A6); the sharded engine and the fleet, with their
-stacked directories and cold-store re-homing (A7); the mlp, autoencoder
-and sequence kinds (A8).
+precompile, autobatch and the overload ladder (A4); the sharded engine
+and the fleet, with their stacked directories and cold-store re-homing
+(A7); the mlp, autoencoder and sequence kinds and their learning (A8).
 """
 
 from __future__ import annotations
@@ -101,6 +122,9 @@ from real_time_fraud_detection_system_tpu_torch.features.online import (
     update_and_score_fused_forest,
     update_and_score_fused_logreg,
 )
+from real_time_fraud_detection_system_tpu_torch.features.online import (
+    apply_feedback as state_feedback,
+)
 from real_time_fraud_detection_system_tpu_torch.features.spec import N_FEATURES
 from real_time_fraud_detection_system_tpu_torch.models.forest import (
     GemmEnsemble,
@@ -115,7 +139,9 @@ from real_time_fraud_detection_system_tpu_torch.models.gbt import (
     gbt_predict_proba,
 )
 from real_time_fraud_detection_system_tpu_torch.models.logreg import (
+    logreg_loss,
     logreg_predict_proba,
+    loss_grad,
 )
 from real_time_fraud_detection_system_tpu_torch.models.scaler import (
     Scaler,
@@ -177,6 +203,75 @@ def predict_fn_for(kind: str, z_mode: Optional[str] = None) -> Callable:
     return lambda p, x: predict_proba(p, x, z_mode)
 
 
+def loss_fn_for(kind: str) -> Optional[Callable]:
+    """The training loss of ``kind``, or None: tree ensembles have no
+    gradient path (the mlp and autoencoder losses come with A8)."""
+    _require_kind(kind)
+    return logreg_loss if kind == "logreg" else None
+
+
+def feedback_step(loss, params, scaler: Scaler, x_raw: torch.Tensor,
+                  y: torch.Tensor, valid: torch.Tensor, lr: float):
+    """One trial SGD step on raw feature rows: (new params, loss before,
+    loss after), the params out of place. The caller keeps the step only
+    when it contracts (``l1 <= l0``), halving ``lr`` otherwise."""
+    x = transform(scaler, x_raw)
+    l0, g = loss_grad(loss, params, x, y, valid)
+    with torch.no_grad():
+        new = type(params)(*(p - lr * gi for p, gi in zip(params, g)))
+        l1 = loss(new, x, y, valid)
+    return new, l0, l1
+
+
+def host_to_device(host: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on ``device``: on CUDA through pinned memory and a
+    non-blocking copy on the current stream, so the copy is ordered behind
+    the work already enqueued there without the host waiting for it."""
+    t = torch.from_numpy(np.ascontiguousarray(host))
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def _tensor_leaves(tree) -> Optional[list]:
+    """The leaves of a NamedTuple of tensors and Python scalars, in field
+    order (nested NamedTuples flattened); None for anything else."""
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        out = []
+        for name in tree._fields:
+            sub = _tensor_leaves(getattr(tree, name))
+            if sub is None:
+                return None
+            out += sub
+        return out
+    return [tree]
+
+
+def copy_into(dst, src) -> bool:
+    """Copy ``src`` into ``dst`` in place when both are the same form
+    (type, every tensor leaf's shape and dtype, every scalar leaf's
+    value); False, copying nothing, otherwise."""
+    if type(dst) is not type(src):
+        return False
+    a, b = _tensor_leaves(dst), _tensor_leaves(src)
+    if a is None or b is None or len(a) != len(b):
+        return False
+    for x, y in zip(a, b):
+        if isinstance(x, torch.Tensor) != isinstance(y, torch.Tensor):
+            return False
+        if isinstance(x, torch.Tensor):
+            if x.shape != y.shape or x.dtype != y.dtype \
+                    or x.device != y.device:
+                return False
+        elif x != y:
+            return False
+    with torch.no_grad():
+        for x, y in zip(a, b):
+            if isinstance(x, torch.Tensor):
+                x.copy_(y)
+    return True
+
+
 @dataclass
 class EngineState:
     """Host-visible engine state (device tensors + offsets + counters)."""
@@ -199,6 +294,10 @@ class EngineState:
     # ColdStore.lineage; None without a cold tier): a checkpoint carries
     # it, and a restore prunes the store to it.
     cold_lineage: Optional[dict] = None
+    # Registry version the params descend from (runtime/learner.py); it
+    # travels with the checkpoint, so the learning loop can tell restored
+    # params from the current champion.
+    model_version: Optional[int] = None
 
 
 @dataclass
@@ -300,6 +399,9 @@ class ScoringEngine:
     writes into them). ``host_prep`` names the host-prep route:
     ``"native"`` (the C++ unit built) or ``"numpy"``. ``metrics`` is the
     registry the tiered store reports to (default: the process-wide one).
+    ``online_lr > 0`` turns on the in-step online SGD for kinds with a
+    gradient path; ``feature_cache`` (``runtime/feedback.py``) keeps the
+    emitted rows for the labeled-feedback join.
     """
 
     def __init__(
@@ -311,13 +413,41 @@ class ScoringEngine:
         feature_state: Optional[FeatureState] = None,
         device=None,
         metrics=None,
+        online_lr: float = 0.0,
+        feature_cache=None,
     ):
         _require_kind(kind)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.kind = kind
+        self.online_lr = float(online_lr)
+        self._loss = loss_fn_for(kind)
+        if feature_cache is not None and not cfg.runtime.emit_features:
+            raise ValueError(
+                "emit_features=False (alerts-only serving) cannot be "
+                "combined with a feature cache: it consumes host-side "
+                "feature rows")
+        self.feature_cache = feature_cache
+        # Learning hooks (runtime/learner.py): a ShadowScorer dual-scores
+        # emitted batches; feedback_tap hands labeled rows to the
+        # streaming learner. Both None unless a LearningLoop attaches;
+        # shadow_paused gates the shadow without detaching it.
+        self.shadow = None
+        self.feedback_tap = None
+        self.shadow_paused = False
+        # True once an online update (in-step or feedback SGD) landed
+        # since the last wholesale swap: a reload then clobbers it
+        self._online_dirty = False
         self.z_mode = resolve_z_mode(cfg.runtime.z_mode, self.device)
         self.metrics = metrics if metrics is not None else get_registry()
+        self._m_reloads = {
+            o: self.metrics.counter(
+                "rtfds_model_reloads_total",
+                "hot model reloads by outcome (clobbered_online_updates "
+                "= the swap discarded on-device online-SGD updates "
+                "accumulated since the previous artifact)", outcome=o)
+            for o in ("clean", "clobbered_online_updates")
+        }
         fcfg = cfg.features
         # Tiered store (key_mode="exact"): slots through the key
         # directories, misses from the sketch tier, compaction every
@@ -439,8 +569,25 @@ class ScoringEngine:
                 self.state.feature_state, batch, fcfg)
             probs = self._unfused_predict(transform(scaler, feats))
         self.state.feature_state = fstate
+        if self.online_lr > 0.0 and self._loss is not None:
+            self._online_sgd(batch, transform(scaler, feats))
         return (torch.where(batch.valid, probs, torch.zeros_like(probs)),
                 feats, tier)
+
+    def _online_sgd(self, batch, x: torch.Tensor) -> None:
+        """The in-step SGD on the batch's in-band labels: the gradient on
+        the params this step served with, then ``p -= lr·has·g`` in place
+        on the step's stream (``has`` stays on the device: no sync)."""
+        labeled = batch.valid & (batch.label >= 0)
+        y = torch.clamp(batch.label, min=0)
+        params = self.state.params
+        _, g = loss_grad(self._loss, params, x, y, labeled)
+        has = torch.any(labeled).to(torch.float32)
+        with torch.no_grad():
+            for p, gi in zip(params, g):
+                p.sub_(self.online_lr * has * gi)
+        # the leaves no longer hold what the last restore wrote
+        self.state.params_crcs = None
 
     # -- tiered feature store (key_mode="exact") ---------------------------
 
@@ -923,6 +1070,7 @@ class ScoringEngine:
             self._m_tier["dense"].inc(float(tier_np[0]))
             self._m_tier["cms"].inc(float(tier_np[1]))
         cols = handle["cols"]
+        self._emit_learning(cols, n, probs_np, feats_np)
         self.state.batches_done += 1
         self.state.rows_done += n
         self._drain_meters()
@@ -941,13 +1089,166 @@ class ScoringEngine:
             batch_index=self.state.batches_done,
         )
 
+    def _emit_learning(self, cols: dict, n: int, probs_np: np.ndarray,
+                       feats_np: np.ndarray) -> None:
+        """The learning tail of a result: the feature-cache put, the
+        shadow's dual score, and the online-update flag (from the host's
+        own label column, never the device)."""
+        in_band = cols.get("label")
+        if self.feature_cache is not None and n:
+            self.feature_cache.put_batch(
+                cols["tx_id"], feats_np,
+                terminal_ids=cols["terminal_id"],
+                days=(cols["tx_datetime_us"] // US_PER_DAY).astype(np.int32),
+                # in-band labels already reached the state in the step
+                labeled=(np.asarray(in_band) >= 0)
+                if in_band is not None else None,
+            )
+        if self.shadow is not None and not self.shadow_paused and n:
+            self.shadow.score_batch(cols["tx_id"], feats_np, probs_np)
+        if (self.online_lr > 0.0 and self._loss is not None
+                and in_band is not None
+                and (np.asarray(in_band) >= 0).any()):
+            # the in-step SGD consumed this batch's labels: the params
+            # now lead the last published artifact
+            self._online_dirty = True
+
     def process_batch(self, cols: dict) -> BatchResult:
         """One micro-batch: dedup → pad → device step → host result."""
         return self._finish_batch(self._start_batch(cols))
 
+    # -- learning (runtime/feedback.py, runtime/learner.py) ----------------
+
+    def _reload(self, swap, learning, recorder) -> None:
+        """A hot reload's swap, counted by outcome; with a learning loop
+        it is registered in the lineage (publish + promote)."""
+        new_params, new_scaler = swap
+        outcome = ("clobbered_online_updates" if self._online_dirty
+                   else "clean")
+        self._m_reloads[outcome].inc()
+        self._online_dirty = False
+        self.swap_params(new_params, new_scaler)
+        if recorder is not None:
+            recorder.record_event("model_reload", outcome=outcome)
+        if learning is not None:
+            learning.note_external_swap(self.state.params, self.state.scaler,
+                                        outcome, engine=self)
+
+    @property
+    def supports_online_sgd(self) -> bool:
+        """True for model kinds with a gradient path (logreg)."""
+        return self._loss is not None
+
+    def apply_state_feedback(self, terminal_ids: np.ndarray,
+                             days: np.ndarray, labels: np.ndarray) -> None:
+        """Land delayed fraud labels in the terminal risk windows, in
+        place on the serving stream (``features/online.py::
+        apply_feedback``), in chunks of at most the largest bucket padded
+        to a bucket. No-op rows: label < 0 (pending) and buckets whose
+        ring slot has moved past the transaction's day. Every kind."""
+        labels = np.asarray(labels)
+        mask = labels >= 0
+        if not mask.any():
+            return
+        buckets = self.cfg.runtime.batch_buckets
+        biggest = max(buckets)
+        t_ids = np.asarray(terminal_ids)[mask]
+        d = np.asarray(days)[mask]
+        y = labels[mask]
+        for s in range(0, len(y), biggest):
+            n = len(y[s:s + biggest])
+            pad = bucket_size(n, buckets)
+            # one int32 [4, pad] copy: key (uint32 bits), day, label, valid
+            packed = np.zeros((4, pad), dtype=np.int32)
+            packed[0, :n] = fold_key(t_ids[s:s + n]).view(np.int32)
+            packed[1, :n] = d[s:s + n]
+            packed[2, :n] = y[s:s + n]
+            packed[3, :n] = 1
+            dev = host_to_device(packed, self.device)
+            self.state.feature_state = state_feedback(
+                self.state.feature_state, dev[0].view(torch.uint32), dev[1],
+                dev[2], dev[3].bool(), self.cfg.features)
+
+    def apply_feedback(self, features: np.ndarray,
+                       labels: np.ndarray) -> None:
+        """Backtracking SGD from delayed labels on RAW feature rows (as the
+        cache holds them; the engine's scaler applies inside): per chunk of
+        at most the largest bucket, halve the step up to 8 times until the
+        loss contracts (``l1 <= l0``: one host read per try, as in JAX),
+        then copy the new params in place; a chunk that cannot contract is
+        skipped."""
+        if self._loss is None:
+            raise ValueError(
+                f"model kind {self.kind!r} has no gradient path for "
+                "feedback updates")
+        lr = self.online_lr or self.cfg.train.online_learning_rate
+        labels = np.asarray(labels)
+        total = len(labels)
+        if total == 0:
+            return
+        buckets = self.cfg.runtime.batch_buckets
+        biggest = max(buckets)
+        for s in range(0, total, biggest):
+            lab = labels[s:s + biggest]
+            n = len(lab)
+            pad = bucket_size(n, buckets)
+            x = np.zeros((pad, features.shape[1]), dtype=np.float32)
+            x[:n] = features[s:s + n]
+            # label < 0 is the 'unlabeled' sentinel: never trained on
+            y = np.zeros(pad, dtype=np.int32)
+            y[:n] = np.maximum(lab, 0)
+            valid = np.zeros(pad, dtype=bool)
+            valid[:n] = lab >= 0
+            if not valid.any():
+                continue
+            dx, dy, dv = (host_to_device(a, self.device)
+                          for a in (x, y, valid))
+            step_lr = float(lr)
+            for _ in range(8):
+                new, l0, l1 = feedback_step(
+                    self._loss, self.state.params, self.state.scaler,
+                    dx, dy, dv, step_lr)
+                if bool(l1 <= l0):
+                    copy_into(self.state.params, new)
+                    self.state.params_crcs = None
+                    self._online_dirty = True
+                    break
+                step_lr *= 0.5
+
+    def swap_params(self, params, scaler=None) -> None:
+        """Swap in other params (and scaler): a hot reload, a promotion, a
+        rollback or a resync. Leaves of the same form are copied in place
+        on the serving stream (the kernels read them by pointer); another
+        form is rebound. Either way ``params_epoch`` advances, so the next
+        step re-derives the kernel tables, and ``params_crcs`` is cleared,
+        so the next restore compares against the leaves as they are."""
+        params = device_params_for(self.kind, params.to(self.device))
+        if not copy_into(self.state.params, params):
+            self.state.params = _owned(params)
+        if scaler is not None:
+            scaler = scaler.to(self.device)
+            if not copy_into(self.state.scaler, scaler):
+                self.state.scaler = _owned(scaler)
+        self.state.params_epoch += 1
+        self.state.params_crcs = None
+
+    def set_shadow(self, shadow) -> None:
+        """Attach a shadow scorer (``runtime/learner.py::ShadowScorer``):
+        the candidate dual-scores every emitted batch on the same host
+        feature rows, so the features must leave the device."""
+        if not self.cfg.runtime.emit_features:
+            raise ValueError(
+                "shadow scoring consumes every row's features host-side; "
+                "it does not compose with alerts-only emission")
+        self.shadow = shadow
+
+    def clear_shadow(self) -> None:
+        self.shadow = None
+
     def run(self, source, sink=None, max_batches: int = 0,
             checkpointer=None, trigger_seconds: Optional[float] = None,
-            heartbeat=None) -> dict:
+            heartbeat=None, feedback=None, model_reload=None,
+            learning=None) -> dict:
         """Stream until the source is exhausted or ``max_batches`` batches
         of this run have started (0: no cap; a negative count starts
         none). :func:`batches_left` turns a cap on the engine's lifetime
@@ -974,6 +1275,17 @@ class ScoringEngine:
         ``heartbeat`` is beaten once per loop pass (the stall watchdog's
         progress signal).
 
+        Per finished batch, after the sink and before the checkpoint, in
+        the JAX engine's order: ``feedback`` (a
+        :class:`~.feedback.FeedbackLoop`) polls and applies its labels;
+        ``model_reload`` (a callable returning None or ``(params,
+        scaler)``) may swap the params, counted in
+        ``rtfds_model_reloads_total{outcome}`` (``clobbered_online_updates``
+        when online updates landed since the last swap); ``learning`` (a
+        :class:`~.learner.LearningLoop`, attached before the first poll)
+        makes its install, promotion and rollback decisions. With a
+        checkpointer, feedback offsets are committed after each save.
+
         Returns this run's stats: rows, batches, wall and CPU seconds,
         rows/s, the per-batch latency p50/p99 (host prep through the
         results' arrival on the host, minus waits), the median ms of each
@@ -986,6 +1298,13 @@ class ScoringEngine:
         # a restored state's cold lineage: reconcile the store (and fence
         # the promoter) before any batch can touch a demoted key
         self._sync_cold_after_restore()
+        if learning is not None:
+            # the shadow scorer and the learner's tap go in before the
+            # first poll; the loop then rides the batch cadence
+            learning.attach(self)
+        if feedback is not None and checkpointer is not None:
+            # feedback offsets trail the state checkpoint
+            feedback.auto_commit = False
         degraded0 = len(self._degraded_keys)
         rt = self.cfg.runtime
         trigger = rt.trigger_seconds if trigger_seconds is None \
@@ -1015,6 +1334,20 @@ class ScoringEngine:
                 t = time.perf_counter()
                 sink.append(res)
                 trackers["sink_write"].record(time.perf_counter() - t)
+            recorder = active_recorder()
+            if feedback is not None:
+                # between steps, before the checkpoint: the saved state
+                # holds the landed labels
+                applied = feedback.poll_and_apply()
+                if recorder is not None and applied:
+                    recorder.record_event("feedback", applied=applied,
+                                          batch=res.batch_index)
+            if model_reload is not None:
+                swap = model_reload()
+                if swap is not None:
+                    self._reload(swap, learning, recorder)
+            if learning is not None:
+                learning.on_batch(self)
             if checkpointer is not None \
                     and self.state.batches_done % every == 0:
                 # offsets trail durable sink output: drain an async sink
@@ -1031,6 +1364,8 @@ class ScoringEngine:
                 commit = getattr(source, "commit", None)
                 if commit is not None:
                     commit()
+                if feedback is not None:
+                    feedback.commit()
                 if self._cold is not None:
                     # fully promoted segments go only once a checkpoint
                     # that no longer lists them has landed

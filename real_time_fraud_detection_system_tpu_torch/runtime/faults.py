@@ -22,8 +22,14 @@ address) as a plain ``RuntimeError``, which is not among them: it
 propagates out of the supervisor at once and is never retried, bisected
 or quarantined.
 
-The feedback loop, model reload and the learning loop of the JAX
-supervisor come with ROADMAP A6.
+The supervisor also carries the learning loop across incarnations:
+``make_feedback`` builds each incarnation's :class:`~.feedback.FeedbackLoop`,
+``make_model_reload`` a fresh reloader, and ``learning`` (one
+:class:`~.learner.LearningLoop` for the session) re-attaches to every new
+engine. A watched incarnation reaches them, its feature cache, the shadow
+scorer and the learner's tap only through fences, so a zombie can change
+none of them; poison isolation runs without feedback or reload, with the
+learner paused.
 """
 
 from __future__ import annotations
@@ -438,6 +444,29 @@ class _FenceGuard:
         setattr(object.__getattribute__(self, "_inner"), name, value)
 
 
+def _fence_model_reload(model_reload, fence: "_AbandonFence"):
+    """Fence a reload poll, and keep the shared signature baseline honest:
+    a poll whose incarnation was abandoned during the call may have
+    committed the file's new signature (``poll.sig_state``) while its
+    swap can never land; the pre-call signature is put back so the live
+    incarnation's next poll still sees the change."""
+    sig = getattr(model_reload, "sig_state", None)
+
+    def _fenced_reload():
+        fence.check()
+        before = sig.get("sig") if sig is not None else None
+        out = model_reload()
+        try:
+            fence.check()
+        except StallError:
+            if sig is not None:
+                sig["sig"] = before
+            raise
+        return out
+
+    return _fenced_reload
+
+
 class _GuardedSource(_FenceGuard):
     """Source fence with a check after the poll as well: a poll in flight
     when the incarnation was abandoned drops its batch and kills the
@@ -455,7 +484,8 @@ class _GuardedSource(_FenceGuard):
 
 
 def _run_watched(engine, source, sink, checkpointer, run_batches: int,
-                 heartbeat: Heartbeat, target=None):
+                 heartbeat: Heartbeat, feedback=None, model_reload=None,
+                 learning=None, target=None):
     """Run one incarnation in a worker thread under the stall watchdog.
 
     This (supervisor) thread polls ``heartbeat.healthy()``; on a stall the
@@ -467,7 +497,10 @@ def _run_watched(engine, source, sink, checkpointer, run_batches: int,
     ``run_batches`` is ``engine.run``'s ``max_batches`` (this run's).
     ``target`` replaces ``engine.run``: ``target(source, sink,
     checkpointer, heartbeat)`` over the guarded objects (the poison
-    isolation)."""
+    isolation). ``feedback``, ``model_reload`` and ``learning`` are
+    fenced the same way, and so are the objects that outlive incarnations
+    on the engine: its feature cache, the shadow scorer and the learner's
+    tap."""
     box: dict = {}
     fence = _AbandonFence()
     g_source = _GuardedSource(source, fence)
@@ -475,6 +508,32 @@ def _run_watched(engine, source, sink, checkpointer, run_batches: int,
     g_ckpt = _FenceGuard(checkpointer, fence) if checkpointer is not None \
         else None
     g_heartbeat = _FenceGuard(heartbeat, fence)
+    g_feedback = _FenceGuard(feedback, fence) if feedback is not None \
+        else None
+    g_learning = _FenceGuard(learning, fence) if learning is not None \
+        else None
+    g_model_reload = (_fence_model_reload(model_reload, fence)
+                      if model_reload is not None else None)
+    if getattr(engine, "feature_cache", None) is not None:
+        # the cache outlives incarnations (the feedback join finds rows
+        # scored before a restart): a zombie must not overwrite rows or
+        # reset their labeled marks
+        engine.feature_cache = _FenceGuard(engine.feature_cache, fence)
+    if learning is not None:
+        # attach now (the run's attach is then a no-op for this engine)
+        # and fence what it installed: the shared shadow cache and the
+        # learner queue
+        learning.attach(engine)
+        if engine.shadow is not None:
+            engine.shadow = _FenceGuard(engine.shadow, fence)
+        if engine.feedback_tap is not None:
+            _tap = engine.feedback_tap
+
+            def _fenced_tap(*a, **k):
+                fence.check()
+                return _tap(*a, **k)
+
+            engine.feedback_tap = _fenced_tap
 
     def _target():
         try:
@@ -484,7 +543,9 @@ def _run_watched(engine, source, sink, checkpointer, run_batches: int,
             else:
                 box["stats"] = engine.run(
                     g_source, sink=g_sink, checkpointer=g_ckpt,
-                    max_batches=run_batches, heartbeat=g_heartbeat)
+                    max_batches=run_batches, heartbeat=g_heartbeat,
+                    feedback=g_feedback, model_reload=g_model_reload,
+                    learning=g_learning)
         # the thread boundary: the original exception crosses to the
         # supervisor thread, which applies the recover_on policy
         except BaseException as e:  # noqa: BLE001
@@ -679,6 +740,9 @@ def run_with_recovery(
     stall_timeout_s: float = 0.0,
     resume: bool = True,
     make_source: Optional[Callable[[], object]] = None,
+    make_feedback: Optional[Callable[[object], object]] = None,
+    make_model_reload: Optional[Callable[[], object]] = None,
+    learning=None,
     recover_on: Tuple[Type[BaseException], ...] = (
         TransientError, OSError, ConnectionError,
     ),
@@ -707,6 +771,12 @@ def run_with_recovery(
       a dead session); at least one of ``source``/``make_source``.
     - ``resume=False``: ignore checkpoints from before this run (the
       checkpointer is fenced).
+    - ``make_feedback(engine)``: each incarnation's feedback loop (a fresh
+      consumer session); ``make_model_reload()``: a fresh reloader per
+      incarnation (a restore brings pre-swap weights, so the new one
+      re-applies the newest artifact); ``learning``: the session's
+      learning loop, attached to every incarnation's engine and paused
+      during poison isolation, which runs without feedback or reload.
     - ``recover_on``: the recoverable types; anything else propagates at
       once (a CUDA fault is a ``RuntimeError``, never in this list).
     - Crash-loop breaker: ``crash_loop_k`` consecutive same-typed crashes
@@ -766,8 +836,17 @@ def run_with_recovery(
             truncate(engine.state.batches_done)
         # max_batches counts the engine's lifetime, restored batches too
         run_batches = batches_left(engine.state, max_batches)
+        # isolation incarnations diagnose one batch: no feedback, no reload
+        feedback = (make_feedback(engine)
+                    if make_feedback and not poison_pending else None)
+        model_reload = (make_model_reload()
+                        if make_model_reload and not poison_pending
+                        else None)
         try:
             if poison_pending:
+                # no training overlaps a bisection in progress
+                if learning is not None:
+                    learning.pause()
                 if heartbeat is not None:
                     _run_watched(
                         engine, source, sink, checkpointer, run_batches,
@@ -787,21 +866,28 @@ def run_with_recovery(
                 poison_pending = False
                 fail_key, fail_count = None, 0
                 budget_used = 0
+                if learning is not None:
+                    learning.resume()
                 _retire(engine)
                 continue
             if heartbeat is not None:
                 stats = _run_watched(
                     engine, source, sink, checkpointer, run_batches,
-                    heartbeat)
+                    heartbeat, feedback=feedback, model_reload=model_reload,
+                    learning=learning)
             else:
                 stats = engine.run(
                     source, sink=sink, checkpointer=checkpointer,
-                    max_batches=run_batches)
+                    max_batches=run_batches, feedback=feedback,
+                    model_reload=model_reload, learning=learning)
             # a final checkpoint, so a clean exit never replays
             checkpointer.save(engine.checkpoint_state())
             commit = getattr(source, "commit", None)
             if commit is not None:
                 commit()
+            if feedback is not None:
+                feedback.commit()
+                feedback.close()
             stats["restarts"] = restarts
             # whole-session totals: the engine's lifetime counters
             # (restored + this incarnation) and the session's wall clock
@@ -818,6 +904,14 @@ def run_with_recovery(
             restarts += 1
             budget_used += 1
             last_was_stall = isinstance(e, StallError)
+            if feedback is not None and not last_was_stall:
+                # close the dead incarnation's session so its group
+                # rebalances (a stalled zombie may still be inside it)
+                try:
+                    feedback.close()
+                # best effort: the crash being handled is the signal
+                except Exception:  # noqa: BLE001
+                    pass
             log.warning("engine crashed (%s); restart %d/%d",
                         e, restarts, max_restarts)
             cause = "stall" if last_was_stall else "crash"

@@ -1020,3 +1020,206 @@ def test_exact_step_compaction_and_promotion_never_sync_on_cuda(cuda):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert int(stats[:, 0].sum()) > 0
+
+
+# -- the learning loop on the card ----------------------------------------
+
+def _labeled_batches(n_batches=4, rows=1000, seed=3):
+    rng = np.random.default_rng(seed)
+    out = []
+    for d in range(n_batches):
+        n = rows
+        out.append({
+            "tx_id": np.arange(d * n, (d + 1) * n, dtype=np.int64),
+            "tx_datetime_us": (np.full(n, 20200 + 3 * d, np.int64) * 86400
+                               + rng.integers(0, 86400, n)) * 1_000_000,
+            "customer_id": rng.integers(0, 300, n).astype(np.int64),
+            "terminal_id": rng.integers(0, 300, n).astype(np.int64),
+            "tx_amount_cents": (rng.integers(1, 500, n) * 100)
+            .astype(np.int64),
+            "kafka_ts_ms": np.zeros(n, np.int64),
+            "label": rng.integers(-1, 2, n).astype(np.int32)})
+    return out
+
+
+def _learning_cfg(**features):
+    return Config(features=FeatureConfig(customer_capacity=512,
+                                         terminal_capacity=512,
+                                         cms_width=1 << 10, **features),
+                  runtime=RuntimeConfig(batch_buckets=(1024,)))
+
+
+def _logreg_model(dev):
+    rng = np.random.default_rng(9)
+    from real_time_fraud_detection_system_tpu_torch.models.scaler import (
+        Scaler,
+    )
+
+    return (LogRegParams(torch.tensor(rng.normal(0, 0.3, 15)
+                                      .astype(np.float32), device=dev),
+                         torch.tensor(-1.0, device=dev)),
+            Scaler(torch.zeros(15, device=dev),
+                   torch.full((15,), 50.0, device=dev)))
+
+
+def test_in_step_sgd_on_cuda_is_in_place_sync_free_and_equals_cpu(cuda):
+    """The fused logreg kernel serves while the in-step SGD rewrites ``w``
+    and ``b`` in place: the same tensors (``data_ptr``) after every batch,
+    the update itself under ``set_sync_debug_mode("error")``, and params
+    and probabilities equal a CPU engine's (params within ``atol=2e-6``,
+    probabilities ``1e-6``: the gradient's sums in another order)."""
+    from real_time_fraud_detection_system_tpu_torch.core import batch as cb
+
+    cfg = _learning_cfg()
+    batches = _labeled_batches()
+    out = {}
+    for dev in ("cpu", cuda):
+        params, scaler = _logreg_model(dev)
+        eng = ScoringEngine(cfg, "logreg", params, scaler, device=dev,
+                            online_lr=0.05)
+        ptr = eng.state.params.w.data_ptr()
+        before = sk.fused_featurize_score.launches
+        res = [eng.process_batch(dict(c)) for c in batches]
+        assert eng.state.params.w.data_ptr() == ptr
+        out[str(dev)] = (res, eng, sk.fused_featurize_score.launches - before)
+    cpu, gpu = out["cpu"], out[str(cuda)]
+    assert gpu[2] == len(batches) and cpu[2] == 0
+    for a, b in zip(cpu[1].state.params, gpu[1].state.params):
+        np.testing.assert_allclose(b.cpu().numpy(), a.numpy(), atol=2e-6)
+    for rc, rg in zip(cpu[0], gpu[0]):
+        np.testing.assert_allclose(rg.probs, rc.probs, atol=ATOL_SIGMOID)
+    eng = gpu[1]
+    packed = cb.pack_batch(cb.make_batch(
+        customer_id=batches[0]["customer_id"],
+        terminal_id=batches[0]["terminal_id"],
+        tx_datetime_us=batches[0]["tx_datetime_us"],
+        amount_cents=batches[0]["tx_amount_cents"],
+        label=batches[0]["label"], pad_to=1024))
+    batch = cb.unpack_batch(torch.from_numpy(packed).to(cuda))
+    x = torch.randn(1024, 15, device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng._online_sgd(batch, x)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def test_swap_on_cuda_copies_in_place_and_rederives_the_tables(cuda):
+    cfg = _learning_cfg()
+    params, scaler = _logreg_model(cuda)
+    eng = ScoringEngine(cfg, "forest", synthetic_ensemble(8, 4, 15, seed=1,
+                                                          device=cuda),
+                        scaler, device=cuda)
+    eng.process_batch(dict(_labeled_batches(1)[0]))
+    tables, epoch = eng.tables, eng.state.params_epoch
+    leaf = eng.state.params.leaf_val
+    eng.swap_params(synthetic_ensemble(8, 4, 15, seed=2, device=cuda))
+    assert eng.state.params_epoch == epoch + 1
+    assert eng.state.params.leaf_val is leaf  # the same form: in place
+    assert eng.state.params_crcs is None
+    res = eng.process_batch(dict(_labeled_batches(2)[1]))
+    assert eng.tables is not tables  # re-derived from the new params
+    ref = ScoringEngine(cfg, "forest", synthetic_ensemble(
+        8, 4, 15, seed=2, device=cuda), scaler, device=cuda)
+    ref.process_batch(dict(_labeled_batches(1)[0]))
+    want = ref.process_batch(dict(_labeled_batches(2)[1]))
+    np.testing.assert_array_equal(res.probs, want.probs)
+
+
+@pytest.mark.parametrize("mode", ["direct", "exact"])
+def test_feedback_scatters_on_cuda_equal_cpu(cuda, mode):
+    """``apply_state_feedback`` on the card lands the same labels as on
+    the CPU, bit for bit (0/1 adds are exact in any order); in exact mode
+    the hits in the dense rows and the misses in the sketch's fraud
+    column, the directory untouched."""
+    features = {"key_mode": mode}
+    if mode == "exact":
+        features.update(customer_capacity=64, terminal_capacity=64)
+    cfg = Config(features=FeatureConfig(**{
+        "customer_capacity": 512, "terminal_capacity": 512,
+        "cms_width": 1 << 10, **features}),
+        runtime=RuntimeConfig(batch_buckets=(1024,)))
+    batches = _labeled_batches()
+    rng = np.random.default_rng(5)
+    picks = [rng.integers(0, 4000, 1500) for _ in range(3)]
+    out = {}
+    for dev in ("cpu", cuda):
+        params, scaler = _logreg_model(dev)
+        eng = ScoringEngine(cfg, "logreg", params, scaler, device=dev)
+        for c in batches:
+            eng.process_batch({k: v for k, v in c.items() if k != "label"})
+        keys = np.array(eng.state.feature_state.terminal_dir.keys.cpu()) \
+            if mode == "exact" else None
+        for idx in picks:
+            term = np.concatenate([c["terminal_id"] for c in batches])[idx]
+            day = (np.concatenate([c["tx_datetime_us"] for c in batches])
+                   [idx] // (86400 * 1_000_000)).astype(np.int32)
+            eng.apply_state_feedback(term, day, (idx % 3 == 0).astype(
+                np.int32) - (idx % 11 == 0))
+        fs = eng.state.feature_state
+        out[str(dev)] = (fs, keys)
+    cpu, gpu = out["cpu"], out[str(cuda)]
+    for name in ("fraud", "count", "bucket_day"):
+        np.testing.assert_array_equal(
+            getattr(gpu[0].terminal, name).cpu().numpy(),
+            getattr(cpu[0].terminal, name).numpy(), err_msg=name)
+    assert float(cpu[0].terminal.fraud.sum()) > 0
+    if mode == "exact":
+        np.testing.assert_array_equal(
+            gpu[0].terminal_cms.fraud.cpu().numpy(),
+            cpu[0].terminal_cms.fraud.numpy())
+        assert float(cpu[0].terminal_cms.fraud.sum()) > 0
+        np.testing.assert_array_equal(
+            gpu[0].terminal_dir.keys.cpu().numpy(), gpu[1])
+
+
+def test_shadow_and_learner_on_cuda(cuda, tmp_path):
+    """A forest candidate dual-scores through the leaf-sum kernel (one
+    launch per batch, equal to its plain version), and the streaming
+    learner trains its own copy on its own stream: the engine's tensors
+    untouched, its candidate equal to a CPU learner's."""
+    from real_time_fraud_detection_system_tpu_torch.io.registry import (
+        make_model_registry,
+    )
+    from real_time_fraud_detection_system_tpu_torch.models.forest import (
+        predict_proba,
+    )
+    from real_time_fraud_detection_system_tpu_torch.models.scaler import (
+        transform,
+    )
+    from real_time_fraud_detection_system_tpu_torch.runtime.learner import (
+        ShadowScorer,
+        StreamingLearner,
+    )
+
+    cfg = _learning_cfg()
+    shadow = ShadowScorer("forest", cfg, capacity=1 << 12, device=cuda)
+    ens = synthetic_ensemble(100, 8, 15, seed=4, device="cpu")
+    params, scaler = _logreg_model("cpu")
+    shadow.set_candidate(2, ens, scaler)
+    x = np.random.default_rng(0).normal(0, 50, (1000, 15)).astype(
+        np.float32)
+    before = fk.leaf_sum.launches
+    shadow.score_batch(np.arange(1000), x, np.zeros(1000, np.float32))
+    assert fk.leaf_sum.launches - before == 1
+    want = predict_proba(to_gemm(ens, 15), transform(
+        scaler, torch.from_numpy(x)), "f32").numpy()
+    np.testing.assert_allclose(shadow._cand_p[:1000], want, atol=ATOL_LEAF)
+    feats = np.random.default_rng(1).normal(size=(512, 15)).astype(
+        np.float32)
+    y = (feats[:, 0] > 0).astype(np.int32)
+    got = {}
+    for dev in ("cpu", cuda):
+        p, s = _logreg_model(dev)
+        learner = StreamingLearner("logreg", p, s, cfg, make_model_registry(
+            str(tmp_path / str(dev).replace(":", ""))),
+            publish_every_labels=256, device=dev)
+        learner.submit(feats, y)
+        assert learner.drain(60.0)
+        assert learner.take_published() == 1
+        assert torch.equal(p.w, _logreg_model(dev)[0].w)  # never written
+        got[str(dev)] = learner._params
+        learner.close()
+    for a, b in zip(got["cpu"], got[str(cuda)]):
+        np.testing.assert_allclose(b.cpu().numpy(), a.numpy(), atol=2e-6)

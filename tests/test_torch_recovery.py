@@ -24,6 +24,7 @@ Everything runs on the CPU (``device="cpu"``), where the sums are
 deterministic, so replays are held bit for bit.
 """
 
+import dataclasses
 import gc
 import json
 import os
@@ -68,9 +69,15 @@ from real_time_fraud_detection_system_tpu_torch.config import (
 from real_time_fraud_detection_system_tpu_torch.data.generator import (
     Transactions,
 )
+from real_time_fraud_detection_system_tpu_torch.io.artifacts import (
+    TrainedModel,
+)
 from real_time_fraud_detection_system_tpu_torch.io.checkpoint import (
     Checkpointer,
     StoreCheckpointer,
+)
+from real_time_fraud_detection_system_tpu_torch.io.registry import (
+    make_model_registry,
 )
 from real_time_fraud_detection_system_tpu_torch.io.sink import (
     DeadLetterSink,
@@ -101,6 +108,15 @@ from real_time_fraud_detection_system_tpu_torch.runtime.faults import (
     poison_messages,
     run_with_recovery,
     with_retries,
+)
+from real_time_fraud_detection_system_tpu_torch.runtime.feedback import (
+    FeatureCache,
+    FeedbackLoop,
+    encode_feedback_envelopes,
+)
+from real_time_fraud_detection_system_tpu_torch.runtime.learner import (
+    LearningLoop,
+    StreamingLearner,
 )
 from real_time_fraud_detection_system_tpu_torch.runtime.sources import (
     ReplaySource,
@@ -1243,3 +1259,236 @@ def test_cold_damage_degrades_honestly(tmp_path, small_dataset, damage):
     if damage == "torn-manifest":
         assert f"quarantine-seg-{seq:08d}.json" in names
         assert f"seg-{seq:08d}.npz" not in names
+
+
+# -- the learning loop under the supervisor ---------------------------------
+
+class _LabelTopic:
+    """A feedback topic with a committed position (a Kafka group's
+    offset): each incarnation opens a session at the last commit, so
+    labels consumed after the last checkpoint are redelivered. A session
+    can be scripted to hang in its ``hang_at``-th poll (0-based)."""
+
+    def __init__(self):
+        self.msgs: list = []
+        self.committed = 0
+        self.published: set = set()
+        self.release = threading.Event()
+
+    def session(self, hang_at: int = -1):
+        topic = self
+
+        class _Session:
+            pos = topic.committed
+            polls = 0
+
+            def poll_messages(self, max_events):
+                if self.polls == hang_at:
+                    topic.release.wait(timeout=30.0)
+                self.polls += 1
+                out = topic.msgs[self.pos:self.pos + max_events]
+                self.pos += len(out)
+                return out
+
+            def commit(self):
+                topic.committed = self.pos
+
+            def close(self):
+                pass
+
+        return _Session()
+
+
+class _DelayedLabels:
+    """Publishes the labels of the batch polled 3 polls earlier (each
+    transaction once, replays included); in-band labels ride on the even
+    batches only, so the in-step SGD and the feedback both run."""
+
+    def __init__(self, inner, part, topic):
+        self.inner, self.part, self.topic = inner, part, topic
+
+    def poll_batch(self):
+        cols = self.inner.poll_batch()
+        if cols is None:
+            return None
+        k = int(self.inner.offsets[0]) // 256 - 1
+        if k >= 3:
+            sl = self.part.slice(slice((k - 3) * 256, (k - 2) * 256))
+            fresh = ~np.isin(sl.tx_id, list(self.topic.published))
+            self.topic.published.update(map(int, sl.tx_id[fresh]))
+            self.topic.msgs += encode_feedback_envelopes(
+                sl.tx_id[fresh], sl.tx_fraud[fresh])
+        if k % 2:
+            cols = {c: v for c, v in cols.items() if c != "label"}
+        return cols
+
+    @property
+    def offsets(self):
+        return self.inner.offsets
+
+    def seek(self, offsets):
+        self.inner.seek(offsets)
+
+
+def _learning_session(small_dataset, tmp, inject=None, hang_feedback=-1,
+                      stall_timeout_s=0.0):
+    """One supervised session with online SGD, the feedback loop, a hot
+    reload at lifetime batch 3 and a learning loop (its gate out of
+    reach: promotions would depend on the learner thread's timing).
+    ``inject`` wraps every incarnation's source."""
+    part = _port_txs(small_dataset[3].slice(slice(0, 2560)))
+    cfg = dataclasses.replace(
+        _cfg(), learn=dataclasses.replace(
+            _cfg().learn, promote_min_labels=10 ** 9))
+    scaler = Scaler(torch.zeros(15), torch.full((15,), 50.0))
+    other = weights.from_numpy(
+        jax.tree.map(np.asarray, init_logreg(15, seed=3)), device="cpu")
+    registry = make_model_registry(str(tmp / "reg"))
+    learner = StreamingLearner("logreg", _LOGREG, scaler, cfg, registry,
+                               device="cpu")
+    learning = LearningLoop(registry, cfg, "logreg",
+                            model=TrainedModel("logreg", scaler, _LOGREG),
+                            learner=learner, device="cpu")
+    cache = FeatureCache(1 << 14)
+    topic = _LabelTopic()
+    held: dict = {"engines": [], "loops": []}
+
+    def make_engine():
+        eng = ScoringEngine(cfg, "logreg", _LOGREG, scaler, device="cpu",
+                            online_lr=0.05, feature_cache=cache)
+        held["engines"].append(eng)
+        return eng
+
+    def make_source():
+        src = _DelayedLabels(ReplaySource(part, EPOCH0, batch_rows=256,
+                                          with_labels=True), part, topic)
+        return inject(src) if inject is not None else src
+
+    def make_feedback(engine):
+        hang = hang_feedback if not held["loops"] else -1
+        loop = FeedbackLoop(engine, topic.session(hang_at=hang))
+        held["loops"].append(loop)
+        return loop
+
+    def make_model_reload():
+        def poll():
+            eng = held["engines"][-1]
+            if eng.state.batches_done == 3:
+                return other, None
+            return None
+        return poll
+
+    out = str(tmp / "out")
+    try:
+        stats = run_with_recovery(
+            make_engine, checkpointer=Checkpointer(str(tmp / "ck")),
+            sink=ParquetSink(out), make_source=make_source,
+            make_feedback=make_feedback,
+            make_model_reload=make_model_reload, learning=learning,
+            stall_timeout_s=stall_timeout_s, max_restarts=3)
+    finally:
+        learning.close()
+    return SimpleNamespace(stats=stats, out=_by_index(out), held=held,
+                           topic=topic, registry=registry,
+                           engine=held["engines"][-1], cache=cache)
+
+
+def _same_session(a, b):
+    assert a.out == b.out
+    fa, fb = a.engine.state.feature_state, b.engine.state.feature_state
+    for x, y in zip(fa.terminal + fa.customer, fb.terminal + fb.customer):
+        assert torch.equal(x, y)
+    for x, y in zip(a.engine.state.params, b.engine.state.params):
+        assert torch.equal(x, y)
+    assert a.engine.state.model_version == b.engine.state.model_version
+
+
+def test_supervised_learning_crash_equals_the_clean_run(tmp_path,
+                                                         small_dataset):
+    """Crashes at the first polls after the checkpoints at batches 4 and 8
+    have landed (at depth 2 the poll of batch 6, while batch 5 is in
+    flight, and of batch 10): the feedback session reopens at the
+    committed position, the reloader is rebuilt, the learning loop
+    re-attaches, and the sink, the state, the params and the version
+    stamp equal the clean session's bit for bit. (A crash between a
+    feedback apply and the next checkpoint would not: the shared feature
+    cache keeps the dead incarnation's ``labeled`` marks, so the replayed
+    labels are skipped — the JAX package's at-least-once contract.)"""
+    clean = _learning_session(small_dataset, tmp_path / "clean")
+    failed: set = set()
+
+    class _FailBeforeBatch(FlakySource):
+        """Fails the first poll of batches 5 and 9 (0-based), in
+        whichever incarnation reaches them."""
+
+        def poll_batch(self):
+            k = int(self.inner.offsets[0]) // 256
+            if k in (5, 9) and k not in failed:
+                failed.add(k)
+                raise TransientError(f"injected poll failure before {k}")
+            return self.inner.poll_batch()
+
+    crashed = _learning_session(small_dataset, tmp_path / "crashed",
+                                inject=_FailBeforeBatch)
+    assert crashed.stats["restarts"] == 2
+    assert clean.stats["batches"] == crashed.stats["batches"] == 10
+    _same_session(clean, crashed)
+    # the feedback and the reload both happened, and were versioned
+    assert float(clean.engine.state.feature_state.terminal.fraud.sum()) > 0
+    assert sum(loop.stats["applied"] for loop in crashed.held["loops"]) > 0
+    assert clean.engine.state.model_version == 2
+    assert clean.registry.meta(2)["source"] == "reload"
+    assert crashed.registry.champion_version() == 2
+    assert len(crashed.held["loops"]) == 3  # one session per incarnation
+
+
+def test_a_fenced_incarnation_applies_no_feedback(tmp_path, small_dataset):
+    """The first incarnation's feedback session hangs in its poll after
+    batch 5 (batch 4 checkpointed): the watchdog abandons it, the next
+    incarnation replays batch 5 and applies the labels, and when the
+    zombie wakes its apply dies at the fenced shadow scorer and feature
+    cache — nothing of it lands — and the session equals the clean run."""
+    clean = _learning_session(small_dataset, tmp_path / "clean")
+    hung = _learning_session(small_dataset, tmp_path / "hung",
+                             hang_feedback=4, stall_timeout_s=1.0)
+    zombie = hung.held["loops"][0]
+    applied = zombie.stats["applied"]
+    labeled = hung.cache._labeled.copy()
+    _drain_zombies(hung.topic.release)
+    assert hung.stats["restarts"] == 1
+    assert zombie.stats["applied"] == applied  # the zombie landed nothing
+    np.testing.assert_array_equal(hung.cache._labeled, labeled)
+    _same_session(clean, hung)
+
+
+def test_fences_of_the_learning_plane():
+    """A fenced feedback loop, learning loop and reloader refuse an
+    abandoned incarnation; the reloader's shared signature is put back
+    when its incarnation was abandoned during the poll."""
+    from real_time_fraud_detection_system_tpu_torch.runtime import faults
+
+    fence = faults._AbandonFence()
+    calls = []
+
+    class _Loop:
+        def poll_and_apply(self):
+            calls.append(1)
+            return 1
+
+    g = faults._FenceGuard(_Loop(), fence)
+    assert g.poll_and_apply() == 1
+    sig = {"sig": "old"}
+
+    def poll():
+        sig["sig"] = "new"
+        fence.abandoned = True  # abandoned while the poll ran
+        return ("params", None)
+
+    poll.sig_state = sig
+    fenced = faults._fence_model_reload(poll, fence)
+    with pytest.raises(faults.StallError):
+        fenced()
+    assert sig["sig"] == "old"
+    with pytest.raises(faults.StallError):
+        g.poll_and_apply()
+    assert calls == [1]

@@ -880,6 +880,10 @@ def score_files(small_dataset, tmp_path_factory):
                                                             seed=3))
     with open(d / "forest.npz", "wb") as f:
         f.write(jdump_model_bytes(model))
+    logreg = JTrainedModel(kind="logreg", scaler=model.scaler,
+                           params=_logreg(4))
+    with open(d / "logreg.npz", "wb") as f:
+        f.write(jdump_model_bytes(logreg))
     return d
 
 
@@ -917,6 +921,138 @@ def test_score_cli_writes_the_parquet_of_the_jax_score(score_files, capsys,
     assert tstats["device"] == "cpu" and tstats["kind"] == "forest"
     _assert_outputs(tout, jout)
     assert tout["prediction"].std() > 0
+
+
+@pytest.mark.parametrize("model,flags", [
+    ("logreg", ("--online-lr", "0.05")),
+    ("forest", ("--reload-model-every", "2")),
+    ("logreg", ("--online-lr", "0.05", "--reload-model-every", "2",
+                "--pipeline-depth", "1"))],
+    ids=["online-lr", "reload", "online-lr-reload-depth1"])
+def test_score_cli_learning_flags_write_the_parquet_of_the_jax_score(
+        score_files, capsys, model, flags):
+    """``--online-lr`` (the in-step SGD on the table's in-band labels) and
+    ``--reload-model-every`` (the first due interval reloads the file: a
+    swap that clobbers the SGD's updates) against the JAX ``score``,
+    column by column; probabilities within ``atol=1e-6`` (the SGD's
+    params differ by ulps, ``tests/test_torch_online_sgd.py``)."""
+    d = score_files
+    common = ["--data", str(d / "txs.npz"), "--model-file",
+              str(d / f"{model}.npz"), "--batch-rows", "1024", *flags]
+    tag = model + "-".join(f.strip("-") for f in flags)
+    jdir, tdir = d / f"jax-{tag}", d / f"port-{tag}"
+    assert jcli_main(["score", "--out", str(jdir), *common]) == 0
+    jstats = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert tcli.main(["score", "--device", "cpu", "--out", str(tdir),
+                      *common]) == 0
+    tstats = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert tstats["rows"] == jstats["rows"] == 3000
+    jout = ParquetSink(str(jdir)).read_all()
+    tout = ParquetSink(str(tdir)).read_all()
+    _assert_outputs(tout, jout)
+    if "--online-lr" in flags:
+        # the SGD moved the model: the scores differ from a static run
+        static = d / f"port-{tag}-static"
+        assert tcli.main(["score", "--device", "cpu", "--out", str(static),
+                          "--data", str(d / "txs.npz"), "--model-file",
+                          str(d / f"{model}.npz"), "--batch-rows",
+                          "1024"]) == 0
+        capsys.readouterr()
+        assert not np.array_equal(
+            ParquetSink(str(static)).read_all()["prediction"],
+            tout["prediction"])
+
+
+def test_score_cli_learn_registry_as_the_jax_score(score_files, capsys,
+                                                   tmp_path):
+    """``--learn-registry``: the serving model bootstraps as v1 in a
+    registry each package opens; a second run adopts the champion (the
+    JAX registry served by the port too); with the registry, the reloader
+    swaps only on a change of the file, so an unchanged one never
+    reloads."""
+    d = score_files
+    common = ["--data", str(d / "txs.npz"), "--model-file",
+              str(d / "logreg.npz"), "--batch-rows", "1024",
+              "--reload-model-every", "1"]
+    jreg, treg = tmp_path / "jreg", tmp_path / "treg"
+    assert jcli_main(["score", "--learn-registry", str(jreg),
+                      "--out", str(tmp_path / "j"), *common]) == 0
+    assert tcli.main(["score", "--device", "cpu", "--learn-registry",
+                      str(treg), "--out", str(tmp_path / "t"),
+                      *common]) == 0
+    # the JAX registry, served by the port
+    assert tcli.main(["score", "--device", "cpu", "--learn-registry",
+                      str(jreg), "--out", str(tmp_path / "tj"),
+                      *common]) == 0
+    capsys.readouterr()
+    from real_time_fraud_detection_system_tpu.io.registry import (
+        make_model_registry as jmake_model_registry,
+    )
+    from real_time_fraud_detection_system_tpu_torch.io.registry import (
+        make_model_registry,
+    )
+
+    for reg in (make_model_registry(str(treg)),
+                jmake_model_registry(str(jreg))):
+        assert reg.versions() == [1] and reg.champion_version() == 1
+        assert reg.meta(1)["source"] == "bootstrap"
+    _assert_outputs(ParquetSink(str(tmp_path / "t")).read_all(),
+                    ParquetSink(str(tmp_path / "j")).read_all())
+    _assert_outputs(ParquetSink(str(tmp_path / "tj")).read_all(),
+                    ParquetSink(str(tmp_path / "j")).read_all())
+
+
+@pytest.mark.parametrize("seed_initial", [False, True])
+def test_model_reloader_gates_on_the_files_mtime(score_files, tmp_path,
+                                                seed_initial):
+    """The first due interval reloads unless the startup mtime is the
+    baseline (``--learn-registry``); afterwards only a new mtime reloads,
+    and an artifact of another kind is refused."""
+    import logging
+    import shutil
+
+    path = tmp_path / "model.npz"
+    shutil.copy(score_files / "logreg.npz", path)
+    sig: dict = {}
+    poll = tcli._make_model_reloader(str(path), "logreg", 2,
+                                     logging.getLogger("t"),
+                                     seed_initial=seed_initial,
+                                     sig_state=sig, device="cpu")
+    assert poll() is None  # not due
+    first = poll()
+    assert (first is None) == seed_initial
+    assert poll() is None and poll() is None  # unchanged file
+    os.utime(path, ns=(time.time_ns(), time.time_ns() + 10 ** 9))
+    assert poll() is None  # not due
+    params, scaler = poll()
+    assert params.w.shape == (15,) and scaler.mean.shape == (15,)
+    # a fresh reloader over the same shared baseline keeps it
+    again = tcli._make_model_reloader(str(path), "logreg", 1,
+                                      logging.getLogger("t"),
+                                      seed_initial=seed_initial,
+                                      sig_state=sig, device="cpu")
+    assert again() is None
+    shutil.copy(score_files / "forest.npz", path)
+    os.utime(path, ns=(time.time_ns(), time.time_ns() + 2 * 10 ** 9))
+    assert again() is None  # a forest for a logreg engine: refused
+
+
+def test_score_cli_feedback_without_kafka_fails_as_the_jax_score(
+        score_files, capsys):
+    """``--feedback-bootstrap`` needs ``confluent_kafka``: both commands
+    raise ``ModuleNotFoundError`` naming it when the feedback loop is
+    built, and print no result."""
+    d = score_files
+    common = ["--data", str(d / "txs.npz"), "--model-file",
+              str(d / "logreg.npz"), "--feedback-bootstrap",
+              "localhost:9092", "--max-batches", "1"]
+    with pytest.raises(ModuleNotFoundError, match="confluent_kafka"):
+        jcli_main(["score", *common])
+    with pytest.raises(ModuleNotFoundError, match="confluent_kafka"):
+        tcli.main(["score", "--device", "cpu", *common])
+    assert tcli.main(["score", "--device", "cpu", *common,
+                      "--alerts-only"]) == 2
+    assert capsys.readouterr().out == ""
 
 
 def test_score_cli_refuses_exact_keys_and_missing_data(score_files, capsys,
@@ -995,7 +1131,11 @@ def test_score_cli_flag_defaults_match_jax():
     shared = ["data", "model_file", "mode", "source", "out", "batch_rows",
               "max_batches", "key_mode", "alerts_only", "pipeline_depth",
               "coalesce_rows", "async_sink", "sink_queue_batches",
-              "decode_workers", "no_fetch_overlap", "z_mode", "start_date"]
+              "decode_workers", "no_fetch_overlap", "z_mode", "start_date",
+              "online_lr", "feedback_bootstrap", "feedback_topic",
+              "reload_model_every", "learn_registry", "publish_every_labels",
+              "promote_min_labels", "promote_margin", "rollback_min_labels",
+              "rollback_margin"]
     for dest in shared:
         assert t[dest].default == j[dest].default, dest
         assert t[dest].option_strings == j[dest].option_strings, dest
