@@ -109,12 +109,34 @@ Phases, each printing JSON lines:
    every batch equal to the plain predict of the params it was launched
    with — and an externally published forest candidate shadow-scored
    through the leaf-sum kernel, bit for bit with its plain version.
-11. ``profile`` — a few batches of each main path, and of the forest path
+11. ``zoo`` — the rest of the model zoo, whose steps launch none of the
+   three kernels (every counter must stay 0): (a) the mlp (hidden 64, 32)
+   and the autoencoder (hidden 32, 8), seeded weights through the port's
+   artifact format, over 8 batches of the whole-dollar dataset — features
+   bit for bit and probabilities within 1e-5 of a CPU engine, then with
+   ``online_lr=1e-3`` on in-band labels (params within 2e-6 of the CPU
+   engine's, never rebound); then the mlp with the feedback SGD on labels
+   3 batches late, a ``StreamingLearner`` and ``ShadowScorer`` on its
+   candidate (published versions, shadow rows, the shadow's scores
+   against the plain predict); (b) the sequence kind at the JAX bench's
+   widths (d_model 32, 2 heads, 2 layers, d_ff 64, K = 32, naive
+   attention, capacity 8192) over 8 batches of 65,536 rows — 2 batches
+   against a CPU engine, 48 rows of the last batch against the offline
+   oracle (``event_features`` windows through the full
+   ``transformer_logits``), rows/s, the step's device ms and its FLOPs;
+   (c) K = 256 at 8,192-row batches (blockwise attention, asserted) over a
+   seeded stream of 256 customers whose rings wrap, with the oracle;
+   (d) capacity 2^20 (1.07 GB of events, 134 MB of positions) under
+   Zipf(1.1) keys: rows/s, peak device memory, FLOPs; (e) 24 batches
+   under ``run_with_recovery``, checkpoints every 8, one crash (poll 13):
+   the probabilities and the history state (rows ``[:C]``) equal the
+   clean run bit for bit.
+12. ``profile`` — a few batches of each main path, and of the forest path
    on the customer sketch, under ``torch.profiler``: device time by
    kernel, the device's idle share, the ``[B, NB]`` row gathers (none on
    the fused paths) and the small device-to-host copies (none of four
    bytes on the forest path: the window update makes no host sync).
-12. ``kernels`` — one line per the measurement contract, each kernel's
+13. ``kernels`` — one line per the measurement contract, each kernel's
    launches summed over every driven path that launched it.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises and
@@ -1048,9 +1070,7 @@ def _same_batches(got: dict, want: dict, what: str, first: int = 1) -> None:
 
 
 def _same_state(a, b, what: str) -> None:
-    from real_time_fraud_detection_system_tpu_torch.io.checkpoint import (
-        _leaves,
-    )
+    from real_time_fraud_detection_system_tpu_torch.utils.tree import leaves_with_path as _leaves
 
     for (path, x), (_, y) in zip(_leaves(a.feature_state),
                                  _leaves(b.feature_state)):
@@ -2522,6 +2542,515 @@ def phase_learning(dev, device_info, data: dict) -> dict:
     return totals
 
 
+ZOO_BATCHES = 8  # (a): card batches of each run
+ZOO_PARITY_BATCHES = 2  # (a), (b): batches held against a CPU engine
+ATOL_ZOO_PROB = 1e-5  # tests/test_torch_zoo.py, test_torch_history.py
+ATOL_SEQ_ORACLE = 3e-4  # tests/test_history.py: f64 oracle, f32 state
+SEQ_BATCHES = 8  # (b), (d)
+SEQ_ORACLE_ROWS = 48
+SEQ_LONG_K = 256  # (c): past seq_attn_block, so blockwise
+SEQ_LONG_ROWS = 8192
+SEQ_LONG_BATCHES = 16
+SEQ_LONG_CUSTOMERS = 256  # 512 events each: the ring wraps twice
+SEQ_BIG_CAPACITY = 1 << 20  # (d)
+SEQ_SUPERVISED_BATCHES = 24  # (e)
+SEQ_SUPERVISED_EVERY = 8
+SEQ_CRASH_POLL = 13
+
+
+def _zoo_models(scaler, dev) -> dict:
+    """The mlp (hidden 64, 32) and autoencoder (hidden 32, 8) from seed 0
+    and the sequence transformer at the bench's widths (d_model 32, 2
+    heads, 2 layers, d_ff 64) — ``ModelConfig``'s defaults — each written
+    and read back through the port's artifact format: kind → (model on
+    ``dev``, model on the CPU). The autoencoder's ``err_scale`` is the
+    median reconstruction error of standard-normal rows (the scaler
+    standardizes the stream)."""
+    from real_time_fraud_detection_system_tpu_torch.config import (
+        ModelConfig,
+    )
+    from real_time_fraud_detection_system_tpu_torch.io.artifacts import (
+        TrainedModel,
+        dump_model_bytes,
+        load_model_bytes,
+    )
+    from real_time_fraud_detection_system_tpu_torch.models.autoencoder \
+        import init_autoencoder, reconstruction_error
+    from real_time_fraud_detection_system_tpu_torch.models.mlp import (
+        init_mlp,
+    )
+    from real_time_fraud_detection_system_tpu_torch.models.sequence import (
+        init_transformer,
+    )
+
+    mc = ModelConfig()
+    ae = init_autoencoder(15, mc.autoencoder_hidden, seed=0, device="cpu")
+    x = torch.randn(4096, 15, generator=torch.Generator().manual_seed(0))
+    ae = ae._replace(err_scale=torch.median(reconstruction_error(ae, x)))
+    params = {"mlp": init_mlp(15, mc.mlp_hidden, seed=0, device="cpu"),
+              "autoencoder": ae,
+              "sequence": init_transformer(
+                  mc.seq_d_model, mc.seq_n_heads, mc.seq_n_layers,
+                  mc.seq_d_ff, seed=0, device="cpu")}
+    out = {}
+    for kind, p in params.items():
+        data = dump_model_bytes(TrainedModel(kind, scaler, p))
+        out[kind] = (load_model_bytes(data, device=dev),
+                     load_model_bytes(data, device="cpu"))
+    return out
+
+
+def _column_batches(txs, n: int, rows: int = BATCH_ROWS) -> list:
+    """The first ``n`` serving batches of ``txs`` (labels in band)."""
+    from real_time_fraud_detection_system_tpu_torch.runtime.sources import (
+        ReplaySource,
+    )
+
+    src = ReplaySource(txs.slice(slice(0, n * rows)), START_EPOCH_S,
+                       batch_rows=rows, with_labels=True)
+    out = []
+    while (cols := src.poll_batch()) is not None:
+        out.append(cols)
+    return out
+
+
+def _unlabeled(batches) -> list:
+    return [{c: v for c, v in b.items() if c != "label"} for b in batches]
+
+
+def _long_history_batches() -> list:
+    """(c)'s stream: ``SEQ_LONG_BATCHES`` batches of ``SEQ_LONG_ROWS``
+    rows over ``SEQ_LONG_CUSTOMERS`` customers, seeded numpy, times
+    strictly increasing."""
+    rng = np.random.default_rng(21)
+    n = SEQ_LONG_BATCHES * SEQ_LONG_ROWS
+    t_s = START_EPOCH_S + np.cumsum(rng.integers(1, 30, n)).astype(np.int64)
+    cust = rng.integers(0, SEQ_LONG_CUSTOMERS, n).astype(np.int64)
+    amount = rng.integers(100, 50_000, n).astype(np.int64)
+    out = []
+    for b in range(SEQ_LONG_BATCHES):
+        sl = slice(b * SEQ_LONG_ROWS, (b + 1) * SEQ_LONG_ROWS)
+        us = t_s[sl] * 1_000_000
+        out.append({"tx_id": np.arange(sl.start, sl.stop, dtype=np.int64),
+                    "tx_datetime_us": us, "customer_id": cust[sl],
+                    "terminal_id": cust[sl] % 97,
+                    "tx_amount_cents": amount[sl],
+                    "kafka_ts_ms": us // 1000})
+    return out
+
+
+def _seq_oracle(params, batches, sink, k: int, attn, dev) -> float:
+    """Max |streamed − offline| over ``SEQ_ORACLE_ROWS`` rows of the last
+    batch: each row's window (its customer's last ``k`` events up to
+    itself, in stream order) through ``event_features`` on the host and
+    the full ``transformer_logits`` on the card, at the row's position."""
+    from real_time_fraud_detection_system_tpu_torch.models.sequence import (
+        event_features,
+        transformer_logits,
+    )
+
+    cust = np.concatenate([b["customer_id"] for b in batches])
+    t_s = np.concatenate([b["tx_datetime_us"] for b in batches]) \
+        // 1_000_000
+    amount = np.concatenate([b["tx_amount_cents"] for b in batches]) / 100.0
+    check(bool(np.all(np.diff(t_s) >= 0)), "zoo: the stream is not "
+          "chronological (the oracle's order would differ)")
+    probs = np.concatenate([r.probs for r in sink.batches])
+    n_last = len(batches[-1]["tx_id"])
+    rows = np.random.default_rng(k).choice(
+        np.arange(len(cust) - n_last, len(cust)), SEQ_ORACLE_ROWS,
+        replace=False)
+    x = np.zeros((len(rows), k, 8), np.float32)
+    qpos = np.zeros(len(rows), np.int64)
+    for r, i in enumerate(rows):
+        sel = np.flatnonzero(cust[:i + 1] == cust[i])[-k:]
+        f = event_features(amount[sel], t_s[sel])
+        x[r, :len(f)] = f
+        qpos[r] = len(f) - 1
+    logits = transformer_logits(params, torch.from_numpy(x).to(dev), attn)
+    want = torch.sigmoid(logits[torch.arange(len(rows)),
+                                torch.from_numpy(qpos).to(dev)])
+    err = float(np.abs(probs[rows] - want.cpu().numpy()).max())
+    check(err <= ATOL_SEQ_ORACLE,
+          f"zoo: streamed probabilities {err} from the offline oracle")
+    check(int(qpos.max()) == k - 1, "zoo: no oracle window was full")
+    return err
+
+
+def _seq_step_ms(eng, batch: dict) -> float:
+    """Device ms of one ``update_and_score`` (a copy of the engine's
+    state, the packed batch already on the card), by CUDA events."""
+    from real_time_fraud_detection_system_tpu_torch.core.batch import (
+        make_batch,
+        pack_batch,
+        unpack_batch,
+    )
+    from real_time_fraud_detection_system_tpu_torch.features.history import (
+        update_and_score,
+    )
+    from real_time_fraud_detection_system_tpu_torch.utils import tree
+
+    n = len(batch["tx_id"])
+    packed = torch.from_numpy(pack_batch(make_batch(
+        customer_id=batch["customer_id"], terminal_id=batch["terminal_id"],
+        tx_datetime_us=batch["tx_datetime_us"],
+        amount_cents=batch["tx_amount_cents"], pad_to=n))).to(eng.device)
+    tb = unpack_batch(packed)
+    state = tree.clone(eng.state.feature_state)
+    return cuda_ms(lambda: update_and_score(state, eng.state.params, tb,
+                                            eng.cfg.features), 10)
+
+
+def _seq_cfg(cfg, rows: int = BATCH_ROWS, **features):
+    return dataclasses.replace(
+        cfg, features=dataclasses.replace(cfg.features, **features),
+        runtime=dataclasses.replace(cfg.runtime, batch_buckets=(rows,)))
+
+
+def phase_zoo(dev, device_info, data: dict) -> dict:
+    """The rest of the model zoo on the card; see the module docstring,
+    phase 11."""
+    from real_time_fraud_detection_system_tpu_torch.config import (
+        LearnConfig,
+        TrainConfig,
+    )
+    from real_time_fraud_detection_system_tpu_torch.data.generator import (
+        ZipfKeySampler,
+    )
+    from real_time_fraud_detection_system_tpu_torch.features.history import (
+        _attn_fn_for,
+        history_bytes,
+    )
+    from real_time_fraud_detection_system_tpu_torch.io.artifacts import (
+        TrainedModel,
+    )
+    from real_time_fraud_detection_system_tpu_torch.io.checkpoint import (
+        Checkpointer,
+    )
+    from real_time_fraud_detection_system_tpu_torch.io.registry import (
+        make_model_registry,
+    )
+    from real_time_fraud_detection_system_tpu_torch.models.scaler import (
+        transform,
+    )
+    from real_time_fraud_detection_system_tpu_torch.models.sequence import (
+        transformer_flops,
+    )
+    from real_time_fraud_detection_system_tpu_torch.runtime.engine import (
+        ScoringEngine,
+        predict_fn_for,
+    )
+    from real_time_fraud_detection_system_tpu_torch.runtime.faults import (
+        FlakySource,
+        run_with_recovery,
+    )
+    from real_time_fraud_detection_system_tpu_torch.runtime.feedback import (
+        FeatureCache,
+        FeedbackLoop,
+    )
+    from real_time_fraud_detection_system_tpu_torch.runtime.learner import (
+        LearningLoop,
+        StreamingLearner,
+    )
+    from real_time_fraud_detection_system_tpu_torch.runtime.sources import (
+        InProcBroker,
+    )
+    from real_time_fraud_detection_system_tpu_torch.utils import tree
+    from real_time_fraud_detection_system_tpu_torch.utils.metrics import (
+        get_registry,
+    )
+
+    cfg = data["cfg"]
+    card = {"card": device_info["smi_name"],
+            "power_limit": device_info["power_limit"]}
+    totals = {name: 0 for name in KERNELS}
+    models = _zoo_models(data["models"]["forest"][1].scaler, dev)
+    batches = _column_batches(data["txs_whole_dollars"], LEARN_BATCHES)
+
+    def served(run, what: str) -> dict:
+        """``drive`` the run: none of the kernels lies on these paths."""
+        stats, launches = drive(run)
+        for name, n in launches.items():
+            check(n == 0, f"zoo {what}: {n} launches of {name}")
+        return stats
+
+    def line(stats) -> dict:
+        return {k: stats[k] for k in ("rows", "batches", "rows_per_s",
+                                      "latency_p50_ms", "stage_ms_p50")}
+
+    def params_err(a, b) -> float:
+        return max(float((x.cpu() - y).abs().max())
+                   for x, y in zip(tree.leaves(a), tree.leaves(b)))
+
+    # (a) mlp and autoencoder: serving, then the in-step SGD
+    for kind in ("mlp", "autoencoder"):
+        mdev, mcpu = models[kind]
+        out = {}
+        for lr, n in ((0.0, ZOO_BATCHES), (LEARN_LR, ZOO_BATCHES)):
+            src = _copies(batches[:n]) if lr else _unlabeled(batches[:n])
+            eng = ScoringEngine(cfg, kind, mdev.params, mdev.scaler,
+                                device=dev, online_lr=lr)
+            ptrs = [t.data_ptr() for t in tree.leaves(eng.state.params)]
+            sink = _Results()
+            stats = served(lambda: eng.run(_ListSource(src), sink),
+                           f"(a) {kind} lr {lr}")
+            check(ptrs == [t.data_ptr() for t in
+                           tree.leaves(eng.state.params)],
+                  f"zoo (a) {kind}: the SGD rebound a leaf")
+            nref = n if lr else ZOO_PARITY_BATCHES
+            ref = ScoringEngine(cfg, kind, mcpu.params, mcpu.scaler,
+                                device="cpu", online_lr=lr)
+            rsink = _Results()
+            ref.run(_ListSource(src[:nref]), rsink)
+            head = _Results()
+            head.batches = sink.batches[:nref]
+            _same_features(head, rsink, f"(a) {kind} lr {lr}")
+            perr = float(np.abs(head.probs() - rsink.probs()).max())
+            check(perr <= ATOL_ZOO_PROB,
+                  f"zoo (a) {kind} lr {lr}: probabilities {perr} from CPU")
+            check(sink.probs().std() > 0, f"zoo (a) {kind}: flat scores")
+            out[lr] = (eng, stats, perr, ref)
+        eng, stats, perr, ref = out[LEARN_LR]
+        prm = params_err(eng.state.params, ref.state.params)
+        check(prm <= ATOL_PARAMS, f"zoo (a) {kind}: params {prm} from CPU")
+        check(params_err(eng.state.params, mcpu.params) > 1e-5,
+              f"zoo (a) {kind}: the in-step SGD never moved the params")
+        emit({"phase": "zoo", "part": f"a_{kind}", **line(out[0.0][1]),
+              "rows_per_s_online_lr": stats["rows_per_s"],
+              "online_lr": LEARN_LR,
+              "max_abs_prob_err_vs_cpu": out[0.0][2],
+              "max_abs_prob_err_vs_cpu_online_lr": perr,
+              "max_abs_param_err_vs_cpu_online_lr": prm, **card})
+        del out, eng, ref
+
+    # (a) the mlp with feedback SGD (labels LEARN_LAG batches late), and
+    # its candidate through the streaming learner and the shadow
+    mdev, mcpu = models["mlp"]
+    lcfg = dataclasses.replace(
+        cfg, train=TrainConfig(online_learning_rate=LEARN_LR),
+        learn=LearnConfig(publish_every_labels=2 * BATCH_ROWS,
+                          promote_min_labels=10 ** 9, window_rows=4096,
+                          epochs=2, learning_rate=LEARN_LR,
+                          shadow_cache_rows=LEARN_CACHE_ROWS))
+    msgs = _label_messages(batches)
+    reg = get_registry()
+
+    def metric(name):
+        m = reg.get(name)
+        return float(m.value) if m is not None else 0.0
+
+    runs, last = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for d, m in ((dev, mdev), ("cpu", mcpu)):
+            eng = ScoringEngine(lcfg, "mlp", m.params, m.scaler, device=d,
+                                feature_cache=FeatureCache(
+                                    LEARN_CACHE_ROWS))
+            broker = InProcBroker(4)
+            loop = FeedbackLoop(eng, broker)
+            src = _DelayedLabels(_ListSource(_copies(batches)), broker,
+                                 msgs)
+            learning = None
+            if d == dev:
+                registry = make_model_registry(f"{tmp}/registry")
+                learner = StreamingLearner(
+                    "mlp", mcpu.params, mcpu.scaler, lcfg, registry,
+                    publish_every_labels=2 * BATCH_ROWS, window_rows=4096,
+                    epochs=2, learning_rate=LEARN_LR, device=dev)
+                learning = LearningLoop(registry, lcfg, "mlp",
+                                        model=TrainedModel(
+                                            "mlp", mcpu.scaler,
+                                            mcpu.params),
+                                        learner=learner, device=dev)
+                score = learning.shadow.score_batch
+
+                def keep_last(tx, feats, champ, score=score, last=last,
+                              learning=learning):
+                    score(tx, feats, champ)
+                    sh = learning.shadow
+                    if sh._cand_params is not None:
+                        last.update(feats=np.array(feats),
+                                    params=sh._cand_params,
+                                    scaler=sh._cand_scaler,
+                                    cand=sh._cand_p[np.asarray(tx)
+                                                    % sh.capacity].copy())
+
+                learning.shadow.score_batch = keep_last
+                base = {n: metric(n) for n in (
+                    "rtfds_learner_published_total",
+                    "rtfds_shadow_rows_total")}
+                fb_ms = _timed(eng, "apply_feedback", [])
+            sink = _Results()
+            try:
+                if d == dev:
+                    stats = served(lambda: eng.run(
+                        src, sink, feedback=loop, learning=learning),
+                        "(a) mlp feedback")
+                    check(learner.drain(300.0), "zoo (a): learner stuck")
+                else:
+                    eng.run(src, sink, feedback=loop)
+            finally:
+                if learning is not None:
+                    learning.close()
+            runs[str(d)] = (eng, loop, sink)
+        published = metric("rtfds_learner_published_total") \
+            - base["rtfds_learner_published_total"]
+        shadow_rows = metric("rtfds_shadow_rows_total") \
+            - base["rtfds_shadow_rows_total"]
+    (eng, loop, sink), (ref, rloop, rsink) = runs[str(dev)], runs["cpu"]
+    check(loop.stats == rloop.stats and loop.stats["applied"] > 0,
+          f"zoo (a) mlp feedback: loop stats {loop.stats} "
+          f"!= {rloop.stats}")
+    prm = params_err(eng.state.params, ref.state.params)
+    check(prm <= ATOL_PARAMS, f"zoo (a) mlp feedback: params {prm}")
+    check(params_err(eng.state.params, mcpu.params) > 1e-5,
+          "zoo (a) mlp feedback: the feedback SGD never moved the params")
+    _same_features(sink, rsink, "(a) mlp feedback")
+    perr = float(np.abs(sink.probs() - rsink.probs()).max())
+    check(perr <= ATOL_ZOO_PROB, f"zoo (a) mlp feedback: probs {perr}")
+    check(published >= 1 and shadow_rows > 0 and "cand" in last,
+          f"zoo (a) mlp learner: {published} published, {shadow_rows} "
+          "shadow rows")
+    want = predict_fn_for("mlp")(last["params"], transform(
+        last["scaler"], torch.from_numpy(last["feats"]).to(dev)))
+    want = want.cpu().numpy()
+    serr = float(np.abs(last["cand"] - want).max())
+    check(serr <= ATOL_ZOO_PROB,
+          f"zoo (a) mlp shadow: {serr} from the plain predict")
+    emit({"phase": "zoo", "part": "a_mlp_feedback_learner_shadow",
+          "lag_batches": LEARN_LAG, "feedback": loop.stats,
+          "apply_feedback_ms_p50": _median(fb_ms),
+          "apply_feedback_calls": len(fb_ms), "published": published,
+          "shadow_rows": shadow_rows,
+          "max_abs_param_err_vs_cpu": prm,
+          "max_abs_prob_err_vs_cpu": perr,
+          "shadow_max_abs_err_vs_plain": serr, **line(stats), **card})
+    del runs, eng, ref
+
+    # (b) sequence, K=32, naive attention, 65,536-row batches
+    sdev, scpu = models["sequence"]
+    scfg = _seq_cfg(cfg, history_len=32)
+    check(_attn_fn_for(scfg.features, 32) is None, "zoo (b): not naive")
+    sb = _unlabeled(batches[:SEQ_BATCHES])
+    eng = ScoringEngine(scfg, "sequence", sdev.params, sdev.scaler,
+                        device=dev)
+    sink = _Results()
+    stats = served(lambda: eng.run(_ListSource(_copies(sb)), sink),
+                   "(b) sequence")
+    check(not any(r.features.any() for r in sink.batches),
+          "zoo (b): a feature column is not zero")
+    ref = ScoringEngine(scfg, "sequence", scpu.params, scpu.scaler,
+                        device="cpu")
+    rsink = _Results()
+    ref.run(_ListSource(_copies(sb[:ZOO_PARITY_BATCHES])), rsink)
+    head = np.concatenate([r.probs for r in sink.batches[
+        :ZOO_PARITY_BATCHES]])
+    cerr = float(np.abs(head - rsink.probs()).max())
+    check(cerr <= ATOL_ZOO_PROB, f"zoo (b): probabilities {cerr} from CPU")
+    oerr = _seq_oracle(sdev.params, sb, sink, 32, None, dev)
+    step_ms = _seq_step_ms(eng, sb[-1])
+    flops = transformer_flops(sdev.params, BATCH_ROWS, 32)
+    hs = eng.state.feature_state
+    check(int(hs.count[:-1].sum()) == SEQ_BATCHES * BATCH_ROWS,
+          "zoo (b): the rings did not count every row")
+    emit({"phase": "zoo", "part": "b_sequence_k32_naive",
+          "history_len": 32, "attn": "naive",
+          "customer_capacity": scfg.features.customer_capacity,
+          "step_device_ms": step_ms, "flops_per_batch": flops,
+          "flops_per_row": flops // BATCH_ROWS,
+          "achieved_tflops": flops / step_ms / 1e9,
+          "max_abs_prob_err_vs_cpu": cerr,
+          "max_abs_prob_err_vs_oracle": oerr, **line(stats), **card})
+    del eng, ref
+
+    # (c) sequence, K=256: blockwise attention at 8,192-row batches
+    ccfg = _seq_cfg(cfg, SEQ_LONG_ROWS, history_len=SEQ_LONG_K)
+    attn = _attn_fn_for(ccfg.features, SEQ_LONG_K)
+    check(attn is not None, "zoo (c): auto did not choose blockwise")
+    lb = _long_history_batches()
+    eng = ScoringEngine(ccfg, "sequence", sdev.params, sdev.scaler,
+                        device=dev)
+    sink = _Results()
+    stats = served(lambda: eng.run(_ListSource(_copies(lb)), sink),
+                   "(c) sequence long")
+    oerr = _seq_oracle(sdev.params, lb, sink, SEQ_LONG_K, attn, dev)
+    step_ms = _seq_step_ms(eng, lb[-1])
+    flops = transformer_flops(sdev.params, SEQ_LONG_ROWS, SEQ_LONG_K)
+    emit({"phase": "zoo", "part": "c_sequence_k256_blockwise",
+          "history_len": SEQ_LONG_K, "attn": "blockwise",
+          "attn_block": ccfg.features.seq_attn_block,
+          "step_device_ms": step_ms, "flops_per_batch": flops,
+          "flops_per_row": flops // SEQ_LONG_ROWS,
+          "achieved_tflops": flops / step_ms / 1e9,
+          "max_abs_prob_err_vs_oracle": oerr, **line(stats), **card})
+    del eng
+
+    # (d) sequence at a real state size: 2^20 slots under Zipf(1.1) keys
+    dcfg = _seq_cfg(cfg, history_len=32, customer_capacity=SEQ_BIG_CAPACITY)
+    zb = _zipf_batches(ZipfKeySampler(SEQ_BIG_CAPACITY, ZIPF_SKEW),
+                       SEQ_BATCHES, day_every=EXACT_DAY_EVERY, seed=13)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    eng = ScoringEngine(dcfg, "sequence", sdev.params, sdev.scaler,
+                        device=dev)
+    stats = served(lambda: eng.run(_ListSource(_copies(zb)), _Results()),
+                   "(d) sequence 2^20")
+    peak = torch.cuda.max_memory_allocated()
+    hs = eng.state.feature_state
+    check(int(hs.count[:-1].sum()) == SEQ_BATCHES * BATCH_ROWS,
+          "zoo (d): the rings did not count every row")
+    flops = transformer_flops(sdev.params, BATCH_ROWS, 32)
+    emit({"phase": "zoo", "part": "d_sequence_capacity_2p20",
+          "customer_capacity": SEQ_BIG_CAPACITY, "zipf_skew": ZIPF_SKEW,
+          "history_len": 32,
+          "state_bytes": history_bytes(dcfg.features),
+          "events_bytes": hs.events.numel() * 4,
+          "pos_bytes": hs.pos.numel() * 4,
+          "peak_memory_bytes": peak,
+          "slots_touched": int((hs.count[:-1] > 0).sum()),
+          "step_device_ms": _seq_step_ms(eng, zb[-1]),
+          "flops_per_batch": flops, **line(stats), **card})
+    del eng, hs
+
+    # (e) sequence under the supervisor: a crash, a restore, a replay
+    ecfg = dataclasses.replace(scfg, runtime=dataclasses.replace(
+        scfg.runtime, checkpoint_every_batches=SEQ_SUPERVISED_EVERY))
+    eb = _unlabeled(_column_batches(data["txs_whole_dollars"],
+                                    SEQ_SUPERVISED_BATCHES))
+    engines = []
+
+    def make_engine():
+        engines.append(ScoringEngine(ecfg, "sequence", sdev.params,
+                                     sdev.scaler, device=dev))
+        return engines[-1]
+
+    clean = make_engine()
+    want = IndexedSink()
+    served(lambda: clean.run(_ListSource(_copies(eb)), want),
+           "(e) clean")
+    got = IndexedSink()
+    with tempfile.TemporaryDirectory() as tmp:
+        rstats = served(lambda: run_with_recovery(
+            make_engine, FlakySource(_ListSource(_copies(eb)),
+                                     fail_at=(SEQ_CRASH_POLL,)),
+            Checkpointer(f"{tmp}/ck"), sink=got, max_restarts=2),
+            "(e) supervised")
+    check(rstats["restarts"] == 1, f"zoo (e): {rstats['restarts']} restarts")
+    _same_batches(got.batches, want.batches, "zoo (e)")
+    for (path, x), (_, y) in zip(
+            tree.leaves_with_path(engines[-1].state.feature_state),
+            tree.leaves_with_path(clean.state.feature_state)):
+        # row C is the sink, written in no fixed order
+        check(torch.equal(x[:-1], y[:-1]),
+              f"zoo (e): history state {path} differs from the clean run")
+    emit({"phase": "zoo", "part": "e_sequence_supervised",
+          "batches": SEQ_SUPERVISED_BATCHES,
+          "checkpoint_every": SEQ_SUPERVISED_EVERY,
+          "crash_poll": SEQ_CRASH_POLL, "restarts": rstats["restarts"],
+          "engines": len(engines) - 1, "equal_to_clean_run": True, **card})
+    return totals
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2558,6 +3087,7 @@ def main() -> int:
     add(phase_recovery(dev, info, data))
     add(phase_exact_path(dev, info, data))
     add(phase_learning(dev, info, data))
+    add(phase_zoo(dev, info, data))
     for kind in PATHS:
         phase_profile(dev, data, kind)
     phase_profile(dev, data, "forest", dataclasses.replace(

@@ -20,7 +20,11 @@ The learning loop: ``--online-lr`` (in-step SGD), ``--feedback-bootstrap``
 and ``--feedback-topic`` (delayed labels from Kafka), ``--reload-model-every``
 (hot reload of ``--model-file``, gated on its mtime), and ``--learn-registry``
 with its promotion flags (the versioned registry, the streaming learner,
-shadow scoring, promotion and rollback).
+shadow scoring, promotion and rollback). Every kind of the model zoo is
+served (logreg, mlp, tree, forest, gbt, autoencoder, sequence); the
+sequence kind exits 2 on ``--online-lr``, ``--feedback-bootstrap``,
+``--learn-registry`` and ``--key-mode exact``, as the JAX ``score``
+refuses them.
 Not ported yet: the Kafka and raw-table sources and object-store output
 (ROADMAP A2, A9), ``--resume-merge`` and ``--resume-merge-cold`` (A7), the
 CPU oracle and the serving extras (A4), the ``registry`` subcommand (A9).
@@ -135,6 +139,7 @@ def cmd_score(args) -> int:
     from real_time_fraud_detection_system_tpu_torch.runtime.engine import (
         ScoringEngine,
         batches_left,
+        check_sequence_serving,
     )
     from real_time_fraud_detection_system_tpu_torch.runtime.sources import (
         ReplaySource,
@@ -272,6 +277,16 @@ def cmd_score(args) -> int:
                 "(the registry lineage still records reloads)")
     txs = load_transactions(args.data)
     model = load_model(args.model_file, device=args.device)
+    if model.kind == "sequence":
+        # fail fast with the CLI convention: the engine's own refusals,
+        # before any state is built
+        try:
+            check_sequence_serving(
+                cfg, args.online_lr, feedback=bool(args.feedback_bootstrap),
+                shadow=bool(args.learn_registry))
+        except ValueError as e:
+            log.error("%s", e)
+            return 2
     # with --learn-registry the registry's champion, not the bootstrap
     # file, is what serves: the reloader swaps only on a CHANGE after
     # startup, against one baseline shared across incarnations

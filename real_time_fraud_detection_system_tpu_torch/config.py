@@ -86,6 +86,17 @@ class FeatureConfig:
     # bounded memory with overestimate-only error. Terminal risk always
     # uses the table.
     customer_source: str = "table"
+    # Per-customer event-history ring length for the sequence scorer
+    # (features/history.py): the serving-side max_len of
+    # models/sequence.build_sequences.
+    history_len: int = 32
+    # Attention form of the serving transformer over the history ring:
+    # "naive" materializes [B, H, K, K] scores (short K), "blockwise" runs
+    # the online-softmax recurrence ([B, H, K, block] scores, long K),
+    # "auto" switches to blockwise once history_len exceeds
+    # seq_attn_block.
+    seq_attn: str = "auto"
+    seq_attn_block: int = 128
     night_end_hour: int = 6
     weekend_start_weekday: int = 5  # Monday == 0
 
@@ -141,21 +152,35 @@ class FeatureConfig:
                 raise ValueError(
                     "cold_store requires compact_every > 0 (demotion "
                     "rides the compaction cadence)")
+        if self.seq_attn not in ("naive", "blockwise", "auto"):
+            raise ValueError(
+                f"seq_attn must be 'naive', 'blockwise' or 'auto', "
+                f"got {self.seq_attn!r}"
+            )
 
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """The forest's shape (the flagship artifact's)."""
+    """The model zoo's shapes: the forest's (the flagship artifact's),
+    the mlp's and autoencoder's hidden widths (the autoencoder's last entry
+    is the bottleneck) and the sequence transformer's dims
+    (``models/sequence.py``)."""
 
+    mlp_hidden: Sequence[int] = (64, 32)
+    autoencoder_hidden: Sequence[int] = (32, 8)
     forest_n_trees: int = 100
     forest_max_depth: int = 8
+    seq_d_model: int = 32
+    seq_n_heads: int = 2
+    seq_n_layers: int = 2
+    seq_d_ff: int = 64
 
 
 @dataclass(frozen=True)
 class TrainConfig:
     """The training knob the serving path reads: the step size of the
     feedback SGD when the engine has no ``online_lr`` (the offline
-    protocol's fields come with the offline side, ROADMAP A8)."""
+    protocol's fields come with the offline side, ROADMAP A8b)."""
 
     # Online SGD (BASELINE.json config 4).
     online_learning_rate: float = 1e-3

@@ -11,11 +11,14 @@ writes loads here with the same ``content_sha256``, and one written here
 loads there. v0 artifacts (no hash) load on the zip layer's own entry
 CRCs.
 
-Kinds: ``logreg`` (w, b), ``tree`` and ``forest`` (the flat node tables),
-``gbt`` (the node tables and ``base_score``). The mlp, autoencoder and
-sequence kinds raise ``NotImplementedError`` (ROADMAP A8); object-store
-URLs, ``save_model`` and the corrupt-artifact counter come with the store
-and the metrics registry (A9, A4). :func:`save_transactions` and
+Kinds: ``logreg`` (w, b), ``mlp`` (``w{i}``/``b{i}`` and ``n_layers``),
+``tree`` and ``forest`` (the flat node tables), ``gbt`` (the node tables
+and ``base_score``), ``autoencoder`` (the mlp's layout and
+``err_scale``), ``sequence`` (the dims in ``meta["seq"]`` and the leaves
+``seq{i}`` in the JAX flatten order: ``embed_w``, ``embed_b``, each
+block's 12 fields in order, ``lnf_g``, ``lnf_b``, ``head_w``,
+``head_b``). Object-store URLs, ``save_model`` and the corrupt-artifact
+counter come with the store and the metrics registry (A9, A4). :func:`save_transactions` and
 :func:`load_transactions` read and write the transactions tables of
 ``rtfds datagen``.
 """
@@ -38,6 +41,9 @@ from real_time_fraud_detection_system_tpu_torch.data.generator import (
     Transactions,
 )
 from real_time_fraud_detection_system_tpu_torch.device import resolve_device
+from real_time_fraud_detection_system_tpu_torch.models.autoencoder import (
+    AutoencoderParams,
+)
 from real_time_fraud_detection_system_tpu_torch.models.forest import (
     TreeEnsemble,
 )
@@ -46,12 +52,17 @@ from real_time_fraud_detection_system_tpu_torch.models.logreg import (
     LogRegParams,
 )
 from real_time_fraud_detection_system_tpu_torch.models.scaler import Scaler
+from real_time_fraud_detection_system_tpu_torch.models.sequence import (
+    init_transformer,
+)
+from real_time_fraud_detection_system_tpu_torch.utils import tree
 
 ARTIFACT_FORMAT = 1
 
 ARTIFACT_CORRUPT_REASONS = ("checksum", "truncated")
 
-_KINDS = ("logreg", "tree", "forest", "gbt")
+_KINDS = ("logreg", "mlp", "tree", "forest", "gbt", "autoencoder",
+          "sequence")
 _TREE_FIELDS = ("feat", "thresh", "left", "right", "prob")
 
 
@@ -79,15 +90,15 @@ class TrainedModel:
 
     kind: str
     scaler: Scaler
-    params: object  # LogRegParams | TreeEnsemble | GBTModel
+    # LogRegParams | MLPParams | TreeEnsemble | GBTModel |
+    # AutoencoderParams | TransformerParams
+    params: object
     content_sha256: Optional[str] = None
 
 
 def _require_kind(kind: str) -> None:
     if kind not in _KINDS:
-        raise NotImplementedError(
-            f"model kind {kind!r} is not ported yet: the port's artifacts "
-            f"hold {_KINDS} (the rest of the zoo waits for ROADMAP A8)")
+        raise ValueError(f"unknown model kind {kind!r}")
 
 
 def _corrupt_from_badzip(e: zipfile.BadZipFile) -> CorruptModelError:
@@ -132,6 +143,27 @@ def dump_model_bytes(model: TrainedModel) -> bytes:
     if model.kind == "logreg":
         arrays["w"] = _np(p.w)
         arrays["b"] = _np(p.b)
+    elif model.kind in ("mlp", "autoencoder"):
+        layers = p if model.kind == "mlp" else p.layers
+        meta["n_layers"] = len(layers)
+        if model.kind == "autoencoder":
+            arrays["err_scale"] = _np(p.err_scale)
+        for i, (w, b) in enumerate(layers):
+            arrays[f"w{i}"] = _np(w)
+            arrays[f"b{i}"] = _np(b)
+    elif model.kind == "sequence":
+        blk = p.blocks[0]
+        meta["seq"] = {
+            "d_model": int(p.embed_w.shape[1]),
+            "n_in": int(p.embed_w.shape[0]),
+            "n_heads": int(blk.wq.shape[1]),
+            "n_layers": len(p.blocks),
+            "d_ff": int(blk.w1.shape[1]),
+        }
+        # the leaves in the JAX flatten order; the loader rebuilds the
+        # structure from a skeleton of the same dims
+        for i, leaf in enumerate(tree.leaves(p)):
+            arrays[f"seq{i}"] = _np(leaf)
     else:
         trees = p.trees if model.kind == "gbt" else p
         if not isinstance(trees, TreeEnsemble):
@@ -224,6 +256,19 @@ def _load_model_npz(npz, device: torch.device) -> TrainedModel:
     scaler = Scaler(mean=t("scaler_mean"), scale=t("scaler_scale"))
     if kind == "logreg":
         params = LogRegParams(w=t("w"), b=t("b"))
+    elif kind in ("mlp", "autoencoder"):
+        params = [(t(f"w{i}"), t(f"b{i}")) for i in range(meta["n_layers"])]
+        if kind == "autoencoder":
+            params = AutoencoderParams(layers=params,
+                                       err_scale=t("err_scale"))
+    elif kind == "sequence":
+        dims = meta["seq"]
+        skeleton = init_transformer(
+            d_model=dims["d_model"], n_heads=dims["n_heads"],
+            n_layers=dims["n_layers"], d_ff=dims["d_ff"],
+            n_in=dims["n_in"], device="meta")
+        params = tree.unflatten(skeleton, [
+            t(f"seq{i}") for i in range(len(tree.leaves(skeleton)))])
     else:
         params = TreeEnsemble(*(t(f) for f in _TREE_FIELDS),
                               max_depth=int(meta["max_depth"]))

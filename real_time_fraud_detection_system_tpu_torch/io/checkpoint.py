@@ -11,9 +11,12 @@ The file is the JAX package's, byte layout and names alike, so a
 checkpoint moves between the two packages in both directions:
 
 - the leaves are ``fs_i``/``p_i``/``s_i`` in the JAX package's pytree
-  order — NamedTuple fields in order, ``None`` fields dropped, a Python
-  ``int`` field (``TreeEnsemble.max_depth`` of the descent form) a 0-d
-  leaf — and ``__meta__`` carries the JAX keys (``layout_devices`` 1,
+  order (``utils/tree.py``) — NamedTuple fields, tuple and list items in
+  order, ``None`` fields dropped, a Python ``int`` field
+  (``TreeEnsemble.max_depth`` of the descent form) a 0-d leaf — whatever
+  the kind: an mlp's list of ``(w, b)`` pairs, a transformer's tuple of
+  blocks, the sequence kind's ``HistoryState`` (``fs_leaves`` ``.events``,
+  ``.pos``, ``.count``, ``.last_t``) — and ``__meta__`` carries the JAX keys (``layout_devices`` 1,
   ``process_count`` 1, ``process_id`` 0, and the state's registry
   ``model_version``, which a restore hands back);
 - ``__manifest__`` carries a CRC32 per leaf, the structural fingerprint
@@ -59,11 +62,12 @@ import time
 import uuid
 import zipfile
 import zlib
-from typing import Iterator, List, Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from real_time_fraud_detection_system_tpu_torch.utils import tree
 from real_time_fraud_detection_system_tpu_torch.utils.metrics import (
     active_recorder,
     get_registry,
@@ -120,32 +124,6 @@ def _observe_checkpoint(op: str, backend: str, t0: float, nbytes: int,
 # ---------------------------------------------------------------------------
 
 
-def _leaves(tree, path: str = "") -> List[Tuple[str, object]]:
-    """``(path, leaf)`` pairs in the JAX package's flatten order: the
-    fields of a NamedTuple in order, ``None`` dropped; a tensor or a
-    Python scalar is a leaf. ``path`` is ``jax.tree_util.keystr``'s."""
-    if tree is None:
-        return []
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        out = []
-        for name in tree._fields:
-            out += _leaves(getattr(tree, name), f"{path}.{name}")
-        return out
-    return [(path, tree)]
-
-
-def _rebuild(tree, values: Iterator):
-    """``tree`` with its leaves replaced, in flatten order, by
-    ``values``: the same tensor objects, written in place by the caller,
-    and new Python scalars."""
-    if tree is None:
-        return None
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(_rebuild(getattr(tree, n), values)
-                            for n in tree._fields))
-    return next(values)
-
-
 # A Python int leaf is written as int32: the JAX engine's jitted step
 # returns its params, so from the first batch on it holds such a leaf as
 # an int32 array (64-bit types off), and that is what its checkpoints
@@ -182,20 +160,20 @@ def _state_arrays(engine_state) -> Tuple[dict, dict]:
     """An EngineState → the npz array dict and the meta dict: the one
     place the on-disk leaf naming lives."""
     _wait_ready(engine_state)
-    fs = _leaves(engine_state.feature_state)
+    fs = tree.leaves_with_path(engine_state.feature_state)
     arrays = {}
-    for prefix, tree in (("fs", engine_state.feature_state),
-                         ("p", engine_state.params),
-                         ("s", engine_state.scaler)):
-        for i, (_, leaf) in enumerate(_leaves(tree)):
+    for prefix, sub in (("fs", engine_state.feature_state),
+                        ("p", engine_state.params),
+                        ("s", engine_state.scaler)):
+        for i, leaf in enumerate(tree.leaves(sub)):
             arrays[f"{prefix}_{i}"] = _to_numpy(leaf)
     meta = {
         "offsets": list(map(int, engine_state.offsets)),
         "batches_done": int(engine_state.batches_done),
         "rows_done": int(engine_state.rows_done),
         "n_fs": len(fs),
-        "n_p": len(_leaves(engine_state.params)),
-        "n_s": len(_leaves(engine_state.scaler)),
+        "n_p": len(tree.leaves(engine_state.params)),
+        "n_s": len(tree.leaves(engine_state.scaler)),
         "fs_leaves": {f"fs_{i}": path for i, (path, _) in enumerate(fs)},
         # the JAX package's topology and lineage stamps, at the values of
         # the one process on one device the port serves
@@ -232,12 +210,12 @@ def _crc(arr: np.ndarray) -> int:
     return zlib.crc32(memoryview(np.ascontiguousarray(arr)).cast("B"))
 
 
-def _restore_tree(tree, prefix: str, arrays: dict):
+def _restore_tree(state, prefix: str, arrays: dict):
     """Write ``arrays[prefix_i]`` into the tree's tensors in place (on
     their own device: a copy that cannot reach it raises) and rebuild its
     Python scalars."""
     values = []
-    for i, (path, leaf) in enumerate(_leaves(tree)):
+    for i, (path, leaf) in enumerate(tree.leaves_with_path(state)):
         a = np.asarray(arrays[f"{prefix}_{i}"])
         if isinstance(leaf, torch.Tensor):
             # np.require keeps a 0-d array 0-d (ascontiguousarray would not)
@@ -251,12 +229,13 @@ def _restore_tree(tree, prefix: str, arrays: dict):
             values.append(leaf)
         else:
             values.append(type(leaf)(a.item()))
-    return _rebuild(tree, iter(values))
+    # the same tensor objects (written in place above), new scalars
+    return tree.unflatten(state, values)
 
 
-def _param_crcs(tree) -> dict:
+def _param_crcs(params) -> dict:
     return {f"p_{i}": _crc(_to_numpy(leaf))
-            for i, (_, leaf) in enumerate(_leaves(tree))}
+            for i, leaf in enumerate(tree.leaves(params))}
 
 
 def _apply_arrays(engine_state, meta: dict, arrays: dict,
@@ -338,10 +317,10 @@ def _template_spec(engine_state) -> dict:
     """Leaf spec of the state a restore writes into, from shapes and
     dtypes only (no copy to the host)."""
     out = {}
-    for prefix, tree in (("fs", engine_state.feature_state),
-                         ("p", engine_state.params),
-                         ("s", engine_state.scaler)):
-        for i, (_, leaf) in enumerate(_leaves(tree)):
+    for prefix, sub in (("fs", engine_state.feature_state),
+                        ("p", engine_state.params),
+                        ("s", engine_state.scaler)):
+        for i, leaf in enumerate(tree.leaves(sub)):
             out[f"{prefix}_{i}"] = [list(np.shape(leaf)), _dtype_name(leaf)]
     return dict(sorted(out.items()))
 
@@ -788,10 +767,10 @@ class _CheckpointerBase:
         int leaf takes int32 or int64)."""
         spec = _template_spec(template)
         scalars = {f"{prefix}_{i}"
-                   for prefix, tree in (("fs", template.feature_state),
-                                        ("p", template.params),
-                                        ("s", template.scaler))
-                   for i, (_, leaf) in enumerate(_leaves(tree))
+                   for prefix, sub in (("fs", template.feature_state),
+                                       ("p", template.params),
+                                       ("s", template.scaler))
+                   for i, leaf in enumerate(tree.leaves(sub))
                    if isinstance(leaf, int)}
         n_fs = sum(1 for k in spec if k.startswith("fs_"))
         n_p = sum(1 for k in spec if k.startswith("p_"))

@@ -4,7 +4,7 @@
 A boosted ensemble is the forest's node tables with raw leaf scores in
 ``prob`` (learning rate applied) and an initial logit: the probability is
 ``sigmoid(base_score + Σ_t leaf score)``. The trainer and the xgboost
-import come with the offline side (ROADMAP A8).
+import come with the offline side (ROADMAP A8b).
 """
 
 from __future__ import annotations

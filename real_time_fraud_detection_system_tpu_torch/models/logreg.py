@@ -7,7 +7,7 @@ path and the kernel agree bit for bit before the sigmoid. The loss is the
 JAX package's weighted BCE-with-logits in optax's form
 (``-y·log σ(z) − (1−y)·log σ(−z)``) over the same in-order logit, and its
 gradient comes from ``torch.autograd`` on the plain loss: no kernel has a
-backward. Offline training waits for ROADMAP A8.
+backward. Offline training waits for ROADMAP A8b.
 """
 
 from __future__ import annotations
@@ -16,6 +16,8 @@ from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
+
+from real_time_fraud_detection_system_tpu_torch.utils import tree
 
 
 class LogRegParams(NamedTuple):
@@ -43,7 +45,15 @@ def logreg_loss(params: LogRegParams, x: torch.Tensor, y: torch.Tensor,
                 valid: Optional[torch.Tensor] = None,
                 pos_weight: float = 1.0) -> torch.Tensor:
     """Weighted BCE-with-logits; padded rows (``valid`` False) masked out."""
-    z = logreg_logits(params, x)
+    return weighted_bce(logreg_logits(params, x), y, valid, pos_weight)
+
+
+def weighted_bce(z: torch.Tensor, y: torch.Tensor,
+                 valid: Optional[torch.Tensor] = None,
+                 pos_weight: float = 1.0) -> torch.Tensor:
+    """Mean BCE-with-logits in optax's form over logits ``z``, positives
+    weighted by ``pos_weight``, rows with ``valid`` False left out: the
+    loss of every classifier kind (logreg, mlp)."""
     yf = y.to(torch.float32)
     per = -yf * F.logsigmoid(z) - (1.0 - yf) * F.logsigmoid(-z)
     w = torch.where(y > 0, torch.full_like(yf, pos_weight),
@@ -53,15 +63,17 @@ def logreg_loss(params: LogRegParams, x: torch.Tensor, y: torch.Tensor,
     return torch.sum(per * w) / torch.clamp(torch.sum(w), min=1.0)
 
 
-def loss_grad(loss_fn, params: LogRegParams, *args):
+def loss_grad(loss_fn, params, *args):
     """(loss, gradient) of ``loss_fn(params, *args)`` with respect to
-    every params leaf, through ``torch.autograd`` on detached leaves
-    (the caller's tensors are never marked as requiring grad)."""
-    leaves = [t.detach().requires_grad_(True) for t in params]
+    every tensor leaf of the params tree (``utils/tree.py``), through
+    ``torch.autograd`` on detached leaves (the caller's tensors are never
+    marked as requiring grad). A leaf the loss does not read gets a zero
+    gradient, as ``jax.grad`` gives it."""
+    leaves = [t.detach().requires_grad_(True) for t in tree.leaves(params)]
     with torch.enable_grad():
-        loss = loss_fn(type(params)(*leaves), *args)
-        grads = torch.autograd.grad(loss, leaves)
-    return loss.detach(), type(params)(*grads)
+        loss = loss_fn(tree.unflatten(params, leaves), *args)
+        grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
+    return loss.detach(), tree.unflatten(params, grads)
 
 
 def sgd_update(params: LogRegParams, x: torch.Tensor, y: torch.Tensor,
@@ -70,4 +82,4 @@ def sgd_update(params: LogRegParams, x: torch.Tensor, y: torch.Tensor,
     """One plain-SGD step (out of place): ``p − lr·∇loss``."""
     _, g = loss_grad(lambda p, *a: logreg_loss(p, *a, pos_weight=pos_weight),
                      params, x, y, valid)
-    return LogRegParams(*(p - lr * gi for p, gi in zip(params, g)))
+    return tree.map(lambda p, gi: p - lr * gi, params, g)

@@ -1,5 +1,6 @@
 """Micro-batch scoring engine — port of the JAX package's
-``runtime/engine.py`` for the logreg, tree, forest and gbt serving paths.
+``runtime/engine.py``: every kind of its model zoo (logreg, mlp, tree,
+forest, gbt, autoencoder, sequence) on one device.
 
 Per micro-batch (:meth:`ScoringEngine._start_batch`, ``_finish_batch``):
 latest-wins dedup and the pack into one int32 ``[7, B]`` array on the host
@@ -33,8 +34,17 @@ scatter it into the feature state (in place), then
   (``ops/forest_kernels.py::leaf_sum``): ``sigmoid(base + leaf)`` for gbt,
   ``leaf / n_trees`` for tree and forest under ``customer_source="cms"``
   (the fused kernels read the customer table, which the sketch replaces);
-  the plain predict serves logreg under the sketch and the shapes the
-  predicate does not admit.
+  the plain predict serves logreg under the sketch, the mlp and the
+  autoencoder (whose products the JAX package computes outside any Pallas
+  kernel too), and the shapes the predicate does not admit.
+
+The sequence kind has its own state and step (:meth:`_init_sequence`):
+the per-customer event rings of ``features/history.py`` and
+``update_and_score``, which writes the rings in place and scores each row
+with the causal transformer. Its feature matrix is zeros by definition,
+made on the host and never copied from the device. It refuses what the
+JAX engine refuses for it (:func:`check_sequence_serving`):
+``key_mode="exact"``, online SGD, a feature cache and shadow scoring.
 
 Under ``key_mode="exact"`` (the tiered store) the step is
 ``update_and_featurize_exact`` → ``transform`` → the predict, as the JAX
@@ -64,12 +74,13 @@ from them.
 
 The learning hooks (``runtime/feedback.py``, ``runtime/learner.py``):
 
-- ``online_lr > 0`` (logreg): after every branch the step takes one SGD
-  step on the batch's in-band labels, ``p -= lr·has·∇loss`` in place on
-  the step's stream, with ``has = any(labeled)`` kept on the device (no
-  host sync); the gradient is ``torch.autograd`` on the plain loss over
-  the step's features, as the JAX step takes ``jax.grad`` outside its
-  kernels;
+- ``online_lr > 0`` (logreg, mlp, autoencoder): after every branch the
+  step takes one SGD step on the batch's in-band labels,
+  ``p -= lr·has·∇loss`` in place on the step's stream for every leaf of
+  the params tree (``utils/tree.py``), with ``has = any(labeled)`` kept on
+  the device (no host sync); the gradient is ``torch.autograd`` on the
+  plain loss over the step's features, as the JAX step takes
+  ``jax.grad`` outside its kernels;
 - a ``feature_cache`` keeps every emitted row for the feedback join;
   :meth:`ScoringEngine.apply_state_feedback` lands delayed labels in the
   terminal risk windows and :meth:`ScoringEngine.apply_feedback` takes a
@@ -86,8 +97,8 @@ The learning hooks (``runtime/feedback.py``, ``runtime/learner.py``):
 
 Not ported yet: selective and bf16 emission, the nan-guard, CUDA-graph
 precompile, autobatch and the overload ladder (A4); the sharded engine
-and the fleet, with their stacked directories and cold-store re-homing
-(A7); the mlp, autoencoder and sequence kinds and their learning (A8).
+and the fleet, with their stacked directories and cold-store re-homing,
+and the sharded sequence step (A7).
 """
 
 from __future__ import annotations
@@ -111,6 +122,10 @@ from real_time_fraud_detection_system_tpu_torch.core.batch import (
     unpack_batch,
 )
 from real_time_fraud_detection_system_tpu_torch.device import resolve_device
+from real_time_fraud_detection_system_tpu_torch.features.history import (
+    init_history_state,
+    update_and_score,
+)
 from real_time_fraud_detection_system_tpu_torch.features.online import (
     FeatureState,
     compact_feature_state,
@@ -126,6 +141,10 @@ from real_time_fraud_detection_system_tpu_torch.features.online import (
     apply_feedback as state_feedback,
 )
 from real_time_fraud_detection_system_tpu_torch.features.spec import N_FEATURES
+from real_time_fraud_detection_system_tpu_torch.models.autoencoder import (
+    autoencoder_loss,
+    autoencoder_predict_proba,
+)
 from real_time_fraud_detection_system_tpu_torch.models.forest import (
     GemmEnsemble,
     TreeEnsemble,
@@ -142,6 +161,10 @@ from real_time_fraud_detection_system_tpu_torch.models.logreg import (
     logreg_loss,
     logreg_predict_proba,
     loss_grad,
+)
+from real_time_fraud_detection_system_tpu_torch.models.mlp import (
+    mlp_loss,
+    mlp_predict_proba,
 )
 from real_time_fraud_detection_system_tpu_torch.models.scaler import (
     Scaler,
@@ -163,6 +186,7 @@ from real_time_fraud_detection_system_tpu_torch.ops.forest_kernels import (
 from real_time_fraud_detection_system_tpu_torch.runtime.faults import (
     PoisonRowError,
 )
+from real_time_fraud_detection_system_tpu_torch.utils import tree
 from real_time_fraud_detection_system_tpu_torch.utils.metrics import (
     active_recorder,
     get_registry,
@@ -171,19 +195,19 @@ from real_time_fraud_detection_system_tpu_torch.utils.timing import (
     LatencyTracker,
 )
 
-_KINDS = ("logreg", "tree", "forest", "gbt")
+_KINDS = ("logreg", "mlp", "tree", "forest", "gbt", "autoencoder",
+          "sequence")
 
 
 def _require_kind(kind: str) -> None:
     if kind not in _KINDS:
-        raise NotImplementedError(
-            f"model kind {kind!r} is not ported yet: the port serves "
-            f"{_KINDS} (the rest of the zoo waits for ROADMAP A8)")
+        raise ValueError(f"unknown model kind {kind!r} (one of {_KINDS})")
 
 
 def device_params_for(kind: str, params):
     """Engine-ready params: tree ensembles (a gbt's trees too) convert to
-    the GEMM form once, where their depth allows it."""
+    the GEMM form once, where their depth allows it; the other kinds
+    serve their params as they are."""
     _require_kind(kind)
     if kind == "gbt":
         return gbt_for_device(params, N_FEATURES)
@@ -193,21 +217,56 @@ def device_params_for(kind: str, params):
 
 
 def predict_fn_for(kind: str, z_mode: Optional[str] = None) -> Callable:
-    """Plain device predict for ``kind`` with a RESOLVED ``z_mode`` (the
-    logreg kind has no contraction and ignores it)."""
+    """Plain device predict on scaled feature rows for ``kind``, with a
+    RESOLVED ``z_mode`` (only tree ensembles have the contraction it
+    selects). The sequence kind has none: it scores from its history
+    state (``features/history.py``)."""
     _require_kind(kind)
     if kind == "logreg":
         return logreg_predict_proba
+    if kind == "mlp":
+        return mlp_predict_proba
+    if kind == "autoencoder":
+        return autoencoder_predict_proba
     if kind == "gbt":
         return lambda p, x: gbt_predict_proba(p, x, z_mode)
-    return lambda p, x: predict_proba(p, x, z_mode)
+    if kind in ("tree", "forest"):
+        return lambda p, x: predict_proba(p, x, z_mode)
+    raise ValueError(
+        f"model kind {kind!r} has no feature-row predict: it scores from "
+        "its per-customer history state")
 
 
 def loss_fn_for(kind: str) -> Optional[Callable]:
-    """The training loss of ``kind``, or None: tree ensembles have no
-    gradient path (the mlp and autoencoder losses come with A8)."""
+    """The training loss of ``kind``, called ``loss(params, x, y,
+    valid)``, or None: tree ensembles and the sequence kind have no
+    gradient path here."""
     _require_kind(kind)
-    return logreg_loss if kind == "logreg" else None
+    return {"logreg": logreg_loss, "mlp": mlp_loss,
+            "autoencoder": autoencoder_loss}.get(kind)
+
+
+def check_sequence_serving(cfg: Config, online_lr: float = 0.0,
+                           feedback: bool = False,
+                           shadow: bool = False) -> None:
+    """The sequence kind's refusals, the JAX engine's with its messages:
+    the tiered store, online SGD, the labeled-feedback loop and shadow
+    scoring all need the windows plane or a host-side feature matrix,
+    which a history state does not have. Raises ValueError."""
+    if cfg.features.key_mode == "exact":
+        raise ValueError(
+            "key_mode='exact' is the windows-plane tiered feature "
+            "store; kind='sequence' serves from its own history state "
+            "(keep key_mode direct/hash)")
+    if online_lr > 0.0:
+        raise ValueError("online SGD is not wired for kind='sequence'")
+    if feedback:
+        raise ValueError(
+            "the labeled-feedback loop is not wired for kind='sequence'")
+    if shadow:
+        raise ValueError(
+            "shadow scoring is not wired for kind='sequence' "
+            "(no host-side feature matrix to dual-score)")
 
 
 def feedback_step(loss, params, scaler: Scaler, x_raw: torch.Tensor,
@@ -218,7 +277,7 @@ def feedback_step(loss, params, scaler: Scaler, x_raw: torch.Tensor,
     x = transform(scaler, x_raw)
     l0, g = loss_grad(loss, params, x, y, valid)
     with torch.no_grad():
-        new = type(params)(*(p - lr * gi for p, gi in zip(params, g)))
+        new = tree.map(lambda p, gi: p - lr * gi, params, g)
         l1 = loss(new, x, y, valid)
     return new, l0, l1
 
@@ -233,29 +292,13 @@ def host_to_device(host: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.pin_memory().to(device, non_blocking=True)
 
 
-def _tensor_leaves(tree) -> Optional[list]:
-    """The leaves of a NamedTuple of tensors and Python scalars, in field
-    order (nested NamedTuples flattened); None for anything else."""
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        out = []
-        for name in tree._fields:
-            sub = _tensor_leaves(getattr(tree, name))
-            if sub is None:
-                return None
-            out += sub
-        return out
-    return [tree]
-
-
 def copy_into(dst, src) -> bool:
     """Copy ``src`` into ``dst`` in place when both are the same form
-    (type, every tensor leaf's shape and dtype, every scalar leaf's
-    value); False, copying nothing, otherwise."""
-    if type(dst) is not type(src):
+    (tree structure, every tensor leaf's shape, dtype and device, every
+    scalar leaf's value); False, copying nothing, otherwise."""
+    if tree.structure(dst) != tree.structure(src):
         return False
-    a, b = _tensor_leaves(dst), _tensor_leaves(src)
-    if a is None or b is None or len(a) != len(b):
-        return False
+    a, b = tree.leaves(dst), tree.leaves(src)
     for x, y in zip(a, b):
         if isinstance(x, torch.Tensor) != isinstance(y, torch.Tensor):
             return False
@@ -344,14 +387,6 @@ def validate_ingest_rows(cols: dict) -> None:
             f"{int(bad.sum())} row(s), tx_id(s) {ids[:5].tolist()}")
 
 
-def _owned(tree):
-    """A copy of a NamedTuple of tensors (and Python scalars) that shares
-    no storage with the caller's: a restore writes into it in place."""
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(_owned(getattr(tree, n)) for n in tree._fields))
-    return tree.clone() if isinstance(tree, torch.Tensor) else tree
-
-
 def batches_left(state: EngineState, lifetime_max: int) -> int:
     """``ScoringEngine.run``'s ``max_batches`` for a cap on the engine's
     lifetime batch count, restored batches included, which is how the
@@ -390,8 +425,7 @@ class _StagingRing:
 
 
 class ScoringEngine:
-    """Drives source → device step → sink for a logreg, tree, forest or
-    gbt model.
+    """Drives source → device step → sink for a model of any kind.
 
     ``device=None`` means CUDA (raises without a card); ``device="cpu"``
     runs the plain PyTorch path. The feature state is updated in place;
@@ -401,7 +435,8 @@ class ScoringEngine:
     registry the tiered store reports to (default: the process-wide one).
     ``online_lr > 0`` turns on the in-step online SGD for kinds with a
     gradient path; ``feature_cache`` (``runtime/feedback.py``) keeps the
-    emitted rows for the labeled-feedback join.
+    emitted rows for the labeled-feedback join. For the sequence kind
+    ``feature_state`` is a ``features/history.py::HistoryState``.
     """
 
     def __init__(
@@ -455,8 +490,6 @@ class ScoringEngine:
         self._exact = fcfg.key_mode == "exact"
         self._compact_every = fcfg.compact_every if self._exact else 0
         self._max_day = 0
-        self._check_state_budget()
-        self._init_state_telemetry()
         # pending host copies of compaction counts: (event, host, apply)
         self._meters: deque = deque()
         # The host cold tier, armed by _init_cold below.
@@ -469,19 +502,26 @@ class ScoringEngine:
         self._cold_index: dict = {}  # table -> sorted uint32 key snapshot
         self._cold_index_version = -1
         self._cold_synced = False
-        params = _owned(device_params_for(kind, params.to(self.device)))
-        self.state = EngineState(
-            feature_state=feature_state
-            or init_feature_state(cfg.features, self.device),
-            params=params,
-            scaler=_owned(scaler.to(self.device)),
-        )
-        self._predict = predict_fn_for(kind, self.z_mode)
-        # the fused kernels read the customer table and know nothing of
-        # the sketch tier: only direct and hash keys on the table take them
-        self._fused = (cfg.features.customer_source == "table"
-                       and not self._exact)
-        self._derive_tables()
+        if kind == "sequence":
+            self._init_sequence(params, scaler, feature_state)
+        else:
+            self._check_state_budget()
+            self._init_state_telemetry()
+            params = tree.clone(device_params_for(
+                kind, tree.to(params, self.device)))
+            self.state = EngineState(
+                feature_state=feature_state
+                or init_feature_state(cfg.features, self.device),
+                params=params,
+                scaler=tree.clone(scaler.to(self.device)),
+            )
+            self._predict = predict_fn_for(kind, self.z_mode)
+            # the fused kernels read the customer table and know nothing
+            # of the sketch tier: only direct and hash keys on the table
+            # take them
+            self._fused = (cfg.features.customer_source == "table"
+                           and not self._exact)
+            self._derive_tables()
         self.host_prep = ("native" if native.hostprep_available()
                           else "numpy")
         cuda = self.device.type == "cuda"
@@ -491,6 +531,26 @@ class ScoringEngine:
                             if cuda and cfg.runtime.fetch_overlap else None)
         if self._demote_slots:
             self._init_cold(fcfg)
+
+    def _init_sequence(self, params, scaler, feature_state) -> None:
+        """kind='sequence': the history state and its step, with the JAX
+        engine's refusals. The emitted feature matrix is zeros (the
+        transformer reads raw event channels, not the engineered
+        features), so the analyzed schema stays the same for sinks."""
+        cfg = self.cfg
+        check_sequence_serving(cfg, self.online_lr,
+                               feedback=self.feature_cache is not None)
+        self._m_tier = None
+        self._predict = None
+        self._fused = False
+        self.tables = self.leaf_tables = None
+        self.state = EngineState(
+            feature_state=feature_state
+            or init_history_state(cfg.features, self.device),
+            params=tree.clone(tree.to(params, self.device)),
+            scaler=tree.clone(scaler.to(self.device)),
+        )
+        self._tables_epoch = self.state.params_epoch
 
     def _derive_tables(self) -> None:
         """The kernels' tables, from the live params' shapes where
@@ -542,10 +602,16 @@ class ScoringEngine:
     def _step(self, packed: torch.Tensor):
         """One device step on a packed batch; returns (probs, features,
         tier) with ``tier`` the ``[dense, cms]`` counts of the exact
-        path, else None."""
+        path, else None; the sequence kind's features are None (zeros,
+        made on the host)."""
+        batch = unpack_batch(packed)
+        if self.kind == "sequence":
+            _, probs = update_and_score(self.state.feature_state,
+                                        self.state.params, batch,
+                                        self.cfg.features)
+            return probs, None, None
         if self._tables_epoch != self.state.params_epoch:
             self._derive_tables()
-        batch = unpack_batch(packed)
         fcfg = self.cfg.features
         scaler = self.state.scaler
         params = self.state.params
@@ -584,7 +650,7 @@ class ScoringEngine:
         _, g = loss_grad(self._loss, params, x, y, labeled)
         has = torch.any(labeled).to(torch.float32)
         with torch.no_grad():
-            for p, gi in zip(params, g):
+            for p, gi in zip(tree.leaves(params), tree.leaves(g)):
                 p.sub_(self.online_lr * has * gi)
         # the leaves no longer hold what the last restore wrote
         self.state.params_crcs = None
@@ -976,13 +1042,14 @@ class ScoringEngine:
                 out[...] = packed
         return entry if entry is not None else torch.from_numpy(packed)
 
-    def _issue_host_fetch(self, probs: torch.Tensor, feats: torch.Tensor,
+    def _issue_host_fetch(self, probs: torch.Tensor,
+                          feats: Optional[torch.Tensor],
                           n: int, step_done,
                           tier: Optional[torch.Tensor] = None
                           ) -> Optional[dict]:
         """Start the device-to-host copies of the ``n`` real rows'
-        probabilities (and features, when emitted, and the exact path's
-        tier counts) on the side stream,
+        probabilities (and features, when emitted and the step made them,
+        and the exact path's tier counts) on the side stream,
         after ``step_done`` (the event recorded behind the step), into
         pinned blocks of the caching host allocator: each batch gets its
         own, so a result never shares memory with a later batch's. None
@@ -993,7 +1060,7 @@ class ScoringEngine:
         side.wait_event(step_done)
         host = {"probs": torch.empty(n, dtype=torch.float32,
                                      pin_memory=True)}
-        if self.cfg.runtime.emit_features:
+        if self.cfg.runtime.emit_features and feats is not None:
             host["feats"] = torch.empty((n, N_FEATURES), dtype=torch.float32,
                                         pin_memory=True)
         if tier is not None:
@@ -1052,7 +1119,8 @@ class ScoringEngine:
         then, between steps, the tiered store's compaction and
         promotions."""
         n = handle["n"]
-        emit = self.cfg.runtime.emit_features
+        emit = (self.cfg.runtime.emit_features
+                and handle["feats"] is not None)
         fetch = handle["fetch"]
         tier = handle.get("tier")
         if fetch is not None:
@@ -1145,7 +1213,10 @@ class ScoringEngine:
         place on the serving stream (``features/online.py::
         apply_feedback``), in chunks of at most the largest bucket padded
         to a bucket. No-op rows: label < 0 (pending) and buckets whose
-        ring slot has moved past the transaction's day. Every kind."""
+        ring slot has moved past the transaction's day. Every kind with
+        window state (not the sequence kind, which has none)."""
+        if self.kind == "sequence":
+            check_sequence_serving(self.cfg, feedback=True)
         labels = np.asarray(labels)
         mask = labels >= 0
         if not mask.any():
@@ -1222,13 +1293,13 @@ class ScoringEngine:
         form is rebound. Either way ``params_epoch`` advances, so the next
         step re-derives the kernel tables, and ``params_crcs`` is cleared,
         so the next restore compares against the leaves as they are."""
-        params = device_params_for(self.kind, params.to(self.device))
+        params = device_params_for(self.kind, tree.to(params, self.device))
         if not copy_into(self.state.params, params):
-            self.state.params = _owned(params)
+            self.state.params = tree.clone(params)
         if scaler is not None:
             scaler = scaler.to(self.device)
             if not copy_into(self.state.scaler, scaler):
-                self.state.scaler = _owned(scaler)
+                self.state.scaler = tree.clone(scaler)
         self.state.params_epoch += 1
         self.state.params_crcs = None
 
@@ -1236,6 +1307,8 @@ class ScoringEngine:
         """Attach a shadow scorer (``runtime/learner.py::ShadowScorer``):
         the candidate dual-scores every emitted batch on the same host
         feature rows, so the features must leave the device."""
+        if self.kind == "sequence":
+            check_sequence_serving(self.cfg, shadow=True)
         if not self.cfg.runtime.emit_features:
             raise ValueError(
                 "shadow scoring consumes every row's features host-side; "

@@ -12,9 +12,11 @@ canary promotion.
   :class:`~..io.registry.ModelRegistry` on a label cadence.
 - :class:`ShadowScorer` scores the candidate beside the champion on the
   same host feature rows, through the predict the champion's kind serves
-  with: the plain logreg predict (the fused kernel needs state rows), the
-  leaf-sum kernel for tree kinds whose tables ``admit_tables`` admits
-  (the tables derived once per candidate), the plain predict otherwise.
+  with: the plain predict for logreg (the fused kernel needs state rows),
+  mlp and autoencoder, the leaf-sum kernel for tree kinds whose tables
+  ``admit_tables`` admits (the tables derived once per candidate), the
+  plain predict otherwise. The sequence kind has no feature-row predict
+  and is refused, as the engine refuses its shadow.
   It counts divergence and keeps live precision/recall per model from the
   feedback stream.
 - :class:`LearningLoop`, the promotion controller, polled once per
@@ -57,14 +59,13 @@ from real_time_fraud_detection_system_tpu_torch.ops.forest_kernels import (
     to_kernel_tables,
 )
 from real_time_fraud_detection_system_tpu_torch.runtime.engine import (
-    _owned,
-    _tensor_leaves,
     device_params_for,
     feedback_step,
     host_to_device,
     loss_fn_for,
     predict_fn_for,
 )
+from real_time_fraud_detection_system_tpu_torch.utils import tree
 from real_time_fraud_detection_system_tpu_torch.utils.logging import (
     get_logger,
 )
@@ -80,17 +81,17 @@ SCORE_DELTA_BUCKETS = (1e-3, 2.5e-3, 5e-3, 1e-2, 2.5e-2, 5e-2,
                        0.1, 0.25, 0.5, 1.0)
 
 
-def _own_copy(tree, device, stream):
+def _own_copy(params, device, stream):
     """A copy of a params or scaler tree on ``device`` that shares no
     storage with the caller's, made on the caller's stream; on the card
     ``stream`` waits for an event behind the copy (not for the caller's
     later work) and the copy's blocks are marked as used by it."""
-    out = _owned(tree.to(device))
+    out = tree.clone(tree.to(params, device))
     if stream is not None:
         done = torch.cuda.Event()
         done.record()
         stream.wait_event(done)
-        for leaf in _tensor_leaves(out):
+        for leaf in tree.leaves(out):
             if isinstance(leaf, torch.Tensor):
                 leaf.record_stream(stream)
     return out
@@ -367,9 +368,9 @@ class StreamingLearner:
         if loss is None:
             raise ValueError(
                 f"model kind {kind!r} has no gradient path — the "
-                "streaming learner fits differentiable kinds (logreg); "
-                "tree ensembles retrain offline and publish to the "
-                "registry directly")
+                "streaming learner fits differentiable kinds "
+                "(logreg/mlp/autoencoder); tree ensembles retrain "
+                "offline and publish to the registry directly")
         self.kind = kind
         self.cfg = cfg
         self.registry = registry

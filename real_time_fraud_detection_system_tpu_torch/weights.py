@@ -11,11 +11,16 @@ recognised by its field names:
 - ``GemmEnsemble`` (sel, thresh, path, target, leaf_val);
 - ``GBTModel`` (trees — itself a ``TreeEnsemble`` or ``GemmEnsemble``
   record — and base_score);
+- an mlp's list of ``(w, b)`` pairs;
+- ``AutoencoderParams`` (layers — such a list — and err_scale);
+- ``TransformerParams`` (embed_w, embed_b, blocks — a tuple of
+  ``BlockParams`` records —, lnf_g, lnf_b, head_w, head_b);
 - ``Scaler`` (mean, scale);
 - ``WindowState`` (bucket_day, count, amount, fraud);
 - ``CountMinSketch`` (slice_day, count, amount and, on the tiered
   store's terminal sketch, fraud);
 - ``KeyDirectory`` (keys, slots, free, free_top);
+- ``HistoryState`` (events, pos, count, last_t);
 - ``FeatureState`` (customer, terminal and, where present, the customer
   sketch ``cms`` and the tiered store's ``customer_dir``,
   ``terminal_dir`` and ``terminal_cms``).
@@ -30,8 +35,14 @@ import numpy as np
 import torch
 
 from real_time_fraud_detection_system_tpu_torch.device import resolve_device
+from real_time_fraud_detection_system_tpu_torch.features.history import (
+    HistoryState,
+)
 from real_time_fraud_detection_system_tpu_torch.features.online import (
     FeatureState,
+)
+from real_time_fraud_detection_system_tpu_torch.models.autoencoder import (
+    AutoencoderParams,
 )
 from real_time_fraud_detection_system_tpu_torch.models.forest import (
     GemmEnsemble,
@@ -42,12 +53,16 @@ from real_time_fraud_detection_system_tpu_torch.models.logreg import (
     LogRegParams,
 )
 from real_time_fraud_detection_system_tpu_torch.models.scaler import Scaler
+from real_time_fraud_detection_system_tpu_torch.models.sequence import (
+    BlockParams,
+    TransformerParams,
+)
 from real_time_fraud_detection_system_tpu_torch.ops.cms import CountMinSketch
 from real_time_fraud_detection_system_tpu_torch.ops.keydir import KeyDirectory
 from real_time_fraud_detection_system_tpu_torch.ops.windows import WindowState
 
 _RECORDS = (LogRegParams, TreeEnsemble, GemmEnsemble, Scaler, WindowState,
-            CountMinSketch, KeyDirectory)
+            CountMinSketch, KeyDirectory, BlockParams, HistoryState)
 
 
 def _matches(cls, names: set) -> bool:
@@ -60,6 +75,12 @@ def _matches(cls, names: set) -> bool:
 def from_numpy(obj, device=None):
     """A JAX-package record of numpy arrays → the port's record."""
     device = resolve_device(device)
+
+    def tensor(v):
+        return torch.as_tensor(np.array(v, copy=True), device=device)
+
+    if isinstance(obj, list):  # an mlp: [(w, b), ...]
+        return [(tensor(w), tensor(b)) for w, b in obj]
     fields = obj._asdict() if hasattr(obj, "_asdict") else dict(obj)
     fields = {k: v for k, v in fields.items() if v is not None}
     names = set(fields)
@@ -67,14 +88,18 @@ def from_numpy(obj, device=None):
         return FeatureState(**{k: from_numpy(v, device)
                                for k, v in fields.items()})
     if names == set(GBTModel._fields):
-        return GBTModel(
-            trees=from_numpy(fields["trees"], device),
-            base_score=torch.as_tensor(
-                np.array(fields["base_score"], copy=True), device=device))
+        return GBTModel(trees=from_numpy(fields["trees"], device),
+                        base_score=tensor(fields["base_score"]))
+    if names == set(AutoencoderParams._fields):
+        return AutoencoderParams(
+            layers=from_numpy(list(fields["layers"]), device),
+            err_scale=tensor(fields["err_scale"]))
+    if names == set(TransformerParams._fields):
+        return TransformerParams(**{
+            k: tuple(from_numpy(blk, device) for blk in v)
+            if k == "blocks" else tensor(v) for k, v in fields.items()})
     for cls in _RECORDS:
         if _matches(cls, names):
-            return cls(**{
-                k: int(v) if k == "max_depth"
-                else torch.as_tensor(np.array(v, copy=True), device=device)
-                for k, v in fields.items()})
+            return cls(**{k: int(v) if k == "max_depth" else tensor(v)
+                          for k, v in fields.items()})
     raise ValueError(f"no port record has the fields {sorted(names)}")

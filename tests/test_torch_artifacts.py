@@ -162,16 +162,19 @@ def test_unhashed_v0_artifact_loads():
 
 
 def test_unported_kinds_raise_naming_their_roadmap_item():
+    """Every kind of the zoo loads now (the mlp below; all of them in
+    ``tests/test_torch_zoo.py`` and ``test_torch_sequence.py``); an
+    unknown kind raises, and object-store URLs name ROADMAP A9."""
     rng = np.random.default_rng(0)
     mlp = JTrainedModel(
         kind="mlp", scaler=_jax_model("logreg").scaler,
         params=[(jnp.asarray(rng.normal(size=(15, 4)).astype(np.float32)),
                  jnp.zeros(4, jnp.float32))])
-    with pytest.raises(NotImplementedError, match="A8"):
-        tart.load_model_bytes(jart.dump_model_bytes(mlp), device="cpu")
-    with pytest.raises(NotImplementedError, match="A8"):
+    got = tart.load_model_bytes(jart.dump_model_bytes(mlp), device="cpu")
+    assert got.kind == "mlp" and got.params[0][0].shape == (15, 4)
+    with pytest.raises(ValueError, match="unknown model kind"):
         tart.dump_model_bytes(tart.TrainedModel(
-            kind="mlp", scaler=None, params=None))
+            kind="lstm", scaler=None, params=None))
     with pytest.raises(NotImplementedError, match="A9"):
         tart.load_model("s3://bucket/model.npz", device="cpu")
 

@@ -76,6 +76,7 @@ from real_time_fraud_detection_system_tpu_torch.runtime.engine import (
 from real_time_fraud_detection_system_tpu_torch.runtime.sources import (
     ReplaySource,
 )
+from real_time_fraud_detection_system_tpu_torch.utils import tree
 from real_time_fraud_detection_system_tpu_torch.utils.metrics import (
     get_registry,
 )
@@ -169,7 +170,7 @@ def _assert_outputs(tout: dict, jout: dict, kind: str) -> None:
 def _assert_state(tstate, jstate) -> None:
     """The port's feature state against the JAX package's, leaf by leaf
     (both flatten to the same named leaves)."""
-    tleaves = tckpt._leaves(tstate)
+    tleaves = tree.leaves_with_path(tstate)
     jleaves = jax.tree_util.tree_flatten_with_path(jstate)[0]
     assert [p for p, _ in tleaves] == [jax.tree_util.keystr(p)
                                        for p, _ in jleaves]
@@ -292,7 +293,7 @@ def test_cms_state_carries_across_leaf_for_leaf(crossed):
     moved = weights.from_numpy(jax.tree.map(np.asarray, jstate),
                                device="cpu")
     jleaves = jax.tree_util.tree_leaves(jstate)
-    tleaves = [leaf for _, leaf in tckpt._leaves(moved)]
+    tleaves = tree.leaves(moved)
     tiered = 12 if jstate.terminal_dir is not None else 0
     assert len(tleaves) == len(jleaves) == (
         11 if jstate.cms is not None else 8) + tiered
@@ -322,7 +323,7 @@ def test_weights_refuse_the_tiered_store():
     host = jax.tree.map(np.asarray, jstate)
     moved = weights.from_numpy(host, device="cpu")
     jleaves = jax.tree_util.tree_leaves(host)
-    tleaves = [leaf for _, leaf in tckpt._leaves(moved)]
+    tleaves = tree.leaves(moved)
     assert len(tleaves) == len(jleaves) == 23
     for t, j in zip(tleaves, jleaves):
         assert t.numpy().dtype == j.dtype

@@ -199,8 +199,9 @@ def test_engine_refuses_bad_rows_and_unported_kinds():
     ens = weights.from_numpy(jax.tree.map(
         np.asarray, jforest.synthetic_ensemble(2, 2, 15)), device="cpu")
     scaler = fit_scaler(np.ones((2, 15)), device="cpu")
-    with pytest.raises(NotImplementedError, match="A8"):
-        ScoringEngine(tcfg, "mlp", ens, scaler, device="cpu")
+    # every kind of the zoo is served; an unknown one is refused
+    with pytest.raises(ValueError, match="unknown model kind"):
+        ScoringEngine(tcfg, "lstm", ens, scaler, device="cpu")
     eng = ScoringEngine(tcfg, "forest", ens, scaler, device="cpu")
     cols = {"tx_id": np.arange(3), "kafka_ts_ms": np.arange(3),
             "tx_datetime_us": np.full(3, START * 10 ** 6),

@@ -13,7 +13,10 @@ imports jax, hence ``--noconftest`` there):
 The checkpoint tests restore on the card what the CPU wrote (and the
 reverse), check that a restore writes into the engine's own tensors, and
 run a supervised crash and stall on the card against its uninterrupted
-run. Without a card they skip. Tolerances: features bit-identical (kernel and
+run. The zoo's cases run the mlp and autoencoder engines (with the
+in-step SGD, sync-free) and the sequence engine (naive and blockwise
+attention, its step under ``set_sync_debug_mode("error")``) on the card
+against CPU engines. Without a card they skip. Tolerances: features bit-identical (kernel and
 plain version add the window buckets in the same order, with IEEE division
 and no FMA contraction); leaf sums within ``atol=1e-5`` of the plain
 version with identical decisions, and bit-identical across the z modes
@@ -603,10 +606,8 @@ def test_restore_on_cuda_equals_restore_on_cpu(cuda, tmp_path, kind,
     serves; the card's own checkpoint restores on the CPU bit for bit."""
     import dataclasses
 
-    from real_time_fraud_detection_system_tpu_torch.io.checkpoint import (
-        Checkpointer,
-        _leaves,
-    )
+    from real_time_fraud_detection_system_tpu_torch.io.checkpoint import Checkpointer
+    from real_time_fraud_detection_system_tpu_torch.utils.tree import leaves_with_path as _leaves
 
     cfg, txs = _whole_dollar_stream(4000)
     cfg = dataclasses.replace(
@@ -714,10 +715,8 @@ def test_supervised_crash_and_stall_on_cuda_equal_the_clean_run(cuda,
     import threading
     import weakref
 
-    from real_time_fraud_detection_system_tpu_torch.io.checkpoint import (
-        Checkpointer,
-        _leaves,
-    )
+    from real_time_fraud_detection_system_tpu_torch.io.checkpoint import Checkpointer
+    from real_time_fraud_detection_system_tpu_torch.utils.tree import leaves_with_path as _leaves
     from real_time_fraud_detection_system_tpu_torch.runtime.faults import (
         FlakySource,
         HangingSource,
@@ -1223,3 +1222,128 @@ def test_shadow_and_learner_on_cuda(cuda, tmp_path):
         learner.close()
     for a, b in zip(got["cpu"], got[str(cuda)]):
         np.testing.assert_allclose(b.cpu().numpy(), a.numpy(), atol=2e-6)
+
+
+# -- the rest of the model zoo: mlp, autoencoder, sequence ---------------
+
+def _zoo_model(kind, dev):
+    """Seeded mlp / autoencoder weights and a standardizing scaler for
+    ``_labeled_batches`` (amounts in dollars up to 500, counts in tens)."""
+    from real_time_fraud_detection_system_tpu_torch.models.autoencoder \
+        import init_autoencoder
+    from real_time_fraud_detection_system_tpu_torch.models.mlp import (
+        init_mlp,
+    )
+    from real_time_fraud_detection_system_tpu_torch.models.scaler import (
+        Scaler,
+    )
+
+    params = (init_mlp(15, (64, 32), seed=5, device=dev) if kind == "mlp"
+              else init_autoencoder(15, (32, 8), seed=5, device=dev))
+    scale = torch.tensor([150, 1, 1, 2, 150, 5, 150, 8, 150, 2, 1, 4, 1, 8,
+                          1], dtype=torch.float32, device=dev)
+    return params, Scaler(torch.zeros(15, device=dev), scale)
+
+
+@pytest.mark.parametrize("kind", ["mlp", "autoencoder"])
+@pytest.mark.parametrize("lr", [0.0, 0.05])
+def test_zoo_engines_on_cuda_match_cpu_engine(cuda, kind, lr):
+    """The unfused step (no kernel launches) with the in-step SGD: params
+    written in place, the update sync-free, params within ``atol=1e-6``
+    and probabilities ``1e-5`` of a CPU engine (products in another order,
+    as against the JAX package in ``tests/test_torch_zoo.py``)."""
+    from real_time_fraud_detection_system_tpu_torch.core import batch as cb
+    from real_time_fraud_detection_system_tpu_torch.utils import tree
+
+    cfg = _learning_cfg()
+    batches = _labeled_batches()
+    out = {}
+    counters = (sk.fused_featurize_score, fk.leaf_sum,
+                fk.fused_forest_leaf_sum)
+    for dev in ("cpu", cuda):
+        params, scaler = _zoo_model(kind, dev)
+        eng = ScoringEngine(cfg, kind, params, scaler, device=dev,
+                            online_lr=lr)
+        ptrs = [t.data_ptr() for t in tree.leaves(eng.state.params)]
+        before = [c.launches for c in counters]
+        res = [eng.process_batch(dict(c)) for c in batches]
+        assert [c.launches for c in counters] == before
+        assert [t.data_ptr() for t in tree.leaves(eng.state.params)] == ptrs
+        out[str(dev)] = (res, eng)
+    (rc, ec), (rg, eg) = out["cpu"], out[str(cuda)]
+    for a, b in zip(tree.leaves(ec.state.params),
+                    tree.leaves(eg.state.params)):
+        np.testing.assert_allclose(b.cpu().numpy(), a.numpy(), atol=1e-6)
+    for a, b in zip(rc, rg):
+        np.testing.assert_array_equal(b.features, a.features)
+        np.testing.assert_allclose(b.probs, a.probs, atol=1e-5)
+    if lr > 0:
+        packed = cb.pack_batch(cb.make_batch(
+            customer_id=batches[0]["customer_id"],
+            terminal_id=batches[0]["terminal_id"],
+            tx_datetime_us=batches[0]["tx_datetime_us"],
+            amount_cents=batches[0]["tx_amount_cents"],
+            label=batches[0]["label"], pad_to=1024))
+        batch = cb.unpack_batch(torch.from_numpy(packed).to(cuda))
+        x = torch.randn(1024, 15, device=cuda)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            eg._online_sgd(batch, x)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+
+@pytest.mark.parametrize("k,block", [(8, 128), (40, 16)])
+def test_sequence_engine_on_cuda_matches_cpu_engine(cuda, k, block):
+    """The history state and the transformer on the card against a CPU
+    engine: ``pos``, ``count`` and ``last_t`` equal on rows ``[:C]`` (row
+    ``C`` is the sink, written in no fixed order), events within
+    ``atol=1e-6``, probabilities ``1e-5``; the step never syncs."""
+    from real_time_fraud_detection_system_tpu_torch.core import batch as cb
+    from real_time_fraud_detection_system_tpu_torch.features.history import (
+        update_and_score,
+    )
+    from real_time_fraud_detection_system_tpu_torch.models.scaler import (
+        Scaler,
+    )
+    from real_time_fraud_detection_system_tpu_torch.models.sequence import (
+        init_transformer,
+    )
+
+    cfg = Config(features=FeatureConfig(customer_capacity=256,
+                                        terminal_capacity=256,
+                                        history_len=k, seq_attn_block=block),
+                 runtime=RuntimeConfig(batch_buckets=(1024,)))
+    batches = _labeled_batches(n_batches=4)
+    out = {}
+    for dev in ("cpu", cuda):
+        params = init_transformer(d_model=32, n_heads=2, n_layers=2,
+                                  d_ff=64, seed=2, device=dev)
+        eng = ScoringEngine(cfg, "sequence", params,
+                            Scaler(torch.zeros(15, device=dev),
+                                   torch.ones(15, device=dev)), device=dev)
+        out[str(dev)] = ([eng.process_batch(dict(c)) for c in batches], eng)
+    (rc, ec), (rg, eg) = out["cpu"], out[str(cuda)]
+    for a, b in zip(rc, rg):
+        np.testing.assert_allclose(b.probs, a.probs, atol=1e-5)
+        assert not b.features.any()
+    assert np.concatenate([r.probs for r in rc]).std() > 0
+    hc, hg = ec.state.feature_state, eg.state.feature_state
+    for name in ("pos", "count", "last_t"):
+        np.testing.assert_array_equal(getattr(hg, name).cpu().numpy()[:-1],
+                                      getattr(hc, name).numpy()[:-1])
+    np.testing.assert_allclose(hg.events.cpu().numpy()[:-1],
+                               hc.events.numpy()[:-1], atol=1e-6)
+    packed = cb.pack_batch(cb.make_batch(
+        customer_id=batches[0]["customer_id"],
+        terminal_id=batches[0]["terminal_id"],
+        tx_datetime_us=batches[0]["tx_datetime_us"] + 400 * 86_400_000_000,
+        amount_cents=batches[0]["tx_amount_cents"], pad_to=1024))
+    batch = cb.unpack_batch(torch.from_numpy(packed).to(cuda))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        update_and_score(hg, eg.state.params, batch, cfg.features)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)

@@ -662,9 +662,7 @@ def test_restore_of_other_params_serves_them(tmp_path, small_dataset, kind):
 
 
 def _tensor_leaves(state):
-    from real_time_fraud_detection_system_tpu_torch.io.checkpoint import (
-        _leaves,
-    )
+    from real_time_fraud_detection_system_tpu_torch.utils.tree import leaves_with_path as _leaves
 
     return [(p, t) for tree in (state.feature_state, state.params,
                                 state.scaler)
