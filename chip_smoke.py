@@ -131,12 +131,30 @@ Phases, each printing JSON lines:
    under ``run_with_recovery``, checkpoints every 8, one crash (poll 13):
    the probabilities and the history state (rows ``[:C]``) equal the
    clean run bit for bit.
-12. ``profile`` — a few batches of each main path, and of the forest path
+12. ``precompile`` — the precompiled step (one CUDA graph per dispatch
+   signature). Per path — forest, logreg, logreg with ``online_lr``, gbt,
+   the cms forest, the exact path over 1M Zipf keys (the JAX bench's
+   ``state_scale`` deployment, compaction every 4 batches), the mlp and
+   the sequence kind at K=32 — one eager and one precompiled engine serve
+   one batch eagerly, then the same 8 whole-dollar batches of 65,536
+   rows; the line gives precompile and capture seconds, graphs, pool
+   bytes, and dispatch ms p50 and rows/s of both, and the script checks
+   outputs and state bit for bit, precompile leaving the state, params
+   and counters as they were, no recapture, and each path's kernel once
+   per batch. Then every bucket of the default ladder captured once and
+   replayed; selective (at most 1% flagged), bf16 and full emission on
+   the forest's graphs (D2H bytes, sink and result-wait ms per batch;
+   flagged rows bit-identical to full emission, bf16 the float32
+   features rounded); the non-finite guard on ``tests/test_faults.py``'s
+   degenerate scaler; an overload cycle under a scripted backlog
+   (3 climbs, deferral, replay, 3 descents, nothing recaptured, scores
+   equal to an unthrottled run's).
+13. ``profile`` — a few batches of each main path, and of the forest path
    on the customer sketch, under ``torch.profiler``: device time by
    kernel, the device's idle share, the ``[B, NB]`` row gathers (none on
    the fused paths) and the small device-to-host copies (none of four
    bytes on the forest path: the window update makes no host sync).
-13. ``kernels`` — one line per the measurement contract, each kernel's
+14. ``kernels`` — one line per the measurement contract, each kernel's
    launches summed over every driven path that launched it.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises and
@@ -2476,7 +2494,10 @@ def phase_learning(dev, device_info, data: dict) -> dict:
 
         def step(packed):
             out = orig_step(packed)
-            seen.setdefault(eng.state.params_epoch, eng.tables)
+            # the tables are re-derived into the same tensors (the graphs
+            # read them by pointer): keep each epoch's contents
+            seen.setdefault(eng.state.params_epoch,
+                            eng.tables.nodes.clone())
             return out
 
         eng._step = step
@@ -2506,7 +2527,8 @@ def phase_learning(dev, device_info, data: dict) -> dict:
             learning.close()
     check(eng.state.params_epoch == epoch0 + 1,
           f"learning (f): params_epoch {eng.state.params_epoch}")
-    check(len(seen) == 2 and seen[epoch0] is not seen[epoch0 + 1],
+    check(len(seen) == 2 and not torch.equal(seen[epoch0],
+                                              seen[epoch0 + 1]),
           "learning (f): the kernel tables were not re-derived")
     check(learning.shadow.candidate_version == 2,
           "learning (f): the external candidate was not installed")
@@ -3051,6 +3073,403 @@ def phase_zoo(dev, device_info, data: dict) -> dict:
     return totals
 
 
+PRECOMPILE_BATCHES = 8  # the same batches through eager and graph engines
+LADDER_POLLS = 24  # the overload cycle: tests/test_torch_overload.py's
+LADDER_ROWS = 256  # script, a backlog of 24 polls of 256 rows against
+LADDER_LAG_HIGH = 4000  # lag_high_rows 4000
+
+
+def _state_snapshot(eng) -> list:
+    """Clones of every tensor the step writes (the history state's sink
+    row ``C``, written in no fixed order, left out)."""
+    from real_time_fraud_detection_system_tpu_torch.utils.tree import (
+        leaves_with_path,
+    )
+
+    out = []
+    for tr in (eng.state.feature_state, eng.state.params):
+        for path, leaf in leaves_with_path(tr):
+            if isinstance(leaf, torch.Tensor):
+                if eng.kind == "sequence" and tr is eng.state.feature_state:
+                    leaf = leaf[:-1]
+                out.append((path, leaf.clone()))
+    return out
+
+
+def _same_snapshot(a: list, b: list, what: str) -> None:
+    check(len(a) == len(b), f"{what}: state leaves differ in number")
+    for (path, x), (_, y) in zip(a, b):
+        check(torch.equal(x, y), f"{what}: state {path} differs")
+
+
+class _Copies:
+    """A sink that keeps copies of each batch's probabilities and
+    features, as a sink that writes the rows out does: the result's own
+    arrays (pinned host blocks) go back to PyTorch's host cache."""
+
+    def __init__(self):
+        self.batches = []
+
+    def append(self, res):
+        self.batches.append((res.batch_index, np.array(res.probs),
+                             np.array(res.features)))
+
+
+def _same_results(got, want, what: str) -> None:
+    check(len(got.batches) == len(want.batches), f"{what}: batch count")
+    for (i, gp, gf), (_, wp, wf) in zip(got.batches, want.batches):
+        check(np.array_equal(gp, wp) and np.array_equal(gf, wf),
+              f"{what}: batch {i} differs")
+
+
+def phase_precompile(dev, device_info, data: dict) -> dict:
+    """The precompiled step: see the module docstring, phase 12."""
+    from real_time_fraud_detection_system_tpu_torch.config import (
+        OverloadConfig,
+        RuntimeConfig,
+    )
+    from real_time_fraud_detection_system_tpu_torch.data.generator import (
+        ZipfKeySampler,
+    )
+    from real_time_fraud_detection_system_tpu_torch.io.sink import (
+        DeadLetterSink,
+        MemorySink,
+    )
+    from real_time_fraud_detection_system_tpu_torch.models.logreg import (
+        LogRegParams,
+    )
+    from real_time_fraud_detection_system_tpu_torch.models.scaler import (
+        Scaler,
+    )
+    from real_time_fraud_detection_system_tpu_torch.runtime.engine import (
+        ScoringEngine,
+    )
+    from real_time_fraud_detection_system_tpu_torch.utils.metrics import (
+        MetricsRegistry,
+    )
+
+    cfg = data["cfg"]
+    card = {"card": device_info["smi_name"],
+            "power_limit": device_info["power_limit"]}
+    totals = {name: 0 for name in KERNELS}
+    t_phase = time.perf_counter()
+    models = data["models"]
+    zoo = _zoo_models(models["forest"][1].scaler, dev)
+    whole = _column_batches(data["txs_whole_dollars"],
+                            PRECOMPILE_BATCHES + 1)
+    sampler = ZipfKeySampler(1 << 20, ZIPF_SKEW)
+    zipf = _zipf_batches(sampler, PRECOMPILE_BATCHES + 1,
+                         day_every=EXACT_DAY_EVERY, seed=2)
+    seq_cfg = _seq_cfg(cfg, history_len=32, seq_attn="naive")
+    cms_cfg = dataclasses.replace(cfg, features=dataclasses.replace(
+        cfg.features, customer_source="cms"))
+    # path -> (kind, config, model, online_lr, batches, own kernel)
+    paths = {
+        "forest": ("forest", cfg, models["forest"][0], 0.0,
+                   _unlabeled(whole), "fused_forest_leaf_sum"),
+        "logreg": ("logreg", cfg, models["logreg"][0], 0.0,
+                   _unlabeled(whole), "fused_featurize_score"),
+        "logreg_online_lr": ("logreg", cfg, models["logreg"][0], LEARN_LR,
+                             whole, "fused_featurize_score"),
+        "gbt": ("gbt", cfg, models["gbt"][0], 0.0, _unlabeled(whole),
+                "leaf_sum"),
+        "cms_forest": ("forest", cms_cfg, models["forest"][0], 0.0,
+                       _unlabeled(whole), "leaf_sum"),
+        "exact_1m_keys": ("forest", _bench_cfg(cfg), models["forest"][0],
+                          0.0, zipf, "leaf_sum"),
+        "mlp": ("mlp", cfg, zoo["mlp"][0], 0.0, _unlabeled(whole), None),
+        "sequence_k32": ("sequence", seq_cfg, zoo["sequence"][0], 0.0,
+                         _unlabeled(whole), None),
+    }
+
+    def served(eng, batches, sink, what: str, own):
+        stats, launches = drive(lambda: eng.run(_ListSource(batches), sink))
+        for name, n in launches.items():
+            want = stats["batches"] if name == own else 0
+            check(n == want, f"precompile {what}: {n} launches of {name} "
+                             f"for {stats['batches']} batches (want {want})")
+            totals[name] += n
+        return stats
+
+    for name, (kind, pcfg, model, lr, batches, own) in paths.items():
+        engines = {}
+        for mode in ("eager", "graphs"):
+            reg = MetricsRegistry()
+            eng = ScoringEngine(pcfg, kind, model.params, model.scaler,
+                                device=dev, online_lr=lr, metrics=reg)
+            # one batch eagerly first: the state precompile must keep is
+            # not empty
+            eng.process_batch(dict(batches[0]))
+            engines[mode] = (eng, reg)
+        # the capture empties PyTorch's caches (device and pinned host):
+        # it comes before both timed runs, so they start alike
+        eng = engines["graphs"][0]
+        torch.cuda.synchronize()
+        before = _state_snapshot(eng)
+        counts = (eng.state.batches_done, eng.state.rows_done,
+                  eng.state.params_epoch)
+        man = eng.precompile()
+        torch.cuda.synchronize()
+        _same_snapshot(before, _state_snapshot(eng),
+                       f"precompile {name}: precompile")
+        check(counts == (eng.state.batches_done, eng.state.rows_done,
+                         eng.state.params_epoch),
+              f"precompile {name}: counters moved")
+        check(man["graphs"] == len(eng.dispatch_inventory()),
+              f"precompile {name}: {man['graphs']} graphs")
+        del before
+        runs = {}
+        for mode, (eng, reg) in engines.items():
+            sink = _Copies()
+            stats = served(eng, batches[1:], sink, f"{name} {mode}", own)
+            runs[mode] = (eng, stats, sink, man, reg)
+        del engines
+        (ee, es, esink, _, _), (ge, gs, gsink, man, greg) = \
+            runs["eager"], runs["graphs"]
+        _same_results(gsink, esink, f"precompile {name}")
+        _same_snapshot(_state_snapshot(ge), _state_snapshot(ee),
+                       f"precompile {name}: final state")
+        recaptures = greg.get("cuda_graph_recaptures_total").value
+        check(recaptures == 0, f"precompile {name}: {recaptures} "
+                               "recaptures after warmup")
+        emit({"phase": "precompile", "path": name, "kind": kind,
+              "key_mode": pcfg.features.key_mode,
+              "customer_source": pcfg.features.customer_source,
+              "online_lr": lr, "batches": gs["batches"],
+              "rows": gs["rows"],
+              "precompile_s": man["seconds"],
+              "capture_s": ge._captures.seconds,
+              "graphs": man["graphs"], "pool_bytes": man["pool_bytes"],
+              "signatures": [list(s.key) for s in ge.dispatch_inventory()],
+              "dispatch_ms_p50": {"eager": es["dispatch_p50_ms"],
+                                  "graphs": gs["dispatch_p50_ms"]},
+              "rows_per_s": {"eager": es["rows_per_s"],
+                             "graphs": gs["rows_per_s"]},
+              "latency_p50_ms": {"eager": es["latency_p50_ms"],
+                                 "graphs": gs["latency_p50_ms"]},
+              "stage_ms_p50": {"eager": es["stage_ms_p50"],
+                               "graphs": gs["stage_ms_p50"]},
+              "outputs_and_state_bit_identical": True,
+              "recaptures": recaptures, **card})
+        del runs, ee, ge, esink, gsink
+        torch.cuda.empty_cache()
+
+    # every bucket of the default ladder, captured once and replayed
+    bcfg = dataclasses.replace(cfg, runtime=RuntimeConfig(precompile=True))
+    reg = MetricsRegistry()
+    eng = ScoringEngine(bcfg, "forest", models["forest"][0].params,
+                        models["forest"][0].scaler, device=dev, metrics=reg)
+    # the warmup's launches (on scratch copies) stay out of the count
+    eng.precompile()
+    sizes = (100, 1000, 4000, 16000, 65000, 300, 60000)
+    sweep = [{k: v[:n] for k, v in b.items()}
+             for n, b in zip(sizes, whole[1:] + whole[1:])]
+    stats = served(eng, _unlabeled(sweep), None, "bucket sweep",
+                   "fused_forest_leaf_sum")
+    keys = sorted(s.key for s in eng.dispatch_inventory())
+    check(sorted(eng._graphs) == keys and len(keys) == 5,
+          f"precompile bucket sweep: graphs {sorted(eng._graphs)}")
+    check(reg.get("cuda_graph_recaptures_total").value == 0
+          and reg.get("cuda_graph_captures_total").value == len(keys),
+          "precompile bucket sweep: a graph was captured twice")
+    # the device-memory gauges the sweep's batches sampled, and what one
+    # sample costs the loop thread
+    mem = {k: reg.get("rtfds_device_memory_bytes", device=str(dev.index),
+                      kind=k).value for k in ("in_use", "peak")}
+    check(0 < mem["in_use"] <= mem["peak"]
+          <= torch.cuda.max_memory_allocated(dev),
+          f"precompile bucket sweep: device memory gauges {mem}")
+    t = time.perf_counter()
+    for _ in range(200):
+        eng._devmem.sample()
+    sample_us = (time.perf_counter() - t) / 200 * 1e6
+    emit({"phase": "precompile", "part": "bucket_sweep",
+          "buckets": [k[2] for k in keys], "batches": stats["batches"],
+          "captures": reg.get("cuda_graph_captures_total").value,
+          "recaptures": 0, "pool_bytes": eng.graph_pool_bytes(),
+          "device_memory_bytes": mem, "memory_sample_us": sample_us,
+          "memory_sample_every": eng._devmem.EVERY, **card})
+    del eng
+
+    # selective and bf16 emission on the forest's graphs, against full
+    forest = models["forest"][0]
+    emitted = {}
+    for mode, rt in (("full", {}), ("selective", None),
+                     ("bf16", {"emit_dtype": "bfloat16"})):
+        if rt is None:
+            probs = emitted["full"][1].probs()
+            # at most 1% of the rows flagged, the alert rate selective
+            # emission is for: just above the 99th percentile's value, as
+            # the forest's probabilities sit on atoms
+            rt = {"emit_threshold": float(np.nextafter(
+                np.float32(np.quantile(probs, 0.99)), np.float32(1)))}
+        mcfg = dataclasses.replace(cfg, runtime=dataclasses.replace(
+            cfg.runtime, precompile=True, **rt))
+        eng = ScoringEngine(mcfg, "forest", forest.params, forest.scaler,
+                            device=dev)
+        eng.precompile()
+        results = _Results()
+
+        class _Both:
+            def __init__(self):
+                self.mem = MemorySink()
+
+            def append(self, res):
+                results.append(res)
+                self.mem.append(res)
+
+        stats = served(eng, _unlabeled(whole[1:]), _Both(), f"emit {mode}",
+                       "fused_forest_leaf_sum")
+        emitted[mode] = (eng, results, stats, rt)
+    full, sel, bf = emitted["full"][1], emitted["selective"][1], \
+        emitted["bf16"][1]
+    thresh = emitted["selective"][3]["emit_threshold"]
+    check(np.array_equal(sel.probs(), full.probs()),
+          "precompile selective: probabilities differ from full emission")
+    flagged = full.probs() >= thresh
+    check(np.array_equal(sel.feats()[flagged], full.feats()[flagged])
+          and not sel.feats()[~flagged].any(),
+          "precompile selective: flagged rows differ from full emission")
+    check(emitted["selective"][0].selective_overflows == 0,
+          "precompile selective: a batch overflowed the cap")
+    want_bf = torch.from_numpy(full.feats()).to(torch.bfloat16).to(
+        torch.float32).numpy()
+    check(np.array_equal(bf.probs(), full.probs())
+          and np.array_equal(bf.feats(), want_bf),
+          "precompile bf16: not the float32 features rounded to bf16")
+    pad = BATCH_ROWS
+    cap = max(8, int(pad * cfg.runtime.emit_cap_fraction))
+    d2h = {"full": pad * 4 * (1 + 15), "selective": (pad + 1 + cap * 16) * 4,
+           "bf16": pad * (4 + 15 * 2)}
+    for mode, (_, _, stats, _) in emitted.items():
+        emit({"phase": "precompile", "part": f"emission_{mode}",
+              "d2h_bytes_per_batch": d2h[mode],
+              "flagged_share": float(flagged.mean())
+              if mode == "selective" else None,
+              "sink_ms_p50": stats["sink_write_p50_ms"],
+              "result_wait_ms_p50": stats["result_wait_p50_ms"],
+              "dispatch_ms_p50": stats["dispatch_p50_ms"],
+              "rows_per_s": stats["rows_per_s"], **card})
+    del emitted, full, sel, bf
+
+    # the non-finite guard: tests/test_faults.py's degenerate scaler
+    H = 3_600_000_000
+    rows = [[(1, 1 * H, 5, 9, 1000), (2, 2 * H, 6, 9, 2500)],
+            [(3, 3 * H, 5, 9, 66600), (4, 4 * H, 6, 8, 1234)],
+            [(5, 5 * H, 5, 9, 2000), (6, 6 * H, 6, 8, 700)]]
+    guard_batches = []
+    for r in rows:
+        tx, ts, cust, term, cents = (np.array(c, np.int64) for c in zip(*r))
+        guard_batches.append({"tx_id": tx, "tx_datetime_us": ts,
+                              "customer_id": cust, "terminal_id": term,
+                              "tx_amount_cents": cents,
+                              "kafka_ts_ms": ts // 1000})
+    mean = np.zeros(15, np.float32)
+    scale = np.ones(15, np.float32)
+    mean[0], scale[0] = 666.0, 0.0
+    outs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for guard in (True, False):
+            gcfg = dataclasses.replace(cfg, runtime=RuntimeConfig(
+                batch_buckets=(64,), max_batch_rows=64, nan_guard=guard,
+                precompile=True))
+            dlq = DeadLetterSink(f"{tmp}/dlq.jsonl") if guard else None
+            eng = ScoringEngine(
+                gcfg, "logreg",
+                LogRegParams(torch.full((15,), 0.01, device=dev),
+                             torch.tensor(0.0, device=dev)),
+                Scaler(torch.from_numpy(mean).to(dev),
+                       torch.from_numpy(scale).to(dev)),
+                device=dev, dead_letter=dlq)
+            src = guard_batches if guard else [
+                {k: v[b["tx_id"] != 3] for k, v in b.items()}
+                for b in guard_batches]
+            eng.precompile()
+            sink = MemorySink()
+            stats, launches = drive(lambda: eng.run(_ListSource(src), sink))
+            # the guard re-scores the poisoned batch: one step more
+            check(launches["fused_featurize_score"]
+                  == stats["batches"] + int(guard),
+                  f"precompile nan-guard {guard}: launches {launches}")
+            for k in totals:
+                totals[k] += launches[k]
+            outs[guard] = (sink.concat(), dlq.read_all() if dlq else None)
+    (out, dl), (clean, _) = outs[True], outs[False]
+    check([r["tx_id"] for r in dl] == [3]
+          and dl[0]["reason"] == "nonfinite",
+          f"precompile nan-guard: dead letters {dl}")
+    for col in clean:
+        if col != "processed_at_us":
+            check(np.array_equal(out[col], clean[col]),
+                  f"precompile nan-guard: {col} differs from the clean run")
+    emit({"phase": "precompile", "part": "nan_guard",
+          "dead_letters": [r["tx_id"] for r in dl],
+          "reason": dl[0]["reason"], "equals_clean_run": True, **card})
+
+    # an overload cycle: climb, defer, replay, descend, nothing captured
+    ladder = _column_batches(data["txs_whole_dollars"], LADDER_POLLS,
+                             rows=LADDER_ROWS)
+    ladder = _unlabeled(ladder)
+    lcfg = dataclasses.replace(cfg, runtime=RuntimeConfig(
+        batch_buckets=(LADDER_ROWS,), precompile=True, autobatch=True,
+        overload=OverloadConfig(enabled=True, spill_path="",
+                                lag_high_rows=LADDER_LAG_HIGH,
+                                climb_dwell_batches=2,
+                                descend_dwell_batches=2)))
+    ladder_out = {}
+    for enabled in (True, False):
+        reg = MetricsRegistry()
+        rcfg = lcfg if enabled else dataclasses.replace(
+            lcfg, runtime=dataclasses.replace(
+                lcfg.runtime, overload=OverloadConfig()))
+        eng = ScoringEngine(rcfg, "forest", forest.params, forest.scaler,
+                            device=dev, metrics=reg)
+        eng.precompile()
+        lag = reg.gauge("rtfds_source_lag_rows")
+        src = _ListSource(ladder)
+        poll = src.poll_batch
+
+        def poll_with_lag(poll=poll, src=src, lag=lag):
+            cols = poll()
+            lag.set(LADDER_ROWS * (len(ladder) - src.i))
+            return cols
+
+        src.poll_batch = poll_with_lag
+        sink = _Results()
+        stats, launches = drive(lambda: eng.run(src, sink))
+        check(launches["fused_forest_leaf_sum"] == stats["batches"],
+              "precompile overload: launches differ from batches")
+        for k in totals:
+            totals[k] += launches[k]
+        ladder_out[enabled] = (reg, stats, sink)
+    reg, stats, sink = ladder_out[True]
+    _, _, ctrl = ladder_out[False]
+    trans = {d: reg.get("rtfds_overload_transitions_total",
+                        direction=d).value for d in ("climb", "descend")}
+    shed = reg.get("rtfds_shed_rows_total").value
+    check(trans == {"climb": 3, "descend": 3} and shed > 0
+          and shed == reg.get("rtfds_shed_replayed_rows_total").value
+          and reg.get("rtfds_rows_total").value
+          == LADDER_POLLS * LADDER_ROWS,
+          f"precompile overload: transitions {trans}, shed {shed}")
+    check(reg.get("cuda_graph_recaptures_total").value == 0,
+          "precompile overload: a graph was captured again")
+    tx = np.concatenate([r.tx_id for r in sink.batches])
+    ctx = np.concatenate([r.tx_id for r in ctrl.batches])
+    o, co = np.argsort(tx), np.argsort(ctx)
+    check(np.array_equal(tx[o], ctx[co])
+          and np.array_equal(sink.probs()[o], ctrl.probs()[co]),
+          "precompile overload: scores differ from the unthrottled run")
+    emit({"phase": "precompile", "part": "overload_cycle",
+          "transitions": trans, "shed_rows": shed,
+          "batches": stats["batches"], "recaptures": 0,
+          "scores_equal_unthrottled": True, **card})
+    emit({"phase": "precompile", "part": "total",
+          "seconds": time.perf_counter() - t_phase,
+          "kernel_launches": totals, **card})
+    return totals
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3088,6 +3507,7 @@ def main() -> int:
     add(phase_exact_path(dev, info, data))
     add(phase_learning(dev, info, data))
     add(phase_zoo(dev, info, data))
+    add(phase_precompile(dev, info, data))
     for kind in PATHS:
         phase_profile(dev, data, kind)
     phase_profile(dev, data, "forest", dataclasses.replace(

@@ -25,9 +25,14 @@ served (logreg, mlp, tree, forest, gbt, autoencoder, sequence); the
 sequence kind exits 2 on ``--online-lr``, ``--feedback-bootstrap``,
 ``--learn-registry`` and ``--key-mode exact``, as the JAX ``score``
 refuses them.
+The serving extras: ``--precompile`` (one CUDA graph per batch bucket),
+``--autobatch`` and ``--latency-slo-ms``, ``--emit-threshold`` (selective
+emission), ``--emit-bf16``, ``--nan-guard`` (with ``--dead-letter``) and
+``--overload`` with its ``--overload-*`` thresholds, refused in the
+combinations the JAX ``score`` refuses, with its exit code 2.
 Not ported yet: the Kafka and raw-table sources and object-store output
 (ROADMAP A2, A9), ``--resume-merge`` and ``--resume-merge-cold`` (A7), the
-CPU oracle and the serving extras (A4), the ``registry`` subcommand (A9).
+CPU oracle (A4c), the ``registry`` subcommand (A9).
 """
 
 from __future__ import annotations
@@ -187,14 +192,83 @@ def cmd_score(args) -> int:
                   "(--max-restarts with --checkpoint-dir); without it the "
                   "watchdog has no restart path to escalate into")
         return 2
+    if args.nan_guard and not args.dead_letter:
+        log.error("--nan-guard needs --dead-letter: quarantined rows "
+                  "must land somewhere an operator can triage them")
+        return 2
+    if args.emit_bf16 and args.feedback_bootstrap:
+        log.error("--emit-bf16 rounds the emitted feature columns; "
+                  "the feedback loop re-consumes them and would drift — "
+                  "keep float32 emission")
+        return 2
+    if not 0.0 <= args.emit_threshold <= 1.0:
+        log.error("--emit-threshold must be a probability in [0, 1], "
+                  "got %s", args.emit_threshold)
+        return 2
+    if args.emit_threshold > 0:
+        bad = None
+        if args.alerts_only:
+            bad = ("--emit-threshold emits flagged rows' features; "
+                   "--alerts-only emits none — pick one")
+        elif args.emit_bf16:
+            bad = ("--emit-threshold already cuts feature D2H ~100x at "
+                   "alert-rate traffic; it does not compose with "
+                   "--emit-bf16 (the packed transfer is f32)")
+        elif args.feedback_bootstrap:
+            bad = ("--emit-threshold keeps clean rows' features on the "
+                   "device; the feedback loop consumes every row's "
+                   "features host-side")
+        if bad:
+            log.error(bad)
+            return 2
+        if args.out:
+            log.info("selective emission: feature columns at %s are "
+                     "populated only for rows with prob >= %.3g "
+                     "(zeros elsewhere)", args.out, args.emit_threshold)
+    if args.latency_slo_ms < 0:
+        log.error("--latency-slo-ms must be >= 0, got %s",
+                  args.latency_slo_ms)
+        return 2
     cfg = Config()
+    try:
+        overload_cfg = dataclasses.replace(
+            cfg.runtime.overload,
+            enabled=args.overload,
+            spill_path=args.overload_spill,
+            lag_high_rows=args.overload_lag_high,
+            climb_pressure=args.overload_climb_pressure,
+            descend_pressure=args.overload_descend_pressure,
+            climb_dwell_batches=args.overload_climb_dwell,
+            descend_dwell_batches=args.overload_descend_dwell,
+            max_deferred_batches=args.overload_max_deferred,
+        )
+    except ValueError as e:
+        log.error("--overload thresholds: %s", e)
+        return 2
+    if args.overload:
+        log.info(
+            "overload ladder on: climb >= %.2f for %d, descend <= %.2f "
+            "for %d, lag high %s rows, spill %r",
+            overload_cfg.climb_pressure, overload_cfg.climb_dwell_batches,
+            overload_cfg.descend_pressure,
+            overload_cfg.descend_dwell_batches,
+            overload_cfg.lag_high_rows or "off",
+            overload_cfg.spill_path or "(memory only)")
     cfg = dataclasses.replace(
         cfg,
         runtime=dataclasses.replace(
             cfg.runtime,
             emit_features=not args.alerts_only,
+            emit_dtype="bfloat16" if args.emit_bf16 else "float32",
+            emit_threshold=args.emit_threshold,
             pipeline_depth=args.pipeline_depth,
             coalesce_rows=args.coalesce_rows,
+            precompile=args.precompile,
+            # an SLO implies the controller: the knob is the intent
+            autobatch=args.autobatch or args.latency_slo_ms > 0,
+            latency_slo_ms=args.latency_slo_ms,
+            nan_guard=args.nan_guard,
+            overload=overload_cfg,
             z_mode=args.z_mode,
             async_sink=args.async_sink,
             sink_queue_batches=args.sink_queue_batches,
@@ -265,9 +339,10 @@ def cmd_score(args) -> int:
         rollback_margin=args.rollback_margin,
     ))
     if args.learn_registry:
-        if args.alerts_only:
+        if args.alerts_only or args.emit_threshold > 0 or args.emit_bf16:
             log.error("shadow scoring re-consumes every row's features "
-                      "host-side; it does not compose with --alerts-only")
+                      "host-side; it does not compose with --alerts-only, "
+                      "--emit-threshold or --emit-bf16")
             return 2
         if not args.feedback_bootstrap:
             log.warning(
@@ -321,10 +396,17 @@ def cmd_score(args) -> int:
         if learning is None:
             return 2
 
+    dead_letter = None
+    if args.dead_letter:
+        dead_letter = make_dead_letter_sink(args.dead_letter)
+        log.info("dead-letter queue: %s (%d row(s) already quarantined)",
+                 args.dead_letter, len(dead_letter))
+
     def make_engine():
         return ScoringEngine(cfg, model.kind, model.params, model.scaler,
                              device=args.device, online_lr=args.online_lr,
-                             feature_cache=feature_cache)
+                             feature_cache=feature_cache,
+                             dead_letter=dead_letter)
 
     # the in-step SGD learns from the table's labels, in band
     source = ReplaySource(txs, date_to_epoch_s(args.start_date),
@@ -341,11 +423,6 @@ def cmd_score(args) -> int:
         op_timeout_s=rt.checkpoint_op_timeout_s,
         op_attempts=rt.checkpoint_op_attempts,
     ) if rt.checkpoint_dir else None
-    dead_letter = None
-    if args.dead_letter:
-        dead_letter = make_dead_letter_sink(args.dead_letter)
-        log.info("dead-letter queue: %s (%d row(s) already quarantined)",
-                 args.dead_letter, len(dead_letter))
     fb = None
     try:
         if ckpt is not None and args.max_restarts > 0:
@@ -524,6 +601,74 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--coalesce-rows", type=int, default=0,
                    help="merge consecutive source polls into one device "
                         "batch up to this many rows (0 = off)")
+    p.add_argument("--precompile", action="store_true",
+                   help="capture the step of every batch bucket (and the "
+                        "compaction and promotion passes) as one CUDA "
+                        "graph each before the first poll; every batch "
+                        "then replays its bucket's graph (nothing is "
+                        "captured on the CPU)")
+    p.add_argument("--autobatch", action="store_true",
+                   help="adaptive micro-batching: move the coalesce "
+                        "target between the batch buckets from observed "
+                        "latency (maximize throughput, or hold "
+                        "--latency-slo-ms when set)")
+    p.add_argument("--latency-slo-ms", type=float, default=0.0,
+                   help="p50 micro-batch latency target for the "
+                        "adaptive batch controller (implies --autobatch;"
+                        " 0 = no SLO, maximize throughput)")
+    p.add_argument("--emit-threshold", type=float, default=0.0,
+                   help="selective emission: transfer and persist the 15 "
+                        "feature columns only for rows whose fraud "
+                        "probability clears this threshold (probs land "
+                        "for every row; flagged rows' features are "
+                        "bit-identical to full emission, clean rows "
+                        "carry zeros; 0 = every row's features)")
+    p.add_argument("--emit-bf16", action="store_true",
+                   help="emit the analyzed feature columns in bfloat16 "
+                        "(half the device->host bytes; predictions stay "
+                        "float32-exact; incompatible with the feedback "
+                        "loop)")
+    p.add_argument("--nan-guard", action="store_true",
+                   help="data-plane guard: rows producing NaN/Inf "
+                        "features or scores are quarantined to "
+                        "--dead-letter (reason=nonfinite) and the batch "
+                        "is re-scored without them before the running "
+                        "feature state is contaminated (serves at depth "
+                        "1 while on)")
+    p.add_argument("--overload", action="store_true",
+                   help="overload-survival ladder: under sustained "
+                        "pressure (batch p50 vs --latency-slo-ms, source "
+                        "lag, queue fill) shed optional work, then force "
+                        "the largest bucket and alerts-only emission, "
+                        "then defer whole micro-batches to a durable "
+                        "spill and replay them in order on recovery")
+    p.add_argument("--overload-spill", default="overload_spill",
+                   help="durable spill for rung-3 deferred batches "
+                        "(*.jsonl = JSONL, else a Parquet directory; "
+                        "idempotent by tx_id, reason=shed)")
+    p.add_argument("--overload-lag-high", type=int, default=0,
+                   help="source-lag normalization: this many backlogged "
+                        "rows == pressure 1.0 (0 = lag signal off)")
+    p.add_argument("--overload-climb-pressure", type=float, default=1.0,
+                   help="climb one rung after --overload-climb-dwell "
+                        "consecutive observations at or above this "
+                        "normalized pressure")
+    p.add_argument("--overload-descend-pressure", type=float,
+                   default=0.6,
+                   help="descend one rung after --overload-descend-dwell "
+                        "consecutive observations at or below this "
+                        "pressure (must be < climb: the gap is the "
+                        "anti-flap band)")
+    p.add_argument("--overload-climb-dwell", type=int, default=3,
+                   help="consecutive high-pressure observations before "
+                        "each climb")
+    p.add_argument("--overload-descend-dwell", type=int, default=6,
+                   help="consecutive low-pressure observations before "
+                        "each descent")
+    p.add_argument("--overload-max-deferred", type=int, default=512,
+                   help="memory bound on deferred micro-batches; at the "
+                        "cap the queue head replays through scoring to "
+                        "make room")
     p.add_argument("--async-sink", action="store_true",
                    help="offload sink appends to a background writer "
                         "thread behind a bounded queue")

@@ -187,6 +187,49 @@ class TrainConfig:
 
 
 @dataclass(frozen=True)
+class OverloadConfig:
+    """Overload-survival ladder (``runtime/overload.py``): a hysteresis
+    state machine over the registry's pressure signals (windowed batch
+    latency against ``runtime.latency_slo_ms``, source lag, queue fill)
+    that climbs a reversible ladder — rung 1 sheds optional work (shadow
+    scoring, learner training), rung 2 forces
+    the largest batch bucket and alerts-only emission, rung 3 defers whole
+    micro-batches to a durable spill and replays them in order once
+    pressure subsides (``scored + deferred == polled``)."""
+
+    enabled: bool = False
+    # Durable spill for rung-3 deferral (the dead-letter machinery,
+    # reason=shed, idempotent by tx_id): ``*.jsonl`` = JSONL file,
+    # anything else = Parquet part directory; "" = memory only.
+    spill_path: str = "overload_spill"
+    # Hysteresis: climb one rung after ``climb_dwell_batches``
+    # consecutive observations at pressure >= ``climb_pressure``, descend
+    # after ``descend_dwell_batches`` at pressure <= ``descend_pressure``.
+    climb_pressure: float = 1.0
+    descend_pressure: float = 0.6
+    climb_dwell_batches: int = 3
+    descend_dwell_batches: int = 6
+    # Source lag of this many rows == pressure 1.0 (0 = lag signal off).
+    lag_high_rows: int = 0
+    # Windowed p50 batch-latency signal (vs runtime.latency_slo_ms).
+    latency_window_batches: int = 8
+    # At most this many deferred micro-batches held at once; at the cap
+    # the queue head replays through scoring to make room.
+    max_deferred_batches: int = 512
+
+    def __post_init__(self):
+        if not 0.0 <= self.descend_pressure < self.climb_pressure:
+            raise ValueError(
+                "overload hysteresis needs 0 <= descend_pressure < "
+                f"climb_pressure, got {self.descend_pressure} / "
+                f"{self.climb_pressure}")
+        if self.climb_dwell_batches < 1 or self.descend_dwell_batches < 1:
+            raise ValueError("overload dwell counts must be >= 1")
+        if self.max_deferred_batches < 1:
+            raise ValueError("overload.max_deferred_batches must be >= 1")
+
+
+@dataclass(frozen=True)
 class RuntimeConfig:
     """Micro-batch engine knobs that the port reads.
 
@@ -216,6 +259,29 @@ class RuntimeConfig:
     # Coalesce consecutive source polls into one device batch of up to
     # this many rows, never past the largest bucket (0 = off).
     coalesce_rows: int = 0
+    # Capture the step of every batch bucket (and the compaction and
+    # promotion passes) as one CUDA graph each before the first poll
+    # (ScoringEngine.precompile); every batch then replays its bucket's
+    # graph. On the CPU nothing is captured.
+    precompile: bool = False
+    # Adaptive micro-batch controller (runtime/autobatch.py): the coalesce
+    # target moves between the batch_buckets from observed latency — hold
+    # latency_slo_ms when set, else hill-climb for throughput. Overrides
+    # coalesce_rows while active.
+    autobatch: bool = False
+    # p50 micro-batch latency target in ms (0 = no SLO).
+    latency_slo_ms: float = 0.0
+    # "bfloat16" halves the emitted feature matrix's device-to-host bytes;
+    # the classifier reads the float32 features first (predictions are
+    # unaffected). Refused where the host re-consumes the features.
+    emit_dtype: str = "float32"  # "float32" | "bfloat16"
+    # Selective emission (> 0 enables): probabilities for every row, the
+    # 15 feature columns only for rows whose probability clears this
+    # threshold, compacted on the device into one packed float32 transfer.
+    emit_threshold: float = 0.0
+    # The compaction's capacity as a fraction of the batch rows; a batch
+    # that flags more falls back to fetching its full feature matrix.
+    emit_cap_fraction: float = 1 / 16
     # Copy results to the host on a side stream as soon as the step is
     # enqueued, into pinned memory, so the copy overlaps later batches'
     # host work (on the CPU there is nothing to overlap).
@@ -241,6 +307,14 @@ class RuntimeConfig:
     # Base backoff between crash restarts (doubling, full jitter, capped;
     # 0 = restart at once). Stall restarts never back off.
     restart_backoff_ms: float = 0.0
+    # Non-finite guard: rows whose score or emitted features reach the
+    # host NaN/Inf go to the dead-letter sink (reason=nonfinite) and the
+    # batch is re-scored from the pre-batch state without them. Needs a
+    # dead-letter sink; snapshots what the step writes before every
+    # batch and serves at depth 1 while on.
+    nan_guard: bool = False
+    # The overload-survival ladder (see OverloadConfig).
+    overload: OverloadConfig = field(default_factory=OverloadConfig)
 
     def __post_init__(self):
         if self.z_mode not in ("auto", "f32", "bf16", "int8"):

@@ -106,3 +106,15 @@ def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype,
             f"{name}: expected contiguous {dtype} {shape} on {device}, got "
             f"{t.dtype} {tuple(t.shape)} on {t.device}"
             f"{'' if t.is_contiguous() else ' (not contiguous)'}")
+
+
+def count_launch(wrapper) -> None:
+    """Count one launch of ``wrapper``'s kernel: ``wrapper.launches``
+    when the launch runs now; ``wrapper.captured`` when the current stream
+    is capturing a CUDA graph, which records the launch and runs it only
+    at each replay (the engine counts its graphs' replays,
+    ``runtime/engine.py::_StepGraph``)."""
+    if torch.cuda.is_current_stream_capturing():
+        wrapper.captured += 1
+    else:
+        wrapper.launches += 1

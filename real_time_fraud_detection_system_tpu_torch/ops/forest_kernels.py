@@ -51,6 +51,7 @@ from real_time_fraud_detection_system_tpu_torch.models.scaler import (
 from real_time_fraud_detection_system_tpu_torch.ops.cuda_lib import (
     CSRC,
     check_tensor,
+    count_launch,
     load_library,
 )
 from real_time_fraud_detection_system_tpu_torch.ops.features_fused import (
@@ -381,7 +382,9 @@ def fused_forest_leaf_sum(
 
     CPU tensors go through :func:`fused_forest_leaf_sum_plain`. CUDA
     tensors launch the kernel on the current stream (no synchronisation)
-    or raise; ``fused_forest_leaf_sum.launches`` counts the launches. The
+    or raise; ``fused_forest_leaf_sum.launches`` counts the launches
+    (one recorded into a CUDA graph, ``.captured``:
+    ``ops/cuda_lib.py::count_launch``). The
     kernel reads the tables' rows by slot as they stand on the stream; a
     slot outside [0, capacity) is the caller's error.
     """
@@ -420,11 +423,12 @@ def fused_forest_leaf_sum(
     if err != 0:
         raise RuntimeError(f"fused forest kernel launch failed: CUDA error "
                            f"{err}")
-    fused_forest_leaf_sum.launches += 1
+    count_launch(fused_forest_leaf_sum)
     return leaf, feats
 
 
 fused_forest_leaf_sum.launches = 0
+fused_forest_leaf_sum.captured = 0
 
 
 def leaf_sum(tables: ForestTables, x: torch.Tensor) -> torch.Tensor:
@@ -433,7 +437,9 @@ def leaf_sum(tables: ForestTables, x: torch.Tensor) -> torch.Tensor:
     CPU tensors go through :func:`leaf_sum_plain`. CUDA tensors launch the
     kernel on the current stream (no synchronisation) or raise; the
     kernel zero-fills the pad columns up to Fp as it loads its tile.
-    ``leaf_sum.launches`` counts the launches.
+    ``leaf_sum.launches`` counts the launches
+    (one recorded into a CUDA graph, ``.captured``:
+    ``ops/cuda_lib.py::count_launch``).
     """
     if x.device.type == "cpu":
         return leaf_sum_plain(tables, x)
@@ -456,8 +462,9 @@ def leaf_sum(tables: ForestTables, x: torch.Tensor) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"leaf-sum kernel launch failed: CUDA error "
                            f"{err}")
-    leaf_sum.launches += 1
+    count_launch(leaf_sum)
     return out
 
 
 leaf_sum.launches = 0
+leaf_sum.captured = 0

@@ -40,6 +40,7 @@ from real_time_fraud_detection_system_tpu_torch.models.scaler import (
 from real_time_fraud_detection_system_tpu_torch.ops.cuda_lib import (
     CSRC,
     check_tensor,
+    count_launch,
     load_library,
 )
 from real_time_fraud_detection_system_tpu_torch.ops.features_fused import (
@@ -125,7 +126,9 @@ def fused_featurize_score(
 
     CPU tensors go through :func:`fused_featurize_score_plain`. CUDA
     tensors launch the kernel on the current stream (no synchronisation)
-    or raise; ``fused_featurize_score.launches`` counts the launches. The
+    or raise; ``fused_featurize_score.launches`` counts the launches
+    (one recorded into a CUDA graph, ``.captured``:
+    ``ops/cuda_lib.py::count_launch``). The
     kernel reads the tables' rows by slot as they stand on the stream, so
     it sees the state that the stream's earlier update left; a slot
     outside [0, capacity) is the caller's error.
@@ -166,8 +169,9 @@ def fused_featurize_score(
     if err != 0:
         raise RuntimeError(f"fused logreg kernel launch failed: CUDA error "
                            f"{err}")
-    fused_featurize_score.launches += 1
+    count_launch(fused_featurize_score)
     return probs, feats
 
 
 fused_featurize_score.launches = 0
+fused_featurize_score.captured = 0

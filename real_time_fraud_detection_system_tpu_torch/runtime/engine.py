@@ -95,18 +95,51 @@ The learning hooks (``runtime/feedback.py``, ``runtime/learner.py``):
   reloader, then the learning loop once per finished batch, and commits
   feedback offsets after the checkpoint, in the JAX engine's order.
 
-Not ported yet: selective and bf16 emission, the nan-guard, CUDA-graph
-precompile, autobatch and the overload ladder (A4); the sharded engine
-and the fleet, with their stacked directories and cold-store re-homing,
-and the sharded sequence step (A7).
+The precompiled step (the JAX engine's per-bucket AOT executables):
+:meth:`ScoringEngine.dispatch_inventory` enumerates every signature the
+engine can dispatch — ``("step", 7, bucket)`` per batch bucket,
+``("compact",)`` with a compaction cadence, ``("promote",)`` with a cold
+tier — and on the card :meth:`ScoringEngine.precompile` captures one CUDA
+graph per signature, all in one memory pool, after warming the step up on
+scratch copies of the state (the live state, params and counters stay
+bit-identical). A batch then copies its packed rows into its bucket's
+static input and replays (:meth:`_dispatch_step`); the outputs are cloned
+out of the graph's static tensors at once, so a result in flight never
+shares memory with a later replay. What the step does on the host runs
+around the replay every batch: the kernel tables' re-derive after a
+params change (copied into the tables the graphs read, in place, where
+their form is the same; a change of form recaptures, counted in
+``cuda_graph_recaptures_total``), ``params_crcs`` after the in-step SGD,
+the ``ready`` event. Each kernel wrapper counts the launches a graph
+recorded at every replay. On the CPU nothing is captured.
+
+Serving extras, as in the JAX engine: ``emit_dtype="bfloat16"`` casts
+the emitted matrix after the classifier read the float32 features;
+``emit_threshold > 0`` packs ``[probs | count | idx(cap) |
+feats(cap·15)]`` into one float32 transfer (the compaction is a cumsum and
+a scatter, fixed-shape and free of host syncs, so it is captured too) and
+fetches the full matrix only when a batch flags more than ``cap`` rows;
+``nan_guard`` copies what the step writes into preallocated twins before
+each step and, on a non-finite row, copies them back, quarantines the row
+(``reason="nonfinite"``) and re-scores the batch without it;
+``runtime/autobatch.py`` moves the coalesce target between the buckets;
+``runtime/overload.py``'s ladder sheds optional work, degrades emission on
+the host only, and defers whole batches to a spill that replays in order
+before live traffic.
+
+Not ported yet: the sharded engine and the fleet, with their stacked
+directories and cold-store re-homing, and the sharded sequence step (A7);
+tracing spans, the metrics server and the CPU oracle (A4c).
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -187,6 +220,13 @@ from real_time_fraud_detection_system_tpu_torch.runtime.faults import (
     PoisonRowError,
 )
 from real_time_fraud_detection_system_tpu_torch.utils import tree
+from real_time_fraud_detection_system_tpu_torch.utils.graph_telemetry import (
+    CaptureTelemetry,
+    DeviceMemoryTelemetry,
+)
+from real_time_fraud_detection_system_tpu_torch.utils.logging import (
+    get_logger,
+)
 from real_time_fraud_detection_system_tpu_torch.utils.metrics import (
     active_recorder,
     get_registry,
@@ -197,6 +237,13 @@ from real_time_fraud_detection_system_tpu_torch.utils.timing import (
 
 _KINDS = ("logreg", "mlp", "tree", "forest", "gbt", "autoencoder",
           "sequence")
+# The kernel wrappers whose launches a captured graph replays.
+_WRAPPERS = (forest_kernels.fused_forest_leaf_sum, forest_kernels.leaf_sum,
+             score_kernels.fused_featurize_score)
+# Side-stream runs of each signature before its capture (lazy inits:
+# cuBLAS handles, the autograd engine, the kernels' modules).
+WARMUP_RUNS = 2
+log = get_logger("engine")
 
 
 def _require_kind(kind: str) -> None:
@@ -250,9 +297,10 @@ def check_sequence_serving(cfg: Config, online_lr: float = 0.0,
                            feedback: bool = False,
                            shadow: bool = False) -> None:
     """The sequence kind's refusals, the JAX engine's with its messages:
-    the tiered store, online SGD, the labeled-feedback loop and shadow
-    scoring all need the windows plane or a host-side feature matrix,
-    which a history state does not have. Raises ValueError."""
+    the tiered store, online SGD, bf16 and selective emission, the
+    labeled-feedback loop and shadow scoring all need the windows plane
+    or a feature matrix on the device, which a history state does not
+    have. Raises ValueError."""
     if cfg.features.key_mode == "exact":
         raise ValueError(
             "key_mode='exact' is the windows-plane tiered feature "
@@ -260,6 +308,14 @@ def check_sequence_serving(cfg: Config, online_lr: float = 0.0,
             "(keep key_mode direct/hash)")
     if online_lr > 0.0:
         raise ValueError("online SGD is not wired for kind='sequence'")
+    if cfg.runtime.emit_dtype != "float32":
+        raise ValueError(
+            "emit_dtype='bfloat16' has no effect for kind='sequence' (no "
+            "feature matrix leaves the device); keep float32")
+    if cfg.runtime.emit_threshold > 0.0:
+        raise ValueError(
+            "emit_threshold has no effect for kind='sequence' (no feature "
+            "matrix leaves the device); keep 0")
     if feedback:
         raise ValueError(
             "the labeled-feedback loop is not wired for kind='sequence'")
@@ -341,6 +397,90 @@ class EngineState:
     # travels with the checkpoint, so the learning loop can tell restored
     # params from the current champion.
     model_version: Optional[int] = None
+
+
+@dataclass(frozen=True)
+class DispatchSignature:
+    """One (shape × static facts) combination the engine can dispatch:
+    ``key`` is both the key :meth:`ScoringEngine.precompile` captures a
+    graph under and the key :meth:`ScoringEngine._dispatch_step` looks up
+    at serve time, so the two cannot drift (the JAX engine's
+    ``DispatchSignature`` without its donation and Pallas facts: the
+    port updates in place, and its kernels serve whenever admitted)."""
+
+    key: tuple           # graph key == runtime dispatch key
+    variant: str         # "step" | "compact" | "promote"
+    kind: str            # model kind the step serves
+    z_mode: Optional[str]  # resolved z mode (tree-ensemble kinds)
+    bucket: int          # padded batch rows (0: not a batch step)
+    selective: bool      # selective-emission packing in the step
+    emit_dtype: str      # emitted feature matrix dtype
+
+
+class StepOut(NamedTuple):
+    """What one step leaves on the device: ``probs`` float32 [B] (0 on
+    padded rows); ``feats`` the emitted [B, 15] matrix (bfloat16 under
+    ``emit_dtype="bfloat16"``; None for the sequence kind, whose features
+    are zeros made on the host); ``tier`` the exact path's ``[dense,
+    cms]`` counts; ``packed`` selective emission's one float32 transfer
+    ``[probs(B) | count | idx(cap) | feats(cap·15)]``."""
+
+    probs: torch.Tensor
+    feats: Optional[torch.Tensor] = None
+    tier: Optional[torch.Tensor] = None
+    packed: Optional[torch.Tensor] = None
+
+
+def pack_selective(probs: torch.Tensor, feats: torch.Tensor,
+                   valid: torch.Tensor, threshold: float,
+                   cap_fraction: float) -> torch.Tensor:
+    """The JAX step's selective-emission packing, fixed-shape and free of
+    host syncs (``torch.nonzero`` would read the count back): each
+    flagged row's rank is a cumsum, and a scatter into a ``cap + 1``
+    buffer of zeros (lane ``cap`` takes the rest) gives
+    ``jnp.nonzero(flagged, size=cap, fill_value=0)`` — the first ``cap``
+    flagged indices in ascending order, 0 after them."""
+    pad = probs.shape[0]
+    cap = max(8, int(pad * cap_fraction))
+    flagged = valid & (probs >= threshold)
+    rank = torch.cumsum(flagged.to(torch.int64), 0) - 1
+    lane = torch.where(flagged & (rank < cap), rank,
+                       torch.full_like(rank, cap))
+    idx = torch.zeros(cap + 1, dtype=torch.int64, device=probs.device)
+    idx.scatter_(0, lane, torch.arange(pad, device=probs.device))
+    idx = idx[:cap]
+    count = flagged.sum().to(torch.float32)
+    return torch.cat([probs, count[None], idx.to(torch.float32),
+                      feats[idx].reshape(-1)])
+
+
+class _StepGraph:
+    """One captured dispatch signature: the CUDA graph, its static inputs
+    (before each replay a tensor argument is copied in, a number filled
+    in), its static outputs (cloned right after each replay, so no result
+    shares memory with a later replay of any graph of the pool), and the
+    launches of each kernel wrapper it recorded, counted at every
+    replay."""
+
+    def __init__(self, graph, inputs: list, outputs, launches: dict):
+        self.graph = graph
+        self.inputs = inputs
+        self.outputs = outputs
+        self.launches = launches
+
+    def replay(self, *args):
+        for dst, src in zip(self.inputs, args):
+            if src is dst:
+                continue
+            if isinstance(src, torch.Tensor):
+                dst.copy_(src, non_blocking=True)
+            else:
+                dst.fill_(src)
+        self.graph.replay()
+        for wrapper, n in self.launches.items():
+            wrapper.launches += n
+        return tree.map(lambda t: t.clone() if isinstance(t, torch.Tensor)
+                        else t, self.outputs)
 
 
 @dataclass
@@ -435,8 +575,10 @@ class ScoringEngine:
     registry the tiered store reports to (default: the process-wide one).
     ``online_lr > 0`` turns on the in-step online SGD for kinds with a
     gradient path; ``feature_cache`` (``runtime/feedback.py``) keeps the
-    emitted rows for the labeled-feedback join. For the sequence kind
-    ``feature_state`` is a ``features/history.py::HistoryState``.
+    emitted rows for the labeled-feedback join; ``dead_letter`` is the
+    sink the non-finite guard (``runtime.nan_guard``) quarantines into.
+    For the sequence kind ``feature_state`` is a
+    ``features/history.py::HistoryState``.
     """
 
     def __init__(
@@ -450,6 +592,7 @@ class ScoringEngine:
         metrics=None,
         online_lr: float = 0.0,
         feature_cache=None,
+        dead_letter=None,
     ):
         _require_kind(kind)
         self.device = resolve_device(device)
@@ -457,12 +600,27 @@ class ScoringEngine:
         self.kind = kind
         self.online_lr = float(online_lr)
         self._loss = loss_fn_for(kind)
-        if feature_cache is not None and not cfg.runtime.emit_features:
-            raise ValueError(
-                "emit_features=False (alerts-only serving) cannot be "
-                "combined with a feature cache: it consumes host-side "
-                "feature rows")
+        self._check_emission(cfg, feature_cache)
         self.feature_cache = feature_cache
+        rt = cfg.runtime
+        self._selective = rt.emit_threshold > 0.0
+        self._emit_bf16 = rt.emit_dtype == "bfloat16"
+        # batches whose flagged rows overflowed the compaction cap (each
+        # fetched its full matrix instead)
+        self.selective_overflows = 0
+        # overload rung 2: alerts-only emission, decided on the host
+        self._shed_features = False
+        self.dead_letter = dead_letter
+        self._nan_guard = bool(rt.nan_guard)
+        if self._nan_guard and dead_letter is None:
+            raise ValueError(
+                "runtime.nan_guard needs a dead-letter sink to quarantine "
+                "into — pass dead_letter=DeadLetterSink(...) "
+                "(CLI: --nan-guard requires --dead-letter)")
+        self._twins: Optional[list] = None  # the nan-guard's snapshot
+        # the last run's learning loop: its worker thread does device
+        # work on its own stream, and holds still while a graph captures
+        self._learning = None
         # Learning hooks (runtime/learner.py): a ShadowScorer dual-scores
         # emitted batches; feedback_tap hands labeled rows to the
         # streaming learner. Both None unless a LearningLoop attaches;
@@ -475,6 +633,21 @@ class ScoringEngine:
         self._online_dirty = False
         self.z_mode = resolve_z_mode(cfg.runtime.z_mode, self.device)
         self.metrics = metrics if metrics is not None else get_registry()
+        # the overload ladder's scored side of scored + deferred == polled
+        self._m_rows = self.metrics.counter("rtfds_rows_total",
+                                            "rows scored")
+        # The precompiled step: one CUDA graph per dispatch signature
+        # (precompile), the keys done (on the CPU: listed, none
+        # captured), the pool they share, the form of the tensors the
+        # graphs read (data pointers and baked-in scalars), and whether a
+        # change of that form waits for a recapture.
+        self._graphs: Dict[tuple, _StepGraph] = {}
+        self._precompiled: set = set()
+        self._pool = None
+        self._graph_form: Optional[tuple] = None
+        self._recapture = False
+        self._captures = CaptureTelemetry(self.metrics)
+        self._devmem = DeviceMemoryTelemetry(self.device, self.metrics)
         self._m_reloads = {
             o: self.metrics.counter(
                 "rtfds_model_reloads_total",
@@ -532,6 +705,50 @@ class ScoringEngine:
         if self._demote_slots:
             self._init_cold(fcfg)
 
+    @staticmethod
+    def _check_emission(cfg: Config, feature_cache) -> None:
+        """The JAX engine's emission checks, with its messages: what the
+        host re-consumes (a feature cache) needs every row's float32
+        features. Raises ValueError."""
+        rt = cfg.runtime
+        if rt.emit_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"emit_dtype must be float32|bfloat16, "
+                             f"got {rt.emit_dtype!r}")
+        if feature_cache is not None and not rt.emit_features:
+            raise ValueError(
+                "emit_features=False (alerts-only serving) cannot be "
+                "combined with a feature cache: it consumes host-side "
+                "feature rows")
+        if rt.emit_dtype != "float32" and feature_cache is not None:
+            raise ValueError(
+                "emit_dtype='bfloat16' is lossy on the emitted feature "
+                "columns; the feedback feature cache re-consumes those "
+                "rows and would drift — keep float32")
+        thresh = float(rt.emit_threshold)
+        if not 0.0 <= thresh <= 1.0:
+            raise ValueError(
+                f"emit_threshold must be in [0, 1], got {thresh}")
+        if thresh > 0.0 and not rt.emit_features:
+            raise ValueError(
+                "emit_threshold > 0 (selective emission) contradicts "
+                "emit_features=False (alerts-only): pick one")
+        if thresh > 0.0:
+            if feature_cache is not None:
+                raise ValueError(
+                    "selective emission (emit_threshold > 0) cannot be "
+                    "combined with a feature cache: it consumes every "
+                    "row's features host-side")
+            if rt.emit_dtype != "float32":
+                raise ValueError(
+                    "selective emission already cuts feature D2H by "
+                    "~1/emit_cap_fraction; emit_dtype='bfloat16' is not "
+                    "supported on the packed selective transfer — keep "
+                    "float32")
+            if not 0.0 < rt.emit_cap_fraction <= 1.0:
+                raise ValueError(
+                    "emit_cap_fraction must be in (0, 1], got "
+                    f"{rt.emit_cap_fraction}")
+
     def _init_sequence(self, params, scaler, feature_state) -> None:
         """kind='sequence': the history state and its step, with the JAX
         engine's refusals. The emitted feature matrix is zeros (the
@@ -558,17 +775,25 @@ class ScoringEngine:
         fused forest kernel (tree and forest kinds on the customer
         table), ``leaf_tables`` for the leaf-sum kernel (gbt, and tree
         and forest on the sketch or the tiered store); both None
-        otherwise. Derived at build and again after a restore that
-        brought other params."""
-        self.tables: Optional[ForestTables] = None
-        self.leaf_tables: Optional[ForestTables] = None
+        otherwise. Derived at build and again after a restore or a swap
+        that brought other params: tables of the same form as the ones
+        there are copied into them in place (the captured graphs read
+        them by pointer)."""
+        tables: Optional[ForestTables] = None
+        leaf_tables: Optional[ForestTables] = None
         params = self.state.params
         trees = params.trees if isinstance(params, GBTModel) else params
         if isinstance(trees, GemmEnsemble) and admit_tables(trees).fits:
             if self.kind == "gbt" or not self._fused:
-                self.leaf_tables = to_kernel_tables(trees, self.z_mode)
+                leaf_tables = to_kernel_tables(trees, self.z_mode)
             else:
-                self.tables = to_kernel_tables(trees, self.z_mode)
+                tables = to_kernel_tables(trees, self.z_mode)
+        old = getattr(self, "tables", None)
+        self.tables = (old if old is not None and tables is not None
+                       and copy_into(old, tables) else tables)
+        old = getattr(self, "leaf_tables", None)
+        self.leaf_tables = (old if old is not None and leaf_tables is not None
+                            and copy_into(old, leaf_tables) else leaf_tables)
         self._tables_epoch = self.state.params_epoch
         if self.device.type == "cuda":
             self._load_kernels()
@@ -599,19 +824,18 @@ class ScoringEngine:
             return torch.sigmoid(self.state.params.base_score + leaf)
         return leaf / tables.n_trees
 
-    def _step(self, packed: torch.Tensor):
-        """One device step on a packed batch; returns (probs, features,
-        tier) with ``tier`` the ``[dense, cms]`` counts of the exact
-        path, else None; the sequence kind's features are None (zeros,
-        made on the host)."""
+    def _step(self, packed: torch.Tensor) -> StepOut:
+        """One device step on a packed batch: what a captured graph
+        records and an eager dispatch runs. Everything here is enqueued
+        on the current stream without a host sync; the host's share of a
+        batch (the tables' re-derive, ``params_crcs``, events) runs
+        around it in :meth:`_start_batch`."""
         batch = unpack_batch(packed)
         if self.kind == "sequence":
             _, probs = update_and_score(self.state.feature_state,
                                         self.state.params, batch,
                                         self.cfg.features)
-            return probs, None, None
-        if self._tables_epoch != self.state.params_epoch:
-            self._derive_tables()
+            return StepOut(probs)
         fcfg = self.cfg.features
         scaler = self.state.scaler
         params = self.state.params
@@ -637,8 +861,17 @@ class ScoringEngine:
         self.state.feature_state = fstate
         if self.online_lr > 0.0 and self._loss is not None:
             self._online_sgd(batch, transform(scaler, feats))
-        return (torch.where(batch.valid, probs, torch.zeros_like(probs)),
-                feats, tier)
+        probs = torch.where(batch.valid, probs, torch.zeros_like(probs))
+        if self._emit_bf16:
+            # half the emitted bytes; the classifier above read float32
+            feats = feats.to(torch.bfloat16)
+        packed_out = None
+        if self._selective:
+            rt = self.cfg.runtime
+            packed_out = pack_selective(probs, feats, batch.valid,
+                                        float(rt.emit_threshold),
+                                        rt.emit_cap_fraction)
+        return StepOut(probs, feats, tier, packed_out)
 
     def _online_sgd(self, batch, x: torch.Tensor) -> None:
         """The in-step SGD on the batch's in-band labels: the gradient on
@@ -652,8 +885,6 @@ class ScoringEngine:
         with torch.no_grad():
             for p, gi in zip(tree.leaves(params), tree.leaves(g)):
                 p.sub_(self.online_lr * has * gi)
-        # the leaves no longer hold what the last restore wrote
-        self.state.params_crcs = None
 
     # -- tiered feature store (key_mode="exact") ---------------------------
 
@@ -740,13 +971,25 @@ class ScoringEngine:
         if (not self._compact_every
                 or self.state.batches_done % self._compact_every != 0):
             return
-        # the day goes in as a kernel argument: no host-to-device copy
-        out = compact_feature_state(
-            self.state.feature_state, self._max_day, self.cfg.features,
-            demote_slots=self._demote_slots)
+        # the day goes in as a kernel argument (a fill of the graph's
+        # static day): no host-to-device copy
+        out = self._dispatch_step(("compact",), self._compact_body,
+                                  self._max_day)
         if self._demote_slots:
-            self._append_demotions(out[2])
-        self._record_compaction(out[1])
+            self._append_demotions(dict(zip(("customer", "terminal"),
+                                            out[1])))
+        self._record_compaction(out[0])
+
+    def _compact_body(self, day) -> tuple:
+        """The compaction signature's device work: ``(reclaimed,)``, and
+        with a cold tier ``(reclaimed, (customer payload, terminal
+        payload))``, a payload None for a table without a directory."""
+        out = compact_feature_state(
+            self.state.feature_state, day, self.cfg.features,
+            demote_slots=self._demote_slots)
+        if not self._demote_slots:
+            return (out[1],)
+        return out[1], (out[2]["customer"], out[2]["terminal"])
 
     def _record_compaction(self, reclaimed: torch.Tensor) -> None:
         """Meter one compaction: the reclaimed counts and the occupancy
@@ -908,18 +1151,15 @@ class ScoringEngine:
             self._m_cold_dem.inc(total)
         self._cold_gauges()
 
-    def _build_promote_payload(self, rows_by_table: dict) -> dict:
-        """Resolved cold rows → the fixed-shape promote payload
-        (``EMPTY_KEY``-padded ``[K, ...]`` per table with a directory),
-        on the device."""
+    def _promote_arrays(self, rows_by_table: dict) -> list:
+        """Resolved cold rows → the fixed-shape promote payload on the
+        host, flat: per table with a directory, ``EMPTY_KEY``-padded keys
+        (their int32 bits) [K], bucket_day int32 [K, NB] and count,
+        amount, fraud float32 [K, NB]."""
         k = self._demote_slots
         nb = self.cfg.features.n_day_buckets
-        tables = self._dir_tables()
-        payload = {}
-        for table in ("customer", "terminal"):
-            if table not in tables:
-                payload[table] = None
-                continue
+        flat = []
+        for table in self._dir_tables():
             keys = np.full((k,), 0xFFFFFFFF, np.uint32)
             bd = np.full((k, nb), -1, np.int32)
             cnt = np.zeros((k, nb), np.float32)
@@ -929,12 +1169,19 @@ class ScoringEngine:
                     (rows_by_table.get(table) or {}).items()):
                 keys[i] = key
                 bd[i], cnt[i], amt[i], frd[i] = r
-            dev = self.device
-            payload[table] = (
-                torch.from_numpy(keys.view(np.int32)).to(dev)
-                .view(torch.uint32),
-                *(torch.from_numpy(a).to(dev) for a in (bd, cnt, amt, frd)))
-        return payload
+            flat += [keys.view(np.int32), bd, cnt, amt, frd]
+        return flat
+
+    def _promote_body(self, *flat: torch.Tensor) -> torch.Tensor:
+        """The promotion signature's device work on the flat payload of
+        :meth:`_promote_arrays`: the stats int32 [2, 2]."""
+        it = iter(flat)
+        tables = self._dir_tables()
+        payload = {t: ((next(it).view(torch.uint32), next(it), next(it),
+                        next(it), next(it)) if t in tables else None)
+                   for t in ("customer", "terminal")}
+        return promote_rows(self.state.feature_state, payload,
+                            self.cfg.features)[1]
 
     def _maybe_promote(self) -> None:
         """Land resolved promotions between steps (after
@@ -962,9 +1209,11 @@ class ScoringEngine:
             self._m_cold_wait.inc(wait)
         if not any(rows_by_table.values()):
             return
-        _, stats = promote_rows(self.state.feature_state,
-                                self._build_promote_payload(rows_by_table),
-                                self.cfg.features)
+        flat = [torch.from_numpy(a) for a in
+                self._promote_arrays(rows_by_table)]
+        if ("promote",) not in self._graphs:
+            flat = [t.to(self.device) for t in flat]
+        stats = self._dispatch_step(("promote",), self._promote_body, *flat)
         st = stats.cpu().numpy()
         self._m_cold_prom.inc(int(st[:, 0].sum()))
         for i, table in enumerate(("customer", "terminal")):
@@ -1042,48 +1291,363 @@ class ScoringEngine:
                 out[...] = packed
         return entry if entry is not None else torch.from_numpy(packed)
 
-    def _issue_host_fetch(self, probs: torch.Tensor,
-                          feats: Optional[torch.Tensor],
-                          n: int, step_done,
-                          tier: Optional[torch.Tensor] = None
-                          ) -> Optional[dict]:
-        """Start the device-to-host copies of the ``n`` real rows'
-        probabilities (and features, when emitted and the step made them,
-        and the exact path's tier counts) on the side stream,
-        after ``step_done`` (the event recorded behind the step), into
-        pinned blocks of the caching host allocator: each batch gets its
-        own, so a result never shares memory with a later batch's. None
-        without the side stream (the CPU, or ``fetch_overlap`` off)."""
+    # -- the precompiled step (dispatch inventory, CUDA graphs) -----------
+
+    def dispatch_inventory(self) -> List[DispatchSignature]:
+        """Every dispatch signature this engine can serve, the JAX
+        engine's list for the same config: ``("step", 7, bucket)`` for
+        each ``runtime.batch_buckets`` size, ``("compact",)`` with a
+        compaction cadence, ``("promote",)`` with a cold tier.
+        :meth:`precompile` captures exactly this list and
+        :meth:`_dispatch_step` looks its keys up."""
+        zmode_kinds = ("tree", "forest", "gbt")
+        rt = self.cfg.runtime
+        sigs = [DispatchSignature(
+            key=("step", 7, int(b)), variant="step", kind=self.kind,
+            z_mode=self.z_mode if self.kind in zmode_kinds else None,
+            bucket=int(b), selective=self._selective,
+            emit_dtype=rt.emit_dtype)
+            for b in sorted(set(rt.batch_buckets))]
+        for variant, on in (("compact", self._compact_every),
+                            ("promote", self._demote_slots)):
+            if on:
+                sigs.append(DispatchSignature(
+                    key=(variant,), variant=variant, kind=self.kind,
+                    z_mode=None, bucket=0, selective=False,
+                    emit_dtype=rt.emit_dtype))
+        return sigs
+
+    def signature_step(self, sig: DispatchSignature) -> Callable:
+        """The callable ``sig`` dispatches to (eagerly, or recorded into
+        its graph)."""
+        if sig.variant == "compact":
+            return self._compact_body
+        if sig.variant == "promote":
+            return self._promote_body
+        return lambda packed: self._step(packed)
+
+    def _static_inputs(self, sig: DispatchSignature) -> list:
+        """The graph's input tensors, allocated outside the graphs' pool;
+        their contents here (every row invalid, day 0, an empty payload)
+        are what the warmup runs on."""
+        dev = self.device
+        if sig.variant == "step":
+            return [torch.zeros((7, sig.bucket), dtype=torch.int32,
+                                device=dev)]
+        if sig.variant == "compact":
+            return [torch.zeros((), dtype=torch.int32, device=dev)]
+        return [torch.from_numpy(a).to(dev)
+                for a in self._promote_arrays({})]
+
+    def precompile(self) -> dict:
+        """Capture one CUDA graph per :meth:`dispatch_inventory` signature
+        not captured yet, all in one memory pool, and serve every later
+        dispatch of it by replay. Each signature first runs
+        ``WARMUP_RUNS`` times on a side stream against scratch copies of
+        the feature state and the params, so the live state, params and
+        counters stay as they were; the capture records without running.
+        A capture that fails raises (dispatch never falls back). On the
+        CPU nothing is captured and the signatures are listed as done.
+
+        Returns the JAX engine's manifest (``buckets`` of the signatures
+        done now, ``variants``, ``seconds``) with ``graphs`` (the graphs
+        held) and ``pool_bytes`` (the device bytes of their pool; None
+        when the allocator's snapshot does not name pools)."""
+        t0 = time.perf_counter()
+        sigs = [sg for sg in self.dispatch_inventory()
+                if sg.key not in self._precompiled]
+        if self.device.type == "cuda" and sigs:
+            self._note_params_swap()
+            self._capture(sigs)
+            self._captures.warm = True
+        self._precompiled.update(sg.key for sg in sigs)
+        self._recapture = False
+        return {"buckets": [sg.bucket for sg in sigs], "variants": 1,
+                "seconds": round(time.perf_counter() - t0, 3),
+                "graphs": len(self._graphs),
+                "pool_bytes": self.graph_pool_bytes()}
+
+    def _capture(self, sigs: List[DispatchSignature]) -> None:
+        """Warm up and capture ``sigs`` with the learning loop's worker
+        held idle. Capture errors only on this thread's unsafe calls
+        (``thread_local``): the sink writer and the supervisor's threads
+        go on beside it."""
+        hold = (self._learning.held() if self._learning is not None
+                else contextlib.nullcontext())
+        with hold:
+            self._capture_held(sigs)
+
+    def _capture_held(self, sigs: List[DispatchSignature]) -> None:
+        inputs = {sg.key: self._static_inputs(sg) for sg in sigs}
+        live = self.state
+        scratch = dataclasses.replace(
+            live, feature_state=tree.clone(live.feature_state),
+            params=tree.clone(live.params))
+        cur = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(cur)
+        self.state = scratch
+        try:
+            with torch.cuda.stream(side):
+                for sg in sigs:
+                    for _ in range(WARMUP_RUNS):
+                        self.signature_step(sg)(*inputs[sg.key])
+        finally:
+            self.state = live
+        cur.wait_stream(side)
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        for sg in sigs:
+            before = [w.captured for w in _WRAPPERS]
+            graph = torch.cuda.CUDAGraph()
+            t = time.perf_counter()
+            with torch.cuda.graph(graph, pool=self._pool,
+                                  capture_error_mode="thread_local"):
+                out = self.signature_step(sg)(*inputs[sg.key])
+            launches = {w: w.captured - n for w, n in zip(_WRAPPERS, before)
+                        if w.captured != n}
+            self._graphs[sg.key] = _StepGraph(graph, inputs[sg.key], out,
+                                              launches)
+            self._captures.note(sg.key, time.perf_counter() - t)
+        self._graph_form = self._form()
+
+    def _form(self) -> tuple:
+        """What the graphs bake in: the data pointer of every tensor they
+        read or write (feature state, params, scaler, kernel tables) and
+        the value of every other leaf (tree counts, depths, z modes)."""
+        return tuple(
+            leaf.data_ptr() if isinstance(leaf, torch.Tensor) else leaf
+            for t in (self.state.feature_state, self.state.params,
+                      self.state.scaler, self.tables, self.leaf_tables)
+            for leaf in tree.leaves(t))
+
+    def graph_pool_bytes(self) -> Optional[int]:
+        """Device bytes of the graphs' memory pool: 0 without graphs,
+        None when the allocator's snapshot does not name pools."""
+        if self._pool is None or not self._graphs:
+            return 0
+        segs = torch.cuda.memory_snapshot()
+        if segs and "segment_pool_id" not in segs[0]:
+            return None
+        pool = tuple(self._pool)
+        return int(sum(sg["total_size"] for sg in segs
+                       if tuple(sg["segment_pool_id"]) == pool))
+
+    def _note_params_swap(self) -> None:
+        """After a swap or a restore that brought other params
+        (``params_epoch`` advanced): re-derive the kernel tables (in
+        place where their form is the same) and, when the graphs' form
+        changed (a rebound leaf, other tables, another depth), drop every
+        graph; the next dispatch recaptures them, counted in
+        ``cuda_graph_recaptures_total``, as the JAX engine drops its AOT
+        executables when a reload changes the params' shape family."""
+        if self._tables_epoch == self.state.params_epoch:
+            return
+        if self.kind == "sequence":
+            self._tables_epoch = self.state.params_epoch
+        else:
+            self._derive_tables()
+        if self._graphs and self._form() != self._graph_form:
+            log.warning(
+                "params swap changed the form the %d CUDA graphs read; "
+                "dropping them (the next batch recaptures)",
+                len(self._graphs))
+            torch.cuda.synchronize(self.device)
+            self._graphs.clear()
+            self._precompiled.clear()
+            self._pool = None
+            self._recapture = True
+
+    def _dispatch_step(self, key: tuple, fn: Callable, *args):
+        """Replay ``key``'s graph when it was captured, else run ``fn``
+        eagerly: the same device work either way."""
+        graph = self._graphs.get(key)
+        if graph is None:
+            return fn(*args)
+        return graph.replay(*args)
+
+    # -- emission (full, bf16, selective, alerts-only) ---------------------
+
+    def _emit_features_now(self) -> bool:
+        """Whether the feature matrix crosses to the host for the batch
+        being finished: the static config gate and the overload ladder's
+        rung-2 degrade (host-side only: the step and its graphs are the
+        same either way, the matrix stays on the device unfetched)."""
+        return self.cfg.runtime.emit_features and not self._shed_features
+
+    def set_degraded_emission(self, on: bool) -> bool:
+        """Overload rung 2: switch to alerts-only emission at run time.
+        Refused (False, serving unchanged) where a consumer needs host-
+        side feature rows: a feature cache, selective emission's packed
+        transfer, or the sequence kind (alerts-shaped already)."""
+        if not on:
+            self._shed_features = False
+            return True
+        ok = (self.kind != "sequence" and self.cfg.runtime.emit_features
+              and not self._selective and self.feature_cache is None)
+        self._shed_features = bool(ok)
+        if not ok:
+            log.info("overload rung 2: alerts-only degrade not applicable "
+                     "to this serving mode (a host-side feature consumer "
+                     "is wired); batch forcing still applies")
+        return self._shed_features
+
+    def _issue_host_fetch(self, out: StepOut, n: int,
+                          step_done) -> Optional[dict]:
+        """Start the device-to-host copies of what the host will read —
+        under selective emission the packed array alone (it carries the
+        probabilities), else the ``n`` real rows' probabilities and, when
+        emitted, their features; the exact path's tier counts — on the
+        side stream, after ``step_done``, into pinned blocks of the
+        caching host allocator (each batch its own). None without the
+        side stream (the CPU, or ``fetch_overlap`` off)."""
         side = self._d2h_stream
         if side is None:
             return None
         side.wait_event(step_done)
-        host = {"probs": torch.empty(n, dtype=torch.float32,
-                                     pin_memory=True)}
-        if self.cfg.runtime.emit_features and feats is not None:
-            host["feats"] = torch.empty((n, N_FEATURES), dtype=torch.float32,
-                                        pin_memory=True)
-        if tier is not None:
-            host["tier"] = torch.empty(2, dtype=torch.float32,
-                                       pin_memory=True)
+        srcs = {}
+        if out.packed is not None:
+            srcs["packed"] = out.packed
+        else:
+            srcs["probs"] = out.probs[:n]
+            if out.feats is not None and self._emit_features_now():
+                srcs["feats"] = out.feats[:n]
+        if out.tier is not None:
+            srcs["tier"] = out.tier
+        host = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+                for k, v in srcs.items()}
         with torch.cuda.stream(side):
-            host["probs"].copy_(probs[:n], non_blocking=True)
-            if "feats" in host:
-                host["feats"].copy_(feats[:n], non_blocking=True)
-            if tier is not None:
-                host["tier"].copy_(tier, non_blocking=True)
+            for k, v in srcs.items():
+                host[k].copy_(v, non_blocking=True)
         done = torch.cuda.Event()
         done.record(side)
         host["done"] = done
         return host
 
+    def _host_results(self, handle: dict):
+        """Wait for the batch's copies (the event behind them on the side
+        stream, never the whole device) and decode ``(probs, features,
+        tier)`` on the host; a leaf not copied yet is read with a blocking
+        copy."""
+        n = handle["n"]
+        out: StepOut = handle["out"]
+        fetch = handle["fetch"] or {}
+        if "done" in fetch:
+            fetch["done"].synchronize()
+
+        def host(name: str, t: torch.Tensor) -> np.ndarray:
+            t = fetch[name] if name in fetch else t.cpu()
+            return (t if t.dtype == torch.float32
+                    else t.to(torch.float32)).numpy()
+
+        tier = host("tier", out.tier) if out.tier is not None else None
+        if out.packed is not None:
+            probs, feats = self._unpack_selective(
+                n, out, host("packed", out.packed))
+        else:
+            probs = host("probs", out.probs[:n])
+            if out.feats is not None and self._emit_features_now():
+                feats = host("feats", out.feats[:n])
+            else:
+                # alerts-only, the ladder's degrade, or the sequence kind
+                feats = np.zeros((n, N_FEATURES), np.float32)
+        return probs, feats, tier
+
+    def _unpack_selective(self, n: int, out: StepOut, flat: np.ndarray):
+        """Decode the packed transfer ``[probs(pad) | count | idx(cap) |
+        feats(cap·15)]``: flagged rows' features land bit-identical to
+        full emission, the others zero; a count above the cap fetches
+        the batch's full matrix, kept on the device for this."""
+        pad = out.probs.shape[0]
+        cap = (flat.shape[0] - pad - 1) // (1 + N_FEATURES)
+        # a copy: a view would pin the whole packed block
+        probs = flat[:n].copy()
+        count = int(flat[pad])
+        feats = np.zeros((n, N_FEATURES), np.float32)
+        if count > cap:
+            self.selective_overflows += 1
+            feats = out.feats[:n].cpu().numpy()
+        elif count:
+            idx = flat[pad + 1:pad + 1 + count].astype(np.int64)
+            sel = flat[pad + 1 + cap:pad + 1 + cap + count * N_FEATURES]
+            feats[idx] = sel.reshape(count, N_FEATURES)
+        return probs, feats
+
+    # -- the non-finite guard (runtime.nan_guard) --------------------------
+
+    def _guarded(self) -> list:
+        """The tensors a step writes: the feature state, and the params
+        under the in-step SGD."""
+        trees = [self.state.feature_state]
+        if self.online_lr > 0.0 and self._loss is not None:
+            trees.append(self.state.params)
+        return [t for tr in trees for t in tree.leaves(tr)
+                if isinstance(t, torch.Tensor)]
+
+    def _snapshot_twins(self) -> None:
+        """Copy what the step writes into preallocated twins, on the
+        stream, before the step: the state updates in place, so the
+        pre-batch state the guard rolls back to lives there."""
+        live = self._guarded()
+        if self._twins is None or any(
+                a.shape != b.shape or a.dtype != b.dtype
+                for a, b in zip(self._twins, live)):
+            self._twins = [torch.empty_like(t) for t in live]
+        for twin, t in zip(self._twins, live):
+            twin.copy_(t)
+
+    def _quarantine_nonfinite(self, handle: dict, probs_np: np.ndarray,
+                              feats_np: np.ndarray):
+        """The JAX engine's guard: rows whose score or emitted features
+        reached the host non-finite go to the dead-letter sink
+        (``reason=nonfinite``), the twins are copied back into the live
+        tensors, and the batch is re-scored from that pre-batch state
+        without them. Returns the re-scored result, or None for a clean
+        batch."""
+        n = handle["n"]
+        bad = ~np.isfinite(probs_np[:n])
+        if feats_np is not None and feats_np.shape[0] >= n:
+            bad |= ~np.isfinite(feats_np[:n]).all(axis=1)
+        if not bad.any():
+            return None
+        cols = handle["cols"]
+        bad_idx = np.flatnonzero(bad)
+        self.dead_letter.put_rows(
+            {k: np.asarray(v)[bad_idx] for k, v in cols.items()},
+            reason="nonfinite",
+            error="non-finite feature/score at the host boundary",
+            batch_index=self.state.batches_done + 1)
+        log.warning("nan-guard: %d/%d row(s) produced non-finite outputs; "
+                    "quarantined to the dead-letter queue and re-scoring "
+                    "the batch without them", len(bad_idx), n)
+        with torch.no_grad():
+            for t, twin in zip(self._guarded(), self._twins):
+                t.copy_(twin)
+        good = np.flatnonzero(~bad)
+        if len(good) == 0:
+            self.state.batches_done += 1
+            res = empty_batch_result(self.state.batches_done)
+            res.latency_s = (time.perf_counter() - handle["t0"]
+                             - handle.get("waited", 0.0))
+            return res
+        h2 = self._start_batch({k: np.asarray(v)[good]
+                                for k, v in cols.items()})
+        for key in ("index", "source_offsets", "waited", "t0"):
+            if key in handle:
+                h2[key] = handle[key]
+        # each pass strictly shrinks the surviving rows: it terminates
+        return self._finish_batch(h2)
+
+    # -- one batch ---------------------------------------------------------
+
     def _start_batch(self, cols: dict) -> dict:
-        """Host prep (dedup, validate, pad, pack), the host-to-device copy,
-        the device step, and the start of the result copies. Does not wait for
-        the device. The handle keeps the step's ``probs`` and ``feats``
-        until :meth:`_finish_batch` has waited for the copies that read
-        them, so the caching allocator cannot hand their memory out
-        while the side stream reads it."""
+        """Host prep (dedup, validate, pad, pack), the host-to-device copy
+        (into the bucket graph's static input when there is one), the
+        device step (a replay or an eager run), and the start of the
+        result copies. Does not wait for the device. The handle keeps the
+        step's outputs until :meth:`_finish_batch` has waited for the
+        copies that read them, so the caching allocator cannot hand their
+        memory out while the side stream reads it."""
         t0 = time.perf_counter()
         keep = latest_wins_mask_host(cols["tx_id"], cols["kafka_ts_ms"])
         cols = {k: v[keep] for k, v in cols.items()}
@@ -1092,13 +1656,26 @@ class ScoringEngine:
         pad = bucket_size(n, self.cfg.runtime.batch_buckets)
         host = self._pack(cols, n, pad)
         t1 = time.perf_counter()
+        self._note_params_swap()
+        if self._recapture:
+            self.precompile()
+        key = ("step", 7, pad)
+        graph = self._graphs.get(key)
+        src = host[0] if isinstance(host, list) else host
+        if graph is not None:
+            packed = graph.inputs[0]
+            packed.copy_(src, non_blocking=True)
+        else:
+            packed = src.to(self.device, non_blocking=True)
         if isinstance(host, list):
-            packed = host[0].to(self.device, non_blocking=True)
             host[1] = torch.cuda.Event()
             host[1].record()
-        else:
-            packed = host.to(self.device)
-        probs, feats, tier = self._step(packed)
+        if self._nan_guard:
+            self._snapshot_twins()
+        out = self._dispatch_step(key, self._step, packed)
+        if self.online_lr > 0.0 and self._loss is not None:
+            # the leaves no longer hold what the last restore wrote
+            self.state.params_crcs = None
         self._note_batch_days(cols)
         self._note_cold_touches(cols)
         step_done = None
@@ -1108,32 +1685,21 @@ class ScoringEngine:
             step_done = torch.cuda.Event()
             step_done.record()
             self.state.ready = step_done
-        fetch = self._issue_host_fetch(probs, feats, n, step_done, tier)
-        return {"cols": cols, "n": n, "probs": probs, "feats": feats,
-                "tier": tier, "fetch": fetch, "t0": t0, "prep_s": t1 - t0,
+        fetch = self._issue_host_fetch(out, n, step_done)
+        return {"cols": cols, "n": n, "out": out, "fetch": fetch,
+                "t0": t0, "prep_s": t1 - t0,
                 "dispatch_s": time.perf_counter() - t1}
 
     def _finish_batch(self, handle: dict) -> BatchResult:
-        """Wait for this batch's result copies (the event behind them on
-        the side stream, never the whole device) and build its result;
-        then, between steps, the tiered store's compaction and
-        promotions."""
+        """Wait for this batch's result copies and build its result (the
+        non-finite guard first, when on); then, between steps, the tiered
+        store's compaction and promotions."""
         n = handle["n"]
-        emit = (self.cfg.runtime.emit_features
-                and handle["feats"] is not None)
-        fetch = handle["fetch"]
-        tier = handle.get("tier")
-        if fetch is not None:
-            fetch["done"].synchronize()
-            probs_np = fetch["probs"].numpy()
-            feats_np = fetch["feats"].numpy() if emit else None
-            tier_np = fetch["tier"].numpy() if "tier" in fetch else None
-        else:
-            probs_np = handle["probs"][:n].cpu().numpy()
-            feats_np = handle["feats"][:n].cpu().numpy() if emit else None
-            tier_np = tier.cpu().numpy() if tier is not None else None
-        if feats_np is None:
-            feats_np = np.zeros((n, N_FEATURES), np.float32)
+        probs_np, feats_np, tier_np = self._host_results(handle)
+        if self._nan_guard:
+            res = self._quarantine_nonfinite(handle, probs_np, feats_np)
+            if res is not None:
+                return res
         if tier_np is not None and self._m_tier is not None:
             self._m_tier["dense"].inc(float(tier_np[0]))
             self._m_tier["cms"].inc(float(tier_np[1]))
@@ -1141,9 +1707,11 @@ class ScoringEngine:
         self._emit_learning(cols, n, probs_np, feats_np)
         self.state.batches_done += 1
         self.state.rows_done += n
+        self._m_rows.inc(n)
         self._drain_meters()
         self._maybe_compact()
         self._maybe_promote()
+        self._devmem.tick()
         return BatchResult(
             tx_id=cols["tx_id"],
             tx_datetime_us=cols["tx_datetime_us"],
@@ -1309,10 +1877,16 @@ class ScoringEngine:
         feature rows, so the features must leave the device."""
         if self.kind == "sequence":
             check_sequence_serving(self.cfg, shadow=True)
-        if not self.cfg.runtime.emit_features:
+        if not self.cfg.runtime.emit_features or self._selective:
             raise ValueError(
                 "shadow scoring consumes every row's features host-side; "
-                "it does not compose with alerts-only emission")
+                "it does not compose with alerts-only or selective "
+                "emission")
+        if self.cfg.runtime.emit_dtype != "float32":
+            raise ValueError(
+                "shadow scoring re-consumes the emitted features; "
+                "emit_dtype='bfloat16' would drift the candidate's "
+                "scores — keep float32")
         self.shadow = shadow
 
     def clear_shadow(self) -> None:
@@ -1327,17 +1901,31 @@ class ScoringEngine:
         none). :func:`batches_left` turns a cap on the engine's lifetime
         batches, as the JAX engine counts them, into this one.
 
-        Up to ``runtime.pipeline_depth`` batches are in flight: a batch is
-        finished (results waited for, sink appended) once ``depth``
-        handles are queued, and the rest drain at the end.
+        With ``runtime.precompile`` the graphs are captured before the
+        first poll (:meth:`precompile`). Up to ``runtime.pipeline_depth``
+        batches are in flight (1 under ``runtime.nan_guard``, whose
+        roll-back needs no later batch launched from the state it rolls
+        back): a batch is finished (results waited for, sink appended)
+        once ``depth`` handles are queued, and the rest drain at the end.
         ``runtime.coalesce_rows`` merges consecutive polls into one batch
         of up to that many rows, never past the largest bucket (a poll
-        that would overflow it is carried into the next batch).
-        ``trigger_seconds`` (default ``runtime.trigger_seconds``) spaces
-        batch starts at least that far apart, once per loop pass on the
-        poll side; the time slept, like source polls, is credited as wait
-        so latencies measure the pipeline. An empty poll (an idle live
-        source) drains the pipeline and waits one trigger.
+        that would overflow it is carried into the next batch); with
+        ``runtime.autobatch`` the controller's target
+        (``runtime/autobatch.py``) takes its place. ``trigger_seconds``
+        (default ``runtime.trigger_seconds``) spaces batch starts at
+        least that far apart, once per loop pass on the poll side; the
+        time slept, like source polls, is credited as wait so latencies
+        measure the pipeline. An empty poll (an idle live source) drains
+        the pipeline and waits one trigger.
+
+        ``runtime.overload.enabled`` runs the ladder
+        (``runtime/overload.py``): rung 1 pauses the shadow and the
+        learner and samples the flight recorder, rung 2 pins the
+        autobatch target to the largest bucket and degrades emission to
+        alerts-only (host side only), rung 3 defers each assembled batch
+        to the spill; deferred batches replay in order, through the same
+        path, before any live poll, and at the source's end all of them
+        do (``scored + deferred-pending == polled``).
 
         ``checkpointer``: after every ``runtime.checkpoint_every_batches``
         finished batches an async sink drains, the state is saved and the
@@ -1363,14 +1951,20 @@ class ScoringEngine:
         rows/s, the per-batch latency p50/p99 (host prep through the
         results' arrival on the host, minus waits), the median ms of each
         loop stage (``stage_ms_p50``: source poll, per poll; host prep;
-        dispatch — the host-to-device copy, the step's launches and the
-        start of the result copies; result wait; sink write), the same four
-        medians as ``*_p50_ms`` keys, ``pipeline_depth``,
-        ``host_prep_route`` and ``z_mode``.
+        dispatch — the host-to-device copy, the step's launches or its
+        graph's replay, and the start of the result copies; result wait;
+        sink write), the same four medians as ``*_p50_ms`` keys,
+        ``pipeline_depth``, ``host_prep_route`` and ``z_mode``; with
+        autobatch its target and adjustments, with selective emission
+        this run's overflows.
         """
         # a restored state's cold lineage: reconcile the store (and fence
         # the promoter) before any batch can touch a demoted key
         self._sync_cold_after_restore()
+        rt = self.cfg.runtime
+        self._learning = learning
+        if rt.precompile and not self._precompiled:
+            self.precompile()
         if learning is not None:
             # the shadow scorer and the learner's tap go in before the
             # first poll; the loop then rides the batch cadence
@@ -1379,12 +1973,22 @@ class ScoringEngine:
             # feedback offsets trail the state checkpoint
             feedback.auto_commit = False
         degraded0 = len(self._degraded_keys)
-        rt = self.cfg.runtime
+        ovf0 = self.selective_overflows
         trigger = rt.trigger_seconds if trigger_seconds is None \
             else trigger_seconds
-        depth = max(1, rt.pipeline_depth)
+        depth = 1 if self._nan_guard else max(1, rt.pipeline_depth)
         coalesce = rt.coalesce_rows
         cap = max(rt.batch_buckets)
+        auto = None
+        if rt.autobatch:
+            from real_time_fraud_detection_system_tpu_torch.runtime \
+                .autobatch import AutoBatchController
+
+            auto = AutoBatchController(rt.batch_buckets,
+                                       latency_slo_ms=rt.latency_slo_ms,
+                                       registry=self.metrics)
+        overload = (self._overload_controller(learning, auto)
+                    if rt.overload.enabled else None)
         trackers = {k: LatencyTracker() for k in (
             "latency", "source_poll", "host_prep", "dispatch",
             "result_wait", "sink_write")}
@@ -1407,6 +2011,14 @@ class ScoringEngine:
                 t = time.perf_counter()
                 sink.append(res)
                 trackers["sink_write"].record(time.perf_counter() - t)
+            if auto is not None:
+                auto.observe(len(res.tx_id), res.latency_s)
+            if overload is not None:
+                rr = handle.pop("overload_replay_rows", None)
+                if rr is not None:
+                    # counted at finish: the replay's state updates landed
+                    overload.note_replayed(rr)
+                overload.observe_batch(len(res.tx_id), res.latency_s)
             recorder = active_recorder()
             if feedback is not None:
                 # between steps, before the checkpoint: the saved state
@@ -1464,7 +2076,25 @@ class ScoringEngine:
         def _rows(cols: dict) -> int:
             return len(next(iter(cols.values()), ()))
 
+        def _launch(cols: dict, offs: list, replay_rows=None) -> None:
+            """One assembled batch into the pipeline: live traffic and a
+            replayed deferred batch take the same path."""
+            nonlocal t_last_start
+            if checkpointer is not None and any(
+                    h["index"] % every == 0 for h in q):
+                _drain()  # a queued batch will checkpoint: nothing newer
+            handle = self._start_batch(cols)
+            t_last_start = time.perf_counter()
+            handle["index"] = self.state.batches_done + len(q) + 1
+            handle["source_offsets"] = offs
+            if replay_rows is not None:
+                handle["overload_replay_rows"] = replay_rows
+            q.append(handle)
+            while len(q) >= depth:
+                _finish(q.popleft())
+
         exhausted = False
+        capped = False  # max_batches stopped the run (resumable)
         carry = None  # (cols, offsets): a poll beyond the coalesce cap
         t_last_start = None
         while not exhausted:
@@ -1472,12 +2102,20 @@ class ScoringEngine:
                 heartbeat.beat()
             started = self.state.batches_done + len(q)
             if max_batches and started - batches0 >= max_batches:
+                capped = True
                 break
             if trigger > 0 and t_last_start is not None:
                 dt = trigger - (time.perf_counter() - t_last_start)
                 if dt > 0:
                     time.sleep(dt)
                     _add_wait(dt)
+            if overload is not None and overload.want_replay():
+                # the deferred FIFO's head replays before any live poll:
+                # rows reach the state in a never-overloaded run's order
+                item = overload.next_replay()
+                if item is not None:
+                    _launch(item.cols, item.offsets, replay_rows=item.rows)
+                    continue
             if carry is not None:
                 cols, offs = carry
                 carry = None
@@ -1487,12 +2125,16 @@ class ScoringEngine:
                     break
                 if _rows(cols) == 0:
                     _drain()
+                    if overload is not None:
+                        # the quiet period is the ladder's recovery window
+                        overload.idle_tick()
                     if trigger > 0:
                         time.sleep(trigger)
                     continue
                 offs = list(source.offsets)
-            if coalesce > 0:
-                target = min(coalesce, cap)
+            assemble = auto.target_rows() if auto is not None else coalesce
+            if assemble > 0:
+                target = min(assemble, cap)
                 parts = [cols]
                 total = _rows(cols)
                 while total < target:
@@ -1512,17 +2154,32 @@ class ScoringEngine:
                 if len(parts) > 1:
                     cols = {k: np.concatenate([p[k] for p in parts])
                             for k in parts[0]}
-            if checkpointer is not None and any(
-                    h["index"] % every == 0 for h in q):
-                _drain()  # a queued batch will checkpoint: nothing newer
-            handle = self._start_batch(cols)
-            t_last_start = time.perf_counter()
-            handle["index"] = self.state.batches_done + len(q) + 1
-            handle["source_offsets"] = offs
-            q.append(handle)
-            while len(q) >= depth:
-                _finish(q.popleft())
-        _drain()
+            if overload is not None and overload.should_defer():
+                # rung 3: the whole batch goes to the spill; it takes no
+                # batch_index and state.offsets stays at the last scored
+                # batch. What was launched before finishes first.
+                _drain()
+                overload.defer(cols, offs)
+                continue
+            _launch(cols, offs)
+        try:
+            if overload is not None and not capped:
+                # the source is exhausted: every deferred batch is scored
+                # before the run ends (a max_batches stop leaves them
+                # spilled, behind the checkpointed offsets)
+                overload.finish_stream()
+                while True:
+                    if heartbeat is not None:
+                        heartbeat.beat()
+                    item = overload.next_replay()
+                    if item is None:
+                        break
+                    _launch(item.cols, item.offsets, replay_rows=item.rows)
+            _drain()
+        finally:
+            if overload is not None:
+                # revert every engine-side degrade for a later run
+                overload.deactivate()
         sink_drain = getattr(sink, "drain", None)
         if sink_drain is not None:
             sink_drain()
@@ -1537,7 +2194,7 @@ class ScoringEngine:
         snaps = {k: t.snapshot() for k, t in trackers.items()}
         p50 = {k: snaps[k].get("p50_ms", 0.0) for k in trackers}
         rows = self.state.rows_done - rows0
-        return {
+        stats = {
             "rows": rows,
             "batches": self.state.batches_done - batches0,
             "wall_s": wall,
@@ -1555,9 +2212,50 @@ class ScoringEngine:
             "pipeline_depth": depth,
             "host_prep_route": self.host_prep,
             "z_mode": self.z_mode,
-            # keys scored from the sketch while their promotion was in
-            # flight: the scope of the bit-identity claim (cold tier only)
-            **({"exactness_degraded_keys":
-                len(self._degraded_keys) - degraded0}
-               if self._cold is not None else {}),
         }
+        if auto is not None:
+            stats["autobatch_target_rows"] = auto.target_rows()
+            stats["autobatch_adjustments"] = auto.adjustments
+        if self._selective:
+            # this run's overflows (full fetches): recalibrate
+            # emit_threshold or raise emit_cap_fraction when nonzero
+            stats["selective_overflows"] = self.selective_overflows - ovf0
+        if self._cold is not None:
+            # keys scored from the sketch while their promotion was in
+            # flight: the scope of the bit-identity claim
+            stats["exactness_degraded_keys"] = (
+                len(self._degraded_keys) - degraded0)
+        return stats
+
+    def _overload_controller(self, learning, auto):
+        """The ladder for one run, with the engine-side effect of each
+        rung (all reversible)."""
+        from real_time_fraud_detection_system_tpu_torch.runtime.overload \
+            import LadderActions, OverloadController
+
+        def shed_optional(on: bool) -> None:
+            # rung 1: the shadow and the learner pause through their
+            # hooks (the JAX loop also samples its per-batch flight
+            # records; the port's loop writes none to thin, A4c)
+            self.shadow_paused = bool(on)
+            if learning is not None:
+                if on:
+                    learning.pause()
+                else:
+                    learning.resume()
+
+        def force_max_batch(on: bool) -> None:
+            # rung 2: the largest bucket, a captured signature like any
+            if auto is not None:
+                if on:
+                    auto.force_max()
+                else:
+                    auto.release_force()
+
+        return OverloadController(
+            self.cfg.runtime, registry=self.metrics,
+            actions=LadderActions(
+                shed_optional=shed_optional,
+                degrade_emission=self.set_degraded_emission,
+                force_max_batch=force_max_batch),
+            recorder_fn=active_recorder)

@@ -486,6 +486,10 @@ class StreamingLearner:
         with self._train_cond:
             self._train_cond.notify_all()
 
+    @property
+    def paused(self) -> bool:
+        return self._paused.is_set()
+
     def reset(self, params, scaler, parent_version: Optional[int]) -> None:
         """Warm-restart the candidate (after a promotion from the new
         champion, after a rollback from the restored one) and drop the
@@ -749,6 +753,20 @@ class LearningLoop:
 
     def resume(self) -> None:
         if self.learner is not None:
+            self.learner.resume()
+
+    @contextlib.contextmanager
+    def held(self):
+        """Hold the learner's worker idle for the block (a CUDA graph
+        capture on the loop thread), then leave it paused or running as
+        it was (an overload rung-1 pause outlasts the block)."""
+        if self.learner is None or self.learner.paused:
+            yield
+            return
+        self.learner.pause()
+        try:
+            yield
+        finally:
             self.learner.resume()
 
     def close(self) -> None:

@@ -10,9 +10,11 @@
   would).
 - :class:`SyntheticSource` — a paced live generator over a table.
 
-The per-source telemetry (poll histograms, lag gauge) comes with the
-metrics registry (ROADMAP A4); ``RawTableSource``, ``KafkaSource`` and the
-prefetch wrapper are still to port (A2).
+:class:`ReplaySource` counts the rows it serves in
+``rtfds_source_rows_total{source="replay"}`` (the overload ladder's
+``scored + deferred == polled`` ledger reads it); the rest of the
+per-source telemetry (poll histograms, the lag gauge), ``RawTableSource``,
+``KafkaSource`` and the prefetch wrapper are still to port (A2).
 """
 
 from __future__ import annotations
@@ -30,6 +32,9 @@ from real_time_fraud_detection_system_tpu_torch.core.envelope import (
 )
 from real_time_fraud_detection_system_tpu_torch.data.generator import (
     Transactions,
+)
+from real_time_fraud_detection_system_tpu_torch.utils.metrics import (
+    get_registry,
 )
 
 TOPIC = "debezium.payment.transactions"
@@ -126,6 +131,8 @@ class ReplaySource:
         self.n_partitions = n_partitions
         self.decode_workers = decode_workers
         self._pos = 0
+        self._m_ingested = get_registry().counter(
+            "rtfds_source_rows_total", "rows ingested", source="replay")
         if mode == "envelope":
             self.broker = InProcBroker(n_partitions)
             t_us = txs.epoch_us(start_epoch_s)
@@ -139,6 +146,12 @@ class ReplaySource:
 
     def poll_batch(self) -> Optional[dict]:
         """Next micro-batch as a column dict (None when exhausted)."""
+        cols = self._poll()
+        if cols is not None:
+            self._m_ingested.inc(len(cols["tx_id"]))
+        return cols
+
+    def _poll(self) -> Optional[dict]:
         if self.mode == "columnar":
             if self._pos >= self.txs.n:
                 return None

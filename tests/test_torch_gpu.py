@@ -29,6 +29,8 @@ within ``1e-7`` (forest) and ``1e-6`` (logreg, gbt: a sigmoid of sums that
 carry that order), the rest bit-identical.
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -1117,8 +1119,12 @@ def test_swap_on_cuda_copies_in_place_and_rederives_the_tables(cuda):
     assert eng.state.params_epoch == epoch + 1
     assert eng.state.params.leaf_val is leaf  # the same form: in place
     assert eng.state.params_crcs is None
+    nodes = tables.nodes.clone()
     res = eng.process_batch(dict(_labeled_batches(2)[1]))
-    assert eng.tables is not tables  # re-derived from the new params
+    # re-derived from the new params, into the same tensors (the graphs
+    # of a precompiled engine read them by pointer)
+    assert eng.tables is tables
+    assert not torch.equal(eng.tables.nodes, nodes)
     ref = ScoringEngine(cfg, "forest", synthetic_ensemble(
         8, 4, 15, seed=2, device=cuda), scaler, device=cuda)
     ref.process_batch(dict(_labeled_batches(1)[0]))
@@ -1347,3 +1353,419 @@ def test_sequence_engine_on_cuda_matches_cpu_engine(cuda, k, block):
         update_and_score(hg, eg.state.params, batch, cfg.features)
     finally:
         torch.cuda.set_sync_debug_mode(0)
+
+
+# -- the precompiled step: one CUDA graph per dispatch signature ------------
+
+class _Batches:
+    """A source over fixed column batches (copies, so a run never
+    mutates them)."""
+
+    def __init__(self, batches):
+        self._batches = batches
+        self._i = 0
+
+    def poll_batch(self):
+        if self._i == len(self._batches):
+            return None
+        self._i += 1
+        return {k: v.copy() for k, v in self._batches[self._i - 1].items()}
+
+    @property
+    def offsets(self):
+        return [self._i]
+
+
+# case -> (kind, features, online_lr, the kernel each batch launches)
+GRAPH_CASES = {
+    "forest": ("forest", {}, 0.0, "fused_forest_leaf_sum"),
+    "logreg": ("logreg", {}, 0.0, "fused_featurize_score"),
+    "logreg-sgd": ("logreg", {}, 0.05, "fused_featurize_score"),
+    "gbt": ("gbt", {}, 0.0, "leaf_sum"),
+    "cms-forest": ("forest", {"customer_source": "cms"}, 0.0, "leaf_sum"),
+    "exact-forest": ("forest", {"key_mode": "exact", "compact_every": 2},
+                     0.0, "leaf_sum"),
+    "mlp-sgd": ("mlp", {}, 0.05, None),
+    "autoencoder": ("autoencoder", {}, 0.0, None),
+    "sequence": ("sequence", {}, 0.0, None),
+}
+
+
+def _wrappers():
+    return {"fused_forest_leaf_sum": fk.fused_forest_leaf_sum,
+            "leaf_sum": fk.leaf_sum,
+            "fused_featurize_score": sk.fused_featurize_score}
+
+
+def _graph_model(kind, dev):
+    from real_time_fraud_detection_system_tpu_torch.models.sequence import (
+        init_transformer,
+    )
+
+    _, scaler = _logreg_model(dev)
+    if kind == "forest":
+        return synthetic_ensemble(10, 5, N_FEAT, seed=3, device=dev), scaler
+    if kind == "gbt":
+        return synthetic_gbt(20, 4, N_FEAT, seed=3, device=dev), scaler
+    if kind == "logreg":
+        return _logreg_model(dev)
+    if kind == "sequence":
+        return init_transformer(d_model=32, n_heads=2, n_layers=2, d_ff=64,
+                                seed=2, device=dev), scaler
+    return _zoo_model(kind, dev)
+
+
+def _state_leaves(eng):
+    from real_time_fraud_detection_system_tpu_torch.utils import tree
+
+    out = []
+    for t in (eng.state.feature_state, eng.state.params):
+        for path, leaf in tree.leaves_with_path(t):
+            if isinstance(leaf, torch.Tensor):
+                # a history state's row C is a sink written in no fixed
+                # order: rows [:C] only
+                if eng.kind == "sequence" and t is eng.state.feature_state:
+                    leaf = leaf[:-1]
+                out.append((path, leaf.clone()))
+    return out
+
+
+def _serve_graphs(cuda, case, depth, precompile, batches, **runtime):
+    import dataclasses
+
+    kind, features, lr, _ = GRAPH_CASES[case]
+    cfg = Config(features=FeatureConfig(customer_capacity=512,
+                                        terminal_capacity=512,
+                                        cms_width=1 << 10, **features),
+                 runtime=RuntimeConfig(batch_buckets=(256, 1024),
+                                       pipeline_depth=depth))
+    cfg = dataclasses.replace(cfg, runtime=dataclasses.replace(
+        cfg.runtime, **runtime))
+    params, scaler = _graph_model(kind, cuda)
+    eng = ScoringEngine(cfg, kind, params, scaler, device=cuda,
+                        online_lr=lr)
+    first = eng.process_batch(dict(batches[0]))
+    manifest = None
+    if precompile:
+        before = _state_leaves(eng)
+        counters = (eng.state.batches_done, eng.state.rows_done,
+                    eng.state.params_epoch)
+        manifest = eng.precompile()
+        torch.cuda.synchronize()
+        # precompile changes no state: its warmup ran on scratch copies
+        for (p, a), (_, b) in zip(before, _state_leaves(eng)):
+            assert torch.equal(a, b), p
+        assert counters == (eng.state.batches_done, eng.state.rows_done,
+                            eng.state.params_epoch)
+    launches0 = {n: w.launches for n, w in _wrappers().items()}
+    sink = []
+
+    class _Sink:
+        def append(self, res):
+            sink.append(res)
+
+    eng.run(_Batches(batches[1:]), _Sink())
+    torch.cuda.synchronize()
+    launches = {n: w.launches - launches0[n]
+                for n, w in _wrappers().items()}
+    return eng, [first] + sink, launches, manifest
+
+
+def _graph_batches():
+    # five 1,000-row batches (bucket 1024) and a 200-row one (bucket 256)
+    batches = _labeled_batches(n_batches=6)
+    batches[3] = {k: v[:200] for k, v in batches[3].items()}
+    return batches
+
+
+@pytest.mark.parametrize("depth", [1, 2, 3])
+@pytest.mark.parametrize("case", sorted(GRAPH_CASES))
+def test_graph_replay_equals_eager_bit_for_bit(cuda, case, depth):
+    """Every kind's step captured (the fused kernels, the in-step SGD's
+    autograd, the leaf sum, the exact path and its compaction, the mlp,
+    the autoencoder, the sequence step's sorts) and replayed at depths
+    1, 2 and 3: outputs and state bit-identical to eager dispatch on
+    whole-dollar data, precompile leaving the state alone, no recapture,
+    and each kernel counted once per batch at replay."""
+    batches = _graph_batches()
+    eager, want, lw, _ = _serve_graphs(cuda, case, depth, False, batches)
+    graphs, got, lg, man = _serve_graphs(cuda, case, depth, True, batches)
+    inv = graphs.dispatch_inventory()
+    assert man["graphs"] == len(inv) == len(graphs._graphs)
+    assert man["pool_bytes"] is None or man["pool_bytes"] > 0
+    reg = graphs.metrics
+    assert graphs._captures.recaptures == 0
+    assert reg.get("cuda_graph_captures_total").value >= len(inv)
+    assert len(got) == len(want) == len(batches)
+    for a, b in zip(want, got):
+        np.testing.assert_array_equal(b.probs, a.probs)
+        np.testing.assert_array_equal(b.features, a.features)
+    for (p, a), (_, b) in zip(_state_leaves(eager), _state_leaves(graphs)):
+        assert torch.equal(a, b), p
+    own = GRAPH_CASES[case][3]
+    n = len(batches) - 1
+    for name in lw:
+        assert lg[name] == lw[name] == (n if name == own else 0), name
+
+
+def test_device_memory_gauges_read_the_allocator_on_cuda(cuda):
+    """The engine's ``rtfds_device_memory_bytes`` gauges hold the caching
+    allocator's bytes in use and its peak, sampled on their cadence."""
+    from real_time_fraud_detection_system_tpu_torch.utils.metrics import (
+        MetricsRegistry,
+    )
+
+    cfg = Config(features=FeatureConfig(customer_capacity=512,
+                                        terminal_capacity=512),
+                 runtime=RuntimeConfig(batch_buckets=(1024,)))
+    params, scaler = _graph_model("forest", cuda)
+    reg = MetricsRegistry()
+    eng = ScoringEngine(cfg, "forest", params, scaler, device=cuda,
+                        metrics=reg)
+    batches = _labeled_batches(n_batches=eng._devmem.EVERY + 1)
+    eng.run(_Batches(batches))
+    assert eng._devmem.samples == 2
+    idx = str(torch.device(cuda).index or 0)
+    in_use = reg.get("rtfds_device_memory_bytes", device=idx,
+                     kind="in_use").value
+    peak = reg.get("rtfds_device_memory_bytes", device=idx,
+                   kind="peak").value
+    assert 0 < in_use <= peak <= torch.cuda.max_memory_allocated(cuda)
+
+
+def test_recapture_with_the_learner_training_beside_it(cuda, tmp_path):
+    """A swap to mlp params of other widths recaptures every graph in the
+    middle of a run while the streaming learner trains on its own stream
+    on another thread: the capture holds the learner idle, both go on,
+    and the recaptured graphs serve what an eager engine serves."""
+    import threading
+
+    from real_time_fraud_detection_system_tpu_torch.io.artifacts import (
+        TrainedModel,
+    )
+    from real_time_fraud_detection_system_tpu_torch.io.registry import (
+        make_model_registry,
+    )
+    from real_time_fraud_detection_system_tpu_torch.models.mlp import (
+        init_mlp,
+    )
+    from real_time_fraud_detection_system_tpu_torch.runtime.learner import (
+        LearningLoop,
+        StreamingLearner,
+    )
+
+    batches = _labeled_batches(n_batches=6)
+    wide = init_mlp(15, (128, 64), seed=6, device=cuda)
+    out = {}
+    for precompile in (False, True):
+        cfg = Config(features=FeatureConfig(customer_capacity=512,
+                                            terminal_capacity=512),
+                     runtime=RuntimeConfig(batch_buckets=(1024,),
+                                           precompile=precompile))
+        params, scaler = _zoo_model("mlp", cuda)
+        eng = ScoringEngine(cfg, "mlp", params, scaler, device=cuda)
+        learner = StreamingLearner(
+            "mlp", params, scaler, cfg,
+            make_model_registry(str(tmp_path / f"l{precompile}")),
+            publish_every_labels=1 << 30, window_rows=4096, device=cuda)
+        learning = LearningLoop(
+            make_model_registry(str(tmp_path / f"r{precompile}")), cfg,
+            "mlp", model=TrainedModel(kind="mlp", scaler=scaler,
+                                      params=params),
+            learner=learner, device=cuda)
+        rng = np.random.default_rng(0)
+        x = rng.normal(0, 50, (4096, 15)).astype(np.float32)
+        y = rng.integers(0, 2, 4096).astype(np.int32)
+        stop = threading.Event()
+        errors = []
+
+        def feed():
+            # submit re-raises (and clears) a worker failure: keep it
+            try:
+                while not stop.is_set():
+                    learner.submit(x, y)
+                    time.sleep(0.001)
+            except BaseException as e:  # noqa: BLE001
+                errors.append(e)
+
+        feeder = threading.Thread(target=feed, daemon=True)
+        feeder.start()
+        sink = []
+
+        class _Sink:
+            def append(self, res):
+                sink.append(res)
+
+        try:
+            eng.run(_Batches(batches[:3]), _Sink(), learning=learning)
+            eng.swap_params(wide)
+            eng.run(_Batches(batches[3:]), _Sink(), learning=learning)
+            torch.cuda.synchronize()
+        finally:
+            stop.set()
+            feeder.join()
+            assert learner.drain(60.0)
+            learning.close()
+        assert errors == [] and learner.labels_total > 0
+        out[precompile] = (sink, eng)
+    (se, ee), (sg, eg) = out[False], out[True]
+    assert eg._captures.recaptures == len(eg.dispatch_inventory())
+    for a, b in zip(se, sg):
+        np.testing.assert_array_equal(b.probs, a.probs)
+        np.testing.assert_array_equal(b.features, a.features)
+
+
+@pytest.mark.parametrize("runtime", [
+    dict(emit_threshold=0.3, emit_cap_fraction=0.5),
+    dict(emit_threshold=1e-6, emit_cap_fraction=0.001),
+    dict(emit_dtype="bfloat16"),
+    dict(emit_features=False),
+], ids=["selective", "selective-overflow", "bf16", "alerts-only"])
+def test_graph_emission_modes_equal_eager(cuda, runtime):
+    batches = _graph_batches()
+    _, want, _, _ = _serve_graphs(cuda, "forest", 2, False, batches,
+                                  **runtime)
+    eng, got, _, _ = _serve_graphs(cuda, "forest", 2, True, batches,
+                                   **runtime)
+    for a, b in zip(want, got):
+        np.testing.assert_array_equal(b.probs, a.probs)
+        np.testing.assert_array_equal(b.features, a.features)
+    if "emit_cap_fraction" in runtime and runtime["emit_cap_fraction"] < 0.1:
+        assert eng.selective_overflows > 0
+
+
+def test_no_recapture_across_buckets_compaction_and_a_swap(cuda, tmp_path):
+    """Every bucket and the compaction and promotion passes replay their
+    graphs; a swap to params of the same form copies them in place (no
+    recapture); another form recaptures every signature once, counted."""
+    kind, features, _, _ = GRAPH_CASES["exact-forest"]
+    cfg = Config(features=FeatureConfig(
+        customer_capacity=64, terminal_capacity=64, cms_width=1 << 8,
+        key_mode="exact", compact_every=2, cold_store=str(tmp_path / "c"),
+        cold_demote_slots=16, cold_highwater=0.25),
+        runtime=RuntimeConfig(batch_buckets=(256, 1024, 4096),
+                              precompile=True))
+    params, scaler = _graph_model("forest", cuda)
+    eng = ScoringEngine(cfg, "forest", params, scaler, device=cuda)
+    rng = np.random.default_rng(1)
+    batches = []
+    for i, n in enumerate((100, 900, 3000, 200, 1000, 4000)):
+        b = _labeled_batches(1, rows=n, seed=i)[0]
+        b["tx_datetime_us"] = b["tx_datetime_us"] + i * 86_400_000_000
+        b["customer_id"] = rng.integers(0, 2000, n).astype(np.int64)
+        batches.append(b)
+    eng.run(_Batches(batches))
+    keys = {s.key for s in eng.dispatch_inventory()}
+    assert keys == set(eng._graphs) and ("promote",) in keys
+    assert eng._captures.recaptures == 0
+    captures = eng._captures.captures
+    eng.swap_params(synthetic_ensemble(10, 5, N_FEAT, seed=4, device=cuda))
+    eng.run(_Batches(batches[:2]))
+    assert eng._captures.captures == captures
+    eng.swap_params(synthetic_ensemble(10, 7, N_FEAT, seed=4, device=cuda))
+    eng.run(_Batches(batches[:2]))
+    assert eng._captures.recaptures == len(keys)
+    eng.fence_cold()
+
+
+def test_overload_cycle_replays_captured_graphs_only(cuda):
+    """A full climb (shed, forced largest bucket, alerts-only, deferral)
+    and descent under a scripted backlog: every batch replays a captured
+    graph, and nothing is captured again."""
+    from real_time_fraud_detection_system_tpu_torch.config import (
+        OverloadConfig,
+    )
+
+    # the CPU ladder test's script (tests/test_torch_overload.py): a
+    # backlog of 24 polls of 256 rows against lag_high_rows=4000
+    batches = _labeled_batches(n_batches=24, rows=256)
+    cfg = Config(features=FeatureConfig(customer_capacity=512,
+                                        terminal_capacity=512),
+                 runtime=RuntimeConfig(
+                     batch_buckets=(256,), precompile=True,
+                     autobatch=True,
+                     overload=OverloadConfig(
+                         enabled=True, spill_path="", lag_high_rows=4000,
+                         climb_dwell_batches=2, descend_dwell_batches=2)))
+    from real_time_fraud_detection_system_tpu_torch.utils.metrics import (
+        MetricsRegistry,
+    )
+
+    params, scaler = _graph_model("forest", cuda)
+    eng = ScoringEngine(cfg, "forest", params, scaler, device=cuda,
+                        metrics=MetricsRegistry())
+    lag = eng.metrics.gauge("rtfds_source_lag_rows")
+    src = _Batches(batches)
+    poll = src.poll_batch
+
+    def poll_with_lag():
+        cols = poll()
+        lag.set(256 * (len(batches) - src._i))
+        return cols
+
+    src.poll_batch = poll_with_lag
+    # the warmup's launches (on scratch copies) count where they run
+    eng.precompile()
+    before = fk.fused_forest_leaf_sum.launches
+    stats = eng.run(src)
+    assert stats["rows"] == 256 * len(batches)
+    assert eng.metrics.get("rtfds_shed_rows_total").value > 0
+    assert eng.metrics.get("rtfds_overload_rung").value == 0
+    assert eng._captures.recaptures == 0
+    assert fk.fused_forest_leaf_sum.launches - before == stats["batches"]
+
+
+def test_nan_guard_under_graphs_equals_eager(cuda, tmp_path):
+    """The guard's twins are copied around the replay, outside the graph:
+    a NaN score (a poisoned step) rolls the state back and re-scores the
+    batch without the row, as under eager dispatch."""
+    from real_time_fraud_detection_system_tpu_torch.io.sink import (
+        DeadLetterSink,
+    )
+
+    batches = _labeled_batches(n_batches=4)
+    bad_tx = int(batches[2]["tx_id"][5])
+    out = {}
+    for precompile in (False, True):
+        cfg = Config(features=FeatureConfig(customer_capacity=512,
+                                            terminal_capacity=512),
+                     runtime=RuntimeConfig(batch_buckets=(1024,),
+                                           nan_guard=True,
+                                           precompile=precompile))
+        params, scaler = _logreg_model(cuda)
+        dlq = DeadLetterSink(str(tmp_path / f"dlq{precompile}.jsonl"))
+        eng = ScoringEngine(cfg, "logreg", params, scaler, device=cuda,
+                            dead_letter=dlq, online_lr=0.05)
+        eng.precompile() if precompile else None
+        graph = eng._graphs.get(("step", 7, 1024))
+        marker = float(batches[2]["tx_amount_cents"][5]) / 100.0
+
+        def poison(out_, packed):
+            amount = packed[4].view(torch.float32)
+            hit = (amount == marker) & (
+                torch.arange(amount.shape[0], device=cuda) == 5)
+            return out_._replace(probs=torch.where(
+                hit, torch.full_like(out_.probs, float("nan")),
+                out_.probs))
+
+        if graph is not None:
+            replay = graph.replay
+            graph.replay = lambda *a: poison(replay(*a), graph.inputs[0])
+        else:
+            step = eng._step
+            eng._step = lambda packed: poison(step(packed), packed)
+        sink = []
+
+        class _Sink:
+            def append(self, res):
+                sink.append(res)
+
+        eng.run(_Batches(batches), _Sink())
+        out[precompile] = (sink, dlq.tx_ids(), eng)
+    (se, de, ee), (sg, dg, eg) = out[False], out[True]
+    assert de == dg == [bad_tx]
+    for a, b in zip(se, sg):
+        np.testing.assert_array_equal(b.probs, a.probs)
+        np.testing.assert_array_equal(b.features, a.features)
+    for (p, a), (_, b) in zip(_state_leaves(ee), _state_leaves(eg)):
+        assert torch.equal(a, b), p

@@ -619,6 +619,37 @@ def test_pause_blocks_until_the_chunk_in_flight_is_done(tmp_path):
         learner.close()
 
 
+def test_graph_capture_holds_the_learner_and_keeps_a_rung_one_pause(
+        small_dataset, tmp_path):
+    """The engine captures CUDA graphs with the learning loop's worker
+    held idle (its device work would run beside the capture), and leaves
+    it as it found it: running, or paused by the overload ladder's rung
+    1. On the CPU nothing captures, so the capture's body is stubbed."""
+    cfg = _cfg()
+    params, scaler, model = _blind()
+    learner = StreamingLearner("logreg", params, scaler, cfg,
+                               make_model_registry(str(tmp_path / "l")),
+                               publish_every_labels=100_000, device="cpu")
+    learning = LearningLoop(make_model_registry(str(tmp_path / "r")), cfg,
+                            "logreg", model=model, learner=learner,
+                            device="cpu")
+    engine = _engine(cfg, params, scaler)
+    seen = []
+    engine._capture_held = lambda sigs: seen.append(learner.paused)
+    try:
+        part = small_dataset[3].slice(slice(0, 256))
+        engine.run(ReplaySource(port_txs(part), EPOCH0, batch_rows=256),
+                   learning=learning)
+        engine._capture([])
+        assert seen == [True] and not learner.paused
+        learning.pause()
+        engine._capture([])
+        assert seen == [True, True] and learner.paused
+        learning.resume()
+    finally:
+        learning.close()
+
+
 def test_worker_failure_reraised_with_its_type(tmp_path):
     cfg = _cfg()
     params, scaler, _ = _blind()

@@ -1135,10 +1135,67 @@ def test_score_cli_flag_defaults_match_jax():
               "online_lr", "feedback_bootstrap", "feedback_topic",
               "reload_model_every", "learn_registry", "publish_every_labels",
               "promote_min_labels", "promote_margin", "rollback_min_labels",
-              "rollback_margin"]
+              "rollback_margin", "precompile", "autobatch", "latency_slo_ms",
+              "emit_threshold", "emit_bf16", "nan_guard", "overload",
+              "overload_spill", "overload_lag_high",
+              "overload_climb_pressure", "overload_descend_pressure",
+              "overload_climb_dwell", "overload_descend_dwell",
+              "overload_max_deferred"]
     for dest in shared:
         assert t[dest].default == j[dest].default, dest
         assert t[dest].option_strings == j[dest].option_strings, dest
         if j[dest].choices is not None and dest != "source":
             assert list(t[dest].choices) == list(j[dest].choices), dest
     assert t["device"].default == "cuda" and "device" not in j
+
+
+@pytest.mark.parametrize("flags", [
+    ("--nan-guard",),
+    ("--emit-threshold", "1.5"),
+    ("--emit-threshold", "0.5", "--alerts-only"),
+    ("--emit-threshold", "0.5", "--emit-bf16"),
+    ("--latency-slo-ms", "-1"),
+    ("--overload", "--overload-descend-pressure", "1.5"),
+    ("--overload", "--overload-climb-dwell", "0"),
+    ("--learn-registry", "reg", "--emit-bf16"),
+], ids=["nan-guard-no-dlq", "threshold-range", "threshold-alerts",
+        "threshold-bf16", "slo-negative", "overload-band", "overload-dwell",
+        "learn-bf16"])
+def test_score_cli_serving_extras_refusals_match_jax(score_files, capsys,
+                                                     flags):
+    """The serving extras' refusals: exit code 2 from both commands, and
+    nothing printed on stdout."""
+    d = score_files
+    flags = tuple(str(d / f) if f == "reg" else f for f in flags)
+    common = ["--data", str(d / "txs.npz"), "--model-file",
+              str(d / "forest.npz"), *flags]
+    assert jcli_main(["score", *common]) == 2
+    assert tcli.main(["score", "--device", "cpu", *common]) == 2
+    assert capsys.readouterr().out == ""
+
+
+@pytest.mark.parametrize("flags,port_flags", [
+    (("--emit-threshold", "0.72"), ("--precompile",)),
+    (("--emit-bf16", "--pipeline-depth", "1"), ()),
+    (("--overload", "--overload-spill", "", "--autobatch"), ()),
+    ((), ("--nan-guard", "--dead-letter", "dlq.jsonl")),
+], ids=["selective-precompile", "bf16", "overload", "nan-guard"])
+def test_score_cli_serving_extras_write_the_parquet_of_the_jax_score(
+        score_files, capsys, tmp_path, flags, port_flags):
+    """The flags reach the engine as the JAX ``score``'s do: the same
+    Parquet (``--precompile`` and ``--nan-guard`` change no output;
+    autobatch over one-bucket polls of 1,024 rows keeps the batches)."""
+    port_flags = tuple(str(tmp_path / f) if f.endswith(".jsonl") else f
+                       for f in port_flags)
+    jstats, tstats, jout, tout = _score_both(score_files, capsys, flags,
+                                             port_flags)
+    assert tstats["rows"] == jstats["rows"] == 3000
+    _assert_outputs(tout, jout)
+    if "--emit-threshold" in flags:
+        assert tstats["selective_overflows"] == \
+            jstats["selective_overflows"] == 0
+        flagged = tout["prediction"] >= 0.72
+        assert 0 < flagged.sum() < len(flagged)
+        assert (tout["customer_id_nb_tx_1day_window"][~flagged] == 0).all()
+    if "--nan-guard" in port_flags:
+        assert tstats["dead_letter_rows"] == 0
