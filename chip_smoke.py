@@ -50,7 +50,12 @@ Phases, each printing JSON lines:
 7. ``cli`` — ``cli.main(["score", ...])`` on the card over the default
    dataset and the forest artifact written to a temporary directory:
    columnar over every row, and envelope mode on a slice through the
-   native decoder.
+   native decoder; the slice again with ``--prefetch-batches 2
+   --metrics-dump --flight-record --trace-out`` (a record and a dispatch
+   span per batch); and the default dataset with ``--out`` on the card
+   and with ``--scorer cpu`` (the host's NumPy oracle), probabilities
+   within 1e-6 of each other (the card machine has no pyarrow: ``--out``
+   lands in an in-memory sink).
 8. ``recovery`` — exactly-once durability on the forest path (whole-dollar
    amounts, checkpoints every 8 batches, a full every 4 saves, a local
    ``Checkpointer`` in a temporary directory; results kept by
@@ -149,12 +154,35 @@ Phases, each printing JSON lines:
    degenerate scaler; an overload cycle under a scripted backlog
    (3 climbs, deferral, replay, 3 descents, nothing recaptured, scores
    equal to an unthrottled run's).
-13. ``profile`` — a few batches of each main path, and of the forest path
+13. ``ingest`` — ingest and observability on the forest path, 65,536-row
+   batches at depth 2, the fused forest kernel once per batch in every
+   run: (a) 16 batches through ``ReplaySource(mode="envelope")`` with 8
+   decode workers, plain and under ``PrefetchSource(max_batches=2)`` and
+   ``(4)``, the outputs bit for bit; rows/s, the loop's ``source_poll``
+   and ``host_prep`` p50, the prefetch wait and mean queue depth, and
+   the device's idle share under the profiler over 3 batches; (b) the
+   whole-dollar dataset supervised under prefetch with checkpoints every
+   8 batches, a crash (poll 13) and 3 poisoned rows (batch 20): the
+   output by ``batch_index`` equal to a clean run's, the dead letters
+   exactly the poisoned rows, isolation run unprefetched, and no save's
+   offsets past the consumed ones; (c) the overload ladder (CUDA graphs)
+   behind an ``AsyncSink`` whose writer is slow for its first 6 batches
+   (``sink_queue_batches`` 4): it climbs on ``sink_fill`` (and ``lag``),
+   descends to rung 0 after a lull, recaptures nothing, and scores as an
+   unthrottled run; (d) the ``MetricsServer`` on 127.0.0.1 (its four
+   endpoints scraped mid-run, ``/healthz`` 200 ``ok``), the flight record
+   (one record per batch, with its trace id) and the tracer (one
+   ``host_prep``, ``dispatch``, ``result_wait`` and ``sink_write`` span
+   per batch), rows/s and dispatch p50 with all of it on against off, in
+   turns, and the ``rtfds.dispatch#…`` ranges under ``torch.profiler``;
+   (e) one line naming the packages the card machine lacks for
+   ``RawTableSource``, ``--raw-table`` and ``KafkaSource``.
+14. ``profile`` — a few batches of each main path, and of the forest path
    on the customer sketch, under ``torch.profiler``: device time by
    kernel, the device's idle share, the ``[B, NB]`` row gathers (none on
    the fused paths) and the small device-to-host copies (none of four
    bytes on the forest path: the window update makes no host sync).
-14. ``kernels`` — one line per the measurement contract, each kernel's
+15. ``kernels`` — one line per the measurement contract, each kernel's
    launches summed over every driven path that launched it.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises and
@@ -190,6 +218,9 @@ START_EPOCH_S = 1_743_465_600  # 2025-04-01, DataConfig.start_date
 ATOL_LEAF = 1e-5  # leaf sums (both sides add trees in order: expect 0)
 ATOL_SIGMOID = 1e-6  # logreg and gbt probabilities: expf against PyTorch's
 RTOL_FEATURE = 1e-6  # float32 window sums in another order
+# score --scorer cpu against the card's forest scores: the host walks the
+# same trees over the same float32 features the card emitted
+ATOL_SCORER_CPU = 1e-6
 # (rows, NB): a ragged batch, the serving bucket, and NB = 38 (the 7-day
 # delay + the 30-day window + 1); the second is what the kernels line
 # reports.
@@ -1054,9 +1085,116 @@ def phase_cli(dev, device_info, data: dict) -> dict:
                       "tables_written_s": write_s,
                       "card": device_info["smi_name"],
                       "power_limit": device_info["power_limit"]})
+            _cli_ingest_runs(tmp, model, data["txs_whole_dollars"],
+                             device_info, totals)
     finally:
         native.decode_transaction_envelopes_native = native_decode
     return totals
+
+
+def _cli_score(argv: list) -> tuple:
+    """``cli.main(["score", *argv])`` with its stdout captured and the
+    launch counters reset around it: (its stats line, the launches)."""
+    from real_time_fraud_detection_system_tpu_torch import cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc, launches = drive(lambda: cli.main(["score", *argv]))
+    check(rc == 0, f"cli score {argv} exited {rc}")
+    stats = json.loads(out.getvalue().strip().splitlines()[-1])
+    check(launches["fused_forest_leaf_sum"] == stats["batches"]
+          and launches["leaf_sum"] == launches["fused_featurize_score"] == 0,
+          f"cli score {argv}: {launches} for {stats['batches']} batches")
+    return stats, launches
+
+
+def _cli_ingest_runs(tmp: str, model: str, txs, device_info,
+                     totals: dict) -> None:
+    """Phase ``cli``'s ingest and observability runs: the envelope slice
+    prefetched with the metrics dump, the flight record and the span
+    trace; then the default dataset (``txs``: its whole-dollar copy, so
+    the two runs' window sums, added on the card in no fixed order, and
+    so their features are the same bit for bit) scored on the card and
+    with ``--scorer cpu`` (the host oracle), their probabilities held
+    against each other. The card machine has no pyarrow, so ``--out``
+    lands in an in-memory sink (``io/sink.py::make_parquet_sink``
+    replaced here)."""
+    from real_time_fraud_detection_system_tpu_torch.io import sink as sinks
+    from real_time_fraud_detection_system_tpu_torch.io.artifacts import (
+        save_transactions,
+    )
+    from real_time_fraud_detection_system_tpu_torch.utils.metrics import (
+        FlightRecorder,
+    )
+
+    card = {"card": device_info["smi_name"],
+            "power_limit": device_info["power_limit"]}
+    stats, launches = _cli_score([
+        "--data", f"{tmp}/slice.npz", "--model-file", model, "--mode",
+        "envelope", "--batch-rows", str(BATCH_ROWS), "--prefetch-batches",
+        "2", "--metrics-dump", f"{tmp}/metrics.json", "--flight-record",
+        f"{tmp}/flight.jsonl", "--trace-out", f"{tmp}/trace.json"])
+    for k in totals:
+        totals[k] += launches[k]
+    with open(f"{tmp}/metrics.json") as f:
+        dump = json.load(f)
+    recs = [r for r in FlightRecorder.read(f"{tmp}/flight.jsonl")[1]
+            if r["kind"] == "batch"]
+    with open(f"{tmp}/trace.json") as f:
+        spans = [e for e in json.load(f)["traceEvents"]
+                 if e.get("ph") == "X" and e["name"] == "dispatch"]
+    n = stats["batches"]
+    check(stats["rows"] == ENVELOPE_ROWS
+          and dump["rtfds_batches_total"]["series"][0]["value"] >= n
+          and "rtfds_prefetch_queue_depth" in dump
+          and len(recs) == n and all(r.get("trace_id") for r in recs)
+          and len(spans) == n,
+          f"cli prefetch: {n} batches, {len(recs)} records, "
+          f"{len(spans)} dispatch spans")
+    emit({"phase": "cli", "mode": "envelope", "prefetch_batches": 2,
+          "rows": stats["rows"], "batches": n,
+          "rows_per_s": stats["rows_per_s"],
+          "stage_ms_p50": stats["stage_ms_p50"],
+          "metrics_dump_families": len(dump), "flight_records": len(recs),
+          "dispatch_spans": len(spans), **card})
+
+    save_transactions(f"{tmp}/whole.npz", txs)
+    collected = {}
+    make = sinks.make_parquet_sink
+
+    def collecting(path):
+        collected[path] = sinks.MemorySink()
+        return collected[path]
+
+    sinks.make_parquet_sink = collecting
+    try:
+        for scorer in ("tpu", "cpu"):
+            t0 = time.perf_counter()
+            stats, launches = _cli_score([
+                "--data", f"{tmp}/whole.npz", "--model-file", model,
+                "--batch-rows", str(BATCH_ROWS), "--scorer", scorer,
+                "--out", f"{tmp}/out-{scorer}"])
+            for k in totals:
+                totals[k] += launches[k]
+            check(stats["rows"] == txs.n and stats["scorer"] == scorer,
+                  f"cli --scorer {scorer}: {stats}")
+            emit({"phase": "cli", "mode": "columnar", "scorer": scorer,
+                  "rows": stats["rows"], "batches": stats["batches"],
+                  "rows_per_s": stats["rows_per_s"],
+                  "result_wait_p50_ms": stats["result_wait_p50_ms"],
+                  "seconds_with_load": time.perf_counter() - t0, **card})
+    finally:
+        sinks.make_parquet_sink = make
+    card_out, cpu_out = (collected[f"{tmp}/out-{s}"].concat()
+                         for s in ("tpu", "cpu"))
+    check(np.array_equal(card_out["tx_id"], cpu_out["tx_id"]),
+          "cli --scorer cpu: rows differ from the card run")
+    err = float(np.abs(cpu_out["prediction"]
+                       - card_out["prediction"]).max())
+    check(err <= ATOL_SCORER_CPU,
+          f"cli --scorer cpu: max |Δ| {err} against the card run")
+    emit({"phase": "cli", "part": "scorer_cpu_vs_card",
+          "max_abs_err": err, "atol": ATOL_SCORER_CPU, **card})
 
 
 class IndexedSink:
@@ -3470,6 +3608,509 @@ def phase_precompile(dev, device_info, data: dict) -> dict:
     return totals
 
 
+INGEST_BATCHES = 16  # (a), (d): 65,536-row batches of the default dataset
+INGEST_DECODE_WORKERS = 8
+INGEST_PREFETCH = (2, 4)
+INGEST_PROFILE_BATCHES = 3
+INGEST_SINK_QUEUE = 4  # (c): sink_queue_batches
+INGEST_SLOW_APPENDS = 6  # (c): the sink's writer is slow for these
+INGEST_SLOW_S = 0.15
+INGEST_LADDER_BATCHES = 24
+INGEST_QUIET_AFTER = 12  # (c): the poll after which the stream lulls
+
+
+SPAN_COST_REPS = 20000
+
+
+def _span_costs() -> dict:
+    """Host µs per span of a private tracer, ``SPAN_COST_REPS`` spans
+    each: disabled, enabled, enabled with an NVTX range and the profiler
+    annotation (what the engine opens on the card), and the two halves of
+    the last alone."""
+    from real_time_fraud_detection_system_tpu_torch.utils.trace import (
+        Tracer,
+    )
+
+    tr = Tracer()
+
+    def per_span(fn) -> float:
+        t0 = time.perf_counter()
+        for _ in range(SPAN_COST_REPS):
+            fn()
+        return (time.perf_counter() - t0) / SPAN_COST_REPS * 1e6
+
+    def span(nvtx=False):
+        with tr.span("dispatch", nvtx=nvtx):
+            pass
+
+    def nvtx_only():
+        torch.cuda.nvtx.range_push("rtfds.dispatch#0")
+        torch.cuda.nvtx.range_pop()
+
+    def annotation_only():
+        with torch.profiler.record_function("rtfds.dispatch#0"):
+            pass
+
+    out = {"disabled": per_span(span)}
+    tr.configure(enabled=True)
+    out["enabled"] = per_span(span)
+    out["enabled_nvtx_and_annotation"] = per_span(lambda: span(True))
+    out["nvtx_push_pop_only"] = per_span(nvtx_only)
+    out["profiler_annotation_only"] = per_span(annotation_only)
+    return out
+
+
+class _QuietSpell:
+    """A source that lulls after ``after`` polls: zero-row polls until
+    ``caught_up()`` holds, then one more, then the rest of the stream.
+    The ladder judges pressure on its idle ticks while rung 3 defers every
+    batch, so a lull is how a deferring stream comes back down."""
+
+    def __init__(self, inner, after: int, caught_up, timeout_s: float = 60.0):
+        self.inner, self.after, self.caught_up = inner, after, caught_up
+        self.timeout_s = timeout_s
+        self.polls, self.quiet, self.idle_polls, self.t0 = 0, 0, 0, None
+        self._last = None
+
+    def poll_batch(self):
+        self.polls += 1
+        if self.polls > self.after and self.quiet < 2:
+            self.t0 = self.t0 or time.perf_counter()
+            check(time.perf_counter() - self.t0 < self.timeout_s,
+                  "ingest (c): the sink never caught up")
+            self.quiet += bool(self.caught_up())
+            self.idle_polls += 1
+            time.sleep(0.005)  # a quiet topic's poll waits, then is empty
+            return {k: v[:0] for k, v in self._last.items()}
+        self._last = self.inner.poll_batch()
+        return self._last
+
+    @property
+    def offsets(self):
+        return self.inner.offsets
+
+    def seek(self, offsets):
+        self.inner.seek(offsets)
+
+
+def phase_ingest(dev, device_info, data: dict) -> dict:
+    """Ingest and observability on the forest path at 65,536-row batches
+    and depth 2 (see the module docstring, phase 13): (a) envelope ingest
+    plain and prefetched, (b) exactly-once under prefetch, (c) the
+    overload ladder on the live sink and lag series, (d) observability on
+    against off, (e) the sources the card machine cannot run."""
+    import importlib.util
+    import urllib.request
+
+    from real_time_fraud_detection_system_tpu_torch.config import (
+        OverloadConfig,
+    )
+    from real_time_fraud_detection_system_tpu_torch.io.checkpoint import (
+        Checkpointer,
+    )
+    from real_time_fraud_detection_system_tpu_torch.io.sink import (
+        AsyncSink,
+        DeadLetterSink,
+        MemorySink,
+    )
+    from real_time_fraud_detection_system_tpu_torch.runtime.engine import (
+        ScoringEngine,
+    )
+    from real_time_fraud_detection_system_tpu_torch.runtime.faults import (
+        FlakySource,
+        PoisonSource,
+        run_with_recovery,
+    )
+    from real_time_fraud_detection_system_tpu_torch.runtime.prefetch import (
+        PrefetchSource,
+    )
+    from real_time_fraud_detection_system_tpu_torch.runtime.sources import (
+        ReplaySource,
+    )
+    from real_time_fraud_detection_system_tpu_torch.utils.metrics import (
+        FlightRecorder,
+        MetricsRegistry,
+        MetricsServer,
+        get_registry,
+    )
+    from real_time_fraud_detection_system_tpu_torch.utils.trace import (
+        get_tracer,
+    )
+
+    t_phase = time.perf_counter()
+    cfg, txs = data["cfg"], data["txs_whole_dollars"]
+    model = data["models"]["forest"][0]
+    card = {"card": device_info["smi_name"],
+            "power_limit": device_info["power_limit"]}
+    totals = {name: 0 for name in KERNELS}
+    reg = get_registry()
+
+    def engine(c=cfg, **kw):
+        eng = ScoringEngine(c, "forest", model.params, model.scaler,
+                            device=dev, **kw)
+        check(eng.tables is not None, "ingest: the fused forest branch")
+        return eng
+
+    def driven(run, what: str, batches=None):
+        out, launches = drive(run)
+        n = batches if batches is not None else out["batches"]
+        check(launches["fused_forest_leaf_sum"] == n
+              and launches["leaf_sum"] == launches["fused_featurize_score"]
+              == 0, f"ingest {what}: {launches} for {n} batches")
+        for k in totals:
+            totals[k] += launches[k]
+        return out
+
+    def columns(sink) -> dict:
+        out = sink.concat()
+        out.pop("processed_at_us")  # the wall clock at the sink
+        return out
+
+    def same(a: dict, b: dict, what: str) -> None:
+        for k in a:
+            check(a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]),
+                  f"ingest {what}: column {k} differs")
+
+    def idle_share(eng, src) -> float:
+        device, wall_ms, _, _, _ = _profiled(eng, src,
+                                             INGEST_PROFILE_BATCHES)
+        return 1.0 - sum(device.values()) / wall_ms if device else None
+
+    # (a) envelope ingest, plain and prefetched
+    rows = INGEST_BATCHES * BATCH_ROWS
+    t0 = time.perf_counter()
+    env = ReplaySource(txs.slice(slice(0, rows)), START_EPOCH_S,
+                       batch_rows=BATCH_ROWS, mode="envelope",
+                       decode_workers=INGEST_DECODE_WORKERS)
+    encode_s = time.perf_counter() - t0
+    m_wait = reg.counter("rtfds_prefetch_wait_seconds_total")
+    m_depth = reg.gauge("rtfds_prefetch_queue_depth")
+    base = None
+    for depth in (0,) + INGEST_PREFETCH:
+        env.seek([0] * env.n_partitions)
+        src = PrefetchSource(env, max_batches=depth) if depth else env
+        depths = []
+
+        class _Sampled(MemorySink):
+            def append(self, res):
+                depths.append(m_depth.value)
+                super().append(res)
+
+        sink = _Sampled()
+        wait0 = m_wait.value
+        try:
+            stats = driven(lambda: engine().run(src, sink),
+                           f"(a) prefetch {depth}")
+            check(stats["rows"] == rows, f"ingest (a): {stats['rows']} rows")
+            out = columns(sink)
+            if base is None:
+                base = out
+            else:
+                same(base, out, f"(a) prefetch {depth} against plain")
+            env.seek([0] * env.n_partitions)
+            src = PrefetchSource(env, max_batches=depth) if depth else env
+            idle = idle_share(engine(), src)
+        finally:
+            if depth:
+                src.close()
+        emit({"phase": "ingest", "part": "a", "mode": "envelope",
+              "prefetch_batches": depth, "rows": rows,
+              "batches": stats["batches"], "rows_per_s": stats["rows_per_s"],
+              "source_poll_p50_ms": stats["stage_ms_p50"]["source_poll"],
+              "host_prep_p50_ms": stats["stage_ms_p50"]["host_prep"],
+              "stage_ms_p50": stats["stage_ms_p50"],
+              "prefetch_wait_s": m_wait.value - wait0 if depth else None,
+              "prefetch_queue_depth_mean":
+                  float(np.mean(depths)) if depth else None,
+              "device_idle_share": idle,
+              "idle_share_batches": INGEST_PROFILE_BATCHES,
+              "decode_workers": INGEST_DECODE_WORKERS,
+              "envelopes_encoded_s": encode_s,
+              "bit_identical_to_plain": True, **card})
+    del base, env
+
+    # (b) exactly-once under prefetch: a crash, then poisoned rows
+    rcfg = dataclasses.replace(cfg, runtime=dataclasses.replace(
+        cfg.runtime, checkpoint_every_batches=RECOVERY_EVERY))
+    lo = (RECOVERY_POISON_BATCH - 1) * BATCH_ROWS
+    poison = [int(txs.tx_id[lo + k])
+              for k in (11, BATCH_ROWS // 2 - 1, BATCH_ROWS - 7)]
+
+    def plain():
+        return ReplaySource(txs, START_EPOCH_S, batch_rows=BATCH_ROWS)
+
+    clean = IndexedSink()
+    stats_clean = driven(lambda: engine(rcfg).run(_WithoutRows(plain(),
+                                                               poison),
+                                                  clean), "(b) clean")
+    steps = {"n": 0}
+
+    def make_engine():
+        eng = engine(rcfg)
+        step = eng._step
+
+        def counted(packed):
+            steps["n"] += 1
+            return step(packed)
+
+        eng._step = counted
+        return eng
+
+    tmp = tempfile.mkdtemp(prefix="ingest-")
+    try:
+        src = PrefetchSource(FlakySource(PoisonSource(plain(), poison),
+                                         fail_at=(RECOVERY_CRASH_POLL,)),
+                             max_batches=INGEST_PREFETCH[0])
+        ckpt = Checkpointer(f"{tmp}/ck", full_every=RECOVERY_FULL_EVERY)
+        saves = []
+        save = ckpt.save
+
+        def watched_save(state):
+            # what a save records against what was consumed and read ahead
+            saves.append((list(state.offsets), state.batches_done,
+                          list(src.offsets), list(src.inner.offsets)))
+            return save(state)
+
+        ckpt.save = watched_save
+        syncs = []
+        set_sync = src.set_sync
+
+        def noted(flag):
+            syncs.append(bool(flag))
+            set_sync(flag)
+
+        src.set_sync = noted
+        dlq = DeadLetterSink(f"{tmp}/dlq.jsonl")
+        supervised = IndexedSink()
+        try:
+            stats_b, launches = drive(lambda: run_with_recovery(
+                make_engine, src, ckpt, sink=supervised, max_restarts=4,
+                crash_loop_k=2, dead_letter=dlq))
+        finally:
+            src.close()
+        # every step ran the fused kernel once, replays and probes included
+        check(launches["fused_forest_leaf_sum"] == steps["n"]
+              and launches["leaf_sum"] == launches["fused_featurize_score"]
+              == 0, f"ingest (b): {launches} for {steps['n']} steps")
+        for k in totals:
+            totals[k] += launches[k]
+        check(dlq.tx_ids() == sorted(poison)
+              and all(r["batch_index"] == RECOVERY_POISON_BATCH
+                      for r in dlq.read_all()),
+              f"ingest (b): dead letters {dlq.tx_ids()}")
+        dlq.close()
+        _same_batches(supervised.batches, clean.batches, "ingest (b)")
+        for saved, done, consumed, ahead in saves:
+            check(saved[0] == min(done * BATCH_ROWS, txs.n)
+                  and saved[0] <= consumed[0] <= ahead[0],
+                  f"ingest (b): a save at batch {done} recorded {saved} "
+                  f"with {consumed} consumed, {ahead} read")
+        check(syncs == [True, False] and stats_b["restarts"] >= 3,
+              f"ingest (b): set_sync {syncs}, {stats_b['restarts']} "
+              "restarts")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "ingest", "part": "b", "prefetch_batches":
+          INGEST_PREFETCH[0], "batches": stats_b["batches"],
+          "restarts": stats_b["restarts"], "steps_run": steps["n"],
+          "dead_letter_rows": len(poison), "saves": len(saves),
+          "save_offsets_consumed_read": [(s[0], c[0], a[0])
+                                         for s, _, c, a in saves],
+          "set_sync": syncs, "equals_clean_run": True,
+          "clean_batches": stats_clean["batches"], **card})
+
+    # (c) the ladder on live signals: a slow async sink and the lag
+    lcfg = dataclasses.replace(cfg, runtime=dataclasses.replace(
+        cfg.runtime, precompile=True, sink_queue_batches=INGEST_SINK_QUEUE,
+        overload=OverloadConfig(enabled=True, spill_path="",
+                                lag_high_rows=64 * BATCH_ROWS,
+                                climb_dwell_batches=1,
+                                descend_dwell_batches=1)))
+    ladder_txs = txs.slice(slice(0, INGEST_LADDER_BATCHES * BATCH_ROWS))
+    outs = {}
+    for slow in (True, False):
+        eng = engine(lcfg if slow else dataclasses.replace(
+            lcfg, runtime=dataclasses.replace(
+                lcfg.runtime, overload=OverloadConfig())))
+        eng.precompile()  # before the counters reset: warmup launches
+        recaptures0 = reg.get("cuda_graph_recaptures_total").value
+        tmp = tempfile.mkdtemp(prefix="ladder-")
+        eng.recorder = FlightRecorder(f"{tmp}/fr.jsonl")
+
+        class _Inner(_Results):
+            def append(self, res):
+                if slow and len(self.batches) < INGEST_SLOW_APPENDS:
+                    time.sleep(INGEST_SLOW_S)
+                super().append(res)
+
+        inner = _Inner()
+        sink = AsyncSink(inner, max_queue=INGEST_SINK_QUEUE)
+        src = _QuietSpell(ReplaySource(ladder_txs, START_EPOCH_S,
+                                       batch_rows=BATCH_ROWS),
+                          INGEST_QUIET_AFTER,
+                          lambda sink=sink: sink._q.unfinished_tasks == 0)
+        try:
+            stats = driven(lambda: eng.run(src, sink), f"(c) slow={slow}")
+        finally:
+            sink.close()
+            eng.recorder.close()
+        events = [r for r in FlightRecorder.read(f"{tmp}/fr.jsonl")[1]
+                  if r["kind"] == "event"]
+        shutil.rmtree(tmp, ignore_errors=True)
+        outs[slow] = (inner, stats, events,
+                      reg.get("cuda_graph_recaptures_total").value
+                      - recaptures0, src.idle_polls)
+    inner, stats, events, recaptures, idle_polls = outs[True]
+    climbs = [e for e in events if e["event"] == "overload_climb"]
+    descends = [e for e in events if e["event"] == "overload_descend"]
+    check(climbs and all("sink_fill" in e and "lag" in e for e in climbs),
+          f"ingest (c): climbs {climbs}")
+    check(len(descends) == len(climbs)
+          and reg.get("rtfds_overload_rung").value == 0,
+          f"ingest (c): {len(climbs)} climbs, {len(descends)} descents")
+    check(recaptures == 0, "ingest (c): a graph was captured again")
+    ctrl = outs[False][0]
+    tx, ctx = (np.concatenate([r.tx_id for r in s.batches])
+               for s in (inner, ctrl))
+    o, co = np.argsort(tx), np.argsort(ctx)
+    check(np.array_equal(tx[o], ctx[co])
+          and np.array_equal(inner.probs()[o], ctrl.probs()[co]),
+          "ingest (c): scores differ from the unthrottled run")
+    emit({"phase": "ingest", "part": "c",
+          "sink_queue_batches": INGEST_SINK_QUEUE,
+          "slow_appends": INGEST_SLOW_APPENDS, "slow_s": INGEST_SLOW_S,
+          "climbs": [{k: e[k] for k in e if k not in ("kind", "t")}
+                     for e in climbs],
+          "descends": len(descends), "max_rung": max(e["rung"]
+                                                   for e in climbs),
+          "shed_events": sum(e["event"] == "shed" for e in events),
+          "idle_polls": idle_polls, "recaptures": recaptures,
+          "batches": stats["batches"], "rows_per_s": stats["rows_per_s"],
+          "scores_equal_unthrottled": True, **card})
+
+    # (d) observability on against off, in turns, after a warm-up run
+    tracer = get_tracer()
+    obs_txs = txs.slice(slice(0, INGEST_BATCHES * BATCH_ROWS))
+    driven(lambda: engine(metrics=MetricsRegistry()).run(
+        ReplaySource(obs_txs, START_EPOCH_S, batch_rows=BATCH_ROWS),
+        _Results()), "(d) warm-up")
+    runs, seen = [], {}
+    for on in (False, True, True, False):
+        oreg = MetricsRegistry()
+        eng = engine(metrics=oreg)
+        tmp = tempfile.mkdtemp(prefix="obs-")
+        server = None
+        scraped = {}
+        if on:
+            tracer.configure(enabled=True)
+            tracer.clear()
+            server = MetricsServer(port=0, host="127.0.0.1",
+                                   registry=oreg).start()
+            eng.recorder = FlightRecorder(f"{tmp}/fr.jsonl")
+
+        class _Scraping(_Results):
+            def append(self, res):
+                if server is not None and res.batch_index == 3:
+                    for path in ("/metrics", "/metrics.json", "/healthz",
+                                 "/trace"):
+                        with urllib.request.urlopen(server.url + path,
+                                                    timeout=30) as r:
+                            scraped[path] = (r.status, r.read())
+                super().append(res)
+
+        try:
+            stats = driven(lambda: eng.run(
+                ReplaySource(obs_txs, START_EPOCH_S, batch_rows=BATCH_ROWS),
+                _Scraping()), f"(d) on={on}")
+            if on:
+                eng.recorder.close()
+                recs = [r for r in FlightRecorder.read(f"{tmp}/fr.jsonl")[1]
+                        if r["kind"] == "batch"]
+                trace = tracer.export_chrome()
+        finally:
+            if server is not None:
+                server.stop()
+            tracer.configure(enabled=False)
+            shutil.rmtree(tmp, ignore_errors=True)
+        if on:
+            check(sorted(scraped) == ["/healthz", "/metrics",
+                                      "/metrics.json", "/trace"]
+                  and all(c == 200 for c, _ in scraped.values()),
+                  f"ingest (d): endpoints {[(k, c) for k, (c, _) in scraped.items()]}")
+            health = json.loads(scraped["/healthz"][1])
+            check(health["status"] == "ok", f"ingest (d): /healthz {health}")
+            check(b"\nrtfds_batches_total " in scraped["/metrics"][1]
+                  and "rtfds_phase_seconds" in json.loads(
+                      scraped["/metrics.json"][1])
+                  and "traceEvents" in json.loads(scraped["/trace"][1]),
+                  "ingest (d): a scrape lacks the run's series")
+            check(len(recs) == stats["batches"]
+                  and all(r.get("trace_id") for r in recs),
+                  f"ingest (d): {len(recs)} flight records for "
+                  f"{stats['batches']} batches")
+            per = {}
+            for e in trace["traceEvents"]:
+                if e.get("ph") == "X":
+                    key = (e["name"], e["args"]["trace_id"])
+                    per[key] = per.get(key, 0) + 1
+            for r in recs:
+                for ph in ("host_prep", "dispatch", "result_wait",
+                           "sink_write"):
+                    check(per.get((ph, r["trace_id"])) == 1,
+                          f"ingest (d): {ph} spans of {r['trace_id']}")
+            seen = {"endpoints": {k: c for k, (c, _) in scraped.items()},
+                    "healthz_status": health["status"],
+                    "flight_records": len(recs)}
+        runs.append({"observability": on,
+                     "rows_per_s": stats["rows_per_s"],
+                     "dispatch_p50_ms": stats["dispatch_p50_ms"],
+                     "stage_ms_p50": stats["stage_ms_p50"]})
+    # the spans' NVTX ranges and profiler annotations under torch.profiler
+    pushed = []
+    push = torch.cuda.nvtx.range_push
+
+    def counted_push(msg):
+        pushed.append(msg)
+        return push(msg)
+
+    tracer.configure(enabled=True)
+    torch.cuda.nvtx.range_push = counted_push
+    try:
+        eng = engine()
+        _, _, _, events, _ = _profiled(
+            eng, ReplaySource(obs_txs, START_EPOCH_S, batch_rows=BATCH_ROWS),
+            INGEST_PROFILE_BATCHES)
+    finally:
+        torch.cuda.nvtx.range_push = push
+        tracer.configure(enabled=False)
+        tracer.clear()
+    ranges = sorted({e.name for e in events
+                     if e.name.startswith("rtfds.dispatch#")})
+    check(len(ranges) >= INGEST_PROFILE_BATCHES,
+          f"ingest (d): profiler dispatch ranges {ranges}")
+    check(sum(m.startswith("rtfds.dispatch#") for m in pushed)
+          == 1 + INGEST_PROFILE_BATCHES,
+          f"ingest (d): {len(pushed)} NVTX ranges pushed")
+    emit({"phase": "ingest", "part": "d", "batches": INGEST_BATCHES,
+          "runs": runs, **seen, "profiler_dispatch_ranges": ranges,
+          "nvtx_ranges_pushed": len(pushed), "span_us": _span_costs(),
+          **card})
+
+    # (e) the sources the card machine cannot run
+    missing = [m for m in ("pyarrow", "confluent_kafka")
+               if importlib.util.find_spec(m) is None]
+    emit({"phase": "ingest", "part": "e", "missing_packages": missing,
+          "not_run_here": ["RawTableSource", "score --raw-table",
+                           "KafkaSource"] if missing else [],
+          "proof": "tests/test_torch_sources.py, "
+                   "tests/test_torch_cpu_scorer.py (CPU, tier-1)",
+          **card})
+    emit({"phase": "ingest", "part": "total",
+          "seconds": time.perf_counter() - t_phase,
+          "kernel_launches": totals, **card})
+    return totals
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3508,6 +4149,7 @@ def main() -> int:
     add(phase_learning(dev, info, data))
     add(phase_zoo(dev, info, data))
     add(phase_precompile(dev, info, data))
+    add(phase_ingest(dev, info, data))
     for kind in PATHS:
         phase_profile(dev, data, kind)
     phase_profile(dev, data, "forest", dataclasses.replace(

@@ -30,9 +30,20 @@ The serving extras: ``--precompile`` (one CUDA graph per batch bucket),
 emission), ``--emit-bf16``, ``--nan-guard`` (with ``--dead-letter``) and
 ``--overload`` with its ``--overload-*`` thresholds, refused in the
 combinations the JAX ``score`` refuses, with its exit code 2.
-Not ported yet: the Kafka and raw-table sources and object-store output
-(ROADMAP A2, A9), ``--resume-merge`` and ``--resume-merge-cold`` (A7), the
-CPU oracle (A4c), the ``registry`` subcommand (A9).
+Ingest: ``--source replay`` (a generated ``.npz``), ``kafka``
+(``--bootstrap``, ``--topic``, ``--idle-timeout``; needs
+``confluent_kafka``) or ``raw-table`` (``--data`` a raw-transactions table
+directory, ``--from-date``/``--to-date``); ``--prefetch-batches`` polls
+and decodes ahead of the loop; ``--raw-table`` also lands the raw rows in
+a day-partitioned Parquet table. ``--scorer cpu`` rescores on the host
+with the model's NumPy ``predict_proba_np``. Observability:
+``--metrics-port`` (``/metrics``, ``/metrics.json``, ``/healthz`` with
+``--healthz-max-batch-age`` and ``--healthz-max-lag-rows``, ``/trace``),
+``--metrics-dump``, ``--flight-record`` (``--flight-record-max-mb``),
+``--trace-out`` (the spans as Chrome-trace JSON) and ``--trace-dir`` (a
+``torch.profiler`` trace).
+Not ported yet: object-store output (ROADMAP A9), ``--resume-merge`` and
+``--resume-merge-cold`` (A7), the ``registry`` subcommand (A9).
 """
 
 from __future__ import annotations
@@ -129,6 +140,7 @@ def cmd_score(args) -> int:
     from real_time_fraud_detection_system_tpu_torch.device import (
         resolve_device,
     )
+    from real_time_fraud_detection_system_tpu_torch.io import sink as sinks
     from real_time_fraud_detection_system_tpu_torch.io.artifacts import (
         load_model,
         load_transactions,
@@ -136,30 +148,22 @@ def cmd_score(args) -> int:
     from real_time_fraud_detection_system_tpu_torch.io.checkpoint import (
         make_checkpointer,
     )
-    from real_time_fraud_detection_system_tpu_torch.io.sink import (
-        AsyncSink,
-        make_dead_letter_sink,
-        make_parquet_sink,
-    )
     from real_time_fraud_detection_system_tpu_torch.runtime.engine import (
         ScoringEngine,
         batches_left,
         check_sequence_serving,
     )
-    from real_time_fraud_detection_system_tpu_torch.runtime.sources import (
-        ReplaySource,
-    )
-    from real_time_fraud_detection_system_tpu_torch.utils.timing import (
-        date_to_epoch_s,
-    )
 
-    if not args.data:
-        log.error("--data is required (the port replays a generated "
-                  "table; --source kafka is not ported yet)")
+    if args.source != "kafka" and not args.data:
+        log.error("--data is required unless --source kafka")
         return 2
-    if args.decode_workers < 0:
-        log.error("--decode-workers must be >= 0, got %s",
-                  args.decode_workers)
+    if args.decode_workers < 0 or args.prefetch_batches < 0:
+        log.error("--decode-workers and --prefetch-batches must be >= 0, "
+                  "got %s / %s", args.decode_workers, args.prefetch_batches)
+        return 2
+    if args.reload_model_every > 0 and args.scorer == "cpu":
+        log.error("--reload-model-every does not compose with "
+                  "--scorer cpu (the oracle model is fixed at startup)")
         return 2
     if args.resume_merge or args.resume_merge_cold:
         log.error("--resume-merge and --resume-merge-cold (adopting a "
@@ -196,10 +200,16 @@ def cmd_score(args) -> int:
         log.error("--nan-guard needs --dead-letter: quarantined rows "
                   "must land somewhere an operator can triage them")
         return 2
-    if args.emit_bf16 and args.feedback_bootstrap:
+    if args.alerts_only and (args.scorer == "cpu"
+                             or args.feedback_bootstrap):
+        log.error("--alerts-only keeps features on the device; it does not "
+                  "compose with --scorer cpu or the feedback loop (both "
+                  "consume host-side feature rows)")
+        return 2
+    if args.emit_bf16 and (args.scorer == "cpu" or args.feedback_bootstrap):
         log.error("--emit-bf16 rounds the emitted feature columns; "
-                  "the feedback loop re-consumes them and would drift — "
-                  "keep float32 emission")
+                  "--scorer cpu and the feedback loop re-consume them "
+                  "and would drift — keep float32 emission")
         return 2
     if not 0.0 <= args.emit_threshold <= 1.0:
         log.error("--emit-threshold must be a probability in [0, 1], "
@@ -214,10 +224,10 @@ def cmd_score(args) -> int:
             bad = ("--emit-threshold already cuts feature D2H ~100x at "
                    "alert-rate traffic; it does not compose with "
                    "--emit-bf16 (the packed transfer is f32)")
-        elif args.feedback_bootstrap:
+        elif args.scorer == "cpu" or args.feedback_bootstrap:
             bad = ("--emit-threshold keeps clean rows' features on the "
-                   "device; the feedback loop consumes every row's "
-                   "features host-side")
+                   "device; --scorer cpu and the feedback loop consume "
+                   "every row's features host-side")
         if bad:
             log.error(bad)
             return 2
@@ -258,6 +268,7 @@ def cmd_score(args) -> int:
         cfg,
         runtime=dataclasses.replace(
             cfg.runtime,
+            scorer=args.scorer,
             emit_features=not args.alerts_only,
             emit_dtype="bfloat16" if args.emit_bf16 else "float32",
             emit_threshold=args.emit_threshold,
@@ -273,6 +284,7 @@ def cmd_score(args) -> int:
             async_sink=args.async_sink,
             sink_queue_batches=args.sink_queue_batches,
             decode_workers=args.decode_workers,
+            prefetch_batches=args.prefetch_batches,
             fetch_overlap=not args.no_fetch_overlap,
             checkpoint_dir=args.checkpoint_dir,
             checkpoint_full_every=args.checkpoint_full_every,
@@ -321,11 +333,6 @@ def cmd_score(args) -> int:
                 args.state_compact_every or "off", sb["total"] / 2 ** 20,
                 sb["dense"] / 2 ** 20, sb["directory"] / 2 ** 20,
                 sb["cms"] / 2 ** 20)
-    if args.alerts_only and args.feedback_bootstrap:
-        log.error("--alerts-only keeps features on the device; it does not "
-                  "compose with the feedback loop (it consumes host-side "
-                  "feature rows)")
-        return 2
     if args.alerts_only and args.out:
         log.warning("--alerts-only: the analyzed output at %s will carry "
                     "zero feature columns (predictions only)", args.out)
@@ -339,10 +346,17 @@ def cmd_score(args) -> int:
         rollback_margin=args.rollback_margin,
     ))
     if args.learn_registry:
-        if args.alerts_only or args.emit_threshold > 0 or args.emit_bf16:
-            log.error("shadow scoring re-consumes every row's features "
-                      "host-side; it does not compose with --alerts-only, "
-                      "--emit-threshold or --emit-bf16")
+        bad = None
+        if args.scorer == "cpu":
+            bad = ("--learn-registry promotes by swapping on-device "
+                   "params; --scorer cpu classifies host-side with a "
+                   "model fixed at startup")
+        elif args.alerts_only or args.emit_threshold > 0 or args.emit_bf16:
+            bad = ("shadow scoring re-consumes every row's features "
+                   "host-side; it does not compose with --alerts-only, "
+                   "--emit-threshold or --emit-bf16")
+        if bad:
+            log.error(bad)
             return 2
         if not args.feedback_bootstrap:
             log.warning(
@@ -350,7 +364,9 @@ def cmd_score(args) -> int:
                 "live labels arrive, so the shadow's live precision/"
                 "recall windows stay empty and promotion never fires "
                 "(the registry lineage still records reloads)")
-    txs = load_transactions(args.data)
+    # replay reads a generated .npz; raw-table reads a table directory
+    txs = (load_transactions(args.data) if args.source == "replay"
+           else None)
     model = load_model(args.model_file, device=args.device)
     if model.kind == "sequence":
         # fail fast with the CLI convention: the engine's own refusals,
@@ -358,10 +374,12 @@ def cmd_score(args) -> int:
         try:
             check_sequence_serving(
                 cfg, args.online_lr, feedback=bool(args.feedback_bootstrap),
-                shadow=bool(args.learn_registry))
+                shadow=bool(args.learn_registry), scorer=args.scorer)
         except ValueError as e:
             log.error("%s", e)
             return 2
+    # the oracle: the artifact's pure-NumPy predict on the host
+    cpu_model = model if args.scorer == "cpu" else None
     # with --learn-registry the registry's champion, not the bootstrap
     # file, is what serves: the reloader swaps only on a CHANGE after
     # startup, against one baseline shared across incarnations
@@ -398,7 +416,7 @@ def cmd_score(args) -> int:
 
     dead_letter = None
     if args.dead_letter:
-        dead_letter = make_dead_letter_sink(args.dead_letter)
+        dead_letter = sinks.make_dead_letter_sink(args.dead_letter)
         log.info("dead-letter queue: %s (%d row(s) already quarantined)",
                  args.dead_letter, len(dead_letter))
 
@@ -406,16 +424,28 @@ def cmd_score(args) -> int:
         return ScoringEngine(cfg, model.kind, model.params, model.scaler,
                              device=args.device, online_lr=args.online_lr,
                              feature_cache=feature_cache,
-                             dead_letter=dead_letter)
+                             dead_letter=dead_letter, scorer=args.scorer,
+                             cpu_model=cpu_model)
 
-    # the in-step SGD learns from the table's labels, in band
-    source = ReplaySource(txs, date_to_epoch_s(args.start_date),
-                          batch_rows=args.batch_rows, mode=args.mode,
-                          decode_workers=cfg.runtime.decode_workers,
-                          with_labels=args.online_lr > 0)
-    sink = make_parquet_sink(args.out) if args.out else None
+    try:
+        source, source_factory = _make_source(args, cfg, txs)
+    except (FileNotFoundError, ValueError) as e:
+        log.error("%s", e)
+        return 2
+    sink = sinks.make_parquet_sink(args.out) if args.out else None
+    raw_table = None
+    if args.raw_table:
+        from real_time_fraud_detection_system_tpu_torch.io.tables import (
+            RawTransactionsTable,
+        )
+
+        raw_table = RawTransactionsTable(args.raw_table,
+                                         flush_every_batches=64)
+        sink = sinks.FanoutSink(sink, raw_table)
     if cfg.runtime.async_sink and sink is not None:
-        sink = AsyncSink(sink, max_queue=cfg.runtime.sink_queue_batches)
+        # outside the fanout: one writer serves every destination in order
+        sink = sinks.AsyncSink(sink,
+                               max_queue=cfg.runtime.sink_queue_batches)
     rt = cfg.runtime
     ckpt = make_checkpointer(
         rt.checkpoint_dir,
@@ -423,58 +453,201 @@ def cmd_score(args) -> int:
         op_timeout_s=rt.checkpoint_op_timeout_s,
         op_attempts=rt.checkpoint_op_attempts,
     ) if rt.checkpoint_dir else None
+    obs = _Observability(args, cfg, model.kind)
     fb = None
     try:
-        if ckpt is not None and args.max_restarts > 0:
-            from real_time_fraud_detection_system_tpu_torch.runtime.faults \
-                import RetryPolicy, run_with_recovery
+        with obs.profile():
+            if ckpt is not None and args.max_restarts > 0:
+                from real_time_fraud_detection_system_tpu_torch.runtime \
+                    .faults import RetryPolicy, run_with_recovery
 
-            backoff = None
-            if rt.restart_backoff_ms > 0:
-                # doubling, full jitter, capped at 30 s
-                backoff = RetryPolicy(
-                    base_delay_s=rt.restart_backoff_ms / 1000.0,
-                    multiplier=2.0, max_delay_s=30.0, jitter=1.0)
-            stats = run_with_recovery(
-                make_engine, source, ckpt, sink=sink,
-                max_restarts=args.max_restarts,
-                max_batches=args.max_batches, resume=args.resume,
-                stall_timeout_s=args.stall_timeout,
-                crash_loop_k=args.crash_loop_k, dead_letter=dead_letter,
-                restart_backoff=backoff, make_feedback=make_feedback,
-                make_model_reload=make_reloader, learning=learning)
-        else:
-            engine = make_engine()
-            if ckpt is not None and args.resume:
-                if ckpt.restore(engine.state) is not None:
-                    source.seek(engine.state.offsets)
-                    log.info("resumed from batch %d",
-                             engine.state.batches_done)
-                truncate = getattr(sink, "truncate_after", None)
-                if truncate is not None:
-                    truncate(engine.state.batches_done)
-            fb = make_feedback(engine) if make_feedback else None
-            # --max-batches counts the engine's lifetime batches, restored
-            # ones included, as the JAX score does
-            stats = engine.run(
-                source, sink=sink, checkpointer=ckpt,
-                max_batches=batches_left(engine.state, args.max_batches),
-                feedback=fb,
-                model_reload=make_reloader() if make_reloader else None,
-                learning=learning)
+                backoff = None
+                if rt.restart_backoff_ms > 0:
+                    # doubling, full jitter, capped at 30 s
+                    backoff = RetryPolicy(
+                        base_delay_s=rt.restart_backoff_ms / 1000.0,
+                        multiplier=2.0, max_delay_s=30.0, jitter=1.0)
+                stats = run_with_recovery(
+                    make_engine, source, ckpt, sink=sink,
+                    max_restarts=args.max_restarts,
+                    max_batches=args.max_batches, resume=args.resume,
+                    stall_timeout_s=args.stall_timeout,
+                    make_source=source_factory,
+                    crash_loop_k=args.crash_loop_k, dead_letter=dead_letter,
+                    restart_backoff=backoff, make_feedback=make_feedback,
+                    make_model_reload=make_reloader, learning=learning)
+            else:
+                engine = make_engine()
+                if ckpt is not None and args.resume:
+                    if ckpt.restore(engine.state) is not None:
+                        source.seek(engine.state.offsets)
+                        log.info("resumed from batch %d",
+                                 engine.state.batches_done)
+                    truncate = getattr(sink, "truncate_after", None)
+                    if truncate is not None:
+                        truncate(engine.state.batches_done)
+                fb = make_feedback(engine) if make_feedback else None
+                # --max-batches counts the engine's lifetime batches,
+                # restored ones included, as the JAX score does
+                stats = engine.run(
+                    source, sink=sink, checkpointer=ckpt,
+                    max_batches=batches_left(engine.state, args.max_batches),
+                    feedback=fb,
+                    model_reload=make_reloader() if make_reloader else None,
+                    learning=learning)
     finally:
-        if isinstance(sink, AsyncSink):
+        close = getattr(source, "close", None)
+        if close is not None:
+            close()
+        if isinstance(sink, sinks.AsyncSink):
             sink.close()
         if fb is not None:
             fb.close()
         if learning is not None:
             learning.close()
+        obs.close()
+    if raw_table is not None:
+        raw_table.flush()
+        stats["raw_tx_rows"] = len(raw_table)
     if dead_letter is not None:
         stats["dead_letter_rows"] = len(dead_letter)
         dead_letter.close()
     print(_json_line({"device": str(resolve_device(args.device)),
-                      "kind": model.kind, **stats}))
+                      "kind": model.kind, "scorer": args.scorer, **stats}))
     return 0
+
+
+def _make_source(args, cfg, txs):
+    """``--source``: the replay of a generated table, a Kafka consumer,
+    or a raw-table backfill; wrapped in a :class:`~.runtime.prefetch.
+    PrefetchSource` with ``--prefetch-batches``. Returns ``(source,
+    factory)``: the factory (Kafka only) builds a fresh consumer, and
+    prefetcher, for each supervised incarnation, else None."""
+    from real_time_fraud_detection_system_tpu_torch.runtime import sources
+    from real_time_fraud_detection_system_tpu_torch.utils.timing import (
+        date_to_epoch_s,
+    )
+
+    factory = None
+    if args.source == "kafka":
+        def factory():
+            # a fresh consumer per incarnation: the broker's group
+            # generation fences a zombie's session
+            return sources.make_kafka_source(
+                args.bootstrap, topic=args.topic,
+                batch_rows=args.batch_rows,
+                idle_timeout_s=args.idle_timeout or None,
+                decode_workers=cfg.runtime.decode_workers)
+
+        source = factory()
+    elif args.source == "raw-table":
+        source = sources.RawTableSource(
+            args.data, batch_rows=args.batch_rows,
+            from_day=args.from_date or None, to_day=args.to_date or None)
+        log.info("raw-table backfill: %d rows", source.n)
+    else:
+        # the in-step SGD learns from the table's labels, in band
+        source = sources.ReplaySource(
+            txs, date_to_epoch_s(args.start_date),
+            batch_rows=args.batch_rows, mode=args.mode,
+            decode_workers=cfg.runtime.decode_workers,
+            with_labels=args.online_lr > 0)
+    depth = cfg.runtime.prefetch_batches
+    if depth > 0:
+        from real_time_fraud_detection_system_tpu_torch.runtime.prefetch \
+            import PrefetchSource
+
+        if factory is not None:
+            inner_factory = factory
+
+            def factory():
+                return PrefetchSource(inner_factory(), max_batches=depth)
+
+        source = PrefetchSource(source, max_batches=depth)
+        log.info("source prefetch on (queue depth %d)", depth)
+    return source, factory
+
+
+class _Observability:
+    """What ``score`` observes a run with, each from its flag: the span
+    tracer (``--trace-out``, and ``--metrics-port`` so ``/trace`` serves a
+    live timeline), the metrics server, the flight record, the profiler
+    (``--trace-dir``), and at :meth:`close` the registry dump and the
+    trace export — after a failed run too."""
+
+    def __init__(self, args, cfg, kind: str):
+        from real_time_fraud_detection_system_tpu_torch.device import (
+            resolve_device,
+        )
+        from real_time_fraud_detection_system_tpu_torch.utils import metrics
+        from real_time_fraud_detection_system_tpu_torch.utils.trace import (
+            get_tracer,
+        )
+
+        self.args = args
+        self.tracer = self.server = self.recorder = None
+        if args.trace_dir and args.source == "kafka" and not args.max_batches:
+            log.warning("--trace-dir on an unbounded Kafka stream profiles "
+                        "the whole run in host memory; bound it with "
+                        "--max-batches")
+        if args.trace_out or args.metrics_port:
+            self.tracer = get_tracer().configure(enabled=True)
+            log.info("span tracing on: %s", args.trace_out
+                     or "GET /trace serves the live span ring")
+        if args.metrics_port:
+            # 0.0.0.0: a scrape sidecar or a probe reaches it in-container
+            self.server = metrics.MetricsServer(
+                port=args.metrics_port, host="0.0.0.0",
+                max_batch_age_s=args.healthz_max_batch_age,
+                max_source_lag_rows=args.healthz_max_lag_rows or None)
+            self.server.start()
+            log.info("telemetry: /metrics /metrics.json /healthz /trace on "
+                     "port %d", self.server.port)
+        if args.flight_record:
+            self.recorder = metrics.FlightRecorder(
+                args.flight_record,
+                manifest=metrics.run_manifest(
+                    cfg=cfg, model_kind=kind, scorer=args.scorer,
+                    source=args.source,
+                    backend=resolve_device(args.device).type),
+                max_bytes=int(args.flight_record_max_mb * 2 ** 20)
+                if args.flight_record_max_mb > 0 else None)
+            # process-wide: the engine, the checkpointer, the supervisor
+            # and the fault injectors all append to this run's record
+            metrics.set_active_recorder(self.recorder)
+            log.info("flight record: %s", args.flight_record)
+
+    def profile(self):
+        from real_time_fraud_detection_system_tpu_torch.utils.tracing import (
+            profile_to,
+        )
+
+        return profile_to(self.args.trace_dir or None)
+
+    def close(self) -> None:
+        from real_time_fraud_detection_system_tpu_torch.utils import metrics
+
+        args = self.args
+        if self.recorder is not None:
+            metrics.set_active_recorder(None)
+            self.recorder.close()
+        if self.server is not None:
+            self.server.stop()
+        if args.metrics_dump:
+            try:
+                with open(args.metrics_dump, "w", encoding="utf-8") as f:
+                    json.dump(metrics.get_registry().snapshot(), f)
+            except OSError as e:
+                log.warning("metrics dump to %s failed: %s",
+                            args.metrics_dump, e)
+        if self.tracer is not None and args.trace_out:
+            try:
+                man = self.tracer.export(args.trace_out)
+                log.info("span trace: %s (%d events)", man["trace"],
+                         man["events"])
+            except OSError as e:
+                log.warning("span trace export to %s failed: %s",
+                            args.trace_out, e)
 
 
 def _make_learning(args, cfg, model):
@@ -553,19 +726,41 @@ def build_parser() -> argparse.ArgumentParser:
     p = sub.add_parser("score", help="stream-score a table through the "
                                      "engine")
     p.add_argument("--data", default="",
-                   help="transactions .npz (as the JAX datagen writes)")
+                   help="transactions .npz (as the JAX datagen writes), or "
+                        "with --source raw-table a raw-transactions table "
+                        "directory; required unless --source kafka")
     p.add_argument("--model-file", required=True)
+    p.add_argument("--scorer", default="tpu", choices=["cpu", "tpu"],
+                   help="tpu: score on --device; cpu: the same step on "
+                        "--device, then the model's NumPy predict rescores "
+                        "the features on the host (the oracle)")
     p.add_argument("--device", default="cuda",
                    help="torch device to serve on (cuda, cuda:N or cpu; "
                         "the port never falls back to the CPU unasked)")
     p.add_argument("--mode", default="columnar",
                    choices=["columnar", "envelope"])
-    p.add_argument("--source", default="replay", choices=["replay"],
-                   help="replay a generated table (.npz); the Kafka and "
-                        "raw-table sources are not ported yet")
+    p.add_argument("--source", default="replay",
+                   choices=["replay", "kafka", "raw-table"],
+                   help="replay a generated table (.npz), consume the "
+                        "Debezium transaction topic of a Kafka cluster, or "
+                        "backfill from a raw-transactions table directory "
+                        "(--data <dir>)")
+    p.add_argument("--from-date", default="",
+                   help="raw-table backfill start day (YYYY-MM-DD, incl.)")
+    p.add_argument("--to-date", default="",
+                   help="raw-table backfill end day (YYYY-MM-DD, incl.)")
+    p.add_argument("--bootstrap", default="localhost:9092",
+                   help="Kafka bootstrap servers (--source kafka)")
+    p.add_argument("--topic", default="debezium.payment.transactions")
+    p.add_argument("--idle-timeout", type=float, default=0.0,
+                   help="stop when the Kafka topic is idle this long "
+                        "(0 = serve forever)")
     p.add_argument("--out", default="",
                    help="analyzed output: a local directory of Parquet "
                         "parts")
+    p.add_argument("--raw-table", default="",
+                   help="also land raw transactions in a day-partitioned "
+                        "Parquet table at this directory")
     p.add_argument("--batch-rows", type=int, default=4096)
     p.add_argument("--max-batches", type=int, default=0)
     p.add_argument("--key-mode", default="direct",
@@ -678,6 +873,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--decode-workers", type=int, default=0,
                    help="envelope decode threads (0 = auto, min(8, "
                         "cores); 1 = serial)")
+    p.add_argument("--prefetch-batches", type=int, default=0,
+                   help="background source prefetch: poll and decode run "
+                        "ahead of the loop into a bounded queue of this "
+                        "many batches (offsets commit on consumption; "
+                        "poison isolation runs unprefetched). 0 = off")
     p.add_argument("--no-fetch-overlap", action="store_true",
                    help="fetch results with blocking copies instead of "
                         "the side-stream copies into pinned memory")
@@ -761,6 +961,35 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--rollback-margin", type=float, default=0.05,
                    help="live recall drop below the promotion baseline "
                         "that triggers automatic rollback")
+    p.add_argument("--metrics-dump", default="",
+                   help="write the final registry snapshot (/metrics.json "
+                        "content) to this path at run end, success or "
+                        "failure")
+    p.add_argument("--trace-dir", default="",
+                   help="capture a torch.profiler trace of the serving run "
+                        "into this directory (Chrome-trace JSON)")
+    p.add_argument("--metrics-port", type=int, default=0,
+                   help="serve /metrics (Prometheus text), /metrics.json, "
+                        "/healthz and /trace on this port while scoring "
+                        "(0 = off)")
+    p.add_argument("--healthz-max-batch-age", type=float, default=300.0,
+                   help="/healthz goes 503 when the last finished batch "
+                        "is older than this many seconds")
+    p.add_argument("--healthz-max-lag-rows", type=float, default=0.0,
+                   help="/healthz goes 503 when the source backlog "
+                        "exceeds this many rows (0 = lag check off)")
+    p.add_argument("--flight-record", default="",
+                   help="append one JSONL record per micro-batch (phase "
+                        "timings, queue depth, trace id) plus checkpoint, "
+                        "feedback and fault events to this file")
+    p.add_argument("--flight-record-max-mb", type=float, default=256.0,
+                   help="rotate the flight record past this many MB (the "
+                        "previous generation kept at <path>.1; 0 = "
+                        "unbounded)")
+    p.add_argument("--trace-out", default="",
+                   help="export the per-batch span waterfalls as "
+                        "Chrome-trace JSON to this file at run end (a "
+                        "bounded ring buffer, safe on unbounded streams)")
     p.set_defaults(fn=cmd_score)
     return ap
 

@@ -192,7 +192,8 @@ class OverloadConfig:
     state machine over the registry's pressure signals (windowed batch
     latency against ``runtime.latency_slo_ms``, source lag, queue fill)
     that climbs a reversible ladder — rung 1 sheds optional work (shadow
-    scoring, learner training), rung 2 forces
+    scoring, learner training) and samples the flight record, rung 2
+    forces
     the largest batch bucket and alerts-only emission, rung 3 defers whole
     micro-batches to a durable spill and replays them in order once
     pressure subsides (``scored + deferred == polled``)."""
@@ -216,6 +217,9 @@ class OverloadConfig:
     # At most this many deferred micro-batches held at once; at the cap
     # the queue head replays through scoring to make room.
     max_deferred_batches: int = 512
+    # Flight-record sampling while any rung is active (rung 1): record
+    # every k-th batch.
+    recorder_sample_every: int = 16
 
     def __post_init__(self):
         if not 0.0 <= self.descend_pressure < self.climb_pressure:
@@ -227,17 +231,25 @@ class OverloadConfig:
             raise ValueError("overload dwell counts must be >= 1")
         if self.max_deferred_batches < 1:
             raise ValueError("overload.max_deferred_batches must be >= 1")
+        if self.recorder_sample_every < 1:
+            raise ValueError("overload.recorder_sample_every must be >= 1")
 
 
 @dataclass(frozen=True)
 class RuntimeConfig:
     """Micro-batch engine knobs that the port reads.
 
+    ``scorer``: ``"tpu"`` (the JAX package's name, kept so configs carry
+    over) scores on the engine's device; ``"cpu"`` runs the same step on
+    the device, then rescores the fetched features on the host with the
+    model's pure-NumPy ``predict_proba_np`` (the oracle).
+
     The JAX package's ``use_pallas`` has no field here: the port serves
     the fused featurize→forest step whenever the kernel's admission
     predicate holds (on the CPU the wrapper runs its plain version).
     """
 
+    scorer: str = "tpu"  # cpu | tpu
     # Dtype of the dense path table: "auto" = int8 on CUDA, f32 elsewhere.
     # On the forest kernels' paths it only chooses the dtype of the plain
     # version's table: the kernels descend node tables that do not depend
@@ -293,6 +305,11 @@ class RuntimeConfig:
     # Ingest-decode worker threads for envelope batches (core/native.py):
     # 0 = auto (min(8, cores)); 1 = serial.
     decode_workers: int = 0
+    # Background source prefetch (runtime/prefetch.py::PrefetchSource):
+    # poll and decode run ahead of the loop on a producer thread into a
+    # bounded queue of this many batches. Offsets commit on consumption,
+    # and poison isolation serves unprefetched. 0 = off.
+    prefetch_batches: int = 0
     # Checkpoints (io/checkpoint.py): where, and every how many finished
     # batches run() saves one.
     checkpoint_dir: str = "checkpoints"

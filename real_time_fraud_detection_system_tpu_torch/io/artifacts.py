@@ -17,8 +17,10 @@ and ``base_score``), ``autoencoder`` (the mlp's layout and
 ``err_scale``), ``sequence`` (the dims in ``meta["seq"]`` and the leaves
 ``seq{i}`` in the JAX flatten order: ``embed_w``, ``embed_b``, each
 block's 12 fields in order, ``lnf_g``, ``lnf_b``, ``head_w``,
-``head_b``). Object-store URLs, ``save_model`` and the corrupt-artifact
-counter come with the store and the metrics registry (A9, A4). :func:`save_transactions` and
+``head_b``). :meth:`TrainedModel.predict_proba_np` scores raw feature
+rows on the host in NumPy (``score --scorer cpu``). Object-store URLs,
+``save_model`` and the corrupt-artifact counter come with the store and
+the metrics registry (A9, A4). :func:`save_transactions` and
 :func:`load_transactions` read and write the transactions tables of
 ``rtfds datagen``.
 """
@@ -94,6 +96,81 @@ class TrainedModel:
     # AutoencoderParams | TransformerParams
     params: object
     content_sha256: Optional[str] = None
+
+    def _np_params(self):
+        """The params and the scaler as host NumPy arrays, converted once
+        and cached on the (frozen) instance."""
+        cached = getattr(self, "_np_cache", None)
+        if cached is None:
+            if self.kind == "logreg":
+                cached = (_np(self.params.w), float(self.params.b))
+            elif self.kind == "mlp":
+                cached = [(_np(w), _np(b)) for w, b in self.params]
+            elif self.kind == "autoencoder":
+                cached = ([(_np(w), _np(b)) for w, b in self.params.layers],
+                          float(self.params.err_scale))
+            elif self.kind in ("tree", "forest", "gbt"):
+                trees = self.params.trees if self.kind == "gbt" \
+                    else self.params
+                cached = {f: _np(getattr(trees, f)) for f in _TREE_FIELDS}
+                cached["max_depth"] = int(trees.max_depth)
+                cached["base"] = (float(self.params.base_score)
+                                  if self.kind == "gbt" else 0.0)
+            else:
+                raise ValueError(
+                    f"model kind {self.kind!r} has no host scorer (the "
+                    "sequence kind reads raw event histories)")
+            object.__setattr__(self, "_np_cache", cached)
+        scaler = getattr(self, "_np_scaler", None)
+        if scaler is None:
+            scaler = (_np(self.scaler.mean), _np(self.scaler.scale))
+            object.__setattr__(self, "_np_scaler", scaler)
+        return cached, scaler
+
+    def predict_proba_np(self, features: np.ndarray) -> np.ndarray:
+        """Pure-NumPy host scoring of RAW feature rows — the
+        ``--scorer cpu`` oracle (the reference's ``scaler.transform`` +
+        ``predict_proba`` on the CPU). The JAX package's function, in its
+        operation order, for every kind but the sequence kind."""
+        params, (mean, scale) = self._np_params()
+        x = ((features.astype(np.float32) - mean) / scale).astype(np.float32)
+        if self.kind == "logreg":
+            w, b = params
+            z = x @ w + b
+            return 1.0 / (1.0 + np.exp(-z))
+        if self.kind == "mlp":
+            h = x
+            for w, b in params[:-1]:
+                h = np.maximum(h @ w + b, 0.0)
+            w, b = params[-1]
+            z = (h @ w + b)[:, 0]
+            return 1.0 / (1.0 + np.exp(-z))
+        if self.kind == "autoencoder":
+            layers, err_scale = params
+            h = x
+            for w, b in layers[:-1]:
+                h = np.maximum(h @ w + b, 0.0)
+            w, b = layers[-1]
+            err = np.mean((h @ w + b - x) ** 2, axis=1)
+            return 1.0 - np.exp(-err / max(err_scale, 1e-12))
+        feat, thresh = params["feat"], params["thresh"]
+        left, right, prob = params["left"], params["right"], params["prob"]
+        t = feat.shape[0]
+        b_ = x.shape[0]
+        node = np.zeros((b_, t), dtype=np.int64)
+        tree_idx = np.arange(t)[None, :]
+        for _ in range(params["max_depth"]):
+            f = feat[tree_idx, node]
+            xv = np.take_along_axis(x, f.reshape(b_, -1),
+                                    axis=1).reshape(b_, t)
+            go_left = xv <= thresh[tree_idx, node]
+            node = np.where(go_left, left[tree_idx, node],
+                            right[tree_idx, node])
+        leaves = prob[tree_idx, node]
+        if self.kind == "gbt":
+            z = params["base"] + leaves.sum(axis=1)
+            return 1.0 / (1.0 + np.exp(-z))
+        return leaves.mean(axis=1)
 
 
 def _require_kind(kind: str) -> None:

@@ -13,8 +13,14 @@
   the dead-letter queue that the fault supervisor's poison isolation
   writes, idempotent by ``tx_id``.
 
-Object-store sinks wait for the S3 store (ROADMAP A9); the telemetry of
-the analyzed-output sinks for the serving extras (A4b).
+The analyzed-output sinks publish the JAX package's series
+(:class:`_SinkTelemetry`: ``rtfds_sink_write_seconds``,
+``rtfds_sink_rows_total``, ``rtfds_sink_bytes_total``,
+``rtfds_sink_failures_total``, by ``sink``), and :class:`AsyncSink` its
+queue's ``rtfds_sink_queue_depth`` and
+``rtfds_sink_backpressure_seconds_total`` (the overload ladder's
+``sink_fill`` reads the depth). Object-store sinks wait for the S3 store
+(ROADMAP A9).
 """
 
 from __future__ import annotations
@@ -36,6 +42,39 @@ from real_time_fraud_detection_system_tpu_torch.utils.metrics import (
     active_recorder,
     get_registry,
 )
+from real_time_fraud_detection_system_tpu_torch.utils.trace import get_tracer
+
+
+class _SinkTelemetry:
+    """The per-sink series, by sink kind, resolved once per sink: write
+    latency, rows, bytes, failed appends."""
+
+    def _init_sink_metrics(self, sink_kind: str) -> None:
+        reg = get_registry()
+        self._tracer = get_tracer()
+        self._sink_kind = sink_kind
+        self._m_write = reg.histogram(
+            "rtfds_sink_write_seconds", "sink append wall time",
+            sink=sink_kind)
+        self._m_rows = reg.counter(
+            "rtfds_sink_rows_total", "rows written", sink=sink_kind)
+        self._m_bytes = reg.counter(
+            "rtfds_sink_bytes_total", "bytes written", sink=sink_kind)
+        self._m_failures = reg.counter(
+            "rtfds_sink_failures_total", "failed appends", sink=sink_kind)
+
+    def _observe_write(self, t0: float, rows: int, nbytes: int) -> None:
+        t1 = time.perf_counter()
+        self._m_write.observe(t1 - t0)
+        self._m_rows.inc(rows)
+        if nbytes:
+            self._m_bytes.inc(nbytes)
+        if self._tracer.enabled:
+            # timeline only (batch=""): on an async sink's writer, or
+            # with batches in flight, the current batch is a later one;
+            # the engine's sink_write span carries the attribution
+            self._tracer.add_span(f"sink/{self._sink_kind}", t0, t1,
+                                  batch="", rows=rows, bytes=nbytes)
 
 
 def _result_to_columns(res) -> dict:
@@ -94,7 +133,10 @@ class AsyncSink:
     - Ordered: one writer drains a FIFO, so the inner sink sees appends in
       the loop's order.
     - Bounded: at most ``max_queue`` results wait; a full queue blocks the
-      loop thread, and ``backpressure_s`` adds up the time it blocked.
+      loop thread, and the time it blocked is added to
+      ``rtfds_sink_backpressure_seconds_total``; the queue's depth rides
+      ``rtfds_sink_queue_depth``. Both are labeled with the inner sink's
+      class and land in ``registry`` (default: the process-wide one).
     - Errors propagate: the writer's first failure is raised on the loop
       thread at the next ``append``, ``drain``, ``flush`` or ``close``, as
       its original exception; while it is pending the writer discards
@@ -106,13 +148,21 @@ class AsyncSink:
 
     _STOP = object()
 
-    def __init__(self, inner, max_queue: int = 8):
+    def __init__(self, inner, max_queue: int = 8, registry=None):
         if inner is None:
             raise ValueError("AsyncSink needs an inner sink")
         self.inner = inner
         self._q: "queue.Queue" = queue.Queue(maxsize=max(1, int(max_queue)))
         self._error: Optional[BaseException] = None
-        self.backpressure_s = 0.0
+        reg = registry if registry is not None else get_registry()
+        kind = type(inner).__name__
+        self._m_depth = reg.gauge(
+            "rtfds_sink_queue_depth",
+            "batch results queued for the async sink writer", sink=kind)
+        self._m_backpressure = reg.counter(
+            "rtfds_sink_backpressure_seconds_total",
+            "loop-thread seconds blocked on a full async sink queue",
+            sink=kind)
         # pyarrow's ParquetWriter, run on a thread with the default 8 MB
         # stack in a process that also runs torch and XLA, crashed at
         # random (SIGSEGV in its constructor; pyarrow 25.0, Linux; 16 MB
@@ -140,6 +190,7 @@ class AsyncSink:
                         self._error = e
             finally:
                 self._q.task_done()
+                self._m_depth.set(self._q.qsize())
 
     def _raise_pending(self) -> None:
         err = self._error
@@ -153,7 +204,8 @@ class AsyncSink:
         self._q.put(res)  # blocks when full
         waited = time.perf_counter() - t0
         if waited > 1e-4:  # an uncontended put is ~µs; count only blocks
-            self.backpressure_s += waited
+            self._m_backpressure.inc(waited)
+        self._m_depth.set(self._q.qsize())
 
     def drain(self) -> None:
         """Block until every queued append has landed (or failed); raise
@@ -190,14 +242,20 @@ class AsyncSink:
         self._raise_pending()
 
 
-class MemorySink:
-    """Keeps every batch's analyzed columns in memory."""
+class MemorySink(_SinkTelemetry):
+    """Keeps every batch's analyzed columns in memory (its series under
+    ``sink="memory"``; the bytes are the columns' ``nbytes``)."""
 
     def __init__(self):
         self.batches: List[dict] = []
+        self._init_sink_metrics("memory")
 
     def append(self, res) -> None:
-        self.batches.append(_result_to_columns(res))
+        t0 = time.perf_counter()
+        cols = _result_to_columns(res)
+        self.batches.append(cols)
+        self._observe_write(t0, len(res.tx_id),
+                            sum(v.nbytes for v in cols.values()))
 
     def concat(self) -> dict:
         if not self.batches:
@@ -239,7 +297,7 @@ def _part_order(name: str):
     return (1, 0, name)
 
 
-class ParquetSink:
+class ParquetSink(_SinkTelemetry):
     """One part file per batch: ``<dir>/part-<batch_index>.parquet``.
 
     A replayed batch carries the same ``batch_index`` and overwrites its
@@ -258,21 +316,30 @@ class ParquetSink:
         self.directory = directory
         os.makedirs(directory, exist_ok=True)
         self._seq = 0
+        self._init_sink_metrics("parquet")
 
     def append(self, res) -> None:
         pa, pq = self._pa, self._pq
-        cols = _result_to_columns(res)
-        table = pa.table({k: pa.array(v) for k, v in cols.items()})
-        idx = getattr(res, "batch_index", -1)
-        if idx >= 0:
-            name = f"part-{idx:08d}.parquet"
-        else:
-            name = f"part-{int(time.time() * 1e3)}-{self._seq:06d}.parquet"
-            self._seq += 1
-        path = os.path.join(self.directory, name)
-        tmp = path + ".tmp"
-        pq.write_table(table, tmp)
-        os.replace(tmp, path)
+        t0 = time.perf_counter()
+        try:
+            cols = _result_to_columns(res)
+            table = pa.table({k: pa.array(v) for k, v in cols.items()})
+            idx = getattr(res, "batch_index", -1)
+            if idx >= 0:
+                name = f"part-{idx:08d}.parquet"
+            else:
+                name = (f"part-{int(time.time() * 1e3)}-"
+                        f"{self._seq:06d}.parquet")
+                self._seq += 1
+            path = os.path.join(self.directory, name)
+            tmp = path + ".tmp"
+            pq.write_table(table, tmp)
+            nbytes = os.path.getsize(tmp)
+            os.replace(tmp, path)
+        except Exception:
+            self._m_failures.inc()
+            raise
+        self._observe_write(t0, len(res.tx_id), nbytes)
 
     def truncate_after(self, batch_index: int) -> None:
         """Drop indexed parts beyond ``batch_index`` (the restore fence)."""

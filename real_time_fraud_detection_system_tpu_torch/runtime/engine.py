@@ -127,9 +127,22 @@ each step and, on a non-finite row, copies them back, quarantines the row
 the host only, and defers whole batches to a spill that replays in order
 before live traffic.
 
+Observability, as in the JAX engine: the engine registers its series
+(``rtfds_batches_total``, ``rtfds_batch_latency_seconds``,
+``rtfds_phase_seconds{phase}``, ``rtfds_last_batch_unix_seconds``,
+``rtfds_queue_depth`` and the rest, :meth:`_init_telemetry`), opens a span
+(``utils/trace.py``) at every phase of a batch under the batch's trace id
+— ``source_poll``, ``host_prep``, ``dispatch``, ``result_wait``,
+``sink_write``, and ``shadow_score``, ``state_compact``,
+``state_promote``, ``precompile`` — each with an NVTX range when the
+device is CUDA, and :meth:`run` writes one flight record per finished
+batch (its phases, queue depth, latency and trace id). ``scorer="cpu"``
+runs the same step, then rescores the fetched features on the host with
+``predict_proba_np`` (the oracle), refused where the JAX engine refuses
+it.
+
 Not ported yet: the sharded engine and the fleet, with their stacked
-directories and cold-store re-homing, and the sharded sequence step (A7);
-tracing spans, the metrics server and the CPU oracle (A4c).
+directories and cold-store re-homing, and the sharded sequence step (A7).
 """
 
 from __future__ import annotations
@@ -234,9 +247,14 @@ from real_time_fraud_detection_system_tpu_torch.utils.metrics import (
 from real_time_fraud_detection_system_tpu_torch.utils.timing import (
     LatencyTracker,
 )
+from real_time_fraud_detection_system_tpu_torch.utils.trace import get_tracer
 
 _KINDS = ("logreg", "mlp", "tree", "forest", "gbt", "autoencoder",
           "sequence")
+# The serving loop's phases, in order: rtfds_phase_seconds{phase} and the
+# flight record's "phases" (the JAX engine's PHASES).
+PHASES = ("source_poll", "host_prep", "dispatch", "result_wait",
+          "sink_write")
 # The kernel wrappers whose launches a captured graph replays.
 _WRAPPERS = (forest_kernels.fused_forest_leaf_sum, forest_kernels.leaf_sum,
              score_kernels.fused_featurize_score)
@@ -295,17 +313,22 @@ def loss_fn_for(kind: str) -> Optional[Callable]:
 
 def check_sequence_serving(cfg: Config, online_lr: float = 0.0,
                            feedback: bool = False,
-                           shadow: bool = False) -> None:
+                           shadow: bool = False,
+                           scorer: str = "tpu") -> None:
     """The sequence kind's refusals, the JAX engine's with its messages:
-    the tiered store, online SGD, bf16 and selective emission, the
-    labeled-feedback loop and shadow scoring all need the windows plane
-    or a feature matrix on the device, which a history state does not
+    the tiered store, the host scorer, online SGD, bf16 and selective
+    emission, the labeled-feedback loop and shadow scoring all need the
+    windows plane or a feature matrix, which a history state does not
     have. Raises ValueError."""
     if cfg.features.key_mode == "exact":
         raise ValueError(
             "key_mode='exact' is the windows-plane tiered feature "
             "store; kind='sequence' serves from its own history state "
             "(keep key_mode direct/hash)")
+    if scorer == "cpu":
+        raise ValueError(
+            "kind='sequence' has no sklearn oracle — --scorer cpu does not "
+            "apply")
     if online_lr > 0.0:
         raise ValueError("online SGD is not wired for kind='sequence'")
     if cfg.runtime.emit_dtype != "float32":
@@ -578,7 +601,12 @@ class ScoringEngine:
     emitted rows for the labeled-feedback join; ``dead_letter`` is the
     sink the non-finite guard (``runtime.nan_guard``) quarantines into.
     For the sequence kind ``feature_state`` is a
-    ``features/history.py::HistoryState``.
+    ``features/history.py::HistoryState``. ``scorer`` (default
+    ``runtime.scorer``) ``"cpu"`` rescores every batch's fetched features
+    on the host with ``cpu_model.predict_proba_np`` (an
+    ``io/artifacts.py::TrainedModel``) after the step ran unchanged on the
+    device. ``recorder`` is the flight record :meth:`run` writes to (None:
+    the process-wide ``active_recorder()`` at the run's start).
     """
 
     def __init__(
@@ -593,6 +621,8 @@ class ScoringEngine:
         online_lr: float = 0.0,
         feature_cache=None,
         dead_letter=None,
+        scorer: Optional[str] = None,
+        cpu_model=None,
     ):
         _require_kind(kind)
         self.device = resolve_device(device)
@@ -600,7 +630,15 @@ class ScoringEngine:
         self.kind = kind
         self.online_lr = float(online_lr)
         self._loss = loss_fn_for(kind)
-        self._check_emission(cfg, feature_cache)
+        self.scorer = scorer or cfg.runtime.scorer
+        if self.scorer not in ("cpu", "tpu"):
+            raise ValueError(f"scorer must be 'cpu' or 'tpu', got "
+                             f"{self.scorer!r}")
+        if self.scorer == "cpu" and kind != "sequence" and cpu_model is None:
+            raise ValueError("scorer='cpu' needs cpu_model= (a TrainedModel "
+                             "whose predict_proba_np rescores on the host)")
+        self.cpu_model = cpu_model
+        self._check_emission(cfg, feature_cache, self.scorer)
         self.feature_cache = feature_cache
         rt = cfg.runtime
         self._selective = rt.emit_threshold > 0.0
@@ -633,9 +671,7 @@ class ScoringEngine:
         self._online_dirty = False
         self.z_mode = resolve_z_mode(cfg.runtime.z_mode, self.device)
         self.metrics = metrics if metrics is not None else get_registry()
-        # the overload ladder's scored side of scored + deferred == polled
-        self._m_rows = self.metrics.counter("rtfds_rows_total",
-                                            "rows scored")
+        self._init_telemetry()
         # The precompiled step: one CUDA graph per dispatch signature
         # (precompile), the keys done (on the CPU: listed, none
         # captured), the pool they share, the form of the tensors the
@@ -705,25 +741,96 @@ class ScoringEngine:
         if self._demote_slots:
             self._init_cold(fcfg)
 
+    def _init_telemetry(self) -> None:
+        """The JAX engine's series, resolved once (the loop then pays one
+        call per event). Where a JAX name has no direct counterpart:
+
+        - ``rtfds_precompiled_steps_total`` counts the CUDA graphs
+          :meth:`precompile` captured (the JAX engine's AOT executables);
+        - ``rtfds_aot_fallbacks_total`` counts dispatches, after a
+          precompile captured graphs, whose signature had no graph and ran
+          eagerly (the JAX engine's fallback from an AOT executable to jit);
+        - ``rtfds_fetch_overlap_seconds_total`` adds up, per batch, the
+          time from the side-stream result copies' issue to the loop's
+          wait for them (the head start the copy got);
+        - ``rtfds_z_mode{mode}`` is 1 for the dtype of the tree kinds'
+          dense path table (``runtime.z_mode``) and ``rtfds_use_pallas``
+          1 when the step takes one of the hand-written kernels (the fused
+          forest or logreg kernel, or the leaf sum), the port's
+          counterpart of the JAX engine's opt-in Pallas path;
+        - the JAX ``rtfds_xla_*`` compile series are left out: nothing is
+          compiled while the port serves (its kernels build before the
+          first batch, its graphs are captured by :meth:`precompile`, in
+          ``cuda_graph_captures_total`` and
+          ``cuda_graph_recaptures_total``).
+        """
+        reg = self.metrics
+        self.recorder = None
+        self.tracer = get_tracer()
+        # NVTX ranges beside the spans: decided once, by the device
+        self._nvtx = self.device.type == "cuda"
+        self._m_batches = reg.counter("rtfds_batches_total",
+                                      "micro-batches scored")
+        # the overload ladder's scored side of scored + deferred == polled
+        self._m_rows = reg.counter("rtfds_rows_total", "rows scored")
+        self._m_lat = reg.histogram(
+            "rtfds_batch_latency_seconds",
+            "end-to-end micro-batch latency (poll wait excluded)")
+        self._m_phase = {
+            ph: reg.histogram("rtfds_phase_seconds",
+                              "per-batch loop-time decomposition by phase",
+                              phase=ph)
+            for ph in PHASES}
+        self._m_last = reg.gauge(
+            "rtfds_last_batch_unix_seconds",
+            "wall-clock time the last batch finished (healthz input)")
+        self._m_qdepth = reg.gauge("rtfds_queue_depth",
+                                   "micro-batches currently in flight")
+        self._m_precompiled = reg.counter(
+            "rtfds_precompiled_steps_total",
+            "dispatch signatures captured as CUDA graphs by precompile")
+        self._m_aot_fallbacks = reg.counter(
+            "rtfds_aot_fallbacks_total",
+            "dispatches after precompile whose signature had no captured "
+            "graph (served eagerly)")
+        self._m_fetch_overlap = reg.counter(
+            "rtfds_fetch_overlap_seconds_total",
+            "seconds from the side-stream result copies' issue to the "
+            "loop's wait for them")
+        self._m_zmode = {
+            m: reg.gauge(
+                "rtfds_z_mode",
+                "dtype of the tree kinds' dense path table (1 = the "
+                "active mode)", mode=m)
+            for m in ("f32", "bf16", "int8")}
+        for m, g in self._m_zmode.items():
+            g.set(1.0 if m == self.z_mode else 0.0)
+        self._m_use_pallas = reg.gauge(
+            "rtfds_use_pallas",
+            "1 when the step launches a hand-written CUDA kernel (on the "
+            "CPU: its plain version)")
+
     @staticmethod
-    def _check_emission(cfg: Config, feature_cache) -> None:
+    def _check_emission(cfg: Config, feature_cache,
+                        scorer: str = "tpu") -> None:
         """The JAX engine's emission checks, with its messages: what the
-        host re-consumes (a feature cache) needs every row's float32
-        features. Raises ValueError."""
+        host re-consumes (the CPU scorer, a feature cache) needs every
+        row's float32 features. Raises ValueError."""
         rt = cfg.runtime
+        host_rows = scorer == "cpu" or feature_cache is not None
         if rt.emit_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"emit_dtype must be float32|bfloat16, "
                              f"got {rt.emit_dtype!r}")
-        if feature_cache is not None and not rt.emit_features:
+        if host_rows and not rt.emit_features:
             raise ValueError(
                 "emit_features=False (alerts-only serving) cannot be "
-                "combined with a feature cache: it consumes host-side "
-                "feature rows")
-        if rt.emit_dtype != "float32" and feature_cache is not None:
+                "combined with --scorer cpu or a feature cache: both "
+                "consume host-side feature rows")
+        if rt.emit_dtype != "float32" and host_rows:
             raise ValueError(
                 "emit_dtype='bfloat16' is lossy on the emitted feature "
-                "columns; the feedback feature cache re-consumes those "
-                "rows and would drift — keep float32")
+                "columns; --scorer cpu and the feedback feature cache "
+                "re-consume those rows and would drift — keep float32")
         thresh = float(rt.emit_threshold)
         if not 0.0 <= thresh <= 1.0:
             raise ValueError(
@@ -733,11 +840,11 @@ class ScoringEngine:
                 "emit_threshold > 0 (selective emission) contradicts "
                 "emit_features=False (alerts-only): pick one")
         if thresh > 0.0:
-            if feature_cache is not None:
+            if host_rows:
                 raise ValueError(
                     "selective emission (emit_threshold > 0) cannot be "
-                    "combined with a feature cache: it consumes every "
-                    "row's features host-side")
+                    "combined with --scorer cpu or a feature cache: both "
+                    "consume every row's features host-side")
             if rt.emit_dtype != "float32":
                 raise ValueError(
                     "selective emission already cuts feature D2H by "
@@ -756,7 +863,8 @@ class ScoringEngine:
         features), so the analyzed schema stays the same for sinks."""
         cfg = self.cfg
         check_sequence_serving(cfg, self.online_lr,
-                               feedback=self.feature_cache is not None)
+                               feedback=self.feature_cache is not None,
+                               scorer=self.scorer)
         self._m_tier = None
         self._predict = None
         self._fused = False
@@ -795,6 +903,9 @@ class ScoringEngine:
         self.leaf_tables = (old if old is not None and leaf_tables is not None
                             and copy_into(old, leaf_tables) else leaf_tables)
         self._tables_epoch = self.state.params_epoch
+        self._m_use_pallas.set(float(
+            self.tables is not None or self.leaf_tables is not None
+            or (self.kind == "logreg" and self._fused)))
         if self.device.type == "cuda":
             self._load_kernels()
 
@@ -971,14 +1082,16 @@ class ScoringEngine:
         if (not self._compact_every
                 or self.state.batches_done % self._compact_every != 0):
             return
-        # the day goes in as a kernel argument (a fill of the graph's
-        # static day): no host-to-device copy
-        out = self._dispatch_step(("compact",), self._compact_body,
-                                  self._max_day)
-        if self._demote_slots:
-            self._append_demotions(dict(zip(("customer", "terminal"),
-                                            out[1])))
-        self._record_compaction(out[0])
+        with self.tracer.span("state_compact", day=self._max_day,
+                              nvtx=self._nvtx):
+            # the day goes in as a kernel argument (a fill of the graph's
+            # static day): no host-to-device copy
+            out = self._dispatch_step(("compact",), self._compact_body,
+                                      self._max_day)
+            if self._demote_slots:
+                self._append_demotions(dict(zip(("customer", "terminal"),
+                                                out[1])))
+            self._record_compaction(out[0])
 
     def _compact_body(self, day) -> tuple:
         """The compaction signature's device work: ``(reclaimed,)``, and
@@ -1209,12 +1322,14 @@ class ScoringEngine:
             self._m_cold_wait.inc(wait)
         if not any(rows_by_table.values()):
             return
-        flat = [torch.from_numpy(a) for a in
-                self._promote_arrays(rows_by_table)]
-        if ("promote",) not in self._graphs:
-            flat = [t.to(self.device) for t in flat]
-        stats = self._dispatch_step(("promote",), self._promote_body, *flat)
-        st = stats.cpu().numpy()
+        with self.tracer.span("state_promote", nvtx=self._nvtx):
+            flat = [torch.from_numpy(a) for a in
+                    self._promote_arrays(rows_by_table)]
+            if ("promote",) not in self._graphs:
+                flat = [t.to(self.device) for t in flat]
+            stats = self._dispatch_step(("promote",), self._promote_body,
+                                        *flat)
+            st = stats.cpu().numpy()
         self._m_cold_prom.inc(int(st[:, 0].sum()))
         for i, table in enumerate(("customer", "terminal")):
             landed = list(rows_by_table[table])
@@ -1357,8 +1472,9 @@ class ScoringEngine:
         sigs = [sg for sg in self.dispatch_inventory()
                 if sg.key not in self._precompiled]
         if self.device.type == "cuda" and sigs:
-            self._note_params_swap()
-            self._capture(sigs)
+            with self.tracer.span("precompile", nvtx=self._nvtx):
+                self._note_params_swap()
+                self._capture(sigs)
             self._captures.warm = True
         self._precompiled.update(sg.key for sg in sigs)
         self._recapture = False
@@ -1409,6 +1525,7 @@ class ScoringEngine:
             self._graphs[sg.key] = _StepGraph(graph, inputs[sg.key], out,
                                               launches)
             self._captures.note(sg.key, time.perf_counter() - t)
+            self._m_precompiled.inc()
         self._graph_form = self._form()
 
     def _form(self) -> tuple:
@@ -1463,6 +1580,8 @@ class ScoringEngine:
         eagerly: the same device work either way."""
         graph = self._graphs.get(key)
         if graph is None:
+            if self._graphs:
+                self._m_aot_fallbacks.inc()
             return fn(*args)
         return graph.replay(*args)
 
@@ -1484,7 +1603,8 @@ class ScoringEngine:
             self._shed_features = False
             return True
         ok = (self.kind != "sequence" and self.cfg.runtime.emit_features
-              and not self._selective and self.feature_cache is None)
+              and not self._selective and self.scorer != "cpu"
+              and self.feature_cache is None)
         self._shed_features = bool(ok)
         if not ok:
             log.info("overload rung 2: alerts-only degrade not applicable "
@@ -1522,6 +1642,7 @@ class ScoringEngine:
         done = torch.cuda.Event()
         done.record(side)
         host["done"] = done
+        host["issue_t"] = time.perf_counter()
         return host
 
     def _host_results(self, handle: dict):
@@ -1533,6 +1654,8 @@ class ScoringEngine:
         out: StepOut = handle["out"]
         fetch = handle["fetch"] or {}
         if "done" in fetch:
+            self._m_fetch_overlap.inc(
+                max(0.0, time.perf_counter() - fetch["issue_t"]))
             fetch["done"].synchronize()
 
         def host(name: str, t: torch.Tensor) -> np.ndarray:
@@ -1551,6 +1674,11 @@ class ScoringEngine:
             else:
                 # alerts-only, the ladder's degrade, or the sequence kind
                 feats = np.zeros((n, N_FEATURES), np.float32)
+        if self.scorer == "cpu":
+            # the oracle: the host's pure-NumPy predict on the features
+            # the device step emitted (its own probabilities are dropped)
+            probs = self.cpu_model.predict_proba_np(
+                feats.astype(np.float64))
         return probs, feats, tier
 
     def _unpack_selective(self, n: int, out: StepOut, flat: np.ndarray):
@@ -1632,7 +1760,7 @@ class ScoringEngine:
             return res
         h2 = self._start_batch({k: np.asarray(v)[good]
                                 for k, v in cols.items()})
-        for key in ("index", "source_offsets", "waited", "t0"):
+        for key in ("index", "trace_id", "source_offsets", "waited", "t0"):
             if key in handle:
                 h2[key] = handle[key]
         # each pass strictly shrinks the surviving rows: it terminates
@@ -1649,43 +1777,45 @@ class ScoringEngine:
         copies that read them, so the caching allocator cannot hand their
         memory out while the side stream reads it."""
         t0 = time.perf_counter()
-        keep = latest_wins_mask_host(cols["tx_id"], cols["kafka_ts_ms"])
-        cols = {k: v[keep] for k, v in cols.items()}
-        validate_ingest_rows(cols)
-        n = len(cols["tx_id"])
-        pad = bucket_size(n, self.cfg.runtime.batch_buckets)
-        host = self._pack(cols, n, pad)
-        t1 = time.perf_counter()
-        self._note_params_swap()
-        if self._recapture:
-            self.precompile()
-        key = ("step", 7, pad)
-        graph = self._graphs.get(key)
-        src = host[0] if isinstance(host, list) else host
-        if graph is not None:
-            packed = graph.inputs[0]
-            packed.copy_(src, non_blocking=True)
-        else:
-            packed = src.to(self.device, non_blocking=True)
-        if isinstance(host, list):
-            host[1] = torch.cuda.Event()
-            host[1].record()
-        if self._nan_guard:
-            self._snapshot_twins()
-        out = self._dispatch_step(key, self._step, packed)
-        if self.online_lr > 0.0 and self._loss is not None:
-            # the leaves no longer hold what the last restore wrote
-            self.state.params_crcs = None
-        self._note_batch_days(cols)
-        self._note_cold_touches(cols)
-        step_done = None
-        if self.device.type == "cuda":
-            # behind the step that wrote the state: the side-stream copies
-            # and a checkpoint save wait for it
-            step_done = torch.cuda.Event()
-            step_done.record()
-            self.state.ready = step_done
-        fetch = self._issue_host_fetch(out, n, step_done)
+        with self.tracer.span("host_prep", nvtx=self._nvtx):
+            keep = latest_wins_mask_host(cols["tx_id"], cols["kafka_ts_ms"])
+            cols = {k: v[keep] for k, v in cols.items()}
+            validate_ingest_rows(cols)
+            n = len(cols["tx_id"])
+            pad = bucket_size(n, self.cfg.runtime.batch_buckets)
+            host = self._pack(cols, n, pad)
+            t1 = time.perf_counter()
+        with self.tracer.span("dispatch", rows=n, pad=pad, nvtx=self._nvtx):
+            self._note_params_swap()
+            if self._recapture:
+                self.precompile()
+            key = ("step", 7, pad)
+            graph = self._graphs.get(key)
+            src = host[0] if isinstance(host, list) else host
+            if graph is not None:
+                packed = graph.inputs[0]
+                packed.copy_(src, non_blocking=True)
+            else:
+                packed = src.to(self.device, non_blocking=True)
+            if isinstance(host, list):
+                host[1] = torch.cuda.Event()
+                host[1].record()
+            if self._nan_guard:
+                self._snapshot_twins()
+            out = self._dispatch_step(key, self._step, packed)
+            if self.online_lr > 0.0 and self._loss is not None:
+                # the leaves no longer hold what the last restore wrote
+                self.state.params_crcs = None
+            self._note_batch_days(cols)
+            self._note_cold_touches(cols)
+            step_done = None
+            if self.device.type == "cuda":
+                # behind the step that wrote the state: the side-stream
+                # copies and a checkpoint save wait for it
+                step_done = torch.cuda.Event()
+                step_done.record()
+                self.state.ready = step_done
+            fetch = self._issue_host_fetch(out, n, step_done)
         return {"cols": cols, "n": n, "out": out, "fetch": fetch,
                 "t0": t0, "prep_s": t1 - t0,
                 "dispatch_s": time.perf_counter() - t1}
@@ -1704,15 +1834,18 @@ class ScoringEngine:
             self._m_tier["dense"].inc(float(tier_np[0]))
             self._m_tier["cms"].inc(float(tier_np[1]))
         cols = handle["cols"]
-        self._emit_learning(cols, n, probs_np, feats_np)
+        self._emit_learning(cols, n, probs_np, feats_np,
+                            handle.get("trace_id"))
         self.state.batches_done += 1
         self.state.rows_done += n
+        self._m_batches.inc()
         self._m_rows.inc(n)
+        self._m_last.set(time.time())
         self._drain_meters()
         self._maybe_compact()
         self._maybe_promote()
         self._devmem.tick()
-        return BatchResult(
+        res = BatchResult(
             tx_id=cols["tx_id"],
             tx_datetime_us=cols["tx_datetime_us"],
             customer_id=cols["customer_id"],
@@ -1724,9 +1857,11 @@ class ScoringEngine:
                        - handle.get("waited", 0.0)),
             batch_index=self.state.batches_done,
         )
+        self._m_lat.observe(res.latency_s)
+        return res
 
     def _emit_learning(self, cols: dict, n: int, probs_np: np.ndarray,
-                       feats_np: np.ndarray) -> None:
+                       feats_np: np.ndarray, trace_id=None) -> None:
         """The learning tail of a result: the feature-cache put, the
         shadow's dual score, and the online-update flag (from the host's
         own label column, never the device)."""
@@ -1741,7 +1876,9 @@ class ScoringEngine:
                 if in_band is not None else None,
             )
         if self.shadow is not None and not self.shadow_paused and n:
-            self.shadow.score_batch(cols["tx_id"], feats_np, probs_np)
+            with self.tracer.span("shadow_score", batch=trace_id,
+                                  nvtx=self._nvtx):
+                self.shadow.score_batch(cols["tx_id"], feats_np, probs_np)
         if (self.online_lr > 0.0 and self._loss is not None
                 and in_band is not None
                 and (np.asarray(in_band) >= 0).any()):
@@ -1751,7 +1888,11 @@ class ScoringEngine:
 
     def process_batch(self, cols: dict) -> BatchResult:
         """One micro-batch: dedup → pad → device step → host result."""
-        return self._finish_batch(self._start_batch(cols))
+        tid = self.tracer.begin_batch(self.state.batches_done + 1)
+        handle = self._start_batch(cols)
+        handle["trace_id"] = tid
+        with self.tracer.span("result_wait", batch=tid, nvtx=self._nvtx):
+            return self._finish_batch(handle)
 
     # -- learning (runtime/feedback.py, runtime/learner.py) ----------------
 
@@ -1920,7 +2061,8 @@ class ScoringEngine:
 
         ``runtime.overload.enabled`` runs the ladder
         (``runtime/overload.py``): rung 1 pauses the shadow and the
-        learner and samples the flight recorder, rung 2 pins the
+        learner and samples the flight record
+        (``overload.recorder_sample_every``), rung 2 pins the
         autobatch target to the largest bucket and degrades emission to
         alerts-only (host side only), rung 3 defers each assembled batch
         to the spill; deferred batches replay in order, through the same
@@ -1946,6 +2088,13 @@ class ScoringEngine:
         :class:`~.learner.LearningLoop`, attached before the first poll)
         makes its install, promotion and rollback decisions. With a
         checkpointer, feedback offsets are committed after each save.
+
+        The flight record (``self.recorder``, else ``active_recorder()``
+        at the start) gets one batch record per finished batch: its
+        phases (the source polls since the last finished batch, host
+        prep, dispatch, result wait, sink write), the queue depth, the
+        latency and, with the tracer on, the trace id; the same phases go
+        to ``rtfds_phase_seconds{phase}``.
 
         Returns this run's stats: rows, batches, wall and CPU seconds,
         rows/s, the per-batch latency p50/p99 (host prep through the
@@ -1987,8 +2136,15 @@ class ScoringEngine:
             auto = AutoBatchController(rt.batch_buckets,
                                        latency_slo_ms=rt.latency_slo_ms,
                                        registry=self.metrics)
-        overload = (self._overload_controller(learning, auto)
+        recorder = self.recorder if self.recorder is not None \
+            else active_recorder()
+        overload = (self._overload_controller(learning, auto, recorder)
                     if rt.overload.enabled else None)
+        phase_hist = self._m_phase
+        # source-poll seconds since the last finished batch: the next
+        # batch's flight record carries them, so a record's phases add
+        # up to the loop's time
+        pending = {"poll_s": 0.0}
         trackers = {k: LatencyTracker() for k in (
             "latency", "source_poll", "host_prep", "dispatch",
             "result_wait", "sink_write")}
@@ -2000,17 +2156,32 @@ class ScoringEngine:
         q: deque = deque()  # in-flight handles, FIFO, at most ``depth``
 
         def _finish(handle: dict) -> None:
+            tid = handle.get("trace_id")
             t_block = time.perf_counter()
-            res = self._finish_batch(handle)
-            trackers["result_wait"].record(time.perf_counter() - t_block)
-            trackers["host_prep"].record(handle["prep_s"])
-            trackers["dispatch"].record(handle["dispatch_s"])
+            # batch=tid: at depth > 1 the tracer's current batch is newer
+            with self.tracer.span("result_wait", batch=tid, nvtx=self._nvtx):
+                res = self._finish_batch(handle)
+            prep_s, dispatch_s = handle["prep_s"], handle["dispatch_s"]
+            wait_s = time.perf_counter() - t_block
+            trackers["result_wait"].record(wait_s)
+            trackers["host_prep"].record(prep_s)
+            trackers["dispatch"].record(dispatch_s)
             trackers["latency"].record(res.latency_s, rows=len(res.tx_id))
+            phase_hist["host_prep"].observe(prep_s)
+            phase_hist["dispatch"].observe(dispatch_s)
+            phase_hist["result_wait"].observe(wait_s)
             self.state.offsets = handle["source_offsets"]
+            sink_s = 0.0
             if sink is not None:
+                # an AsyncSink's enqueue (and any backpressure block): the
+                # loop thread's cost; its writer reports the write itself
                 t = time.perf_counter()
-                sink.append(res)
-                trackers["sink_write"].record(time.perf_counter() - t)
+                with self.tracer.span("sink_write", batch=tid,
+                                      nvtx=self._nvtx):
+                    sink.append(res)
+                sink_s = time.perf_counter() - t
+                phase_hist["sink_write"].observe(sink_s)
+                trackers["sink_write"].record(sink_s)
             if auto is not None:
                 auto.observe(len(res.tx_id), res.latency_s)
             if overload is not None:
@@ -2019,7 +2190,16 @@ class ScoringEngine:
                     # counted at finish: the replay's state updates landed
                     overload.note_replayed(rr)
                 overload.observe_batch(len(res.tx_id), res.latency_s)
-            recorder = active_recorder()
+            if recorder is not None:
+                # a slow batch's record names its span waterfall
+                extra = {"trace_id": tid} if tid else {}
+                recorder.record_batch(
+                    res.batch_index, len(res.tx_id),
+                    {"source_poll": pending["poll_s"], "host_prep": prep_s,
+                     "dispatch": dispatch_s, "result_wait": wait_s,
+                     "sink_write": sink_s},
+                    queue_depth=len(q), latency_s=res.latency_s, **extra)
+                pending["poll_s"] = 0.0
             if feedback is not None:
                 # between steps, before the checkpoint: the saved state
                 # holds the landed labels
@@ -2065,10 +2245,17 @@ class ScoringEngine:
                 _finish(q.popleft())
 
         def _poll() -> Optional[dict]:
+            # attributed to the batch that will consume it: begin_batch
+            # runs only after the poll, so the current id is the last one's
+            nid = (f"b{self.state.batches_done + len(q) + 1:08d}"
+                   if self.tracer.enabled else None)
             t = time.perf_counter()
-            cols = source.poll_batch()
+            with self.tracer.span("source_poll", batch=nid, nvtx=self._nvtx):
+                cols = source.poll_batch()
             dt = time.perf_counter() - t
             _add_wait(dt)
+            phase_hist["source_poll"].observe(dt)
+            pending["poll_s"] += dt
             if cols is not None:
                 trackers["source_poll"].record(dt)
             return cols
@@ -2083,15 +2270,20 @@ class ScoringEngine:
             if checkpointer is not None and any(
                     h["index"] % every == 0 for h in q):
                 _drain()  # a queued batch will checkpoint: nothing newer
+            idx = self.state.batches_done + len(q) + 1
+            tid = self.tracer.begin_batch(idx)
             handle = self._start_batch(cols)
             t_last_start = time.perf_counter()
-            handle["index"] = self.state.batches_done + len(q) + 1
+            handle["index"] = idx
+            handle["trace_id"] = tid
             handle["source_offsets"] = offs
             if replay_rows is not None:
                 handle["overload_replay_rows"] = replay_rows
             q.append(handle)
+            self._m_qdepth.set(len(q))
             while len(q) >= depth:
                 _finish(q.popleft())
+                self._m_qdepth.set(len(q))
 
         exhausted = False
         capped = False  # max_batches stopped the run (resumable)
@@ -2180,6 +2372,7 @@ class ScoringEngine:
             if overload is not None:
                 # revert every engine-side degrade for a later run
                 overload.deactivate()
+        self._m_qdepth.set(0)
         sink_drain = getattr(sink, "drain", None)
         if sink_drain is not None:
             sink_drain()
@@ -2227,22 +2420,25 @@ class ScoringEngine:
                 len(self._degraded_keys) - degraded0)
         return stats
 
-    def _overload_controller(self, learning, auto):
+    def _overload_controller(self, learning, auto, recorder):
         """The ladder for one run, with the engine-side effect of each
         rung (all reversible)."""
         from real_time_fraud_detection_system_tpu_torch.runtime.overload \
             import LadderActions, OverloadController
 
+        every = self.cfg.runtime.overload.recorder_sample_every
+
         def shed_optional(on: bool) -> None:
             # rung 1: the shadow and the learner pause through their
-            # hooks (the JAX loop also samples its per-batch flight
-            # records; the port's loop writes none to thin, A4c)
+            # hooks, and the flight record thins to every k-th batch
             self.shadow_paused = bool(on)
             if learning is not None:
                 if on:
                     learning.pause()
                 else:
                     learning.resume()
+            if recorder is not None:
+                recorder.set_sample_every(every if on else 1)
 
         def force_max_batch(on: bool) -> None:
             # rung 2: the largest bucket, a captured signature like any
@@ -2258,4 +2454,4 @@ class ScoringEngine:
                 shed_optional=shed_optional,
                 degrade_emission=self.set_degraded_emission,
                 force_max_batch=force_max_batch),
-            recorder_fn=active_recorder)
+            recorder_fn=lambda: recorder)

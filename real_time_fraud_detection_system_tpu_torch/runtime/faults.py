@@ -29,7 +29,8 @@ The supervisor also carries the learning loop across incarnations:
 engine. A watched incarnation reaches them, its feature cache, the shadow
 scorer and the learner's tap only through fences, so a zombie can change
 none of them; poison isolation runs without feedback or reload, with the
-learner paused.
+learner paused, and unprefetched: a source with ``set_sync``
+(``runtime/prefetch.py``) serves it synchronously.
 """
 
 from __future__ import annotations
@@ -842,6 +843,13 @@ def run_with_recovery(
         model_reload = (make_model_reload()
                         if make_model_reload and not poison_pending
                         else None)
+        # isolation runs unprefetched: set_sync(True) stops a
+        # PrefetchSource's producer and rewinds it to the consumed
+        # position, so the bisection sees the batch boundaries a replay
+        # sees; prefetching resumes once isolation got past the batch
+        set_sync = getattr(source, "set_sync", None)
+        if poison_pending and set_sync is not None:
+            set_sync(True)
         try:
             if poison_pending:
                 # no training overlaps a bisection in progress
@@ -866,6 +874,8 @@ def run_with_recovery(
                 poison_pending = False
                 fail_key, fail_count = None, 0
                 budget_used = 0
+                if set_sync is not None:
+                    set_sync(False)
                 if learning is not None:
                     learning.resume()
                 _retire(engine)

@@ -34,6 +34,9 @@ from real_time_fraud_detection_system_tpu_torch.features.spec import N_FEATURES
 from real_time_fraud_detection_system_tpu_torch.ops.dedup import (
     latest_wins_mask_np,
 )
+from real_time_fraud_detection_system_tpu_torch.runtime.sources import (
+    raise_for_kafka_error,
+)
 from real_time_fraud_detection_system_tpu_torch.utils.metrics import (
     get_registry,
 )
@@ -198,19 +201,6 @@ class FeatureCache:
                 self._labeled[sel])
 
 
-def _raise_for_kafka_error(ck, err) -> bool:
-    """The JAX runtime's poll-error policy: True for the end-of-partition
-    marker (skip it), ``ConnectionError`` for retriable transport errors
-    (the supervisor restarts through it), ``KafkaException`` otherwise."""
-    if getattr(err, "code", lambda: None)() == getattr(
-        ck.KafkaError, "_PARTITION_EOF", -191
-    ):
-        return True
-    if getattr(err, "retriable", lambda: False)():
-        raise ConnectionError(f"kafka transient error: {err}")
-    raise ck.KafkaException(err)
-
-
 class KafkaFeedbackSource:
     """The production feedback topic (``confluent_kafka``, imported at
     construction: without it this raises ``ModuleNotFoundError`` naming
@@ -250,7 +240,7 @@ class KafkaFeedbackSource:
                 break
             err = msg.error()
             if err is not None:
-                _raise_for_kafka_error(self._ck, err)  # EOF → skip
+                raise_for_kafka_error(self._ck, err)  # EOF → skip
                 continue
             if msg.value() is not None:
                 out.append(msg.value())

@@ -3,20 +3,24 @@ a hysteresis-driven degradation ladder.
 
 :class:`OverloadController` is an explicit state machine driven by the
 registry's signals — windowed p50 batch latency vs
-``runtime.latency_slo_ms``, ``rtfds_source_lag_rows``, sink queue fill,
-the cold-tier promoter's backlog — normalized into one scalar
-**pressure** (the max of the normalized components, so the worst signal
-owns the verdict). Distinct climb/descend thresholds plus per-direction
-dwell counts make the ladder flap-proof: one spike can neither climb nor
-descend it. The port's sources publish no lag and its sinks no queue
-depth yet (ROADMAP A2): those components are absent, so pressure comes
-from latency and the promoter backlog unless a caller publishes them.
+``runtime.latency_slo_ms``, the source's ``rtfds_source_lag_rows``
+(component ``lag``), the prefetch queue's ``rtfds_prefetch_queue_depth``
+over ``runtime.prefetch_batches`` (``prefetch_fill``), the async sinks'
+``rtfds_sink_queue_depth`` over ``runtime.sink_queue_batches``
+(``sink_fill``), the cold-tier promoter's backlog — normalized into one
+scalar **pressure** (the max of the normalized components, so the worst
+signal owns the verdict). The sources, the prefetcher and the sinks
+publish those series live (``runtime/sources.py``,
+``runtime/prefetch.py``, ``io/sink.py``). Distinct climb/descend
+thresholds plus per-direction dwell counts make the ladder flap-proof:
+one spike can neither climb nor descend it.
 
 The rungs, each reversible:
 
 1. **Shed optional work** — pause shadow scoring and learner training
-   through their pause hooks (the JAX engine also samples its per-batch
-   flight records; the port's loop writes none yet, ROADMAP A4c).
+   through their pause hooks, and sample the flight record (every
+   ``overload.recorder_sample_every``-th batch record; events always
+   land).
 2. **Degrade the data plane** — force the adaptive batcher to the
    largest bucket and switch to alerts-only emission. Both switches are
    HOST-side only: every dispatch stays a signature of
@@ -215,6 +219,11 @@ class OverloadController:
             self._note_lag(lag.value)
             if lag_high > 0:
                 comps["lag"] = lag.value / lag_high
+        pf_cap = int(self.rcfg.prefetch_batches)
+        if pf_cap > 0:
+            depth = self.reg.get("rtfds_prefetch_queue_depth")
+            if depth is not None:
+                comps["prefetch_fill"] = depth.value / pf_cap
         sink_cap = int(self.rcfg.sink_queue_batches)
         if sink_cap > 0:
             depth_total = self.reg.family_total("rtfds_sink_queue_depth")

@@ -5,10 +5,9 @@ Environment knobs (read at the first :func:`get_logger` call):
 
 - ``RTFDS_LOG_LEVEL`` — the tree's level (a level name or number; an
   unknown value keeps INFO and says so);
-- ``RTFDS_LOG_JSON=1`` — JSON lines instead of the human format.
-
-The JAX package adds the current batch's trace id to each JSON line; the
-port's span tracer comes with the serving extras (ROADMAP A4b).
+- ``RTFDS_LOG_JSON=1`` — JSON lines instead of the human format. Each
+  line carries the current batch's trace id (``utils/trace.py``), so a
+  log line can be matched with its span waterfall.
 """
 
 from __future__ import annotations
@@ -23,15 +22,25 @@ _configured = False
 
 
 class JsonLineFormatter(logging.Formatter):
-    """One JSON object per line: ts, level, logger, message."""
+    """One JSON object per line: ts, level, logger, message, and the
+    current trace and batch id."""
 
     def format(self, record: logging.LogRecord) -> str:
+        # imported here: the trace module is loaded after this one
+        from real_time_fraud_detection_system_tpu_torch.utils.trace import (
+            current_ids,
+        )
+
+        trace_id, batch = current_ids()
         out = {
             "t": round(record.created, 6),
             "level": record.levelname,
             "logger": record.name,
             "msg": record.getMessage(),
         }
+        if trace_id:
+            out["trace_id"] = trace_id
+            out["batch"] = batch
         if record.exc_info:
             out["exc"] = self.formatException(record.exc_info)
         return json.dumps(out, separators=(",", ":"), default=str)

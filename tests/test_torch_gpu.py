@@ -1769,3 +1769,133 @@ def test_nan_guard_under_graphs_equals_eager(cuda, tmp_path):
         np.testing.assert_array_equal(b.features, a.features)
     for (p, a), (_, b) in zip(_state_leaves(ee), _state_leaves(eg)):
         assert torch.equal(a, b), p
+
+
+def _whole_dollar_txs(n_rows=6000):
+    _, _, txs = generate_dataset(DataConfig(n_customers=200, n_terminals=400,
+                                            n_days=20, seed=5))
+    txs = txs.slice(slice(0, n_rows))
+    txs.amount_cents = np.round(txs.amount_cents / 100).astype(np.int64) * 100
+    return txs
+
+
+def _ingest_cfg(depth, precompile):
+    return Config(features=FeatureConfig(customer_capacity=512,
+                                         terminal_capacity=512),
+                  runtime=RuntimeConfig(batch_buckets=(256, 1024),
+                                        pipeline_depth=depth,
+                                        precompile=precompile))
+
+
+@pytest.mark.parametrize("precompile", [False, True])
+@pytest.mark.parametrize("depth", [1, 2])
+def test_prefetch_on_cuda_is_bit_identical_to_unprefetched(cuda, depth,
+                                                           precompile):
+    """The same whole-dollar stream served with and without a
+    ``PrefetchSource`` on the card: every output bit for bit, the fused
+    forest kernel once per batch both times (the producer thread does
+    host work only)."""
+    from real_time_fraud_detection_system_tpu_torch.runtime.prefetch import (
+        PrefetchSource,
+    )
+
+    txs = _whole_dollar_txs()
+    params, scaler = _graph_model("forest", cuda)
+    outs = []
+    for prefetch in (0, 3):
+        eng = ScoringEngine(_ingest_cfg(depth, precompile), "forest",
+                            params, scaler, device=cuda)
+        src = ReplaySource(txs, START, batch_rows=1000)
+        if prefetch:
+            src = PrefetchSource(src, max_batches=prefetch)
+        if precompile:
+            eng.precompile()
+        sink = MemorySink()
+        before = fk.fused_forest_leaf_sum.launches
+        try:
+            stats = eng.run(src, sink)
+        finally:
+            if prefetch:
+                src.close()
+        torch.cuda.synchronize()
+        assert fk.fused_forest_leaf_sum.launches - before == stats["batches"]
+        out = sink.concat()
+        out.pop("processed_at_us")
+        outs.append(out)
+    for k in outs[0]:
+        assert np.array_equal(outs[0][k], outs[1][k]), k
+
+
+def test_nvtx_ranges_open_only_on_cuda(cuda, monkeypatch):
+    """With the tracer on, a CUDA engine's spans push and pop one NVTX
+    range each, named ``rtfds.<phase>#<batch>``, on the thread that opened
+    them; a CPU engine in the same process pushes none."""
+    import threading
+
+    from real_time_fraud_detection_system_tpu_torch.utils.trace import (
+        get_tracer,
+    )
+
+    pushed, popped = [], []
+    monkeypatch.setattr(torch.cuda.nvtx, "range_push",
+                        lambda msg: pushed.append(
+                            (msg, threading.get_ident())))
+    monkeypatch.setattr(torch.cuda.nvtx, "range_pop",
+                        lambda: popped.append(threading.get_ident()))
+    tracer = get_tracer()
+    was = tracer.enabled
+    tracer.configure(enabled=True)
+    try:
+        txs = _whole_dollar_txs(2000)
+        params, scaler = _graph_model("forest", cuda)
+        eng = ScoringEngine(_ingest_cfg(2, False), "forest", params, scaler,
+                            device=cuda)
+        assert eng._nvtx is True
+        eng.run(ReplaySource(txs, START, batch_rows=1000), MemorySink())
+        names = [m for m, _ in pushed]
+        for phase in ("source_poll", "host_prep", "dispatch", "result_wait",
+                      "sink_write"):
+            assert f"rtfds.{phase}#1" in names, phase
+        assert len(pushed) == len(popped)
+        assert {t for _, t in pushed} == set(popped) == {
+            threading.get_ident()}
+        n = len(pushed)
+        cpu_params, cpu_scaler = _graph_model("forest", "cpu")
+        cpu = ScoringEngine(_ingest_cfg(2, False), "forest", cpu_params,
+                            cpu_scaler, device="cpu")
+        assert cpu._nvtx is False
+        cpu.run(ReplaySource(txs, START, batch_rows=1000), MemorySink())
+        assert len(pushed) == n
+    finally:
+        tracer.configure(enabled=was)
+        tracer.clear()
+
+
+def test_cpu_scorer_on_cuda_rescores_the_card_features(cuda):
+    """``scorer="cpu"`` on the card: the step (and its fused kernel) runs
+    as ever, and every probability is the host's ``predict_proba_np`` of
+    the features the card emitted, within ``1e-7`` of the card's own
+    forest scores."""
+    from real_time_fraud_detection_system_tpu_torch.io.artifacts import (
+        TrainedModel,
+    )
+
+    txs = _whole_dollar_txs(3000)
+    params, scaler = _graph_model("forest", "cpu")
+    model = TrainedModel("forest", scaler, params)
+    dev_params, dev_scaler = _graph_model("forest", cuda)
+    runs = []
+    for scorer in ("tpu", "cpu"):
+        eng = ScoringEngine(_ingest_cfg(2, False), "forest", dev_params,
+                            dev_scaler, device=cuda, scorer=scorer,
+                            cpu_model=model if scorer == "cpu" else None)
+        sink = MemorySink()
+        before = fk.fused_forest_leaf_sum.launches
+        stats = eng.run(ReplaySource(txs, START, batch_rows=1000), sink)
+        torch.cuda.synchronize()
+        assert fk.fused_forest_leaf_sum.launches - before == stats["batches"]
+        runs.append(sink.concat())
+    card, host = runs
+    np.testing.assert_allclose(host["prediction"], card["prediction"],
+                               rtol=0.0, atol=ATOL_PROB)
+    assert np.array_equal(host["tx_id"], card["tx_id"])

@@ -4,8 +4,11 @@ One check imports the port in a fresh interpreter where ``import jax``
 fails, and serves a batch of each model kind on the CPU (the gbt weights
 through the port's own artifact writer and reader), a batch under hash
 keys and under the customer sketch from envelopes, and one through the
-``score`` command, and a supervised checkpointed run that crashes and
-replays; the other reads the
+``score`` command, a supervised checkpointed run that crashes and
+replays, and ingest and observability (a prefetched run under the tracer,
+a flight record and the metrics server, a raw-table backfill, ``score
+--scorer cpu`` with prefetch and the observability flags); the other
+reads the
 port's sources (Python, CUDA and CUDA headers) and ``chip_smoke.py`` for
 an import of jax or a dotted reference into the JAX package.
 """
@@ -110,6 +113,54 @@ with tempfile.TemporaryDirectory() as tmp:
         Checkpointer(f"{tmp}/ck"), sink=MemorySink(), max_restarts=1,
         dead_letter=DeadLetterSink(f"{tmp}/dlq.jsonl"), max_batches=2)
     assert stats["restarts"] == 1 and stats["batches"] == 2
+# ingest and observability: a prefetched run under the tracer, a flight
+# record and the metrics server; a raw-table backfill; the score command
+# with the CPU scorer, prefetch and every observability flag
+import json
+import urllib.request
+from real_time_fraud_detection_system_tpu_torch.io.tables import (
+    RawTransactionsTable)
+from real_time_fraud_detection_system_tpu_torch.runtime.prefetch import (
+    PrefetchSource)
+from real_time_fraud_detection_system_tpu_torch.runtime.sources import (
+    KafkaSource, RawTableSource, make_kafka_source)  # noqa: F401
+from real_time_fraud_detection_system_tpu_torch.utils.metrics import (
+    FlightRecorder, MetricsServer, run_manifest)
+from real_time_fraud_detection_system_tpu_torch.utils.trace import get_tracer
+from real_time_fraud_detection_system_tpu_torch.utils.tracing import (
+    profile_to)
+tracer = get_tracer().configure(enabled=True)
+server = MetricsServer(port=0).start()
+with tempfile.TemporaryDirectory() as tmp:
+    eng = ScoringEngine(cfg, "forest", synthetic_ensemble(3, 3, device="cpu"),
+                        scaler, device="cpu")
+    eng.recorder = FlightRecorder(f"{tmp}/fr.jsonl",
+                                  manifest=run_manifest(cfg, "forest"))
+    raw = RawTransactionsTable(f"{tmp}/raw")
+    src = PrefetchSource(ReplaySource(txs, 1_743_465_600, batch_rows=200),
+                         max_batches=2)
+    with profile_to(f"{tmp}/prof"):
+        stats = eng.run(src, FanoutSink(MemorySink(), raw), max_batches=2)
+    src.close()
+    raw.flush()
+    assert stats["batches"] == 2 and len(raw) == stats["rows"] == txs.n
+    with urllib.request.urlopen(server.url + "/healthz", timeout=5) as r:
+        assert json.loads(r.read())["status"] == "ok"
+    eng.recorder.close()
+    eng.recorder = None
+    stats = eng.run(RawTableSource(f"{tmp}/raw", batch_rows=200),
+                    MemorySink())
+    assert stats["rows"] == txs.n
+    save_transactions(f"{tmp}/txs.npz", txs)
+    with open(f"{tmp}/gbt.npz", "wb") as f:
+        f.write(dump_model_bytes(TrainedModel("gbt", scaler, gbt)))
+    assert cli.main(["score", "--device", "cpu", "--data", f"{tmp}/txs.npz",
+                     "--model-file", f"{tmp}/gbt.npz", "--max-batches", "2",
+                     "--batch-rows", "200", "--scorer", "cpu",
+                     "--prefetch-batches", "2", "--metrics-dump",
+                     f"{tmp}/m.json", "--flight-record", f"{tmp}/f.jsonl",
+                     "--trace-out", f"{tmp}/t.json"]) == 0
+server.stop()
 assert not any(m.split(".")[0] in ("jax", "real_time_fraud_detection_system_tpu")
                for m, mod in sys.modules.items() if mod is not None)
 print("served without jax")

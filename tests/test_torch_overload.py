@@ -284,13 +284,12 @@ class _Backlog:
 def _ladder_cfgs(tmp_path, enabled):
     ok = dict(enabled=enabled, spill_path=str(tmp_path / "spill"),
               lag_high_rows=LAG_HIGH, climb_dwell_batches=2,
-              descend_dwell_batches=2)
+              descend_dwell_batches=2, recorder_sample_every=4)
     jcfg, tcfg = configs(buckets=(POLL,))
     jcfg = jcfg.replace(runtime=dataclasses.replace(
         jcfg.runtime, autobatch=True,
         overload=JOverloadConfig(**dict(
-            ok, spill_path=str(tmp_path / "jspill"),
-            recorder_sample_every=4))))
+            ok, spill_path=str(tmp_path / "jspill")))))
     tcfg = dataclasses.replace(tcfg, runtime=dataclasses.replace(
         tcfg.runtime, autobatch=True, overload=OverloadConfig(**ok)))
     return jcfg, tcfg

@@ -747,13 +747,21 @@ def test_async_sink_ordered_appends():
 
 
 def test_async_sink_backpressure_bounded_and_counted():
+    from real_time_fraud_detection_system_tpu_torch.utils.metrics import (
+        MetricsRegistry,
+    )
+
+    reg = MetricsRegistry()
     inner = _SlowSink(delay_s=0.05)
-    sink = AsyncSink(inner, max_queue=1)
+    sink = AsyncSink(inner, max_queue=1, registry=reg)
     for i in range(1, 5):
         sink.append(_res(i))
     sink.drain()
     sink.close()
-    assert sink.backpressure_s > 0.05  # blocked, and accounted
+    # blocked, and accounted
+    assert reg.get("rtfds_sink_backpressure_seconds_total",
+                   sink="_SlowSink").value > 0.05
+    assert reg.get("rtfds_sink_queue_depth", sink="_SlowSink").value == 0
     assert inner.order == [1, 2, 3, 4]
 
 
@@ -1140,11 +1148,16 @@ def test_score_cli_flag_defaults_match_jax():
               "overload_spill", "overload_lag_high",
               "overload_climb_pressure", "overload_descend_pressure",
               "overload_climb_dwell", "overload_descend_dwell",
-              "overload_max_deferred"]
+              "overload_max_deferred", "scorer", "from_date", "to_date",
+              "bootstrap", "topic", "idle_timeout", "raw_table",
+              "prefetch_batches", "metrics_port", "metrics_dump",
+              "healthz_max_batch_age", "healthz_max_lag_rows",
+              "flight_record", "flight_record_max_mb", "trace_out",
+              "trace_dir"]
     for dest in shared:
         assert t[dest].default == j[dest].default, dest
         assert t[dest].option_strings == j[dest].option_strings, dest
-        if j[dest].choices is not None and dest != "source":
+        if j[dest].choices is not None:
             assert list(t[dest].choices) == list(j[dest].choices), dest
     assert t["device"].default == "cuda" and "device" not in j
 
