@@ -177,12 +177,33 @@ Phases, each printing JSON lines:
    turns, and the ``rtfds.dispatch#…`` ranges under ``torch.profiler``;
    (e) one line naming the packages the card machine lacks for
    ``RawTableSource``, ``--raw-table`` and ``KafkaSource``.
-14. ``profile`` — a few batches of each main path, and of the forest path
+14. ``offline`` — the offline side of the zoo on the default dataset:
+   (a) ``compute_features_replay`` over the whole stream in chunks of
+   8,192 (rows/s), the whole-dollar copy's first 4 chunks against a
+   CPU-device replay (counts exact, the rest within ``rtol`` 1e-6), and
+   ``warm_start_state`` equal to the replay's final state bit for bit;
+   (b) the ``train`` command for logreg on the 153/30/30 split, then
+   logreg, mlp (64, 32), autoencoder (32, 8), gbt and the sequence
+   transformer (d_model 32, 2 heads, 2 layers, d_ff 64) trained
+   in-process, 5 epochs — fit and predict seconds, AUC-ROC, AP and
+   CP@100 each (the one cut: the gbt grows 10 trees of depth 8, not 100,
+   for the NumPy booster's host time) — and the device ms of one Adam
+   step of the mlp and of the transformer (median of 20 after 3); (c)
+   ``compare`` (logreg, mlp, autoencoder, sequence, 1 epoch) and
+   ``select`` (logreg, two learning rates, 2 folds), both exiting 0, and
+   ``train --model forest`` exiting 2 naming sklearn where it is missing;
+   (d) the trained logreg artifact scored through the ``score`` command
+   (the fused logreg kernel once per batch) and the trained gbt through
+   ``ScoringEngine`` (the leaf-sum kernel once per batch), the first 2
+   batches of each within 1e-6 of ``TrainedModel.predict_proba_np``;
+   (e) ``TrainedModel.predict_proba`` of the gbt on 65,536 test rows: one
+   leaf-sum launch, equal to ``leaf_sum_plain`` exactly.
+15. ``profile`` — a few batches of each main path, and of the forest path
    on the customer sketch, under ``torch.profiler``: device time by
    kernel, the device's idle share, the ``[B, NB]`` row gathers (none on
    the fused paths) and the small device-to-host copies (none of four
    bytes on the forest path: the window update makes no host sync).
-15. ``kernels`` — one line per the measurement contract, each kernel's
+16. ``kernels`` — one line per the measurement contract, each kernel's
    launches summed over every driven path that launched it.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises and
@@ -4111,6 +4132,379 @@ def phase_ingest(dev, device_info, data: dict) -> dict:
     return totals
 
 
+OFFLINE_CHUNK = 8192  # the replay's chunk (features/offline.py default)
+OFFLINE_PARITY_CHUNKS = 4  # (a): chunks held against a CPU-device replay
+OFFLINE_GBT_TREES = 10  # (b): the one cut, host time (100 in ModelConfig)
+OFFLINE_ADAM_WARMUP = 3  # (b): Adam steps before the timed ones
+OFFLINE_ADAM_STEPS = 20
+OFFLINE_SERVE_PARITY_BATCHES = 2  # (d)
+OFFLINE_PREDICT_ROWS = 65536  # (e)
+OFFLINE_SELECT = ("30", "60")  # (c): --start-valid, --start-test
+
+
+def _features_of(cols: dict) -> np.ndarray:
+    """The 15 raw feature columns of a sink's analyzed rows, as float32
+    (the sink writes counts as int32 and the rest as float64: exact)."""
+    from real_time_fraud_detection_system_tpu_torch.features.spec import (
+        FEATURE_NAMES,
+    )
+
+    return np.stack([cols["tx_amount"] if n == "TX_AMOUNT"
+                     else cols[n.lower()] for n in FEATURE_NAMES],
+                    axis=1).astype(np.float32)
+
+
+def _adam_step_ms(opt, loss, *args) -> float:
+    """Median device ms of one ``Adam.step`` over ``OFFLINE_ADAM_STEPS``
+    steps after ``OFFLINE_ADAM_WARMUP``, each between two CUDA events."""
+    for _ in range(OFFLINE_ADAM_WARMUP):
+        opt.step(loss, *args)
+    times = []
+    for _ in range(OFFLINE_ADAM_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        opt.step(loss, *args)
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
+    return float(np.median(times))
+
+
+def _cli_run(argv: list, logger: str) -> tuple:
+    """``cli.main(argv)`` with its stdout and the named logger's records
+    captured and the launch counters reset around it: (rc, its last stdout
+    line parsed or None, the log text, the launches, seconds)."""
+    import logging
+
+    from real_time_fraud_detection_system_tpu_torch import cli
+
+    out, log_text = io.StringIO(), io.StringIO()
+    handler = logging.StreamHandler(log_text)
+    lg = logging.getLogger(logger)
+    lg.addHandler(handler)
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc, launches = drive(lambda: cli.main(argv))
+    finally:
+        lg.removeHandler(handler)
+    seconds = time.perf_counter() - t0
+    lines = out.getvalue().strip().splitlines()
+    last = json.loads(lines[-1]) if rc == 0 and lines else None
+    return rc, last, log_text.getvalue(), launches, seconds
+
+
+def phase_offline(dev, device_info, data: dict) -> dict:
+    """The offline side of the zoo on the card: (a) the feature replay,
+    (b) training of every kind, (c) ``compare`` and ``select``, (d) the
+    trained logreg and gbt served back through their kernels, (e) the
+    trained gbt's ``predict_proba`` through the leaf-sum kernel."""
+    import importlib.util
+
+    from real_time_fraud_detection_system_tpu_torch.config import ModelConfig
+    from real_time_fraud_detection_system_tpu_torch.features import (
+        offline,
+    )
+    from real_time_fraud_detection_system_tpu_torch.features.spec import (
+        FEATURE_NAMES,
+    )
+    from real_time_fraud_detection_system_tpu_torch.io import sink as sinks
+    from real_time_fraud_detection_system_tpu_torch.io.artifacts import (
+        load_model,
+        save_model,
+        save_transactions,
+    )
+    from real_time_fraud_detection_system_tpu_torch.io.sink import MemorySink
+    from real_time_fraud_detection_system_tpu_torch.models import (
+        mlp,
+        sequence,
+    )
+    from real_time_fraud_detection_system_tpu_torch.models.optim import Adam
+    from real_time_fraud_detection_system_tpu_torch.models.scaler import (
+        transform,
+    )
+    from real_time_fraud_detection_system_tpu_torch.models.train import (
+        fit_and_assess,
+        fit_and_assess_sequence,
+        scale_split_to_txs,
+        train_delay_test_split,
+    )
+    from real_time_fraud_detection_system_tpu_torch.ops.forest_kernels import (
+        leaf_sum_plain,
+    )
+    from real_time_fraud_detection_system_tpu_torch.runtime.engine import (
+        ScoringEngine,
+    )
+    from real_time_fraud_detection_system_tpu_torch.runtime.sources import (
+        ReplaySource,
+    )
+    from real_time_fraud_detection_system_tpu_torch.utils import tree
+
+    t_phase = time.perf_counter()
+    card = {"card": device_info["smi_name"],
+            "power_limit": device_info["power_limit"]}
+    cfg, txs, whole = data["cfg"], data["txs"], data["txs_whole_dollars"]
+    totals = {name: 0 for name in KERNELS}
+
+    def add(launches: dict) -> None:
+        for k in totals:
+            totals[k] += launches[k]
+
+    # (a) the replay: the whole stream on the card, timed; the whole-dollar
+    # copy's first chunks against a CPU-device replay; warm_start_state
+    # against the replay's own final state (whole dollars: bit for bit)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    feats, launches = drive(lambda: offline.compute_features_replay(
+        txs, cfg.features, chunk=OFFLINE_CHUNK, device=dev))
+    replay_s = time.perf_counter() - t0
+    add(launches)
+    check(feats.shape == (txs.n, 15) and bool(np.isfinite(feats).all()),
+          "offline (a): replayed features not finite [N, 15]")
+    wfeats, wstate = offline._replay(whole, cfg.features, "2025-04-01",
+                                     OFFLINE_CHUNK, False, True, dev)
+    n_par = OFFLINE_PARITY_CHUNKS * OFFLINE_CHUNK
+    cpu = offline.compute_features_replay(whole.slice(slice(0, n_par)),
+                                          cfg.features, chunk=OFFLINE_CHUNK,
+                                          device="cpu")
+    counts = [i for i, n in enumerate(FEATURE_NAMES) if "_NB_TX_" in n]
+    rest = [i for i in range(15) if i not in counts]
+    check(np.array_equal(wfeats[:n_par, counts], cpu[:, counts]),
+          "offline (a): replayed counts differ from the CPU replay")
+    np.testing.assert_allclose(wfeats[:n_par, rest], cpu[:, rest],
+                               rtol=RTOL_FEATURE)
+    warm = offline.warm_start_state(whole, cfg.features,
+                                    chunk=OFFLINE_CHUNK, device=dev)
+    same_state = all(torch.equal(a, b) for a, b in
+                     zip(tree.leaves(warm), tree.leaves(wstate)))
+    check(same_state, "offline (a): warm_start_state differs from the "
+                      "replay's final state")
+    emit({"phase": "offline", "part": "a", "rows": txs.n,
+          "chunk": OFFLINE_CHUNK, "replay_s": replay_s,
+          "replay_rows_per_s": txs.n / replay_s,
+          "parity_rows": n_par,
+          "parity_bit_identical": bool(np.array_equal(wfeats[:n_par], cpu)),
+          "warm_start_equals_replay_state": same_state,
+          "kernel_launches": launches, **card})
+    del wfeats, wstate, warm, cpu
+
+    dtr, dde, dte = scale_split_to_txs(
+        txs, cfg.train.delta_train_days, cfg.train.delta_delay_days,
+        cfg.train.delta_test_days)
+    check((dtr, dde, dte) == (153, 30, 30),
+          f"offline: the 245-day dataset split {dtr}/{dde}/{dte}")
+    train_mask, test_mask = train_delay_test_split(
+        txs, delta_train=dtr, delta_delay=dde, delta_test=dte)
+    collected = {}
+    make_sink = sinks.make_parquet_sink
+
+    def collecting(path):
+        collected[path] = MemorySink()
+        return collected[path]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        save_transactions(f"{tmp}/txs.npz", txs)
+
+        # (b) training: the train command for logreg, then every kind
+        # in-process with its fit and predict seconds
+        rc, logreg_line, _, launches, seconds = _cli_run(
+            ["train", "--data", f"{tmp}/txs.npz", "--model", "logreg",
+             "--out-model", f"{tmp}/logreg.npz"], "train")
+        check(rc == 0, f"offline (b): train --model logreg exited {rc}")
+        add(launches)
+        emit({"phase": "offline", "part": "b", "command": "train",
+              "model": "logreg", "seconds_with_replay": seconds,
+              "last_line": logreg_line, "kernel_launches": launches,
+              **card})
+        gbt_cfg = cfg.replace(model=dataclasses.replace(
+            cfg.model, forest_n_trees=OFFLINE_GBT_TREES))
+        trained = {}
+        for kind in ("logreg", "mlp", "autoencoder", "gbt", "sequence"):
+            if kind == "sequence":
+                run = lambda: fit_and_assess_sequence(  # noqa: E731
+                    txs, cfg, train_mask, test_mask, device=dev)
+            else:
+                run = lambda: fit_and_assess(  # noqa: E731
+                    txs, feats, gbt_cfg if kind == "gbt" else cfg, kind,
+                    train_mask, test_mask, device=dev)
+            (model, metrics, fit_s, pred_s, probs), launches = drive(run)
+            add(launches)
+            check(probs.shape == (int(test_mask.sum()),)
+                  and bool(np.isfinite(probs).all()),
+                  f"offline (b): {kind} test probabilities")
+            if kind == "gbt":
+                check(launches["leaf_sum"] == 1,
+                      f"offline (b): gbt predict launched {launches}")
+            else:
+                check(not any(launches.values()),
+                      f"offline (b): {kind} launched {launches}")
+            trained[kind] = model
+            emit({"phase": "offline", "part": "b", "model": kind,
+                  "fit_s": fit_s, "predict_s": pred_s,
+                  "train_rows": int(train_mask.sum()),
+                  "test_rows": int(test_mask.sum()),
+                  "auc_roc": metrics["auc_roc"],
+                  "average_precision": metrics["average_precision"],
+                  "card_precision_top_100": metrics["card_precision@100"],
+                  "epochs": cfg.train.epochs,
+                  "trees": OFFLINE_GBT_TREES if kind == "gbt" else None,
+                  "kernel_launches": launches, **card})
+        # device ms per Adam step: the mlp on one 4,096-row batch of the
+        # scaled train features, the transformer on one 64-history batch
+        xs = transform(trained["mlp"].scaler, torch.as_tensor(
+            feats[train_mask][:cfg.train.batch_size], device=dev))
+        ys = torch.as_tensor(txs.tx_fraud[train_mask][:cfg.train.batch_size]
+                             .astype(np.float32), device=dev)
+        mlp_ms = _adam_step_ms(
+            Adam(mlp.init_mlp(15, tuple(cfg.model.mlp_hidden), 0, dev),
+                 1e-3),
+            lambda p, x, y: mlp.mlp_loss(p, x, y, None, 1.0), xs, ys)
+        seqs = sequence.build_sequences(
+            txs.slice(train_mask), max_len=cfg.features.history_len,
+            start_epoch_s=START_EPOCH_S)
+        sb = [torch.as_tensor(a[:64], device=dev)
+              for a in (seqs.x, seqs.y, seqs.mask)]
+        m = cfg.model
+        seq_ms = _adam_step_ms(
+            Adam(sequence.init_transformer(m.seq_d_model, m.seq_n_heads,
+                                           m.seq_n_layers, m.seq_d_ff,
+                                           device=dev), 1e-3),
+            lambda p, x, y, k: sequence.transformer_loss(p, x, y, k, 1.0),
+            *sb)
+        emit({"phase": "offline", "part": "b", "adam_step_ms": {
+            "mlp": mlp_ms, "transformer": seq_ms},
+            "mlp_batch": cfg.train.batch_size, "mlp_hidden":
+            list(cfg.model.mlp_hidden), "transformer_batch": 64,
+            "transformer_dims": [m.seq_d_model, m.seq_n_heads,
+                                 m.seq_n_layers, m.seq_d_ff],
+            "history_len": cfg.features.history_len,
+            "median_of": OFFLINE_ADAM_STEPS, "warmup": OFFLINE_ADAM_WARMUP,
+            **card})
+
+        # (c) compare and select, and the forest's refusal without sklearn
+        rc, line, _, launches, seconds = _cli_run(
+            ["compare", "--data", f"{tmp}/txs.npz", "--models", "logreg",
+             "mlp", "autoencoder", "sequence", "--epochs", "1"], "compare")
+        check(rc == 0 and [r["model"] for r in line["models"]]
+              == ["logreg", "mlp", "autoencoder", "sequence"],
+              f"offline (c): compare exited {rc}: {line}")
+        add(launches)
+        emit({"phase": "offline", "part": "c", "command": "compare",
+              "seconds_with_replay": seconds, "last_line": line, **card})
+        rc, line, _, launches, seconds = _cli_run(
+            ["select", "--data", f"{tmp}/txs.npz", "--model", "logreg",
+             "--grid", "learning_rate=0.01,0.001", "--folds", "2",
+             "--epochs", "1", "--start-valid", OFFLINE_SELECT[0],
+             "--start-test", OFFLINE_SELECT[1]], "select")
+        check(rc == 0 and line["metrics"]["auc_roc"]["best_params"],
+              f"offline (c): select exited {rc}: {line}")
+        add(launches)
+        emit({"phase": "offline", "part": "c", "command": "select",
+              "seconds_with_replay": seconds, "last_line": line, **card})
+        if importlib.util.find_spec("sklearn") is None:
+            rc, _, log_text, _, _ = _cli_run(
+                ["train", "--data", f"{tmp}/txs.npz", "--model", "forest",
+                 "--out-model", f"{tmp}/forest.npz"], "train")
+            check(rc == 2 and "sklearn" in log_text,
+                  f"offline (c): train --model forest exited {rc}: "
+                  f"{log_text!r}")
+            refusal = {"rc": rc, "log": log_text.strip()}
+        else:
+            refusal = {"rc": None, "log": "sklearn is installed here: "
+                                          "the refusal does not apply"}
+        emit({"phase": "offline", "part": "c", "command": "train",
+              "model": "forest", **refusal, **card})
+
+        # (d) serve what was trained: the logreg artifact through the
+        # score command (the fused logreg kernel), the gbt through the
+        # engine (the leaf-sum kernel), each batch's first rows against
+        # the host scorer
+        sinks.make_parquet_sink = collecting
+        try:
+            rc, stats, _, launches, seconds = _cli_run(
+                ["score", "--data", f"{tmp}/txs.npz", "--model-file",
+                 f"{tmp}/logreg.npz", "--batch-rows", str(BATCH_ROWS),
+                 "--out", f"{tmp}/out-logreg"], "score")
+        finally:
+            sinks.make_parquet_sink = make_sink
+        check(rc == 0 and stats["rows"] == txs.n,
+              f"offline (d): score exited {rc}")
+        check(launches["fused_featurize_score"] == stats["batches"]
+              and launches["leaf_sum"] == 0
+              and launches["fused_forest_leaf_sum"] == 0,
+              f"offline (d): logreg launches {launches} for "
+              f"{stats['batches']} batches")
+        add(launches)
+        logreg = load_model(f"{tmp}/logreg.npz", device=dev)
+        out = collected[f"{tmp}/out-logreg"]
+        logreg_err = 0.0
+        for cols in out.batches[:OFFLINE_SERVE_PARITY_BATCHES]:
+            want = logreg.predict_proba_np(_features_of(cols))
+            logreg_err = max(logreg_err, float(np.abs(
+                cols["prediction"] - want).max()))
+        check(logreg_err <= ATOL_SIGMOID,
+              f"offline (d): served logreg vs predict_proba_np {logreg_err}")
+        emit({"phase": "offline", "part": "d", "model": "logreg",
+              "route": "score command", "rows": stats["rows"],
+              "batches": stats["batches"], "rows_per_s": stats["rows_per_s"],
+              "max_abs_err_vs_predict_proba_np": logreg_err,
+              "atol": ATOL_SIGMOID, "kernel_launches": launches, **card})
+
+        save_model(f"{tmp}/gbt.npz", trained["gbt"])
+        gbt = load_model(f"{tmp}/gbt.npz", device=dev)
+        check(gbt.content_sha256 is not None, "offline (d): gbt hash")
+        eng = ScoringEngine(cfg, "gbt", gbt.params, gbt.scaler, device=dev)
+        check(eng.leaf_tables is not None,
+              "offline (d): the trained gbt is not on the leaf-sum kernel")
+        sink = MemorySink()
+        stats, launches = drive(lambda: eng.run(
+            ReplaySource(txs, START_EPOCH_S, batch_rows=BATCH_ROWS), sink))
+        check(launches["leaf_sum"] == stats["batches"]
+              and launches["fused_forest_leaf_sum"] == 0
+              and launches["fused_featurize_score"] == 0,
+              f"offline (d): gbt launches {launches} for "
+              f"{stats['batches']} batches")
+        add(launches)
+        gbt_err = 0.0
+        for cols in sink.batches[:OFFLINE_SERVE_PARITY_BATCHES]:
+            want = gbt.predict_proba_np(_features_of(cols))
+            gbt_err = max(gbt_err, float(np.abs(
+                cols["prediction"] - want).max()))
+        check(gbt_err <= ATOL_SIGMOID,
+              f"offline (d): served gbt vs predict_proba_np {gbt_err}")
+        emit({"phase": "offline", "part": "d", "model": "gbt",
+              "route": "ScoringEngine", "rows": stats["rows"],
+              "batches": stats["batches"], "rows_per_s": stats["rows_per_s"],
+              "max_abs_err_vs_predict_proba_np": gbt_err,
+              "atol": ATOL_SIGMOID, "kernel_launches": launches, **card})
+
+    # (e) the trained gbt's predict_proba on the card: one leaf-sum launch
+    # on 65,536 test rows, equal to the plain version exactly
+    rows = feats[test_mask][:OFFLINE_PREDICT_ROWS]
+    model = trained["gbt"]
+    probs, launches = drive(lambda: model.predict_proba(rows))
+    add(launches)
+    check(launches["leaf_sum"] == 1,
+          f"offline (e): predict_proba launched {launches}")
+    params, tables = model._device_route()
+    x = transform(model.scaler, torch.as_tensor(rows, device=dev))
+    plain = torch.sigmoid(params.base_score
+                          + leaf_sum_plain(tables, x)).cpu().numpy()
+    err = float(np.abs(probs - plain).max())
+    check(err == 0.0, f"offline (e): predict_proba vs plain {err}")
+    emit({"phase": "offline", "part": "e", "rows": len(rows),
+          "max_abs_err_vs_leaf_sum_plain": err, "kernel_launches": launches,
+          **card})
+    emit({"phase": "offline", "part": "total",
+          "seconds": time.perf_counter() - t_phase,
+          "reduced": {"gbt_trees": f"{OFFLINE_GBT_TREES} of "
+                                   f"{ModelConfig().forest_n_trees} "
+                                   "(the NumPy booster's host time)"},
+          "kernel_launches": totals, **card})
+    return totals
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4150,6 +4544,7 @@ def main() -> int:
     add(phase_zoo(dev, info, data))
     add(phase_precompile(dev, info, data))
     add(phase_ingest(dev, info, data))
+    add(phase_offline(dev, info, data))
     for kind in PATHS:
         phase_profile(dev, data, kind)
     phase_profile(dev, data, "forest", dataclasses.replace(

@@ -1,16 +1,32 @@
-"""Command line of the port — ``score``, the serving entry point:
+"""Command line of the port: ``score``, the serving entry point, and the
+offline side, ``train``, ``compare`` and ``select``:
 
     python -m real_time_fraud_detection_system_tpu_torch.cli score \\
         --data txs.npz --model-file model.npz --out analyzed/
+    python -m real_time_fraud_detection_system_tpu_torch.cli train \\
+        --data txs.npz --model logreg --out-model model.npz
 
-It reads the artifacts that the JAX package's ``datagen`` and ``train``
-commands write (a transactions ``.npz`` and a model ``.npz``), replays the
-table through :class:`~.runtime.engine.ScoringEngine` and prints the run's
-stats as one JSON line at the end. The flags it shares with the JAX
-``score`` take their names, defaults and checks; ``--device`` (default
-``cuda``) is the port's own. ``--checkpoint-dir`` checkpoints the stream
-(``--resume`` continues from it); ``--max-restarts`` runs it under the
-fault supervisor (``runtime/faults.py``) with the stall watchdog
+``train`` replays the table through the online featurizer, splits it
+train/delay/test (153/30/30 days by default), fits one kind of the zoo,
+writes the artifact (the JAX package's ``.npz`` v1) and prints the test
+metrics as one JSON line. ``compare`` fits several kinds on one split and
+prints their metrics and fit/predict seconds; ``select`` runs the
+prequential grid search (``--grid field=v1,v2`` over ``ModelConfig`` and
+``TrainConfig`` fields) and prints the best parameters per metric. They
+take the JAX commands' flags, defaults and choices, and their last line
+has the JAX commands' JSON shape. The tree and forest kinds need sklearn
+and ``--plots-dir`` needs matplotlib: without them these exit 2 naming
+the package.
+
+``score`` reads the artifacts that the JAX package's ``datagen`` and ``train``
+commands write (a transactions ``.npz`` and a model ``.npz``), or the
+port's own, replays the table through
+:class:`~.runtime.engine.ScoringEngine` and prints the run's stats as one
+JSON line at the end. The flags it shares with the JAX ``score`` take
+their names, defaults and checks; ``--device`` (default ``cuda``, on
+every subcommand) is the port's own. ``--checkpoint-dir`` checkpoints
+the stream (``--resume`` continues from it); ``--max-restarts`` runs it
+under the fault supervisor (``runtime/faults.py``) with the stall watchdog
 (``--stall-timeout``) and poison isolation into ``--dead-letter``. The
 checkpoints are the JAX package's format: either package resumes the
 other's. ``--key-mode exact`` serves the tiered feature store, with
@@ -42,14 +58,17 @@ with the model's NumPy ``predict_proba_np``. Observability:
 ``--metrics-dump``, ``--flight-record`` (``--flight-record-max-mb``),
 ``--trace-out`` (the spans as Chrome-trace JSON) and ``--trace-dir`` (a
 ``torch.profiler`` trace).
-Not ported yet: object-store output (ROADMAP A9), ``--resume-merge`` and
-``--resume-merge-cold`` (A7), the ``registry`` subcommand (A9).
+Not ported yet: object-store input and output (ROADMAP A9),
+``--resume-merge`` and ``--resume-merge-cold`` (A7), and the other JAX
+subcommands (``datagen``, ``registry``, ``import-model``, the operator
+tools: A9).
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import importlib.util
 import json
 import logging
 import math
@@ -717,6 +736,217 @@ def _make_learning(args, cfg, model):
     return learning, model
 
 
+_KINDS = ["logreg", "mlp", "tree", "forest", "gbt", "autoencoder",
+          "sequence"]
+
+
+def _missing(log_, packages: dict) -> bool:
+    """Log and report the first missing package of ``{package: what needs
+    it}`` (the caller exits 2); nothing is substituted for it."""
+    for pkg, what in packages.items():
+        if importlib.util.find_spec(pkg) is None:
+            log_.error("%s needs %s, which is not installed", what, pkg)
+            return True
+    return False
+
+
+def _sklearn_kinds(kinds) -> dict:
+    """``{"sklearn": ...}`` when any of ``kinds`` is fitted by sklearn."""
+    tree_kinds = [k for k in kinds if k in ("tree", "forest")]
+    return ({"sklearn": f"--model {'/'.join(tree_kinds)}"}
+            if tree_kinds else {})
+
+
+def _offline_config(args):
+    from real_time_fraud_detection_system_tpu_torch.config import (
+        Config,
+        TrainConfig,
+    )
+
+    return Config(train=TrainConfig(
+        delta_train_days=args.delta_train,
+        delta_delay_days=args.delta_delay,
+        delta_test_days=args.delta_test,
+        epochs=args.epochs))
+
+
+def cmd_train(args) -> int:
+    """Offline training of one kind on a generated table: the artifact to
+    ``--out-model``, the test metrics as the last line."""
+    from real_time_fraud_detection_system_tpu_torch.io.artifacts import (
+        load_transactions,
+        save_model,
+    )
+    from real_time_fraud_detection_system_tpu_torch.models.train import (
+        train_model,
+    )
+
+    tlog = logging.getLogger("train")
+    if _missing(tlog, _sklearn_kinds([args.model])):
+        return 2
+    txs = load_transactions(args.data)
+    model, metrics = train_model(txs, _offline_config(args), kind=args.model,
+                                 device=args.device)
+    save_model(args.out_model, model)
+    tlog.info("model=%s metrics=%s -> %s", args.model,
+              {k: round(v, 4) for k, v in metrics.items()}, args.out_model)
+    print(_json_line({"model": args.model, **metrics}))
+    return 0
+
+
+def cmd_compare(args) -> int:
+    """Fit every requested kind on one shared split; metrics and fit and
+    predict seconds per kind (the reference's classifier comparison,
+    ``model_training.ipynb · cells 50-56``), and optionally a PNG report
+    per kind."""
+    from real_time_fraud_detection_system_tpu_torch.features.offline import (
+        compute_features_replay,
+    )
+    from real_time_fraud_detection_system_tpu_torch.io.artifacts import (
+        load_transactions,
+    )
+    from real_time_fraud_detection_system_tpu_torch.models.train import (
+        fit_and_assess,
+        fit_and_assess_sequence,
+        scale_split_to_txs,
+        train_delay_test_split,
+    )
+
+    clog = logging.getLogger("compare")
+    need = _sklearn_kinds(args.models)
+    if args.plots_dir:
+        need["matplotlib"] = "--plots-dir"
+    if _missing(clog, need):
+        return 2
+    txs = load_transactions(args.data)
+    cfg = _offline_config(args)
+    # the sequence family scores from event histories: no replay unless a
+    # feature-matrix kind was asked for
+    features = (compute_features_replay(txs, cfg.features,
+                                        start_date=cfg.data.start_date,
+                                        device=args.device)
+                if any(k != "sequence" for k in args.models) else None)
+    dtr, dde, dte = scale_split_to_txs(
+        txs, cfg.train.delta_train_days, cfg.train.delta_delay_days,
+        cfg.train.delta_test_days)
+    train_mask, test_mask = train_delay_test_split(
+        txs, delta_train=dtr, delta_delay=dde, delta_test=dte)
+    if args.plots_dir:
+        from real_time_fraud_detection_system_tpu_torch.models.plots import (
+            save_plots,
+        )
+
+        os.makedirs(args.plots_dir, exist_ok=True)
+    rows = []
+    for kind in args.models:
+        if kind == "sequence":
+            _, metrics, fit_s, pred_s, probs = fit_and_assess_sequence(
+                txs, cfg, train_mask, test_mask, device=args.device)
+        else:
+            _, metrics, fit_s, pred_s, probs = fit_and_assess(
+                txs, features, cfg, kind, train_mask, test_mask,
+                device=args.device)
+        row = {"model": kind,
+               **{k: round(float(v), 4) for k, v in metrics.items()},
+               "fit_seconds": round(fit_s, 3),
+               "predict_seconds": round(pred_s, 3)}
+        rows.append(row)
+        clog.info("%s", row)
+        if args.plots_dir:
+            save_plots(os.path.join(args.plots_dir, f"{kind}.png"),
+                       txs.tx_fraud[test_mask], probs, label=kind)
+    print(_json_line({"split_days": [dtr, dde, dte], "models": rows}))
+    return 0
+
+
+def _parse_grid(specs, slog) -> Optional[dict]:
+    """``field=v1,v2,...`` specs → ``{field: [values]}`` (ints, floats,
+    else strings), the fields checked against ``ModelConfig`` and
+    ``TrainConfig``; None (logged) on a bad spec."""
+    from real_time_fraud_detection_system_tpu_torch.config import (
+        ModelConfig,
+        TrainConfig,
+    )
+
+    known = {f.name for f in dataclasses.fields(ModelConfig)} | {
+        f.name for f in dataclasses.fields(TrainConfig)}
+    grid = {}
+    for spec in specs:
+        field, _, vals = spec.partition("=")
+        if not vals:
+            slog.error("--grid expects field=v1,v2,... (got %r)", spec)
+            return None
+        if field not in known:
+            slog.error("--grid field %r is not a ModelConfig/TrainConfig "
+                       "field (known: %s)", field, ", ".join(sorted(known)))
+            return None
+        parsed = []
+        for v in vals.split(","):
+            try:
+                parsed.append(int(v))
+            except ValueError:
+                try:
+                    parsed.append(float(v))
+                except ValueError:
+                    parsed.append(v)
+        grid[field] = parsed
+    return grid
+
+
+def cmd_select(args) -> int:
+    """Prequential hyper-parameter selection: the validation and test
+    sweeps of the reference's ``model_selection_wrapper``
+    (``shared_functions.py:774-872``); the best parameters per metric and
+    the candidates' mean fit and predict seconds as the last line."""
+    from real_time_fraud_detection_system_tpu_torch.config import (
+        Config,
+        TrainConfig,
+    )
+    from real_time_fraud_detection_system_tpu_torch.features.offline import (
+        compute_features_replay,
+    )
+    from real_time_fraud_detection_system_tpu_torch.io.artifacts import (
+        load_transactions,
+    )
+    from real_time_fraud_detection_system_tpu_torch.models.selection import (
+        execution_times,
+        model_selection_wrapper,
+        summarize_performances,
+    )
+
+    slog = logging.getLogger("select")
+    # validate the grid before the data load and the feature replay
+    grid = _parse_grid(args.grid, slog)
+    if grid is None or _missing(slog, _sklearn_kinds([args.model])):
+        return 2
+    txs = load_transactions(args.data)
+    cfg = Config(train=TrainConfig(epochs=args.epochs))
+    features = compute_features_replay(txs, cfg.features,
+                                       start_date=cfg.data.start_date,
+                                       device=args.device)
+    rows = model_selection_wrapper(
+        txs, features, cfg, args.model, grid,
+        start_day_training_for_valid=args.start_valid,
+        start_day_training_for_test=args.start_test,
+        n_folds=args.folds, device=args.device)
+    summaries = summarize_performances(rows)
+    out = {
+        "model": args.model,
+        "grid": grid,
+        "metrics": {
+            m: {"best_params": s.best_params,
+                "validation": [round(s.validation_mean, 4),
+                               round(s.validation_std, 4)],
+                "test": [round(s.test_mean, 4), round(s.test_std, 4)]}
+            for m, s in summaries.items()
+        },
+        "execution_times": execution_times(rows),
+    }
+    slog.info("best by auc_roc: %s", summaries["auc_roc"].best_params)
+    print(_json_line(out))
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="python -m real_time_fraud_detection_system_tpu_torch.cli",
@@ -991,7 +1221,62 @@ def build_parser() -> argparse.ArgumentParser:
                         "Chrome-trace JSON to this file at run end (a "
                         "bounded ring buffer, safe on unbounded streams)")
     p.set_defaults(fn=cmd_score)
+
+    p = sub.add_parser("train", help="offline training on a generated table")
+    p.add_argument("--data", required=True)
+    p.add_argument("--model", default="forest", choices=_KINDS)
+    p.add_argument("--out-model", required=True)
+    _add_split_flags(p)
+    p.set_defaults(fn=cmd_train)
+
+    p = sub.add_parser(
+        "compare",
+        help="fit several model kinds on one split; metrics + timings")
+    p.add_argument("--data", required=True)
+    p.add_argument("--models", nargs="+",
+                   default=["logreg", "tree", "forest", "gbt", "mlp"],
+                   choices=_KINDS)
+    _add_split_flags(p)
+    p.add_argument("--plots-dir", default="",
+                   help="write <kind>.png ROC/PR/threshold reports here")
+    p.set_defaults(fn=cmd_compare)
+
+    p = sub.add_parser(
+        "select",
+        help="prequential hyper-parameter selection (validation+test "
+             "sweeps)")
+    p.add_argument("--data", required=True)
+    p.add_argument("--model", default="tree",
+                   choices=["logreg", "mlp", "tree", "forest", "gbt"])
+    p.add_argument("--grid", nargs="+", required=True,
+                   metavar="FIELD=V1,V2",
+                   help="e.g. tree_max_depth=2,4,8 epochs=3,5")
+    p.add_argument("--start-valid", type=int, required=True,
+                   help="training-start day for the validation sweep")
+    p.add_argument("--start-test", type=int, required=True,
+                   help="training-start day for the test sweep (later; "
+                        "windows stay disjoint per the wrapper contract)")
+    p.add_argument("--folds", type=int, default=4)
+    p.add_argument("--epochs", type=int, default=3)
+    _add_device_flag(p)
+    p.set_defaults(fn=cmd_select)
     return ap
+
+
+def _add_device_flag(p) -> None:
+    p.add_argument("--device", default="cuda",
+                   help="torch device to fit and predict on (the CPU only "
+                        "when named)")
+
+
+def _add_split_flags(p) -> None:
+    """The train/delay/test spans, ``--epochs`` and ``--device`` of
+    ``train`` and ``compare``."""
+    p.add_argument("--delta-train", type=int, default=153)
+    p.add_argument("--delta-delay", type=int, default=30)
+    p.add_argument("--delta-test", type=int, default=30)
+    p.add_argument("--epochs", type=int, default=5)
+    _add_device_flag(p)
 
 
 def main(argv: Optional[List[str]] = None) -> int:

@@ -9,8 +9,9 @@ with Monday == 0) are the JAX package's; see its module docstring.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
-from typing import Sequence
+from typing import Any, Sequence
 
 
 @dataclass(frozen=True)
@@ -161,27 +162,40 @@ class FeatureConfig:
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """The model zoo's shapes: the forest's (the flagship artifact's),
-    the mlp's and autoencoder's hidden widths (the autoencoder's last entry
-    is the bottleneck) and the sequence transformer's dims
+    """Classifier selection and the model zoo's shapes (the JAX package's
+    fields, names and defaults): the kind, the mlp's and autoencoder's
+    hidden widths (the autoencoder's last entry is the bottleneck), the
+    forest's, the single tree's and the sequence transformer's dims
     (``models/sequence.py``)."""
 
+    kind: str = "logreg"  # logreg | mlp | tree | forest | gbt | autoencoder
+    n_features: int = 15
     mlp_hidden: Sequence[int] = (64, 32)
     autoencoder_hidden: Sequence[int] = (32, 8)
     forest_n_trees: int = 100
     forest_max_depth: int = 8
+    tree_max_depth: int = 2
     seq_d_model: int = 32
     seq_n_heads: int = 2
     seq_n_layers: int = 2
     seq_d_ff: int = 64
+    dtype: str = "float32"
+    seed: int = 0
 
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """The training knob the serving path reads: the step size of the
-    feedback SGD when the engine has no ``online_lr`` (the offline
-    protocol's fields come with the offline side, ROADMAP A8b)."""
+    """Offline training protocol (the reference's 153/30/30-day
+    train/delay/test split and the minibatch optimizer's knobs), and the
+    step size of the feedback SGD when the engine has no ``online_lr``."""
 
+    delta_train_days: int = 153
+    delta_delay_days: int = 30
+    delta_test_days: int = 30
+    learning_rate: float = 1e-2
+    batch_size: int = 4096
+    epochs: int = 5
+    weight_decay: float = 0.0
     # Online SGD (BASELINE.json config 4).
     online_learning_rate: float = 1e-3
 
@@ -400,3 +414,6 @@ class Config:
     train: TrainConfig = field(default_factory=TrainConfig)
     runtime: RuntimeConfig = field(default_factory=RuntimeConfig)
     learn: LearnConfig = field(default_factory=LearnConfig)
+
+    def replace(self, **kw: Any) -> "Config":
+        return dataclasses.replace(self, **kw)

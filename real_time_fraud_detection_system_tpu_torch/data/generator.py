@@ -112,6 +112,26 @@ class Transactions:
                                         "customer_id", "terminal_id", "amount_cents",
                                         "tx_fraud", "tx_fraud_scenario")])
 
+    def to_pandas(self, start_date: str = "2025-04-01"):
+        """The table as the reference's DataFrame columns (pandas is
+        imported here, only when this is called)."""
+        import pandas as pd
+
+        ts = pd.to_datetime(self.tx_time_seconds, unit="s", origin=start_date)
+        return pd.DataFrame(
+            {
+                "TRANSACTION_ID": self.tx_id,
+                "TX_DATETIME": ts,
+                "CUSTOMER_ID": self.customer_id,
+                "TERMINAL_ID": self.terminal_id,
+                "TX_AMOUNT": self.amount,
+                "TX_TIME_SECONDS": self.tx_time_seconds,
+                "TX_TIME_DAYS": self.tx_time_days,
+                "TX_FRAUD": self.tx_fraud.astype(np.int64),
+                "TX_FRAUD_SCENARIO": self.tx_fraud_scenario.astype(np.int64),
+            }
+        )
+
 
 def generate_customer_profiles(n_customers: int, seed: int = 0) -> CustomerProfiles:
     rng = np.random.default_rng(np.random.SeedSequence([seed, 0xC057]))

@@ -17,12 +17,14 @@ and ``base_score``), ``autoencoder`` (the mlp's layout and
 ``err_scale``), ``sequence`` (the dims in ``meta["seq"]`` and the leaves
 ``seq{i}`` in the JAX flatten order: ``embed_w``, ``embed_b``, each
 block's 12 fields in order, ``lnf_g``, ``lnf_b``, ``head_w``,
-``head_b``). :meth:`TrainedModel.predict_proba_np` scores raw feature
-rows on the host in NumPy (``score --scorer cpu``). Object-store URLs,
-``save_model`` and the corrupt-artifact counter come with the store and
-the metrics registry (A9, A4). :func:`save_transactions` and
-:func:`load_transactions` read and write the transactions tables of
-``rtfds datagen``.
+``head_b``). :meth:`TrainedModel.predict_proba` scores raw feature rows
+on the params' device (tree kinds through the leaf-sum kernel where it
+admits the ensemble) and :meth:`TrainedModel.predict_proba_np` on the
+host in NumPy (``score --scorer cpu``). :func:`save_model` writes an
+artifact to a local path (renamed into place). Object-store URLs and the
+corrupt-artifact counter come with the store and the metrics registry
+(A9, A4). :func:`save_transactions` and :func:`load_transactions` read
+and write the transactions tables of ``rtfds datagen``.
 """
 
 from __future__ import annotations
@@ -43,19 +45,43 @@ from real_time_fraud_detection_system_tpu_torch.data.generator import (
     Transactions,
 )
 from real_time_fraud_detection_system_tpu_torch.device import resolve_device
+from real_time_fraud_detection_system_tpu_torch.features.spec import (
+    N_FEATURES,
+)
 from real_time_fraud_detection_system_tpu_torch.models.autoencoder import (
     AutoencoderParams,
+    autoencoder_predict_proba,
 )
 from real_time_fraud_detection_system_tpu_torch.models.forest import (
     TreeEnsemble,
+    for_device,
+    resolve_z_mode,
 )
-from real_time_fraud_detection_system_tpu_torch.models.gbt import GBTModel
+from real_time_fraud_detection_system_tpu_torch.models.forest import (
+    predict_proba as forest_predict_proba,
+)
+from real_time_fraud_detection_system_tpu_torch.models.gbt import (
+    GBTModel,
+    gbt_for_device,
+    gbt_predict_proba,
+)
 from real_time_fraud_detection_system_tpu_torch.models.logreg import (
     LogRegParams,
+    logreg_predict_proba,
 )
-from real_time_fraud_detection_system_tpu_torch.models.scaler import Scaler
+from real_time_fraud_detection_system_tpu_torch.models.mlp import (
+    mlp_predict_proba,
+)
+from real_time_fraud_detection_system_tpu_torch.models.scaler import (
+    Scaler,
+    transform,
+)
 from real_time_fraud_detection_system_tpu_torch.models.sequence import (
     init_transformer,
+)
+from real_time_fraud_detection_system_tpu_torch.ops.forest_kernels import (
+    leaf_sum_proba,
+    leaf_sum_tables,
 )
 from real_time_fraud_detection_system_tpu_torch.utils import tree
 
@@ -96,6 +122,54 @@ class TrainedModel:
     # AutoencoderParams | TransformerParams
     params: object
     content_sha256: Optional[str] = None
+
+    def _device_route(self):
+        """The tree kinds' device form, derived once and cached on the
+        (frozen) instance: ``(params, tables)``, the params in the GEMM
+        form where their depth allows it (``for_device``) and the
+        leaf-sum kernel's tables where it admits them
+        (``ops/forest_kernels.py::leaf_sum_tables``), else None."""
+        cached = getattr(self, "_dev_cache", None)
+        if cached is None:
+            params = (gbt_for_device(self.params, N_FEATURES)
+                      if self.kind == "gbt"
+                      else for_device(self.params, N_FEATURES))
+            dev = self.scaler.mean.device
+            cached = (params, leaf_sum_tables(params,
+                                              resolve_z_mode(None, dev)))
+            object.__setattr__(self, "_dev_cache", cached)
+        return cached
+
+    @torch.no_grad()
+    def predict_proba(self, features: np.ndarray) -> np.ndarray:
+        """Fraud probabilities of RAW feature rows [B, 15], computed on the
+        params' device: scaler, then the kind's predict. Tree kinds go
+        through the leaf-sum kernel (``ops/forest_kernels.py::leaf_sum``;
+        on CPU tensors its plain version) where it admits the ensemble,
+        by the rule the engine and the shadow scorer use."""
+        dev = self.scaler.mean.device
+        x = transform(self.scaler, torch.as_tensor(
+            np.asarray(features, dtype=np.float32), device=dev))
+        if self.kind == "logreg":
+            p = logreg_predict_proba(self.params, x)
+        elif self.kind == "mlp":
+            p = mlp_predict_proba(self.params, x)
+        elif self.kind == "autoencoder":
+            p = autoencoder_predict_proba(self.params, x)
+        elif self.kind in ("tree", "forest", "gbt"):
+            params, tables = self._device_route()
+            base = params.base_score if self.kind == "gbt" else None
+            if tables is not None:
+                p = leaf_sum_proba(tables, x, base)
+            elif self.kind == "gbt":
+                p = gbt_predict_proba(params, x)
+            else:
+                p = forest_predict_proba(params, x)
+        else:
+            raise ValueError(
+                f"model kind {self.kind!r} has no feature-row predict (the "
+                "sequence kind reads raw event histories)")
+        return p.cpu().numpy()
 
     def _np_params(self):
         """The params and the scaler as host NumPy arrays, converted once
@@ -256,6 +330,20 @@ def dump_model_bytes(model: TrainedModel) -> bytes:
     buf = _io.BytesIO()
     np.savez(buf, __meta__=json.dumps(meta), **arrays)
     return buf.getvalue()
+
+
+def save_model(path: str, model: TrainedModel) -> None:
+    """Write ``model`` to a local ``path`` (format v1): the bytes go to
+    ``path + ".tmp"`` and are renamed into place, so a reader never sees
+    a torn file."""
+    if path.startswith("s3://"):
+        raise NotImplementedError("object-store artifacts are not ported "
+                                  "yet (ROADMAP A9, io/store.py)")
+    data = dump_model_bytes(model)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(data)
+    os.replace(tmp, path)
 
 
 def load_model_bytes(data: bytes, device=None) -> TrainedModel:

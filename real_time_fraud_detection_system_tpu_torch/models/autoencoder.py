@@ -9,7 +9,9 @@ calibration the offline fit sets to the train-set median error; the loss
 does not read it, so its gradient is exactly zero (``loss_grad``
 materializes it, as ``jax.grad`` does). The loss masks out frauds and
 invalid rows, so online updates pull the manifold toward legitimate
-traffic only. Offline training waits for ROADMAP A8b.
+traffic only. Offline training (:func:`train_autoencoder`) fits the
+layers with minibatch Adam on legitimate rows only, then sets
+``err_scale`` to the train-set median error.
 """
 
 from __future__ import annotations
@@ -18,6 +20,12 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from real_time_fraud_detection_system_tpu_torch.device import resolve_device
+from real_time_fraud_detection_system_tpu_torch.models.optim import (
+    Adam,
+    epoch_batches,
+)
 
 Layers = List[Tuple[torch.Tensor, torch.Tensor]]
 
@@ -77,3 +85,38 @@ def autoencoder_loss(params: AutoencoderParams, x: torch.Tensor,
     if valid is not None:
         w = w * valid.to(torch.float32)
     return torch.sum(per * w) / torch.clamp(torch.sum(w), min=1.0)
+
+
+def train_autoencoder(x: np.ndarray, y: Optional[np.ndarray] = None,
+                      hidden: Sequence[int] = (32, 8),
+                      learning_rate: float = 1e-3, batch_size: int = 4096,
+                      epochs: int = 10, seed: int = 0,
+                      device=None) -> AutoencoderParams:
+    """Fit on scaled features, on ``device`` (None = CUDA); rows with
+    ``y == 1`` are left out. The batch is ``min(batch_size, n)`` rows;
+    ``err_scale`` is ``max(median train error, 1e-6)``."""
+    device = resolve_device(device)
+    x = np.asarray(x, dtype=np.float32)
+    if y is not None:
+        x = x[np.asarray(y) == 0]
+    n, f = x.shape
+    if n == 0:
+        raise ValueError(
+            "train_autoencoder: no legitimate rows to train on "
+            "(all rows filtered out by labels)")
+    params = init_autoencoder(f, hidden, seed, device)
+    opt = Adam(params.layers, learning_rate)
+    xj = torch.as_tensor(x, device=device)
+
+    def loss(layers, xb):
+        return autoencoder_loss(params._replace(layers=layers), xb)
+
+    for idx in epoch_batches(n, min(batch_size, n), epochs, seed, device):
+        opt.step(loss, xj[idx])
+    params = params._replace(layers=opt.params)
+    # Calibrate the probability squash to the train-set median error.
+    with torch.no_grad():
+        errs = reconstruction_error(params, xj).cpu().numpy()
+    med = float(np.median(errs)) if len(errs) else 1.0
+    return params._replace(err_scale=torch.tensor(
+        max(med, 1e-6), dtype=torch.float32, device=device))

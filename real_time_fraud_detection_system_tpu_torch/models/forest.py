@@ -12,6 +12,12 @@ Both are decision-exact against sklearn on float32 inputs, given the
 thresholds that :func:`ftz_safe_thresholds` builds. The GEMM form here is
 the plain version that the CUDA kernel of the serving path
 (``ops/forest_kernels.py``) is held against.
+
+Training stays on the host, as in the JAX package: :func:`fit_forest`
+fits sklearn (imported only there) and :func:`ensemble_from_sklearn`
+compiles the fitted estimator into the node tables, with thresholds
+rounded down to float32 (:func:`_f32_round_down`) so float32 inputs take
+sklearn's float64 decisions.
 """
 
 from __future__ import annotations
@@ -76,6 +82,76 @@ def ftz_safe_thresholds(t32: np.ndarray) -> np.ndarray:
     t32[denorm & (t32 > 0)] = np.float32(0.0)
     t32[denorm & (t32 < 0)] = -tiny
     return t32
+
+
+def _f32_round_down(t64: np.ndarray) -> np.ndarray:
+    """Round float64 thresholds DOWN to float32 so that for any float32
+    input x: (x <= t32) == (x <= t64) — decisions stay bit-identical to
+    sklearn on float32 features."""
+    t32 = t64.astype(np.float32)
+    over = t32.astype(np.float64) > t64
+    t32[over] = np.nextafter(t32[over], np.float32(-np.inf), dtype=np.float32)
+    return ftz_safe_thresholds(t32)
+
+
+def ensemble_from_sklearn(model, n_features: int,
+                          device=None) -> TreeEnsemble:
+    """Compile a fitted sklearn DecisionTree/RandomForest/ExtraTrees into
+    flat node tables on ``device`` (None = CUDA)."""
+    device = resolve_device(device)
+    trees = getattr(model, "estimators_", None)
+    if trees is None:
+        trees = [model]
+    else:
+        trees = [t for t in np.asarray(trees).ravel()]
+
+    T = len(trees)
+    N = max(t.tree_.node_count for t in trees)
+    feat = np.zeros((T, N), dtype=np.int32)
+    thresh = np.zeros((T, N), dtype=np.float32)
+    left = np.zeros((T, N), dtype=np.int32)
+    right = np.zeros((T, N), dtype=np.int32)
+    prob = np.zeros((T, N), dtype=np.float32)
+    depth = 0
+    for ti, est in enumerate(trees):
+        tr = est.tree_
+        n = tr.node_count
+        is_leaf = tr.children_left == -1
+        feat[ti, :n] = np.where(is_leaf, 0, tr.feature)
+        thresh[ti, :n] = _f32_round_down(np.where(is_leaf, 0.0, tr.threshold))
+        idx = np.arange(n, dtype=np.int32)
+        left[ti, :n] = np.where(is_leaf, idx, tr.children_left).astype(np.int32)
+        right[ti, :n] = np.where(is_leaf, idx,
+                                 tr.children_right).astype(np.int32)
+        v = tr.value[:, 0, :]  # [n, n_classes] (fractions or counts)
+        if v.shape[1] > 1:
+            tot = v.sum(axis=1)
+            prob[ti, :n] = np.where(tot > 0,
+                                    v[:, -1] / np.maximum(tot, 1e-12), 0.0)
+        else:
+            prob[ti, :n] = v[:, 0]
+        depth = max(depth, int(tr.max_depth))
+    return TreeEnsemble(*(torch.as_tensor(a, device=device)
+                          for a in (feat, thresh, left, right, prob)),
+                        max_depth=depth)
+
+
+def fit_forest(x: np.ndarray, y: np.ndarray, n_trees: int = 100,
+               max_depth: int = 8, seed: int = 0, kind: str = "forest",
+               device=None) -> TreeEnsemble:
+    """Host-side fit (sklearn, imported here; ``random_state=seed``),
+    then the node tables on ``device``."""
+    from sklearn.ensemble import RandomForestClassifier
+    from sklearn.tree import DecisionTreeClassifier
+
+    if kind == "tree":
+        clf = DecisionTreeClassifier(max_depth=max_depth, random_state=seed)
+    else:
+        clf = RandomForestClassifier(n_estimators=n_trees,
+                                     max_depth=max_depth, random_state=seed,
+                                     n_jobs=-1)
+    clf.fit(x, y)
+    return ensemble_from_sklearn(clf, x.shape[1], device)
 
 
 def ensemble_leaf_values(ens: TreeEnsemble, x: torch.Tensor) -> torch.Tensor:

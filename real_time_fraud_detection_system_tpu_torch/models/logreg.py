@@ -7,16 +7,23 @@ path and the kernel agree bit for bit before the sigmoid. The loss is the
 JAX package's weighted BCE-with-logits in optax's form
 (``-y·log σ(z) − (1−y)·log σ(−z)``) over the same in-order logit, and its
 gradient comes from ``torch.autograd`` on the plain loss: no kernel has a
-backward. Offline training waits for ROADMAP A8b.
+backward. Offline training (:func:`train_logreg`) is minibatch Adam
+(``models/optim.py``) on the same loss, in the JAX trainer's batch order.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from real_time_fraud_detection_system_tpu_torch.device import resolve_device
+from real_time_fraud_detection_system_tpu_torch.models.optim import (
+    Adam,
+    epoch_batches,
+)
 from real_time_fraud_detection_system_tpu_torch.utils import tree
 
 
@@ -26,6 +33,17 @@ class LogRegParams(NamedTuple):
 
     def to(self, device) -> "LogRegParams":
         return LogRegParams(self.w.to(device), self.b.to(device))
+
+
+def init_logreg(n_features: int, seed: int = 0,
+                device=None) -> LogRegParams:
+    """Weights 0.01·N(0, 1) from an explicit ``torch.Generator`` seeded
+    with ``seed`` (not ``jax.random``'s stream), bias 0."""
+    gen = torch.Generator().manual_seed(seed)
+    w = 0.01 * torch.randn(n_features, generator=gen)
+    return LogRegParams(w=w.to(device),
+                        b=torch.zeros((), dtype=torch.float32,
+                                      device=device))
 
 
 def logreg_logits(params: LogRegParams, x: torch.Tensor) -> torch.Tensor:
@@ -83,3 +101,23 @@ def sgd_update(params: LogRegParams, x: torch.Tensor, y: torch.Tensor,
     _, g = loss_grad(lambda p, *a: logreg_loss(p, *a, pos_weight=pos_weight),
                      params, x, y, valid)
     return tree.map(lambda p, gi: p - lr * gi, params, g)
+
+
+def train_logreg(x: np.ndarray, y: np.ndarray, learning_rate: float = 1e-2,
+                 batch_size: int = 4096, epochs: int = 5,
+                 pos_weight: float = 1.0, seed: int = 0,
+                 device=None) -> LogRegParams:
+    """Offline minibatch-Adam training on (already scaled) features, on
+    ``device`` (None = CUDA)."""
+    device = resolve_device(device)
+    n, f = x.shape
+    opt = Adam(init_logreg(f, seed, device), learning_rate)
+    xj = torch.as_tensor(np.asarray(x, dtype=np.float32), device=device)
+    yj = torch.as_tensor(np.asarray(y, dtype=np.float32), device=device)
+
+    def loss(p, xb, yb):
+        return logreg_loss(p, xb, yb, None, pos_weight)
+
+    for idx in epoch_batches(n, batch_size, epochs, seed, device):
+        opt.step(loss, xj[idx], yj[idx])
+    return opt.params

@@ -16,9 +16,12 @@ event histories, and the host-side sequence assembly its oracle needs.
   scores.
 
 The products are plain ``torch.matmul``/``einsum``: the JAX package
-computes them as XLA ops outside any Pallas kernel. The training side
-(``transformer_loss``, ``train_transformer``, ``sequence_scores``) waits
-for ROADMAP A8b.
+computes them as XLA ops outside any Pallas kernel. Training
+(:func:`train_transformer`) is minibatch Adam (``models/optim.py``) on the
+masked, ``pos_weight``-weighted BCE of every real event
+(:func:`transformer_loss`), with naive or blockwise attention;
+:func:`sequence_scores` scores every real event of a
+:class:`SequenceBatch`.
 """
 
 from __future__ import annotations
@@ -33,6 +36,13 @@ import torch.nn.functional as F
 from real_time_fraud_detection_system_tpu_torch.data.generator import (
     Transactions,
 )
+from real_time_fraud_detection_system_tpu_torch.device import resolve_device
+from real_time_fraud_detection_system_tpu_torch.models.metrics import (
+    rebalance_pos_weight,
+)
+from real_time_fraud_detection_system_tpu_torch.models.optim import Adam
+from real_time_fraud_detection_system_tpu_torch.parallel.ring_attention \
+    import blockwise_attention
 
 N_EVENT_FEATURES = 8
 
@@ -300,3 +310,91 @@ def transformer_flops(params: TransformerParams, rows: int, k: int) -> int:
     per_row += k * 2 * proj + 2 * proj + 2 * 2 * d * f + 2 * 2 * k * hd
     per_row += 2 * d
     return int(rows * per_row)
+
+
+def transformer_loss(params: TransformerParams, x: torch.Tensor,
+                     y: torch.Tensor, mask: torch.Tensor,
+                     pos_weight: float = 1.0,
+                     attn_fn: Optional[AttnFn] = None) -> torch.Tensor:
+    """Masked BCE-with-logits over every real event, positives weighted
+    by ``pos_weight``: ``−Σ w·(y·log σ(z) + (1−y)·log σ(−z)) / max(Σ w, 1)``."""
+    logits = transformer_logits(params, x, attn_fn).float()
+    yf = y.float()
+    w = torch.where(yf > 0, torch.full_like(yf, pos_weight),
+                    torch.ones_like(yf)) * mask.float()
+    ll = F.logsigmoid(logits) * yf + F.logsigmoid(-logits) * (1 - yf)
+    return -(w * ll).sum() / torch.clamp(w.sum(), min=1.0)
+
+
+def _train_attn_fn(attn: str) -> Optional[AttnFn]:
+    if attn == "blockwise":
+        return blockwise_attention
+    if attn == "naive":
+        return None
+    raise ValueError(
+        f"unknown attn {attn!r}: use 'naive' or 'blockwise' here; ring "
+        "(sequence-parallel) attention waits for ROADMAP A7")
+
+
+def train_transformer(seqs: SequenceBatch, d_model: int = 32,
+                      n_heads: int = 2, n_layers: int = 2, d_ff: int = 64,
+                      batch_size: int = 64, epochs: int = 3,
+                      learning_rate: float = 1e-3,
+                      pos_weight: Optional[float] = None, seed: int = 0,
+                      attn: str = "naive", device=None) -> TransformerParams:
+    """Adam training on padded sequence batches (masked BCE), on
+    ``device`` (None = CUDA). Each epoch walks
+    ``np.random.default_rng(seed).permutation(n)`` in batches of
+    ``batch_size``; the ragged last batch is filled up from the
+    permutation (``np.resize(np.r_[sel, order], batch_size)``), as the
+    JAX trainer keeps its shapes static."""
+    device = resolve_device(device)
+    attn_fn = _train_attn_fn(attn)
+    params = init_transformer(d_model, n_heads, n_layers, d_ff,
+                              n_in=seqs.x.shape[-1], seed=seed,
+                              device=device)
+    if pos_weight is None:
+        pos_weight = rebalance_pos_weight(seqs.y[seqs.mask])
+    opt = Adam(params, learning_rate)
+    xj = torch.as_tensor(seqs.x, device=device)
+    yj = torch.as_tensor(seqs.y, device=device)
+    mj = torch.as_tensor(seqs.mask, device=device)
+
+    def loss(p, xb, yb, mb):
+        return transformer_loss(p, xb, yb, mb, pos_weight, attn_fn)
+
+    n = seqs.x.shape[0]
+    rng = np.random.default_rng(seed)
+    nb = max(1, n // batch_size)
+    for _ in range(epochs):
+        order = rng.permutation(n)
+        sels = []
+        for b in range(nb):
+            sel = order[b * batch_size:(b + 1) * batch_size]
+            if len(sel) < batch_size:  # pad the ragged tail
+                sel = np.resize(np.r_[sel, order], batch_size)
+            sels.append(sel)
+        sels = torch.as_tensor(np.stack(sels), device=device)
+        for sel in sels:
+            opt.step(loss, xj[sel], yj[sel], mj[sel])
+    return opt.params
+
+
+@torch.no_grad()
+def sequence_scores(params: TransformerParams, seqs: SequenceBatch,
+                    batch_size: int = 256,
+                    attn_fn: Optional[AttnFn] = None
+                    ) -> Tuple[np.ndarray, np.ndarray]:
+    """Score every real event: (tx_index [M], prob [M]) aligned to
+    source-table rows, for evaluation against ``txs.tx_fraud``. Runs on
+    the params' device."""
+    dev = params.embed_w.device
+    n, t = seqs.y.shape
+    probs = np.zeros((n, t), dtype=np.float32)
+    for s in range(0, n, batch_size):
+        e = min(s + batch_size, n)
+        logits = transformer_logits(
+            params, torch.as_tensor(seqs.x[s:e], device=dev), attn_fn)
+        probs[s:e] = torch.sigmoid(logits.float()).cpu().numpy()
+    m = seqs.mask
+    return seqs.tx_index[m], probs[m]

@@ -44,6 +44,7 @@ from real_time_fraud_detection_system_tpu_torch.models.forest import (
     GemmEnsemble,
     gemm_leaf_sum,
 )
+from real_time_fraud_detection_system_tpu_torch.models.gbt import GBTModel
 from real_time_fraud_detection_system_tpu_torch.models.scaler import (
     Scaler,
     transform,
@@ -274,6 +275,30 @@ def admit_tables(g: GemmEnsemble, budget: int = SMEM_BUDGET
     nbytes = smem_bytes(fp)
     return KernelAdmission(fits=nbytes <= budget, smem_bytes=nbytes,
                            budget=budget, padded=(tp, fp, ip, lp))
+
+
+def leaf_sum_tables(params, z_mode: str) -> "ForestTables | None":
+    """The leaf-sum kernel's tables for a tree model's device-form params
+    (a GEMM-form ensemble, or a gbt over one) when :func:`admit_tables`
+    admits the ensemble — a decision on its shapes alone, made before any
+    launch — else None (the plain predict of the params' form serves).
+    The one routing rule of the engine's unfused step, the shadow scorer
+    and ``TrainedModel.predict_proba``."""
+    trees = params.trees if isinstance(params, GBTModel) else params
+    if isinstance(trees, GemmEnsemble) and admit_tables(trees).fits:
+        return to_kernel_tables(trees, z_mode)
+    return None
+
+
+def leaf_sum_proba(tables: ForestTables, x: torch.Tensor,
+                   base_score: "torch.Tensor | None" = None) -> torch.Tensor:
+    """Probability through :func:`leaf_sum` on scaled features ``x``:
+    ``sigmoid(base_score + Σ)`` for a boosted model, the bagging mean
+    ``Σ / n_trees`` without a ``base_score``."""
+    leaf = leaf_sum(tables, x)
+    if base_score is not None:
+        return torch.sigmoid(base_score + leaf)
+    return leaf / tables.n_trees
 
 
 def fused_forest_leaf_sum_plain(

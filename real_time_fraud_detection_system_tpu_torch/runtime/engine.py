@@ -226,7 +226,7 @@ from real_time_fraud_detection_system_tpu_torch.ops.dedup import (
 from real_time_fraud_detection_system_tpu_torch.ops.forest_kernels import (
     ForestTables,
     admit_tables,
-    leaf_sum,
+    leaf_sum_proba,
     to_kernel_tables,
 )
 from real_time_fraud_detection_system_tpu_torch.runtime.faults import (
@@ -930,10 +930,8 @@ class ScoringEngine:
         tables = self.leaf_tables
         if tables is None:
             return self._predict(self.state.params, x)
-        leaf = leaf_sum(tables, x)
-        if self.kind == "gbt":
-            return torch.sigmoid(self.state.params.base_score + leaf)
-        return leaf / tables.n_trees
+        return leaf_sum_proba(tables, x, self.state.params.base_score
+                              if self.kind == "gbt" else None)
 
     def _step(self, packed: torch.Tensor) -> StepOut:
         """One device step on a packed batch: what a captured graph

@@ -48,15 +48,12 @@ from real_time_fraud_detection_system_tpu_torch.io.artifacts import (
     TrainedModel,
 )
 from real_time_fraud_detection_system_tpu_torch.models.forest import (
-    GemmEnsemble,
     resolve_z_mode,
 )
-from real_time_fraud_detection_system_tpu_torch.models.gbt import GBTModel
 from real_time_fraud_detection_system_tpu_torch.models.scaler import transform
 from real_time_fraud_detection_system_tpu_torch.ops.forest_kernels import (
-    admit_tables,
     leaf_sum,
-    to_kernel_tables,
+    leaf_sum_tables,
 )
 from real_time_fraud_detection_system_tpu_torch.runtime.engine import (
     device_params_for,
@@ -239,11 +236,8 @@ class ShadowScorer:
                            self.device, self._stream)
         self._cand_scaler = _own_copy(scaler, self.device, self._stream)
         self._cand_params = params
-        self._cand_tables = None
-        trees = params.trees if isinstance(params, GBTModel) else params
-        if isinstance(trees, GemmEnsemble) and admit_tables(trees).fits:
-            with _on(self._stream):
-                self._cand_tables = to_kernel_tables(trees, self.z_mode)
+        with _on(self._stream):
+            self._cand_tables = leaf_sum_tables(params, self.z_mode)
         self.candidate_version = int(version)
         if fresh_window:
             self._clear_cache()

@@ -26,7 +26,10 @@ the plain version (the kernel's ``expf`` and PyTorch's sigmoid differ by
 ulps). Engine against engine: amount averages within ``rtol=1e-6`` (the
 card's ``index_add_`` adds a day's amounts in any order), probabilities
 within ``1e-7`` (forest) and ``1e-6`` (logreg, gbt: a sigmoid of sums that
-carry that order), the rest bit-identical.
+carry that order), the rest bit-identical. The offline side: a trained
+booster's ``predict_proba`` through the leaf-sum kernel equal to the plain
+version exactly, Adam on the card within ``atol=1e-5`` of the CPU, and
+the feature replay bit for bit on whole-dollar amounts.
 """
 
 import time
@@ -1899,3 +1902,91 @@ def test_cpu_scorer_on_cuda_rescores_the_card_features(cuda):
     np.testing.assert_allclose(host["prediction"], card["prediction"],
                                rtol=0.0, atol=ATOL_PROB)
     assert np.array_equal(host["tx_id"], card["tx_id"])
+
+
+def _offline_xy(n=6000, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, N_FEAT)).astype(np.float32)
+    logit = x[:, 0] - 0.5 * x[:, 1] + 0.3 * x[:, 2] - 2.0
+    y = (rng.random(n) < 1 / (1 + np.exp(-logit))).astype(np.float32)
+    return x, y
+
+
+def test_trained_gbt_predict_proba_launches_leaf_sum_on_cuda(cuda):
+    """A booster trained into the card's memory predicts through the
+    leaf-sum kernel (one launch per call), equal to the plain version's
+    leaf sums exactly and to the same model's CPU predict within
+    ``1e-6`` (a sigmoid of the same sums)."""
+    from real_time_fraud_detection_system_tpu_torch.io.artifacts import (
+        TrainedModel,
+    )
+    from real_time_fraud_detection_system_tpu_torch.models.gbt import (
+        train_gbt,
+    )
+    from real_time_fraud_detection_system_tpu_torch.models.scaler import (
+        transform,
+    )
+    from real_time_fraud_detection_system_tpu_torch.utils import tree
+
+    x, y = _offline_xy()
+    cpu = TrainedModel("gbt", fit_scaler(x, device="cpu"),
+                       train_gbt(x, y, n_trees=6, max_depth=6, device="cpu"))
+    card = TrainedModel("gbt", cpu.scaler.to(cuda), tree.to(cpu.params, cuda))
+    rows = np.random.default_rng(1).normal(size=(5000, N_FEAT)).astype(
+        np.float32)
+    before = fk.leaf_sum.launches
+    p = card.predict_proba(rows)
+    assert fk.leaf_sum.launches - before == 1
+    params, tables = card._device_route()
+    xs = transform(card.scaler, torch.as_tensor(rows, device=cuda))
+    leaf = fk.leaf_sum(tables, xs)
+    assert torch.equal(leaf, fk.leaf_sum_plain(tables, xs))
+    np.testing.assert_array_equal(
+        p, torch.sigmoid(params.base_score + leaf).cpu().numpy())
+    np.testing.assert_allclose(p, cpu.predict_proba(rows), rtol=0.0,
+                               atol=ATOL_SIGMOID)
+
+
+@pytest.mark.parametrize("kind", ["logreg", "mlp"])
+def test_train_on_cuda_matches_cpu(cuda, kind):
+    """Minibatch Adam on the card reaches the CPU's parameters within
+    ``atol=1e-5`` (the same update; the reductions of a batch's gradient
+    add in other orders)."""
+    from real_time_fraud_detection_system_tpu_torch.models.logreg import (
+        train_logreg,
+    )
+    from real_time_fraud_detection_system_tpu_torch.models.mlp import (
+        train_mlp,
+    )
+    from real_time_fraud_detection_system_tpu_torch.utils import tree
+
+    x, y = _offline_xy()
+    train = (train_logreg if kind == "logreg"
+             else lambda *a, **k: train_mlp(*a, hidden=(16, 8), **k))
+    got = train(x, y, batch_size=512, epochs=3, pos_weight=2.0, seed=5,
+                device=cuda)
+    want = train(x, y, batch_size=512, epochs=3, pos_weight=2.0, seed=5,
+                 device="cpu")
+    for a, b in zip(tree.leaves(got), tree.leaves(want)):
+        assert a.is_cuda
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=1e-5)
+
+
+def test_replay_on_cuda_equals_cpu_on_whole_dollars(cuda):
+    """The offline replay on the card: features and the final state bit
+    for bit against the CPU's on whole-dollar amounts (float32 sums of
+    whole dollars are exact in any order)."""
+    from real_time_fraud_detection_system_tpu_torch.features import offline
+    from real_time_fraud_detection_system_tpu_torch.utils import tree
+
+    txs = _whole_dollar_txs(20000)
+    fcfg = FeatureConfig(customer_capacity=256, terminal_capacity=512)
+    got, gstate = offline._replay(txs, fcfg, "2025-04-01", 4096, False,
+                                  True, cuda)
+    want, wstate = offline._replay(txs, fcfg, "2025-04-01", 4096, False,
+                                   True, "cpu")
+    assert got.tobytes() == want.tobytes()
+    warm = offline.warm_start_state(txs, fcfg, chunk=4096, device=cuda)
+    for a, b, c in zip(tree.leaves(gstate), tree.leaves(wstate),
+                       tree.leaves(warm)):
+        assert torch.equal(a.cpu(), b) and torch.equal(a, c)

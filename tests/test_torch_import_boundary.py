@@ -7,8 +7,9 @@ keys and under the customer sketch from envelopes, and one through the
 ``score`` command, a supervised checkpointed run that crashes and
 replays, and ingest and observability (a prefetched run under the tracer,
 a flight record and the metrics server, a raw-table backfill, ``score
---scorer cpu`` with prefetch and the observability flags); the other
-reads the
+--scorer cpu`` with prefetch and the observability flags), and the
+offline side (the feature replay, training of each kind, a selection
+sweep and the ``train`` command); the other reads the
 port's sources (Python, CUDA and CUDA headers) and ``chip_smoke.py`` for
 an import of jax or a dotted reference into the JAX package.
 """
@@ -161,6 +162,39 @@ with tempfile.TemporaryDirectory() as tmp:
                      f"{tmp}/m.json", "--flight-record", f"{tmp}/f.jsonl",
                      "--trace-out", f"{tmp}/t.json"]) == 0
 server.stop()
+# the offline side: replay, training of each kind, selection, the train
+# command (tree kinds, sklearn's oracle and the plots import their
+# packages only when called)
+from real_time_fraud_detection_system_tpu_torch.config import (
+    ModelConfig, TrainConfig)
+from real_time_fraud_detection_system_tpu_torch.features.offline import (
+    compute_features_replay, warm_start_state)
+from real_time_fraud_detection_system_tpu_torch.models import (  # noqa: F401
+    cpu_oracle, metrics, optim, plots, selection)
+from real_time_fraud_detection_system_tpu_torch.models.train import (
+    train_model)
+ocfg = dataclasses.replace(
+    cfg, model=ModelConfig(forest_n_trees=2, forest_max_depth=2,
+                           mlp_hidden=(4,), autoencoder_hidden=(4, 2),
+                           seq_d_model=8, seq_n_layers=1, seq_d_ff=8),
+    train=TrainConfig(delta_train_days=5, delta_delay_days=1,
+                      delta_test_days=3, epochs=1, batch_size=64))
+feats = compute_features_replay(txs, ocfg.features, chunk=256, device="cpu")
+warm_start_state(txs, ocfg.features, chunk=256, device="cpu")
+for kind in ("logreg", "mlp", "autoencoder", "gbt", "sequence"):
+    model, met = train_model(txs, ocfg, features=feats, kind=kind,
+                             device="cpu")
+    assert "auc_roc" in met
+rows = selection.model_selection_wrapper(
+    txs, feats, ocfg, "logreg", {"learning_rate": [0.01]}, 0, 1, n_folds=1,
+    device="cpu")
+assert len(rows) == 2
+with tempfile.TemporaryDirectory() as tmp:
+    save_transactions(f"{tmp}/txs.npz", txs)
+    assert cli.main(["train", "--device", "cpu", "--data", f"{tmp}/txs.npz",
+                     "--model", "logreg", "--out-model", f"{tmp}/m.npz",
+                     "--delta-train", "5", "--delta-delay", "1",
+                     "--delta-test", "3", "--epochs", "1"]) == 0
 assert not any(m.split(".")[0] in ("jax", "real_time_fraud_detection_system_tpu")
                for m, mod in sys.modules.items() if mod is not None)
 print("served without jax")
