@@ -203,7 +203,25 @@ Phases, each printing JSON lines:
    kernel, the device's idle share, the ``[B, NB]`` row gathers (none on
    the fused paths) and the small device-to-host copies (none of four
    bytes on the forest path: the window update makes no host sync).
-16. ``kernels`` — one line per the measurement contract, each kernel's
+16. ``sharded`` — the sharded engine, its shards co-located on the card,
+   over 12 whole-dollar batches of 65,536 rows with the forest (100
+   trees, depth 8, int8): (a) 4 and 8 shards against the single engine
+   on the same batches — features bit for bit, probabilities within 1e-6,
+   the leaf-sum kernel once per chunk and the fused kernels never; rows/s,
+   latency, stage medians and, under ``torch.profiler``, the device's idle
+   share of each beside the single engine's; (b) the leaf-sum launch
+   inside the sharded step held against ``leaf_sum_plain`` on that
+   chunk's scaled features (max |Δ|, ms per launch, plain ms, bound);
+   (c) 3 batches, two with 60% of the rows on one customer, at 4,096 rows
+   per shard: routed chunks and the full exchange bucket, equal to the
+   single engine fed the same chunks one by one; (d) ``precompile`` of
+   both signatures, the same 3 batches replayed (both graphs used, the
+   full-bucket chunks eager) against (c) bit for bit; (e) 6 batches at 4
+   shards, a checkpoint, restored at 8 shards and at 1, the other 6
+   batches equal to the single engine's; (f) gbt (the leaf-sum kernel)
+   against the single engine, and logreg with ``online_lr=1e-3`` against
+   the same 4 shards on the CPU (2 batches, params within 1e-6).
+17. ``kernels`` — one line per the measurement contract, each kernel's
    launches summed over every driven path that launched it.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises and
@@ -4505,6 +4523,278 @@ def phase_offline(dev, device_info, data: dict) -> dict:
     return totals
 
 
+SHARDED_BATCHES = 12
+SHARDED_WIDTHS = (4, 8)
+SHARDED_HOT_SHARES = (0.6, 0.0, 0.6)  # (c): the hot batches' hot share
+SHARDED_HOT_ROWS_PER_SHARD = 4096
+SHARDED_SPLIT = 6  # (e): batches before the checkpoint
+ATOL_SHARDED = 1e-6  # the issue's bound for sharded against single
+
+
+def _sliced(res: "_Results", start: int) -> "_Results":
+    out = _Results()
+    out.batches = res.batches[start:]
+    return out
+
+
+def _same_rows(got: "_Results", want: "_Results", what: str,
+               atol: float = ATOL_SHARDED) -> float:
+    """Features bit for bit, probabilities within ``atol``; → max |Δp|."""
+    check(len(got.batches) == len(want.batches),
+          f"{what}: {len(got.batches)} batches against "
+          f"{len(want.batches)}")
+    check(np.array_equal(got.feats(), want.feats()),
+          f"{what}: features differ")
+    err = float(np.abs(got.probs() - want.probs()).max())
+    check(err <= atol, f"{what}: probabilities differ by {err}")
+    return err
+
+
+def phase_sharded(dev, device_info, data: dict) -> dict:
+    """The sharded engine on one card: see the module docstring, phase
+    16."""
+    from real_time_fraud_detection_system_tpu_torch.io.checkpoint import (
+        Checkpointer,
+    )
+    from real_time_fraud_detection_system_tpu_torch.ops import (
+        forest_kernels,
+    )
+    from real_time_fraud_detection_system_tpu_torch.parallel.step import (
+        partition_batch_spill,
+    )
+    from real_time_fraud_detection_system_tpu_torch.runtime import (
+        engine as engine_mod,
+    )
+    from real_time_fraud_detection_system_tpu_torch.runtime.engine import (
+        ScoringEngine,
+    )
+    from real_time_fraud_detection_system_tpu_torch.runtime.sharded_engine \
+        import ShardedScoringEngine
+
+    t_phase = time.perf_counter()
+    card = {"card": device_info["smi_name"],
+            "power_limit": device_info["power_limit"]}
+    totals = {name: 0 for name in KERNELS}
+    base = data["cfg"]
+    cfg = dataclasses.replace(base, runtime=dataclasses.replace(
+        base.runtime, z_mode="int8"))
+    models = data["models"]
+    labeled = _column_batches(data["txs_whole_dollars"], SHARDED_BATCHES)
+    batches = _unlabeled(labeled)
+
+    def engine(kind, n_dev=0, dev_=dev, model=None, **kw):
+        model = model or models[kind][0 if dev_ == dev else 1]
+        if n_dev:
+            return ShardedScoringEngine(cfg, kind, model.params,
+                                        model.scaler, n_devices=n_dev,
+                                        device=dev_, **kw)
+        return ScoringEngine(cfg, kind, model.params, model.scaler,
+                             device=dev_, **kw)
+
+    def serve(eng, bs, what, own=None):
+        """Serve ``bs`` with the counts zeroed just before: ``own`` must
+        launch once per chunk (once per batch on the single engine), the
+        other kernels never."""
+        res = _Results()
+        stats, launches = drive(lambda: eng.run(_ListSource(bs), res))
+        steps = stats.get("chunks", stats["batches"])
+        for name, n in launches.items():
+            want = steps if name == own else 0
+            check(n == want, f"sharded {what}: {n} launches of {name} "
+                             f"for {steps} steps (want {want})")
+            totals[name] += n
+        check(stats["rows"] == sum(len(b["tx_id"]) for b in bs),
+              f"sharded {what}: not every row was scored")
+        check(bool(np.isfinite(res.probs()).all())
+              and bool(np.isfinite(res.feats()).all()),
+              f"sharded {what}: non-finite outputs")
+        return stats, res
+
+    def loop_stats(stats) -> dict:
+        return {k: stats[k] for k in (
+            "rows", "batches", "rows_per_s", "latency_p50_ms",
+            "latency_p99_ms", "stage_ms_p50")} | {
+            k: stats[k] for k in ("chunks", "full_exchange_chunks")
+            if k in stats}
+
+    def idle(eng) -> dict:
+        device, wall_ms, _, _, _ = _profiled(eng, _ListSource(batches),
+                                             PROFILE_BATCHES)
+        busy = sum(device.values())
+        return {"device_busy_ms_per_batch": busy / PROFILE_BATCHES
+                if device else "not measured",
+                "device_idle_share": 1.0 - busy / wall_ms if device
+                else "not measured"}
+
+    # (a) 4 and 8 shards against the single engine -------------------------
+    single = engine("forest")
+    s_stats, s_res = serve(single, batches, "single",
+                           "fused_forest_leaf_sum")
+    widths = {"single": {**loop_stats(s_stats), **idle(engine("forest"))}}
+    for n_dev in SHARDED_WIDTHS:
+        eng = engine("forest", n_dev)
+        check(eng.leaf_tables is not None and eng.tables is None,
+              f"sharded {n_dev}: not on the leaf-sum path")
+        stats, res = serve(eng, batches, f"{n_dev} shards", "leaf_sum")
+        err = _same_rows(res, s_res, f"{n_dev} shards against single")
+        widths[n_dev] = {**loop_stats(stats), "rows_per_shard":
+                         eng.rows_per_shard, "max_abs_err_vs_single": err,
+                         **idle(engine("forest", n_dev))}
+    emit({"phase": "sharded", "part": "a_widths", "kind": "forest",
+          "z_mode": single.z_mode, "rows_per_batch": BATCH_ROWS,
+          "widths": {str(k): v for k, v in widths.items()}, **card})
+
+    # (b) the leaf-sum launch inside the sharded step ----------------------
+    seen = []
+    proba = engine_mod.leaf_sum_proba
+    leaf_sum = forest_kernels.leaf_sum
+
+    def spy(tables, x, base=None):
+        seen.append((tables, x))
+        return proba(tables, x, base)
+
+    eng = engine("forest", 4)
+    engine_mod.leaf_sum_proba = spy
+    try:
+        eng.process_batch(dict(batches[0]))
+    finally:
+        engine_mod.leaf_sum_proba = proba
+    check(len(seen) == 1, f"{len(seen)} leaf-sum calls for one chunk")
+    tables, x = seen[0]
+    chunk = 4 * eng.rows_per_shard
+    check(tuple(x.shape) == (chunk, 15), f"leaf sum over {tuple(x.shape)}")
+    got = leaf_sum(tables, x)
+    want = forest_kernels.leaf_sum_plain(tables, x)
+    err = float((got - want).abs().max())
+    check(err <= ATOL_LEAF, f"sharded leaf sum differs by {err}")
+    walk = _walk_ops(tables, x, tables.n_trees)
+    emit({"phase": "sharded", "part": "b_leaf_sum", "rows": chunk,
+          "max_abs_err": err, "bit_equal": bool(torch.equal(got, want)),
+          **_time(lambda: leaf_sum(tables, x),
+                  lambda: forest_kernels.leaf_sum_plain(tables, x),
+                  _bound([x], [got], walk["ops"], _tree_bytes(tables))),
+          **card})
+
+    # (c) a hot customer: routed chunks and the full exchange bucket -------
+    rng = np.random.default_rng(5)
+    hot = []
+    for b, share in zip(batches, SHARDED_HOT_SHARES):
+        h = dict(b)
+        h["customer_id"] = np.where(rng.random(len(b["tx_id"])) < share,
+                                    7, b["customer_id"]).astype(np.int64)
+        hot.append(h)
+    rps = SHARDED_HOT_ROWS_PER_SHARD
+    eager = engine("forest", 4, rows_per_shard=rps)
+    e_stats, e_res = serve(eager, hot, "hot eager", "leaf_sum")
+    check(e_stats["full_exchange_chunks"] > 0
+          and e_stats["chunks"] > len(hot),
+          f"hot stream: {e_stats['chunks']} chunks, "
+          f"{e_stats['full_exchange_chunks']} full-bucket")
+    ref = engine("forest")
+    r_res = _Results()
+    for b in hot:
+        probs = np.zeros(len(b["tx_id"]), np.float32)
+        feats = np.zeros((len(b["tx_id"]), 15), np.float32)
+        for _, rows, _ in partition_batch_spill(b, 4, rps):
+            out = ref.process_batch({k: v[rows] for k, v in b.items()})
+            probs[rows], feats[rows] = out.probs, out.features
+        r_res.batches.append(dataclasses.replace(out, probs=probs,
+                                                 features=feats))
+    hot_err = _same_rows(e_res, r_res, "hot stream against single chunks")
+    emit({"phase": "sharded", "part": "c_hot_key", "shards": 4,
+          "rows_per_shard": rps, "hot_shares": list(SHARDED_HOT_SHARES),
+          **loop_stats(e_stats), "max_abs_err_vs_single": hot_err, **card})
+
+    # (d) both signatures captured, replayed against eager -----------------
+    graphs = engine("forest", 4, rows_per_shard=rps)
+    man = graphs.precompile()
+    check(man["graphs"] == 2 and sorted(graphs._graphs)
+          == [("sharded", False), ("sharded", True)],
+          f"precompile captured {sorted(graphs._graphs)}")
+    replays = {key: 0 for key in graphs._graphs}
+    for key, g in graphs._graphs.items():
+        def counted(*a, _g=g, _replay=g.replay, _key=key):
+            replays[_key] += 1
+            return _replay(*a)
+
+        g.replay = counted
+    g_stats, g_res = serve(graphs, hot, "hot graphs", "leaf_sum")
+    check(all(n > 0 for n in replays.values()),
+          f"graph replays {replays}")
+    check(g_res.probs().tobytes() == e_res.probs().tobytes()
+          and g_res.feats().tobytes() == e_res.feats().tobytes(),
+          "graph replay differs from eager dispatch")
+    emit({"phase": "sharded", "part": "d_precompile",
+          "graphs": man["graphs"], "precompile_s": man["seconds"],
+          "pool_bytes": man["pool_bytes"],
+          "replays": {str(k): v for k, v in replays.items()},
+          "eager_chunks": g_stats["full_exchange_chunks"],
+          "dispatch_p50_ms": {"graphs": g_stats["stage_ms_p50"]["dispatch"],
+                              "eager": e_stats["stage_ms_p50"]["dispatch"]},
+          **card})
+
+    # (e) a checkpoint at 4 shards, restored at 8 and at 1 ---------------
+    first, rest = batches[:SHARDED_SPLIT], batches[SHARDED_SPLIT:]
+    legs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = Checkpointer(tmp)
+        four = engine("forest", 4)
+        serve(four, first, "before the checkpoint", "leaf_sum")
+        t0 = time.perf_counter()
+        ck.save(four.state)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        for n_dev in (8, 0):
+            eng = engine("forest", n_dev)
+            t0 = time.perf_counter()
+            check(ck.restore(eng.state) is not None, "no checkpoint")
+            check(eng.state.layout_devices == 4,
+                  f"restored layout {eng.state.layout_devices}")
+            eng._ensure_layout()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            check(eng.state.layout_devices == (n_dev or 1),
+                  "the restore was not converted")
+            _, res = serve(eng, rest, f"restored at {n_dev or 1}",
+                           "leaf_sum" if n_dev else "fused_forest_leaf_sum")
+            legs[n_dev or 1] = {"restore_and_convert_ms": ms,
+                                "max_abs_err_vs_single": _same_rows(
+                                    res, _sliced(s_res, SHARDED_SPLIT),
+                                    f"restored at {n_dev or 1}")}
+    emit({"phase": "sharded", "part": "e_cross_width", "saved_at": 4,
+          "save_ms": save_ms, "restored": {str(k): v
+                                           for k, v in legs.items()},
+          **card})
+
+    # (f) gbt and logreg with the in-step SGD ------------------------------
+    g_stats, g_res = serve(engine("gbt", 4), batches[:4], "gbt",
+                           "leaf_sum")
+    _, gs_res = serve(engine("gbt"), batches[:4], "gbt single",
+                      "leaf_sum")
+    gbt_err = _same_rows(g_res, gs_res, "gbt against single",
+                         atol=ATOL_SIGMOID)
+    lr = 1e-3
+    card_lr = engine("logreg", 4, online_lr=lr)
+    l_stats, l_res = serve(card_lr, labeled[:2], "logreg sgd")
+    cpu_lr = engine("logreg", 4, dev_=torch.device("cpu"), online_lr=lr)
+    c_res = _Results()
+    cpu_lr.run(_ListSource(labeled[:2]), c_res)
+    lr_err = _same_rows(l_res, c_res, "logreg sgd against the CPU",
+                        atol=ATOL_SIGMOID)
+    p_err = max(float((a.cpu() - b).abs().max()) for a, b in zip(
+        (card_lr.state.params.w, card_lr.state.params.b),
+        (cpu_lr.state.params.w, cpu_lr.state.params.b)))
+    check(p_err <= 1e-6, f"sharded sgd params differ by {p_err}")
+    emit({"phase": "sharded", "part": "f_gbt_logreg", "shards": 4,
+          "gbt": {**loop_stats(g_stats), "max_abs_err_vs_single": gbt_err},
+          "logreg_sgd": {**loop_stats(l_stats), "online_lr": lr,
+                         "max_abs_err_vs_cpu": lr_err,
+                         "params_max_abs_err_vs_cpu": p_err},
+          **card})
+    emit({"phase": "sharded", "part": "done", "kernel_launches": totals,
+          "phase_s": time.perf_counter() - t_phase, **card})
+    return totals
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4516,6 +4806,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
     info = phase_device()
     phase_build()
     k = phase_kernel(dev)
@@ -4550,6 +4841,8 @@ def main() -> int:
     phase_profile(dev, data, "forest", dataclasses.replace(
         cfg, features=dataclasses.replace(cfg.features,
                                           customer_source="cms")))
+    add(phase_sharded(dev, info, data))
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": [{
         "name": name,
         "route": "cuda",

@@ -58,10 +58,15 @@ with the model's NumPy ``predict_proba_np``. Observability:
 ``--metrics-dump``, ``--flight-record`` (``--flight-record-max-mb``),
 ``--trace-out`` (the spans as Chrome-trace JSON) and ``--trace-dir`` (a
 ``torch.profiler`` trace).
-Not ported yet: object-store input and output (ROADMAP A9),
-``--resume-merge`` and ``--resume-merge-cold`` (A7), and the other JAX
-subcommands (``datagen``, ``registry``, ``import-model``, the operator
-tools: A9).
+``--devices N`` serves N shards (``runtime/sharded_engine.py``), all on
+the one device ``--device`` names; ``--max-batch-rows`` sizes the sharded
+step, as in the JAX ``score``.
+Not ported yet: object-store input and output (ROADMAP A9), the tiered
+store across shards (``--key-mode exact`` with ``--devices`` > 1: A7b),
+the fleet (``--coordinator``, ``--num-processes``, ``--resume-merge``,
+``--resume-merge-cold``: A7c), the sequence kind over shards (A7d), and
+the other JAX subcommands (``datagen``, ``registry``, ``import-model``,
+the operator tools: A9).
 """
 
 from __future__ import annotations
@@ -187,7 +192,28 @@ def cmd_score(args) -> int:
     if args.resume_merge or args.resume_merge_cold:
         log.error("--resume-merge and --resume-merge-cold (adopting a "
                   "drained fleet's checkpoints) are not ported yet: "
-                  "ROADMAP A7")
+                  "ROADMAP A7c")
+        return 2
+    multihost = args.num_processes > 1 or bool(args.coordinator)
+    if multihost:
+        log.error("a multi-process fleet (--coordinator, --num-processes) "
+                  "is not ported yet: ROADMAP A7c; --devices N serves N "
+                  "shards in this process")
+        return 2
+    sharded = args.devices > 1
+    if args.nan_guard and sharded:
+        log.error("--nan-guard is not wired for the sharded engine "
+                  "(--devices > 1 / multi-host); rely on the "
+                  "supervisor's crash-loop bisection (--dead-letter + "
+                  "--max-restarts) there")
+        return 2
+    if args.max_batch_rows < 0:
+        log.error("--max-batch-rows must be >= 0, got %s",
+                  args.max_batch_rows)
+        return 2
+    if sharded and args.key_mode == "exact":
+        log.error("--key-mode exact over --devices > 1 (the tiered store "
+                  "across shards) is not ported yet: ROADMAP A7b")
         return 2
     if args.crash_loop_k < 1:
         log.error("--crash-loop-k must be >= 1, got %s", args.crash_loop_k)
@@ -288,6 +314,8 @@ def cmd_score(args) -> int:
         runtime=dataclasses.replace(
             cfg.runtime,
             scorer=args.scorer,
+            max_batch_rows=(args.max_batch_rows
+                            or cfg.runtime.max_batch_rows),
             emit_features=not args.alerts_only,
             emit_dtype="bfloat16" if args.emit_bf16 else "float32",
             emit_threshold=args.emit_threshold,
@@ -335,7 +363,7 @@ def cmd_score(args) -> int:
         from real_time_fraud_detection_system_tpu_torch.features.online \
             import state_bytes
 
-        sb = state_bytes(cfg.features)
+        sb = state_bytes(cfg.features, n_shards=max(args.devices, 1))
         if 0 < args.state_hbm_budget_mb * 2 ** 20 < sb["total"]:
             log.error(
                 "--state-hbm-budget-mb %g cannot hold the configured "
@@ -366,7 +394,10 @@ def cmd_score(args) -> int:
     ))
     if args.learn_registry:
         bad = None
-        if args.scorer == "cpu":
+        if sharded:
+            bad = ("--learn-registry is not wired for the sharded "
+                   "engine (--devices > 1 / multi-host)")
+        elif args.scorer == "cpu":
             bad = ("--learn-registry promotes by swapping on-device "
                    "params; --scorer cpu classifies host-side with a "
                    "model fixed at startup")
@@ -387,6 +418,15 @@ def cmd_score(args) -> int:
     txs = (load_transactions(args.data) if args.source == "replay"
            else None)
     model = load_model(args.model_file, device=args.device)
+    if sharded and args.scorer == "cpu":
+        log.error("--scorer cpu is the single-host sklearn oracle; it does "
+                  "not compose with --devices > 1 or multi-host (the "
+                  "sharded engine always scores on-device)")
+        return 2
+    if sharded and model.kind == "sequence":
+        log.error("the sequence kind over --devices > 1 shards is not "
+                  "ported yet: ROADMAP A7d")
+        return 2
     if model.kind == "sequence":
         # fail fast with the CLI convention: the engine's own refusals,
         # before any state is built
@@ -440,6 +480,15 @@ def cmd_score(args) -> int:
                  args.dead_letter, len(dead_letter))
 
     def make_engine():
+        if sharded:
+            from real_time_fraud_detection_system_tpu_torch.runtime \
+                .sharded_engine import ShardedScoringEngine
+
+            return ShardedScoringEngine(
+                cfg, model.kind, model.params, model.scaler,
+                n_devices=args.devices, device=args.device,
+                online_lr=args.online_lr, feature_cache=feature_cache,
+                dead_letter=dead_letter)
         return ScoringEngine(cfg, model.kind, model.params, model.scaler,
                              device=args.device, online_lr=args.online_lr,
                              feature_cache=feature_cache,
@@ -1135,9 +1184,23 @@ def build_parser() -> argparse.ArgumentParser:
                    help="continue from the newest valid checkpoint in "
                         "--checkpoint-dir")
     p.add_argument("--resume-merge", default="",
-                   help="not ported yet (ROADMAP A7): exits 2")
+                   help="not ported yet (ROADMAP A7c): exits 2")
     p.add_argument("--resume-merge-cold", default="",
-                   help="not ported yet (ROADMAP A7): exits 2")
+                   help="not ported yet (ROADMAP A7c): exits 2")
+    p.add_argument("--devices", type=int, default=1,
+                   help="serve N shards (the sharded engine: customer-"
+                        "partitioned rows, the terminal owner exchange), "
+                        "all on the one device --device names; 1 = the "
+                        "single engine")
+    p.add_argument("--max-batch-rows", type=int, default=0,
+                   help="cap assembled micro-batches at this many rows "
+                        "(0 = config default 65536). The sharded "
+                        "engine's per-chunk step width derives from it "
+                        "(2x the balanced per-device load)")
+    p.add_argument("--coordinator", default="",
+                   help="not ported yet (ROADMAP A7c): exits 2")
+    p.add_argument("--num-processes", type=int, default=1,
+                   help="not ported yet above 1 (ROADMAP A7c): exits 2")
     p.add_argument("--max-restarts", type=int, default=0,
                    help="supervised mode: restart on failure with "
                         "checkpoint replay (requires --checkpoint-dir)")

@@ -139,7 +139,7 @@ def update_and_score(state: HistoryState, params, batch: TxBatch,
 
     ``slot_fn(customer_key) -> slot`` overrides the key→slot map and
     ``order_key`` [B] breaks same-second ties (default: the row index);
-    the sharded layout of ROADMAP A7 passes both.
+    the sharded layout of ROADMAP A7d passes both.
     """
     c, k = state.capacity, state.history_len
     b = batch.size

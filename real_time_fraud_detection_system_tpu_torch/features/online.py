@@ -131,16 +131,20 @@ def _slot(key: torch.Tensor, capacity: int, mode: str) -> torch.Tensor:
         f"routes through the key directory, ops/keydir.py::admit_slots)")
 
 
-def state_bytes(cfg: FeatureConfig) -> dict:
+def state_bytes(cfg: FeatureConfig, n_shards: int = 1) -> dict:
     """Static device accounting of the feature state
     :func:`init_feature_state` builds (the JAX package's numbers, which
     the engine's ``state_hbm_budget_mb`` check reads): window tables hold
     bucket_day i32 + count/amount/fraud f32 = 16 B per bucket; a sketch a
     slice_day i32 per day and two f32 tables of depth × width per day,
     the terminal sketch a third; a directory keys u32 + slots i32 over 2×
-    the slots, free i32 per slot and free_top."""
+    the slots, free i32 per slot and free_top. ``n_shards``: the sharded
+    engine's width — the window tables and directories partition (one
+    free_top per shard), but every shard keeps its own sketch, so the
+    cms tier multiplies."""
     exact = cfg.key_mode == "exact"
     nb = cfg.n_day_buckets
+    n_shards = max(n_shards, 1)
     dense = (cfg.customer_capacity + cfg.terminal_capacity) * nb * 16
     n_sketches = int(cfg.customer_source == "cms" or exact) + int(exact)
     table = nb * cfg.cms_depth * cfg.cms_width * 4
@@ -152,7 +156,8 @@ def state_bytes(cfg: FeatureConfig) -> dict:
                               cfg.customer_source != "cms"),
                              (cfg.terminal_capacity, True)):
             if present:
-                directory += 2 * cap * 8 + cap * 4 + 4
+                directory += 2 * cap * 8 + cap * 4 + 4 * n_shards
+    cms *= n_shards
     return {"dense": int(dense), "directory": int(directory),
             "cms": int(cms), "total": int(dense + directory + cms)}
 

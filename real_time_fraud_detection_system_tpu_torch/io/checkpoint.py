@@ -16,9 +16,11 @@ checkpoint moves between the two packages in both directions:
   (``TreeEnsemble.max_depth`` of the descent form) a 0-d leaf — whatever
   the kind: an mlp's list of ``(w, b)`` pairs, a transformer's tuple of
   blocks, the sequence kind's ``HistoryState`` (``fs_leaves`` ``.events``,
-  ``.pos``, ``.count``, ``.last_t``) — and ``__meta__`` carries the JAX keys (``layout_devices`` 1,
-  ``process_count`` 1, ``process_id`` 0, and the state's registry
-  ``model_version``, which a restore hands back);
+  ``.pos``, ``.count``, ``.last_t``) — and ``__meta__`` carries the JAX keys
+  (``layout_devices``, the shard count the feature state is laid out for:
+  1, or the sharded engine's width; ``process_count`` 1, ``process_id``
+  0, and the state's registry ``model_version``, which a restore hands
+  back);
 - ``__manifest__`` carries a CRC32 per leaf, the structural fingerprint
   (sha256 over every leaf's key, shape and dtype), the writer's
   incarnation token and, for a delta, its base and the CRC32 of the base's
@@ -29,8 +31,14 @@ the engine's state; on any mismatch it quarantines the entry
 (``stale-<token>-…``), counts ``rtfds_checkpoint_corrupt_total{reason}``
 and falls back down the lineage (``rtfds_checkpoint_fallbacks_total``).
 A healthy checkpoint that carries state the port cannot serve yet
-(another process topology, a fleet resize) is refused with an error
-naming the ROADMAP item, never quarantined. The tiered store's leaves
+(another process topology, a fleet resize, the tiered store's per-shard
+directories) is refused with an error naming the ROADMAP item, never
+quarantined. A checkpoint of another shard width restores as in the JAX
+package: the sketch's shard axis may differ from the template's, the
+state's ``layout_devices`` becomes the writer's, and the checkpoint's
+feature state waits as host arrays in ``EngineState.layout_pending`` until
+the engine converts it into its own tensors
+(``ScoringEngine._ensure_layout``, through ``parallel/mesh.py``). The tiered store's leaves
 (key directories, the terminal sketch with its fraud column) move both
 ways like any other, and the meta carries the directories' occupancy
 (``feature_state_occupancy``) and the cold tier's segment lineage
@@ -47,7 +55,7 @@ before the next step. A save first makes the current stream wait for the
 event recorded behind the step that last wrote the state
 (``EngineState.ready``), then reads it.
 
-Left out until later slices: ``--resume-merge`` (A7) and the ``ckpt``
+Left out until later slices: ``--resume-merge`` (A7c) and the ``ckpt``
 command (A9).
 """
 
@@ -160,9 +168,14 @@ def _state_arrays(engine_state) -> Tuple[dict, dict]:
     """An EngineState → the npz array dict and the meta dict: the one
     place the on-disk leaf naming lives."""
     _wait_ready(engine_state)
-    fs = tree.leaves_with_path(engine_state.feature_state)
+    # a cross-width restore not yet converted by the engine: the state is
+    # still the checkpoint's, in its writer's layout
+    fstate = getattr(engine_state, "layout_pending", None)
+    if fstate is None:
+        fstate = engine_state.feature_state
+    fs = tree.leaves_with_path(fstate)
     arrays = {}
-    for prefix, sub in (("fs", engine_state.feature_state),
+    for prefix, sub in (("fs", fstate),
                         ("p", engine_state.params),
                         ("s", engine_state.scaler)):
         for i, leaf in enumerate(tree.leaves(sub)):
@@ -175,16 +188,17 @@ def _state_arrays(engine_state) -> Tuple[dict, dict]:
         "n_p": len(tree.leaves(engine_state.params)),
         "n_s": len(tree.leaves(engine_state.scaler)),
         "fs_leaves": {f"fs_{i}": path for i, (path, _) in enumerate(fs)},
-        # the JAX package's topology and lineage stamps, at the values of
-        # the one process on one device the port serves
-        "layout_devices": 1,
+        # the JAX package's topology and lineage stamps: the shard count
+        # the feature state is laid out for, one process
+        "layout_devices": int(getattr(engine_state, "layout_devices", 1)
+                              or 1),
         "process_count": 1,
         "process_id": 0,
         # the registry version the params descend from (the learning
         # loop's resync stamp)
         "model_version": getattr(engine_state, "model_version", None),
     }
-    occ = _directory_occupancy(engine_state.feature_state)
+    occ = _directory_occupancy(fstate)
     if occ:
         # hot-tier occupancy at save time, readable from the manifest
         meta["feature_state_occupancy"] = occ
@@ -250,8 +264,21 @@ def _apply_arrays(engine_state, meta: dict, arrays: dict,
     live = getattr(engine_state, "params_crcs", None)
     if live is None:
         live = _param_crcs(engine_state.params)
-    engine_state.feature_state = _restore_tree(
-        engine_state.feature_state, "fs", arrays)
+    n_old = int(meta.get("layout_devices", 1) or 1)
+    if n_old != int(getattr(engine_state, "layout_devices", 1) or 1):
+        # another width: the layouts are permutations (and the sketch's
+        # shard axis differs), so the engine converts the checkpoint's
+        # state before its next step (ScoringEngine._ensure_layout); its
+        # own tensors stay as they are until then
+        engine_state.layout_pending = tree.unflatten(
+            engine_state.feature_state,
+            [np.asarray(arrays[f"fs_{i}"]) for i in range(
+                len(tree.leaves(engine_state.feature_state)))])
+        engine_state.layout_devices = n_old
+    else:
+        engine_state.feature_state = _restore_tree(
+            engine_state.feature_state, "fs", arrays)
+        engine_state.layout_pending = None
     engine_state.params = _restore_tree(engine_state.params, "p", arrays)
     engine_state.scaler = _restore_tree(engine_state.scaler, "s", arrays)
     if new != live:
@@ -368,16 +395,21 @@ def _refuse_unserved(name: str, meta: dict) -> None:
     call it incompatible)."""
     pc = int(meta.get("process_count", 1) or 1)
     ld = int(meta.get("layout_devices", 1) or 1)
-    if pc > 1 or ld > 1:
+    if pc > 1:
         raise CheckpointTopologyError(
             f"{name} was written by process {meta.get('process_id', 0)} "
             f"of a {pc}-process fleet at {ld} device(s) per process; the "
-            f"port serves one process on one device (multi-GPU and the "
-            f"fleet are ROADMAP A7)")
+            f"port serves one process (the fleet is ROADMAP A7c)")
     if meta.get("resize_epochs"):
         raise CheckpointTopologyError(
             f"{name} carries elastic-fleet resize epochs; the fleet is "
-            f"not ported yet (ROADMAP A7)")
+            f"not ported yet (ROADMAP A7c)")
+    paths = (meta.get("fs_leaves") or {}).values()
+    if ld > 1 and any("_dir" in p for p in paths):
+        raise CheckpointTopologyError(
+            f"{name} holds the tiered store's per-shard key directories of "
+            f"{ld} shards; the tiered store across shards is not ported "
+            f"yet (ROADMAP A7b)")
 
 
 # ---------------------------------------------------------------------------
@@ -781,12 +813,20 @@ class _CheckpointerBase:
                 "incompatible",
                 f"{name}: leaf counts {meta.get('n_fs')}/{meta.get('n_p')}"
                 f"/{meta.get('n_s')} vs template {n_fs}/{n_p}/{n_s}")
+        # At another width the sketch's leaves carry another shard axis
+        # (the window tables are global [cap, NB] at every width, so their
+        # shapes still must match); the engine's re-layout then checks
+        # the capacities itself.
+        cross_width = int(meta.get("layout_devices", 1) or 1) != int(
+            getattr(template, "layout_devices", 1) or 1)
+        fs_names = meta.get("fs_leaves") or {}
         for k, (shape, dtype) in spec.items():
             a = arrays.get(k)
             if a is None:
                 raise CorruptCheckpointError(
                     "truncated", f"{name}: leaf {k} absent")
-            if list(np.shape(a)) != list(shape):
+            if list(np.shape(a)) != list(shape) and not (
+                    cross_width and "cms" in fs_names.get(k, "")):
                 raise CorruptCheckpointError(
                     "incompatible",
                     f"{name}: leaf {k} shape {list(np.shape(a))} vs "

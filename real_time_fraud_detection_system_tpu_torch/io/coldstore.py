@@ -35,7 +35,7 @@ The contracts:
   incarnation it abandons, so a zombie never writes under its successor.
 
 ``rehome`` and ``consolidate_cold_stores`` (fleet resizes) come with the
-fleet (ROADMAP A7).
+fleet (ROADMAP A7c).
 """
 
 from __future__ import annotations

@@ -333,7 +333,7 @@ def _train_attn_fn(attn: str) -> Optional[AttnFn]:
         return None
     raise ValueError(
         f"unknown attn {attn!r}: use 'naive' or 'blockwise' here; ring "
-        "(sequence-parallel) attention waits for ROADMAP A7")
+        "(sequence-parallel) attention waits for ROADMAP A7d")
 
 
 def train_transformer(seqs: SequenceBatch, d_model: int = 32,

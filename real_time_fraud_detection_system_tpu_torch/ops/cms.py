@@ -82,6 +82,24 @@ def _flat_cells(sk: CountMinSketch, key: torch.Tensor,
             + cols[(slice(None), slice(None)) + extra])
 
 
+def _shard_view(sk: CountMinSketch, shard: Optional[torch.Tensor],
+                sl: torch.Tensor) -> Tuple[CountMinSketch, torch.Tensor]:
+    """``(sketch, slice index)`` to address: ``sk`` and ``sl`` as given
+    without ``shard``; with it (``[n_shards, ND, ...]`` leaves, one sketch
+    per shard), a view of the shards' slices one after another,
+    ``[n_shards·ND, ...]``, and ``sl`` moved into row ``shard``'s block
+    (``shard`` broadcasts against ``sl``). The shards' slices are
+    disjoint, so one call on the view is every shard's own call."""
+    if shard is None:
+        return sk, sl
+    n, nd = sk.slice_day.shape
+    flat = CountMinSketch(*[
+        None if t is None else t.view((n * nd,) + tuple(t.shape[2:]))
+        for t in sk])
+    extra = (None,) * (sl.dim() - shard.dim())
+    return flat, shard.long()[(Ellipsis,) + extra] * nd + sl
+
+
 def cms_update(
     sk: CountMinSketch,
     key: torch.Tensor,  # uint32 [B]
@@ -89,19 +107,23 @@ def cms_update(
     day: torch.Tensor,  # int32 [B]
     valid: torch.Tensor,  # bool [B]
     fraud: Optional[torch.Tensor] = None,  # float32 [B] 0/1 (labeled rows)
+    shard: Optional[torch.Tensor] = None,  # int64 [B] (stacked sketches)
 ) -> CountMinSketch:
     """Add one micro-batch to the sketch, IN PLACE.
 
     A slice is reset the first time a newer day maps onto it; rows older
     than the day a slice holds are dropped; duplicate keys all add. A
     sketch with a fraud column resets it with the others and adds
-    ``fraud`` (0 where None) to it."""
-    nd = sk.n_days
-    sl = torch.remainder(day, nd).long()
+    ``fraud`` (0 where None) to it. ``shard``: the sketch holds one
+    sketch per shard (``[n_shards, ND, depth, width]``, the sharded
+    engine's layout) and row i goes into sketch ``shard[i]``."""
+    nd = int(sk.slice_day.shape[-1])
+    sk, sl = _shard_view(sk, shard, torch.remainder(day, nd).long())
+    n_slices = sk.n_days
     day_in = torch.where(valid, day, torch.full_like(day, -1))
     before = sk.slice_day.clone()
     sk.slice_day.scatter_reduce_(0, sl, day_in, "amax", include_self=True)
-    advanced = (sk.slice_day > before).view(nd, 1, 1)
+    advanced = (sk.slice_day > before).view(n_slices, 1, 1)
     sk.count.masked_fill_(advanced, 0.0)
     sk.amount.masked_fill_(advanced, 0.0)
 
@@ -141,24 +163,25 @@ def cms_add_fraud(
 
 def _cms_query_tables(
     sk: CountMinSketch,
-    tables: Sequence[torch.Tensor],  # each [ND, depth, width]
+    tables: Sequence[str],  # field names: "count", "amount", "fraud"
     key: torch.Tensor,  # uint32 [B]
     day: torch.Tensor,  # int32 [B]
     windows: Sequence[int],
     delay: int = 0,
+    shard: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, ...]:
-    """Windowed min-over-depth estimates over parallel tables, each
-    [B, len(windows)]: window w sums the per-day estimates for days
+    """Windowed min-over-depth estimates over the named parallel tables,
+    each [B, len(windows)]: window w sums the per-day estimates for days
     [day-delay-w+1, day-delay]."""
-    nd = sk.n_days
+    nd = int(sk.slice_day.shape[-1])
     offsets = torch.arange(max(windows), dtype=torch.int32,
                            device=day.device)
     wanted = day[:, None] - delay - offsets[None, :]  # [B, W]
-    sl = torch.remainder(wanted, nd).long()
+    sk, sl = _shard_view(sk, shard, torch.remainder(wanted, nd).long())
     live = (sk.slice_day[sl] == wanted) & (wanted >= 0)
     flat = _flat_cells(sk, key, sl)  # [depth, B, W]
     out = []
-    for t in tables:
+    for t in (getattr(sk, name) for name in tables):
         est = torch.where(live, t.view(-1)[flat].amin(dim=0),
                           torch.zeros((), dtype=t.dtype, device=t.device))
         cols = []
@@ -177,10 +200,12 @@ def cms_query(
     day: torch.Tensor,  # int32 [B]
     windows: Sequence[int],
     delay: int = 0,
+    shard: Optional[torch.Tensor] = None,  # int64 [B] (stacked sketches)
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Windowed velocity estimates: (counts, amount_sums), each [B, NW]."""
-    return _cms_query_tables(sk, (sk.count, sk.amount), key, day, windows,
-                             delay)
+    """Windowed velocity estimates: (counts, amount_sums), each [B, NW];
+    ``shard`` as in :func:`cms_update`."""
+    return _cms_query_tables(sk, ("count", "amount"), key, day, windows,
+                             delay, shard)
 
 
 def cms_query_fraud(
@@ -197,5 +222,5 @@ def cms_query_fraud(
         raise ValueError(
             "cms_query_fraud needs a fraud-tracking sketch "
             "(cms_init(..., track_fraud=True))")
-    return _cms_query_tables(sk, (sk.count, sk.amount, sk.fraud), key, day,
+    return _cms_query_tables(sk, ("count", "amount", "fraud"), key, day,
                              windows, delay)

@@ -14,7 +14,7 @@ sit at positions past every query, so the causal mask drops them.
 The products are plain ``torch.einsum``: the JAX package computes them as
 XLA ops outside any Pallas kernel. A Hopper attention kernel for the
 sequence step is an open item of ROADMAP. Ring and Ulysses attention
-(sequence parallel over a mesh) wait for ROADMAP A7.
+(sequence parallel over a mesh) wait for ROADMAP A7d.
 """
 
 from __future__ import annotations
@@ -84,14 +84,14 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def ring_attention(*args, **kwargs):
-    """Sequence-parallel attention over a device ring: ROADMAP A7."""
+    """Sequence-parallel attention over a device ring: ROADMAP A7d."""
     raise NotImplementedError(
         "ring attention (sequence parallel over a mesh) is not ported "
-        "yet: ROADMAP A7")
+        "yet: ROADMAP A7d")
 
 
 def ulysses_attention(*args, **kwargs):
-    """All-to-all head-parallel attention: ROADMAP A7."""
+    """All-to-all head-parallel attention: ROADMAP A7d."""
     raise NotImplementedError(
         "Ulysses attention (head parallel over a mesh) is not ported yet: "
-        "ROADMAP A7")
+        "ROADMAP A7d")

@@ -141,8 +141,12 @@ runs the same step, then rescores the fetched features on the host with
 ``predict_proba_np`` (the oracle), refused where the JAX engine refuses
 it.
 
-Not ported yet: the sharded engine and the fleet, with their stacked
-directories and cold-store re-homing, and the sharded sequence step (A7).
+A checkpoint written at another shard width (``state.layout_devices``)
+is converted before the next step (:meth:`ScoringEngine._ensure_layout`),
+as the JAX engine does. The sharded engine (N shards in one process,
+``runtime/sharded_engine.py``) subclasses this one. Not ported yet: the
+tiered store across shards (A7b), the fleet of processes with its
+cold-store re-homing (A7c), and the sharded sequence step (A7d).
 """
 
 from __future__ import annotations
@@ -420,6 +424,14 @@ class EngineState:
     # travels with the checkpoint, so the learning loop can tell restored
     # params from the current champion.
     model_version: Optional[int] = None
+    # The shard count the feature state is laid out for (the JAX
+    # package's stamp): 1 for this engine, the width for the sharded one.
+    # A restore of another width sets it to the checkpoint's and leaves
+    # the checkpoint's feature state, as host arrays, in
+    # ``layout_pending``; the engine converts it before its next step
+    # (``ScoringEngine._ensure_layout``).
+    layout_devices: int = 1
+    layout_pending: Optional[object] = None
 
 
 @dataclass(frozen=True)
@@ -609,6 +621,11 @@ class ScoringEngine:
     the process-wide ``active_recorder()`` at the run's start).
     """
 
+    # Whether the fused featurize→score kernels may serve the step (the
+    # sharded engine's rows get their terminal aggregates through the
+    # owner exchange, so it scores through the leaf sum instead).
+    _FUSED_STEP = True
+
     def __init__(
         self,
         cfg: Config,
@@ -728,7 +745,8 @@ class ScoringEngine:
             # the fused kernels read the customer table and know nothing
             # of the sketch tier: only direct and hash keys on the table
             # take them
-            self._fused = (cfg.features.customer_source == "table"
+            self._fused = (self._FUSED_STEP
+                           and cfg.features.customer_source == "table"
                            and not self._exact)
             self._derive_tables()
         self.host_prep = ("native" if native.hostprep_available()
@@ -997,6 +1015,12 @@ class ScoringEngine:
 
     # -- tiered feature store (key_mode="exact") ---------------------------
 
+    def _state_shards(self) -> int:
+        """The shard count the feature state is laid out for (and
+        ``state_bytes`` accounts: a sketch per shard): 1 here, the
+        sharded engine's width there."""
+        return 1
+
     def _check_state_budget(self) -> None:
         """``features.state_hbm_budget_mb``: fail the build, not the
         stream, when the configured feature state cannot fit the budget
@@ -1004,7 +1028,7 @@ class ScoringEngine:
         fcfg = self.cfg.features
         if fcfg.state_hbm_budget_mb <= 0:
             return
-        sb = state_bytes(fcfg)
+        sb = state_bytes(fcfg, n_shards=self._state_shards())
         budget = int(fcfg.state_hbm_budget_mb * 2 ** 20)
         if sb["total"] > budget:
             raise ValueError(
@@ -1044,7 +1068,7 @@ class ScoringEngine:
                     "(the slot held only history older than "
                     "delay + max(window))", table=t)
         if self._exact or fcfg.state_hbm_budget_mb > 0:
-            sb = state_bytes(fcfg)
+            sb = state_bytes(fcfg, n_shards=self._state_shards())
             for tier in ("dense", "directory", "cms", "total"):
                 reg.gauge(
                     "rtfds_feature_state_bytes",
@@ -1467,6 +1491,7 @@ class ScoringEngine:
         held) and ``pool_bytes`` (the device bytes of their pool; None
         when the allocator's snapshot does not name pools)."""
         t0 = time.perf_counter()
+        self._ensure_layout()  # the graphs read the converted state
         sigs = [sg for sg in self.dispatch_inventory()
                 if sg.key not in self._precompiled]
         if self.device.type == "cuda" and sigs:
@@ -1884,8 +1909,33 @@ class ScoringEngine:
             # now lead the last published artifact
             self._online_dirty = True
 
+    def _ensure_layout(self) -> None:
+        """Adopt a restored checkpoint written at another shard width, as
+        the JAX engine does before its next step: the checkpoint's state
+        (``state.layout_pending``, the writer's layout) is converted to
+        this engine's (``parallel/mesh.py::reshard_engine_state``, exact
+        for direct keys) and written into the engine's own tensors in
+        place, so captured graphs keep reading them."""
+        st = self.state
+        n_old = int(st.layout_devices or 1)
+        n_new = self._state_shards()
+        if n_old == n_new and st.layout_pending is None:
+            return
+        from real_time_fraud_detection_system_tpu_torch.parallel.mesh \
+            import reshard_engine_state, shard_feature_state
+
+        src = st.layout_pending
+        if src is None:
+            src = st.feature_state
+        new = reshard_engine_state(self.kind, src, self.cfg, n_old, n_new)
+        shard_feature_state(new, (self.device,) * n_new,
+                            out=st.feature_state)
+        st.layout_pending = None
+        st.layout_devices = n_new
+
     def process_batch(self, cols: dict) -> BatchResult:
         """One micro-batch: dedup → pad → device step → host result."""
+        self._ensure_layout()
         tid = self.tracer.begin_batch(self.state.batches_done + 1)
         handle = self._start_batch(cols)
         handle["trace_id"] = tid
@@ -1924,6 +1974,8 @@ class ScoringEngine:
         window state (not the sequence kind, which has none)."""
         if self.kind == "sequence":
             check_sequence_serving(self.cfg, feedback=True)
+        # labels scatter by slot: a cross-width restore converts first
+        self._ensure_layout()
         labels = np.asarray(labels)
         mask = labels >= 0
         if not mask.any():
@@ -2108,6 +2160,7 @@ class ScoringEngine:
         # a restored state's cold lineage: reconcile the store (and fence
         # the promoter) before any batch can touch a demoted key
         self._sync_cold_after_restore()
+        self._ensure_layout()  # a cross-width restore converts first
         rt = self.cfg.runtime
         self._learning = learning
         if rt.precompile and not self._precompiled:

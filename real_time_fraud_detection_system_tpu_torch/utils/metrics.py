@@ -20,7 +20,7 @@ injectors, the recovery supervisor, the dead-letter sinks) report through
 :func:`get_registry` and :func:`active_recorder`, under the metric names
 the JAX package registers, so one dashboard reads either package. The
 fleet's view (``merge_process_snapshots`` and the per-shard ``/healthz``
-fields) comes with the fleet (ROADMAP A7).
+fields) comes with the fleet (ROADMAP A7c).
 """
 
 from __future__ import annotations

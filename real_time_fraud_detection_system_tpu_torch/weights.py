@@ -25,6 +25,11 @@ recognised by its field names:
   sketch ``cms`` and the tiered store's ``customer_dir``,
   ``terminal_dir`` and ``terminal_cms``).
 
+A sharded ``FeatureState`` (the JAX ``ShardedScoringEngine``'s, through
+``jax.tree.map(np.asarray, ...)``) carries over the same way: its window
+tables are the owner-layout global arrays and its sketch has the leading
+``[n_shards]`` axis, which is the port's sharded layout
+(``parallel/mesh.py``), so both sharded engines start from one state.
 Arrays keep their dtypes and values, so both packages then compute the
 same thing.
 """

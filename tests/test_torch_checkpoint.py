@@ -354,7 +354,7 @@ def _rewrite_meta(path: str, **meta_fields) -> None:
 @pytest.mark.parametrize("stamps,error,item", [
     (dict(process_count=2, process_id=1), tckpt.CheckpointTopologyError,
      "A7"),
-    (dict(layout_devices=4), tckpt.CheckpointTopologyError, "A7"),
+    (dict(layout_devices=4), None, None),
     (dict(resize_epochs=[{"generation": 1}]),
      tckpt.CheckpointTopologyError, "A7"),
     (dict(cold_lineage={"segments": [{"seq": 0}]}), None, None),
@@ -363,7 +363,10 @@ def test_restore_refuses_what_the_port_cannot_serve(tmp_path, stamps, error,
                                                     item):
     """A healthy checkpoint of a topology the port does not serve raises
     and names the ROADMAP item; it is never quarantined. A cold-tier
-    lineage is served: the restore hands it back to the engine."""
+    lineage is served: the restore hands it back to the engine. So is a
+    one-process checkpoint of 4 shards (the sharded engine's layout): the
+    restore stamps the writer's width and the engine converts the state
+    before its next step (``tests/test_torch_sharded_engine.py``)."""
     cfg = Config(features=FeatureConfig(customer_capacity=64,
                                         terminal_capacity=128))
     params = weights.from_numpy(jax.tree.map(np.asarray, _jax_params(
@@ -377,7 +380,8 @@ def test_restore_refuses_what_the_port_cannot_serve(tmp_path, stamps, error,
     fresh = ScoringEngine(cfg, "logreg", params, scaler, device="cpu")
     if error is None:
         assert ck.restore(fresh.state) is fresh.state
-        assert fresh.state.cold_lineage == stamps["cold_lineage"]
+        assert fresh.state.cold_lineage == stamps.get("cold_lineage")
+        assert fresh.state.layout_devices == stamps.get("layout_devices", 1)
     else:
         with pytest.raises(error, match=item):
             ck.restore(fresh.state)

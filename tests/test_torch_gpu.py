@@ -29,7 +29,12 @@ within ``1e-7`` (forest) and ``1e-6`` (logreg, gbt: a sigmoid of sums that
 carry that order), the rest bit-identical. The offline side: a trained
 booster's ``predict_proba`` through the leaf-sum kernel equal to the plain
 version exactly, Adam on the card within ``atol=1e-5`` of the CPU, and
-the feature replay bit for bit on whole-dollar amounts.
+the feature replay bit for bit on whole-dollar amounts. The sharded
+engine (4 and 8 shards co-located on the card): the leaf-sum kernel
+inside the sharded step equal to its plain version on the chunk, the
+engine against the same shards on the CPU (hot key and full exchange
+bucket included), and its two captured signatures replayed against eager
+dispatch bit for bit.
 """
 
 import time
@@ -1990,3 +1995,146 @@ def test_replay_on_cuda_equals_cpu_on_whole_dollars(cuda):
     for a, b, c in zip(tree.leaves(gstate), tree.leaves(wstate),
                        tree.leaves(warm)):
         assert torch.equal(a.cpu(), b) and torch.equal(a, c)
+
+
+# -- the sharded engine: N shards co-located on the card ---------------------
+
+
+def _sharded_batches(hot_shares=(0.0,) * 5):
+    """Whole-dollar labeled batches of 1,000 rows, ``hot_shares[i]`` of
+    batch i's rows on one customer (at 64 rows per shard its shard spills
+    into routed chunks whose customer exchange needs the full bucket; a
+    balanced batch spills into compact routed chunks)."""
+    batches = _labeled_batches(n_batches=len(hot_shares))
+    rng = np.random.default_rng(21)
+    for b, share in zip(batches, hot_shares):
+        hot = rng.random(len(b["tx_id"])) < share
+        b["customer_id"] = np.where(hot, 7, b["customer_id"])
+    return batches
+
+
+HOT = (0.6, 0.0, 0.6, 0.0, 0.6)
+
+
+def _sharded_engine(dev, kind, n_dev, lr=0.0, rows_per_shard=0):
+    import dataclasses
+
+    from real_time_fraud_detection_system_tpu_torch.runtime.sharded_engine \
+        import ShardedScoringEngine
+
+    cfg = _learning_cfg()
+    cfg = dataclasses.replace(cfg, runtime=dataclasses.replace(
+        cfg.runtime, max_batch_rows=1024))
+    params, scaler = _graph_model(kind, dev)
+    return ShardedScoringEngine(cfg, kind, params, scaler, n_devices=n_dev,
+                                device=dev, online_lr=lr,
+                                rows_per_shard=rows_per_shard)
+
+
+@pytest.mark.parametrize("n_dev", [4, 8])
+def test_sharded_step_leaf_sum_matches_plain_version_on_the_chunk(
+        cuda, monkeypatch, n_dev):
+    """Inside the sharded step the forest scores the whole ``[n_dev ·
+    rows_per_shard]`` chunk with one leaf-sum launch; on that chunk's
+    scaled features the kernel equals ``leaf_sum_plain`` (both add the
+    trees in order)."""
+    from real_time_fraud_detection_system_tpu_torch.runtime import engine
+
+    seen = []
+    proba = engine.leaf_sum_proba
+
+    def spy(tables, x, base=None):
+        seen.append((tables, x))
+        return proba(tables, x, base)
+
+    monkeypatch.setattr(engine, "leaf_sum_proba", spy)
+    eng = _sharded_engine(cuda, "forest", n_dev)
+    before = fk.leaf_sum.launches
+    eng.process_batch(_sharded_batches()[0])
+    assert fk.leaf_sum.launches - before == 1 and len(seen) == 1
+    tables, x = seen[0]
+    assert x.shape[0] == n_dev * eng.rows_per_shard
+    assert torch.equal(fk.leaf_sum(tables, x), fk.leaf_sum_plain(tables, x))
+
+
+@pytest.mark.parametrize("kind,lr", [("forest", 0.0), ("logreg", 0.05)])
+def test_sharded_engine_on_cuda_matches_cpu_engine(cuda, kind, lr):
+    """Four shards on the card against four on the CPU, hot key (routed
+    chunks, the full exchange bucket) included: features and state bit for
+    bit on whole dollars, probabilities within 1e-7 (forest) and 1e-6
+    (logreg after the in-step SGD)."""
+    from real_time_fraud_detection_system_tpu_torch.utils import tree
+
+    batches = _sharded_batches(HOT)
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        eng = _sharded_engine(dev, kind, 4, lr, rows_per_shard=64)
+        sink = []
+
+        class _Sink:
+            def append(self, res):
+                sink.append(res)
+
+        stats = eng.run(_Batches(batches), _Sink())
+        outs.append((eng, sink, stats))
+    (ge, got, gs), (ce, want, cs) = outs
+    assert gs["full_exchange_chunks"] == cs["full_exchange_chunks"] > 0
+    for a, b in zip(got, want):
+        assert np.array_equal(a.features, b.features)
+        np.testing.assert_allclose(a.probs, b.probs, rtol=0.0,
+                                   atol=ATOL_PROB if kind == "forest"
+                                   else ATOL_SIGMOID)
+    for a, b in zip(tree.leaves(ge.state.feature_state),
+                    tree.leaves(ce.state.feature_state)):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("kind,lr", [("forest", 0.0), ("logreg", 0.05)])
+def test_sharded_graph_replay_equals_eager_on_cuda(cuda, kind, lr):
+    """``precompile`` captures both signatures (owner-local and routed);
+    replay serves every compact chunk (both graphs replayed), the
+    full-bucket chunks run eagerly, and outputs and state equal eager
+    dispatch bit for bit."""
+    from real_time_fraud_detection_system_tpu_torch.utils import tree
+
+    batches = _sharded_batches(HOT)
+    runs = []
+    replays = {}
+    for precompile in (False, True):
+        eng = _sharded_engine(cuda, kind, 4, lr, rows_per_shard=64)
+        if precompile:
+            man = eng.precompile()
+            assert man["graphs"] == 2
+            assert sorted(eng._graphs) == [("sharded", False),
+                                           ("sharded", True)]
+            for key, g in eng._graphs.items():
+                replays[key] = 0
+
+                def counted(*a, _replay=g.replay, _key=key):
+                    replays[_key] += 1
+                    return _replay(*a)
+
+                g.replay = counted
+        sink = []
+
+        class _Sink:
+            def append(self, res):
+                sink.append(res)
+
+        before = fk.leaf_sum.launches
+        stats = eng.run(_Batches(batches), _Sink())
+        torch.cuda.synchronize()
+        runs.append((eng, sink, stats, fk.leaf_sum.launches - before))
+    (ee, want, es, el), (ge, got, gs, gl) = runs
+    assert gs["full_exchange_chunks"] == es["full_exchange_chunks"] > 0
+    assert all(n > 0 for n in replays.values()), replays
+    assert gl == el
+    assert ge._m_aot_fallbacks.value == 0
+    for a, b in zip(got, want):
+        assert np.array_equal(a.features, b.features)
+        assert np.array_equal(a.probs, b.probs)
+    for a, b in zip(tree.leaves(ge.state.feature_state)
+                    + tree.leaves(ge.state.params),
+                    tree.leaves(ee.state.feature_state)
+                    + tree.leaves(ee.state.params)):
+        assert torch.equal(a, b)

@@ -9,7 +9,9 @@ replays, and ingest and observability (a prefetched run under the tracer,
 a flight record and the metrics server, a raw-table backfill, ``score
 --scorer cpu`` with prefetch and the observability flags), and the
 offline side (the feature replay, training of each kind, a selection
-sweep and the ``train`` command); the other reads the
+sweep and the ``train`` command), and the sharded engine (4 shards on
+the CPU, a hot customer's spill, a restore at 8 shards, ``score --devices
+4``); the other reads the
 port's sources (Python, CUDA and CUDA headers) and ``chip_smoke.py`` for
 an import of jax or a dotted reference into the JAX package.
 """
@@ -195,6 +197,38 @@ with tempfile.TemporaryDirectory() as tmp:
                      "--model", "logreg", "--out-model", f"{tmp}/m.npz",
                      "--delta-train", "5", "--delta-delay", "1",
                      "--delta-test", "3", "--epochs", "1"]) == 0
+# the sharded engine: 4 shards co-located on the CPU, a hot customer's
+# spill, a checkpoint restored at 8 shards, and score --devices 4
+from real_time_fraud_detection_system_tpu_torch.io.checkpoint import (
+    Checkpointer)
+from real_time_fraud_detection_system_tpu_torch.parallel import (  # noqa
+    mesh, step)
+from real_time_fraud_detection_system_tpu_torch.runtime.sharded_engine \
+    import ShardedScoringEngine
+hot = txs.slice(slice(0, 400))
+hot.customer_id = hot.customer_id * 0 + 3
+with tempfile.TemporaryDirectory() as tmp:
+    ck = Checkpointer(f"{tmp}/ck")
+    eng = ShardedScoringEngine(cfg, "forest",
+                               synthetic_ensemble(3, 3, device="cpu"),
+                               scaler, n_devices=4, device="cpu")
+    stats = eng.run(ReplaySource(hot, 1_743_465_600, batch_rows=200),
+                    MemorySink())
+    assert stats["batches"] == 2 and eng.state.layout_devices == 4
+    ck.save(eng.state)
+    eng8 = ShardedScoringEngine(cfg, "forest",
+                                synthetic_ensemble(3, 3, device="cpu"),
+                                scaler, n_devices=8, device="cpu")
+    assert ck.restore(eng8.state) is not None
+    stats = eng8.run(ReplaySource(txs, 1_743_465_600, batch_rows=200),
+                     MemorySink(), max_batches=1)
+    assert stats["batches"] == 1 and eng8.state.layout_devices == 8
+    save_transactions(f"{tmp}/txs.npz", txs)
+    with open(f"{tmp}/gbt.npz", "wb") as f:
+        f.write(dump_model_bytes(TrainedModel("gbt", scaler, gbt)))
+    assert cli.main(["score", "--device", "cpu", "--data", f"{tmp}/txs.npz",
+                     "--model-file", f"{tmp}/gbt.npz", "--max-batches",
+                     "1", "--batch-rows", "200", "--devices", "4"]) == 0
 assert not any(m.split(".")[0] in ("jax", "real_time_fraud_detection_system_tpu")
                for m, mod in sys.modules.items() if mod is not None)
 print("served without jax")
