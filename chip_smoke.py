@@ -52,9 +52,9 @@ Phases, each printing JSON lines:
    columnar over every row, and envelope mode on a slice through the
    native decoder; the slice again with ``--prefetch-batches 2
    --metrics-dump --flight-record --trace-out`` (a record and a dispatch
-   span per batch); and the default dataset with ``--out`` on the card
-   and with ``--scorer cpu`` (the host's NumPy oracle), probabilities
-   within 1e-6 of each other (the card machine has no pyarrow: ``--out``
+   span per batch); and the default dataset's first 8 batches with
+   ``--out`` on the card and with ``--scorer cpu`` (the host's NumPy
+   oracle), probabilities within 1e-6 of each other (the card machine has no pyarrow: ``--out``
    lands in an in-memory sink).
 8. ``recovery`` — exactly-once durability on the forest path (whole-dollar
    amounts, checkpoints every 8 batches, a full every 4 saves, a local
@@ -186,7 +186,7 @@ Phases, each printing JSON lines:
    logreg, mlp (64, 32), autoencoder (32, 8), gbt and the sequence
    transformer (d_model 32, 2 heads, 2 layers, d_ff 64) trained
    in-process, 5 epochs — fit and predict seconds, AUC-ROC, AP and
-   CP@100 each (the one cut: the gbt grows 10 trees of depth 8, not 100,
+   CP@100 each (the one cut: the gbt grows 5 trees of depth 8, not 100,
    for the NumPy booster's host time) — and the device ms of one Adam
    step of the mlp and of the transformer (median of 20 after 3); (c)
    ``compare`` (logreg, mlp, autoencoder, sequence, 1 epoch) and
@@ -221,7 +221,35 @@ Phases, each printing JSON lines:
    batches equal to the single engine's; (f) gbt (the leaf-sum kernel)
    against the single engine, and logreg with ``online_lr=1e-3`` against
    the same 4 shards on the CPU (2 batches, params within 1e-6).
-17. ``kernels`` — one line per the measurement contract, each kernel's
+17. ``sharded_exact`` — the tiered store over the co-located shards
+   (``key_mode="exact"``: a key directory, sketch replicas, compaction
+   and cold tier per shard), the forest at int8, the leaf-sum kernel
+   once per chunk and the fused kernels never: (a) the 12 whole-dollar
+   batches of (16) at the default capacities, 4 and 8 shards against
+   the single exact engine and the direct path, bit for bit on every
+   row whose keys hold a directory entry (every shard's slots hold its
+   keys; a key whose 8 probes all meet occupied entries reads the
+   sketch, as in the reference, and those rows are held against the
+   same shards on the CPU), dense + sketch reads = 2 × rows; (b)
+   ``tools/sharded_state_scale_bench.py``'s deployment (2^15 slots per
+   table, sketches 2^14 wide, compaction every 2 batches, 16,384-row
+   batches, Zipf(1.1) over 65,536, 1,048,576 and 10M keys) at 1, 2 and
+   4 shards under ``precompile``: rows/s, dense hit rate per shard,
+   reclaims per shard, occupancy, state bytes, and at 2 and 4 shards
+   the two warm batches against a CPU-device engine of the same width
+   (directories bit for bit); (c) the 10M universe at 4 shards on 2^22 slots per table;
+   (d) the 100M universe with the host cold tier at 4 shards:
+   demotions and promotions on every shard, a checkpoint with the cold
+   lineage restored into a fresh engine; (e) labels for 5% of the rows
+   through ``apply_state_feedback`` after each batch, the directories,
+   dense fraud sums and sketch fraud column equal to a CPU engine's;
+   (f) 6 batches at 4 shards, a checkpoint restored at 8 and at 1, the
+   rest equal to the single exact engine (a key that cannot place within
+   the 8 probes of its new shard's rebuilt directory is refused, naming
+   the fix, and the leg then restores with 16); (g) the leaf-sum launch on
+   the exact chunk against ``leaf_sum_plain`` (max |Δ|, ms, bound), and
+   the device's idle share under ``torch.profiler`` at 4 shards and 1.
+18. ``kernels`` — one line per the measurement contract, each kernel's
    launches summed over every driven path that launched it.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises and
@@ -294,6 +322,9 @@ EXACT_RECLAIM_BATCHES = 48  # day advancing every batch: past the horizon
 EXACT_BIG_CAPACITY = 1 << 22  # the hot tier of a 10M-card issuer
 COALESCE_POLL_ROWS = 16384
 ENVELOPE_ROWS = 262144  # the slice the cli phase serves in envelope mode
+# the cli phase's card and --scorer cpu runs: the host oracle walks the
+# forest in NumPy at ~33k rows/s, so these batches, not the dataset
+CLI_SCORER_BATCHES = 8
 PATHS = ("forest", "logreg", "gbt")
 # The kernel each path's step must launch once per batch.
 OWN_KERNEL = {"forest": "fused_forest_leaf_sum",
@@ -1212,10 +1243,13 @@ def _cli_ingest_runs(tmp: str, model: str, txs, device_info,
             stats, launches = _cli_score([
                 "--data", f"{tmp}/whole.npz", "--model-file", model,
                 "--batch-rows", str(BATCH_ROWS), "--scorer", scorer,
+                "--max-batches", str(CLI_SCORER_BATCHES),
                 "--out", f"{tmp}/out-{scorer}"])
             for k in totals:
                 totals[k] += launches[k]
-            check(stats["rows"] == txs.n and stats["scorer"] == scorer,
+            check(stats["rows"] == min(txs.n, CLI_SCORER_BATCHES
+                                       * BATCH_ROWS)
+                  and stats["scorer"] == scorer,
                   f"cli --scorer {scorer}: {stats}")
             emit({"phase": "cli", "mode": "columnar", "scorer": scorer,
                   "rows": stats["rows"], "batches": stats["batches"],
@@ -1728,19 +1762,25 @@ def _occupancy(fs) -> dict:
 
 
 def _vs_cpu_engine(cfg, kind, data, batches, card_sink, card_state,
-                   what: str) -> float:
-    """The card's run of ``batches`` against a CPU-device engine's:
-    every directory leaf bit for bit, counts and risks bit for bit,
-    averages within ``RTOL_FEATURE``, probabilities within the main
-    path's tolerance. Returns the largest probability difference."""
+                   what: str, n_dev: int = 0) -> float:
+    """The card's run of ``batches`` against a CPU-device engine's (of
+    ``n_dev`` shards when given): every directory leaf bit for bit,
+    counts and risks bit for bit, averages within ``RTOL_FEATURE``,
+    probabilities within the main path's tolerance. Returns the largest
+    probability difference."""
     from real_time_fraud_detection_system_tpu_torch.io.sink import MemorySink
     from real_time_fraud_detection_system_tpu_torch.runtime.engine import (
         ScoringEngine,
     )
+    from real_time_fraud_detection_system_tpu_torch.runtime.sharded_engine \
+        import ShardedScoringEngine
 
     cpu_model = data["models"][kind][1]
-    ref = ScoringEngine(cfg, kind, cpu_model.params, cpu_model.scaler,
-                        device="cpu")
+    ref = (ShardedScoringEngine(cfg, kind, cpu_model.params,
+                                cpu_model.scaler, n_devices=n_dev,
+                                device="cpu") if n_dev else
+           ScoringEngine(cfg, kind, cpu_model.params, cpu_model.scaler,
+                         device="cpu"))
     ref_sink = MemorySink()
     ref.run(_ListSource([dict(b) for b in batches]), ref_sink)
     for k, v in _dir_leaves(ref.state.feature_state).items():
@@ -4152,7 +4192,7 @@ def phase_ingest(dev, device_info, data: dict) -> dict:
 
 OFFLINE_CHUNK = 8192  # the replay's chunk (features/offline.py default)
 OFFLINE_PARITY_CHUNKS = 4  # (a): chunks held against a CPU-device replay
-OFFLINE_GBT_TREES = 10  # (b): the one cut, host time (100 in ModelConfig)
+OFFLINE_GBT_TREES = 5  # (b): the one cut, host time (100 in ModelConfig)
 OFFLINE_ADAM_WARMUP = 3  # (b): Adam steps before the timed ones
 OFFLINE_ADAM_STEPS = 20
 OFFLINE_SERVE_PARITY_BATCHES = 2  # (d)
@@ -4795,6 +4835,570 @@ def phase_sharded(dev, device_info, data: dict) -> dict:
     return totals
 
 
+# -- phase sharded_exact ------------------------------------------------------
+
+# (b): tools/sharded_state_scale_bench.py's deployment of the JAX package:
+# hot tiers of 2^15 slots per table, sketches 2^14 wide, compaction every
+# 2 batches, 16,384-row batches, 2 warm batches then 6 with the day
+# advancing every 2, at 2 and 4 shards under precompile.
+SX_WIDTHS = (4, 8)  # (a)
+SX_BENCH_SHARDS = (2, 4)
+SX_BENCH_ROWS = 16384
+SX_BENCH_BATCHES = 6
+SX_BENCH_DAY_EVERY = 2
+SX_BIG_BATCHES = 6  # (c), (d): 65,536-row batches after 2 warm ones
+SX_COLD_BATCHES = 12
+SX_LABEL_SHARE = 0.05  # (e)
+SX_LABEL_BATCHES = 4
+
+
+def _sx_occupancy(fs) -> dict:
+    """Occupied hot-tier slots per table, per shard."""
+    return {t: (kd.free.shape[-1] - kd.free_top).cpu().tolist()
+            for t in ("customer", "terminal")
+            if (kd := getattr(fs, f"{t}_dir")) is not None}
+
+
+def _sx_shard_reads(reg, n_dev: int) -> np.ndarray:
+    """[n, 2] (dense, cms) reads so far from the shard-labelled series."""
+    return np.array([[reg.get("rtfds_feature_tier_rows_total", tier=t,
+                              shard=str(s)).value for t in ("dense", "cms")]
+                     for s in range(n_dev)])
+
+
+def _sx_shard_hits(reg, n_dev: int, before=None) -> dict:
+    """Per-shard dense hit rate from the shard-labelled tier series
+    (since ``before``, a ``_sx_shard_reads``)."""
+    reads = _sx_shard_reads(reg, n_dev)
+    if before is not None:
+        reads = reads - before
+    return {str(s): float(d / (d + c)) if d + c else 1.0
+            for s, (d, c) in enumerate(reads)}
+
+
+def _sx_shard_series(reg, name: str, table: str, n_dev: int) -> list:
+    return [reg.get(name, table=table, shard=str(s)).value
+            for s in range(n_dev)]
+
+
+def _sx_free(fs) -> list:
+    """Every shard's free-stack height, per table with a directory."""
+    return [int(v) for t in ("customer", "terminal")
+            if (kd := getattr(fs, f"{t}_dir")) is not None
+            for v in kd.free_top.cpu().tolist()]
+
+
+def _sx_missed(eng, batches, n_dev: int):
+    """The rows of ``batches`` whose customer or terminal key holds no
+    entry in its shard's directory at the end of the run (a probe
+    overflow: without compaction an admitted key stays): (row mask, the
+    keys, the (row × table) reads they served from the sketch)."""
+    from real_time_fraud_detection_system_tpu_torch.core.batch import (
+        fold_key,
+    )
+    from real_time_fraud_detection_system_tpu_torch.ops.keydir import (
+        lookup_slots_stacked,
+    )
+
+    fs = eng.state.feature_state
+    miss = 0
+    reads = 0
+    keys = 0
+    for table, col in (("customer", "customer_id"),
+                       ("terminal", "terminal_id")):
+        folded = fold_key(np.concatenate([b[col] for b in batches]))
+        uniq, inv = np.unique(folded, return_inverse=True)
+        owner = torch.from_numpy(uniq.astype(np.int64) % n_dev)
+        dev = fs.terminal.count.device
+        _, hit = lookup_slots_stacked(
+            getattr(fs, f"{table}_dir"), owner.to(dev),
+            torch.from_numpy(uniq).to(dev),
+            torch.ones(len(uniq), dtype=torch.bool, device=dev))
+        lost = ~hit.cpu().numpy()
+        keys += int(lost.sum())
+        reads += int(lost[inv].sum())
+        miss = miss | lost[inv]
+    return np.asarray(miss, dtype=bool), keys, reads
+
+
+def _sx_same_admitted(got: "_Results", want: "_Results", miss, what: str,
+                      atol: float = ATOL_SHARDED) -> float:
+    """``_same_rows`` on the rows ``miss`` leaves out; → max |Δp|."""
+    keep = ~miss
+    check(np.array_equal(got.feats()[keep], want.feats()[keep]),
+          f"{what}: features differ")
+    err = float(np.abs(got.probs()[keep] - want.probs()[keep]).max())
+    check(err <= atol, f"{what}: probabilities differ by {err}")
+    return err
+
+
+def phase_sharded_exact(dev, device_info, data: dict) -> dict:
+    """The tiered store across shards on the card; see the module
+    docstring, phase 17."""
+    from real_time_fraud_detection_system_tpu_torch.core.batch import (
+        US_PER_DAY,
+    )
+    from real_time_fraud_detection_system_tpu_torch.data.generator import (
+        ZipfKeySampler,
+    )
+    from real_time_fraud_detection_system_tpu_torch.features.online import (
+        state_bytes,
+    )
+    from real_time_fraud_detection_system_tpu_torch.io.checkpoint import (
+        Checkpointer,
+    )
+    from real_time_fraud_detection_system_tpu_torch.io.sink import MemorySink
+    from real_time_fraud_detection_system_tpu_torch.ops import (
+        forest_kernels,
+    )
+    from real_time_fraud_detection_system_tpu_torch.runtime import (
+        engine as engine_mod,
+    )
+    from real_time_fraud_detection_system_tpu_torch.runtime.engine import (
+        ScoringEngine,
+    )
+    from real_time_fraud_detection_system_tpu_torch.runtime.sharded_engine \
+        import ShardedScoringEngine
+    from real_time_fraud_detection_system_tpu_torch.utils.metrics import (
+        MetricsRegistry,
+    )
+
+    t_phase = time.perf_counter()
+    card = {"card": device_info["smi_name"],
+            "power_limit": device_info["power_limit"]}
+    totals = {name: 0 for name in KERNELS}
+    base = data["cfg"]
+    cfg = dataclasses.replace(base, runtime=dataclasses.replace(
+        base.runtime, z_mode="int8"))
+    ecfg = dataclasses.replace(cfg, features=dataclasses.replace(
+        cfg.features, key_mode="exact"))
+    model, cpu_model = data["models"]["forest"][:2]
+
+    def engine(c, n_dev=0, dev_=dev, **kw):
+        m = model if dev_ == dev else cpu_model
+        if n_dev:
+            return ShardedScoringEngine(c, "forest", m.params, m.scaler,
+                                        n_devices=n_dev, device=dev_, **kw)
+        return ScoringEngine(c, "forest", m.params, m.scaler, device=dev_,
+                             **kw)
+
+    def serve(eng, bs, what, own="leaf_sum", sink=None):
+        """Serve ``bs`` with the counts zeroed just before: ``own`` once
+        per chunk (once per batch on a single engine), the others
+        never."""
+        sink = _Results() if sink is None else sink
+        stats, launches = drive(lambda: eng.run(_ListSource(bs), sink))
+        steps = stats.get("chunks", stats["batches"])
+        for name, n in launches.items():
+            want = steps if name == own else 0
+            check(n == want, f"sharded_exact {what}: {n} launches of "
+                             f"{name} for {steps} steps (want {want})")
+            totals[name] += n
+        check(stats["rows"] == sum(len(b["tx_id"]) for b in bs),
+              f"sharded_exact {what}: not every row was scored")
+        return stats, sink
+
+    def run_line(stats) -> dict:
+        return {k: stats[k] for k in (
+            "rows", "batches", "rows_per_s", "latency_p50_ms",
+            "latency_p99_ms", "stage_ms_p50", "wall_s")} | {
+            k: stats[k] for k in ("chunks", "full_exchange_chunks")
+            if k in stats}
+
+    # (a) the default dataset: every key fits its shard's hot tier ---------
+    batches = _unlabeled(_column_batches(data["txs_whole_dollars"],
+                                         SHARDED_BATCHES))
+    _, direct = serve(engine(cfg), batches, "direct",
+                      "fused_forest_leaf_sum")
+    reg = MetricsRegistry()
+    s_stats, single = serve(engine(ecfg, metrics=reg), batches,
+                            "single exact")
+    check(reg.get("rtfds_feature_tier_rows_total", tier="cms").value == 0,
+          "sharded_exact (a): the single exact engine read the sketch")
+    parity = {"single": run_line(s_stats),
+              "single_max_abs_err_vs_direct": _same_rows(
+                  single, direct, "single exact against direct")}
+    for n_dev in SX_WIDTHS:
+        reg = MetricsRegistry()
+        eng = engine(ecfg, n_dev, metrics=reg)
+        check(eng.leaf_tables is not None and eng.tables is None,
+              f"sharded_exact (a) {n_dev}: not on the leaf-sum path")
+        stats, res = serve(eng, batches, f"(a) {n_dev} shards")
+        dense = reg.get("rtfds_feature_tier_rows_total", tier="dense").value
+        cms = reg.get("rtfds_feature_tier_rows_total", tier="cms").value
+        # Every shard's slots hold its keys, but a key whose 8 probes
+        # all meet occupied entries of its shard's directory misses
+        # admission (the reference's bound, identical there) and reads
+        # the sketch: those rows aside, bit for bit.
+        miss, n_miss_keys, misses = _sx_missed(eng, batches, n_dev)
+        check(dense + cms == 2 * stats["rows"] and cms == misses,
+              f"sharded_exact (a) {n_dev}: {dense} dense and {cms} sketch "
+              f"reads for {stats['rows']} rows, {misses} rows' keys "
+              f"not admitted")
+        check(all(t > 0 for t in _sx_free(eng.state.feature_state)),
+              f"sharded_exact (a) {n_dev}: a shard's free stack ran dry")
+        parity[str(n_dev)] = {
+            **run_line(stats),
+            "probe_overflow_keys": n_miss_keys,
+            "probe_overflow_rows": int(miss.sum()),
+            "max_abs_err_vs_single_exact": _sx_same_admitted(
+                res, single, miss, f"{n_dev} shards against single exact"),
+            "max_abs_err_vs_direct": _sx_same_admitted(
+                res, direct, miss, f"{n_dev} shards against direct"),
+            "occupancy_per_shard": _sx_occupancy(eng.state.feature_state)}
+        if n_miss_keys:
+            # the rows that read the sketch: held against the same
+            # shards on the CPU (directories bit for bit)
+            wsink = MemorySink()
+            card2 = engine(ecfg, n_dev)
+            serve(card2, batches[:2], f"(a) {n_dev} shards, 2 batches",
+                  sink=wsink)
+            parity[str(n_dev)]["max_abs_err_vs_cpu_engine"] = (
+                _vs_cpu_engine(ecfg, "forest", data, batches[:2], wsink,
+                               card2.state.feature_state,
+                               f"(a) {n_dev} shards", n_dev))
+    emit({"phase": "sharded_exact", "part": "a_parity", "kind": "forest",
+          "z_mode": "int8", "rows_per_batch": BATCH_ROWS, **parity, **card})
+    del direct
+
+    # (b) the JAX bench's sharded deployment over three universes ----------
+    bcfg = _bench_cfg(cfg, cms_width=1 << 14, compact_every=2,
+                      state_hbm_budget_mb=0.0)
+    bcfg = dataclasses.replace(bcfg, runtime=dataclasses.replace(
+        bcfg.runtime, batch_buckets=(SX_BENCH_ROWS,),
+        max_batch_rows=SX_BENCH_ROWS))
+    bench = {}
+    samplers = {}
+    for n_keys in EXACT_UNIVERSES:
+        sampler = samplers[n_keys] = ZipfKeySampler(n_keys, ZIPF_SKEW)
+        warm = _zipf_batches(sampler, EXACT_WARM, day_every=1, seed=7,
+                             rows=SX_BENCH_ROWS)
+        main = _zipf_batches(sampler, SX_BENCH_BATCHES,
+                             day_every=SX_BENCH_DAY_EVERY, seed=2,
+                             rows=SX_BENCH_ROWS)
+        cell = {}
+        for n_dev in (0,) + SX_BENCH_SHARDS:
+            reg = MetricsRegistry()
+            torch.cuda.reset_peak_memory_stats()
+            eng = engine(bcfg, n_dev, metrics=reg)
+            what = f"(b) {n_dev or 1} shard(s), {n_keys} keys"
+            man = eng.precompile()
+            wsink = MemorySink()
+            serve(eng, warm, what, sink=wsink)
+            # the single engine's twin is exact_path (b)'s
+            err = (_vs_cpu_engine(bcfg, "forest", data, warm, wsink,
+                                  eng.state.feature_state, what, n_dev)
+                   if n_dev else "see exact_path (b)")
+            tsink = _TierSink(reg)
+            before = _sx_shard_reads(reg, n_dev) if n_dev else None
+            stats, _ = serve(eng, main, what, sink=tsink)
+            for rows, dense, cms in tsink.per_batch:
+                check(dense + cms == 2 * rows,
+                      f"{what}: {dense} dense + {cms} sketch reads for "
+                      f"{rows} rows")
+            d = sum(x[1] for x in tsink.per_batch)
+            c = sum(x[2] for x in tsink.per_batch)
+            line = {**run_line(stats), "graphs": man["graphs"],
+                    "dense_hit_rate": d / (d + c),
+                    "occupancy": _sx_occupancy(eng.state.feature_state),
+                    "state_bytes": state_bytes(bcfg.features,
+                                               n_shards=max(n_dev, 1)),
+                    "max_memory_allocated":
+                        torch.cuda.max_memory_allocated(),
+                    "max_abs_err_vs_cpu_engine": err}
+            if n_dev:
+                # both step variants and the compaction
+                check(man["graphs"] == 3,
+                      f"{what}: {man['graphs']} graphs captured")
+                line["dense_hit_rate_per_shard"] = _sx_shard_hits(
+                    reg, n_dev, before)
+                line["slots_reclaimed_per_shard"] = {
+                    t: _sx_shard_series(
+                        reg, "rtfds_feature_slots_reclaimed_total", t,
+                        n_dev) for t in ("customer", "terminal")}
+            cell[str(n_dev or 1)] = line
+            del eng
+        bench[str(n_keys)] = cell
+    emit({"phase": "sharded_exact", "part": "b_bench_deployment",
+          "kind": "forest", "skew": ZIPF_SKEW, "rows_per_batch":
+          SX_BENCH_ROWS, "capacity": bcfg.features.customer_capacity,
+          "cms_width": bcfg.features.cms_width, "compact_every": 2,
+          "by_universe": bench, **card})
+    torch.cuda.empty_cache()
+
+    # (c) the 10M universe on 2^22 slots per table at 4 shards -------------
+    big = EXACT_BIG_CAPACITY
+    ccfg = _bench_cfg(cfg, customer_capacity=big, terminal_capacity=big,
+                      cms_width=1 << 14, compact_every=2,
+                      state_hbm_budget_mb=0.0)
+    sampler = samplers[EXACT_UNIVERSES[-1]]  # the 10M universe
+    bs = (_zipf_batches(sampler, EXACT_WARM, day_every=1, seed=7)
+          + _zipf_batches(sampler, SX_BIG_BATCHES, day_every=2, seed=2))
+    reg = MetricsRegistry()
+    torch.cuda.reset_peak_memory_stats()
+    eng = engine(ccfg, 4, metrics=reg)
+    eng.precompile()
+    tsink = _TierSink(reg)
+    stats, _ = serve(eng, bs, "(c) 10M keys on 2^22 slots", sink=tsink)
+    d = sum(x[1] for x in tsink.per_batch)
+    c = sum(x[2] for x in tsink.per_batch)
+    emit({"phase": "sharded_exact", "part": "c_10m_issuer", "shards": 4,
+          "n_keys": sampler.n_keys, "capacity": big, **run_line(stats),
+          "dense_hit_rate": d / (d + c),
+          "dense_hit_rate_per_shard": _sx_shard_hits(reg, 4),
+          "occupancy": _sx_occupancy(eng.state.feature_state),
+          "state_bytes": state_bytes(ccfg.features, n_shards=4),
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          **card})
+    del eng
+    torch.cuda.empty_cache()
+
+    # (d) the 100M universe with the host cold tier at 4 shards ------------
+    sampler = ZipfKeySampler(EXACT_COLD_UNIVERSE, ZIPF_SKEW)
+    warm = _zipf_batches(sampler, EXACT_WARM, day_every=1, seed=7)
+    main = _zipf_batches(sampler, SX_COLD_BATCHES, day_every=2, seed=2)
+    with tempfile.TemporaryDirectory() as tmp:
+        dcfg = _bench_cfg(cfg, cms_width=1 << 14, compact_every=2,
+                          state_hbm_budget_mb=0.0,
+                          cold_store=f"{tmp}/cold", cold_demote_slots=1024,
+                          cold_promote_queue=256)
+        reg = MetricsRegistry()
+        eng = engine(dcfg, 4, metrics=reg)
+        man = eng.precompile()
+        check(man["graphs"] == 4,
+              f"sharded_exact (d): {man['graphs']} graphs captured")
+        # per shard (key % 4): the demoted lanes of each compaction's
+        # stacked payload, and the keys each promotion landed
+        demoted = np.zeros(4, np.int64)
+        promoted = np.zeros(4, np.int64)
+        append, mark = eng._append_demotions, eng._cold.mark_promoted
+
+        def count_demotions(payload, _append=append):
+            for pay in payload.values():
+                if pay is not None:
+                    keys = pay[0].cpu().view(torch.int32)
+                    demoted[:] += (keys != -1).sum(dim=1).numpy()
+            return _append(payload)
+
+        def count_promotions(table, keys, _mark=mark):
+            np.add.at(promoted, np.asarray(keys, np.int64) % 4, 1)
+            return _mark(table, keys)
+
+        eng._append_demotions = count_demotions
+        eng._cold.mark_promoted = count_promotions
+        serve(eng, warm, "(d) warm")
+        stats, _ = serve(eng, main, "(d) 100M keys with the cold tier")
+        check(eng.drain_promotions(timeout_s=60.0),
+              "sharded_exact (d): promotions did not drain")
+        counts = {n: reg.get(n).value for n in (
+            "rtfds_feature_cold_demotions_total", "rtfds_feature_cold_keys",
+            "rtfds_feature_cold_promotions_total")}
+        check(all(v > 0 for v in counts.values())
+              and (demoted > 0).all() and (promoted > 0).all(),
+              f"sharded_exact (d): cold counters {counts}, demoted per "
+              f"shard {demoted.tolist()}, promoted {promoted.tolist()}")
+        per_shard_prom = promoted.tolist()
+        eng._cold.flush()
+        eng.state.cold_lineage = eng._cold.lineage()
+        ck = Checkpointer(f"{tmp}/ck")
+        t0 = time.perf_counter()
+        ck.save(eng.checkpoint_state())
+        save_ms = (time.perf_counter() - t0) * 1e3
+        fresh = engine(dcfg, 4)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        check(ck.restore(fresh.state) is not None,
+              "sharded_exact (d): no checkpoint restored")
+        fresh._sync_cold_after_restore()
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        check(fresh.state.cold_lineage == eng.state.cold_lineage,
+              "sharded_exact (d): the restored cold lineage differs")
+        for k, v in _dir_leaves(eng.state.feature_state).items():
+            check(torch.equal(_dir_leaves(fresh.state.feature_state)[k], v),
+                  f"sharded_exact (d): restored directory leaf {k} differs")
+        emit({"phase": "sharded_exact", "part": "d_cold_tier", "shards": 4,
+              "n_keys": EXACT_COLD_UNIVERSE, **run_line(stats), **counts,
+              "demoted_per_shard": demoted.tolist(),
+              "promoted_per_shard": per_shard_prom,
+              "exactness_degraded_keys": stats["exactness_degraded_keys"],
+              "cold_segments": len(eng.state.cold_lineage["segments"]),
+              "checkpoint_save_ms": save_ms, "restore_ms": restore_ms,
+              **card})
+        eng.fence_cold()
+        fresh.fence_cold()
+        del eng, fresh
+
+    # (e) labels at 5% through apply_state_feedback, against the CPU ------
+    sampler = samplers[1 << 20]
+    bs = _zipf_batches(sampler, SX_LABEL_BATCHES, day_every=1, seed=11,
+                       rows=SX_BENCH_ROWS)
+    rng = np.random.default_rng(13)
+    labels = []
+    for b in bs:
+        pick = rng.random(len(b["tx_id"])) < SX_LABEL_SHARE
+        labels.append((b["terminal_id"][pick],
+                       (b["tx_datetime_us"][pick] // US_PER_DAY)
+                       .astype(np.int32),
+                       rng.integers(0, 2, int(pick.sum())).astype(np.int32)))
+    outs = []
+    for where in (dev, torch.device("cpu")):
+        eng = engine(bcfg, 4, dev_=where)
+        res = _Results()
+        t_fb = []
+        for b, lab in zip(bs, labels):
+            if where == dev:
+                serve(eng, [b], "(e) labels", sink=res)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                eng.apply_state_feedback(*lab)
+                torch.cuda.synchronize()
+                t_fb.append((time.perf_counter() - t0) * 1e3)
+            else:
+                eng.run(_ListSource([b]), res)
+                eng.apply_state_feedback(*lab)
+        outs.append((eng, res, t_fb))
+    (ge, g_res, t_fb), (ce, c_res, _) = outs
+    check(np.array_equal(g_res.feats()[:, [0, 1, 2, 3, 5, 7] + list(
+        range(9, 15))], c_res.feats()[:, [0, 1, 2, 3, 5, 7] + list(
+            range(9, 15))]), "sharded_exact (e): features differ from CPU")
+    np.testing.assert_allclose(g_res.feats(), c_res.feats(),
+                               rtol=RTOL_FEATURE)
+    fb_err = float(np.abs(g_res.probs() - c_res.probs()).max())
+    check(fb_err <= ATOL_LEAF / 100,
+          f"sharded_exact (e): probabilities differ by {fb_err}")
+    gfs, cfs = ge.state.feature_state, ce.state.feature_state
+    for k, v in _dir_leaves(cfs).items():
+        check(torch.equal(_dir_leaves(gfs)[k], v),
+              f"sharded_exact (e): directory leaf {k} differs from CPU")
+    for name, a, b in (("terminal.fraud", gfs.terminal.fraud,
+                        cfs.terminal.fraud),
+                       ("terminal_cms.fraud", gfs.terminal_cms.fraud,
+                        cfs.terminal_cms.fraud)):
+        check(torch.equal(a.cpu(), b),
+              f"sharded_exact (e): {name} differs from the CPU engine")
+    dense_frd = float(gfs.terminal.fraud.sum())
+    sketch_frd = float(gfs.terminal_cms.fraud.sum())
+    check(dense_frd > 0 and sketch_frd > 0,
+          f"sharded_exact (e): labels reached dense {dense_frd}, sketch "
+          f"{sketch_frd}")
+    emit({"phase": "sharded_exact", "part": "e_labels", "shards": 4,
+          "n_keys": 1 << 20, "label_share": SX_LABEL_SHARE,
+          "labels": int(sum(len(x[2]) for x in labels)),
+          "apply_state_feedback_ms": t_fb,
+          "max_abs_err_vs_cpu_engine": fb_err,
+          "dense_fraud_sum": dense_frd, "sketch_fraud_sum": sketch_frd,
+          **card})
+    del outs, ge, ce
+
+    # (f) a checkpoint at 4 shards restored at 8 and at 1 ---------------
+    first, rest = batches[:SHARDED_SPLIT], batches[SHARDED_SPLIT:]
+    legs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = Checkpointer(tmp)
+        four = engine(ecfg, 4)
+        serve(four, first, "(f) before the checkpoint")
+        t0 = time.perf_counter()
+        ck.save(four.state)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        for n_dev in (8, 0):
+            refused = None
+            for probes in (ecfg.features.keydir_probes, 16):
+                # a key that cannot place within the probe depth of its
+                # new shard's rebuilt directory is refused, naming the
+                # fix (more probes); the leg then takes it
+                pcfg = dataclasses.replace(ecfg, features=dataclasses.replace(
+                    ecfg.features, keydir_probes=probes))
+                eng = engine(pcfg, n_dev)
+                t0 = time.perf_counter()
+                check(ck.restore(eng.state) is not None,
+                      "sharded_exact (f): no checkpoint")
+                check(eng.state.layout_devices == 4,
+                      f"sharded_exact (f): restored layout "
+                      f"{eng.state.layout_devices}")
+                try:
+                    eng._ensure_layout()
+                except ValueError as e:
+                    check(refused is None and "keydir_probes" in str(e),
+                          f"sharded_exact (f): {e}")
+                    refused = str(e)
+                    continue
+                break
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            check(eng.state.layout_devices == (n_dev or 1),
+                  "sharded_exact (f): the restore was not converted")
+            _, res = serve(eng, rest, f"(f) restored at {n_dev or 1}")
+            legs[str(n_dev or 1)] = {
+                "restore_and_convert_ms": ms, "keydir_probes": probes,
+                "refused_at_default_probes": refused,
+                "max_abs_err_vs_single": _same_rows(
+                    res, _sliced(single, SHARDED_SPLIT),
+                    f"(f) restored at {n_dev or 1}")}
+    emit({"phase": "sharded_exact", "part": "f_cross_width", "saved_at": 4,
+          "save_ms": save_ms, "restored": legs, **card})
+
+    # (g) the leaf sum on the exact chunk; the idle share ------------------
+    seen = []
+    proba = engine_mod.leaf_sum_proba
+    leaf_sum = forest_kernels.leaf_sum
+
+    def spy(tables, x, base=None):
+        seen.append((tables, x))
+        return proba(tables, x, base)
+
+    eng = engine(ecfg, 4)
+    engine_mod.leaf_sum_proba = spy
+    try:
+        eng.process_batch(dict(batches[0]))
+    finally:
+        engine_mod.leaf_sum_proba = proba
+    check(len(seen) == 1, f"{len(seen)} leaf-sum calls for one chunk")
+    tables, x = seen[0]
+    chunk = 4 * eng.rows_per_shard
+    check(tuple(x.shape) == (chunk, 15), f"leaf sum over {tuple(x.shape)}")
+    got = leaf_sum(tables, x)
+    want = forest_kernels.leaf_sum_plain(tables, x)
+    err = float((got - want).abs().max())
+    check(err <= ATOL_LEAF, f"sharded_exact leaf sum differs by {err}")
+    walk = _walk_ops(tables, x, tables.n_trees)
+    leaf = {"rows": chunk, "max_abs_err": err,
+            "bit_equal": bool(torch.equal(got, want)),
+            **_time(lambda: leaf_sum(tables, x),
+                    lambda: forest_kernels.leaf_sum_plain(tables, x),
+                    _bound([x], [got], walk["ops"], _tree_bytes(tables)))}
+    profiles = {}
+    for n_keys, n_dev in ((1 << 20, 4), (1 << 20, 0)):
+        pbs = _zipf_batches(samplers[n_keys], PROFILE_BATCHES + 1,
+                            day_every=SX_BENCH_DAY_EVERY, seed=5,
+                            rows=SX_BENCH_ROWS)
+        eng = engine(bcfg, n_dev, metrics=MetricsRegistry())
+        eng.precompile()
+        device, wall_ms, _, _, pstats = _profiled(eng, _ListSource(pbs),
+                                                  PROFILE_BATCHES)
+        busy = sum(device.values())
+        profiles[str(n_dev or 1)] = {
+            "n_keys": n_keys,
+            "wall_ms_per_batch": wall_ms / PROFILE_BATCHES,
+            "dispatch_p50_ms": pstats["dispatch_p50_ms"],
+            "device_busy_ms_per_batch": busy / PROFILE_BATCHES
+            if device else "not measured",
+            "device_idle_share": 1.0 - busy / wall_ms if device
+            else "not measured",
+            "leaf_sum_ms_per_batch": sum(
+                v for k, v in device.items() if "leaf_sum_kernel" in k)
+            / PROFILE_BATCHES if device else "not measured",
+            "top_device_ms_per_batch": {
+                k[:80]: v / PROFILE_BATCHES for k, v in sorted(
+                    device.items(), key=lambda kv: -kv[1])[:6]}}
+    emit({"phase": "sharded_exact", "part": "g_leaf_sum_and_profile",
+          "leaf_sum": leaf, "profile": profiles, **card})
+    emit({"phase": "sharded_exact", "part": "done",
+          "kernel_launches": totals,
+          "phase_s": time.perf_counter() - t_phase, **card})
+    return totals
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4812,14 +5416,18 @@ def main() -> int:
     k = phase_kernel(dev)
     data = phase_data(dev)
     launches = {name: 0 for name in KERNELS}
+    seconds = {}
 
-    def add(counts: dict) -> None:
-        for name, n in counts.items():
-            launches[name] += n
+    def add(counts: dict, name: str, t0: float) -> None:
+        seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
+        for kernel, n in counts.items():
+            launches[kernel] += n
 
     for kind in PATHS:
-        add(phase_main_path(dev, info, data, kind))
-    add(phase_serving_loop(dev, info, data))
+        t0 = time.perf_counter()
+        add(phase_main_path(dev, info, data, kind), "main_path", t0)
+    t0 = time.perf_counter()
+    add(phase_serving_loop(dev, info, data), "serving_loop", t0)
     cfg = data["cfg"]
     for phase, features, kinds in (
             ("hash_path", {"key_mode": "hash"}, PATHS),
@@ -4827,22 +5435,29 @@ def main() -> int:
         pcfg = dataclasses.replace(cfg, features=dataclasses.replace(
             cfg.features, **features))
         for kind in kinds:
-            add(phase_main_path(dev, info, data, kind, phase, pcfg))
-    add(phase_cli(dev, info, data))
-    add(phase_recovery(dev, info, data))
-    add(phase_exact_path(dev, info, data))
-    add(phase_learning(dev, info, data))
-    add(phase_zoo(dev, info, data))
-    add(phase_precompile(dev, info, data))
-    add(phase_ingest(dev, info, data))
-    add(phase_offline(dev, info, data))
+            t0 = time.perf_counter()
+            add(phase_main_path(dev, info, data, kind, phase, pcfg), phase,
+                t0)
+    for name, fn in (("cli", phase_cli), ("recovery", phase_recovery),
+                     ("exact_path", phase_exact_path),
+                     ("learning", phase_learning), ("zoo", phase_zoo),
+                     ("precompile", phase_precompile),
+                     ("ingest", phase_ingest), ("offline", phase_offline)):
+        t0 = time.perf_counter()
+        add(fn(dev, info, data), name, t0)
+    t0 = time.perf_counter()
     for kind in PATHS:
         phase_profile(dev, data, kind)
     phase_profile(dev, data, "forest", dataclasses.replace(
         cfg, features=dataclasses.replace(cfg.features,
                                           customer_source="cms")))
-    add(phase_sharded(dev, info, data))
-    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
+    add({}, "profile", t0)
+    for name, fn in (("sharded", phase_sharded),
+                     ("sharded_exact", phase_sharded_exact)):
+        t0 = time.perf_counter()
+        add(fn(dev, info, data), name, t0)
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start,
+          "phase_seconds": seconds})
     emit({"kernels": [{
         "name": name,
         "route": "cuda",

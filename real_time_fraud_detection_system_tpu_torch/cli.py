@@ -60,10 +60,10 @@ with the model's NumPy ``predict_proba_np``. Observability:
 ``torch.profiler`` trace).
 ``--devices N`` serves N shards (``runtime/sharded_engine.py``), all on
 the one device ``--device`` names; ``--max-batch-rows`` sizes the sharded
-step, as in the JAX ``score``.
-Not ported yet: object-store input and output (ROADMAP A9), the tiered
-store across shards (``--key-mode exact`` with ``--devices`` > 1: A7b),
-the fleet (``--coordinator``, ``--num-processes``, ``--resume-merge``,
+step, as in the JAX ``score``; with ``--key-mode exact`` each shard has
+its own key directory, sketch replicas, compaction
+(``--state-compact-every``) and cold-tier traffic (``--cold-store``).
+Not ported yet: object-store input and output (ROADMAP A9), the fleet (``--coordinator``, ``--num-processes``, ``--resume-merge``,
 ``--resume-merge-cold``: A7c), the sequence kind over shards (A7d), and
 the other JAX subcommands (``datagen``, ``registry``, ``import-model``,
 the operator tools: A9).
@@ -210,10 +210,6 @@ def cmd_score(args) -> int:
     if args.max_batch_rows < 0:
         log.error("--max-batch-rows must be >= 0, got %s",
                   args.max_batch_rows)
-        return 2
-    if sharded and args.key_mode == "exact":
-        log.error("--key-mode exact over --devices > 1 (the tiered store "
-                  "across shards) is not ported yet: ROADMAP A7b")
         return 2
     if args.crash_loop_k < 1:
         log.error("--crash-loop-k must be >= 1, got %s", args.crash_loop_k)

@@ -11,6 +11,10 @@ tier, :func:`compact_feature_state` reclaims dead history on a cadence
 :func:`promote_rows` merges cold rows back. :func:`apply_feedback` lands
 delayed fraud labels in the terminal risk windows (in exact mode by a
 directory lookup, the misses in the terminal sketch's fraud column).
+Over N shards (``n_shards`` of :func:`init_feature_state`) each shard has
+its own directory over its block of the tables;
+:func:`apply_feedback_sharded_exact` looks labels up in the owner's, and
+the sharded step, compaction and promotion live in ``parallel/step.py``.
 One call per micro-batch scatters the batch into the rolling-window state,
 then reads the feature vector of every row from it (update-then-query: a
 row's windows include itself and its batch-mates of the same key and day).
@@ -52,12 +56,17 @@ from real_time_fraud_detection_system_tpu_torch.ops.forest_kernels import (
     ForestTables,
     fused_forest_leaf_sum,
 )
-from real_time_fraud_detection_system_tpu_torch.ops.hashing import slot_of
+from real_time_fraud_detection_system_tpu_torch.ops.hashing import (
+    slot_of,
+    widen_u32,
+)
 from real_time_fraud_detection_system_tpu_torch.ops.keydir import (
     KeyDirectory,
     admit_slots,
     init_keydir,
+    init_stacked_keydir,
     lookup_slots,
+    lookup_slots_stacked,
     put_kept_,
     reclaim_entries,
 )
@@ -90,18 +99,35 @@ class FeatureState(NamedTuple):
     terminal_cms: Optional[CountMinSketch] = None
 
 
-def init_feature_state(cfg: FeatureConfig, device) -> FeatureState:
+def init_feature_state(cfg: FeatureConfig, device,
+                       n_shards: int = 1) -> FeatureState:
+    """A fresh state. ``n_shards > 1`` builds the sharded exact layout:
+    the window tables stay global ``[capacity, NB]`` (shard s owns rows
+    ``[s·cap/n, (s+1)·cap/n)``) and each shard gets its own key directory
+    over its local slot range, stacked ``[n_shards, ...]``
+    (``ops/keydir.py::init_stacked_keydir``). The sketches keep the
+    single layout here; ``parallel/mesh.py::shard_feature_state`` gives
+    each shard its replica. Other key modes ignore ``n_shards``."""
     exact = cfg.key_mode == "exact"
     nb = cfg.n_day_buckets
     customer_dir = terminal_dir = terminal_cms = None
     if exact:
         # directory at 2x the slot capacity: load factor <= 0.5 keeps the
         # fixed-depth probing lossless until the free stack runs dry
+        def _dir(cap: int) -> KeyDirectory:
+            if n_shards > 1:
+                if cap % n_shards:
+                    raise ValueError(
+                        f"capacity {cap} must divide by n_shards "
+                        f"{n_shards}")
+                local = cap // n_shards
+                return init_stacked_keydir(2 * local, local, n_shards,
+                                           device)
+            return init_keydir(2 * cap, cap, device)
+
         if cfg.customer_source != "cms":
-            customer_dir = init_keydir(2 * cfg.customer_capacity,
-                                       cfg.customer_capacity, device)
-        terminal_dir = init_keydir(2 * cfg.terminal_capacity,
-                                   cfg.terminal_capacity, device)
+            customer_dir = _dir(cfg.customer_capacity)
+        terminal_dir = _dir(cfg.terminal_capacity)
         terminal_cms = cms_init(cfg.cms_depth, cfg.cms_width, nb, device,
                                 track_fraud=True)
     return FeatureState(
@@ -610,6 +636,33 @@ def apply_feedback(
         return state
     term_slot = _slot(terminal_key, cfg.terminal_capacity, cfg.key_mode)
     return apply_feedback_at_slot(state, term_slot, day, label, valid)
+
+
+def apply_feedback_sharded_exact(
+    state: FeatureState,
+    terminal_key: torch.Tensor,  # uint32 [B] (fold_key'd)
+    day: torch.Tensor,  # int32 [B] — the day of the original transaction
+    label: torch.Tensor,  # int32 [B] 0/1
+    valid: torch.Tensor,  # bool [B]
+    cfg: FeatureConfig,
+) -> FeatureState:
+    """The sharded twin of :func:`apply_feedback` under
+    ``key_mode="exact"``, in place: a key's owner is ``key % n_shards``
+    (the modulo the step's owner exchange routes by) and its slot comes
+    from the owner's directory by a LOOKUP, never an insert. Hits land in
+    the owner's window rows (global row ``owner · cap_local + slot``),
+    misses in the owner's sketch's fraud column."""
+    kd = state.terminal_dir
+    n_shards = int(kd.keys.shape[0])
+    cap_local = state.terminal.capacity // n_shards
+    owner = widen_u32(terminal_key) % n_shards
+    slot, hit = lookup_slots_stacked(kd, owner, terminal_key, valid,
+                                     cfg.keydir_probes)
+    state = apply_feedback_at_slot(state, owner * cap_local + slot, day,
+                                   label, valid & hit)
+    cms_add_fraud(state.terminal_cms, terminal_key, day, label,
+                  valid & ~hit, owner=owner)
+    return state
 
 
 def apply_feedback_at_slot(

@@ -31,14 +31,15 @@ the engine's state; on any mismatch it quarantines the entry
 (``stale-<token>-…``), counts ``rtfds_checkpoint_corrupt_total{reason}``
 and falls back down the lineage (``rtfds_checkpoint_fallbacks_total``).
 A healthy checkpoint that carries state the port cannot serve yet
-(another process topology, a fleet resize, the tiered store's per-shard
-directories) is refused with an error naming the ROADMAP item, never
-quarantined. A checkpoint of another shard width restores as in the JAX
-package: the sketch's shard axis may differ from the template's, the
-state's ``layout_devices`` becomes the writer's, and the checkpoint's
-feature state waits as host arrays in ``EngineState.layout_pending`` until
-the engine converts it into its own tensors
-(``ScoringEngine._ensure_layout``, through ``parallel/mesh.py``). The tiered store's leaves
+(another process topology, a fleet resize: ROADMAP A7c) is refused with
+an error naming the item, never quarantined. A checkpoint of another
+shard width restores as in the JAX package: the per-shard planes (the
+sketches' shard axis, the tiered store's stacked directories) may differ
+from the template's, the state's ``layout_devices`` becomes the writer's,
+and the checkpoint's feature state waits as host arrays in
+``EngineState.layout_pending`` until the engine converts it into its own
+tensors (``ScoringEngine._ensure_layout``, through ``parallel/mesh.py``:
+directory entries re-homed by ``key % n``). The tiered store's leaves
 (key directories, the terminal sketch with its fraud column) move both
 ways like any other, and the meta carries the directories' occupancy
 (``feature_state_occupancy``) and the cold tier's segment lineage
@@ -210,13 +211,14 @@ def _state_arrays(engine_state) -> Tuple[dict, dict]:
 
 
 def _directory_occupancy(feature_state) -> dict:
-    """Occupied hot-tier slots per table with a key directory (one shard
-    each: the JAX package's per-shard lists); ``{}`` without one."""
+    """Occupied hot-tier slots per table with a key directory, one entry
+    per shard (the JAX package's per-shard lists); ``{}`` without one."""
     out = {}
     for table in ("customer", "terminal"):
         kd = getattr(feature_state, f"{table}_dir", None)
         if kd is not None:
-            out[table] = [int(kd.free.shape[0]) - int(kd.free_top)]
+            tops = np.atleast_1d(_to_numpy(kd.free_top))
+            out[table] = [int(kd.free.shape[-1]) - int(t) for t in tops]
     return out
 
 
@@ -404,12 +406,6 @@ def _refuse_unserved(name: str, meta: dict) -> None:
         raise CheckpointTopologyError(
             f"{name} carries elastic-fleet resize epochs; the fleet is "
             f"not ported yet (ROADMAP A7c)")
-    paths = (meta.get("fs_leaves") or {}).values()
-    if ld > 1 and any("_dir" in p for p in paths):
-        raise CheckpointTopologyError(
-            f"{name} holds the tiered store's per-shard key directories of "
-            f"{ld} shards; the tiered store across shards is not ported "
-            f"yet (ROADMAP A7b)")
 
 
 # ---------------------------------------------------------------------------
@@ -813,20 +809,27 @@ class _CheckpointerBase:
                 "incompatible",
                 f"{name}: leaf counts {meta.get('n_fs')}/{meta.get('n_p')}"
                 f"/{meta.get('n_s')} vs template {n_fs}/{n_p}/{n_s}")
-        # At another width the sketch's leaves carry another shard axis
-        # (the window tables are global [cap, NB] at every width, so their
-        # shapes still must match); the engine's re-layout then checks
-        # the capacities itself.
+        # At another width the per-shard planes change shape: the
+        # sketches' shard axis and the tiered store's directory stacks.
+        # The window tables are global [cap, NB] at every width, so their
+        # shapes still must match (a capacity mismatch stays an
+        # incompatible checkpoint); the engine's re-layout then checks the
+        # rest itself.
         cross_width = int(meta.get("layout_devices", 1) or 1) != int(
             getattr(template, "layout_devices", 1) or 1)
         fs_names = meta.get("fs_leaves") or {}
+
+        def width_dependent(k: str) -> bool:
+            path = fs_names.get(k, "")
+            return k.startswith("fs_") and ("_dir" in path or "cms" in path)
+
         for k, (shape, dtype) in spec.items():
             a = arrays.get(k)
             if a is None:
                 raise CorruptCheckpointError(
                     "truncated", f"{name}: leaf {k} absent")
             if list(np.shape(a)) != list(shape) and not (
-                    cross_width and "cms" in fs_names.get(k, "")):
+                    cross_width and width_dependent(k)):
                 raise CorruptCheckpointError(
                     "incompatible",
                     f"{name}: leaf {k} shape {list(np.shape(a))} vs "

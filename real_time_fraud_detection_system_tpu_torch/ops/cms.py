@@ -118,6 +118,7 @@ def cms_update(
     sketch per shard (``[n_shards, ND, depth, width]``, the sharded
     engine's layout) and row i goes into sketch ``shard[i]``."""
     nd = int(sk.slice_day.shape[-1])
+    out = sk
     sk, sl = _shard_view(sk, shard, torch.remainder(day, nd).long())
     n_slices = sk.n_days
     day_in = torch.where(valid, day, torch.full_like(day, -1))
@@ -137,7 +138,7 @@ def cms_update(
         if fraud is not None:
             sk.fraud.view(-1).index_add_(
                 0, flat, (w * fraud.to(torch.float32)).repeat(depth))
-    return sk
+    return out
 
 
 def cms_add_fraud(
@@ -146,18 +147,22 @@ def cms_add_fraud(
     day: torch.Tensor,  # int32 [B] — the original transaction's day
     label: torch.Tensor,  # int32/float32 [B] 0/1
     valid: torch.Tensor,  # bool [B]
+    owner: Optional[torch.Tensor] = None,  # int [B] (stacked sketches)
 ) -> CountMinSketch:
     """Late fraud labels into the sketch tier, IN PLACE: add to the fraud
     column of the slice still holding ``day`` (counts unchanged; labels
     for days the ring has wrapped past are dropped). A sketch without the
-    column is returned as it is."""
+    column is returned as it is. ``owner``: the sketch holds one sketch
+    per shard (``[n_shards, ND, depth, width]``) and row i lands in
+    sketch ``owner[i]``, under the same lateness rule."""
     if sk.fraud is None:
         return sk
-    sl = torch.remainder(day, sk.n_days).long()
-    live = valid & (sk.slice_day[sl] == day)
+    nd = int(sk.slice_day.shape[-1])
+    view, sl = _shard_view(sk, owner, torch.remainder(day, nd).long())
+    live = valid & (view.slice_day[sl] == day)
     w = live.to(torch.float32) * label.to(torch.float32)
-    flat = _flat_cells(sk, key, sl).reshape(-1)
-    sk.fraud.view(-1).index_add_(0, flat, w.repeat(sk.depth))
+    flat = _flat_cells(view, key, sl).reshape(-1)
+    view.fraud.view(-1).index_add_(0, flat, w.repeat(view.depth))
     return sk
 
 
@@ -214,13 +219,15 @@ def cms_query_fraud(
     day: torch.Tensor,  # int32 [B]
     windows: Sequence[int],
     delay: int = 0,
+    shard: Optional[torch.Tensor] = None,  # int64 [B] (stacked sketches)
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(counts, amount_sums, fraud_sums), each [B, NW], from a sketch with
     a fraud column. Count and fraud both overestimate, so a risk ratio of
-    the two is an estimate, not a bound."""
+    the two is an estimate, not a bound. ``shard`` as in
+    :func:`cms_update`."""
     if sk.fraud is None:
         raise ValueError(
             "cms_query_fraud needs a fraud-tracking sketch "
             "(cms_init(..., track_fraud=True))")
     return _cms_query_tables(sk, ("count", "amount", "fraud"), key, day,
-                             windows, delay)
+                             windows, delay, shard)

@@ -144,6 +144,29 @@ def _flip_at_(kv: torch.Tensor, pos: torch.Tensor) -> None:
     kv.index_put_((pos,), kv[pos] ^ _SIGN)
 
 
+def init_stacked_keydir(dir_capacity: int, slot_capacity: int,
+                        n_shards: int, device=None) -> KeyDirectory:
+    """``n_shards`` independent directories as one ``KeyDirectory`` with
+    a leading shard axis on every leaf (``keys``/``slots`` [n, dir_cap],
+    ``free`` [n, slot_cap], ``free_top`` [n]): the sharded engine's
+    layout, one directory per shard over its local slot range."""
+    kd = init_keydir(dir_capacity, slot_capacity, device)
+    return KeyDirectory(
+        keys=kd.keys.view(torch.int32).repeat(n_shards, 1)
+        .view(torch.uint32),
+        slots=kd.slots.repeat(n_shards, 1),
+        free=kd.free.repeat(n_shards, 1),
+        free_top=kd.free_top.repeat(n_shards),
+    )
+
+
+def _stacked(kd: KeyDirectory) -> KeyDirectory:
+    """A one-directory ``KeyDirectory`` as a stack of one: views, so an
+    in-place update of the stack updates ``kd``."""
+    return KeyDirectory(kd.keys[None], kd.slots[None], kd.free[None],
+                        kd.free_top.view(1))
+
+
 def lookup_slots(
     kd: KeyDirectory,
     key: torch.Tensor,  # uint32 [B]
@@ -152,12 +175,30 @@ def lookup_slots(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Read-only probe: (slot int64 [B], hit bool [B]). Missing and invalid
     rows return slot 0 with ``hit=False``: mask them before a scatter."""
+    return lookup_slots_stacked(
+        _stacked(kd), torch.zeros_like(valid, dtype=torch.int64), key,
+        valid, n_probes)
+
+
+def lookup_slots_stacked(
+    kd: KeyDirectory,  # stacked: [n_shards, ...] leaves
+    owner: torch.Tensor,  # int [B] — the shard that owns each row's key
+    key: torch.Tensor,  # uint32 [B]
+    valid: torch.Tensor,  # bool [B]
+    n_probes: int = 8,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Read-only probe into a stacked directory: row i probes shard
+    ``owner[i]``'s table. Returns (slot int64 [B], hit bool [B]); the slot
+    is LOCAL to the owner shard (its table row is ``owner · slot_cap +
+    slot``)."""
     key = _canon(key)
-    pos = _probe_positions(key, kd.dir_capacity, n_probes)
-    found = kd.keys.view(torch.int32)[pos] == key[:, None]
+    dir_cap = int(kd.keys.shape[1])
+    pos = (_probe_positions(key, dir_cap, n_probes)
+           + owner.long()[:, None] * dir_cap)
+    found = kd.keys.view(torch.int32).reshape(-1)[pos] == key[:, None]
     pidx = torch.argmax(found.to(torch.int32), dim=1)
     entry = torch.gather(pos, 1, pidx[:, None])[:, 0]
-    slot = kd.slots[entry].long()
+    slot = kd.slots.reshape(-1)[entry].long()
     hit = valid & found.any(dim=1) & (slot >= 0)
     return torch.where(hit, slot, torch.zeros_like(slot)), hit
 
@@ -176,14 +217,38 @@ def admit_slots(
     ``n_probes`` probes while a free slot remained; batch duplicates of
     one key share one slot. Rows not admitted return slot 0 and must be
     masked out of the hot-tier scatters (the sketch tier serves them).
+    One directory is a stack of one (:func:`admit_slots_stacked`).
     """
-    dir_cap = kd.dir_capacity
-    slot_cap = kd.slot_capacity
-    key = _canon(key)
+    _, slot, admitted = admit_slots_stacked(_stacked(kd), key[None],
+                                            valid[None], n_probes)
+    return kd, slot[0], admitted[0]
+
+
+def admit_slots_stacked(
+    kd: KeyDirectory,  # stacked: [n_shards, ...] leaves
+    key: torch.Tensor,  # uint32 [n_shards, L] — row s goes to shard s
+    valid: torch.Tensor,  # bool [n_shards, L]
+    n_probes: int = 8,
+) -> Tuple[KeyDirectory, torch.Tensor, torch.Tensor]:
+    """:func:`admit_slots` of every shard in one pass, IN PLACE: row s of
+    ``key`` is admitted into shard s's directory, with the results of N
+    separate calls (``slot`` is local to the shard). Every probe position
+    is offset by ``s · dir_cap`` into the flattened tables, so a claim
+    round's scatter-min never crosses shards; a claimed entry's owner is
+    its lowest row; the grant rank is a cumsum along each shard's row, so
+    shard s pops ``free[s, free_top[s] - 1 - rank]``."""
+    n, dir_cap = (int(d) for d in kd.keys.shape)
+    slot_cap = int(kd.free.shape[1])
+    width = int(key.shape[1])
+    key = _canon(key.reshape(-1))
+    valid = valid.reshape(-1)
     b = int(key.shape[0])
     dev = key.device
-    pos = _probe_positions(key, dir_cap, n_probes)  # int64 [B, P]
-    kv = kd.keys.view(torch.int32)
+    shard = torch.arange(n, dtype=torch.int64, device=dev)
+    pos = (_probe_positions(key, dir_cap, n_probes)
+           + shard.repeat_interleave(width)[:, None] * dir_cap)
+    kv = kd.keys.view(torch.int32).view(-1)
+    slots = kd.slots.view(-1)
     # The full-depth lookup comes FIRST and only keys with no entry claim:
     # a reclaim can vacate a position on a live key's probe prefix, and a
     # claim-as-you-probe insert would take that vacancy before reaching
@@ -217,26 +282,28 @@ def admit_slots(
     # One owner per newly claimed entry: the lowest row among the batch
     # duplicates of its key pops the slot.
     rows = torch.arange(b, dtype=torch.int32, device=dev)
-    owner = torch.full((dir_cap + 1,), b, dtype=torch.int32, device=dev)
+    owner = torch.full((n * dir_cap + 1,), b, dtype=torch.int32, device=dev)
     owner.scatter_reduce_(
-        0, torch.where(claimed, entry, torch.full_like(entry, dir_cap)),
+        0, torch.where(claimed, entry, torch.full_like(entry, n * dir_cap)),
         rows, "amin", include_self=True)
-    new = claimed & (owner[entry] == rows)
-    # Grant free slots to owners in row order; owners past the stack
-    # height roll their claim back (their duplicates then miss too).
-    rank = torch.cumsum(new.to(torch.int32), 0) - 1
-    avail = kd.free_top
+    new = (claimed & (owner[entry] == rows)).view(n, width)
+    # Grant free slots to owners in row order, per shard; owners past the
+    # stack height roll their claim back (their duplicates then miss too).
+    rank = torch.cumsum(new.to(torch.int32), 1) - 1
+    avail = kd.free_top[:, None]
     has = new & (rank < avail)
-    slot_new = kd.free[torch.clamp(avail - 1 - rank, 0, slot_cap - 1).long()]
-    put_kept_(kd.slots, entry, has, slot_new)
+    slot_new = torch.gather(
+        kd.free, 1, torch.clamp(avail - 1 - rank, 0, slot_cap - 1).long())
+    put_kept_(slots, entry, has.view(-1), slot_new.view(-1))
     revert = new & ~(rank < avail)
-    put_kept_(kv, entry, revert, torch.full_like(key, _EMPTY_I32))
-    kd.free_top.sub_(has.sum().to(torch.int32))
+    put_kept_(kv, entry, revert.view(-1), torch.full_like(key, _EMPTY_I32))
+    kd.free_top.sub_(has.sum(dim=1).to(torch.int32))
     # Final resolution covers hits, grants, duplicates of grants, rolled
     # back claims and rows that never placed (probe overflow).
-    slot = kd.slots[entry].long()
+    slot = slots[entry].long()
     admitted = placed & valid & (kv[entry] == key) & (slot >= 0)
-    return kd, torch.where(admitted, slot, torch.zeros_like(slot)), admitted
+    slot = torch.where(admitted, slot, torch.zeros_like(slot))
+    return kd, slot.view(n, width), admitted.view(n, width)
 
 
 def reclaim_entries(

@@ -15,15 +15,19 @@ arrays in both packages:
 - window tables stay GLOBAL ``[cap, NB]`` arrays, owner-major: shard
   ``k % n`` owns rows ``[owner·cap/n, (owner+1)·cap/n)`` and places key k
   at local slot ``(k // n) & (cap/n - 1)`` (:func:`_layout_perm`);
-- the customer sketch gets a leading shard axis ``[n, ND, depth, width]``
-  (each shard sketches its own customers).
+- the sketches get a leading shard axis ``[n, ND, depth, width]`` (each
+  shard sketches its own keys);
+- under ``key_mode="exact"`` each shard has its own key directory over
+  its local slot range, stacked ``[n, ...]`` (slot ``l`` of shard ``o`` is
+  global row ``o·cap/n + l``).
 
 :func:`reshard_feature_state` converts a state between widths (exact for
-direct keys; the sketch merges under the newest-day rule,
-:func:`_merge_sketch`) and returns host arrays; :func:`shard_feature_state`
-places them (into an engine's own tensors when ``out`` is given).
-``merge_process_states`` and ``adopt_process_slice`` belong to the fleet
-(A7c); the tiered store's ``_reshard_exact`` to A7b.
+direct keys; the tiered store re-homes every directory entry by ``key %
+n_new``, :func:`_reshard_exact`; the sketch merges under the newest-day
+rule, :func:`_merge_sketch`) and returns host arrays;
+:func:`shard_feature_state` places them (into an engine's own tensors
+when ``out`` is given). ``merge_process_states`` and
+``adopt_process_slice`` belong to the fleet (A7c).
 """
 
 from __future__ import annotations
@@ -103,29 +107,61 @@ def shard_feature_state(state: FeatureState, mesh: Mesh,
     in the sharded layout: window tables as they are (global, already
     owner-major), a single-layout sketch expanded to one replica per
     shard on the device (one host copy, never N), a stacked sketch of the
-    mesh's width as it is. ``out`` (an engine's state) receives the values
-    in place, in its own layout — a single-device engine's sketch stays
-    single — so its tensors keep their addresses."""
+    mesh's width as it is, and the tiered store's stacked directories,
+    which must be of the mesh's width (a one-shard mesh adopts a single
+    directory as its stack of one). ``out`` (an engine's state) receives
+    the values in place, in its own layout — a single-device engine's
+    sketch and directories stay single — so its tensors keep their
+    addresses."""
     n = len(mesh)
     dev = mesh[0]
-    if state.customer_dir is not None or state.terminal_dir is not None:
-        raise ValueError(
-            "key_mode='exact' over the mesh (per-shard key directories) is "
-            "the tiered store across shards: ROADMAP A7b")
-    placed = tree.map(lambda a: torch.as_tensor(_np(a)).to(dev),
-                      state._replace(terminal_cms=None))
-    cms = placed.cms
-    if cms is not None:
+    placed = tree.map(lambda a: torch.as_tensor(_np(a)).to(dev), state)
+
+    def place_sketch(cms, want):
+        if cms is None:
+            return None
         stacked = cms.slice_day.dim() == 2
         if stacked and cms.slice_day.shape[0] != n:
             raise ValueError(
                 f"cms is laid out for {cms.slice_day.shape[0]} shard(s), "
                 f"mesh has {n} — convert it with reshard_feature_state")
-        want = out.cms.slice_day.dim() == 2 if out is not None else True
         if want and not stacked:
-            placed = placed._replace(cms=tree.map(
-                lambda t: t[None].expand((n,) + tuple(t.shape))
-                .contiguous(), cms))
+            return tree.map(lambda t: t[None].expand(
+                (n,) + tuple(t.shape)).contiguous(), cms)
+        return cms
+
+    def place_dir(kd, name: str, want):
+        if kd is None:
+            return None
+        if kd.keys.dim() == 1 and n == 1:
+            # a one-shard mesh: the single directory is its one shard's
+            kd = tree.map(lambda t: t.reshape((1,) + tuple(t.shape)), kd)
+        lead = int(kd.keys.shape[0]) if kd.keys.dim() == 2 else 1
+        if kd.keys.dim() != 2 or lead != n:
+            raise ValueError(
+                f"{name} is laid out for {lead} shard(s), mesh has {n} — "
+                "build the state with init_feature_state(n_shards=mesh "
+                "width) or convert it with reshard_feature_state (pass "
+                "feature_state_n_old to the engine)")
+        if not want:
+            return tree.map(lambda t: t[0], kd)
+        return kd
+
+    def stacked(name: str, leaf: str) -> bool:
+        """Whether the target holds ``name`` with a leading shard axis
+        (without ``out``, always)."""
+        t = getattr(out, name) if out is not None else None
+        return out is None or (t is not None
+                               and getattr(t, leaf).dim() == 2)
+
+    placed = placed._replace(
+        cms=place_sketch(placed.cms, stacked("cms", "slice_day")),
+        terminal_cms=place_sketch(placed.terminal_cms,
+                                  stacked("terminal_cms", "slice_day")),
+        customer_dir=place_dir(placed.customer_dir, "customer_dir",
+                               stacked("customer_dir", "keys")),
+        terminal_dir=place_dir(placed.terminal_dir, "terminal_dir",
+                               stacked("terminal_dir", "keys")))
     if out is None:
         return placed
     for dst, src in zip(tree.leaves(out), tree.leaves(placed)):
@@ -164,14 +200,12 @@ def reshard_feature_state(state: FeatureState, cfg, n_old: int, n_new: int
     Refused as in the JAX package: hash keys (a permutation cannot
     un-merge colliding keys), a capacity that does not divide by a width
     or whose share is not a power of two, and a table whose rows differ
-    from the config's capacity. ``key_mode="exact"`` (the directories'
-    re-home) is A7b."""
+    from the config's capacity. ``key_mode="exact"`` delegates to
+    :func:`_reshard_exact` (directory entries re-homed by ``key %
+    n_new``, bit-exact for every admitted key)."""
     fcfg = cfg.features
     if fcfg.key_mode == "exact":
-        raise ValueError(
-            "re-sharding the tiered store (key_mode='exact': per-shard key "
-            "directories re-homed by key % n_new) is not ported yet: "
-            "ROADMAP A7b")
+        return _reshard_exact(state, fcfg, n_old, n_new)
     if fcfg.key_mode != "direct":
         raise ValueError(
             "elastic re-shard requires key_mode='direct' or 'exact' "
@@ -244,6 +278,175 @@ def _merge_sketch(cms, n_old: int):
               for a in leaves[1:]],
         )
     return type(cms)(*leaves)
+
+
+def _rebuild_exact_table(name: str, ctx: str, keys: np.ndarray,
+                         vals: dict, cap: int, n_new: int, n_probes: int):
+    """One (window table, key directory) pair rebuilt in the
+    ``n_new``-shard layout from its live entries: ``keys`` [K] uint32
+    (unique: a key lives in one shard) and ``vals`` (window leaf name →
+    its [K, NB] rows). The owner is ``key % n_new``; slots within a shard
+    are granted in sorted-key order (two rebuilds of the same entries are
+    byte-identical); each directory is rebuilt with the probe sequence
+    ``admit_slots`` uses at serve time. Raises, naming ``ctx`` and the
+    fix, for a duplicate key, an overloaded new shard and a key that
+    cannot place within ``n_probes``. Returns host arrays (the single
+    layout at ``n_new == 1``)."""
+    from real_time_fraud_detection_system_tpu_torch.ops.keydir import (
+        EMPTY_KEY,
+        KeyDirectory,
+        _probe_positions,
+    )
+    from real_time_fraud_detection_system_tpu_torch.ops.windows import (
+        WindowState,
+    )
+
+    cap_local_new = cap // n_new
+    owner = (keys % np.uint32(n_new)).astype(np.int64)
+    order = np.lexsort((keys, owner))
+    owner_s, keys_s = owner[order], keys[order]
+    if len(keys_s) > 1 and (keys_s[:-1] == keys_s[1:]).any():
+        dup = keys_s[:-1][keys_s[:-1] == keys_s[1:]][:4]
+        raise ValueError(
+            f"{ctx}: duplicate {name} key(s) {dup.tolist()} across "
+            "source shards — the ownership contract places each key in "
+            "exactly one shard, so a duplicate means two engines served "
+            "the same key; merging would corrupt its window history")
+    counts = np.bincount(owner_s, minlength=n_new)
+    if counts.max(initial=0) > cap_local_new:
+        worst = int(np.argmax(counts))
+        raise ValueError(
+            f"{ctx}: new shard {worst} would own {int(counts[worst])} "
+            f"live {name} keys but holds only {cap_local_new} slots — run "
+            "compaction before shrinking the mesh, or keep more shards")
+    rank = (np.arange(len(owner_s))
+            - np.concatenate(([0], np.cumsum(counts)))[owner_s])
+    new_rows = owner_s * cap_local_new + rank
+    # the window rows move as bit-exact copies
+    fills = {"bucket_day": -1, "count": 0.0, "amount": 0.0, "fraud": 0.0}
+
+    def rehome(leaf):
+        src = np.asarray(vals[leaf])[order]
+        fresh = np.full((cap,) + src.shape[1:], fills[leaf],
+                        dtype=src.dtype)
+        fresh[new_rows] = src
+        return fresh
+
+    ws_new = WindowState(**{k: rehome(k) for k in fills})
+    # the directories: the claim rounds of admit_slots, in numpy (the
+    # keys are unique per shard, so every key wins one round)
+    dir_cap_new = 2 * cap_local_new
+    nkeys = np.full((n_new, dir_cap_new), EMPTY_KEY, np.uint32)
+    nslots = np.full((n_new, dir_cap_new), -1, np.int32)
+    pos = _probe_positions(torch.from_numpy(keys_s.view(np.int32)),
+                           dir_cap_new, n_probes).numpy()  # [K, P]
+    flat_keys = nkeys.reshape(-1)
+    flat_slots = nslots.reshape(-1)
+    placed = np.zeros(len(keys_s), dtype=bool)
+    for j in range(n_probes):
+        active = ~placed
+        if not active.any():
+            break
+        gpos = owner_s * dir_cap_new + pos[:, j]
+        want = active & (flat_keys[gpos] == EMPTY_KEY)
+        # among racers for one position the smallest key wins
+        np.minimum.at(flat_keys, gpos[want], keys_s[want])
+        won = want & (flat_keys[gpos] == keys_s)
+        flat_slots[gpos[won]] = rank[won].astype(np.int32)
+        placed |= won
+    if not placed.all():
+        raise ValueError(
+            f"{ctx}: {int((~placed).sum())} {name} key(s) could not place "
+            f"within {n_probes} probes of the rebuilt directory — raise "
+            "keydir_probes or grow the hot tier (admitted-key state must "
+            "survive a rebuild bit-exactly, so dropping them is not an "
+            "option)")
+    free = np.broadcast_to(
+        np.arange(cap_local_new - 1, -1, -1, dtype=np.int32),
+        (n_new, cap_local_new)).copy()
+    leaves = dict(keys=nkeys, slots=nslots, free=free,
+                  free_top=(cap_local_new - counts).astype(np.int32))
+    if n_new == 1:
+        leaves = {k: v[0] for k, v in leaves.items()}
+    return ws_new, KeyDirectory(**leaves)
+
+
+def _extract_exact_table(name: str, ws, kd, n_old: int, cap: int):
+    """The live (key, window row) pairs of one exact-mode table: keys
+    [K] uint32 and ``vals`` (window leaf name → its [K, NB] rows)."""
+    keys, slots = _np(kd.keys), _np(kd.slots)
+    if keys.ndim == 1:
+        keys, slots = keys[None], slots[None]
+    if keys.shape[0] != n_old:
+        raise ValueError(
+            f"{name}_dir is laid out for {keys.shape[0]} shard(s), "
+            f"caller says n_old={n_old}")
+    bd = _np(ws.bucket_day)
+    if bd.shape[0] != cap:
+        raise ValueError(
+            f"state table has {bd.shape[0]} rows, config says {cap} — "
+            "re-sharding a checkpoint taken under a different capacity "
+            "would merge or drop keys")
+    shard_idx, entry_idx = np.nonzero(slots >= 0)
+    old_rows = (shard_idx * (cap // n_old)
+                + slots[shard_idx, entry_idx].astype(np.int64))
+    vals = {k: _np(getattr(ws, k))[old_rows]
+            for k in ("bucket_day", "count", "amount", "fraud")}
+    return keys[shard_idx, entry_idx], vals
+
+
+def _reshard_exact(state: FeatureState, fcfg, n_old: int, n_new: int,
+                   owner_filter=None) -> FeatureState:
+    """N→M re-home of the tiered store (directories, window tables,
+    sketches), bit-exact for every admitted key, as the JAX function: each
+    live entry is extracted, its new owner is ``key % n_new`` (the modulo
+    the exchange routes by), its row moves to the owner's block and each
+    new directory is rebuilt (:func:`_rebuild_exact_table`). The sketches
+    merge under the newest-day rule and are expanded again at placement.
+    An overloaded new shard or a key that cannot place raises, naming the
+    fix. ``owner_filter`` (keys → bool mask) keeps only those keys' state
+    (the fleet's adoption of a global checkpoint). Returns host arrays."""
+    ctx = f"elastic reshard {n_old}→{n_new}"
+    out = {}
+    for name, cap, present in (
+            ("customer", fcfg.customer_capacity,
+             fcfg.customer_source != "cms"),
+            ("terminal", fcfg.terminal_capacity, True)):
+        ws = getattr(state, name)
+        kd = getattr(state, f"{name}_dir")
+        if not present:
+            if kd is not None:
+                raise ValueError(
+                    f"{name}_dir present but customer_source="
+                    f"{fcfg.customer_source!r} builds none — the state "
+                    "does not match this config")
+            out[name] = tree.map(_np, ws)
+            out[f"{name}_dir"] = None
+            continue
+        if kd is None:
+            raise ValueError(
+                f"key_mode='exact' reshard needs the {name} key directory; "
+                "this state carries none (was it built under a different "
+                "key_mode?)")
+        for n, who in ((n_old, "n_old"), (n_new, "n_new")):
+            if n < 1 or cap % n or ((cap // n) & (cap // n - 1)):
+                raise ValueError(
+                    f"{name}_capacity {cap} / {who}={n} must be a power of "
+                    "two")
+        keys, vals = _extract_exact_table(name, ws, kd, n_old, cap)
+        if owner_filter is not None:
+            keep = np.asarray(owner_filter(keys), dtype=bool)
+            keys = keys[keep]
+            vals = {k: v[keep] for k, v in vals.items()}
+        out[name], out[f"{name}_dir"] = _rebuild_exact_table(
+            name, ctx, keys, vals, cap, n_new, fcfg.keydir_probes)
+    return state._replace(
+        customer=out["customer"], terminal=out["terminal"],
+        cms=_merge_sketch(state.cms, n_old),
+        customer_dir=out["customer_dir"],
+        terminal_dir=out["terminal_dir"],
+        terminal_cms=_merge_sketch(state.terminal_cms, n_old),
+    )
 
 
 def reshard_engine_state(kind: str, state, cfg, n_old: int, n_new: int):

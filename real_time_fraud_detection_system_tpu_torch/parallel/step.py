@@ -45,10 +45,22 @@ path: they read both tables by slot in one pass, and a sharded row's
 terminal aggregates arrive through the exchange.
 
 Key arithmetic runs on uint32 keys widened to int64 (``& 0xFFFFFFFF``):
-``%`` and ``//`` on the int32 view are wrong for keys ≥ 2³¹. Both key
-modes place keys by that modulo (hash mode too: the sharded step never
-calls the single-device ``slot_of``). ``key_mode="exact"`` over the mesh
-is A7b.
+``%`` and ``//`` on the int32 view are wrong for keys ≥ 2³¹. Direct and
+hash keys are placed by that modulo (hash mode too: the sharded step
+never calls the single-device ``slot_of``).
+
+``key_mode="exact"`` (the tiered store) keeps the wire contract —
+ownership is ``key % n_dev``, so the partitioner and the exchange route
+as above — but the slot within a shard comes from that shard's own key
+directory (stacked ``[n_dev, ...]`` leaves): the owner side admits every
+shard's rows in one pass (``ops/keydir.py::admit_slots_stacked``, the
+rows of shard s being its block of the owner-local chunk or of the
+receive buffer), rows that miss admission read the owner's sketch
+replica, and the step returns a fifth output, the per-shard ``[dense,
+cms]`` read counts ``[n_dev, 2]``, counted owner-side.
+:func:`make_sharded_compact` and :func:`make_sharded_promote` run the
+recency compaction (with the cold tier's demotions) and the cold rows'
+promotion over each shard's block and directory.
 """
 
 from __future__ import annotations
@@ -68,6 +80,8 @@ from real_time_fraud_detection_system_tpu_torch.features.online import (
     FeatureState,
     _assemble,
     _flags,
+    compact_feature_state,
+    promote_rows,
 )
 from real_time_fraud_detection_system_tpu_torch.models.logreg import (
     loss_grad,
@@ -78,12 +92,18 @@ from real_time_fraud_detection_system_tpu_torch.models.scaler import (
 )
 from real_time_fraud_detection_system_tpu_torch.ops.cms import (
     cms_query,
+    cms_query_fraud,
     cms_update,
 )
 from real_time_fraud_detection_system_tpu_torch.ops.features_fused import (
     ratio,
 )
+from real_time_fraud_detection_system_tpu_torch.ops.keydir import (
+    KeyDirectory,
+    admit_slots_stacked,
+)
 from real_time_fraud_detection_system_tpu_torch.ops.windows import (
+    WindowState,
     query_windows,
     update_windows,
 )
@@ -279,7 +299,8 @@ def make_sharded_step(
     """The sharded step over ``mesh`` (co-located shards):
 
     ``step(feature_state, params, scaler, batch, full=(False, False))
-    -> (feature_state, params, probs, features)`` with the batch's rows
+    -> (feature_state, params, probs, features)`` (and ``tier [n_dev, 2]``
+    under ``key_mode="exact"``) with the batch's rows
     laid out ``[n_dev × B_local]`` (:func:`partition_batch_spill`); the
     feature state (owner-major tables, ``[n_dev, ...]`` sketch) and, with
     ``online_lr``, the params are updated in place and returned.
@@ -302,10 +323,8 @@ def make_sharded_step(
     mesh = _check_colocated(tuple(mesh))
     n_dev = len(mesh)
     fcfg = cfg.features
-    if fcfg.key_mode == "exact":
-        raise ValueError(
-            "key_mode='exact' over the mesh (per-shard key directories) is "
-            "the tiered store across shards: ROADMAP A7b")
+    exact = fcfg.key_mode == "exact"
+    probes = fcfg.keydir_probes
     use_cms = fcfg.customer_source == "cms"
     windows = tuple(fcfg.windows)
     nw = len(windows)
@@ -414,12 +433,65 @@ def make_sharded_step(
                                              windows, delay=fcfg.delay_days)
             return torch.cat([t_count, t_fr], dim=1)
 
+        # -- the tiered store: each shard's directory, sketch for misses --
+        tiers = []  # per table with a directory: [n_dev, 2] reads
+
+        def admit(kd: KeyDirectory, key, valid, cap_local: int):
+            """Every shard's rows (``[n_dev · L]``, shard-major) admitted
+            into its own directory: → (global table row, admitted), and
+            the shards' [dense, cms] read counts noted."""
+            _, slot, adm = admit_slots_stacked(
+                kd, key.view(n_dev, -1), valid.view(n_dev, -1), probes)
+            base = torch.arange(n_dev, device=dev)[:, None] * cap_local
+            v = valid.view(n_dev, -1)
+            tiers.append(torch.stack([(v & adm).sum(1), (v & ~adm).sum(1)],
+                                     dim=1).to(torch.float32))
+            return (base + slot).view(-1), adm.view(-1)
+
+        def customer_fn_x(owner, c_key, c_day, c_amt, c_fraud, c_valid):
+            """Owner-side customer velocity on the tiered store: the
+            table for admitted rows, the owner's sketch for the rest (the
+            sketch alone under ``customer_source="cms"``)."""
+            cms_update(fstate.cms, c_key, c_amt, c_day, c_valid,
+                       shard=owner)
+            cc, ca = cms_query(fstate.cms, c_key, c_day, windows,
+                               shard=owner)
+            if fstate.customer_dir is not None:
+                row, adm = admit(fstate.customer_dir, c_key, c_valid,
+                                 c_cap_local)
+                update_windows(fstate.customer, row, c_day, c_amt, c_fraud,
+                               c_valid & adm, track_fraud=False)
+                cc_t, ca_t, _ = query_windows(fstate.customer, row, c_day,
+                                              windows)
+                cc = torch.where(adm[:, None], cc_t, cc)
+                ca = torch.where(adm[:, None], ca_t, ca)
+            return torch.cat([cc, ca], dim=1)
+
+        def terminal_fn_x(owner, t_key, t_day, t_amt, t_fraud, t_valid):
+            """Owner-side terminal windows on the tiered store: count and
+            delayed risk from the table or the owner's terminal sketch."""
+            row, adm = admit(fstate.terminal_dir, t_key, t_valid,
+                             t_cap_local)
+            update_windows(fstate.terminal, row, t_day, t_amt, t_fraud,
+                           t_valid & adm, track_amount=False)
+            cms_update(fstate.terminal_cms, t_key, t_amt, t_day, t_valid,
+                       fraud=t_fraud, shard=owner)
+            tc, _, tf = query_windows(fstate.terminal, row, t_day, windows,
+                                      delay=fcfg.delay_days)
+            tc_s, _, tf_s = cms_query_fraud(
+                fstate.terminal_cms, t_key, t_day, windows,
+                delay=fcfg.delay_days, shard=owner)
+            return torch.cat([torch.where(adm[:, None], tc, tc_s),
+                              torch.where(adm[:, None], tf, tf_s)], dim=1)
+
+        c_fn, t_fn = ((customer_fn_x, terminal_fn_x) if exact
+                      else (customer_fn, terminal_fn))
         if route_customers:
-            cb = exchanged_compute(batch.customer_key, customer_fn, full[0])
+            cb = exchanged_compute(batch.customer_key, c_fn, full[0])
         else:
-            cb = customer_fn(row_shard, batch.customer_key, batch.day,
-                             batch.amount, fraud, batch.valid)
-        tb = exchanged_compute(batch.terminal_key, terminal_fn, full[1])
+            cb = c_fn(row_shard, batch.customer_key, batch.day,
+                      batch.amount, fraud, batch.valid)
+        tb = exchanged_compute(batch.terminal_key, t_fn, full[1])
         c_count, c_amount = cb[:, :nw], cb[:, nw:]
         t_count, t_fraud = tb[:, :nw], tb[:, nw:]
 
@@ -454,6 +526,89 @@ def make_sharded_step(
             feats = {"packed": pack_selective(probs, feats, batch.valid,
                                               thresh, rt.emit_cap_fraction),
                      "full": feats}
+        if exact:
+            return fstate, params, probs, feats, sum(tiers)
         return fstate, params, probs, feats
 
     return step
+
+
+def shard_view(state: FeatureState, s: int, n: int) -> FeatureState:
+    """Shard ``s`` of ``n``'s own part of a sharded exact state, as a
+    one-shard state of views: its block of each window table (rows
+    ``[s·cap/n, (s+1)·cap/n)``) and its directories. An in-place update
+    of the view updates the state (the sketches are left out: compaction
+    and promotion do not touch them)."""
+
+    def block(ws: WindowState) -> WindowState:
+        cl = ws.capacity // n
+        return WindowState(*[t[s * cl:(s + 1) * cl] for t in ws])
+
+    def one(kd: Optional[KeyDirectory]) -> Optional[KeyDirectory]:
+        return None if kd is None else KeyDirectory(*[t[s] for t in kd])
+
+    return FeatureState(customer=block(state.customer),
+                        terminal=block(state.terminal),
+                        customer_dir=one(state.customer_dir),
+                        terminal_dir=one(state.terminal_dir))
+
+
+def _stack_rows(parts) -> Tuple[torch.Tensor, ...]:
+    """Per-shard payloads ``(keys uint32 [K], bd, cnt, amt, frd)`` →
+    the same fields stacked on a leading shard axis."""
+    keys = torch.stack([p[0].view(torch.int32) for p in parts])
+    return (keys.view(torch.uint32),) + tuple(
+        torch.stack(col) for col in list(zip(*parts))[1:])
+
+
+def make_sharded_compact(cfg: Config, mesh: Mesh, demote_slots: int = 0):
+    """The per-shard recency compaction, the sharded twin of the single
+    engine's ``("compact",)``: ``compact(fstate, now_day) -> (fstate,
+    reclaimed [n_dev, 2])``, each shard's block and directory compacted
+    IN PLACE by ``features/online.py::compact_feature_state`` (a shard's
+    dead slots are its own). With ``demote_slots`` the cold tier's
+    pressure eviction runs per shard too and the return gains the
+    demotion payload, per table ``(keys [n_dev, K], bd/cnt/amt/frd
+    [n_dev, K, NB])`` (None for a table without a directory): a key
+    demoted by shard i promotes back into shard i, since its owner is a
+    function of the key. The shards run one after another on the
+    current stream: no host sync, so it captures as one CUDA graph."""
+    mesh = _check_colocated(tuple(mesh))
+    n = len(mesh)
+    fcfg = cfg.features
+
+    def compact(fstate: FeatureState, now_day):
+        outs = [compact_feature_state(shard_view(fstate, s, n), now_day,
+                                      fcfg, demote_slots=demote_slots)
+                for s in range(n)]
+        reclaimed = torch.stack([o[1] for o in outs])
+        if not demote_slots:
+            return fstate, reclaimed
+        payload = {t: None if outs[0][2][t] is None
+                   else _stack_rows([o[2][t] for o in outs])
+                   for t in ("customer", "terminal")}
+        return fstate, reclaimed, payload
+
+    return compact
+
+
+def make_sharded_promote(cfg: Config, mesh: Mesh):
+    """The per-shard promotion of cold rows, the sharded twin of the
+    single engine's ``("promote",)``: ``promote(fstate, payload) ->
+    (fstate, stats int32 [n_dev, 2, 2])``. The engine groups the keys by
+    owner (``key % n_dev``) into per-shard lanes, ``payload[table] =
+    (keys [n_dev, K], bd/cnt/amt/frd [n_dev, K, NB])`` padded with
+    ``EMPTY_KEY``, and each shard merges its lanes into its own block and
+    directory (``features/online.py::promote_rows``), IN PLACE."""
+    mesh = _check_colocated(tuple(mesh))
+    n = len(mesh)
+    fcfg = cfg.features
+
+    def promote(fstate: FeatureState, payload: dict):
+        stats = [promote_rows(
+            shard_view(fstate, s, n),
+            {t: None if p is None else tuple(x[s] for x in p)
+             for t, p in payload.items()}, fcfg)[1] for s in range(n)]
+        return fstate, torch.stack(stats)
+
+    return promote

@@ -1,4 +1,4 @@
 """Sources, the scoring engine (``engine.py``) and the sharded engine
-(``sharded_engine.py``: N shards in one process on one device; the
-tiered store across shards, the fleet of processes and the sequence kind
-over shards are ROADMAP A7b, A7c and A7d)."""
+(``sharded_engine.py``: N shards in one process on one device, the
+tiered store included; the fleet of processes and the sequence kind over
+shards are ROADMAP A7c and A7d)."""

@@ -145,8 +145,8 @@ A checkpoint written at another shard width (``state.layout_devices``)
 is converted before the next step (:meth:`ScoringEngine._ensure_layout`),
 as the JAX engine does. The sharded engine (N shards in one process,
 ``runtime/sharded_engine.py``) subclasses this one. Not ported yet: the
-tiered store across shards (A7b), the fleet of processes with its
-cold-store re-homing (A7c), and the sharded sequence step (A7d).
+fleet of processes with its cold-store re-homing (A7c), and the sharded
+sequence step (A7d).
 """
 
 from __future__ import annotations
@@ -625,6 +625,9 @@ class ScoringEngine:
     # sharded engine's rows get their terminal aggregates through the
     # owner exchange, so it scores through the leaf sum instead).
     _FUSED_STEP = True
+    # How delayed labels land in the window state (a subclass's layout
+    # may route them otherwise).
+    _state_feedback = staticmethod(state_feedback)
 
     def __init__(
         self,
@@ -1115,47 +1118,56 @@ class ScoringEngine:
                                                 out[1])))
             self._record_compaction(out[0])
 
+    def _compact_pass(self, fstate, day):
+        """The recency compaction over the state, IN PLACE (the sharded
+        engine's runs per shard): ``features/online.py::
+        compact_feature_state``'s return."""
+        return compact_feature_state(fstate, day, self.cfg.features,
+                                     demote_slots=self._demote_slots)
+
     def _compact_body(self, day) -> tuple:
         """The compaction signature's device work: ``(reclaimed,)``, and
         with a cold tier ``(reclaimed, (customer payload, terminal
         payload))``, a payload None for a table without a directory."""
-        out = compact_feature_state(
-            self.state.feature_state, day, self.cfg.features,
-            demote_slots=self._demote_slots)
+        out = self._compact_pass(self.state.feature_state, day)
         if not self._demote_slots:
             return (out[1],)
         return out[1], (out[2]["customer"], out[2]["terminal"])
 
     def _record_compaction(self, reclaimed: torch.Tensor) -> None:
-        """Meter one compaction: the reclaimed counts and the occupancy
-        come to the host through a side-stream copy, read once it has
-        landed (:meth:`_drain_meters`), never through a sync."""
+        """Meter one compaction: the reclaimed counts (``[2]``, or ``[n,
+        2]`` per shard) and the occupancy come to the host through a
+        side-stream copy, read once it has landed (:meth:`_drain_meters`),
+        never through a sync."""
         fs = self.state.feature_state
         dirs = {t: getattr(fs, f"{t}_dir") for t in self._dir_tables()}
-        vals = torch.cat([reclaimed.to(torch.int32), torch.stack(
-            [(kd.slot_capacity - kd.free_top).to(torch.int32)
-             for kd in dirs.values()])])
+        n = self._state_shards()
+        vals = torch.cat([reclaimed.to(torch.int32).reshape(-1)] + [
+            (kd.free.shape[-1] - kd.free_top.reshape(-1)).to(torch.int32)
+            for kd in dirs.values()])
+        capacity = sum(kd.free.numel() for kd in dirs.values())
         batch = self.state.batches_done
 
         def apply(v: np.ndarray) -> None:
+            rec = v[:2 * n].reshape(n, 2)
+            occ = dict(zip(dirs, v[2 * n:].reshape(len(dirs), n)))
             for i, table in enumerate(("customer", "terminal")):
                 if table in dirs:
-                    self._m_slots_rec[table].inc(int(v[i]))
-            occupied = dict(zip(dirs, map(int, v[2:])))
+                    self._m_slots_rec[table].inc(int(rec[:, i].sum()))
+            occupied = {t: int(o.sum()) for t, o in occ.items()}
             for table, o in occupied.items():
                 self._m_slots_occ[table].set(o)
+            extra = self._meter_shards(rec, occ)
             recorder = active_recorder()
             if recorder is not None:
-                extra = {}
                 if self._cold is not None:
-                    extra = {"cold_keys": int(self._cold.keys_count),
-                             "cold_bytes": int(self._cold.bytes),
-                             "promote_backlog": int(
-                                 self._promoter.backlog())}
+                    extra.update(cold_keys=int(self._cold.keys_count),
+                                 cold_bytes=int(self._cold.bytes),
+                                 promote_backlog=int(
+                                     self._promoter.backlog()))
                 recorder.record_event(
-                    "feature_state", reclaimed=int(v[:2].sum()),
-                    occupied=sum(occupied.values()),
-                    capacity=sum(kd.slot_capacity for kd in dirs.values()),
+                    "feature_state", reclaimed=int(rec.sum()),
+                    occupied=sum(occupied.values()), capacity=capacity,
                     dense_rows=self._m_tier["dense"].value,
                     cms_rows=self._m_tier["cms"].value, batch=batch,
                     **extra)
@@ -1174,6 +1186,12 @@ class ScoringEngine:
         landed.record(side)
         # vals stays referenced until the copy has landed
         self._meters.append((landed, host, apply, vals))
+
+    def _meter_shards(self, reclaimed: np.ndarray,
+                      occupied: dict) -> dict:
+        """The sharded engine's per-shard series of one compaction, and
+        what they add to its flight event: none here."""
+        return {}
 
     def _drain_meters(self, wait: bool = False) -> None:
         """Apply the compaction meters whose host copies have landed (all
@@ -1278,8 +1296,11 @@ class ScoringEngine:
             pay = payload.get(table)
             if pay is None:
                 continue
-            keys, bd, cnt, amt, frd = (t.cpu().numpy() for t in pay)
-            total += self._cold.append(table, keys, bd, cnt, amt, frd)
+            keys, *rows = (t.cpu().numpy() for t in pay)
+            # a sharded payload is stacked [n, K, ...]: its lanes in order
+            keys = keys.reshape(-1)
+            rows = [r.reshape(len(keys), -1) for r in rows]
+            total += self._cold.append(table, keys, *rows)
             for k in keys[keys != np.uint32(0xFFFFFFFF)]:
                 self._cold_pending.discard((table, int(k)))
         if total:
@@ -1290,33 +1311,49 @@ class ScoringEngine:
         """Resolved cold rows → the fixed-shape promote payload on the
         host, flat: per table with a directory, ``EMPTY_KEY``-padded keys
         (their int32 bits) [K], bucket_day int32 [K, NB] and count,
-        amount, fraud float32 [K, NB]."""
+        amount, fraud float32 [K, NB]. A state of stacked directories
+        (the sharded engine's) takes ``[n, K, ...]`` lanes, key k in
+        shard ``k % n``'s (the modulo the partitioner and the exchange
+        route by, so a key demoted by shard i promotes back into it);
+        ``poll_ready(max_items=K)`` bounds a promotion at K keys, so even
+        one shard's lanes hold them all."""
         k = self._demote_slots
         nb = self.cfg.features.n_day_buckets
+        n = self._state_shards()
+        stacked = self.state.feature_state.terminal_dir.keys.dim() == 2
         flat = []
         for table in self._dir_tables():
-            keys = np.full((k,), 0xFFFFFFFF, np.uint32)
-            bd = np.full((k, nb), -1, np.int32)
-            cnt = np.zeros((k, nb), np.float32)
-            amt = np.zeros((k, nb), np.float32)
-            frd = np.zeros((k, nb), np.float32)
-            for i, (key, r) in enumerate(
-                    (rows_by_table.get(table) or {}).items()):
-                keys[i] = key
-                bd[i], cnt[i], amt[i], frd[i] = r
-            flat += [keys.view(np.int32), bd, cnt, amt, frd]
+            keys = np.full((n, k), 0xFFFFFFFF, np.uint32)
+            bd = np.full((n, k, nb), -1, np.int32)
+            cnt = np.zeros((n, k, nb), np.float32)
+            amt = np.zeros((n, k, nb), np.float32)
+            frd = np.zeros((n, k, nb), np.float32)
+            fill = [0] * n
+            for key, r in (rows_by_table.get(table) or {}).items():
+                sh = int(key) % n
+                i, fill[sh] = fill[sh], fill[sh] + 1
+                keys[sh, i] = key
+                bd[sh, i], cnt[sh, i], amt[sh, i], frd[sh, i] = r
+            arrays = [keys.view(np.int32), bd, cnt, amt, frd]
+            flat += arrays if stacked else [a[0] for a in arrays]
         return flat
+
+    def _promote_pass(self, fstate, payload: dict):
+        """Land a promote payload in the state, IN PLACE (the sharded
+        engine's lands each shard's lanes in its shard):
+        ``features/online.py::promote_rows``'s return."""
+        return promote_rows(fstate, payload, self.cfg.features)
 
     def _promote_body(self, *flat: torch.Tensor) -> torch.Tensor:
         """The promotion signature's device work on the flat payload of
-        :meth:`_promote_arrays`: the stats int32 [2, 2]."""
+        :meth:`_promote_arrays`: the stats int32 [2, 2] (``[n, 2, 2]``
+        per shard)."""
         it = iter(flat)
         tables = self._dir_tables()
         payload = {t: ((next(it).view(torch.uint32), next(it), next(it),
                         next(it), next(it)) if t in tables else None)
                    for t in ("customer", "terminal")}
-        return promote_rows(self.state.feature_state, payload,
-                            self.cfg.features)[1]
+        return self._promote_pass(self.state.feature_state, payload)[1]
 
     def _maybe_promote(self) -> None:
         """Land resolved promotions between steps (after
@@ -1351,7 +1388,8 @@ class ScoringEngine:
                 flat = [t.to(self.device) for t in flat]
             stats = self._dispatch_step(("promote",), self._promote_body,
                                         *flat)
-            st = stats.cpu().numpy()
+            # [2, 2] per table, or [n, 2, 2] per shard: summed over shards
+            st = stats.cpu().numpy().reshape(-1, 2, 2).sum(axis=0)
         self._m_cold_prom.inc(int(st[:, 0].sum()))
         for i, table in enumerate(("customer", "terminal")):
             landed = list(rows_by_table[table])
@@ -1995,7 +2033,7 @@ class ScoringEngine:
             packed[2, :n] = y[s:s + n]
             packed[3, :n] = 1
             dev = host_to_device(packed, self.device)
-            self.state.feature_state = state_feedback(
+            self.state.feature_state = self._state_feedback(
                 self.state.feature_state, dev[0].view(torch.uint32), dev[1],
                 dev[2], dev[3].bool(), self.cfg.features)
 

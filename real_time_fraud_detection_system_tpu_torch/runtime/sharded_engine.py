@@ -24,18 +24,28 @@ autoencoder through their plain predict. The fused featurize→score
 kernels are not on this path: a sharded row's terminal aggregates arrive
 through the exchange, not from the table by slot.
 
+``key_mode="exact"`` (the tiered store) serves sharded too: ownership
+stays ``key % n_dev``, and each shard has its own key directory over its
+block of the tables, its own sketch replicas for the rows that miss
+admission, its own recency compaction and cold-tier demotions and
+promotions (``parallel/step.py::make_sharded_compact``,
+``make_sharded_promote``, swapped in for the single engine's), and
+``shard``-labelled tier, occupancy and reclaim series beside the
+table-level ones (which get the shard sums). With each shard's hot tier
+holding its keys it serves bit for bit as the single exact engine.
+
 ``precompile`` captures one CUDA graph per signature of
 :meth:`ShardedScoringEngine.dispatch_inventory` — ``("sharded", False)``
-(owner-local chunks) and ``("sharded", True)`` (the routed spill) — with
-the compact exchange bucket. The host picks each chunk's bucket
+(owner-local chunks) and ``("sharded", True)`` (the routed spill), with
+the compact exchange bucket, and under ``key_mode="exact"``
+``("compact",)`` and ``("promote",)``. The host picks each chunk's bucket
 (``exchange_overflows``); a chunk that needs the full bucket (a hot key)
 runs the same step eagerly, counted in the run's ``full_exchange_chunks``.
 
 Refused as the JAX engine refuses them: ``runtime.nan_guard`` and the
-host scorer. Not ported yet, and refused naming the item: the tiered
-store across shards (``key_mode="exact"``, A7b), the fleet (``topology``,
-a mesh over distinct devices, A7c) and the sequence kind over the mesh
-(A7d).
+host scorer. Not ported yet, and refused naming the item: the fleet
+(``topology``, a mesh over distinct devices, A7c) and the sequence kind
+over the mesh (A7d).
 """
 
 from __future__ import annotations
@@ -56,6 +66,7 @@ from real_time_fraud_detection_system_tpu_torch.core.batch import (
 from real_time_fraud_detection_system_tpu_torch.device import resolve_device
 from real_time_fraud_detection_system_tpu_torch.features.online import (
     apply_feedback_at_slot,
+    apply_feedback_sharded_exact,
     init_feature_state,
 )
 from real_time_fraud_detection_system_tpu_torch.features.spec import (
@@ -74,6 +85,8 @@ from real_time_fraud_detection_system_tpu_torch.parallel.mesh import (
 )
 from real_time_fraud_detection_system_tpu_torch.parallel.step import (
     exchange_overflows,
+    make_sharded_compact,
+    make_sharded_promote,
     make_sharded_step,
     partition_batch_spill,
 )
@@ -102,10 +115,14 @@ class ShardedScoringEngine(ScoringEngine):
     state) the engine converts it to this width itself
     (``reshard_engine_state``), the safe path, since window layouts of
     different widths are shape-identical permutations. Without it the
-    state must already be in this width's layout (a sketch of another
-    width is refused)."""
+    state must already be in this width's layout (a sketch or, under
+    ``key_mode="exact"``, a directory stack of another width is
+    refused)."""
 
     _FUSED_STEP = False
+    # exact keys: labels looked up in the owner shard's directory (the
+    # other key modes land them by the layout, apply_state_feedback)
+    _state_feedback = staticmethod(apply_feedback_sharded_exact)
 
     def __init__(
         self,
@@ -134,11 +151,6 @@ class ShardedScoringEngine(ScoringEngine):
             raise ValueError(
                 "a multi-process fleet (topology=) is not ported yet: "
                 "ROADMAP A7c")
-        if cfg.features.key_mode == "exact":
-            raise ValueError(
-                "key_mode='exact' over the mesh (per-shard key "
-                "directories, compaction and cold tier per shard) is not "
-                "ported yet: ROADMAP A7b")
         if cfg.runtime.nan_guard:
             raise ValueError(
                 "runtime.nan_guard is not wired for the sharded engine; "
@@ -154,9 +166,34 @@ class ShardedScoringEngine(ScoringEngine):
             mesh = make_mesh(n, devices=[resolve_device(device)] * n)
         mesh = _check_colocated(tuple(mesh))
         n_dev = len(mesh)
+        exact = cfg.features.key_mode == "exact"
+        if exact:
+            # each shard's directory masks slots to its local range:
+            # validate the partition before any state is built
+            for nm in ("customer_capacity", "terminal_capacity"):
+                cap = getattr(cfg.features, nm)
+                local = cap // n_dev if cap % n_dev == 0 else 0
+                if local <= 0 or (local & (local - 1)):
+                    raise ValueError(
+                        f"key_mode='exact' on a {n_dev}-wide mesh needs "
+                        f"{nm} / n_devices to be a power of two, got "
+                        f"{cap} / {n_dev}")
         for nm in ("customer_capacity", "terminal_capacity"):
             if getattr(cfg.features, nm) % n_dev:
                 raise ValueError(f"{nm} must divide by n_devices")
+        if exact and feature_state is not None \
+                and feature_state_n_old is None:
+            # the directory stack carries its width: a mislaid state is
+            # refused with the fix named, never served as split histories
+            kd = feature_state.terminal_dir
+            lead = (int(kd.keys.shape[0])
+                    if kd is not None and kd.keys.ndim == 2 else 1)
+            if kd is None or lead != n_dev:
+                raise ValueError(
+                    f"provided exact feature_state is laid out for {lead} "
+                    f"shard(s), mesh has {n_dev} — pass "
+                    "feature_state_n_old to let the engine re-home the "
+                    "directory entries (elastic reshard)")
         # the width before the base constructor: its budget check and
         # bytes gauges account a sketch per shard
         self.mesh = mesh
@@ -165,7 +202,8 @@ class ShardedScoringEngine(ScoringEngine):
             feature_state = reshard_engine_state(
                 kind, feature_state, cfg, feature_state_n_old, n_dev)
         if feature_state is None:
-            feature_state = init_feature_state(cfg.features, mesh[0])
+            feature_state = init_feature_state(cfg.features, mesh[0],
+                                               n_shards=n_dev)
         pre_state = shard_feature_state(feature_state, mesh)
         super().__init__(cfg, kind, params, scaler, feature_state=pre_state,
                          device=mesh[0], metrics=metrics,
@@ -192,11 +230,70 @@ class ShardedScoringEngine(ScoringEngine):
                 loss_fn=loss_fn_for(kind), online_lr=online_lr, mesh=mesh,
                 route_customers=routed, packed=True)
             for routed in (False, True)}
+        # the tiered store's passes between steps run per shard
+        self._compact_pass = make_sharded_compact(
+            cfg, mesh, demote_slots=self._demote_slots)
+        self._promote_pass = make_sharded_promote(cfg, mesh)
 
     # -- layout -------------------------------------------------------------
 
     def _state_shards(self) -> int:
         return self.n_dev
+
+    # -- the tiered store per shard ----------------------------------------
+
+    def _init_state_telemetry(self) -> None:
+        """The single engine's series (the table-level view) and, under
+        ``key_mode="exact"``, the same tier, occupancy and reclaim series
+        per shard: skew is what the modulo ownership hides."""
+        super()._init_state_telemetry()
+        self._m_tier_shard = self._m_slots_occ_shard = None
+        self._m_slots_rec_shard = None
+        if not self._exact:
+            return
+        reg = self.metrics
+        n = self._state_shards()
+        tables = self._dir_tables()
+        self._m_tier_shard = {
+            (t, s): reg.counter(
+                "rtfds_feature_tier_rows_total",
+                "row x keyspace feature reads served per tier "
+                "(dense = private hot-tier slot; cms = count-min "
+                "sketch fallback after an admission miss)",
+                tier=t, shard=str(s))
+            for t in ("dense", "cms") for s in range(n)}
+        self._m_slots_occ_shard = {
+            (t, s): reg.gauge(
+                "rtfds_feature_slots_occupied",
+                "hot-tier slots currently owned by a key "
+                "(updated at compaction cadence)",
+                table=t, shard=str(s))
+            for t in tables for s in range(n)}
+        self._m_slots_rec_shard = {
+            (t, s): reg.counter(
+                "rtfds_feature_slots_reclaimed_total",
+                "hot-tier slots reclaimed by recency compaction "
+                "(the slot held only history older than "
+                "delay + max(window))",
+                table=t, shard=str(s))
+            for t in tables for s in range(n)}
+
+    def _meter_shards(self, reclaimed: np.ndarray,
+                      occupied: dict) -> dict:
+        """The per-shard series of one compaction (``reclaimed`` [n, 2],
+        ``occupied`` table → [n]), and the flight event's
+        ``occupied_per_shard``."""
+        per_shard = np.zeros(self.n_dev, np.int64)
+        for i, table in enumerate(("customer", "terminal")):
+            if table not in occupied:
+                continue
+            for s in range(self.n_dev):
+                self._m_slots_occ_shard[(table, s)].set(
+                    int(occupied[table][s]))
+                self._m_slots_rec_shard[(table, s)].inc(
+                    int(reclaimed[s, i]))
+            per_shard += occupied[table]
+        return {"occupied_per_shard": per_shard.tolist()}
 
     # -- the precompiled step over the shards ------------------------------
 
@@ -205,9 +302,11 @@ class ShardedScoringEngine(ScoringEngine):
         return self.n_dev * self.rows_per_shard
 
     def dispatch_inventory(self) -> list:
-        """The JAX engine's two signatures: one shape (chunks are always
+        """The JAX engine's signatures: one shape (chunks are always
         ``[7, n_dev · rows_per_shard]``) × the owner-local step and the
-        dense-spill routed step."""
+        dense-spill routed step; then, as on the single engine,
+        ``("compact",)`` with a compaction cadence and ``("promote",)``
+        with a cold tier, over the shards."""
         zmode_kinds = ("tree", "forest", "gbt")
         rt = self.cfg.runtime
         return [DispatchSignature(
@@ -217,7 +316,9 @@ class ShardedScoringEngine(ScoringEngine):
             z_mode=self.z_mode if self.kind in zmode_kinds else None,
             bucket=self._chunk_rows, selective=self._selective,
             emit_dtype=rt.emit_dtype)
-            for routed in (False, True)]
+            for routed in (False, True)] + [
+            sg for sg in super().dispatch_inventory()
+            if sg.variant != "step"]
 
     def _ensure_step(self, routed: bool):
         """The step of a variant (built with the engine: a PyTorch step
@@ -230,17 +331,23 @@ class ShardedScoringEngine(ScoringEngine):
         place): what a captured graph records and an eager dispatch
         runs."""
         st = self.state
-        _, _, probs, feats = self._ensure_step(routed)(
+        out = self._ensure_step(routed)(
             st.feature_state, st.params, st.scaler, packed, full=full)
+        probs, feats = out[2], out[3]
+        tier = out[4] if len(out) > 4 else None
         if isinstance(feats, dict):
-            return StepOut(probs, feats["full"], None, feats["packed"])
-        return StepOut(probs, feats)
+            return StepOut(probs, feats["full"], tier, feats["packed"])
+        return StepOut(probs, feats, tier)
 
     def signature_step(self, sig: DispatchSignature):
+        if not sig.variant.startswith("sharded"):
+            return super().signature_step(sig)
         routed = sig.variant == "sharded-routed"
         return lambda packed: self._chunk_step(packed, routed)
 
     def _static_inputs(self, sig: DispatchSignature) -> list:
+        if not sig.variant.startswith("sharded"):
+            return super()._static_inputs(sig)
         # every row invalid: what the capture's warmup runs on
         return [torch.zeros((7, sig.bucket), dtype=torch.int32,
                             device=self.device)]
@@ -340,28 +447,41 @@ class ShardedScoringEngine(ScoringEngine):
                 # the leaves no longer hold what the last restore wrote
                 self.state.params_crcs = None
             self._note_batch_days(cols)
+            self._note_cold_touches(cols)
         return {"cols": cols, "n": n, "parts": parts, "t0": t0,
                 "prep_s": t1 - t0, "dispatch_s": time.perf_counter() - t1}
 
     def _host_results(self, handle: dict):
         """Every chunk's copies, waited for and decoded by the single
         engine's reader, re-assembled in input order. Selective emission's
-        overflow counts once per batch, however many chunks overflow."""
+        overflow counts once per batch, however many chunks overflow.
+        Under ``key_mode="exact"`` the chunks' per-shard tier counts are
+        summed: the shard series take their rows here, the table-level
+        ones (the single engine's) the shard sums."""
         n = handle["n"]
         total = self._chunk_rows
         probs = np.zeros(n, np.float32)
         feats = np.zeros((n, N_FEATURES), np.float32)
         emit = self._emit_features_now()
         overflows = self.selective_overflows
+        tier = None
         for rows, pos, out, fetch in handle["parts"]:
-            p, f, _ = super()._host_results(
+            p, f, t = super()._host_results(
                 {"n": total, "out": out, "fetch": fetch})
             probs[rows] = p[pos]
             if emit:
                 feats[rows] = f[pos]
+            if t is not None:
+                tier = t.astype(np.float64) + (0.0 if tier is None
+                                               else tier)
         self.selective_overflows = min(self.selective_overflows,
                                        overflows + 1)
-        return probs, feats, None
+        if tier is not None:
+            for s in range(self.n_dev):
+                self._m_tier_shard[("dense", s)].inc(float(tier[s, 0]))
+                self._m_tier_shard[("cms", s)].inc(float(tier[s, 1]))
+            tier = tier.sum(axis=0)
+        return probs, feats, tier
 
     def run(self, *args, **kwargs) -> dict:
         """:meth:`ScoringEngine.run`, its stats with this run's ``chunks``
@@ -382,11 +502,17 @@ class ShardedScoringEngine(ScoringEngine):
         ((k // n_dev) & (cap_local - 1))`` (the step's owner layout), in
         chunks of at most the largest bucket padded to a bucket, in place
         on the serving stream (``features/online.py::
-        apply_feedback_at_slot``)."""
+        apply_feedback_at_slot``). Under ``key_mode="exact"`` the slot is
+        a lookup in the owner's directory, never an insert: hits land in
+        its window rows, misses in its sketch's fraud column
+        (``apply_feedback_sharded_exact``)."""
         self._ensure_layout()
         labels = np.asarray(labels)
         mask = labels >= 0
         if not mask.any():
+            return
+        if self._exact:
+            super().apply_state_feedback(terminal_ids, days, labels)
             return
         n_dev = self.n_dev
         cap_local = self.cfg.features.terminal_capacity // n_dev

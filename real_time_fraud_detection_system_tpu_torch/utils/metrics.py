@@ -19,8 +19,8 @@ The layers that have no engine handle (the checkpointer, the fault
 injectors, the recovery supervisor, the dead-letter sinks) report through
 :func:`get_registry` and :func:`active_recorder`, under the metric names
 the JAX package registers, so one dashboard reads either package. The
-fleet's view (``merge_process_snapshots`` and the per-shard ``/healthz``
-fields) comes with the fleet (ROADMAP A7c).
+sharded engine's per-shard ``/healthz`` fields are here; the fleet's view
+(``merge_process_snapshots``) comes with the fleet (ROADMAP A7c).
 """
 
 from __future__ import annotations
@@ -665,9 +665,35 @@ class MetricsServer:
         if not occ_tables:
             return None
         fstate: Dict[str, object] = {"slots_occupied": occ_tables}
-        reclaimed = reg.family_total("rtfds_feature_slots_reclaimed_total")
-        if reclaimed is not None:
-            fstate["slots_reclaimed"] = reclaimed
+        # the table-level series only: the sharded engine's shard-labelled
+        # rows break the same totals down
+        rec_rows = [v for labels, v in reg.family_series(
+            "rtfds_feature_slots_reclaimed_total") if "shard" not in labels]
+        if rec_rows:
+            fstate["slots_reclaimed"] = float(sum(rec_rows))
+        # per shard (the sharded engine): occupancy summed over tables,
+        # the worst shard, and each shard's tier reads
+        shard_occ: Dict[str, float] = {}
+        for labels, v in reg.family_series("rtfds_feature_slots_occupied"):
+            if "shard" in labels:
+                shard_occ[labels["shard"]] = (
+                    shard_occ.get(labels["shard"], 0.0) + v)
+        if shard_occ:
+            fstate["slots_occupied_per_shard"] = {
+                sh: shard_occ[sh] for sh in sorted(shard_occ, key=int)}
+            worst = max(shard_occ, key=lambda sh: shard_occ[sh])
+            fstate["worst_shard"] = {"shard": int(worst),
+                                     "occupied": shard_occ[worst]}
+            shard_tiers: Dict[str, Dict[str, float]] = {}
+            for labels, v in reg.family_series(
+                    "rtfds_feature_tier_rows_total"):
+                if "shard" in labels:
+                    shard_tiers.setdefault(labels["shard"], {})[
+                        labels.get("tier", "?")] = v
+            if shard_tiers:
+                fstate["tier_rows_per_shard"] = {
+                    sh: shard_tiers[sh] for sh in sorted(shard_tiers,
+                                                         key=int)}
         dense = reg.get("rtfds_feature_tier_rows_total", tier="dense")
         cms_t = reg.get("rtfds_feature_tier_rows_total", tier="cms")
         if dense is not None or cms_t is not None:

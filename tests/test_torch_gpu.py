@@ -34,7 +34,11 @@ engine (4 and 8 shards co-located on the card): the leaf-sum kernel
 inside the sharded step equal to its plain version on the chunk, the
 engine against the same shards on the CPU (hot key and full exchange
 bucket included), and its two captured signatures replayed against eager
-dispatch bit for bit.
+dispatch bit for bit. The tiered store across shards: the stacked
+admission on the card equal to the CPU, the sharded exact step,
+compaction and promotion free of host syncs, their four captured
+signatures replayed against eager dispatch (and the CPU) bit for bit,
+and the leaf sum inside the exact step equal to its plain version.
 """
 
 import time
@@ -2138,3 +2142,227 @@ def test_sharded_graph_replay_equals_eager_on_cuda(cuda, kind, lr):
                     tree.leaves(ee.state.feature_state)
                     + tree.leaves(ee.state.params)):
         assert torch.equal(a, b)
+
+
+# -- the tiered store across shards on the card --------------------------------
+
+
+def test_stacked_admission_on_cuda_equals_cpu_bit_for_bit(cuda):
+    """``admit_slots_stacked`` (every shard's rows in one pass, probe
+    positions offset per shard, grants ranked per shard) on the card as on
+    the CPU: slots, admitted masks and every leaf of the directory stack,
+    through duplicates, uint32 edge keys, stacks that run dry and
+    reclaims on each shard's view, at the serving bucket's size."""
+    from real_time_fraud_detection_system_tpu_torch.ops import keydir
+
+    rng = np.random.default_rng(5)
+    n, width = 4, 16384
+    cpu = keydir.init_stacked_keydir(1 << 13, 1 << 12, n, "cpu")
+    gpu = keydir.init_stacked_keydir(1 << 13, 1 << 12, n, cuda)
+    for _ in range(5):
+        keys = rng.integers(0, 2 ** 32, (n, width),
+                            dtype=np.uint64).astype(np.uint32)
+        keys[:, :8000] = rng.integers(0, 6000, (n, 8000))
+        keys[0, 8000:8004] = [2 ** 31 - 1, 2 ** 31, 0xFFFFFFFE, 0xFFFFFFFF]
+        valid = rng.random((n, width)) < 0.95
+        tk, tv = torch.from_numpy(keys), torch.from_numpy(valid)
+        _, cs, ca = keydir.admit_slots_stacked(cpu, tk, tv)
+        _, gs, ga = keydir.admit_slots_stacked(gpu, tk.to(cuda),
+                                               tv.to(cuda))
+        assert torch.equal(gs.cpu(), cs) and torch.equal(ga.cpu(), ca)
+        _same_keydir(cpu, gpu)
+        dead = torch.from_numpy(rng.random((n, 1 << 13)) < 0.3)
+        for s in range(n):
+            keydir.reclaim_entries(keydir.KeyDirectory(*[x[s] for x in cpu]),
+                                   dead[s])
+            keydir.reclaim_entries(keydir.KeyDirectory(*[x[s] for x in gpu]),
+                                   dead[s].to(cuda))
+        _same_keydir(cpu, gpu)
+    assert bool((cpu.free_top < (1 << 12)).all())
+
+
+def _cold_sharded_engine(dev, tmp, name, kind="logreg"):
+    """A 4-shard exact engine with a small hot tier, compaction every 2
+    batches and a cold store: demotions and promotions on every path."""
+    from real_time_fraud_detection_system_tpu_torch.runtime.sharded_engine \
+        import ShardedScoringEngine
+
+    cfg = Config(
+        features=FeatureConfig(
+            key_mode="exact", customer_capacity=128, terminal_capacity=128,
+            cms_width=1 << 12, compact_every=2,
+            cold_store=str(tmp / name), cold_demote_slots=16,
+            cold_highwater=0.25, cold_promote_queue=64),
+        runtime=RuntimeConfig(batch_buckets=(64,), max_batch_rows=64))
+    params, scaler = _graph_model(kind, dev)
+    return ShardedScoringEngine(cfg, kind, params, scaler, n_devices=4,
+                                device=dev)
+
+
+def _cold_stream():
+    """Early keys demoted under pressure, later keys pushing occupancy
+    past the high-water mark, then 16 of the early keys returning."""
+    def cols(cust, day):
+        cust = np.asarray(cust, np.int64)
+        n = len(cust)
+        us = (day * 86400 + np.arange(n) % 86400).astype(np.int64) \
+            * 1_000_000
+        return {"tx_id": np.arange(n, dtype=np.int64), "tx_datetime_us": us,
+                "customer_id": cust, "terminal_id": cust + 10000,
+                "tx_amount_cents": np.full(n, 1200, np.int64),
+                "kafka_ts_ms": us // 1000}
+
+    a, b = np.arange(0, 48), np.arange(1000, 1032)
+    return [cols(a, 20200), cols(a, 20200), cols(b, 20202),
+            cols(b, 20203), cols(b, 20204), cols(a[:16], 20205)]
+
+
+def test_sharded_exact_graphs_replay_equal_eager_on_cuda(cuda, tmp_path):
+    """The sharded exact engine's four signatures — both step variants,
+    ``("compact",)`` (with the cold tier's demotions) and
+    ``("promote",)`` — captured as CUDA graphs: the compaction and
+    promotion graphs replay, and outputs, the whole state and the cold
+    counters equal eager dispatch bit for bit; both equal the same
+    engine on the CPU."""
+    from real_time_fraud_detection_system_tpu_torch.utils import tree
+
+    runs = []
+    replays = {}
+    for dev, precompile in ((cuda, False), (cuda, True),
+                            (torch.device("cpu"), False)):
+        eng = _cold_sharded_engine(dev, tmp_path,
+                                   f"cold-{dev.type}-{precompile}")
+        if precompile:
+            man = eng.precompile()
+            assert sorted(eng._graphs, key=str) == sorted(
+                [("sharded", False), ("sharded", True), ("compact",),
+                 ("promote",)], key=str)
+            assert man["graphs"] == 4
+            for key, g in eng._graphs.items():
+                replays[key] = 0
+
+                def counted(*a, _replay=g.replay, _key=key):
+                    replays[_key] += 1
+                    return _replay(*a)
+
+                g.replay = counted
+        out = []
+        for cols in _cold_stream():
+            out.append(eng.process_batch(cols))
+            eng.drain_promotions(timeout_s=30.0)
+        runs.append((eng, out))
+        eng.fence_cold()
+    (ee, want), (ge, got), (ce, cpu_out) = runs
+    assert replays[("compact",)] > 0 and replays[("promote",)] > 0, replays
+    assert ge._m_aot_fallbacks.value == 0
+    assert ge._m_cold_dem.value == ee._m_cold_dem.value > 0
+    assert ge._m_cold_prom.value == ee._m_cold_prom.value > 0
+    for a, b, c in zip(got, want, cpu_out):
+        assert np.array_equal(a.features, b.features)
+        assert np.array_equal(a.probs, b.probs)
+        assert np.array_equal(a.features, c.features)
+        np.testing.assert_allclose(a.probs, c.probs, rtol=0.0,
+                                   atol=ATOL_SIGMOID)
+    for a, b, c in zip(tree.leaves(ge.state.feature_state),
+                       tree.leaves(ee.state.feature_state),
+                       tree.leaves(ce.state.feature_state)):
+        assert torch.equal(a, b) and torch.equal(a.cpu(), c)
+
+
+def test_sharded_exact_step_and_passes_never_sync_on_cuda(cuda):
+    """The sharded exact step (the stacked admission, the owner exchange,
+    both tiers' reads, the tier counts), the per-shard compaction with
+    demotion and the per-shard promotion run under
+    ``torch.cuda.set_sync_debug_mode("error")``."""
+    from real_time_fraud_detection_system_tpu_torch.core import batch as cb
+    from real_time_fraud_detection_system_tpu_torch.features import online
+    from real_time_fraud_detection_system_tpu_torch.models.logreg import (
+        logreg_predict_proba,
+    )
+    from real_time_fraud_detection_system_tpu_torch.parallel import (
+        mesh as pmesh,
+    )
+    from real_time_fraud_detection_system_tpu_torch.parallel import (
+        step as pstep,
+    )
+
+    cfg = Config(features=FeatureConfig(
+        key_mode="exact", customer_capacity=256, terminal_capacity=256,
+        cms_width=1 << 8, cold_highwater=0.25))
+    mesh = pmesh.make_mesh(4, devices=[cuda] * 4)
+    fs = pmesh.shard_feature_state(
+        online.init_feature_state(cfg.features, cuda, n_shards=4), mesh)
+    params, scaler = _logreg_model(cuda)
+    steps = {r: pstep.make_sharded_step(cfg, logreg_predict_proba,
+                                        mesh=mesh, route_customers=r,
+                                        packed=True) for r in (False, True)}
+    compact = pstep.make_sharded_compact(cfg, mesh, demote_slots=32)
+    promote = pstep.make_sharded_promote(cfg, mesh)
+    rng = np.random.default_rng(7)
+    chunks = []
+    for d in range(4):
+        cols = {"customer_id": rng.integers(0, 600, 1000),
+                "terminal_id": rng.integers(0, 600, 1000),
+                "tx_datetime_us": (np.full(1000, 20200 + d, np.int64) * 86400
+                                   + rng.integers(0, 86400, 1000))
+                * 1_000_000,
+                "tx_amount_cents": rng.integers(1, 500, 1000) * 100,
+                "label": rng.integers(-1, 2, 1000)}
+        # ~250 rows a shard against 200: every batch spills a routed chunk
+        for part, _, _ in pstep.partition_batch_spill(cols, 4, 200):
+            packed = cb.pack_batch(cb.make_batch(
+                customer_id=part["customer_id"],
+                terminal_id=part["terminal_id"],
+                tx_datetime_us=part["tx_datetime_us"],
+                amount_cents=part["tx_amount_cents"],
+                label=np.where(part["__valid__"], part["label"], -1),
+            )._replace(valid=part["__valid__"]))
+            chunks.append((torch.from_numpy(packed).to(cuda),
+                           part["__routed__"]))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tiers = [steps[r](fs, params, scaler, p, full=(r, True))[4]
+                 for p, r in chunks]
+        compact(fs, 20203)
+        _, rec, payload = compact(fs, 20204)
+        _, stats = promote(fs, payload)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert any(r for _, r in chunks)
+    tier = sum(t.cpu() for t in tiers)
+    assert tier.shape == (4, 2) and bool((tier > 0).all())
+    assert int(rec.sum()) > 0 and int(stats[:, :, 0].sum()) > 0
+
+
+def test_exact_sharded_step_leaf_sum_matches_plain_version_on_the_chunk(
+        cuda, monkeypatch):
+    """Under ``key_mode="exact"`` the sharded step still scores the whole
+    chunk with one leaf-sum launch, equal to ``leaf_sum_plain`` on that
+    chunk's scaled features."""
+    import dataclasses
+
+    from real_time_fraud_detection_system_tpu_torch.runtime import engine
+    from real_time_fraud_detection_system_tpu_torch.runtime.sharded_engine \
+        import ShardedScoringEngine
+
+    seen = []
+    proba = engine.leaf_sum_proba
+
+    def spy(tables, x, base=None):
+        seen.append((tables, x))
+        return proba(tables, x, base)
+
+    monkeypatch.setattr(engine, "leaf_sum_proba", spy)
+    cfg = _learning_cfg(key_mode="exact")
+    cfg = dataclasses.replace(cfg, runtime=dataclasses.replace(
+        cfg.runtime, max_batch_rows=1024))
+    params, scaler = _graph_model("forest", cuda)
+    eng = ShardedScoringEngine(cfg, "forest", params, scaler, n_devices=4,
+                               device=cuda)
+    before = fk.leaf_sum.launches
+    eng.process_batch(_sharded_batches()[0])
+    assert fk.leaf_sum.launches - before == 1 and len(seen) == 1
+    tables, x = seen[0]
+    assert x.shape[0] == 4 * eng.rows_per_shard
+    assert torch.equal(fk.leaf_sum(tables, x), fk.leaf_sum_plain(tables, x))

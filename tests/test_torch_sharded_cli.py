@@ -1,6 +1,7 @@
 """Port parity: ``score --devices N`` (the sharded engine, its N shards on
-the one ``--device``) against the JAX package's ``score --devices N`` on
-the 8-virtual-device CPU mesh, and the flags the sharded ``score`` refuses.
+the one ``--device``; with ``--key-mode exact`` the tiered store per
+shard) against the JAX package's ``score --devices N`` on the
+8-virtual-device CPU mesh, and the flags the sharded ``score`` refuses.
 
 Tolerances: the Parquet columns bit for bit (the forest's probabilities
 within ``atol=1e-6``: the port's tree kinds score through the leaf-sum
@@ -87,18 +88,28 @@ def _assert_outputs(tout: dict, jout: dict) -> None:
     ("--devices", "4"),
     ("--devices", "8", "--max-batch-rows", "512"),
     ("--devices", "4", "--key-mode", "hash", "--alerts-only"),
-], ids=["devices4", "devices8-max-rows", "devices4-hash-alerts"])
+    ("--devices", "4", "--key-mode", "exact", "--state-compact-every", "2"),
+    ("--devices", "2", "--key-mode", "exact", "--state-compact-every", "1",
+     "--cold-store", "COLD"),
+], ids=["devices4", "devices8-max-rows", "devices4-hash-alerts",
+        "devices4-exact-compact2", "devices2-exact-cold"])
 def test_score_devices_writes_the_parquet_of_the_jax_score(files, capsys,
                                                            flags):
     d = files
-    common = ["--data", str(d / "txs.npz"), "--model-file",
-              str(d / "forest.npz"), "--batch-rows", "1024", *flags]
     tag = "-".join(f.strip("-") for f in flags)
+
+    def common(pkg):
+        # each package its own cold store
+        return ["--data", str(d / "txs.npz"), "--model-file",
+                str(d / "forest.npz"), "--batch-rows", "1024",
+                *[str(d / f"cold-{pkg}-{tag}") if f == "COLD" else f
+                  for f in flags]]
+
     jdir, tdir = d / f"jax-{tag}", d / f"port-{tag}"
-    assert jcli_main(["score", "--out", str(jdir), *common]) == 0
+    assert jcli_main(["score", "--out", str(jdir), *common("jax")]) == 0
     jstats = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert tcli.main(["score", "--device", "cpu", "--out", str(tdir),
-                      *common]) == 0
+                      *common("port")]) == 0
     tstats = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert tstats["rows"] == jstats["rows"] == 3000
     assert tstats["batches"] == jstats["batches"]
@@ -127,13 +138,11 @@ def test_sharded_score_refuses_what_the_jax_score_refuses(files, capsys,
 
 
 @pytest.mark.parametrize("model,flags,item", [
-    ("forest", ("--devices", "4", "--key-mode", "exact"), "A7b"),
     ("forest", ("--num-processes", "2"), "A7c"),
     ("forest", ("--coordinator", "localhost:1234"), "A7c"),
     ("forest", ("--devices", "4", "--resume-merge", "x"), "A7c"),
     ("sequence", ("--devices", "4"), "A7d"),
-], ids=["exact", "num-processes", "coordinator", "resume-merge",
-        "sequence"])
+], ids=["num-processes", "coordinator", "resume-merge", "sequence"])
 def test_sharded_score_names_the_item_it_waits_for(files, caplog, model,
                                                    flags, item):
     d = files

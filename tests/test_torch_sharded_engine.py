@@ -19,7 +19,6 @@ amount column runs to ~1e2.
 """
 
 import dataclasses
-import os
 
 import jax
 import jax.numpy as jnp
@@ -69,7 +68,6 @@ from real_time_fraud_detection_system_tpu_torch.data.generator import (
 )
 from real_time_fraud_detection_system_tpu_torch.io.checkpoint import (
     Checkpointer,
-    CheckpointTopologyError,
 )
 from real_time_fraud_detection_system_tpu_torch.io.sink import MemorySink
 from real_time_fraud_detection_system_tpu_torch.ops import forest_kernels
@@ -503,22 +501,34 @@ def test_jax_cross_width_checkpoint_restores_in_the_port(stream, tmp_path):
     _assert_state(teng4.state.feature_state, jeng4.state.feature_state)
 
 
-def test_jax_sharded_exact_checkpoint_is_refused_naming_a7b(stream,
-                                                           tmp_path):
-    """The tiered store across shards (per-shard key directories) is not
-    ported: its checkpoint is refused, never quarantined."""
-    tcfg, jcfg = _cfgs(key_mode="exact")
+def test_jax_sharded_exact_checkpoint_restores_in_the_port(stream,
+                                                          tmp_path):
+    """A JAX sharded exact checkpoint (per-shard key directories, 4
+    shards) restored by the port at 4 shards (as it is), at 2 and at 1
+    (the directory entries re-homed by ``key % n``): every continuation
+    equals the JAX engine's restored at 4, and the same-width restore's
+    state equals it bit for bit."""
+    tcfg, jcfg = _cfgs(key_mode="exact", compact_every=2)
+    warm, rest = stream.slice(slice(0, 2048)), stream.slice(slice(2048, None))
     jp, js, tp, ts = _models("logreg")
     jeng = JShardedScoringEngine(jcfg, kind="logreg", params=jp, scaler=js,
                                  n_devices=4)
-    jeng.run(JReplaySource(stream.slice(slice(0, 1024)), EPOCH0,
-                           batch_rows=1024))
-    path = JCheckpointer(str(tmp_path)).save(jeng.state)
-    eng = ScoringEngine(tcfg, "logreg", tp, ts, device="cpu")
-    ck = Checkpointer(str(tmp_path))
-    with pytest.raises(CheckpointTopologyError, match="A7b"):
-        ck.restore(eng.state)
-    assert ck.latest() == path and os.path.exists(path)
+    jeng.run(JReplaySource(warm, EPOCH0, batch_rows=1024))
+    JCheckpointer(str(tmp_path)).save(jeng.state)
+    want = JMemorySink()
+    jeng.run(JReplaySource(rest, EPOCH0, batch_rows=1024), sink=want)
+    for n_dev in (4, 2, 1):
+        eng = (ShardedScoringEngine(tcfg, "logreg", tp, ts,
+                                    n_devices=n_dev, device="cpu")
+               if n_dev > 1 else
+               ScoringEngine(tcfg, "logreg", tp, ts, device="cpu"))
+        assert Checkpointer(str(tmp_path)).restore(eng.state) is not None
+        assert eng.state.layout_devices == 4
+        got = MemorySink()
+        eng.run(ReplaySource(_port_txs(rest), EPOCH0, batch_rows=1024), got)
+        _assert_outputs(got.concat(), want.concat(), "logreg")
+        if n_dev == 4:
+            _assert_state(eng.state.feature_state, jeng.state.feature_state)
 
 
 def test_feature_state_n_old_reshards_a_provided_state(stream):
@@ -565,8 +575,9 @@ def test_refusals_name_their_item():
         tmesh.reshard_feature_state(None, hcfg, 1, 4)
     ecfg = dataclasses.replace(tcfg, features=dataclasses.replace(
         tcfg.features, key_mode="exact"))
-    with pytest.raises(ValueError, match="A7b"):
-        _engine(ecfg, n_devices=4)
+    with pytest.raises(ValueError, match="feature_state_n_old"):
+        _engine(ecfg, n_devices=4, feature_state=tmesh.reshard_feature_state(
+            _engine(ecfg, n_devices=8).state.feature_state, ecfg, 8, 2))
     with pytest.raises(ValueError, match="A7c"):
         _engine(tcfg, mesh=("cpu", "meta"))
     with pytest.raises(ValueError, match="A7c"):
@@ -587,6 +598,49 @@ def test_refusals_name_their_item():
     if not torch.cuda.is_available():
         with pytest.raises(ValueError, match="visible"):
             tmesh.make_mesh(4)
+
+
+@pytest.mark.parametrize("n_old,n_new", [(4, 2), (4, 1), (2, 8)])
+def test_exact_state_reshards_as_the_jax_package(stream, n_old, n_new):
+    """``reshard_feature_state`` of a JAX sharded exact state (served 2
+    batches at ``n_old`` shards) to ``n_new``: every leaf — re-homed
+    window rows, rebuilt directories, merged sketches — equals the JAX
+    package's conversion bit for bit, and a port engine handed the state
+    with ``feature_state_n_old`` serves on as the JAX engine restored at
+    ``n_new``."""
+    tcfg, jcfg = _cfgs(key_mode="exact")
+    warm, rest = stream.slice(slice(0, 2048)), stream.slice(slice(2048, None))
+    jp, js, tp, ts = _models("logreg")
+    jeng = JShardedScoringEngine(jcfg, kind="logreg", params=jp, scaler=js,
+                                 n_devices=n_old)
+    jeng.run(JReplaySource(warm, EPOCH0, batch_rows=1024))
+    state = jax.tree.map(np.asarray, jeng.state.feature_state)
+    want = jmesh.reshard_feature_state(state, jcfg, n_old, n_new)
+    got = tmesh.reshard_feature_state(
+        weights.from_numpy(state, device=CPU), tcfg, n_old, n_new)
+    jleaves = jax.tree_util.tree_leaves_with_path(want)
+    tleaves = tree.leaves_with_path(got)
+    assert [jax.tree_util.keystr(p) for p, _ in jleaves] \
+        == [p for p, _ in tleaves]
+    for (path, t), (_, j) in zip(tleaves, jleaves):
+        assert t.dtype == np.asarray(j).dtype, path
+        np.testing.assert_array_equal(t, np.asarray(j), err_msg=path)
+    eng = ShardedScoringEngine(tcfg, "logreg", tp, ts, n_devices=n_new,
+                               device="cpu", feature_state=weights.from_numpy(
+                                   state, device=CPU),
+                               feature_state_n_old=n_old) if n_new > 1 \
+        else ScoringEngine(tcfg, "logreg", tp, ts, device="cpu",
+                           feature_state=weights.from_numpy(got, device=CPU))
+    jnew = (JShardedScoringEngine(jcfg, kind="logreg", params=jp, scaler=js,
+                                  n_devices=n_new, feature_state=state,
+                                  feature_state_n_old=n_old)
+            if n_new > 1 else
+            JScoringEngine(jcfg, kind="logreg", params=jp, scaler=js,
+                           feature_state=jax.tree.map(jnp.asarray, want)))
+    a, b = MemorySink(), JMemorySink()
+    eng.run(ReplaySource(_port_txs(rest), EPOCH0, batch_rows=1024), a)
+    jnew.run(JReplaySource(rest, EPOCH0, batch_rows=1024), sink=b)
+    _assert_outputs(a.concat(), b.concat(), "logreg")
 
 
 def test_capacity_mismatch_is_refused_on_reshard():

@@ -6,9 +6,11 @@ What is compared and how closely:
 
 - ``partition_batch_spill``: every chunk, row and position, equal;
 - the step, on whole-dollar amounts: every state leaf (owner-major
-  window tables, the per-shard sketch), the features and the
-  probabilities bit for bit — float32 sums of whole dollars are exact in
-  any order, and the counts and fraud sums are whole numbers;
+  window tables, the per-shard sketch; under ``key_mode="exact"`` the
+  per-shard directories and terminal sketch), the features, the exact
+  step's per-shard tier counts and the probabilities bit for bit —
+  float32 sums of whole dollars are exact in any order, and the counts
+  and fraud sums are whole numbers;
 - on cent amounts: amount sums and averages within ``rtol=1e-6`` (the
   same amounts added in another order: ``index_add_`` against XLA's
   scatter-add), the rest bit for bit;
@@ -255,10 +257,12 @@ def _run_both(n_dev, cols_list, rps, features=None, online_lr=0.0,
     steps from the same fresh state; compare after every chunk. Returns
     the capacity choices the host made, per chunk."""
     tcfg, jcfg = _cfgs(**(features or {}))
+    exact = tcfg.features.key_mode == "exact"
     jp, js, tp, ts = _logreg()
     jm = jmesh.make_mesh(n_dev)
     tm = tmesh.make_mesh(n_dev, devices=["cpu"] * n_dev)
-    jfs = jmesh.shard_feature_state(jinit_feature_state(jcfg.features), jm)
+    jfs = jmesh.shard_feature_state(jinit_feature_state(
+        jcfg.features, n_shards=n_dev if exact else 1), jm)
     tfs = weights.from_numpy(jax.tree.map(np.asarray, jfs), device=CPU)
     loss = dict(loss_fn=jlogreg_loss, online_lr=online_lr)
     builds = {r: jstep.make_sharded_step(jcfg, jlogreg_predict_proba,
@@ -269,6 +273,7 @@ def _run_both(n_dev, cols_list, rps, features=None, online_lr=0.0,
         online_lr=online_lr, mesh=tm, route_customers=r, packed=True)
         for r in (False, True)}
     choices = []
+    jfns = {}
     for cols in cols_list:
         for part, _, _ in tstep.partition_batch_spill(cols, n_dev, rps):
             routed = part["__routed__"]
@@ -281,11 +286,17 @@ def _run_both(n_dev, cols_list, rps, features=None, online_lr=0.0,
                 full = force_full
             choices.append((routed, full))
             jb = _jax_batch(part)
-            jfn = builds[routed](jfs, jp, js, jb)
-            jfs, jp, j_probs, j_feats = jfn(jfs, jp, js, jb)
-            tfs, tp, t_probs, t_feats = steps[routed](
+            if routed not in jfns:  # one jit per variant, as the engine
+                jfns[routed] = builds[routed](jfs, jp, js, jb)
+            jfs, jp, j_probs, j_feats, *j_tier = jfns[routed](jfs, jp, js,
+                                                              jb)
+            tfs, tp, t_probs, t_feats, *t_tier = steps[routed](
                 tfs, tp, ts, torch.from_numpy(_packed_chunk(part)),
                 full=full)
+            # the tiered store's per-shard [dense, cms] reads, bit for bit
+            assert len(t_tier) == len(j_tier) == int(exact)
+            for t, j in zip(t_tier, j_tier):
+                np.testing.assert_array_equal(t.numpy(), np.asarray(j))
             _assert_state(tfs, jfs, amounts_exact)
             _assert_outputs(t_probs, t_feats, j_probs, j_feats, valid,
                             amounts_exact)
@@ -303,11 +314,21 @@ STEP_CASES = {
     "cms-hash-big-keys": dict(features=dict(customer_source="cms",
                                             key_mode="hash"),
                               big_keys=True),
+    # the tiered store: hot tiers of 64 slots under ~300 customers and
+    # ~700 terminals, so both tiers serve
+    "exact": dict(features=dict(key_mode="exact", customer_capacity=64,
+                                terminal_capacity=64)),
+    "exact-cms-big-keys": dict(features=dict(key_mode="exact",
+                                             customer_source="cms",
+                                             terminal_capacity=128),
+                               big_keys=True),
 }
+EXACT_CASES = ("exact", "exact-cms-big-keys")
 
 
 @pytest.mark.parametrize("n_dev", [4, 8])
-@pytest.mark.parametrize("case", list(STEP_CASES))
+@pytest.mark.parametrize("case", [c for c in STEP_CASES
+                                  if c not in EXACT_CASES])
 @pytest.mark.parametrize("routing", ["local", "routed"])
 def test_sharded_step_matches_jax(n_dev, case, routing):
     """Two batches of 256 rows: balanced (one owner-local chunk) or one
@@ -320,6 +341,17 @@ def test_sharded_step_matches_jax(n_dev, case, routing):
     choices = _run_both(n_dev, cols, rps=512 // n_dev,
                         features=spec.get("features"))
     assert any(r for r, _ in choices) == hot
+
+
+@pytest.mark.parametrize("n_dev,case,routing", [
+    (4, "exact", "local"), (4, "exact", "routed"), (8, "exact", "routed"),
+    (4, "exact-cms-big-keys", "routed")])
+def test_sharded_exact_step_matches_jax(n_dev, case, routing):
+    """The exact step (``key_mode="exact"``: per-shard directories, the
+    stacked admission, sketch reads for the misses, the tier counts) on
+    the same two batches; a routed case's batches also hold an
+    owner-local chunk, so it drives both variants."""
+    test_sharded_step_matches_jax(n_dev, case, routing)
 
 
 @pytest.mark.parametrize("n_dev", [4, 8])
@@ -368,10 +400,10 @@ def test_step_refusals():
         tstep.make_sharded_step(  # 512 / 3 shards
             tcfg, logreg_predict_proba,
             mesh=tmesh.make_mesh(3, devices=["cpu"] * 3))
-    mesh4 = tmesh.make_mesh(4, devices=["cpu"] * 4)
     tcfg, _ = _cfgs(key_mode="exact")
-    with pytest.raises(ValueError, match="A7b"):
-        tstep.make_sharded_step(tcfg, logreg_predict_proba, mesh=mesh4)
+    with pytest.raises(ValueError, match="power of two"):  # 512 / 3 shards
+        tstep.make_sharded_step(tcfg, logreg_predict_proba,
+                                mesh=tmesh.make_mesh(3, devices=["cpu"] * 3))
     with pytest.raises(ValueError, match="mesh"):
         tstep.make_sharded_step(tcfg, logreg_predict_proba)
 
