@@ -52,7 +52,7 @@ Phases, each printing JSON lines:
    columnar over every row, and envelope mode on a slice through the
    native decoder; the slice again with ``--prefetch-batches 2
    --metrics-dump --flight-record --trace-out`` (a record and a dispatch
-   span per batch); and the default dataset's first 8 batches with
+   span per batch); and the default dataset's first 2 batches with
    ``--out`` on the card and with ``--scorer cpu`` (the host's NumPy
    oracle), probabilities within 1e-6 of each other (the card machine has no pyarrow: ``--out``
    lands in an in-memory sink).
@@ -156,7 +156,7 @@ Phases, each printing JSON lines:
    equal to an unthrottled run's).
 13. ``ingest`` — ingest and observability on the forest path, 65,536-row
    batches at depth 2, the fused forest kernel once per batch in every
-   run: (a) 16 batches through ``ReplaySource(mode="envelope")`` with 8
+   run: (a) 8 batches through ``ReplaySource(mode="envelope")`` with 8
    decode workers, plain and under ``PrefetchSource(max_batches=2)`` and
    ``(4)``, the outputs bit for bit; rows/s, the loop's ``source_poll``
    and ``host_prep`` p50, the prefetch wait and mean queue depth, and
@@ -186,7 +186,7 @@ Phases, each printing JSON lines:
    logreg, mlp (64, 32), autoencoder (32, 8), gbt and the sequence
    transformer (d_model 32, 2 heads, 2 layers, d_ff 64) trained
    in-process, 5 epochs — fit and predict seconds, AUC-ROC, AP and
-   CP@100 each (the one cut: the gbt grows 5 trees of depth 8, not 100,
+   CP@100 each (the one cut: the gbt grows 2 trees of depth 8, not 100,
    for the NumPy booster's host time) — and the device ms of one Adam
    step of the mlp and of the transformer (median of 20 after 3); (c)
    ``compare`` (logreg, mlp, autoencoder, sequence, 1 epoch) and
@@ -249,7 +249,32 @@ Phases, each printing JSON lines:
    the fix, and the leg then restores with 16); (g) the leaf-sum launch on
    the exact chunk against ``leaf_sum_plain`` (max |Δ|, ms, bound), and
    the device's idle share under ``torch.profiler`` at 4 shards and 1.
-18. ``kernels`` — one line per the measurement contract, each kernel's
+18. ``fleet`` — the fleet of processes on the one card (each process its
+   own CUDA context; gloo carries only the rendezvous), the forest at
+   int8 over the 12 whole-dollar batches of (16) with terminals remapped
+   so ``terminal % 4 == customer % 4`` (co-partitioned): (a) in process,
+   two engines of ``ProcessTopology(2, p, 2)`` behind
+   ``PartitionAffineSource`` against the single-process 4-shard engine,
+   row by row by ``tx_id`` (features bit for bit, |Δp| 0), the leaf-sum
+   kernel once per chunk and bit-equal to its plain version on one
+   chunk; (b) the port's launcher: two coordinated worker processes
+   (``--devices 2 --precompile --checkpoint-dir --metrics-dump
+   --cms-exchange``) and a single-process ``--devices 4`` run, each
+   worker's output, launches and timings kept by a ``sitecustomize.py``
+   on the workers' path (the card machine has no pyarrow: it swaps the
+   Parquet sink for one ``.npz`` per batch); exact coverage, no
+   recaptures, precompiled steps, global shard ids and process labels,
+   output equal to (a)'s control, rows/s per worker and for the fleet,
+   the barrier's ms; (c) a resize: the two-process fleet drained by
+   SIGTERM mid-stream, merged into one process by ``--resume-merge``
+   under the launcher's ``--autoscale``, which grows it back to two;
+   the union of every generation's output covers the stream once and
+   equals the control; drain-to-final-checkpoint, merge and
+   relaunch-to-first-batch ms; (d) the same shrink under ``--key-mode
+   exact`` with ``--cold-store`` and ``--resume-merge-cold``: every old
+   directory entry re-homed into the merged directory, the continuation
+   equal to the single-process exact engine.
+19. ``kernels`` — one line per the measurement contract, each kernel's
    launches summed over every driven path that launched it.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises and
@@ -263,6 +288,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -311,12 +337,12 @@ RECOVERY_POISON_BATCH = 20
 SERVING_DEPTHS = (1, 2, 3)
 # Phase exact_path: the JAX bench's state_scale deployment (bench.py
 # _state_scale_block): Zipf(1.1) traffic over these key universes, 2 warm
-# batches, then 24 with the day advancing every 4 batches.
+# batches, then 12 with the day advancing every 4 batches.
 ZIPF_SKEW = 1.1
 EXACT_UNIVERSES = (65_536, 1 << 20, 10_000_000)
 EXACT_COLD_UNIVERSE = 100_000_000
 EXACT_WARM = 2
-EXACT_BATCHES = 24
+EXACT_BATCHES = 12
 EXACT_DAY_EVERY = 4
 EXACT_RECLAIM_BATCHES = 48  # day advancing every batch: past the horizon
 EXACT_BIG_CAPACITY = 1 << 22  # the hot tier of a 10M-card issuer
@@ -324,7 +350,7 @@ COALESCE_POLL_ROWS = 16384
 ENVELOPE_ROWS = 262144  # the slice the cli phase serves in envelope mode
 # the cli phase's card and --scorer cpu runs: the host oracle walks the
 # forest in NumPy at ~33k rows/s, so these batches, not the dataset
-CLI_SCORER_BATCHES = 8
+CLI_SCORER_BATCHES = 2
 PATHS = ("forest", "logreg", "gbt")
 # The kernel each path's step must launch once per batch.
 OWN_KERNEL = {"forest": "fused_forest_leaf_sum",
@@ -3687,7 +3713,7 @@ def phase_precompile(dev, device_info, data: dict) -> dict:
     return totals
 
 
-INGEST_BATCHES = 16  # (a), (d): 65,536-row batches of the default dataset
+INGEST_BATCHES = 8  # (a), (d): 65,536-row batches of the default dataset
 INGEST_DECODE_WORKERS = 8
 INGEST_PREFETCH = (2, 4)
 INGEST_PROFILE_BATCHES = 3
@@ -4192,7 +4218,7 @@ def phase_ingest(dev, device_info, data: dict) -> dict:
 
 OFFLINE_CHUNK = 8192  # the replay's chunk (features/offline.py default)
 OFFLINE_PARITY_CHUNKS = 4  # (a): chunks held against a CPU-device replay
-OFFLINE_GBT_TREES = 5  # (b): the one cut, host time (100 in ModelConfig)
+OFFLINE_GBT_TREES = 2  # (b): the one cut, host time (100 in ModelConfig)
 OFFLINE_ADAM_WARMUP = 3  # (b): Adam steps before the timed ones
 OFFLINE_ADAM_STEPS = 20
 OFFLINE_SERVE_PARITY_BATCHES = 2  # (d)
@@ -5399,6 +5425,620 @@ def phase_sharded_exact(dev, device_info, data: dict) -> dict:
     return totals
 
 
+# -- phase fleet ---------------------------------------------------------------
+
+FLEET_BATCHES = 12
+FLEET_PROCS = 2
+FLEET_LOCAL = 2  # shards per process: the fleet's 4 global shards
+# the paced runs' sink sleep (a drain must find them mid-stream), and the
+# batches each process sinks before the smoke drains it
+FLEET_SINK_SLEEP_S = 0.4
+FLEET_DRAIN_AFTER = 3
+FLEET_SPAWN_TIMEOUT_S = 240
+FLEET_COMPACT_EVERY = 4  # (d): the cold tier demotes at compaction passes
+PKG_CLI = f"{PKG}.cli"
+LAUNCHER = f"{PKG}.tools.multihost_launcher"
+# Put on the workers' path: swaps the Parquet sink (no pyarrow on the card
+# machine) for one .npz per batch, times the rendezvous, and writes the
+# kernels' launch counts (after precompile and at exit) with those
+# timings to FLEET_PROBE_DIR/probe-<pid>.json.
+FLEET_PROBE = r"""
+import atexit, importlib.util, json, os, sys, time
+
+_PKG = "real_time_fraud_detection_system_tpu_torch"
+_DIR = os.environ.get("FLEET_PROBE_DIR")
+_SLEEP = float(os.environ.get("FLEET_SINK_SLEEP_S") or 0.0)
+_REC = {"t_start": time.time(), "pid": os.getpid()}
+
+
+def _counts():
+    from real_time_fraud_detection_system_tpu_torch.ops import (
+        forest_kernels, score_kernels)
+    import torch
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return {"fused_forest_leaf_sum": forest_kernels.fused_forest_leaf_sum.launches,
+            "leaf_sum": forest_kernels.leaf_sum.launches,
+            "fused_featurize_score": score_kernels.fused_featurize_score.launches}
+
+
+class _NpzSink:
+    def __init__(self, path):
+        self.path = path
+        os.makedirs(path, exist_ok=True)
+
+    def append(self, res):
+        import numpy as np
+        _REC.setdefault("t_first_batch", time.time())
+        name = os.path.join(self.path, "b-%08d.npz" % res.batch_index)
+        with open(name + ".tmp", "wb") as f:
+            np.savez(f, tx_id=res.tx_id, probs=res.probs,
+                     features=res.features)
+        os.replace(name + ".tmp", name)
+        if _SLEEP:
+            time.sleep(_SLEEP)
+
+    def truncate_after(self, batch_index):
+        for n in os.listdir(self.path):
+            if n.startswith("b-") and int(n[2:10]) > batch_index:
+                os.remove(os.path.join(self.path, n))
+
+
+def _timed(mod, attr, key):
+    orig = getattr(mod, attr)
+
+    def run(*a, **k):
+        t0 = time.perf_counter()
+        out = orig(*a, **k)
+        _REC[key] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    setattr(mod, attr, run)
+
+
+def _patch(name, mod):
+    if name == _PKG + ".io.sink":
+        mod.make_parquet_sink = lambda path: _NpzSink(path)
+    elif name == _PKG + ".parallel.distributed":
+        _timed(mod, "initialize_distributed", "barrier_ms")
+    elif name == _PKG + ".runtime.engine":
+        orig = mod.ScoringEngine.precompile
+
+        def precompile(self, *a, **k):
+            out = orig(self, *a, **k)
+            _REC["launches_after_precompile"] = _counts()
+            return out
+
+        mod.ScoringEngine.precompile = precompile
+
+
+_SEEN = set()
+
+
+class _Finder:
+    def find_spec(self, name, path=None, target=None):
+        if not name.startswith(_PKG + ".") or name in _SEEN:
+            return None
+        _SEEN.add(name)
+        spec = importlib.util.find_spec(name)
+        if spec is not None and spec.loader is not None:
+            run = spec.loader.exec_module
+
+            def exec_module(module, _run=run, _name=name):
+                _run(module)
+                _patch(_name, module)
+
+            spec.loader.exec_module = exec_module
+        return spec
+
+
+def _dump():
+    # a score worker (the launcher imports no engine)
+    if _DIR and _PKG + ".runtime.engine" in sys.modules:
+        _REC["argv"] = list(sys.argv)
+        _REC["launches"] = _counts()
+        with open(os.path.join(_DIR, "probe-%d.json" % os.getpid()),
+                  "w") as f:
+            json.dump(_REC, f)
+
+
+if _DIR:
+    sys.meta_path.insert(0, _Finder())
+    atexit.register(_dump)
+"""
+
+
+def _fleet_table(txs):
+    """The first FLEET_BATCHES batches of the whole-dollar table, terminals
+    remapped so ``terminal % 4 == customer % 4`` (every key's history in
+    one residue block: the fleet's exactness contract)."""
+    n = FLEET_BATCHES * BATCH_ROWS
+    sub = txs.slice(slice(0, n))
+    k = FLEET_PROCS * FLEET_LOCAL
+    sub.terminal_id = (sub.terminal_id // k) * k + sub.customer_id % k
+    return sub
+
+
+def _fleet_env(probe_dir: str, sleep: float = 0.0) -> dict:
+    env = dict(os.environ)
+    env["PYTHONPATH"] = f"{probe_dir}:{ROOT}:" + env.get("PYTHONPATH", "")
+    env["FLEET_PROBE_DIR"] = probe_dir
+    env["FLEET_SINK_SLEEP_S"] = str(sleep)
+    return env
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _npz_rows(root) -> dict:
+    """tx_id → (prob, features) over every worker's batches under
+    ``root``; each directory's batch lineage without gaps or
+    duplicates."""
+    rows = {}
+    dirs = sorted({p.parent for p in Path(root).rglob("b-*.npz")})
+    check(bool(dirs), f"no batches under {root}")
+    for d in dirs:
+        names = sorted(d.glob("b-*.npz"))
+        idx = [int(p.name[2:10]) for p in names]
+        check(idx == list(range(1, len(idx) + 1)),
+              f"{d}: batch lineage {idx}")
+        for p in names:
+            with np.load(p) as z:
+                for tx, pr, f in zip(z["tx_id"].tolist(), z["probs"],
+                                     z["features"]):
+                    check(tx not in rows, f"tx {tx} scored twice ({d})")
+                    rows[tx] = (pr, f)
+    return rows
+
+
+def _same_as_control(rows: dict, control: dict, what: str) -> int:
+    """Every row equal to the control's (features bit for bit, the
+    probability's bits); → rows compared."""
+    check(set(rows) == set(control),
+          f"{what}: {len(rows)} rows against the stream's {len(control)}")
+    for tx, (p, f) in rows.items():
+        cp, cf = control[tx]
+        if p != cp or not np.array_equal(f, cf):
+            check(False, f"{what}: tx {tx} differs from the control")
+    return len(rows)
+
+
+def _probes(probe_dir: str) -> list:
+    out = []
+    for p in sorted(Path(probe_dir).glob("probe-*.json")):
+        rec = json.loads(p.read_text())
+        argv = rec["argv"]
+        rec["process_id"] = int(argv[argv.index("--process-id") + 1]) \
+            if "--process-id" in argv else 0
+        out.append(rec)
+    return out
+
+
+def _stats_line(log: str) -> dict:
+    lines = [ln for ln in Path(log).read_text().splitlines()
+             if ln.startswith("{") and ln.endswith("}")]
+    check(bool(lines), f"no stats line in {log}")
+    return json.loads(lines[-1])
+
+
+def _merge_ms(log) -> float:
+    """The resize merge's milliseconds, from its worker's log line."""
+    import re
+
+    for ln in Path(log).read_text().splitlines():
+        m = re.search(r"resume-merge: adopted .* in ([0-9.]+) ms", ln)
+        if m:
+            return float(m.group(1))
+    check(False, f"no resume-merge line in {log}")
+
+
+def _path_launches(probe: dict) -> dict:
+    """A worker's launches while serving: at exit less those through its
+    precompile (the capture's warmup)."""
+    base = probe.get("launches_after_precompile") or {}
+    return {k: v - base.get(k, 0) for k, v in probe["launches"].items()}
+
+
+def _worker(args: list, env: dict, log: str):
+    f = open(log, "w")
+    try:
+        return subprocess.Popen([sys.executable, "-m", PKG_CLI, *args],
+                                stdout=f, stderr=subprocess.STDOUT,
+                                env=env, cwd=str(ROOT))
+    finally:
+        f.close()
+
+
+def _drained_fleet(tmp: Path, name: str, common: list, extra: list,
+                   env: dict) -> dict:
+    """Two coordinated workers with ``--drain-on-sigterm``, paced by the
+    probe's sink sleep; once each has sunk FLEET_DRAIN_AFTER batches both
+    get SIGTERM. → the drain's timings and the workers' stats."""
+    import signal
+
+    port = _free_port()
+    procs, logs = [], []
+    for pid in range(FLEET_PROCS):
+        logs.append(str(tmp / f"{name}-{pid}.log"))
+        procs.append(_worker(
+            ["score", *common, "--devices", str(FLEET_LOCAL),
+             "--num-processes", str(FLEET_PROCS), "--process-id", str(pid),
+             "--coordinator", f"127.0.0.1:{port}", "--drain-on-sigterm",
+             "--out", str(tmp / name / "out"),
+             "--checkpoint-dir", str(tmp / name / "ck"), *extra],
+            env, logs[-1]))
+    deadline = time.time() + FLEET_SPAWN_TIMEOUT_S
+    out = tmp / name / "out"
+    while time.time() < deadline:
+        done = [len(list((out / f"proc-{p:02d}").glob("b-*.npz")))
+                if (out / f"proc-{p:02d}").is_dir() else 0
+                for p in range(FLEET_PROCS)]
+        if min(done) >= FLEET_DRAIN_AFTER or any(
+                pr.poll() is not None for pr in procs):
+            break
+        time.sleep(0.05)
+    t_term = time.time()
+    for pr in procs:
+        if pr.poll() is None:
+            pr.send_signal(signal.SIGTERM)
+    for pr in procs:
+        pr.wait(timeout=FLEET_SPAWN_TIMEOUT_S)
+    t_exit = time.time()
+    for pr, log in zip(procs, logs):
+        check(pr.returncode == 0,
+              f"{name}: worker exited {pr.returncode}: "
+              f"{Path(log).read_text()[-1500:]}")
+    stats = [_stats_line(log) for log in logs]
+    check(all("drained_at_batch" in st for st in stats),
+          f"{name}: a worker finished before the drain reached it")
+    last_ck = max(os.path.getmtime(p) for p in
+                  (tmp / name / "ck").rglob("ckpt-*.npz"))
+    return {"stats": stats,
+            "drain_to_final_checkpoint_ms": (last_ck - t_term) * 1e3,
+            "drain_to_exit_ms": (t_exit - t_term) * 1e3}
+
+
+def phase_fleet(dev, device_info, data: dict) -> dict:
+    """The fleet of processes on the card: see the module docstring,
+    phase 18."""
+    from real_time_fraud_detection_system_tpu_torch.io.artifacts import (
+        save_transactions,
+    )
+    from real_time_fraud_detection_system_tpu_torch.io.checkpoint import (
+        make_checkpointer,
+    )
+    from real_time_fraud_detection_system_tpu_torch.ops import (
+        forest_kernels,
+    )
+    from real_time_fraud_detection_system_tpu_torch.runtime import (
+        engine as engine_mod,
+    )
+    from real_time_fraud_detection_system_tpu_torch.runtime.distributed \
+        import ProcessTopology
+    from real_time_fraud_detection_system_tpu_torch.runtime.sharded_engine \
+        import ShardedScoringEngine
+    from real_time_fraud_detection_system_tpu_torch.runtime.sources import (
+        PartitionAffineSource,
+    )
+
+    t_phase = time.perf_counter()
+    card = {"card": device_info["smi_name"],
+            "power_limit": device_info["power_limit"]}
+    totals = {name: 0 for name in KERNELS}
+    base = data["cfg"]
+    cfg = dataclasses.replace(base, runtime=dataclasses.replace(
+        base.runtime, z_mode="int8"))
+    model = data["models"]["forest"][0]
+    table = _fleet_table(data["txs_whole_dollars"])
+    batches = _unlabeled(_column_batches(table, FLEET_BATCHES, BATCH_ROWS))
+
+    def engine(n_dev, topo=None, c=cfg):
+        return ShardedScoringEngine(c, "forest", model.params, model.scaler,
+                                    n_devices=n_dev, device=dev,
+                                    topology=topo)
+
+    def serve(eng, src, what):
+        res = _Results()
+        stats, launches = drive(lambda: eng.run(src, res))
+        check(launches["leaf_sum"] == stats["chunks"]
+              and launches["fused_forest_leaf_sum"] == 0
+              and launches["fused_featurize_score"] == 0,
+              f"fleet {what}: {launches} for {stats['chunks']} chunks")
+        for k, n in launches.items():
+            totals[k] += n
+        rows = {}
+        for r in res.batches:
+            rows.update(zip(r.tx_id.tolist(), zip(r.probs, r.features)))
+        return stats, rows
+
+    def rate(st) -> dict:
+        return {k: st[k] for k in ("rows", "batches", "chunks", "wall_s",
+                                   "rows_per_s", "latency_p50_ms",
+                                   "stage_ms_p50") if k in st}
+
+    # (a) in process: two engines of the fleet against one of 4 shards ----
+    c_stats, control = serve(engine(FLEET_PROCS * FLEET_LOCAL),
+                             _ListSource(batches), "control 4 shards")
+    xcfg = dataclasses.replace(cfg, features=dataclasses.replace(
+        cfg.features, key_mode="exact", compact_every=FLEET_COMPACT_EVERY))
+    _, control_exact = serve(engine(FLEET_PROCS * FLEET_LOCAL, c=xcfg),
+                             _ListSource(batches), "control exact")
+    per = {}
+    for pid in range(FLEET_PROCS):
+        topo = ProcessTopology(FLEET_PROCS, pid, FLEET_LOCAL)
+        eng = engine(FLEET_LOCAL, topo)
+        # strict affinity: the engine refuses any row of another block
+        st, rows = serve(eng, PartitionAffineSource(_ListSource(batches),
+                                                    topo), f"process {pid}")
+        for tx, (p, f) in rows.items():
+            cp, cf = control[tx]
+            if p != cp or not np.array_equal(f, cf):
+                check(False, f"process {pid}: tx {tx} differs from the "
+                             "single-process engine")
+        per[pid] = {**rate(st), "labels": [
+            g.labels for g in eng._m_shard_rows]}
+    check(sum(v["rows"] for v in per.values()) == len(control),
+          "the in-process fleet did not cover the stream")
+    # the leaf-sum launch inside a fleet process's step, against its plain
+    # version on that chunk
+    seen = []
+    proba = engine_mod.leaf_sum_proba
+
+    def spy(tables, x, base_=None):
+        seen.append((tables, x))
+        return proba(tables, x, base_)
+
+    topo0 = ProcessTopology(FLEET_PROCS, 0, FLEET_LOCAL)
+    eng = engine(FLEET_LOCAL, topo0)
+    engine_mod.leaf_sum_proba = spy
+    try:
+        eng.process_batch({k: v[topo0.owns(batches[0]["customer_id"])]
+                           for k, v in batches[0].items()})
+    finally:
+        engine_mod.leaf_sum_proba = proba
+    check(len(seen) == 1, f"{len(seen)} leaf-sum calls for one chunk")
+    tables, x = seen[0]
+    got = forest_kernels.leaf_sum(tables, x)
+    want = forest_kernels.leaf_sum_plain(tables, x)
+    check(torch.equal(got, want), "the fleet chunk's leaf sum differs")
+    emit({"phase": "fleet", "part": "a_in_process", "kind": "forest",
+          "z_mode": eng.z_mode, "rows": len(control),
+          "processes": per, "control_4_shards": rate(c_stats),
+          "leaf_sum_chunk_rows": int(x.shape[0]),
+          "leaf_sum_bit_equal": True, **card})
+
+    with tempfile.TemporaryDirectory() as tmp_s:
+        tmp = Path(tmp_s)
+        probe = tmp / "probe"
+        probe.mkdir()
+        (probe / "sitecustomize.py").write_text(FLEET_PROBE)
+        data_path, model_path = str(tmp / "txs.npz"), str(tmp / "m.npz")
+        save_transactions(data_path, table)
+        with open(model_path, "wb") as f:
+            f.write(data["models"]["forest"][2])
+        # the workers serve on the phase's device (the card)
+        common = ["--data", data_path, "--model-file", model_path,
+                  "--batch-rows", str(BATCH_ROWS),
+                  "--max-batch-rows", str(cfg.runtime.max_batch_rows),
+                  "--z-mode", "int8", "--device", str(dev)]
+        for d in ("b", "c_m"):
+            (tmp / d).mkdir()
+
+        # (b) the launcher: two coordinated workers, then one process ---
+        pb = tmp / "probe_b"
+        pb.mkdir()
+        env = _fleet_env(str(probe), 0.0)
+        env["FLEET_PROBE_DIR"] = str(pb)
+        t0 = time.perf_counter()
+        p = subprocess.run(
+            [sys.executable, "-m", LAUNCHER, "--processes",
+             str(FLEET_PROCS), "--local-devices", str(FLEET_LOCAL),
+             "--workdir", str(tmp / "wd_b"),
+             "--timeout", str(FLEET_SPAWN_TIMEOUT_S), "--",
+             "score", *common, "--devices", str(FLEET_LOCAL),
+             "--precompile", "--out", str(tmp / "b" / "out"),
+             "--checkpoint-dir", str(tmp / "b" / "ck"),
+             "--cms-exchange", str(tmp / "b" / "xch"),
+             "--metrics-dump", str(tmp / "b" / "m-{proc}.json")],
+            capture_output=True, text=True, env=env, cwd=str(ROOT),
+            timeout=FLEET_SPAWN_TIMEOUT_S + 60)
+        fleet_s = time.perf_counter() - t0
+        check(p.returncode == 0, f"fleet launcher exited {p.returncode}: "
+                                 f"{p.stderr[-2000:]}")
+        report = json.loads(p.stdout.strip().splitlines()[-1])
+        check(report["coordinated"] and report["rows_total"] == len(control),
+              f"fleet report {report}")
+        _same_as_control(_npz_rows(tmp / "b" / "out"), control,
+                         "(b) the fleet")
+        workers = {}
+        for rec in _probes(str(pb)):
+            pid = rec["process_id"]
+            st = _stats_line(str(tmp / "wd_b" / f"proc-{pid:02d}.log"))
+            snap = json.loads((tmp / "b" / f"m-{pid:02d}.json").read_text())
+            launches = _path_launches(rec)
+            check(launches["leaf_sum"] == st["chunks"]
+                  and launches["fused_forest_leaf_sum"] == 0,
+                  f"worker {pid}: {launches} for {st['chunks']} chunks")
+            for k, n in launches.items():
+                totals[k] += n
+            fams = {k: [(r.get("labels") or {}, r.get("value"))
+                        for r in v.get("series", [])]
+                    for k, v in snap.items()}
+            # precompile captures CUDA graphs (none on a CPU rehearsal)
+            check(sum(v for _, v in fams.get(
+                "cuda_graph_recaptures_total", [])) == 0
+                  and (sum(v for _, v in fams.get(
+                      "rtfds_precompiled_steps_total", [])) > 0
+                       or dev.type != "cuda"),
+                  f"worker {pid}: recaptures or no precompiled steps")
+            labels = [lab for lab, _ in fams["rtfds_shard_rows"]]
+            check(labels == [{"shard": str(FLEET_LOCAL * pid + s),
+                              "process": str(pid)}
+                             for s in range(FLEET_LOCAL)],
+                  f"worker {pid} shard labels {labels}")
+            workers[pid] = {**rate(st), "leaf_sum_launches":
+                            launches["leaf_sum"],
+                            "barrier_ms": rec.get("barrier_ms"),
+                            "start_to_first_batch_ms":
+                            (rec["t_first_batch"] - rec["t_start"]) * 1e3}
+        check(sorted(workers) == list(range(FLEET_PROCS)),
+              f"probes of workers {sorted(workers)}")
+        single_log = str(tmp / "single.log")
+        env_s = _fleet_env(str(probe), 0.0)
+        env_s["FLEET_PROBE_DIR"] = str(tmp / "probe_s")
+        (tmp / "probe_s").mkdir()
+        sp = _worker(["score", *common, "--devices",
+                      str(FLEET_PROCS * FLEET_LOCAL), "--precompile",
+                      "--out", str(tmp / "single")], env_s, single_log)
+        check(sp.wait(timeout=FLEET_SPAWN_TIMEOUT_S) == 0,
+              f"single process: {Path(single_log).read_text()[-1500:]}")
+        single = _stats_line(single_log)
+        (srec,) = _probes(str(tmp / "probe_s"))
+        for k, n in _path_launches(srec).items():
+            totals[k] += n
+        _same_as_control(_npz_rows(tmp / "single"), control,
+                         "(b) the single process")
+        fleet_wall = max(w["wall_s"] for w in workers.values())
+        emit({"phase": "fleet", "part": "b_launcher",
+              "processes": FLEET_PROCS, "local_devices": FLEET_LOCAL,
+              "workers": workers,
+              "fleet_rows_per_s": report["rows_total"] / fleet_wall,
+              "fleet_wall_s": fleet_wall,
+              "launcher_wall_s_with_startup": fleet_s,
+              "single_process_4_shards": rate(single), **card})
+
+        # (c) drain the fleet, merge into one, grow back to two ---------
+        pc = tmp / "probe_c"
+        pc.mkdir()
+        env_c = _fleet_env(str(probe), FLEET_SINK_SLEEP_S)
+        env_c["FLEET_PROBE_DIR"] = str(pc)
+        drained = _drained_fleet(tmp, "c0", common + ["--precompile"], [],
+                                 env_c)
+        for rec in _probes(str(pc)):
+            for k, n in _path_launches(rec).items():
+                totals[k] += n
+        pc2 = tmp / "probe_c2"
+        pc2.mkdir()
+        env_c["FLEET_PROBE_DIR"] = str(pc2)
+        p = subprocess.run(
+            [sys.executable, "-m", LAUNCHER, "--processes", "1",
+             "--local-devices", str(FLEET_LOCAL), "--no-coordinator",
+             "--autoscale", "--autoscale-min", "1", "--autoscale-max",
+             str(FLEET_PROCS), "--autoscale-grow-rung", "1",
+             "--autoscale-grow-dwell", "0.2",
+             "--autoscale-shrink-dwell", "600",
+             "--autoscale-cooldown", "600", "--autoscale-interval", "0.1",
+             "--max-resizes", "1", "--worker-metrics-base",
+             str(_free_port()), "--workdir", str(tmp / "wd_c"),
+             "--timeout", str(FLEET_SPAWN_TIMEOUT_S), "--",
+             "score", *common, "--devices", str(FLEET_LOCAL),
+             "--precompile", "--resume", "--resume-merge",
+             f"{tmp / 'c0' / 'ck'}:{FLEET_PROCS}:{FLEET_LOCAL}:shrink",
+             "--out", str(tmp / "c" / "{gen}"),
+             "--checkpoint-dir", str(tmp / "ck_c" / "{gen}"),
+             "--metrics-dump", str(tmp / "c_m" / "m-{gen}-{proc}.json"),
+             "--overload", "--overload-lag-high", str(BATCH_ROWS),
+             "--overload-climb-dwell", "4", "--overload-spill", ""],
+            capture_output=True, text=True, env=env_c, cwd=str(ROOT),
+            timeout=FLEET_SPAWN_TIMEOUT_S + 60)
+        check(p.returncode == 0, f"autoscale launcher exited "
+                                 f"{p.returncode}: {p.stderr[-2000:]}")
+        auto = json.loads(p.stdout.strip().splitlines()[-1])["autoscale"]
+        check(auto["completed"] == 1 and auto["current"] == FLEET_PROCS
+              and auto["last_resize"]["direction"] == "grow",
+              f"autoscale {auto}")
+        rows = _npz_rows(tmp / "c0" / "out")
+        gen_rows = _npz_rows(tmp / "c")
+        check(not set(rows) & set(gen_rows), "a row scored twice")
+        rows.update(gen_rows)
+        n_c = _same_as_control(rows, control, "(c) drain, merge, grow")
+        relaunch = []
+        for rec in _probes(str(pc2)):
+            for k, n in _path_launches(rec).items():
+                totals[k] += n
+            if "gen-001" in " ".join(rec["argv"]):
+                relaunch.append((rec["t_first_batch"] - rec["t_start"])
+                                * 1e3 if "t_first_batch" in rec else None)
+        merge_ms = _merge_ms(tmp / "wd_c" / "gen-000-proc-00.log")
+        check(len(relaunch) == FLEET_PROCS, f"(c): relaunched {relaunch}")
+        emit({"phase": "fleet", "part": "c_resize", "rows": n_c,
+              "drained_at_batch": [st["drained_at_batch"]
+                                   for st in drained["stats"]],
+              "drain_to_final_checkpoint_ms":
+              drained["drain_to_final_checkpoint_ms"],
+              "drain_to_exit_ms": drained["drain_to_exit_ms"],
+              "merge_ms": merge_ms,
+              "relaunch_to_first_batch_ms": relaunch,
+              "autoscale": {k: auto[k] for k in (
+                  "completed", "rolled_back", "current", "generations")},
+              "resize_seconds": auto["last_resize"].get("seconds"),
+              **card})
+
+        # (d) the same shrink on the tiered store with the cold tier ----
+        pd = tmp / "probe_d"
+        pd.mkdir()
+        env_d = _fleet_env(str(probe), FLEET_SINK_SLEEP_S)
+        env_d["FLEET_PROBE_DIR"] = str(pd)
+        exact = ["--key-mode", "exact", "--state-compact-every",
+                 str(FLEET_COMPACT_EVERY), "--cold-store",
+                 str(tmp / "d0" / "cold")]
+        drained_d = _drained_fleet(tmp, "d0", common, exact, env_d)
+        old = []
+        for pid in range(FLEET_PROCS):
+            ck = make_checkpointer(str(tmp / "d0" / "ck" / f"proc-{pid:02d}"))
+            old.append(ck.manifest(ck.latest())["meta"])
+        env_d["FLEET_SINK_SLEEP_S"] = "0"
+        log = str(tmp / "d1.log")
+        cold_srcs = ",".join(str(tmp / "d0" / "cold" / f"proc-{p:02d}")
+                             for p in range(FLEET_PROCS))
+        w = _worker(["score", *common, "--devices", str(FLEET_LOCAL),
+                     "--key-mode", "exact", "--state-compact-every",
+                     str(FLEET_COMPACT_EVERY), "--cold-store",
+                     str(tmp / "d1" / "cold"), "--resume", "--resume-merge",
+                     f"{tmp / 'd0' / 'ck'}:{FLEET_PROCS}:{FLEET_LOCAL}:"
+                     "shrink", "--resume-merge-cold", cold_srcs,
+                     "--drain-on-sigterm", "--out", str(tmp / "d1" / "out"),
+                     "--checkpoint-dir", str(tmp / "d1" / "ck")], env_d, log)
+        check(w.wait(timeout=FLEET_SPAWN_TIMEOUT_S) == 0,
+              f"(d) merged worker: {Path(log).read_text()[-1500:]}")
+        ck = make_checkpointer(str(tmp / "d1" / "ck"))
+        merged = ck.manifest(ck.list_checkpoints()[0])["meta"]
+        epoch = merged["resize_epochs"][-1]
+        check(epoch["from_processes"] == FLEET_PROCS
+              and epoch["to_processes"] == 1
+              and len(epoch["floors"]) == FLEET_PROCS, f"(d) {epoch}")
+        occ = {t: sum(sum(m["feature_state_occupancy"][t]) for m in old)
+               for t in ("customer", "terminal")}
+        got = {t: sum(merged["feature_state_occupancy"][t])
+               for t in ("customer", "terminal")}
+        check(got == occ, f"(d) merged directories hold {got}, the old "
+                          f"processes' held {occ}")
+        for rec in _probes(str(pd)):
+            for k, n in _path_launches(rec).items():
+                totals[k] += n
+        rows = _npz_rows(tmp / "d0" / "out")
+        more = _npz_rows(tmp / "d1" / "out")
+        check(not set(rows) & set(more), "(d) a row scored twice")
+        rows.update(more)
+        n_d = _same_as_control(rows, control_exact, "(d) exact shrink")
+        emit({"phase": "fleet", "part": "d_exact_shrink", "rows": n_d,
+              "drained_at_batch": [st["drained_at_batch"]
+                                   for st in drained_d["stats"]],
+              "drain_to_final_checkpoint_ms":
+              drained_d["drain_to_final_checkpoint_ms"],
+              "directory_entries_rehomed": got,
+              "floors": epoch["floors"],
+              "merged_worker": rate(_stats_line(log)), **card})
+    emit({"phase": "fleet", "part": "done", "kernel_launches": totals,
+          "phase_s": time.perf_counter() - t_phase, **card})
+    return totals
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -5453,7 +6093,8 @@ def main() -> int:
                                           customer_source="cms")))
     add({}, "profile", t0)
     for name, fn in (("sharded", phase_sharded),
-                     ("sharded_exact", phase_sharded_exact)):
+                     ("sharded_exact", phase_sharded_exact),
+                     ("fleet", phase_fleet)):
         t0 = time.perf_counter()
         add(fn(dev, info, data), name, t0)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start,

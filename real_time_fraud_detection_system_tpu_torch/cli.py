@@ -63,10 +63,22 @@ the one device ``--device`` names; ``--max-batch-rows`` sizes the sharded
 step, as in the JAX ``score``; with ``--key-mode exact`` each shard has
 its own key directory, sketch replicas, compaction
 (``--state-compact-every``) and cold-tier traffic (``--cold-store``).
-Not ported yet: object-store input and output (ROADMAP A9), the fleet (``--coordinator``, ``--num-processes``, ``--resume-merge``,
-``--resume-merge-cold``: A7c), the sequence kind over shards (A7d), and
-the other JAX subcommands (``datagen``, ``registry``, ``import-model``,
-the operator tools: A9).
+The fleet: ``--num-processes P --process-id p`` makes this process one of
+P, serving the customer residue block ``[p·devices, (p+1)·devices)`` of
+the ``P·devices`` global shards (``runtime/distributed.py``), with its
+checkpoints, sink parts, raw table and cold tier under ``proc-NN/`` of
+the roots given; ``--coordinator host:port`` joins a gloo process group
+first (its barrier is the fleet's rendezvous; no collective crosses
+processes while serving). ``--cms-exchange DIR`` exchanges the terminal
+sketch between processes at checkpoints; ``--drain-on-sigterm`` turns a
+SIGTERM into a drain to a final checkpoint; ``--resume-merge
+OLD:P:L:REASON`` (with ``--resume-merge-cold``) adopts a drained fleet's
+checkpoints before serving. The port's launcher,
+``tools/multihost_launcher.py`` in this package, spawns and watches the
+workers and resizes an elastic fleet.
+Not ported yet: object-store input and output (ROADMAP A9), the sequence
+kind over shards (A7d), and the other JAX subcommands (``datagen``,
+``registry``, ``import-model``, the operator tools: A9).
 """
 
 from __future__ import annotations
@@ -160,6 +172,64 @@ def _make_model_reloader(path: str, kind: str, every_batches: int, log,
 
 
 def cmd_score(args) -> int:
+    """``score``: the fleet's checks and bootstrap first (a fleet member
+    joins its process group before anything else), then the run; the
+    process group is destroyed on every way out (its store lives in
+    process 0)."""
+    if args.source != "kafka" and not args.data:
+        log.error("--data is required unless --source kafka")
+        return 2
+    multihost = args.num_processes > 1 or bool(args.coordinator)
+    if args.nan_guard and (args.devices > 1 or multihost):
+        log.error("--nan-guard is not wired for the sharded engine "
+                  "(--devices > 1 / multi-host); rely on the "
+                  "supervisor's crash-loop bisection (--dead-letter + "
+                  "--max-restarts) there")
+        return 2
+    if multihost and args.num_processes < 1:
+        log.error("--num-processes must be >= 1, got %s",
+                  args.num_processes)
+        return 2
+    topology = None
+    if multihost:
+        from real_time_fraud_detection_system_tpu_torch.config import (
+            DistributedConfig,
+        )
+        from real_time_fraud_detection_system_tpu_torch.runtime \
+            .distributed import bootstrap_distributed
+
+        try:
+            topology = bootstrap_distributed(
+                DistributedConfig(
+                    coordinator=args.coordinator,
+                    num_processes=max(args.num_processes, 1),
+                    process_id=args.process_id,
+                    # a Kafka fleet slices by broker partition: residue
+                    # membership is the producer's contract there
+                    strict_affinity=args.source != "kafka"),
+                local_devices=max(args.devices, 1))
+        except (ValueError, RuntimeError) as e:
+            log.error("multi-host bootstrap failed: %s", e)
+            return 2
+        if topology is not None:
+            log.info(
+                "multi-host: process %d/%d, %d local device(s), global "
+                "shards [%d, %d) of %d, coordinator %s",
+                topology.process_id, topology.n_processes,
+                topology.local_devices, topology.owned_shards.start,
+                topology.owned_shards.stop, topology.n_shards_total,
+                args.coordinator or "(uncoordinated)")
+    try:
+        return _score(args, topology)
+    finally:
+        if topology is not None and topology.coordinated:
+            from real_time_fraud_detection_system_tpu_torch.parallel \
+                .distributed import shutdown_distributed
+
+            shutdown_distributed()
+
+
+def _score(args, topology) -> int:
     from real_time_fraud_detection_system_tpu_torch.config import Config
     from real_time_fraud_detection_system_tpu_torch.device import (
         resolve_device,
@@ -178,9 +248,6 @@ def cmd_score(args) -> int:
         check_sequence_serving,
     )
 
-    if args.source != "kafka" and not args.data:
-        log.error("--data is required unless --source kafka")
-        return 2
     if args.decode_workers < 0 or args.prefetch_batches < 0:
         log.error("--decode-workers and --prefetch-batches must be >= 0, "
                   "got %s / %s", args.decode_workers, args.prefetch_batches)
@@ -189,24 +256,8 @@ def cmd_score(args) -> int:
         log.error("--reload-model-every does not compose with "
                   "--scorer cpu (the oracle model is fixed at startup)")
         return 2
-    if args.resume_merge or args.resume_merge_cold:
-        log.error("--resume-merge and --resume-merge-cold (adopting a "
-                  "drained fleet's checkpoints) are not ported yet: "
-                  "ROADMAP A7c")
-        return 2
-    multihost = args.num_processes > 1 or bool(args.coordinator)
-    if multihost:
-        log.error("a multi-process fleet (--coordinator, --num-processes) "
-                  "is not ported yet: ROADMAP A7c; --devices N serves N "
-                  "shards in this process")
-        return 2
-    sharded = args.devices > 1
-    if args.nan_guard and sharded:
-        log.error("--nan-guard is not wired for the sharded engine "
-                  "(--devices > 1 / multi-host); rely on the "
-                  "supervisor's crash-loop bisection (--dead-letter + "
-                  "--max-restarts) there")
-        return 2
+    # any topology takes the sharded engine (one per fleet process)
+    sharded = args.devices > 1 or topology is not None
     if args.max_batch_rows < 0:
         log.error("--max-batch-rows must be >= 0, got %s",
                   args.max_batch_rows)
@@ -475,48 +526,130 @@ def cmd_score(args) -> int:
         log.info("dead-letter queue: %s (%d row(s) already quarantined)",
                  args.dead_letter, len(dead_letter))
 
+    out_path, raw_path = args.out, args.raw_table
+    ckpt_dir = cfg.runtime.checkpoint_dir
+    if topology is not None:
+        # each process owns its residue block's lineage under proc-NN/ of
+        # the shared roots (the same path across restarts, so --resume
+        # finds its block; a topology change is refused at restore, the
+        # merge named); sink parts and the cold tier split the same way
+        sub = f"proc-{topology.process_id:02d}"
+        ckpt_dir = os.path.join(ckpt_dir, sub) if ckpt_dir else ckpt_dir
+        out_path = os.path.join(out_path, sub) if out_path else out_path
+        raw_path = os.path.join(raw_path, sub) if raw_path else raw_path
+        if cfg.features.cold_store:
+            cfg = dataclasses.replace(cfg, features=dataclasses.replace(
+                cfg.features,
+                cold_store=os.path.join(cfg.features.cold_store, sub)))
+
     def make_engine():
         if sharded:
             from real_time_fraud_detection_system_tpu_torch.runtime \
                 .sharded_engine import ShardedScoringEngine
 
-            return ShardedScoringEngine(
+            eng = ShardedScoringEngine(
                 cfg, model.kind, model.params, model.scaler,
                 n_devices=args.devices, device=args.device,
                 online_lr=args.online_lr, feature_cache=feature_cache,
-                dead_letter=dead_letter)
-        return ScoringEngine(cfg, model.kind, model.params, model.scaler,
-                             device=args.device, online_lr=args.online_lr,
-                             feature_cache=feature_cache,
-                             dead_letter=dead_letter, scorer=args.scorer,
-                             cpu_model=cpu_model)
+                dead_letter=dead_letter, topology=topology)
+        else:
+            eng = ScoringEngine(
+                cfg, model.kind, model.params, model.scaler,
+                device=args.device, online_lr=args.online_lr,
+                feature_cache=feature_cache, dead_letter=dead_letter,
+                scorer=args.scorer, cpu_model=cpu_model)
+        eng.stop_event = drain_ev
+        eng.cms_exchange = cms_exchange
+        return eng
+
+    rt = cfg.runtime
+    ckpt = make_checkpointer(
+        ckpt_dir,
+        full_every=rt.checkpoint_full_every,
+        op_timeout_s=rt.checkpoint_op_timeout_s,
+        op_attempts=rt.checkpoint_op_attempts,
+    ) if ckpt_dir else None
+    # the elastic fleet's seams (the launcher's --autoscale)
+    drain_ev = None
+    if args.drain_on_sigterm:
+        import signal
+        import threading
+
+        drain_ev = threading.Event()
+        # repeated SIGTERMs keep one drain in flight; the engine stops at
+        # the next batch boundary, its offsets behind durable output
+        signal.signal(signal.SIGTERM, lambda _sig, _frm: drain_ev.set())
+        log.info("drain-on-sigterm armed: SIGTERM = coordinated drain "
+                 "to a final checkpoint, not a kill")
+    cms_exchange = None
+    if args.cms_exchange and topology is None:
+        # not an error: an elastic fleet passes uniform worker args and
+        # may shrink to one process, whose aggregates are already global
+        log.info("--cms-exchange idle: single-process terminal "
+                 "aggregates are already global")
+    elif args.cms_exchange:
+        from real_time_fraud_detection_system_tpu_torch.runtime \
+            .cms_exchange import SketchExchange
+
+        cms_exchange = SketchExchange(
+            args.cms_exchange, topology.process_id, topology.n_processes)
+        log.info("terminal-sketch exchange: %s (fleet-wide merge at "
+                 "checkpoint boundaries, locals-only partials in "
+                 "checkpoints)", args.cms_exchange)
+    floors = None
+    merge_old = (0, 0)
+    if args.resume_merge:
+        try:
+            src_root, p_s, l_s, reason = args.resume_merge.rsplit(":", 3)
+            merge_old = (int(p_s), int(l_s))
+            if not src_root or min(merge_old) < 1:
+                raise ValueError(args.resume_merge)
+        except ValueError:
+            log.error("--resume-merge wants OLD_CKPT_ROOT:P:L:REASON, "
+                      "got %r", args.resume_merge)
+            return 2
+        bad = None
+        if ckpt is None:
+            bad = "--resume-merge requires --checkpoint-dir"
+        elif not args.resume:
+            bad = ("--resume-merge requires --resume (the merged "
+                   "checkpoint is what this worker resumes from)")
+        elif args.source == "kafka":
+            bad = ("--resume-merge does not apply to --source kafka "
+                   "(broker fleets carry per-partition offsets through "
+                   "a resize; no single-cursor merge is needed)")
+        elif args.resume_merge_cold and not cfg.features.cold_store:
+            bad = "--resume-merge-cold requires --cold-store"
+        if bad:
+            log.error(bad)
+            return 2
+        floors = _resume_merge_adopt(
+            make_engine, ckpt, cfg, topology,
+            (src_root, merge_old[0], merge_old[1], reason),
+            [d for d in args.resume_merge_cold.split(",") if d])
+        if floors is None:
+            return 2
 
     try:
-        source, source_factory = _make_source(args, cfg, txs)
+        source, source_factory = _make_source(
+            args, cfg, txs, topology=topology, floors=floors,
+            old_topology=merge_old)
     except (FileNotFoundError, ValueError) as e:
         log.error("%s", e)
         return 2
-    sink = sinks.make_parquet_sink(args.out) if args.out else None
+    sink = sinks.make_parquet_sink(out_path) if out_path else None
     raw_table = None
     if args.raw_table:
         from real_time_fraud_detection_system_tpu_torch.io.tables import (
             RawTransactionsTable,
         )
 
-        raw_table = RawTransactionsTable(args.raw_table,
-                                         flush_every_batches=64)
+        raw_table = RawTransactionsTable(raw_path, flush_every_batches=64)
         sink = sinks.FanoutSink(sink, raw_table)
     if cfg.runtime.async_sink and sink is not None:
         # outside the fanout: one writer serves every destination in order
         sink = sinks.AsyncSink(sink,
                                max_queue=cfg.runtime.sink_queue_batches)
-    rt = cfg.runtime
-    ckpt = make_checkpointer(
-        rt.checkpoint_dir,
-        full_every=rt.checkpoint_full_every,
-        op_timeout_s=rt.checkpoint_op_timeout_s,
-        op_attempts=rt.checkpoint_op_attempts,
-    ) if rt.checkpoint_dir else None
     obs = _Observability(args, cfg, model.kind)
     fb = None
     try:
@@ -559,6 +692,19 @@ def cmd_score(args) -> int:
                     feedback=fb,
                     model_reload=make_reloader() if make_reloader else None,
                     learning=learning)
+                if drain_ev is not None and ckpt is not None:
+                    # a drain-armed worker: run() ended (a SIGTERM or the
+                    # stream's end) at a batch boundary, the sink drained
+                    # and the cold lineage fresh — the FINAL checkpoint
+                    # lands at exactly that frontier, so a resize merge
+                    # resumes without gaps or duplicates
+                    ckpt.save(engine.checkpoint_state())
+                    if drain_ev.is_set():
+                        stats["drained_at_batch"] = \
+                            engine.state.batches_done
+                        log.info("coordinated drain complete: final "
+                                 "checkpoint at batch %d",
+                                 engine.state.batches_done)
     finally:
         close = getattr(source, "close", None)
         if close is not None:
@@ -576,17 +722,201 @@ def cmd_score(args) -> int:
     if dead_letter is not None:
         stats["dead_letter_rows"] = len(dead_letter)
         dead_letter.close()
+    if topology is not None:
+        stats.update(
+            num_processes=topology.n_processes,
+            process_id=topology.process_id,
+            owned_shards=[topology.owned_shards.start,
+                          topology.owned_shards.stop])
     print(_json_line({"device": str(resolve_device(args.device)),
                       "kind": model.kind, "scorer": args.scorer, **stats}))
     return 0
 
 
-def _make_source(args, cfg, txs):
+def _resume_merge_adopt(make_engine, ckpt, cfg, topology, spec,
+                        cold_srcs):
+    """Adopt a drained old fleet's final checkpoints into THIS worker's
+    own (empty) lineage: the retopologize leg of a fleet resize.
+
+    ``spec`` is ``--resume-merge`` parsed, ``(src_root, old_p, old_l,
+    reason)``. Every old process's final checkpoint restores into a
+    template state, the feature states merge
+    (``parallel/mesh.py::merge_process_states``; the checkpointed
+    terminal sketches are locals-only partials, so same-day sums stay
+    exact), the old cold stores consolidate into this worker's, and ONE
+    single-process global checkpoint lands in this worker's lineage with
+    the cursor at the fleet's minimum floor. The per-old-owner floors
+    ride in a ``resize_epochs`` record, so rows another old process
+    already sank are dropped at ingest (``OwnershipFloorSource``).
+    Idempotent: a worker relaunched after its merge landed reads the
+    floors back from its newest checkpoint.
+
+    Returns the floors (empty: no filtering needed) or None on failure,
+    and the caller exits 2: serving without the merged state would break
+    exactly-once."""
+    import copy
+    import time
+
+    from real_time_fraud_detection_system_tpu_torch.io.checkpoint import (
+        make_checkpointer,
+    )
+    from real_time_fraud_detection_system_tpu_torch.parallel.mesh import (
+        merge_process_states,
+    )
+
+    t0 = time.perf_counter()
+    src_root, old_p, old_l, reason = spec
+    latest = ckpt.latest()
+    if latest is not None:
+        # a crash AFTER the merge committed: this lineage already starts
+        # from the merged state; the floors are in its resize epoch
+        try:
+            meta = (ckpt.manifest(latest) or {}).get("meta") or {}
+        except (OSError, ValueError, KeyError):
+            meta = {}
+        epochs = meta.get("resize_epochs") or []
+        if epochs:
+            rec = epochs[-1]
+            log.info("resume-merge: lineage already merged (epoch %s, "
+                     "%s->%s); resuming from it", len(epochs),
+                     rec.get("from_processes"), rec.get("to_processes"))
+            return [int(f) for f in rec.get("floors", [])]
+        log.warning("resume-merge: %s already has ordinary checkpoints; "
+                    "skipping the merge and resuming from them", latest)
+        return []
+    tmpl = make_engine()
+    eng_l = int(getattr(tmpl.state, "layout_devices", 1) or 1)
+    if old_l != eng_l:
+        log.error("--resume-merge: old fleet served %d device(s) per "
+                  "process but this worker serves %d — resize the "
+                  "process count at fixed width, then change width "
+                  "separately (the per-process reshard path)",
+                  old_l, eng_l)
+        return None
+    states, floors, rows_done = [], [], 0
+    prior_epochs: list = []
+    model_version = None
+    for pid in range(old_p):
+        src_dir = (os.path.join(src_root, f"proc-{pid:02d}")
+                   if old_p > 1 else src_root)
+        try:
+            src = make_checkpointer(
+                src_dir,
+                op_timeout_s=cfg.runtime.checkpoint_op_timeout_s,
+                op_attempts=cfg.runtime.checkpoint_op_attempts)
+        except (OSError, ValueError) as e:
+            log.error("resume-merge: cannot open old checkpoints at "
+                      "%s: %s", src_dir, e)
+            return None
+        st = copy.copy(tmpl.state)
+        st.process_count, st.process_id = old_p, pid
+        st.layout_devices = old_l
+        restored = src.restore(st)
+        if restored is None:
+            log.error("resume-merge: old process %d has no restorable "
+                      "checkpoint under %s — a resize must drain to a "
+                      "final checkpoint first", pid, src_dir)
+            return None
+        if len(restored.offsets) > 1:
+            log.error("resume-merge: old process %d carries %d stream "
+                      "cursors; only single-cursor sources resize "
+                      "(broker fleets keep per-partition offsets)",
+                      pid, len(restored.offsets))
+            return None
+        # no cursor: the process drained before its first poll
+        floors.append(int(restored.offsets[0]) if restored.offsets
+                      else 0)
+        rows_done += int(restored.rows_done)
+        if model_version is None:
+            model_version = restored.model_version
+        if not prior_epochs:
+            prior_epochs = list(restored.resize_epochs or [])
+        fs = (restored.layout_pending if restored.layout_pending
+              is not None else restored.feature_state)
+        # a host copy: the next restore writes the template's tensors
+        states.append(_host_tree(fs))
+    try:
+        merged_fs = merge_process_states(states, cfg, [old_l] * old_p)
+    except ValueError as e:
+        log.error("resume-merge: %s", e)
+        return None
+    out = copy.copy(tmpl.state)
+    out.feature_state = merged_fs
+    out.layout_pending = None
+    out.ready = None
+    out.offsets = [min(floors)]
+    out.batches_done = 0  # a fresh per-generation sink lineage
+    out.rows_done = rows_done
+    out.layout_devices = 1
+    out.process_count = 1  # a global state; restore re-slices per process
+    out.process_id = 0
+    out.model_version = model_version
+    new_p = topology.n_processes if topology is not None else 1
+    out.resize_epochs = prior_epochs + [{
+        "epoch": len(prior_epochs) + 1,
+        "from_processes": old_p,
+        "to_processes": new_p,
+        "old_local_devices": old_l,
+        "reason": reason,
+        "floors": floors,
+        "min_offset": min(floors),
+    }]
+    if cold_srcs:
+        from real_time_fraud_detection_system_tpu_torch.io.coldstore import (
+            ColdStoreCorruptError,
+            consolidate_cold_stores,
+        )
+
+        try:
+            dest = consolidate_cold_stores(
+                cold_srcs, cfg.features.cold_store,
+                segment_mb=cfg.features.cold_segment_mb)
+        except (OSError, ValueError, ColdStoreCorruptError) as e:
+            log.error("resume-merge: cold-store consolidation failed: "
+                      "%s", e)
+            return None
+        out.cold_lineage = dest.lineage()
+        log.info("resume-merge: consolidated %d cold generation(s) "
+                 "into %s (%d keys)", len(cold_srcs),
+                 cfg.features.cold_store,
+                 int(out.cold_lineage.get("total_keys", 0)))
+    saved = ckpt.save(out)
+    log.info("resume-merge: adopted %d-process generation at %s -> %s "
+             "(floors %s, min offset %d, reason %r) in %.1f ms",
+             old_p, src_root, saved, floors, min(floors), reason,
+             (time.perf_counter() - t0) * 1e3)
+    return floors
+
+
+def _host_tree(state):
+    """A state tree's tensors copied to host arrays."""
+    from real_time_fraud_detection_system_tpu_torch.utils import tree
+
+    def host(leaf):
+        detach = getattr(leaf, "detach", None)
+        if detach is not None:
+            return detach().cpu().numpy().copy()
+        return leaf
+
+    return tree.map(host, state)
+
+
+def _make_source(args, cfg, txs, topology=None, floors=None,
+                 old_topology=(0, 0)):
     """``--source``: the replay of a generated table, a Kafka consumer,
     or a raw-table backfill; wrapped in a :class:`~.runtime.prefetch.
     PrefetchSource` with ``--prefetch-batches``. Returns ``(source,
     factory)``: the factory (Kafka only) builds a fresh consumer, and
-    prefetcher, for each supervised incarnation, else None."""
+    prefetcher, for each supervised incarnation, else None.
+
+    In a fleet (``topology``) a Kafka consumer is assigned this process's
+    block of partitions; any other source is wrapped in
+    :class:`~.runtime.sources.PartitionAffineSource` (its residue slice),
+    inside the prefetcher. ``floors`` (after a shrink merge whose old
+    processes stopped at different positions; ``old_topology`` = their
+    count and width) drop re-polled rows an old owner already sank
+    (:class:`~.runtime.sources.OwnershipFloorSource`), inside the
+    residue slice."""
     from real_time_fraud_detection_system_tpu_torch.runtime import sources
     from real_time_fraud_detection_system_tpu_torch.utils.timing import (
         date_to_epoch_s,
@@ -594,6 +924,19 @@ def _make_source(args, cfg, txs):
 
     factory = None
     if args.source == "kafka":
+        kafka_kw = {}
+        if topology is not None:
+            # partition-affine ingest: this process consumes ONLY its
+            # block of partitions (manual assignment)
+            kafka_kw = dict(
+                partitions=topology.kafka_partitions(
+                    cfg.runtime.n_partitions),
+                n_partitions=cfg.runtime.n_partitions,
+                group_id=f"rtfds-scorer-p{topology.process_id}")
+            log.info("kafka partition affinity: consuming partitions %s "
+                     "of %d", kafka_kw["partitions"],
+                     cfg.runtime.n_partitions)
+
         def factory():
             # a fresh consumer per incarnation: the broker's group
             # generation fences a zombie's session
@@ -601,7 +944,7 @@ def _make_source(args, cfg, txs):
                 args.bootstrap, topic=args.topic,
                 batch_rows=args.batch_rows,
                 idle_timeout_s=args.idle_timeout or None,
-                decode_workers=cfg.runtime.decode_workers)
+                decode_workers=cfg.runtime.decode_workers, **kafka_kw)
 
         source = factory()
     elif args.source == "raw-table":
@@ -616,6 +959,16 @@ def _make_source(args, cfg, txs):
             batch_rows=args.batch_rows, mode=args.mode,
             decode_workers=cfg.runtime.decode_workers,
             with_labels=args.online_lr > 0)
+    if floors and len(set(floors)) > 1:
+        source = sources.OwnershipFloorSource(source, floors,
+                                              *old_topology)
+        log.info("per-owner resume floors active: %s (pure passthrough "
+                 "past position %d)", floors, max(floors))
+    if topology is not None and args.source != "kafka":
+        source = sources.PartitionAffineSource(source, topology)
+        log.info("partition-affine ingest: serving residues [%d, %d) "
+                 "of %d", topology.owned_shards.start,
+                 topology.owned_shards.stop, topology.n_shards_total)
     depth = cfg.runtime.prefetch_batches
     if depth > 0:
         from real_time_fraud_detection_system_tpu_torch.runtime.prefetch \
@@ -1179,10 +1532,42 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", action="store_true",
                    help="continue from the newest valid checkpoint in "
                         "--checkpoint-dir")
+    p.add_argument("--drain-on-sigterm", action="store_true",
+                   help="SIGTERM stops the stream at the next batch "
+                        "boundary instead of killing the process: "
+                        "in-flight batches finish, the sink drains, "
+                        "and a final checkpoint lands at that exact "
+                        "frontier — the coordinated-drain leg of an "
+                        "elastic fleet resize (deferred/shed rows stay "
+                        "behind the committed offsets for the next "
+                        "topology to re-poll)")
     p.add_argument("--resume-merge", default="",
-                   help="not ported yet (ROADMAP A7c): exits 2")
+                   help="OLD_CKPT_ROOT:P:L:REASON — adopt a drained "
+                        "P-process fleet's final checkpoints (under "
+                        "proc-NN/ of the root, or the root itself when "
+                        "P=1, each written at L devices/process) into "
+                        "this worker's --checkpoint-dir before "
+                        "serving: states merge to one global "
+                        "checkpoint, the stream cursor rewinds to the "
+                        "fleet-wide minimum with per-old-owner resume "
+                        "floors (no row lost, none double-scored), and "
+                        "a resize epoch is stamped into the lineage. "
+                        "Idempotent: skipped when this worker's "
+                        "lineage already has a checkpoint. Requires "
+                        "--resume; not for --source kafka")
     p.add_argument("--resume-merge-cold", default="",
-                   help="not ported yet (ROADMAP A7c): exits 2")
+                   help="comma-separated old-generation cold-store "
+                        "directories to consolidate into --cold-store "
+                        "during --resume-merge (restore then re-homes "
+                        "ownership to the new topology)")
+    p.add_argument("--cms-exchange", default="",
+                   help="shared directory for cross-process terminal-"
+                        "sketch exchange at checkpoint boundaries: "
+                        "terminal risk aggregates (NOT co-partitioned "
+                        "by the customer-residue ingest split) merge "
+                        "fleet-wide under the newest-day rule, while "
+                        "checkpoints keep locals-only partials so "
+                        "resize merges stay exact (multi-host only)")
     p.add_argument("--devices", type=int, default=1,
                    help="serve N shards (the sharded engine: customer-"
                         "partitioned rows, the terminal owner exchange), "
@@ -1194,9 +1579,19 @@ def build_parser() -> argparse.ArgumentParser:
                         "engine's per-chunk step width derives from it "
                         "(2x the balanced per-device load)")
     p.add_argument("--coordinator", default="",
-                   help="not ported yet (ROADMAP A7c): exits 2")
+                   help="host:port of process 0's torch.distributed "
+                        "store (gloo) — fleets (the port's "
+                        "tools/multihost_launcher.py passes it); \"\" "
+                        "with --num-processes > 1 = uncoordinated "
+                        "fleet (no process group)")
     p.add_argument("--num-processes", type=int, default=1,
-                   help="not ported yet above 1 (ROADMAP A7c): exits 2")
+                   help="total processes in the fleet; this process "
+                        "serves the customer residue block "
+                        "[pid*devices, (pid+1)*devices) of the "
+                        "num-processes*devices global shard space")
+    p.add_argument("--process-id", type=int, default=-1,
+                   help="this process's id in [0, num-processes); -1 = "
+                        "resolve from RANK")
     p.add_argument("--max-restarts", type=int, default=0,
                    help="supervised mode: restart on failure with "
                         "checkpoint replay (requires --checkpoint-dir)")

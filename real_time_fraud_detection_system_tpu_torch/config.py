@@ -250,6 +250,48 @@ class OverloadConfig:
 
 
 @dataclass(frozen=True)
+class DistributedConfig:
+    """The fleet's process topology (``runtime/distributed.py``): N OS
+    processes, each owning a contiguous block of the global shard space.
+    Process p of P, serving L local shards, owns the customer residues
+    ``key % (P·L) ∈ [p·L, (p+1)·L)``; the per-process engine's own
+    ``key % L`` placement then equals the global residue minus the block
+    base, so it runs unchanged and the fleet's layout is a single
+    (P·L)-shard engine's. Ingest is partition-affine, so no row crosses a
+    process on the host."""
+
+    # host:port of process 0's torch.distributed TCP store (gloo). "" =
+    # uncoordinated fleet: the processes still split the shard space but
+    # initialize no process group (per-worker restarts become safe).
+    coordinator: str = ""
+    # Total processes in the fleet; 1 = single process (everything off).
+    num_processes: int = 1
+    # This process's id in [0, num_processes); -1 = resolve from RANK (the
+    # launcher always passes it).
+    process_id: int = -1
+    # Refuse polled rows whose customer residue this process does not own
+    # (residue-sliced sources; a Kafka fleet partitions by broker
+    # partition and the CLI turns the check off there).
+    strict_affinity: bool = True
+    # The process group's rendezvous and barrier timeout.
+    init_timeout_s: float = 120.0
+
+    def __post_init__(self):
+        if self.num_processes < 1:
+            raise ValueError(
+                f"distributed.num_processes must be >= 1, "
+                f"got {self.num_processes}")
+        if self.num_processes > 1 and self.process_id >= self.num_processes:
+            raise ValueError(
+                f"distributed.process_id {self.process_id} out of range "
+                f"for {self.num_processes} process(es)")
+        if self.init_timeout_s <= 0:
+            raise ValueError(
+                f"distributed.init_timeout_s must be > 0, "
+                f"got {self.init_timeout_s}")
+
+
+@dataclass(frozen=True)
 class RuntimeConfig:
     """Micro-batch engine knobs that the port reads.
 
@@ -344,8 +386,14 @@ class RuntimeConfig:
     # dead-letter sink; snapshots what the step writes before every
     # batch and serves at depth 1 while on.
     nan_guard: bool = False
+    # Broker partitions of the transaction topic: a Kafka fleet gives
+    # each process a contiguous block of them.
+    n_partitions: int = 8
     # The overload-survival ladder (see OverloadConfig).
     overload: OverloadConfig = field(default_factory=OverloadConfig)
+    # The fleet's process topology (see DistributedConfig).
+    distributed: DistributedConfig = field(
+        default_factory=DistributedConfig)
 
     def __post_init__(self):
         if self.z_mode not in ("auto", "f32", "bf16", "int8"):

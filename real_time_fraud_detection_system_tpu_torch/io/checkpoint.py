@@ -18,9 +18,9 @@ checkpoint moves between the two packages in both directions:
   blocks, the sequence kind's ``HistoryState`` (``fs_leaves`` ``.events``,
   ``.pos``, ``.count``, ``.last_t``) — and ``__meta__`` carries the JAX keys
   (``layout_devices``, the shard count the feature state is laid out for:
-  1, or the sharded engine's width; ``process_count`` 1, ``process_id``
-  0, and the state's registry ``model_version``, which a restore hands
-  back);
+  1, or the sharded engine's width; the writer's fleet topology,
+  ``process_count`` and ``process_id``; the fleet's ``resize_epochs``; and
+  the state's registry ``model_version``; a restore hands them back);
 - ``__manifest__`` carries a CRC32 per leaf, the structural fingerprint
   (sha256 over every leaf's key, shape and dtype), the writer's
   incarnation token and, for a delta, its base and the CRC32 of the base's
@@ -30,9 +30,12 @@ checkpoint moves between the two packages in both directions:
 the engine's state; on any mismatch it quarantines the entry
 (``stale-<token>-…``), counts ``rtfds_checkpoint_corrupt_total{reason}``
 and falls back down the lineage (``rtfds_checkpoint_fallbacks_total``).
-A healthy checkpoint that carries state the port cannot serve yet
-(another process topology, a fleet resize: ROADMAP A7c) is refused with
-an error naming the item, never quarantined. A checkpoint of another
+A healthy checkpoint written under another process topology is refused
+(:class:`CheckpointTopologyError`, the fix named), never quarantined;
+the one topology change a restore takes is a single-process global
+state into a fleet process, which the sharded engine re-slices to its
+residue block (``parallel/mesh.py::adopt_process_slice``). A checkpoint
+of another
 shard width restores as in the JAX package: the per-shard planes (the
 sketches' shard axis, the tiered store's stacked directories) may differ
 from the template's, the state's ``layout_devices`` becomes the writer's,
@@ -56,8 +59,7 @@ before the next step. A save first makes the current stream wait for the
 event recorded behind the step that last wrote the state
 (``EngineState.ready``), then reads it.
 
-Left out until later slices: ``--resume-merge`` (A7c) and the ``ckpt``
-command (A9).
+Left out until a later slice: the ``ckpt`` command (A9).
 """
 
 from __future__ import annotations
@@ -101,10 +103,10 @@ class CorruptCheckpointError(Exception):
 
 
 class CheckpointTopologyError(ValueError):
-    """A healthy checkpoint written under another process topology or
-    device width than the port serves (one process, one device). Restore
-    refuses it instead of quarantining it: every entry of the lineage
-    shares the topology, so falling back would only rewind."""
+    """A healthy checkpoint written under another fleet topology than the
+    restoring engine serves. Restore refuses it instead of quarantining
+    it: every entry of the lineage shares the topology, so falling back
+    would only rewind the fleet."""
 
 
 def _observe_checkpoint(op: str, backend: str, t0: float, nbytes: int,
@@ -190,11 +192,13 @@ def _state_arrays(engine_state) -> Tuple[dict, dict]:
         "n_s": len(tree.leaves(engine_state.scaler)),
         "fs_leaves": {f"fs_{i}": path for i, (path, _) in enumerate(fs)},
         # the JAX package's topology and lineage stamps: the shard count
-        # the feature state is laid out for, one process
+        # the feature state is laid out for, and the writer's fleet
+        # topology (a fleet process's state holds its residue block only)
         "layout_devices": int(getattr(engine_state, "layout_devices", 1)
                               or 1),
-        "process_count": 1,
-        "process_id": 0,
+        "process_count": int(getattr(engine_state, "process_count", 1)
+                             or 1),
+        "process_id": int(getattr(engine_state, "process_id", 0) or 0),
         # the registry version the params descend from (the learning
         # loop's resync stamp)
         "model_version": getattr(engine_state, "model_version", None),
@@ -207,6 +211,11 @@ def _state_arrays(engine_state) -> Tuple[dict, dict]:
     if lineage:
         # the live cold segments this state pairs with (io/coldstore.py)
         meta["cold_lineage"] = lineage
+    epochs = getattr(engine_state, "resize_epochs", None)
+    if epochs:
+        # the fleet resizes this state lived through; a restored worker
+        # re-derives its resume floors from the newest record
+        meta["resize_epochs"] = epochs
     return arrays, meta
 
 
@@ -267,7 +276,13 @@ def _apply_arrays(engine_state, meta: dict, arrays: dict,
     if live is None:
         live = _param_crcs(engine_state.params)
     n_old = int(meta.get("layout_devices", 1) or 1)
-    if n_old != int(getattr(engine_state, "layout_devices", 1) or 1):
+    ck_pc = int(meta.get("process_count", 1) or 1)
+    # a global state restored by a fleet process: re-sliced to its
+    # residue block by the engine (ShardedScoringEngine._ensure_layout)
+    adopt = ck_pc == 1 and int(getattr(engine_state, "process_count", 1)
+                               or 1) > 1
+    if adopt or n_old != int(getattr(engine_state, "layout_devices", 1)
+                             or 1):
         # another width: the layouts are permutations (and the sketch's
         # shard axis differs), so the engine converts the checkpoint's
         # state before its next step (ScoringEngine._ensure_layout); its
@@ -294,6 +309,12 @@ def _apply_arrays(engine_state, meta: dict, arrays: dict,
         engine_state.cold_lineage = meta["cold_lineage"]
     if meta.get("model_version") is not None:
         engine_state.model_version = int(meta["model_version"])
+    # the writer's topology (a checkpoint without stamps was written by
+    # one process)
+    engine_state.process_count = ck_pc
+    engine_state.process_id = int(meta.get("process_id", 0) or 0)
+    if meta.get("resize_epochs") is not None:
+        engine_state.resize_epochs = meta["resize_epochs"]
     return engine_state
 
 
@@ -389,23 +410,6 @@ def _write_checkpoint_npz(fileobj, arrays: dict, meta: dict,
              __manifest__=json.dumps(manifest, sort_keys=True,
                                      separators=(",", ":")),
              **arrays)
-
-
-def _refuse_unserved(name: str, meta: dict) -> None:
-    """Raise for a healthy checkpoint whose state the port cannot serve
-    yet (after its checksums held, before the structural check would
-    call it incompatible)."""
-    pc = int(meta.get("process_count", 1) or 1)
-    ld = int(meta.get("layout_devices", 1) or 1)
-    if pc > 1:
-        raise CheckpointTopologyError(
-            f"{name} was written by process {meta.get('process_id', 0)} "
-            f"of a {pc}-process fleet at {ld} device(s) per process; the "
-            f"port serves one process (the fleet is ROADMAP A7c)")
-    if meta.get("resize_epochs"):
-        raise CheckpointTopologyError(
-            f"{name} carries elastic-fleet resize epochs; the fleet is "
-            f"not ported yet (ROADMAP A7c)")
 
 
 # ---------------------------------------------------------------------------
@@ -784,10 +788,65 @@ class _CheckpointerBase:
                     raise CorruptCheckpointError(
                         "checksum", f"leaf {k} fails its manifest CRC32")
         if template is not None:
-            _refuse_unserved(tip_name, tip_meta)
+            # after the checksums held, before the structural check could
+            # call a healthy entry incompatible: a topology change is a
+            # refusal, never a quarantine
+            self._check_topology(tip_name, tip_meta, template)
             self._check_template(tip_name, tip_meta, tip_man, composed,
                                  template)
         return tip_meta, composed, crcs
+
+    @staticmethod
+    def _check_topology(name, meta, template) -> None:
+        """Refuse a healthy checkpoint written under another fleet
+        topology, as the JAX checkpointer does. Allowed: the same
+        topology (process count, and this process's id), and a
+        single-process global checkpoint restored by a fleet process,
+        which the engine re-slices. Every other case names its fix."""
+        ck_pc = int(meta.get("process_count", 1) or 1)
+        ck_pid = int(meta.get("process_id", 0) or 0)
+        tpl_pc = int(getattr(template, "process_count", 1) or 1)
+        tpl_pid = int(getattr(template, "process_id", 0) or 0)
+        if ck_pc == tpl_pc and (ck_pc == 1 or ck_pid == tpl_pid):
+            if ck_pc > 1:
+                # the same process of the same fleet at another width:
+                # ownership is key % (P·L), so keys would move BETWEEN
+                # processes, which no per-process reshard can do
+                ck_ld = int(meta.get("layout_devices", 1) or 1)
+                tpl_ld = int(getattr(template, "layout_devices", 1) or 1)
+                if ck_ld != tpl_ld:
+                    raise CheckpointTopologyError(
+                        f"{name} was written at {ck_ld} device(s) per "
+                        f"process but this engine serves {tpl_ld} — in "
+                        f"a {ck_pc}-process fleet that changes the "
+                        "residue-block ownership (key % (P·L)), moving "
+                        "keys BETWEEN processes: merge the fleet's "
+                        "checkpoints to a global state (parallel.mesh."
+                        "merge_process_states → save single-process) "
+                        "and let the new fleet's elastic 1→N adoption "
+                        "re-slice it, or relaunch at the original "
+                        f"--devices {ck_ld}")
+            return
+        if ck_pc == 1 and tpl_pc > 1:
+            return  # the 1→P adoption: the engine re-slices
+        if ck_pc == tpl_pc:
+            raise CheckpointTopologyError(
+                f"{name} was written by process {ck_pid} of the "
+                f"{ck_pc}-process fleet, but this engine is process "
+                f"{tpl_pid} — each process restores its OWN residue "
+                "block; point every worker at its own proc-NN "
+                "checkpoint directory (the launcher does this when the "
+                "checkpoint root and process ids are unchanged)")
+        raise CheckpointTopologyError(
+            f"{name} was written by a {ck_pc}-process fleet; this "
+            f"engine serves a {tpl_pc}-process topology. A per-process "
+            "checkpoint holds only its residue block's keys, so a "
+            "process-count change cannot restore directly: merge every "
+            "process's final checkpoint into one global state "
+            "(parallel.mesh.merge_process_states), save it from a "
+            "single-process engine, and let the new fleet's elastic "
+            "1→N adoption re-slice it — or relaunch at the original "
+            f"--num-processes {ck_pc}")
 
     @staticmethod
     def _check_template(name, meta, manifest, arrays, template) -> None:

@@ -34,14 +34,18 @@ The contracts:
   (:meth:`ColdStore.fence`): the recovery supervisor does so for an
   incarnation it abandons, so a zombie never writes under its successor.
 
-``rehome`` and ``consolidate_cold_stores`` (fleet resizes) come with the
-fleet (ROADMAP A7c).
+- **Fleet resizes**: :meth:`ColdStore.rehome` unindexes the keys a
+  process no longer owns after a topology change, and
+  :func:`consolidate_cold_stores` merges the live rows of several
+  per-process stores into one fresh store (the cold half of a shrink
+  merge).
 """
 
 from __future__ import annotations
 
 import io as _io
 import json
+import os
 import queue
 import threading
 import time
@@ -433,6 +437,30 @@ class ColdStore:
                 "(exactness degraded, counted) instead of promoting",
                 missing, self.path)
 
+    def rehome(self, owned_fn) -> int:
+        """Unindex the keys this process no longer owns after a topology
+        change (a fleet resize's restore). ``owned_fn(table, keys_u32) ->
+        bool mask`` is the NEW topology's ownership; the segment bytes of
+        the keys dropped stay until :meth:`gc`, their buffered rows are
+        discarded (the owning process promotes them from its own store).
+        Returns the number of keys dropped."""
+        dropped = 0
+        with self._lock:
+            tables = sorted({t for (t, _k) in self._index})
+            for table in tables:
+                ks = np.asarray(
+                    [k for (t, k) in self._index if t == table],
+                    dtype=np.uint32)
+                if not ks.size:
+                    continue
+                mine = np.asarray(owned_fn(table, ks), dtype=bool)
+                for k in ks[~mine]:
+                    loc = self._index.pop((table, int(k)), None)
+                    if loc is not None and loc[0] is None:
+                        self._buf.get(table, {}).pop(int(k), None)
+                dropped += int((~mine).sum())
+        return dropped
+
     # -- gauges ----------------------------------------------------------
 
     @property
@@ -448,6 +476,48 @@ class ColdStore:
             seg = sum(int(m["bytes"]) for s, m in self._seg_meta.items()
                       if s in live)
             return seg + self._buf_bytes
+
+
+def consolidate_cold_stores(src_paths: Sequence[str], dest_path: str,
+                            segment_mb: float = 4.0) -> ColdStore:
+    """Merge the live rows of several per-process cold stores into one
+    fresh store: the cold half of a fleet-shrink merge. Each source is
+    read through its committed index (the newest row per key) and
+    appended into ``dest_path`` in sorted-key order per table, then
+    flushed; ownership makes the sources' key sets disjoint, and a
+    corrupt source segment degrades as at serve time (quarantined, its
+    keys fall back to the sketch). Returns the opened destination."""
+    dest = ColdStore(dest_path, segment_mb=segment_mb)
+    for src_path in src_paths:
+        if os.path.abspath(src_path) == os.path.abspath(dest_path):
+            raise ValueError(
+                f"cold consolidation destination {dest_path} is also a "
+                "source — merge into a fresh generation directory")
+        src = ColdStore(src_path, segment_mb=segment_mb)
+        with src._lock:
+            tables = sorted({t for (t, _k) in src._index})
+        for table in tables:
+            ks = src.index_snapshot(table)
+            rows = None
+            # a corrupt segment quarantines itself on first touch, so one
+            # more attempt per segment always ends
+            for _ in range(len(src._seg_meta) + 1):
+                try:
+                    rows = src.get_rows(table, ks)
+                    break
+                except ColdStoreCorruptError:
+                    continue
+            if not rows:
+                continue
+            kept = np.asarray(sorted(rows), dtype=np.uint32)
+            dest.append(
+                table, kept,
+                np.stack([rows[int(k)][0] for k in kept]),
+                np.stack([rows[int(k)][1] for k in kept]),
+                np.stack([rows[int(k)][2] for k in kept]),
+                np.stack([rows[int(k)][3] for k in kept]))
+    dest.flush()
+    return dest
 
 
 class _Err:

@@ -5,9 +5,10 @@ The JAX package serves one stream over a ``jax.sharding.Mesh`` of N
 devices. Here a mesh is an ordered tuple of ``torch.device``s, one per
 shard, and in this port every shard of a mesh lives on ONE device: the
 sharded engine (``runtime/sharded_engine.py``) runs its N shards in one
-process, as the JAX tests run theirs on 8 virtual CPU devices. A mesh over
-distinct devices is the fleet's (one process per GPU over
-``torch.distributed``, ROADMAP A7c) and raises here.
+process, as the JAX tests run theirs on 8 virtual CPU devices. Several
+GPUs are served by the fleet: one process per GPU, each owning a residue
+block (``runtime/distributed.py``); a mesh over distinct devices in one
+process raises here.
 
 The layout is the JAX package's, so a checkpoint's leaves are the same
 arrays in both packages:
@@ -26,8 +27,12 @@ direct keys; the tiered store re-homes every directory entry by ``key %
 n_new``, :func:`_reshard_exact`; the sketch merges under the newest-day
 rule, :func:`_merge_sketch`) and returns host arrays;
 :func:`shard_feature_state` places them (into an engine's own tensors
-when ``out`` is given). ``merge_process_states`` and
-``adopt_process_slice`` belong to the fleet (A7c).
+when ``out`` is given). The fleet's legs: :func:`adopt_process_slice`
+(a single-process global state → one process's residue block, 1→P) and
+:func:`merge_process_states` (P processes' states → one global state,
+P→1); :func:`make_process_mesh` and
+:func:`cross_process_collectives_supported` describe and probe the process
+group.
 """
 
 from __future__ import annotations
@@ -57,9 +62,11 @@ def _check_colocated(mesh: Mesh) -> Mesh:
     if len(set(mesh)) > 1:
         raise ValueError(
             f"a mesh over distinct devices ({sorted(set(map(str, mesh)))}) "
-            "is the fleet's: one process per GPU over torch.distributed, "
-            "not ported yet (ROADMAP A7c); co-locate the shards with "
-            "devices=[device] * n")
+            "is served by the fleet: one process per GPU "
+            "(score --num-processes P --process-id p, or "
+            "real_time_fraud_detection_system_tpu_torch.tools."
+            "multihost_launcher), each owning a residue block; in one "
+            "process co-locate the shards with devices=[device] * n")
     return mesh
 
 
@@ -90,9 +97,50 @@ def make_mesh(n_devices: int = 0, devices: Optional[Sequence] = None
 
 def make_local_mesh(n_devices: int = 0, devices: Optional[Sequence] = None
                     ) -> Mesh:
-    """The process-local serving mesh: :func:`make_mesh` in one process
-    (the JAX package's differs only under ``jax.distributed``, A7c)."""
+    """The process-local serving mesh: :func:`make_mesh`. A fleet process
+    serves its own mesh whatever the process group spans (no collective
+    crosses processes on the serving path)."""
     return make_mesh(n_devices, devices)
+
+
+def make_process_mesh(local_devices: int = 1, device=None) -> tuple:
+    """The process-spanning shard order: ``(process, device)`` pairs,
+    process p's ``local_devices`` shards at ``[p·L, (p+1)·L)``, the block
+    its residue ownership (``runtime/distributed.py::ProcessTopology``)
+    assigns it. The devices are each process's own (gathered over the
+    process group); the port computes nothing over this order, it names
+    which process serves which global shard."""
+    import torch.distributed as dist
+
+    mine = [str(resolve_device(device))] * local_devices
+    if dist.is_available() and dist.is_initialized() \
+            and dist.get_world_size() > 1:
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, mine)
+    else:
+        every = [mine]
+    return tuple((p, d) for p, devs in enumerate(every) for d in devs)
+
+
+def cross_process_collectives_supported(mesh=None) -> Optional[str]:
+    """None when the process group can run a collective (or there is one
+    process); otherwise the backend's error text. Every process calls it
+    together: it runs one gloo ``all_reduce`` of a host tensor, the
+    cheapest exercise of the group's transport."""
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()) \
+            or dist.get_world_size() == 1:
+        return None
+    t = torch.ones(1)
+    try:
+        dist.all_reduce(t)
+    except (RuntimeError, ValueError) as e:
+        return str(e).splitlines()[-1] if str(e) else type(e).__name__
+    if int(t.item()) != dist.get_world_size():
+        return f"all_reduce summed {t.item()} over " \
+               f"{dist.get_world_size()} processes"
+    return None
 
 
 def _np(leaf) -> np.ndarray:
@@ -310,8 +358,9 @@ def _rebuild_exact_table(name: str, ctx: str, keys: np.ndarray,
         raise ValueError(
             f"{ctx}: duplicate {name} key(s) {dup.tolist()} across "
             "source shards — the ownership contract places each key in "
-            "exactly one shard, so a duplicate means two engines served "
-            "the same key; merging would corrupt its window history")
+            "exactly one shard/process, so a duplicate means two "
+            "engines served the same key (partition-affinity breach); "
+            "merging would corrupt its window history")
     counts = np.bincount(owner_s, minlength=n_new)
     if counts.max(initial=0) > cap_local_new:
         worst = int(np.argmax(counts))
@@ -446,6 +495,142 @@ def _reshard_exact(state: FeatureState, fcfg, n_old: int, n_new: int,
         customer_dir=out["customer_dir"],
         terminal_dir=out["terminal_dir"],
         terminal_cms=_merge_sketch(state.terminal_cms, n_old),
+    )
+
+
+def adopt_process_slice(state: FeatureState, cfg, n_old: int, topology
+                        ) -> FeatureState:
+    """A single-process GLOBAL feature state (a checkpoint written by a
+    one-process deployment at ``n_old`` shards) → this process's layout:
+    the 1→P leg of a fleet resize, through the same re-home as every
+    reshard. Exact keys keep only the keys this process owns
+    (``topology.owns``; the others are adopted by their own processes
+    from the same checkpoint). Direct keys keep the whole tables: the
+    rows of keys owned elsewhere are inert (those keys never arrive
+    here). The sketches merge to the single layout and stay whole (an
+    upper bound for every key). Returns host arrays."""
+    fcfg = cfg.features
+    if fcfg.key_mode == "exact":
+        return _reshard_exact(state, fcfg, n_old, topology.local_devices,
+                              owner_filter=topology.owns)
+    return reshard_feature_state(state, cfg, n_old, topology.local_devices)
+
+
+def merge_process_states(states, cfg, n_locals) -> FeatureState:
+    """Merge a P-process fleet's feature states into ONE single-layout
+    global state: the P→1 leg of a fleet resize (the merged state is
+    saved by one process, and a new fleet re-slices it with
+    :func:`adopt_process_slice`).
+
+    ``n_locals[i]``: process i's shard count. Exact keys: every process's
+    live (key, window row) entries, disjoint by ownership (a duplicate
+    raises), rebuild the global directory (:func:`_rebuild_exact_table`).
+    Direct keys: rows combine by residue ownership (row r holds key r, so
+    its owner's copy is the one), which needs one width across the fleet
+    and capacities divisible by P·L. Hash keys refuse (colliding keys
+    cannot be attributed). The sketches merge per process, then across
+    processes, under the newest-day rule: same-day slices SUM, exact when
+    each process's sketch holds only its own traffic (checkpoints hold
+    the locals-only partial, ``runtime/cms_exchange.py``). Returns host
+    arrays."""
+    fcfg = cfg.features
+    if not states or len(states) != len(n_locals):
+        raise ValueError(
+            f"merge_process_states: {len(states)} state(s) vs "
+            f"{len(n_locals)} n_locals")
+    n_proc = len(states)
+    if n_proc == 1:
+        return reshard_feature_state(states[0], cfg, n_locals[0], 1)
+    if fcfg.key_mode == "hash":
+        raise ValueError(
+            "process merge requires key_mode='direct' or 'exact' (hash "
+            "mode merges colliding keys — rows cannot be attributed to "
+            "their owner process)")
+
+    def merge_cms(getter):
+        per = []
+        for st, n_loc in zip(states, n_locals):
+            m = _merge_sketch(getter(st), n_loc)
+            if m is None:
+                return None
+            per.append(m)
+        stacked = type(per[0])(*[
+            None if any(le is None for le in leaves)
+            else np.stack([np.asarray(le) for le in leaves])
+            for leaves in zip(*per)])
+        return _merge_sketch(stacked, n_proc)
+
+    if fcfg.key_mode == "exact":
+        out = {}
+        for name, cap, present in (
+                ("customer", fcfg.customer_capacity,
+                 fcfg.customer_source != "cms"),
+                ("terminal", fcfg.terminal_capacity, True)):
+            if not present:
+                # customer_source="cms": the table is dead weight
+                out[name] = tree.map(_np, getattr(states[0], name))
+                out[f"{name}_dir"] = None
+                continue
+            keys_all, vals_all = [], []
+            for pid, (st, n_loc) in enumerate(zip(states, n_locals)):
+                ws, kd = getattr(st, name), getattr(st, f"{name}_dir")
+                if kd is None:
+                    raise ValueError(
+                        f"process {pid}'s state carries no {name} key "
+                        "directory (was it built under a different "
+                        "key_mode?)")
+                k, v = _extract_exact_table(name, ws, kd, n_loc, cap)
+                keys_all.append(k)
+                vals_all.append(v)
+            keys = np.concatenate(keys_all)
+            vals = {k: np.concatenate([v[k] for v in vals_all])
+                    for k in vals_all[0]}
+            out[name], out[f"{name}_dir"] = _rebuild_exact_table(
+                name, f"process merge {n_proc}→1", keys, vals, cap, 1,
+                fcfg.keydir_probes)
+        return states[0]._replace(
+            customer=out["customer"], terminal=out["terminal"],
+            cms=merge_cms(lambda s: s.cms),
+            customer_dir=out["customer_dir"],
+            terminal_dir=out["terminal_dir"],
+            terminal_cms=merge_cms(lambda s: s.terminal_cms))
+
+    # direct keys: fixed permutations; rows combine by residue ownership
+    if len(set(int(n) for n in n_locals)) != 1:
+        raise ValueError(
+            "direct-mode process merge needs a homogeneous fleet (every "
+            f"process the same local width), got n_locals={list(n_locals)}"
+            " — exact mode re-homes by stored key and has no such limit")
+    n_local = int(n_locals[0])
+    n_total = n_proc * n_local
+    singles = [reshard_feature_state(st, cfg, n_local, 1) for st in states]
+
+    def combine(name, cap):
+        if cap % n_total:
+            raise ValueError(
+                f"direct-mode process merge needs {name}_capacity {cap} "
+                f"divisible by n_processes×local_devices = {n_total} "
+                "(row residue = key residue is what attributes each row "
+                "to its owner)")
+        owner = (np.arange(cap) % n_total) // n_local
+        ws0 = getattr(singles[0], name)
+
+        def one(leaf_name):
+            leaves = [_np(getattr(getattr(s, name), leaf_name))
+                      for s in singles]
+            merged = np.empty_like(leaves[0])
+            for p in range(n_proc):
+                m = owner == p
+                merged[m] = leaves[p][m]
+            return merged
+
+        return type(ws0)(**{k: one(k) for k in
+                            ("bucket_day", "count", "amount", "fraud")})
+
+    return states[0]._replace(
+        customer=combine("customer", fcfg.customer_capacity),
+        terminal=combine("terminal", fcfg.terminal_capacity),
+        cms=merge_cms(lambda s: s.cms),
     )
 
 

@@ -295,6 +295,7 @@ def make_sharded_step(
     mesh: Optional[Mesh] = None,
     route_customers: bool = False,
     packed: bool = False,
+    axis: "str | tuple" = "data",
 ):
     """The sharded step over ``mesh`` (co-located shards):
 
@@ -316,10 +317,19 @@ def make_sharded_step(
     float32 transfer of ``runtime/engine.py::pack_selective`` over the
     global arrays, and the full matrix for a count past the cap.
 
+    ``axis`` names the mesh's axis, or the pair ``("dcn", "ici")`` of a
+    ``parallel/distributed.py::make_hybrid_mesh`` grid: as in the JAX
+    step, the pair is one flattened axis (the grid's shards in row-major
+    order).
+
     The JAX function returns a builder of a jitted step; a PyTorch step
     needs no tracing, so this returns the step itself."""
     if mesh is None:
         raise ValueError("make_sharded_step needs a mesh")
+    names = getattr(mesh, "axis_names", None)
+    if names is not None and tuple(
+            (axis,) if isinstance(axis, str) else axis) != tuple(names):
+        raise ValueError(f"axis {axis!r} is not the mesh's axes {names}")
     mesh = _check_colocated(tuple(mesh))
     n_dev = len(mesh)
     fcfg = cfg.features

@@ -1,4 +1,5 @@
-"""Sources, the scoring engine (``engine.py``) and the sharded engine
+"""Sources, the scoring engine (``engine.py``), the sharded engine
 (``sharded_engine.py``: N shards in one process on one device, the
-tiered store included; the fleet of processes and the sequence kind over
-shards are ROADMAP A7c and A7d)."""
+tiered store included) and the fleet of processes (``distributed.py``,
+``cms_exchange.py``, ``elastic.py``; the sequence kind over shards is
+ROADMAP A7d)."""

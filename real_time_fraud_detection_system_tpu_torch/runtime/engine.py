@@ -144,9 +144,15 @@ it.
 A checkpoint written at another shard width (``state.layout_devices``)
 is converted before the next step (:meth:`ScoringEngine._ensure_layout`),
 as the JAX engine does. The sharded engine (N shards in one process,
-``runtime/sharded_engine.py``) subclasses this one. Not ported yet: the
-fleet of processes with its cold-store re-homing (A7c), and the sharded
-sequence step (A7d).
+``runtime/sharded_engine.py``) subclasses this one. The fleet's seams,
+armed by the CLI and None elsewhere: ``stop_event`` (a
+``threading.Event`` that a SIGTERM sets; :meth:`run` stops at the next
+batch boundary with its offsets resumable) and ``cms_exchange``
+(``runtime/cms_exchange.py::SketchExchange``, a round at every
+checkpoint; :meth:`checkpoint_state` saves the locals-only terminal
+sketch). Under a fleet topology a restored cold lineage is re-homed to
+the process's residue block. Not ported yet: the sharded sequence step
+(A7d).
 """
 
 from __future__ import annotations
@@ -432,6 +438,14 @@ class EngineState:
     # (``ScoringEngine._ensure_layout``).
     layout_devices: int = 1
     layout_pending: Optional[object] = None
+    # The writer's fleet topology (the JAX package's stamps): a fleet
+    # process's state holds only its residue block's keys, so a restore
+    # refuses a topology change but the 1→P adoption of a global state.
+    process_count: int = 1
+    process_id: int = 0
+    # One record per fleet resize this state has lived through (from/to
+    # process counts, reason, the per-old-owner resume floors).
+    resize_epochs: Optional[list] = None
 
 
 @dataclass(frozen=True)
@@ -731,6 +745,11 @@ class ScoringEngine:
         self._cold_index: dict = {}  # table -> sorted uint32 key snapshot
         self._cold_index_version = -1
         self._cold_synced = False
+        # The fleet's seams (set by the CLI): the drain event a SIGTERM
+        # sets (run() breaks at the next batch boundary) and the
+        # cross-process terminal-sketch exchange, run at checkpoints.
+        self.stop_event = None
+        self.cms_exchange = None
         if kind == "sequence":
             self._init_sequence(params, scaler, feature_state)
         else:
@@ -943,8 +962,45 @@ class ScoringEngine:
             forest_kernels._leaf_sum_library()
 
     def checkpoint_state(self) -> EngineState:
-        """The state a checkpoint save persists (the engine's own)."""
-        return self.state
+        """The state a checkpoint save persists: the engine's own, or,
+        with a sketch exchange that adopted peer content, a shallow copy
+        whose ``terminal_cms`` holds the locals-only partial (so the P→1
+        resize merge's same-day sketch sum stays exact whenever the last
+        round ran)."""
+        xch = self.cms_exchange
+        fs = self.state.feature_state
+        if xch is None or fs is None or fs.terminal_cms is None:
+            return self.state
+        partial = xch.checkpoint_cms(fs.terminal_cms)
+        if partial is None:
+            return self.state
+        view = dataclasses.replace(self.state)
+        view.feature_state = fs._replace(terminal_cms=partial)
+        return view
+
+    def _maybe_exchange_cms(self) -> None:
+        """One terminal-sketch exchange round (at a checkpoint, between
+        steps): publish this process's cumulative local contributions,
+        adopt the peers' partials present, and write the merged view into
+        the serving sketch's tensors in place."""
+        xch = self.cms_exchange
+        fs = self.state.feature_state
+        if xch is None or fs is None or fs.terminal_cms is None:
+            return
+        from real_time_fraud_detection_system_tpu_torch.io.checkpoint import (
+            _wait_ready,
+        )
+        from real_time_fraud_detection_system_tpu_torch.runtime \
+            .cms_exchange import install_logical
+
+        _wait_ready(self.state)
+        merged = xch.exchange(fs.terminal_cms)
+        if merged is None:
+            return
+        new = install_logical(fs.terminal_cms, merged)
+        for dst, src in zip(fs.terminal_cms, new):
+            if dst is not None:
+                dst.copy_(torch.as_tensor(np.asarray(src)).to(dst.dtype))
 
     def _unfused_predict(self, x: torch.Tensor) -> torch.Tensor:
         """The predict of the unfused step on scaled features ``x``."""
@@ -1427,6 +1483,19 @@ class ScoringEngine:
             return
         self._cold_synced = True
         self._cold.sync_to(lineage)
+        topo = getattr(self, "topology", None)
+        if topo is not None and topo.n_processes > 1:
+            # a resize: the adopted lineage may hold keys the new
+            # topology homes elsewhere (a consolidated shrink store fanned
+            # back out); cold keys are directory keys, so keep this
+            # process's residue block and let the owners promote the rest
+            # from their own copies
+            dropped = self._cold.rehome(lambda _t, ks: topo.owns(ks))
+            if dropped:
+                log.info(
+                    "cold tier re-homed for process %d/%d: dropped %d "
+                    "foreign key(s)", topo.process_id, topo.n_processes,
+                    dropped)
         self._promoter.reset()
         self._cold_pending.clear()
         self._cold_index_version = -1
@@ -2314,6 +2383,7 @@ class ScoringEngine:
                     # lineage the checkpoint records is on disk
                     self._cold.flush()
                     self.state.cold_lineage = self._cold.lineage()
+                self._maybe_exchange_cms()
                 checkpointer.save(self.checkpoint_state())
                 commit = getattr(source, "commit", None)
                 if commit is not None:
@@ -2383,6 +2453,13 @@ class ScoringEngine:
                 heartbeat.beat()
             started = self.state.batches_done + len(q)
             if max_batches and started - batches0 >= max_batches:
+                capped = True
+                break
+            if self.stop_event is not None and self.stop_event.is_set():
+                # a coordinated drain (a fleet resize, a graceful SIGTERM):
+                # stop at a batch boundary as a capped run does; deferred
+                # batches stay behind the checkpointed offsets and re-poll
+                # under the next topology
                 capped = True
                 break
             if trigger > 0 and t_last_start is not None:

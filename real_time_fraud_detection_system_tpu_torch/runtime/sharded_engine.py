@@ -42,10 +42,19 @@ the compact exchange bucket, and under ``key_mode="exact"``
 (``exchange_overflows``); a chunk that needs the full bucket (a hot key)
 runs the same step eagerly, counted in the run's ``full_exchange_chunks``.
 
+``topology`` (``runtime/distributed.py::ProcessTopology``) makes the
+engine one process of the fleet, serving its residue block: it runs
+unchanged (ingest affinity makes every polled key's residue local, so
+``key % n_dev`` is the global layout's placement), but its per-shard
+series carry global shard ids and a ``process`` label, strict ingest
+refuses rows of another block, its checkpoints stamp the writer's
+topology, and a single-process global state restored into it is re-sliced
+to its block (``parallel/mesh.py::adopt_process_slice``). Several GPUs are
+served as such a fleet, one process per GPU.
+
 Refused as the JAX engine refuses them: ``runtime.nan_guard`` and the
-host scorer. Not ported yet, and refused naming the item: the fleet
-(``topology``, a mesh over distinct devices, A7c) and the sequence kind
-over the mesh (A7d).
+host scorer. Not ported yet, and refused naming the item: the sequence
+kind over the mesh (A7d).
 """
 
 from __future__ import annotations
@@ -147,10 +156,6 @@ class ShardedScoringEngine(ScoringEngine):
                 "the sequence kind over the mesh (its history state "
                 "sharded by customer, ring/Ulysses attention) is not "
                 "ported yet: ROADMAP A7d; serve it with ScoringEngine")
-        if topology is not None:
-            raise ValueError(
-                "a multi-process fleet (topology=) is not ported yet: "
-                "ROADMAP A7c")
         if cfg.runtime.nan_guard:
             raise ValueError(
                 "runtime.nan_guard is not wired for the sharded engine; "
@@ -162,10 +167,18 @@ class ShardedScoringEngine(ScoringEngine):
                 "not compose with --devices > 1 or multi-host (the "
                 "sharded engine always scores on-device)")
         if mesh is None:
-            n = n_devices or 1
+            n = n_devices or (topology.local_devices if topology else 1)
             mesh = make_mesh(n, devices=[resolve_device(device)] * n)
         mesh = _check_colocated(tuple(mesh))
         n_dev = len(mesh)
+        if topology is not None and n_dev != topology.local_devices:
+            raise ValueError(
+                f"mesh is {n_dev} device(s) wide but the topology says "
+                f"this process serves {topology.local_devices} — the "
+                "residue-block ownership is sized n_processes × "
+                "local_devices, so the two must agree")
+        # before the base constructor: its state series label per shard
+        self.topology = topology
         exact = cfg.features.key_mode == "exact"
         if exact:
             # each shard's directory masks slots to its local range:
@@ -210,6 +223,11 @@ class ShardedScoringEngine(ScoringEngine):
                          online_lr=online_lr, feature_cache=feature_cache,
                          dead_letter=dead_letter)
         self.state.layout_devices = n_dev
+        if topology is not None:
+            # the writer's topology travels with the state: a fleet
+            # process's checkpoint holds only its residue block
+            self.state.process_count = topology.n_processes
+            self.state.process_id = topology.process_id
         # the partitioned chunks are packed by NumPy (host prep's numpy
         # route); the native packer lays rows out densely
         self.host_prep = "numpy"
@@ -222,7 +240,7 @@ class ShardedScoringEngine(ScoringEngine):
             self.metrics.gauge(
                 "rtfds_shard_rows",
                 "rows routed to this shard in the last batch",
-                shard=str(i))
+                **self._shard_labels(i))
             for i in range(n_dev)]
         self._steps = {
             routed: make_sharded_step(
@@ -239,6 +257,63 @@ class ShardedScoringEngine(ScoringEngine):
 
     def _state_shards(self) -> int:
         return self.n_dev
+
+    def _shard_labels(self, local_shard: int) -> dict:
+        """The labels of a per-shard series: ``shard=<local>`` in one
+        process; in a fleet the GLOBAL shard id (``shard_offset + local``,
+        the shard the single (P·L)-shard engine would use for the same
+        keys) and ``process``, so the fleet's aggregated view reads as one
+        engine's shard space."""
+        topo = getattr(self, "topology", None)
+        if topo is None or topo.n_processes <= 1:
+            return {"shard": str(local_shard)}
+        return {"shard": str(topo.shard_offset + local_shard),
+                "process": str(topo.process_id)}
+
+    def _ensure_layout(self) -> None:
+        """The single engine's conversion of a restore at another width,
+        and the fleet's: a single-process global state restored into a
+        fleet process is re-sliced to its residue block
+        (``adopt_process_slice``); a state of another fleet, or of this
+        fleet at another width per process (keys would move between
+        processes), raises naming the merge."""
+        st = self.state
+        topo = self.topology
+        if topo is None:
+            super()._ensure_layout()
+            return
+        n_old = int(st.layout_devices or 1)
+        restored_pc = int(st.process_count or 1)
+        my_pc = topo.n_processes
+        if restored_pc == my_pc and my_pc > 1 and n_old != self.n_dev:
+            raise ValueError(
+                f"restored state was laid out at {n_old} device(s) per "
+                f"process; this engine serves {self.n_dev} — in a "
+                f"{my_pc}-process fleet that changes residue-block "
+                "ownership (key % (P·L)): merge the fleet's "
+                "checkpoints (parallel.mesh.merge_process_states) and "
+                "re-slice at the new topology")
+        if restored_pc == my_pc:
+            super()._ensure_layout()
+            return
+        if restored_pc != 1:
+            raise ValueError(
+                f"restored state was written by a {restored_pc}"
+                f"-process fleet; this engine serves a {my_pc}"
+                "-process topology — merge the per-process "
+                "checkpoints first (parallel.mesh.merge_process_states)")
+        from real_time_fraud_detection_system_tpu_torch.parallel.mesh \
+            import adopt_process_slice
+
+        src = st.layout_pending
+        if src is None:
+            src = st.feature_state
+        new = adopt_process_slice(src, self.cfg, n_old, topo)
+        shard_feature_state(new, self.mesh, out=st.feature_state)
+        st.layout_pending = None
+        st.layout_devices = self.n_dev
+        st.process_count = topo.n_processes
+        st.process_id = topo.process_id
 
     # -- the tiered store per shard ----------------------------------------
 
@@ -260,14 +335,14 @@ class ShardedScoringEngine(ScoringEngine):
                 "row x keyspace feature reads served per tier "
                 "(dense = private hot-tier slot; cms = count-min "
                 "sketch fallback after an admission miss)",
-                tier=t, shard=str(s))
+                tier=t, **self._shard_labels(s))
             for t in ("dense", "cms") for s in range(n)}
         self._m_slots_occ_shard = {
             (t, s): reg.gauge(
                 "rtfds_feature_slots_occupied",
                 "hot-tier slots currently owned by a key "
                 "(updated at compaction cadence)",
-                table=t, shard=str(s))
+                table=t, **self._shard_labels(s))
             for t in tables for s in range(n)}
         self._m_slots_rec_shard = {
             (t, s): reg.counter(
@@ -275,7 +350,7 @@ class ShardedScoringEngine(ScoringEngine):
                 "hot-tier slots reclaimed by recency compaction "
                 "(the slot held only history older than "
                 "delay + max(window))",
-                table=t, shard=str(s))
+                table=t, **self._shard_labels(s))
             for t in tables for s in range(n)}
 
     def _meter_shards(self, reclaimed: np.ndarray,
@@ -356,7 +431,10 @@ class ShardedScoringEngine(ScoringEngine):
 
     def _validate_sharded(self, cols: dict) -> None:
         """The single engine's ingest check, with the shard placements
-        (``customer_id % n_dev``) of the corrupt rows named."""
+        (``customer_id % n_dev``) of the corrupt rows named; in a fleet
+        with ``strict_affinity``, every row's customer residue must be
+        this process's (a breach would serve one key's history in two
+        processes)."""
         try:
             validate_ingest_rows(cols)
         except PoisonRowError as e:
@@ -365,6 +443,21 @@ class ShardedScoringEngine(ScoringEngine):
                                  % self.n_dev).astype(int).tolist()))
             raise PoisonRowError(
                 f"{e}; shard placement(s) {shards[:8]}") from None
+        topo = self.topology
+        if (topo is not None and topo.strict_affinity
+                and len(cols["tx_id"])):
+            owner = topo.owner_process(cols["customer_id"])
+            mine = owner == topo.process_id
+            if not mine.all():
+                others = sorted(set(owner[~mine].tolist()))
+                raise ValueError(
+                    f"partition-affinity breach: {int((~mine).sum())} "
+                    f"polled row(s) belong to process(es) {others[:4]} "
+                    f"but this is process {topo.process_id} — fix the "
+                    "launcher's source slicing (PartitionAffineSource "
+                    "residues / Kafka partition blocks), or pass "
+                    "strict_affinity=False for a broker-partitioned "
+                    "fleet whose keys are not residue-aligned")
 
     def _start_batch(self, cols: dict) -> dict:
         """Dedup → partition (spill) → per chunk one packed copy and one

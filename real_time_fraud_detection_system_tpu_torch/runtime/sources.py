@@ -14,6 +14,9 @@
   retrain.
 - :class:`KafkaSource` — the production ingress, the Debezium transaction
   topic (``confluent_kafka``, imported when one is built).
+- :class:`PartitionAffineSource` and :class:`OwnershipFloorSource` — the
+  fleet's wrappers: one process's residue slice of a shared stream, and
+  the per-old-owner resume floors after a shrink merge.
 
 Every source publishes the JAX package's per-source series
 (:class:`_SourceTelemetry`): ``rtfds_source_poll_seconds``,
@@ -400,6 +403,126 @@ class RawTableSource(_SourceTelemetry):
                     "from_day/to_day).")
         self._m_seeks.inc()
         self._pos = int(offsets[0])
+
+
+class _Wrapper(_SourceTelemetry):
+    """Offsets, seeks, commits and close pass through to ``inner``."""
+
+    @property
+    def offsets(self) -> List[int]:
+        return list(self.inner.offsets)
+
+    def seek(self, offsets: Sequence[int]) -> None:
+        self._m_seeks.inc()
+        self.inner.seek(offsets)
+
+    def commit(self, offsets: Optional[Sequence[int]] = None) -> None:
+        commit = getattr(self.inner, "commit", None)
+        if commit is not None:
+            if offsets is None:
+                commit()
+            else:
+                commit(offsets=offsets)
+
+    def close(self) -> None:
+        close = getattr(self.inner, "close", None)
+        if close is not None:
+            close()
+
+
+class PartitionAffineSource(_Wrapper):
+    """The residue slice of an inner source: the fleet's partition-affine
+    ingest for sources with no broker partitions to assign.
+
+    Every fleet process wraps the SAME stream (a replay table, a synthetic
+    generator, a raw-table backfill) and serves only the rows whose
+    customer residue its :class:`~.distributed.ProcessTopology` block
+    owns; the others are another process's and are dropped here, on the
+    host, before the engine pays for them
+    (``rtfds_affine_skipped_rows_total``). The filter is a pure function
+    of the inner batch and the offsets are the inner source's, so a resume
+    re-serves the same per-process batches: poison bisection and the
+    sink's lineage fence work per process unchanged."""
+
+    def __init__(self, inner, topology):
+        self.inner = inner
+        self.topology = topology
+        self._init_source_metrics("affine")
+        self._m_skipped = get_registry().counter(
+            "rtfds_affine_skipped_rows_total",
+            "polled rows owned by another process (residue-sliced "
+            "ingest; a broker-partitioned fleet never polls them at "
+            "all)", process=str(topology.process_id))
+
+    def poll_batch(self) -> Optional[dict]:
+        t0 = time.perf_counter()
+        cols = self.inner.poll_batch()
+        if cols is not None and len(next(iter(cols.values()), ())):
+            mine = self.topology.owns(cols["customer_id"])
+            n_skip = int((~mine).sum())
+            if n_skip:
+                self._m_skipped.inc(n_skip)
+                cols = {k: v[mine] for k, v in cols.items()}
+        # a batch filtered to nothing is a 0-row poll, which the engine
+        # takes as idle and polls again: the inner cursor has moved on
+        self._observe_poll(t0, cols)
+        return cols
+
+
+class OwnershipFloorSource(_Wrapper):
+    """Per-old-owner resume floors after a fleet shrink merge.
+
+    When P processes merge into P′ < P, each old process had its own
+    cursor; the merged checkpoint carries ONE offset, the minimum of the
+    floors. Rows between it and old owner p's floor were already scored
+    and sunk by p. This wrapper re-derives each polled row's OLD owner
+    (the pre-resize residue block of ``customer_id``) and drops the row
+    while its stream position is below that owner's floor; past
+    ``max(floors)`` it passes everything. It sits inside any
+    :class:`PartitionAffineSource` (floors are positions in the shared
+    stream). Single-cursor inner sources only (``offsets == [pos]``)."""
+
+    def __init__(self, inner, floors: Sequence[int], old_processes: int,
+                 old_local_devices: int):
+        from real_time_fraud_detection_system_tpu_torch.runtime.distributed \
+            import _fold_u32
+
+        if len(inner.offsets) != 1:
+            raise ValueError(
+                "OwnershipFloorSource requires a single-cursor inner "
+                f"source, got {len(inner.offsets)} offsets")
+        if len(floors) != old_processes:
+            raise ValueError(
+                f"{len(floors)} floors for {old_processes} old processes")
+        self.inner = inner
+        self.floors = np.asarray([int(f) for f in floors], dtype=np.int64)
+        self._hi = int(self.floors.max())
+        self._fold = _fold_u32
+        self._n_total = old_processes * old_local_devices
+        self._l = old_local_devices
+        self._init_source_metrics("floor")
+        self._m_floor_skipped = get_registry().counter(
+            "rtfds_resume_floor_skipped_rows_total",
+            "rows dropped on resume because the pre-resize owner "
+            "process had already scored them (per-owner resume floors "
+            "after a fleet shrink merge)")
+
+    def poll_batch(self) -> Optional[dict]:
+        t0 = time.perf_counter()
+        pos = int(self.inner.offsets[0])  # the next row's stream position
+        cols = self.inner.poll_batch()
+        n = 0 if cols is None else len(next(iter(cols.values()), ()))
+        if n and pos < self._hi:
+            owner = (self._fold(np.asarray(
+                cols["customer_id"], dtype=np.uint32))
+                % np.uint32(self._n_total)).astype(np.int64) // self._l
+            keep = (pos + np.arange(n, dtype=np.int64)) >= self.floors[owner]
+            n_skip = int((~keep).sum())
+            if n_skip:
+                self._m_floor_skipped.inc(n_skip)
+                cols = {k: v[keep] for k, v in cols.items()}
+        self._observe_poll(t0, cols)
+        return cols
 
 
 def raise_for_kafka_error(ck, err) -> bool:

@@ -19,8 +19,10 @@ The layers that have no engine handle (the checkpointer, the fault
 injectors, the recovery supervisor, the dead-letter sinks) report through
 :func:`get_registry` and :func:`active_recorder`, under the metric names
 the JAX package registers, so one dashboard reads either package. The
-sharded engine's per-shard ``/healthz`` fields are here; the fleet's view
-(``merge_process_snapshots``) comes with the fleet (ROADMAP A7c).
+sharded engine's per-shard ``/healthz`` fields are here (a fleet process
+labels its shards with global ids, so the fleet's fields read as one
+engine's), and :func:`merge_process_snapshots` merges the fleet's
+per-process snapshots into the launcher's aggregated view.
 """
 
 from __future__ import annotations
@@ -321,6 +323,26 @@ _default_registry = MetricsRegistry()
 def get_registry() -> MetricsRegistry:
     """The process-wide registry every layer of the port reports into."""
     return _default_registry
+
+
+def merge_process_snapshots(snaps: Dict[str, dict]) -> dict:
+    """Per-process registry snapshots (``/metrics.json`` payloads, keyed
+    by process id) → one fleet snapshot, the launcher's ``/metrics``
+    view. Every series gains a ``process=<pid>`` label unless the worker
+    stamped one (the sharded engine labels its per-shard series itself,
+    with global shard ids). Values are never summed: the view only makes
+    the per-process series distinguishable."""
+    out: Dict[str, dict] = {}
+    for pid, snap in sorted(snaps.items(), key=lambda kv: str(kv[0])):
+        for name, fam in (snap or {}).items():
+            dst = out.setdefault(name, {
+                "type": fam.get("type"), "help": fam.get("help"),
+                "series": []})
+            for row in fam.get("series", []):
+                labels = dict(row.get("labels") or {})
+                labels.setdefault("process", str(pid))
+                dst["series"].append({**row, "labels": labels})
+    return out
 
 
 def render_snapshot_prometheus(snap: dict) -> str:

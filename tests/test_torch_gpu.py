@@ -2366,3 +2366,140 @@ def test_exact_sharded_step_leaf_sum_matches_plain_version_on_the_chunk(
     tables, x = seen[0]
     assert x.shape[0] == 4 * eng.rows_per_shard
     assert torch.equal(fk.leaf_sum(tables, x), fk.leaf_sum_plain(tables, x))
+
+
+# -- the fleet of processes (its engines, exchange and adoption on the card)
+
+
+def _fleet_engine(dev, topo, key_mode="direct", n_dev=2):
+    import dataclasses
+
+    from real_time_fraud_detection_system_tpu_torch.runtime.sharded_engine \
+        import ShardedScoringEngine
+
+    cfg = _learning_cfg(key_mode=key_mode)
+    cfg = dataclasses.replace(cfg, runtime=dataclasses.replace(
+        cfg.runtime, max_batch_rows=1024))
+    params, scaler = _graph_model("forest", dev)
+    return ShardedScoringEngine(cfg, "forest", params, scaler,
+                                n_devices=n_dev, device=dev, topology=topo)
+
+
+def _fleet_batches(n_proc=2, local=2):
+    """Whole-dollar batches, terminals co-partitioned with customers (the
+    fleet's exactness contract)."""
+    batches = _labeled_batches(n_batches=3)
+    n = n_proc * local
+    for b in batches:
+        b.pop("label")
+        b["terminal_id"] = (b["terminal_id"] // n) * n + b["customer_id"] % n
+    return batches
+
+
+@pytest.mark.parametrize("key_mode", ["direct", "exact"])
+def test_fleet_engines_on_cuda_match_the_cpu_fleet(cuda, key_mode):
+    """Each process of a 2 × 2 fleet on the card against the same process
+    on the CPU: features and every state leaf bit for bit (whole dollars),
+    probabilities within 1e-7; the leaf-sum kernel once per chunk."""
+    from real_time_fraud_detection_system_tpu_torch.runtime.distributed \
+        import ProcessTopology
+    from real_time_fraud_detection_system_tpu_torch.utils import tree
+
+    for pid in (0, 1):
+        topo = ProcessTopology(2, pid, 2)
+        got = []
+        for dev in (cuda, torch.device("cpu")):
+            eng = _fleet_engine(dev, topo, key_mode)
+            fk.leaf_sum.launches = 0
+            outs = [eng.process_batch(
+                {k: v[topo.owns(b["customer_id"])] for k, v in b.items()})
+                for b in _fleet_batches()]
+            if dev == cuda:
+                torch.cuda.synchronize()
+                assert fk.leaf_sum.launches == eng.chunks_done
+            got.append((eng, outs))
+        (ge, g), (ce, c) = got
+        for a, b in zip(g, c):
+            assert np.array_equal(a.features, b.features)
+            np.testing.assert_allclose(a.probs, b.probs, rtol=0.0,
+                                       atol=ATOL_PROB)
+        for a, b in zip(tree.leaves(ge.state.feature_state),
+                        tree.leaves(ce.state.feature_state)):
+            assert torch.equal(a.cpu(), b)
+
+
+def test_sketch_exchange_on_cuda_writes_the_serving_sketch_in_place(
+        cuda, tmp_path):
+    """An exchange round between two fleet engines on the card lands the
+    merged terminal sketch in the engine's own tensors (same addresses),
+    equal to the CPU fleet's round; the checkpoint form holds locals
+    only."""
+    from real_time_fraud_detection_system_tpu_torch.runtime.cms_exchange \
+        import SketchExchange
+    from real_time_fraud_detection_system_tpu_torch.runtime.distributed \
+        import ProcessTopology
+
+    sketches = {}
+    for dev in (cuda, torch.device("cpu")):
+        engines = []
+        for pid in (0, 1):
+            topo = ProcessTopology(2, pid, 2)
+            eng = _fleet_engine(dev, topo, "exact")
+            eng.cms_exchange = SketchExchange(str(tmp_path / str(dev)), pid,
+                                              2, timeout_s=0.0)
+            for b in _fleet_batches():
+                eng.process_batch({k: v[topo.owns(b["customer_id"])]
+                                   for k, v in b.items()})
+            engines.append(eng)
+        for eng in engines + engines[:1]:
+            ptrs = [t.data_ptr() for t in eng.state.feature_state.terminal_cms]
+            locals_ = eng.checkpoint_state().feature_state.terminal_cms
+            eng._maybe_exchange_cms()
+            assert ptrs == [t.data_ptr()
+                            for t in eng.state.feature_state.terminal_cms]
+        sketches[dev.type] = [
+            ([t.cpu() for t in e.state.feature_state.terminal_cms],
+             [torch.as_tensor(np.asarray(t.cpu() if hasattr(t, "cpu")
+                                         else t))
+              for t in e.checkpoint_state().feature_state.terminal_cms])
+            for e in engines]
+        assert locals_ is not None
+    for (a_live, a_ck), (b_live, b_ck) in zip(sketches["cuda"],
+                                              sketches["cpu"]):
+        assert all(torch.equal(x, y) for x, y in zip(a_live, b_live))
+        assert all(torch.equal(x, y) for x, y in zip(a_ck, b_ck))
+
+
+def test_single_process_checkpoint_adopts_into_a_fleet_on_cuda(cuda,
+                                                              tmp_path):
+    """The 1→P leg on the card: a one-process checkpoint restored by each
+    fleet process, re-sliced to its residue block in place, then serving
+    the same features as the CPU's adoption."""
+    from real_time_fraud_detection_system_tpu_torch.io.checkpoint import (
+        Checkpointer,
+    )
+    from real_time_fraud_detection_system_tpu_torch.runtime.distributed \
+        import ProcessTopology
+
+    batches = _fleet_batches()
+    src = _fleet_engine(torch.device("cpu"), None, "exact", n_dev=4)
+    for b in batches[:2]:
+        src.process_batch(dict(b))
+    ck = Checkpointer(str(tmp_path))
+    ck.save(src.state)
+    for pid in (0, 1):
+        topo = ProcessTopology(2, pid, 2)
+        outs = []
+        for dev in (cuda, torch.device("cpu")):
+            eng = _fleet_engine(dev, topo, "exact")
+            ptrs = [t.data_ptr() for t in
+                    eng.state.feature_state.terminal_dir]
+            assert ck.restore(eng.state) is not None
+            eng._ensure_layout()
+            assert (eng.state.process_count, eng.state.process_id) == (2, pid)
+            assert ptrs == [t.data_ptr() for t in
+                            eng.state.feature_state.terminal_dir]
+            outs.append(eng.process_batch(
+                {k: v[topo.owns(batches[2]["customer_id"])]
+                 for k, v in batches[2].items()}))
+        assert np.array_equal(outs[0].features, outs[1].features)

@@ -11,7 +11,9 @@ a flight record and the metrics server, a raw-table backfill, ``score
 offline side (the feature replay, training of each kind, a selection
 sweep and the ``train`` command), and the sharded engine (4 shards on
 the CPU, a hot customer's spill, a restore at 8 shards, ``score --devices
-4``); the other reads the
+4``), and the fleet (two processes' engines of a topology behind the
+affine and floor sources, a sketch exchange, the merge of their states,
+the launcher's worker commands, the elastic policy); the other reads the
 port's sources (Python, CUDA and CUDA headers) and ``chip_smoke.py`` for
 an import of jax or a dotted reference into the JAX package.
 """
@@ -229,6 +231,43 @@ with tempfile.TemporaryDirectory() as tmp:
     assert cli.main(["score", "--device", "cpu", "--data", f"{tmp}/txs.npz",
                      "--model-file", f"{tmp}/gbt.npz", "--max-batches",
                      "1", "--batch-rows", "200", "--devices", "4"]) == 0
+# the fleet: two processes' engines of a topology behind the affine
+# source, their states merged, a sketch exchange round, the launcher's
+# worker commands and the elastic policy
+from real_time_fraud_detection_system_tpu_torch.parallel import (  # noqa
+    distributed)
+from real_time_fraud_detection_system_tpu_torch.runtime import (
+    cms_exchange, elastic)
+from real_time_fraud_detection_system_tpu_torch.runtime.distributed import (
+    ProcessTopology)
+from real_time_fraud_detection_system_tpu_torch.runtime.sources import (
+    OwnershipFloorSource, PartitionAffineSource)
+from real_time_fraud_detection_system_tpu_torch.tools import (
+    multihost_launcher)
+from real_time_fraud_detection_system_tpu_torch.utils import tree
+xcfg = cfg  # direct keys: the table's terminals are not co-partitioned
+states = []
+with tempfile.TemporaryDirectory() as tmp:
+    for pid in (0, 1):
+        topo = ProcessTopology(2, pid, 1)
+        eng = ShardedScoringEngine(xcfg, "logreg", logreg, scaler,
+                                   n_devices=1, device="cpu", topology=topo)
+        eng.cms_exchange = cms_exchange.SketchExchange(f"{tmp}/x", pid, 2,
+                                                       timeout_s=0.0)
+        src = PartitionAffineSource(OwnershipFloorSource(
+            ReplaySource(txs, 1_743_465_600, batch_rows=200), [0, 200], 2,
+            1), topo)
+        eng.run(src, MemorySink(), max_batches=2)
+        eng._maybe_exchange_cms()
+        states.append(tree.map(
+            lambda t: t.numpy() if isinstance(t, torch.Tensor) else t,
+            eng.checkpoint_state().feature_state))
+mesh.merge_process_states(states, xcfg, [1, 1])
+args = type("A", (), {"processes": 2, "local_devices": 1, "workdir": "/tmp",
+                      "worker_metrics_base": 0})()
+assert len(multihost_launcher.build_workers(args, ["score"], "")) == 2
+assert elastic.ElasticPolicy(elastic.ElasticConfig()).observe(
+    elastic.ClusterSignals(), 1, 0.0) is None
 assert not any(m.split(".")[0] in ("jax", "real_time_fraud_detection_system_tpu")
                for m, mod in sys.modules.items() if mod is not None)
 print("served without jax")

@@ -1139,7 +1139,7 @@ def test_score_refuses_what_the_jax_score_refuses(cli_files, capsys,
     assert _score("jax", common, capsys)[0] == 2
     assert _score("port", common, capsys) == (2, [])
     if flags[0] == "--resume-merge":
-        assert "A7" in caplog.text
+        assert "--resume-merge requires --checkpoint-dir" in caplog.text
 
 
 # -- the cold tier's cells of tests/test_recovery_smoke.py -------------------

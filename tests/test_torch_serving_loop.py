@@ -1076,8 +1076,9 @@ def test_score_cli_refuses_exact_keys_and_missing_data(score_files, capsys,
     assert tcli.main(base + ["--state-compact-every", "2"]) == 2
     assert tcli.main(base + ["--key-mode", "exact",
                              "--state-hbm-budget-mb", "0.01"]) == 2
-    assert tcli.main(base + ["--resume-merge-cold", str(d / "x")]) == 2
-    assert "A7" in caplog.text
+    assert tcli.main(base + ["--resume-merge", "old:2:1:shrink",
+                             "--resume-merge-cold", str(d / "x")]) == 2
+    assert "--resume-merge requires --checkpoint-dir" in caplog.text
     assert tcli.main(["score", "--device", "cpu", "--model-file",
                       str(d / "forest.npz")]) == 2
     assert tcli.main(["score", "--device", "cpu", "--data",

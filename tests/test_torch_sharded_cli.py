@@ -138,13 +138,18 @@ def test_sharded_score_refuses_what_the_jax_score_refuses(files, capsys,
 
 
 @pytest.mark.parametrize("model,flags,item", [
-    ("forest", ("--num-processes", "2"), "A7c"),
-    ("forest", ("--coordinator", "localhost:1234"), "A7c"),
-    ("forest", ("--devices", "4", "--resume-merge", "x"), "A7c"),
+    ("forest", ("--num-processes", "2"), "--process-id"),
+    ("forest", ("--coordinator", "127.0.0.1:1", "--num-processes", "0"),
+     "--num-processes must be >= 1"),
+    ("forest", ("--devices", "4", "--resume-merge", "x"),
+     "OLD_CKPT_ROOT:P:L:REASON"),
     ("sequence", ("--devices", "4"), "A7d"),
 ], ids=["num-processes", "coordinator", "resume-merge", "sequence"])
 def test_sharded_score_names_the_item_it_waits_for(files, caplog, model,
                                                    flags, item):
+    """The fleet's flags exit 2 where the JAX ``score`` refuses them (a
+    fleet member with no id, no processes, a malformed merge spec), with
+    its message; the sequence kind over shards names ROADMAP A7d."""
     d = files
     assert tcli.main(["score", "--device", "cpu", "--data",
                       str(d / "txs.npz"), "--model-file",

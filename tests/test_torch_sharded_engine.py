@@ -72,6 +72,9 @@ from real_time_fraud_detection_system_tpu_torch.io.checkpoint import (
 from real_time_fraud_detection_system_tpu_torch.io.sink import MemorySink
 from real_time_fraud_detection_system_tpu_torch.ops import forest_kernels
 from real_time_fraud_detection_system_tpu_torch.parallel import mesh as tmesh
+from real_time_fraud_detection_system_tpu_torch.runtime.distributed import (
+    ProcessTopology,
+)
 from real_time_fraud_detection_system_tpu_torch.runtime.engine import (
     ScoringEngine,
 )
@@ -578,12 +581,12 @@ def test_refusals_name_their_item():
     with pytest.raises(ValueError, match="feature_state_n_old"):
         _engine(ecfg, n_devices=4, feature_state=tmesh.reshard_feature_state(
             _engine(ecfg, n_devices=8).state.feature_state, ecfg, 8, 2))
-    with pytest.raises(ValueError, match="A7c"):
+    with pytest.raises(ValueError, match="served by the fleet"):
         _engine(tcfg, mesh=("cpu", "meta"))
-    with pytest.raises(ValueError, match="A7c"):
+    with pytest.raises(ValueError, match="served by the fleet"):
         tmesh.make_mesh(2, devices=["cpu", "meta"])
-    with pytest.raises(ValueError, match="A7c"):
-        _engine(tcfg, n_devices=4, topology=object())
+    with pytest.raises(ValueError, match="topology says"):
+        _engine(tcfg, n_devices=4, topology=ProcessTopology(2, 0, 2))
     with pytest.raises(ValueError, match="A7d"):
         ShardedScoringEngine(tcfg, "sequence", None, None, n_devices=4,
                              device="cpu")
