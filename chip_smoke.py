@@ -274,7 +274,23 @@ Phases, each printing JSON lines:
    exact`` with ``--cold-store`` and ``--resume-merge-cold``: every old
    directory entry re-homed into the merged directory, the continuation
    equal to the single-process exact engine.
-19. ``kernels`` — one line per the measurement contract, each kernel's
+19. ``sharded_sequence`` — the sequence kind over shards and the
+   parallel library: (a) the zoo's transformer (d_model 32, 2 heads, 2
+   layers, d_ff 64, K = 32, naive attention) at 65,536-row Zipf(1.1)
+   batches over 2^20 customers, on the single engine and over 4 and 8
+   co-located shards with ``rows_per_shard`` the balanced share (so a hot
+   shard spills into routed chunks, counted), each held against the
+   single engine (|Δp| ≤ 1e-5) with no kernel launched; rows/s and, at 8
+   shards under ``torch.profiler``, the device's idle share; a 1→8 and an
+   8→4 restore through a checkpoint, each with its conversion
+   (``feature_state_n_old``) timed and the next batch held against the
+   single engine; (b) ring and Ulysses attention over 8 shards at T =
+   4,096 (8 heads of 16) against ``blockwise_attention``, and
+   ``make_sp_logits_fn`` against the blockwise forward, with SDPA's ms as
+   a yardstick; (c) one tensor-parallel MLP step, one expert-parallel
+   apply and one pipeline pass over 8 shards at 65,536 rows against
+   their unsharded forms, with the ms of each.
+20. ``kernels`` — one line per the measurement contract, each kernel's
    launches summed over every driven path that launched it.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises and
@@ -6039,6 +6055,277 @@ def phase_fleet(dev, device_info, data: dict) -> dict:
     return totals
 
 
+SSEQ_BATCHES = 6  # (a): Zipf batches through single, 4 and 8 shards
+SSEQ_WIDTHS = (4, 8)
+SSEQ_CAPACITY = 1 << 20  # (a): 2^18 and 2^17 slots a shard, powers of two
+ATOL_SSEQ = 1e-5  # tests/test_sharded_sequence.py:79 (sharded vs single)
+SP_T = 4096  # (b): the long history, 512 events a shard over 8
+SP_ROWS = 4
+SP_HEADS = 8  # (b): Ulysses splits heads over the 8 shards
+SP_HEAD_DIM = 16
+ATOL_SP = 1e-5  # (b): ring / Ulysses against blockwise, float32
+PAR_ROWS = 65536  # (c)
+ATOL_PAR = 1e-5  # (c): a sharded form against its unsharded one
+
+
+def phase_sharded_sequence(dev, device_info, data: dict) -> dict:
+    """The sequence kind over shards and the parallel library on the
+    card; see the module docstring, phase 19."""
+    import torch.nn.functional as F
+
+    from real_time_fraud_detection_system_tpu_torch.data.generator import (
+        ZipfKeySampler,
+    )
+    from real_time_fraud_detection_system_tpu_torch.features.history import (
+        _attn_fn_for,
+        history_bytes,
+    )
+    from real_time_fraud_detection_system_tpu_torch.io.checkpoint import (
+        Checkpointer,
+    )
+    from real_time_fraud_detection_system_tpu_torch.models.mlp import (
+        init_mlp,
+        mlp_logits,
+    )
+    from real_time_fraud_detection_system_tpu_torch.models.sequence import (
+        init_transformer,
+        make_sp_logits_fn,
+        transformer_logits,
+    )
+    from real_time_fraud_detection_system_tpu_torch.parallel import (
+        expert_parallel as ep,
+    )
+    from real_time_fraud_detection_system_tpu_torch.parallel import (
+        pipeline_parallel as pp,
+    )
+    from real_time_fraud_detection_system_tpu_torch.parallel import (
+        ring_attention as ra,
+    )
+    from real_time_fraud_detection_system_tpu_torch.parallel import (
+        tensor_parallel as tp,
+    )
+    from real_time_fraud_detection_system_tpu_torch.parallel.mesh import (
+        make_mesh,
+    )
+    from real_time_fraud_detection_system_tpu_torch.runtime.engine import (
+        ScoringEngine,
+    )
+    from real_time_fraud_detection_system_tpu_torch.runtime.sharded_engine \
+        import ShardedScoringEngine
+    from real_time_fraud_detection_system_tpu_torch.utils import tree
+
+    t_phase = time.perf_counter()
+    card = {"card": device_info["smi_name"],
+            "power_limit": device_info["power_limit"]}
+    cfg = _seq_cfg(data["cfg"], history_len=32,
+                   customer_capacity=SSEQ_CAPACITY)
+    check(_attn_fn_for(cfg.features, 32) is None, "sharded_sequence: "
+          "not naive attention")
+    model = _zoo_models(data["models"]["forest"][1].scaler,
+                        dev)["sequence"][0]
+    # each batch in time order, as a Kafka partition delivers a card's
+    # rows: a hot card's spill chunk then holds its later rows, and the
+    # chunks, consecutive steps, keep the single engine's history order
+    zb = [{c: v[np.argsort(b["tx_datetime_us"], kind="stable")]
+           for c, v in b.items()}
+          for b in _zipf_batches(ZipfKeySampler(SSEQ_CAPACITY, ZIPF_SKEW),
+                                 SSEQ_BATCHES + 1, day_every=EXACT_DAY_EVERY,
+                                 seed=17)]
+    batches, extra = zb[:SSEQ_BATCHES], zb[SSEQ_BATCHES]
+
+    def engine(n_dev=0, **kw):
+        if n_dev:
+            # the balanced share a shard: any skew spills into routed
+            # chunks
+            return ShardedScoringEngine(
+                cfg, "sequence", model.params, model.scaler,
+                n_devices=n_dev, device=dev,
+                rows_per_shard=BATCH_ROWS // n_dev, **kw)
+        return ScoringEngine(cfg, "sequence", model.params, model.scaler,
+                             device=dev, **kw)
+
+    def served(eng, bs, what):
+        """``drive`` the run: none of the kernels lies on this path."""
+        res = _Results()
+        stats, launches = drive(lambda: eng.run(_ListSource(_copies(bs)),
+                                                res))
+        for name, n in launches.items():
+            check(n == 0, f"sharded_sequence {what}: {n} launches of "
+                          f"{name}")
+        check(stats["rows"] == sum(len(b["tx_id"]) for b in bs)
+              and bool(np.isfinite(res.probs()).all()),
+              f"sharded_sequence {what}: rows or probabilities")
+        return stats, res
+
+    def by_tx(res) -> np.ndarray:
+        tx = np.concatenate([r.tx_id for r in res.batches])
+        return res.probs()[np.argsort(tx, kind="stable")]
+
+    def loop(stats) -> dict:
+        return {k: stats[k] for k in (
+            "rows", "batches", "rows_per_s", "latency_p50_ms",
+            "latency_p99_ms", "stage_ms_p50") if k in stats}
+
+    # (a) the sequence kind at the zoo's widths over 4 and 8 shards ------
+    served(engine(), batches[:1], "warm-up")  # the library's first calls
+    single = engine()
+    s_stats, s_res = served(single, batches, "single")
+    want = by_tx(s_res)
+    check(want.std() > 0, "sharded_sequence: flat scores")
+    widths = {"single": loop(s_stats)}
+    engines = {}
+    for n_dev in SSEQ_WIDTHS:
+        eng = engine(n_dev)
+        stats, res = served(eng, batches, f"{n_dev} shards")
+        err = float(np.abs(by_tx(res) - want).max())
+        check(err <= ATOL_SSEQ, f"sharded_sequence (a) {n_dev} shards: "
+                                f"{err} from the single engine")
+        routed = stats["chunks"] - stats["batches"]
+        check(routed > 0, f"sharded_sequence (a) {n_dev}: no spill chunk")
+        widths[n_dev] = {**loop(stats), "chunks": stats["chunks"],
+                         "routed_spill_chunks": routed,
+                         "max_abs_prob_err_vs_single": err}
+        engines[n_dev] = eng
+    prof = engine(8)
+    device, wall_ms, _, _, _ = _profiled(prof, _ListSource(_copies(
+        batches)), PROFILE_BATCHES - 2)
+    busy = sum(device.values())
+    del prof
+    emit({"phase": "sharded_sequence", "part": "a_widths",
+          "history_len": 32, "attn": "naive",
+          "customer_capacity": SSEQ_CAPACITY, "zipf_skew": ZIPF_SKEW,
+          "state_bytes": history_bytes(cfg.features),
+          "rows_per_shard": {n: BATCH_ROWS // n for n in SSEQ_WIDTHS},
+          "widths": widths,
+          "device_busy_ms_per_batch_8": busy / (PROFILE_BATCHES - 2)
+          if device else "not measured",
+          "device_idle_share_8": 1.0 - busy / wall_ms if device
+          else "not measured", **card})
+
+    # (a) restores at another width, each with its conversion -----------
+    legs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, src, n_old, n_new in (("1to8", single, 1, 8),
+                                        ("8to4", engines[8], 8, 4)):
+            ck = Checkpointer(f"{tmp}/{name}")
+            t0 = time.perf_counter()
+            ck.save(src.state)
+            t1 = time.perf_counter()
+            fresh = engine(n_old) if n_old > 1 else engine()
+            check(ck.restore(fresh.state) is not None,
+                  f"sharded_sequence {name}: no checkpoint")
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            conv = engine(n_new, feature_state=fresh.state.feature_state,
+                          feature_state_n_old=n_old)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            legs[name] = {"save_ms": (t1 - t0) * 1e3,
+                          "restore_ms": (t2 - t1) * 1e3,
+                          "convert_ms": (t3 - t2) * 1e3,
+                          "restore_and_convert_ms": (t3 - t1) * 1e3,
+                          "engine": conv}
+            del fresh
+    ref = by_tx(served(single, [extra], "single, the extra batch")[1])
+    for name, leg in legs.items():
+        got = by_tx(served(leg.pop("engine"), [extra], name)[1])
+        leg["max_abs_prob_err_vs_single"] = err = float(
+            np.abs(got - ref).max())
+        check(err <= ATOL_SSEQ, f"sharded_sequence {name}: {err}")
+    emit({"phase": "sharded_sequence", "part": "a_restores",
+          "state_bytes": history_bytes(cfg.features), "legs": legs, **card})
+    del single, engines, legs
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # (b) sequence-parallel attention at a long history ------------------
+    mesh = make_mesh(8, devices=[dev] * 8)
+    g = torch.Generator(device=dev).manual_seed(3)
+    q, k, v = (torch.randn((SP_ROWS, SP_T, SP_HEADS, SP_HEAD_DIM),
+                           generator=g, device=dev) for _ in range(3))
+    forms = {"ring": ra.make_ring_attention_sharded(mesh),
+             "ulysses": ra.make_ulysses_attention_sharded(mesh),
+             "blockwise": lambda a, b, c: ra.blockwise_attention(a, b, c)}
+    outs = {f: fn(q, k, v) for f, fn in forms.items()}
+    attn = {f: {"ms": cuda_ms(lambda fn=fn: fn(q, k, v), 3)}
+            for f, fn in forms.items()}
+    for f in ("ring", "ulysses"):
+        attn[f]["max_abs_err_vs_blockwise"] = err = float(
+            (outs[f] - outs["blockwise"]).abs().max())
+        check(err <= ATOL_SP, f"sharded_sequence (b) {f}: {err}")
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    attn["sdpa_yardstick"] = {"ms": cuda_ms(
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
+        3)}
+    x = torch.randn((SP_ROWS, SP_T, 8), generator=g, device=dev)
+    sp = make_sp_logits_fn(mesh)
+    got = sp(model.params, x)
+    want = transformer_logits(model.params, x, lambda a, b, c:
+                              ra.blockwise_attention(a, b, c))
+    lerr = float((got - want).abs().max())
+    check(lerr <= ATOL_SP, f"sharded_sequence (b) sp logits: {lerr}")
+    emit({"phase": "sharded_sequence", "part": "b_sequence_parallel",
+          "rows": SP_ROWS, "history": SP_T, "shards": 8,
+          "heads": SP_HEADS, "head_dim": SP_HEAD_DIM, "attention": attn,
+          "sp_logits_ms": cuda_ms(lambda: sp(model.params, x), 3),
+          "blockwise_logits_ms": cuda_ms(lambda: transformer_logits(
+              model.params, x, lambda a, b, c:
+              ra.blockwise_attention(a, b, c)), 3),
+          "sp_logits_max_abs_err_vs_blockwise": lerr, **card})
+    del q, k, v, qt, kt, vt, outs, x, got, want
+
+    # (c) tensor, expert and pipeline parallel against unsharded ---------
+    gen = torch.Generator(device=dev).manual_seed(5)
+    xm = torch.randn((PAR_ROWS, 15), generator=gen, device=dev)
+    ym = (torch.rand(PAR_ROWS, generator=gen, device=dev) < 0.3).int()
+    mlp = init_mlp(15, (64, 32), seed=1, device=dev)
+    sh, step = tp.make_tp_step(mesh, mlp, lr=0.5)
+    new, loss = step(sh, xm, ym)
+
+    def plain_step():
+        p = tree.map(lambda t: t.clone().requires_grad_(), mlp)
+        z = mlp_logits(p, xm)
+        yf = ym.float()
+        per = -yf * F.logsigmoid(z) - (1 - yf) * F.logsigmoid(-z)
+        grads = torch.autograd.grad(per.mean(), tree.leaves(p))
+        return tree.unflatten(p, [w.detach() - 0.5 * d for w, d in
+                                  zip(tree.leaves(p), grads)])
+
+    ref = plain_step()
+    tp_err = max(float((a - b).abs().max())
+                 for a, b in zip(tree.leaves(new), tree.leaves(ref)))
+    check(tp_err <= ATOL_PAR, f"sharded_sequence (c) tp: {tp_err}")
+    moe = ep.init_moe(32, 64, 8, seed=2, device=dev)
+    xe = torch.randn((PAR_ROWS, 32), generator=gen, device=dev)
+    sh_e, apply_fn = ep.make_ep_apply(mesh, moe)
+    ep_err = float((apply_fn(sh_e, xe) - ep.moe_apply_dense(moe, xe))
+                   .abs().max())
+    check(ep_err <= ATOL_PAR, f"sharded_sequence (c) ep: {ep_err}")
+    stack = pp.init_stack(64, 8, seed=3, device=dev)
+    xp = torch.randn((PAR_ROWS, 64), generator=gen, device=dev)
+    sh_p, run = pp.make_pipeline(mesh, stack, n_micro=8)
+    pref = pp.stack_apply(stack, xp)
+    pp_err = float((run(sh_p, xp) - pref).abs().max())
+    pp_scale = float(pref.abs().max())
+    check(pp_err <= ATOL_PAR * max(pp_scale, 1.0),
+          f"sharded_sequence (c) pp: {pp_err} at scale {pp_scale}")
+    emit({"phase": "sharded_sequence", "part": "c_tp_ep_pp",
+          "rows": PAR_ROWS, "shards": 8,
+          "tp_step_ms": cuda_ms(lambda: step(sh, xm, ym), 3),
+          "tp_plain_step_ms": cuda_ms(plain_step, 3),
+          "tp_max_abs_param_err_vs_plain": tp_err, "tp_loss": float(loss),
+          "ep_apply_ms": cuda_ms(lambda: apply_fn(sh_e, xe), 3),
+          "ep_dense_ms": cuda_ms(lambda: ep.moe_apply_dense(moe, xe), 3),
+          "ep_max_abs_err_vs_dense": ep_err,
+          "pp_pass_ms": cuda_ms(lambda: run(sh_p, xp), 3),
+          "pp_sequential_ms": cuda_ms(lambda: pp.stack_apply(stack, xp), 3),
+          "pp_max_abs_err_vs_sequential": pp_err,
+          "pp_output_max_abs": pp_scale, **card})
+    emit({"phase": "sharded_sequence", "part": "seconds",
+          "seconds": time.perf_counter() - t_phase})
+    return {name: 0 for name in KERNELS}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -6094,7 +6381,8 @@ def main() -> int:
     add({}, "profile", t0)
     for name, fn in (("sharded", phase_sharded),
                      ("sharded_exact", phase_sharded_exact),
-                     ("fleet", phase_fleet)):
+                     ("fleet", phase_fleet),
+                     ("sharded_sequence", phase_sharded_sequence)):
         t0 = time.perf_counter()
         add(fn(dev, info, data), name, t0)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start,

@@ -76,9 +76,13 @@ OLD:P:L:REASON`` (with ``--resume-merge-cold``) adopts a drained fleet's
 checkpoints before serving. The port's launcher,
 ``tools/multihost_launcher.py`` in this package, spawns and watches the
 workers and resizes an elastic fleet.
-Not ported yet: object-store input and output (ROADMAP A9), the sequence
-kind over shards (A7d), and the other JAX subcommands (``datagen``,
-``registry``, ``import-model``, the operator tools: A9).
+``score --devices N`` serves every kind over N co-located shards, the
+sequence kind too (its history state sharded by customer); a fleet of
+processes serves every kind but the sequence one, which the JAX ``score``
+refuses there too.
+Not ported yet: object-store input and output (ROADMAP A9) and the other
+JAX subcommands (``datagen``, ``registry``, ``import-model``, the operator
+tools: A9).
 """
 
 from __future__ import annotations
@@ -470,9 +474,10 @@ def _score(args, topology) -> int:
                   "not compose with --devices > 1 or multi-host (the "
                   "sharded engine always scores on-device)")
         return 2
-    if sharded and model.kind == "sequence":
-        log.error("the sequence kind over --devices > 1 shards is not "
-                  "ported yet: ROADMAP A7d")
+    if topology is not None and model.kind == "sequence":
+        log.error("multi-host serving is not wired for kind='sequence' "
+                  "(no history-state process adoption); serve it "
+                  "single-process")
         return 2
     if model.kind == "sequence":
         # fail fast with the CLI convention: the engine's own refusals,

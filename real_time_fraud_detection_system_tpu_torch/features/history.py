@@ -139,7 +139,8 @@ def update_and_score(state: HistoryState, params, batch: TxBatch,
 
     ``slot_fn(customer_key) -> slot`` overrides the key→slot map and
     ``order_key`` [B] breaks same-second ties (default: the row index);
-    the sharded layout of ROADMAP A7d passes both.
+    the sharded step (``parallel/sequence_step.py``) passes both, on one
+    shard's block of the stacked state (its last row that block's sink).
     """
     c, k = state.capacity, state.history_len
     b = batch.size

@@ -16,7 +16,10 @@ checkpoint moves between the two packages in both directions:
   (``TreeEnsemble.max_depth`` of the descent form) a 0-d leaf — whatever
   the kind: an mlp's list of ``(w, b)`` pairs, a transformer's tuple of
   blocks, the sequence kind's ``HistoryState`` (``fs_leaves`` ``.events``,
-  ``.pos``, ``.count``, ``.last_t``) — and ``__meta__`` carries the JAX keys
+  ``.pos``, ``.count``, ``.last_t``; stacked ``[n, C/n + 1, ...]`` from the
+  sharded engine, whose restore at another width converts the state
+  through ``feature_state_n_old``, as in the JAX package) — and
+  ``__meta__`` carries the JAX keys
   (``layout_devices``, the shard count the feature state is laid out for:
   1, or the sharded engine's width; the writer's fleet topology,
   ``process_count`` and ``process_id``; the fleet's ``resize_epochs``; and

@@ -21,12 +21,16 @@ computes them as XLA ops outside any Pallas kernel. Training
 masked, ``pos_weight``-weighted BCE of every real event
 (:func:`transformer_loss`), with naive or blockwise attention;
 :func:`sequence_scores` scores every real event of a
-:class:`SequenceBatch`.
+:class:`SequenceBatch`. :func:`make_sp_logits_fn` is the sequence-parallel
+forward (ring attention over a mesh axis), and ``transformer_logits`` takes
+the tensor-parallel hooks (``reduce_fn``, ``enter_fn``) that
+``parallel/tensor_parallel.py`` passes.
 """
 
 from __future__ import annotations
 
 import math
+from functools import partial
 from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -214,42 +218,63 @@ def _gelu(x):
     return F.gelu(x, approximate="tanh")
 
 
-def naive_attn(q, k, v):
-    """Materialized causal attention, ``[B, T, H, D]`` layout, f32
-    scores."""
-    d, t = q.shape[-1], q.shape[1]
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(d)
-    mask = torch.tril(torch.ones((t, t), dtype=torch.bool, device=q.device))
-    s = s.masked_fill(~mask[None, None], -math.inf)
+def naive_attn(q, k, v, causal: bool = True):
+    """Materialized attention, ``[..., T, H, D]`` layout, f32 scores,
+    causal by default."""
+    d, t = q.shape[-1], q.shape[-3]
+    s = torch.einsum("...qhd,...khd->...hqk", q.float(),
+                     k.float()) / math.sqrt(d)
+    if causal:
+        mask = torch.tril(torch.ones((t, t), dtype=torch.bool,
+                                     device=q.device))
+        s = s.masked_fill(~mask, -math.inf)
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+    return torch.einsum("...hqk,...khd->...qhd", p, v.float()).to(q.dtype)
 
 
 AttnFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
 
 
-def _block_forward(h, blk: BlockParams, attn: AttnFn):
-    """One transformer block at full width: the per-position form and the
-    prefix layers of the serving form."""
-    hn = _ln(h, blk.ln1_g, blk.ln1_b)
-    q = torch.einsum("btd,dhe->bthe", hn, blk.wq)
-    k = torch.einsum("btd,dhe->bthe", hn, blk.wk)
-    v = torch.einsum("btd,dhe->bthe", hn, blk.wv)
+def _ident(t):
+    return t
+
+
+def _block_forward(h, blk: BlockParams, attn: AttnFn, red=_ident,
+                   ent=_ident):
+    """One transformer block at full width: the per-position form (also
+    the tensor-parallel one) and the prefix layers of the serving form."""
+    hn = ent(_ln(h, blk.ln1_g, blk.ln1_b))
+    q = torch.einsum("...td,...dhe->...the", hn, blk.wq)
+    k = torch.einsum("...td,...dhe->...the", hn, blk.wk)
+    v = torch.einsum("...td,...dhe->...the", hn, blk.wv)
     o = attn(q, k, v)
-    h = h + torch.einsum("bthe,hed->btd", o, blk.wo)
-    hn = _ln(h, blk.ln2_g, blk.ln2_b)
-    return h + _gelu(hn @ blk.w1 + blk.b1) @ blk.w2 + blk.b2
+    h = h + red(torch.einsum("...the,...hed->...td", o, blk.wo))
+    hn = ent(_ln(h, blk.ln2_g, blk.ln2_b))
+    return h + red(_gelu(hn @ blk.w1 + blk.b1) @ blk.w2) + blk.b2
 
 
 def transformer_logits(params: TransformerParams, x: torch.Tensor,
-                       attn_fn: Optional[AttnFn] = None) -> torch.Tensor:
+                       attn_fn: Optional[AttnFn] = None,
+                       reduce_fn: Optional[Callable] = None,
+                       enter_fn: Optional[Callable] = None) -> torch.Tensor:
     """Per-position fraud logits [B, T] of ``x`` [B, T, N_EVENT_FEATURES];
     ``attn_fn(q, k, v)`` defaults to causal naive attention. Positions
-    come from the inter-arrival and phase channels, not embeddings."""
+    come from the inter-arrival and phase channels, not embeddings.
+
+    ``reduce_fn`` and ``enter_fn`` bracket the two column→row parallel
+    regions of each block (Q/K/V → attention out, and the MLP): identity
+    here; the tensor-parallel forward
+    (``parallel/tensor_parallel.py::tp_transformer_logits``) passes
+    Megatron's *g* (sum over the shards forward, identity backward) at
+    each region's exit and *f* (identity forward, sum backward) at each
+    entry, and runs this same code on every shard at once: its params
+    carry leading shard dims that broadcast against ``x``'s."""
     attn = attn_fn or naive_attn
+    red = reduce_fn or _ident
+    ent = enter_fn or _ident
     h = x @ params.embed_w + params.embed_b
     for blk in params.blocks:
-        h = _block_forward(h, blk, attn)
+        h = _block_forward(h, blk, attn, red, ent)
     h = _ln(h, params.lnf_g, params.lnf_b)
     return (h @ params.head_w + params.head_b)[..., 0]
 
@@ -315,15 +340,19 @@ def transformer_flops(params: TransformerParams, rows: int, k: int) -> int:
 def transformer_loss(params: TransformerParams, x: torch.Tensor,
                      y: torch.Tensor, mask: torch.Tensor,
                      pos_weight: float = 1.0,
-                     attn_fn: Optional[AttnFn] = None) -> torch.Tensor:
+                     attn_fn: Optional[AttnFn] = None,
+                     reduce_fn=None, enter_fn=None) -> torch.Tensor:
     """Masked BCE-with-logits over every real event, positives weighted
-    by ``pos_weight``: ``−Σ w·(y·log σ(z) + (1−y)·log σ(−z)) / max(Σ w, 1)``."""
-    logits = transformer_logits(params, x, attn_fn).float()
+    by ``pos_weight``: ``−Σ w·(y·log σ(z) + (1−y)·log σ(−z)) / max(Σ w, 1)``,
+    the sums over the last two dims (B, T): one loss per shard when the
+    tensor-parallel step runs every shard at once."""
+    logits = transformer_logits(params, x, attn_fn, reduce_fn=reduce_fn,
+                                enter_fn=enter_fn).float()
     yf = y.float()
     w = torch.where(yf > 0, torch.full_like(yf, pos_weight),
                     torch.ones_like(yf)) * mask.float()
     ll = F.logsigmoid(logits) * yf + F.logsigmoid(-logits) * (1 - yf)
-    return -(w * ll).sum() / torch.clamp(w.sum(), min=1.0)
+    return -(w * ll).sum((-2, -1)) / torch.clamp(w.sum((-2, -1)), min=1.0)
 
 
 def _train_attn_fn(attn: str) -> Optional[AttnFn]:
@@ -332,8 +361,9 @@ def _train_attn_fn(attn: str) -> Optional[AttnFn]:
     if attn == "naive":
         return None
     raise ValueError(
-        f"unknown attn {attn!r}: use 'naive' or 'blockwise' here; ring "
-        "(sequence-parallel) attention waits for ROADMAP A7d")
+        f"unknown attn {attn!r}: use 'naive' or 'blockwise' here; for "
+        "ring (sequence-parallel) attention build the forward with "
+        "make_sp_logits_fn and train under pjit")
 
 
 def train_transformer(seqs: SequenceBatch, d_model: int = 32,
@@ -378,6 +408,18 @@ def train_transformer(seqs: SequenceBatch, d_model: int = 32,
         for sel in sels:
             opt.step(loss, xj[sel], yj[sel], mj[sel])
     return opt.params
+
+
+def make_sp_logits_fn(mesh, axis: str = "data"):
+    """Sequence-parallel forward: ``logits(params, x)`` with the history
+    axis sharded over ``axis`` of ``mesh`` and attention running as the
+    ring (``parallel/ring_attention.py``). Everything outside attention
+    is positionwise, so the ring is the only exchange between shards."""
+    from real_time_fraud_detection_system_tpu_torch.parallel \
+        .ring_attention import make_ring_attention_sharded
+
+    ring = make_ring_attention_sharded(mesh, axis=axis, causal=True)
+    return partial(transformer_logits, attn_fn=ring)
 
 
 @torch.no_grad()

@@ -13,6 +13,10 @@
   (``parallel/step.py::make_sharded_step``) takes it with the axis pair
   and flattens it, as the JAX step treats ``("dcn", "ici")`` as one
   flattened axis.
+- :func:`make_spanning_mesh` builds the one mesh that spans processes,
+  :class:`SpanningMesh`, for the parallel library's tensor-parallel step
+  (its sums cross processes as gloo ``all_reduce``); the serving engines
+  refuse it.
 """
 
 from __future__ import annotations
@@ -161,6 +165,41 @@ def make_hybrid_mesh(
     for i, d in enumerate(devs[:need]):
         grid[i // devices_per_host, i % devices_per_host] = d
     return HybridMesh(grid, (dcn_axis, ici_axis))
+
+
+class SpanningMesh:
+    """A 1-axis mesh of the parallel library across the process group:
+    process p holds shards ``[p·L, (p+1)·L)`` co-located on its own
+    device, ``L = len(local_devices)``. The tensor-parallel library sums
+    over it with ``torch.distributed.all_reduce`` (gloo); the serving
+    engines refuse it (``parallel/mesh.py::_check_colocated``), since no
+    collective crosses processes on the serving path."""
+
+    spans_processes = True
+
+    def __init__(self, local_devices: Sequence, n_processes: int,
+                 process_id: int, axis_name: str = "data"):
+        self.local_devices = tuple(local_devices)
+        self.n_processes = int(n_processes)
+        self.process_id = int(process_id)
+        self.axis_names = (axis_name,)
+
+    @property
+    def shape(self) -> Tuple[int]:
+        return (self.n_processes * len(self.local_devices),)
+
+
+def make_spanning_mesh(local_devices: int = 1, device=None,
+                       axis_name: str = "data") -> SpanningMesh:
+    """The parallel library's mesh over every process of the group (see
+    :class:`SpanningMesh`): ``local_devices`` shards on ``device`` (None:
+    CUDA) in each process, after :func:`initialize_distributed`."""
+    from real_time_fraud_detection_system_tpu_torch.device import (
+        resolve_device,
+    )
+
+    return SpanningMesh([resolve_device(device)] * local_devices,
+                        process_count(), process_index(), axis_name)
 
 
 def mesh_axes(mesh) -> Tuple[str, ...]:

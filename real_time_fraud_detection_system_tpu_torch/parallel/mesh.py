@@ -58,7 +58,15 @@ def _visible_devices() -> list:
 
 
 def _check_colocated(mesh: Mesh) -> Mesh:
-    """A mesh of this slice: every shard on one device."""
+    """A serving mesh: every shard on one device, in this process (the
+    parallel library's mesh across processes,
+    ``parallel/distributed.py::SpanningMesh``, is refused)."""
+    if getattr(mesh, "spans_processes", False):
+        raise ValueError(
+            "a mesh spanning processes serves the parallel library "
+            "(tensor_parallel) only: each fleet process serves its own "
+            "mesh (runtime/distributed.py residue blocks)")
+    mesh = tuple(mesh)
     if len(set(mesh)) > 1:
         raise ValueError(
             f"a mesh over distinct devices ({sorted(set(map(str, mesh)))}) "
@@ -93,6 +101,24 @@ def make_mesh(n_devices: int = 0, devices: Optional[Sequence] = None
             f"requested {n_devices} devices, only {len(devs)} visible "
             "(pass devices=[device] * n to place n shards on one device)")
     return _check_colocated(tuple(devs[:n_devices]))
+
+
+def axis_size(mesh, axis: str) -> int:
+    """Shards along ``axis`` of a mesh: a flat mesh (a tuple of devices)
+    has the one axis ``"data"``; a ``HybridMesh`` grid and a
+    ``SpanningMesh`` name theirs (``axis_names``, ``shape``)."""
+    names = tuple(getattr(mesh, "axis_names", ("data",)))
+    if axis not in names:
+        raise ValueError(f"mesh axes are {names}, not {axis!r}")
+    shape = getattr(mesh, "shape", None)
+    return int(shape[names.index(axis)]) if shape is not None \
+        else len(mesh)
+
+
+def mesh_device(mesh) -> torch.device:
+    """The device this process's shards of ``mesh`` live on."""
+    local = getattr(mesh, "local_devices", None)
+    return resolve_device((local or tuple(mesh))[0])
 
 
 def make_local_mesh(n_devices: int = 0, devices: Optional[Sequence] = None
@@ -634,13 +660,21 @@ def merge_process_states(states, cfg, n_locals) -> FeatureState:
     )
 
 
-def reshard_engine_state(kind: str, state, cfg, n_old: int, n_new: int):
+def reshard_engine_state(kind: str, state, cfg, n_old: int, n_new: int,
+                         stacked: bool = False):
     """Kind-dispatched re-layout, the one conversion every engine entry
     point uses: the window feature state through
-    :func:`reshard_feature_state`; the sequence kind's history state over
-    the mesh is A7d. Returns host arrays."""
+    :func:`reshard_feature_state`, the sequence kind's history state
+    through ``parallel/sequence_step.py::reshard_history_state``.
+    ``stacked`` returns the ``[n, ...]`` history layout even at ``n_new ==
+    1`` (the sharded engine's form; the single engine takes the flat
+    one). Returns host arrays."""
     if kind == "sequence":
-        raise ValueError(
-            "re-sharding the sequence kind's history state (the sequence "
-            "kind over the mesh) is not ported yet: ROADMAP A7d")
+        from real_time_fraud_detection_system_tpu_torch.parallel \
+            .sequence_step import reshard_history_state
+
+        st = reshard_history_state(state, cfg, n_new)
+        if stacked and n_new == 1:
+            st = type(st)(*[a[None] for a in st])
+        return st
     return reshard_feature_state(state, cfg, n_old, n_new)

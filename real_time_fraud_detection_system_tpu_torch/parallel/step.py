@@ -330,7 +330,7 @@ def make_sharded_step(
     if names is not None and tuple(
             (axis,) if isinstance(axis, str) else axis) != tuple(names):
         raise ValueError(f"axis {axis!r} is not the mesh's axes {names}")
-    mesh = _check_colocated(tuple(mesh))
+    mesh = _check_colocated(mesh)
     n_dev = len(mesh)
     fcfg = cfg.features
     exact = fcfg.key_mode == "exact"
@@ -583,7 +583,7 @@ def make_sharded_compact(cfg: Config, mesh: Mesh, demote_slots: int = 0):
     demoted by shard i promotes back into shard i, since its owner is a
     function of the key. The shards run one after another on the
     current stream: no host sync, so it captures as one CUDA graph."""
-    mesh = _check_colocated(tuple(mesh))
+    mesh = _check_colocated(mesh)
     n = len(mesh)
     fcfg = cfg.features
 
@@ -610,7 +610,7 @@ def make_sharded_promote(cfg: Config, mesh: Mesh):
     (keys [n_dev, K], bd/cnt/amt/frd [n_dev, K, NB])`` padded with
     ``EMPTY_KEY``, and each shard merges its lanes into its own block and
     directory (``features/online.py::promote_rows``), IN PLACE."""
-    mesh = _check_colocated(tuple(mesh))
+    mesh = _check_colocated(mesh)
     n = len(mesh)
     fcfg = cfg.features
 

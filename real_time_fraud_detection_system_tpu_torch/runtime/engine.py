@@ -151,8 +151,7 @@ batch boundary with its offsets resumable) and ``cms_exchange``
 (``runtime/cms_exchange.py::SketchExchange``, a round at every
 checkpoint; :meth:`checkpoint_state` saves the locals-only terminal
 sketch). Under a fleet topology a restored cold lineage is re-homed to
-the process's residue block. Not ported yet: the sharded sequence step
-(A7d).
+the process's residue block.
 """
 
 from __future__ import annotations
@@ -2034,9 +2033,21 @@ class ScoringEngine:
         src = st.layout_pending
         if src is None:
             src = st.feature_state
-        new = reshard_engine_state(self.kind, src, self.cfg, n_old, n_new)
-        shard_feature_state(new, (self.device,) * n_new,
-                            out=st.feature_state)
+        mesh = (self.device,) * n_new
+        if self.kind == "sequence":
+            from real_time_fraud_detection_system_tpu_torch.parallel \
+                .sequence_step import shard_history_state
+
+            # the engine's own layout: one [C+1, ...] table, or the
+            # sharded engine's [n, C/n+1, ...] blocks
+            stacked = st.feature_state.events.dim() == 4
+            shard_history_state(reshard_engine_state(
+                self.kind, src, self.cfg, n_old, n_new, stacked=stacked),
+                mesh, out=st.feature_state)
+        else:
+            shard_feature_state(reshard_engine_state(
+                self.kind, src, self.cfg, n_old, n_new), mesh,
+                out=st.feature_state)
         st.layout_pending = None
         st.layout_devices = n_new
 

@@ -52,9 +52,18 @@ topology, and a single-process global state restored into it is re-sliced
 to its block (``parallel/mesh.py::adopt_process_slice``). Several GPUs are
 served as such a fleet, one process per GPU.
 
-Refused as the JAX engine refuses them: ``runtime.nan_guard`` and the
-host scorer. Not ported yet, and refused naming the item: the sequence
-kind over the mesh (A7d).
+The sequence kind serves over the shards too: its history state is
+stacked ``[n, cap_local + 1, ...]`` (``parallel/sequence_step.py``), chunk
+0 runs the owner-local history step and a spill chunk the routed one, each
+row carrying its original batch position as the same-second tie-breaker
+(an eighth row of the chunk's one copy). It has no feature matrix, no
+captured graphs (``precompile`` reports it skipped, as the JAX engine
+does) and no compaction; a restore at another width converts the history
+state exactly (``reshard_engine_state``).
+
+Refused as the JAX engine refuses them: ``runtime.nan_guard``, the host
+scorer, and for the sequence kind a fleet topology and the labeled
+feedback.
 """
 
 from __future__ import annotations
@@ -71,6 +80,7 @@ from real_time_fraud_detection_system_tpu_torch.core.batch import (
     fold_key,
     make_batch,
     pack_batch,
+    unpack_batch,
 )
 from real_time_fraud_detection_system_tpu_torch.device import resolve_device
 from real_time_fraud_detection_system_tpu_torch.features.online import (
@@ -92,6 +102,12 @@ from real_time_fraud_detection_system_tpu_torch.parallel.mesh import (
     reshard_engine_state,
     shard_feature_state,
 )
+from real_time_fraud_detection_system_tpu_torch.parallel.sequence_step \
+    import (
+        init_sharded_history_state,
+        make_sharded_sequence_step,
+        shard_history_state,
+    )
 from real_time_fraud_detection_system_tpu_torch.parallel.step import (
     exchange_overflows,
     make_sharded_compact,
@@ -103,6 +119,7 @@ from real_time_fraud_detection_system_tpu_torch.runtime.engine import (
     DispatchSignature,
     ScoringEngine,
     StepOut,
+    check_sequence_serving,
     host_to_device,
     loss_fn_for,
     validate_ingest_rows,
@@ -151,11 +168,11 @@ class ShardedScoringEngine(ScoringEngine):
         topology=None,
         device=None,
     ):
-        if kind == "sequence":
+        if topology is not None and kind == "sequence":
             raise ValueError(
-                "the sequence kind over the mesh (its history state "
-                "sharded by customer, ring/Ulysses attention) is not "
-                "ported yet: ROADMAP A7d; serve it with ScoringEngine")
+                "multi-host serving is not wired for kind='sequence' "
+                "(history-state process adoption does not exist yet); "
+                "serve the sequence scorer single-process")
         if cfg.runtime.nan_guard:
             raise ValueError(
                 "runtime.nan_guard is not wired for the sharded engine; "
@@ -169,7 +186,7 @@ class ShardedScoringEngine(ScoringEngine):
         if mesh is None:
             n = n_devices or (topology.local_devices if topology else 1)
             mesh = make_mesh(n, devices=[resolve_device(device)] * n)
-        mesh = _check_colocated(tuple(mesh))
+        mesh = _check_colocated(mesh)
         n_dev = len(mesh)
         if topology is not None and n_dev != topology.local_devices:
             raise ValueError(
@@ -179,7 +196,8 @@ class ShardedScoringEngine(ScoringEngine):
                 "local_devices, so the two must agree")
         # before the base constructor: its state series label per shard
         self.topology = topology
-        exact = cfg.features.key_mode == "exact"
+        seq = kind == "sequence"
+        exact = cfg.features.key_mode == "exact" and not seq
         if exact:
             # each shard's directory masks slots to its local range:
             # validate the partition before any state is built
@@ -191,7 +209,9 @@ class ShardedScoringEngine(ScoringEngine):
                         f"key_mode='exact' on a {n_dev}-wide mesh needs "
                         f"{nm} / n_devices to be a power of two, got "
                         f"{cap} / {n_dev}")
-        for nm in ("customer_capacity", "terminal_capacity"):
+        # the history state is keyed by customer alone
+        for nm in ("customer_capacity",) + (() if seq
+                                             else ("terminal_capacity",)):
             if getattr(cfg.features, nm) % n_dev:
                 raise ValueError(f"{nm} must divide by n_devices")
         if exact and feature_state is not None \
@@ -213,11 +233,27 @@ class ShardedScoringEngine(ScoringEngine):
         self.n_dev = n_dev
         if feature_state is not None and feature_state_n_old is not None:
             feature_state = reshard_engine_state(
-                kind, feature_state, cfg, feature_state_n_old, n_dev)
-        if feature_state is None:
-            feature_state = init_feature_state(cfg.features, mesh[0],
-                                               n_shards=n_dev)
-        pre_state = shard_feature_state(feature_state, mesh)
+                kind, feature_state, cfg, feature_state_n_old, n_dev,
+                stacked=True)
+        if seq:
+            # the stacked history state, built or placed before the base
+            # constructor (a single-device state would double the bytes)
+            if feature_state is None:
+                pre_state = init_sharded_history_state(cfg, mesh)
+            else:
+                shape = tuple(np.shape(feature_state.events))
+                if len(shape) != 4 or shape[0] != n_dev:
+                    raise ValueError(
+                        f"provided history state has leaves {shape}, not "
+                        f"the {n_dev}-shard stack — pass "
+                        "feature_state_n_old to let the engine re-shard "
+                        "it")
+                pre_state = shard_history_state(feature_state, mesh)
+        else:
+            if feature_state is None:
+                feature_state = init_feature_state(cfg.features, mesh[0],
+                                                   n_shards=n_dev)
+            pre_state = shard_feature_state(feature_state, mesh)
         super().__init__(cfg, kind, params, scaler, feature_state=pre_state,
                          device=mesh[0], metrics=metrics,
                          online_lr=online_lr, feature_cache=feature_cache,
@@ -242,6 +278,12 @@ class ShardedScoringEngine(ScoringEngine):
                 "rows routed to this shard in the last batch",
                 **self._shard_labels(i))
             for i in range(n_dev)]
+        if seq:
+            # owner-local chunks and the routed spill, as for the window
+            # state; the sequence kind has no compaction or cold tier
+            self._steps = {routed: make_sharded_sequence_step(
+                cfg, mesh, route=routed) for routed in (False, True)}
+            return
         self._steps = {
             routed: make_sharded_step(
                 cfg, lambda p, x: self._unfused_predict(x),
@@ -381,7 +423,10 @@ class ShardedScoringEngine(ScoringEngine):
         ``[7, n_dev · rows_per_shard]``) × the owner-local step and the
         dense-spill routed step; then, as on the single engine,
         ``("compact",)`` with a compaction cadence and ``("promote",)``
-        with a cold tier, over the shards."""
+        with a cold tier, over the shards. The sequence kind has none (as
+        in the JAX engine): its chunks run eagerly."""
+        if self.kind == "sequence":
+            return []
         zmode_kinds = ("tree", "forest", "gbt")
         rt = self.cfg.runtime
         return [DispatchSignature(
@@ -394,6 +439,15 @@ class ShardedScoringEngine(ScoringEngine):
             for routed in (False, True)] + [
             sg for sg in super().dispatch_inventory()
             if sg.variant != "step"]
+
+    def precompile(self) -> dict:
+        """The single engine's capture of :meth:`dispatch_inventory`; the
+        sequence kind captures nothing and says so, as the JAX engine
+        skips its warmup."""
+        if self.kind == "sequence":
+            return {"buckets": [], "variants": 0, "seconds": 0.0,
+                    "skipped": "sequence"}
+        return super().precompile()
 
     def _ensure_step(self, routed: bool):
         """The step of a variant (built with the engine: a PyTorch step
@@ -477,6 +531,7 @@ class ShardedScoringEngine(ScoringEngine):
                 for g, rows in zip(self._m_shard_rows, loads):
                     g.set(int(rows))
             chunks = []
+            seq = self.kind == "sequence"
             for part, rows, pos in (partition_batch_spill(
                     cols, n_dev, self.rows_per_shard) if n else []):
                 valid = part["__valid__"]
@@ -490,6 +545,15 @@ class ShardedScoringEngine(ScoringEngine):
                     label=None if label is None
                     else np.where(valid, label, -1),
                 )._replace(valid=valid))
+                if seq:
+                    # the history step's same-second tie-breaker: each
+                    # chunk slot's original batch row, an eighth row of
+                    # the one copy
+                    okey = np.zeros((1, total), np.int32)
+                    okey[0, pos] = rows
+                    chunks.append((np.concatenate([packed, okey]), routed,
+                                   (False, False), rows, pos))
+                    continue
                 full = (routed and exchange_overflows(
                             part["customer_id"], valid, n_dev),
                         exchange_overflows(part["terminal_id"], valid,
@@ -503,6 +567,12 @@ class ShardedScoringEngine(ScoringEngine):
                 self.precompile()
             parts = []
             for packed, routed, full, rows, pos in chunks:
+                if seq:
+                    out = self._sequence_chunk(packed, routed)
+                    self.chunks_done += 1
+                    parts.append((rows, pos, out, self._issue_host_fetch(
+                        out, total, self._record_ready())))
+                    continue
                 key = ("sharded", routed)
                 graph = None if any(full) else self._graphs.get(key)
                 entry = (self._staging.acquire(total) if self._staging
@@ -529,13 +599,8 @@ class ShardedScoringEngine(ScoringEngine):
                         key, lambda p, r=routed: self._chunk_step(p, r),
                         dst)
                 self.chunks_done += 1
-                step_done = None
-                if self.device.type == "cuda":
-                    step_done = torch.cuda.Event()
-                    step_done.record()
-                    self.state.ready = step_done
-                parts.append((rows, pos, out,
-                              self._issue_host_fetch(out, total, step_done)))
+                parts.append((rows, pos, out, self._issue_host_fetch(
+                    out, total, self._record_ready())))
             if self.online_lr > 0.0 and self._loss is not None and chunks:
                 # the leaves no longer hold what the last restore wrote
                 self.state.params_crcs = None
@@ -543,6 +608,26 @@ class ShardedScoringEngine(ScoringEngine):
             self._note_cold_touches(cols)
         return {"cols": cols, "n": n, "parts": parts, "t0": t0,
                 "prep_s": t1 - t0, "dispatch_s": time.perf_counter() - t1}
+
+    def _record_ready(self):
+        """An event behind the step just enqueued (None on the CPU): what
+        a checkpoint's save and the result copies wait for."""
+        if self.device.type != "cuda":
+            return None
+        done = torch.cuda.Event()
+        done.record()
+        self.state.ready = done
+        return done
+
+    def _sequence_chunk(self, packed: np.ndarray, routed: bool) -> StepOut:
+        """One chunk of the sequence kind: the packed rows and their
+        original batch positions in one copy, then the history step (the
+        routed one for a spill chunk) on the engine's state, in place."""
+        dev = host_to_device(packed, self.device)
+        st = self.state
+        _, probs = self._steps[routed](
+            st.feature_state, st.params, unpack_batch(dev[:7]), dev[7])
+        return StepOut(probs)
 
     def _host_results(self, handle: dict):
         """Every chunk's copies, waited for and decoded by the single
@@ -600,6 +685,8 @@ class ShardedScoringEngine(ScoringEngine):
         its window rows, misses in its sketch's fraud column
         (``apply_feedback_sharded_exact``)."""
         self._ensure_layout()
+        if self.kind == "sequence":
+            check_sequence_serving(self.cfg, feedback=True)
         labels = np.asarray(labels)
         mask = labels >= 0
         if not mask.any():

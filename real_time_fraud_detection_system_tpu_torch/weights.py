@@ -23,7 +23,13 @@ recognised by its field names:
 - ``HistoryState`` (events, pos, count, last_t);
 - ``FeatureState`` (customer, terminal and, where present, the customer
   sketch ``cms`` and the tiered store's ``customer_dir``,
-  ``terminal_dir`` and ``terminal_cms``).
+  ``terminal_dir`` and ``terminal_cms``);
+- the parallel library's ``MoEParams`` (w_router, w1, b1, w2, b2) and
+  ``StackParams`` (w1, b1, w2, b2).
+
+A stacked ``HistoryState`` (the JAX sharded sequence engine's, leaves
+``[n_shards, C/n + 1, ...]``) carries over as any other, in the layout the
+port's sharded engine serves (``parallel/sequence_step.py``).
 
 A sharded ``FeatureState`` (the JAX ``ShardedScoringEngine``'s, through
 ``jax.tree.map(np.asarray, ...)``) carries over the same way: its window
@@ -65,9 +71,14 @@ from real_time_fraud_detection_system_tpu_torch.models.sequence import (
 from real_time_fraud_detection_system_tpu_torch.ops.cms import CountMinSketch
 from real_time_fraud_detection_system_tpu_torch.ops.keydir import KeyDirectory
 from real_time_fraud_detection_system_tpu_torch.ops.windows import WindowState
+from real_time_fraud_detection_system_tpu_torch.parallel.expert_parallel \
+    import MoEParams
+from real_time_fraud_detection_system_tpu_torch.parallel.pipeline_parallel \
+    import StackParams
 
 _RECORDS = (LogRegParams, TreeEnsemble, GemmEnsemble, Scaler, WindowState,
-            CountMinSketch, KeyDirectory, BlockParams, HistoryState)
+            CountMinSketch, KeyDirectory, BlockParams, HistoryState,
+            MoEParams, StackParams)
 
 
 def _matches(cls, names: set) -> bool:

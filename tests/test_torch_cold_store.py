@@ -25,6 +25,7 @@ another order), customer averages of non-whole-dollar data within
 
 import json
 import os
+import threading
 import time
 
 import jax.numpy as jnp
@@ -344,27 +345,78 @@ def _jax_engine(fields, reg=None):
         metrics=reg or JMetricsRegistry())
 
 
-def test_engine_demote_miss_promote_bit_identity(tmp_path):
+class _HeldPromotions:
+    """Holds every cold-store read of both packages' promoter threads
+    until :meth:`release`, and counts the reads done per store: which
+    promotions land in which between-steps pass then depends on the test
+    alone, never on how far a promoter thread got under load (the keys a
+    pass admits together decide their slots)."""
+
+    def __init__(self, monkeypatch):
+        self._open = threading.Event()
+        self._lock = threading.Lock()
+        self.reads: dict = {}
+        for cls in (tcold.ColdStore, jcold.ColdStore):
+            monkeypatch.setattr(cls, "get_rows", self._held(cls.get_rows))
+
+    def _held(self, get_rows):
+        def read(store, table, keys):
+            self._open.wait()
+            out = get_rows(store, table, keys)
+            with self._lock:
+                self.reads[id(store)] = self.reads.get(id(store), 0) + 1
+            return out
+
+        return read
+
+    def release(self) -> None:
+        self._open.set()
+
+    def wait_resolved(self, promoter, n: int, timeout_s: float = 30.0):
+        """Wait until ``promoter`` has read all ``n`` requested keys and
+        queued every one as ready (its request queue is then empty, so
+        its backlog is the ready queue alone)."""
+        t0 = time.perf_counter()
+        while not (self.reads.get(id(promoter.store), 0) == n
+                   and promoter.backlog() == n):
+            assert time.perf_counter() - t0 < timeout_s, (
+                self.reads.get(id(promoter.store)), promoter.backlog(), n)
+            time.sleep(0.005)
+
+
+def test_engine_demote_miss_promote_bit_identity(tmp_path, monkeypatch):
     """Demote → miss (served from the sketch, counted degraded) → promote
     → the next touch is bit-identical to a never-evicted control, and to
-    the JAX engine's run of the same flow, whose counters it matches."""
+    the JAX engine's run of the same flow, whose counters it matches.
+
+    Both engines' promoters are held until the batches are done and then
+    resolve every requested key before either drains, so both land the
+    same keys in the same passes (none between the batches, then full
+    passes in request order)."""
+    held = _HeldPromotions(monkeypatch)
     fields = _cold_fields(tmp_path)
     reg, jreg = MetricsRegistry(), JMetricsRegistry()
     eng = _port_engine(fields, reg)
     ctrl = _port_engine(_control_fields(fields))
     jeng = _jax_engine(_cold_fields(tmp_path, "jax-cold"), jreg)
     a, batches = _cold_batches()
-    for cols in batches:
-        r = eng.process_batch({k: v.copy() for k, v in cols.items()})
-        ctrl.process_batch({k: v.copy() for k, v in cols.items()})
-        jr = jeng.process_batch({k: v.copy() for k, v in cols.items()})
-        np.testing.assert_array_equal(r.features, np.asarray(jr.features))
-        np.testing.assert_allclose(r.probs, np.asarray(jr.probs), rtol=0,
-                                   atol=ATOL_PROB)
+    try:
+        for cols in batches:
+            r = eng.process_batch({k: v.copy() for k, v in cols.items()})
+            ctrl.process_batch({k: v.copy() for k, v in cols.items()})
+            jr = jeng.process_batch({k: v.copy() for k, v in cols.items()})
+            np.testing.assert_array_equal(r.features,
+                                          np.asarray(jr.features))
+            np.testing.assert_allclose(r.probs, np.asarray(jr.probs),
+                                       rtol=0, atol=ATOL_PROB)
+    finally:
+        held.release()
     for name in ("rtfds_feature_cold_demotions_total",
                  "rtfds_feature_cold_keys"):
         assert reg.get(name).value == jreg.get(name).value > 0, name
     assert eng._degraded_keys == jeng._degraded_keys != set()
+    held.wait_resolved(eng._promoter, len(eng._degraded_keys))
+    held.wait_resolved(jeng._promoter, len(jeng._degraded_keys))
     assert eng.drain_promotions(timeout_s=30.0)
     assert jeng.drain_promotions(timeout_s=30.0)
     assert reg.get("rtfds_feature_cold_promotions_total").value == \

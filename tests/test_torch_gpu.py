@@ -2503,3 +2503,231 @@ def test_single_process_checkpoint_adopts_into_a_fleet_on_cuda(cuda,
                 {k: v[topo.owns(batches[2]["customer_id"])]
                  for k, v in batches[2].items()}))
         assert np.array_equal(outs[0].features, outs[1].features)
+
+
+# -- the sequence kind over shards and the parallel library ----------------
+
+def _seq_stream(n_batches, rows, n_cust, hot=None, seed=3):
+    """Rows of ``n_cust`` customers over one day per batch (a ``hot``
+    customer takes half of them, so chunks spill), times sorted."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n_batches):
+        t_s = (20000 + i) * 86400 + np.sort(rng.integers(0, 86400, rows))
+        cust = rng.integers(0, n_cust, rows)
+        if hot is not None:
+            cust[rng.random(rows) < 0.5] = hot
+        out.append({
+            "tx_id": np.arange(i * rows, (i + 1) * rows, dtype=np.int64),
+            "tx_datetime_us": t_s * 1_000_000,
+            "customer_id": cust.astype(np.int64),
+            "terminal_id": rng.integers(0, 64, rows).astype(np.int64),
+            "tx_amount_cents": rng.integers(100, 90000, rows),
+            "kafka_ts_ms": t_s * 1000})
+    return out
+
+
+@pytest.mark.parametrize("route", [False, True], ids=["local", "routed"])
+def test_sharded_sequence_step_on_cuda_matches_cpu(cuda, route):
+    """The stacked history step (owner-local, and routed through the
+    exchange) on the card against the CPU: ``pos``, ``count``, ``last_t``
+    equal off the blocks' sinks, events within ``1e-6``, probabilities
+    within ``1e-5``; the step never syncs."""
+    from real_time_fraud_detection_system_tpu_torch.core import batch as cb
+    from real_time_fraud_detection_system_tpu_torch.models.sequence import (
+        init_transformer,
+    )
+    from real_time_fraud_detection_system_tpu_torch.parallel import (
+        sequence_step as ss,
+    )
+    from real_time_fraud_detection_system_tpu_torch.parallel.mesh import (
+        make_mesh,
+    )
+
+    n, bl = 4, 256
+    cfg = Config(features=FeatureConfig(customer_capacity=1024,
+                                        terminal_capacity=256,
+                                        history_len=16))
+    rng = np.random.default_rng(5)
+    cust = rng.integers(0, 300, n * bl)
+    if not route:
+        cust = cust - cust % n + np.repeat(np.arange(n), bl)
+    t_s = 20000 * 86400 + np.sort(rng.integers(0, 7200, n * bl))
+    packed = cb.pack_batch(cb.make_batch(
+        customer_id=cust, terminal_id=np.zeros(n * bl, np.int64),
+        tx_datetime_us=t_s * 1_000_000,
+        amount_cents=rng.integers(100, 90000, n * bl))._replace(
+            valid=rng.random(n * bl) < 0.9))
+    order = rng.permutation(n * bl).astype(np.int32)
+    out = {}
+    for dev in ("cpu", cuda):
+        mesh = make_mesh(n, devices=[dev] * n)
+        params = init_transformer(d_model=32, n_heads=2, n_layers=2,
+                                  d_ff=64, seed=2, device=dev)
+        state = ss.init_sharded_history_state(cfg, mesh)
+        step = ss.make_sharded_sequence_step(cfg, mesh, route=route)
+        batch = cb.unpack_batch(torch.from_numpy(packed).to(dev))
+        okey = torch.from_numpy(order).to(dev)
+        step(state, params, batch, okey)  # a history to read
+        on_card = torch.device(dev).type == "cuda"
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            _, probs = step(state, params, batch, okey)
+        finally:
+            if on_card:
+                torch.cuda.set_sync_debug_mode(0)
+        out[str(dev)] = (probs.cpu().numpy(), [t.cpu().numpy()
+                                               for t in state])
+    (pc, sc), (pg, sg) = out["cpu"], out[str(cuda)]
+    np.testing.assert_allclose(pg, pc, atol=1e-5)
+    np.testing.assert_allclose(sg[0][:, :-1], sc[0][:, :-1], atol=1e-6)
+    for a, b in zip(sg[1:], sc[1:]):
+        np.testing.assert_array_equal(a[:, :-1], b[:, :-1])
+
+
+def test_sharded_sequence_engine_on_cuda_matches_cpu(cuda):
+    """The 4-shard sequence engine on the card, a hot customer spilling
+    into routed chunks, against the same engine on the CPU and the single
+    engine on the card (probabilities within ``1e-5``)."""
+    from real_time_fraud_detection_system_tpu_torch.models.scaler import (
+        Scaler,
+    )
+    from real_time_fraud_detection_system_tpu_torch.models.sequence import (
+        init_transformer,
+    )
+    from real_time_fraud_detection_system_tpu_torch.runtime.sharded_engine \
+        import ShardedScoringEngine
+
+    cfg = Config(features=FeatureConfig(customer_capacity=1024,
+                                        terminal_capacity=256,
+                                        history_len=16),
+                 runtime=RuntimeConfig(batch_buckets=(1024,),
+                                       max_batch_rows=1024))
+    batches = _seq_stream(3, 1024, 500, hot=7)
+    res = {}
+    for name, dev, n in (("cpu", "cpu", 4), ("cuda", cuda, 4),
+                         ("single", cuda, 0)):
+        params = init_transformer(d_model=32, n_heads=2, n_layers=2,
+                                  d_ff=64, seed=2, device=dev)
+        sc = Scaler(torch.zeros(15, device=dev), torch.ones(15, device=dev))
+        eng = (ShardedScoringEngine(cfg, "sequence", params, sc,
+                                    n_devices=n, device=dev,
+                                    rows_per_shard=256) if n
+               else ScoringEngine(cfg, "sequence", params, sc, device=dev))
+        rs = [eng.process_batch(dict(c)) for c in batches]
+        res[name] = [r.probs[np.argsort(r.tx_id)] for r in rs]
+        if n:
+            assert eng.chunks_done > len(batches)  # spill chunks ran
+    for a, b, c in zip(res["cpu"], res["cuda"], res["single"]):
+        np.testing.assert_allclose(b, a, atol=1e-5)
+        np.testing.assert_allclose(b, c, atol=1e-5)
+
+
+def test_sequence_parallel_attention_on_cuda_matches_cpu(cuda):
+    """Ring and Ulysses attention over 8 shards and the sequence-parallel
+    forward on the card against the CPU (within ``1e-5``, TF32 off), and
+    a bf16 ring within ``0.1`` of the float32 one."""
+    from real_time_fraud_detection_system_tpu_torch.models.sequence import (
+        init_transformer,
+        make_sp_logits_fn,
+    )
+    from real_time_fraud_detection_system_tpu_torch.parallel import (
+        ring_attention as ra,
+    )
+    from real_time_fraud_detection_system_tpu_torch.parallel.mesh import (
+        make_mesh,
+    )
+
+    rng = np.random.default_rng(6)
+    q, k, v = (torch.from_numpy(rng.normal(0, 1, (2, 256, 8, 16))
+                                .astype(np.float32)) for _ in range(3))
+    x = torch.from_numpy(rng.normal(0, 1, (2, 256, 8)).astype(np.float32))
+    res = {}
+    for dev in ("cpu", cuda):
+        mesh = make_mesh(8, devices=[dev] * 8)
+        params = init_transformer(d_model=32, n_heads=2, n_layers=2,
+                                  d_ff=64, seed=3, device="cpu")
+        res[str(dev)] = [t.cpu() for t in (
+            ra.make_ring_attention_sharded(mesh)(q, k, v),
+            ra.make_ulysses_attention_sharded(mesh, block_size=64)(q, k, v),
+            make_sp_logits_fn(mesh)(
+                tuple_to(params, dev), x.to(dev)))]
+    for a, b in zip(res["cpu"], res[str(cuda)]):
+        np.testing.assert_allclose(b.numpy(), a.numpy(), atol=1e-5)
+    mesh = make_mesh(8, devices=[cuda] * 8)
+    r16 = ra.make_ring_attention_sharded(mesh)(
+        *(t.to(cuda, torch.bfloat16) for t in (q, k, v)))
+    assert r16.dtype == torch.bfloat16
+    np.testing.assert_allclose(r16.float().cpu().numpy(),
+                               res["cpu"][0].numpy(), atol=0.1)
+
+
+def tuple_to(params, dev):
+    from real_time_fraud_detection_system_tpu_torch.utils import tree
+
+    return tree.to(params, dev)
+
+
+def test_tensor_expert_pipeline_on_cuda_match_cpu(cuda):
+    """One tensor-parallel MLP step (8 shards, and dp × tp 2 × 4), one
+    expert-parallel apply and one pipeline pass on the card against their
+    CPU runs and their unsharded forms: within ``1e-5``, or ``1e-6`` of
+    the output's largest magnitude where that is larger (eight residual
+    blocks grow the pipeline's activations to a few hundred, and cuBLAS
+    and the CPU's products differ in the last bits at that scale)."""
+    from real_time_fraud_detection_system_tpu_torch.models.mlp import (
+        init_mlp,
+    )
+    from real_time_fraud_detection_system_tpu_torch.parallel import (
+        expert_parallel as ep,
+    )
+    from real_time_fraud_detection_system_tpu_torch.parallel import (
+        pipeline_parallel as pp,
+    )
+    from real_time_fraud_detection_system_tpu_torch.parallel import (
+        tensor_parallel as tp,
+    )
+    from real_time_fraud_detection_system_tpu_torch.parallel.distributed \
+        import make_hybrid_mesh
+    from real_time_fraud_detection_system_tpu_torch.parallel.mesh import (
+        make_mesh,
+    )
+    from real_time_fraud_detection_system_tpu_torch.utils import tree
+
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.normal(0, 1, (256, 15)).astype(np.float32))
+    y = torch.from_numpy((rng.random(256) < 0.3).astype(np.int32))
+    xe = torch.from_numpy(rng.normal(0, 1, (256, 16)).astype(np.float32))
+    xp = torch.from_numpy(rng.normal(0, 1, (64, 32)).astype(np.float32))
+    mlp = init_mlp(15, (64, 32), seed=1, device="cpu")
+    moe = ep.init_moe(16, 32, 8, seed=2, device="cpu")
+    stack = pp.init_stack(32, 8, seed=3, device="cpu")
+    res = {}
+    for dev in ("cpu", cuda):
+        mesh = make_mesh(8, devices=[dev] * 8)
+        grid = make_hybrid_mesh(2, 4, dcn_axis="dp", ici_axis="tp",
+                                devices=[dev] * 8)
+        outs = []
+        for m, kw in ((mesh, {}), (grid, dict(axis="tp", dp_axis="dp"))):
+            sh, step = tp.make_tp_step(m, tree.to(mlp, dev), lr=0.5, **kw)
+            new, loss = step(sh, x, y)
+            outs += [t.cpu() for t in tree.leaves(new)] + [loss.cpu()]
+        sh, apply_fn = ep.make_ep_apply(mesh, moe)
+        outs += [apply_fn(sh, xe).cpu(),
+                 ep.moe_apply_dense(sh, xe.to(dev)).cpu()]
+        sh, run = pp.make_pipeline(mesh, stack, n_micro=4)
+        outs += [run(sh, xp).cpu(), pp.stack_apply(sh, xp.to(dev)).cpu()]
+        res[str(dev)] = outs
+    def close(got, want):
+        want = want.numpy()
+        np.testing.assert_allclose(
+            got.numpy(), want, rtol=0,
+            atol=max(1e-5, 1e-6 * float(np.abs(want).max())))
+
+    for a, b in zip(res["cpu"], res[str(cuda)]):
+        close(b, a)
+    g = res[str(cuda)]
+    close(g[-4], g[-3])
+    close(g[-2], g[-1])

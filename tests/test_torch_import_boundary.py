@@ -13,7 +13,10 @@ sweep and the ``train`` command), and the sharded engine (4 shards on
 the CPU, a hot customer's spill, a restore at 8 shards, ``score --devices
 4``), and the fleet (two processes' engines of a topology behind the
 affine and floor sources, a sketch exchange, the merge of their states,
-the launcher's worker commands, the elastic policy); the other reads the
+the launcher's worker commands, the elastic policy); another runs the
+sequence kind over shards and the parallel library (``sequence_step``,
+``tensor_parallel``, ``expert_parallel``, ``pipeline_parallel``, ring and
+Ulysses attention) the same way; the last reads the
 port's sources (Python, CUDA and CUDA headers) and ``chip_smoke.py`` for
 an import of jax or a dotted reference into the JAX package.
 """
@@ -281,6 +284,69 @@ def test_port_serves_a_batch_with_jax_blocked():
                           env={**os.environ, "OMP_NUM_THREADS": "1"})
     assert proc.returncode == 0, proc.stderr
     assert "served without jax" in proc.stdout
+
+
+_PARALLEL_WITHOUT_JAX = r"""
+import sys
+sys.modules["jax"] = None  # any import of jax now raises ImportError
+import numpy as np
+import torch
+from real_time_fraud_detection_system_tpu_torch.config import (
+    Config, FeatureConfig, RuntimeConfig)
+from real_time_fraud_detection_system_tpu_torch.models.mlp import init_mlp
+from real_time_fraud_detection_system_tpu_torch.models.scaler import Scaler
+from real_time_fraud_detection_system_tpu_torch.models.sequence import (
+    init_transformer, make_sp_logits_fn)
+from real_time_fraud_detection_system_tpu_torch.parallel import (
+    expert_parallel, pipeline_parallel, ring_attention, sequence_step,
+    tensor_parallel)
+from real_time_fraud_detection_system_tpu_torch.parallel.mesh import (
+    make_mesh)
+from real_time_fraud_detection_system_tpu_torch.runtime.sharded_engine     import ShardedScoringEngine
+
+mesh = make_mesh(4, devices=["cpu"] * 4)
+cfg = Config(features=FeatureConfig(customer_capacity=64,
+                                    terminal_capacity=64, history_len=8),
+             runtime=RuntimeConfig(batch_buckets=(64,), max_batch_rows=64))
+tp = init_transformer(d_model=16, n_heads=4, n_layers=1, d_ff=32,
+                      device="cpu")
+eng = ShardedScoringEngine(cfg, "sequence", tp, Scaler(torch.zeros(15),
+                           torch.ones(15)), n_devices=4, device="cpu",
+                           rows_per_shard=8)
+rng = np.random.default_rng(0)
+t_s = 20000 * 86400 + np.sort(rng.integers(0, 86400, 64))
+r = eng.process_batch({
+    "tx_id": np.arange(64), "tx_datetime_us": t_s * 1_000_000,
+    "customer_id": np.full(64, 5), "terminal_id": np.zeros(64, np.int64),
+    "tx_amount_cents": rng.integers(100, 9000, 64),
+    "kafka_ts_ms": t_s * 1000})
+assert eng.chunks_done > 1 and np.isfinite(r.probs).all()
+x = torch.randn(2, 32, 8)
+assert make_sp_logits_fn(mesh)(tp, x).shape == (2, 32)
+q = torch.randn(2, 32, 4, 8)
+ring_attention.make_ulysses_attention_sharded(mesh)(q, q, q)
+_, step = tensor_parallel.make_tp_step(mesh, init_mlp(15, (8, 8),
+                                                      device="cpu"))
+step(init_mlp(15, (8, 8), device="cpu"), torch.randn(16, 15),
+     torch.zeros(16, dtype=torch.int32))
+moe = expert_parallel.init_moe(8, 16, 4, device="cpu")
+expert_parallel.make_ep_apply(mesh, moe)[1](moe, torch.randn(16, 8))
+stack = pipeline_parallel.init_stack(8, 4, device="cpu")
+pipeline_parallel.make_pipeline(mesh, stack, 2)[1](stack, torch.randn(8, 8))
+print("parallel without jax")
+"""
+
+
+def test_parallel_library_runs_with_jax_blocked():
+    """The sequence kind over shards and the parallel library (the four
+    modules of ``parallel/`` the sequence step, tensor, expert and
+    pipeline parallelism live in) run where ``import jax`` fails."""
+    proc = subprocess.run([sys.executable, "-c", _PARALLEL_WITHOUT_JAX],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=300,
+                          env={**os.environ, "OMP_NUM_THREADS": "1"})
+    assert proc.returncode == 0, proc.stderr
+    assert "parallel without jax" in proc.stdout
 
 
 _FORBIDDEN = [

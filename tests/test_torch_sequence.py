@@ -202,10 +202,27 @@ def test_transformer_flops_counted_from_the_shapes():
 
 
 def test_sharded_attention_waits_for_a7():
-    with pytest.raises(NotImplementedError, match="A7"):
-        tring.ring_attention(None, None, None, "seq")
-    with pytest.raises(NotImplementedError, match="A7"):
-        tring.ulysses_attention(None, None, None, "seq")
+    """The sharded forms no longer wait: over 4 stacked shards the ring
+    and Ulysses forms equal the blockwise attention of the whole sequence
+    (within ``ATOL_ATTN``: the same recurrence, other block orders), and
+    Ulysses refuses a head count the shards do not divide, as the JAX
+    function does."""
+    rng = np.random.default_rng(12)
+    q, k, v = (torch.from_numpy(rng.normal(0, 1, (2, 32, 4, 8))
+                                .astype(np.float32)) for _ in range(3))
+    ref = tring.blockwise_attention(q, k, v, block_size=8)
+
+    def stacked(x):
+        return x.reshape(2, 4, 8, 4, 8).transpose(0, 1)
+
+    for form in (tring.ring_attention, tring.ulysses_attention):
+        out = form(stacked(q), stacked(k), stacked(v))
+        np.testing.assert_allclose(
+            out.transpose(0, 1).reshape(2, 32, 4, 8).numpy(), ref.numpy(),
+            atol=ATOL_ATTN, err_msg=form.__name__)
+    with pytest.raises(ValueError, match="divisible"):
+        tring.ulysses_attention(*(stacked(x)[:, :, :, :3] for x in
+                                  (q, k, v)))
 
 
 # -- artifacts ------------------------------------------------------------

@@ -143,13 +143,15 @@ def test_sharded_score_refuses_what_the_jax_score_refuses(files, capsys,
      "--num-processes must be >= 1"),
     ("forest", ("--devices", "4", "--resume-merge", "x"),
      "OLD_CKPT_ROOT:P:L:REASON"),
-    ("sequence", ("--devices", "4"), "A7d"),
+    ("sequence", ("--num-processes", "2", "--process-id", "0"),
+     "not wired for kind='sequence'"),
 ], ids=["num-processes", "coordinator", "resume-merge", "sequence"])
 def test_sharded_score_names_the_item_it_waits_for(files, caplog, model,
                                                    flags, item):
     """The fleet's flags exit 2 where the JAX ``score`` refuses them (a
     fleet member with no id, no processes, a malformed merge spec), with
-    its message; the sequence kind over shards names ROADMAP A7d."""
+    its message; so is the sequence kind in a fleet (the JAX ``score``
+    serves it over shards, not over processes)."""
     d = files
     assert tcli.main(["score", "--device", "cpu", "--data",
                       str(d / "txs.npz"), "--model-file",

@@ -587,9 +587,9 @@ def test_refusals_name_their_item():
         tmesh.make_mesh(2, devices=["cpu", "meta"])
     with pytest.raises(ValueError, match="topology says"):
         _engine(tcfg, n_devices=4, topology=ProcessTopology(2, 0, 2))
-    with pytest.raises(ValueError, match="A7d"):
+    with pytest.raises(ValueError, match="not wired for kind='sequence'"):
         ShardedScoringEngine(tcfg, "sequence", None, None, n_devices=4,
-                             device="cpu")
+                             device="cpu", topology=ProcessTopology(2, 0, 4))
     ncfg = dataclasses.replace(tcfg, runtime=dataclasses.replace(
         tcfg.runtime, nan_guard=True))
     with pytest.raises(ValueError, match="nan_guard"):
