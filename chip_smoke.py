@@ -290,7 +290,28 @@ Phases, each printing JSON lines:
    a yardstick; (c) one tensor-parallel MLP step, one expert-parallel
    apply and one pipeline pass over 8 shards at 65,536 rows against
    their unsharded forms, with the ms of each.
-20. ``kernels`` — one line per the measurement contract, each kernel's
+20. ``operator`` — the operator surface through ``cli.main``: (a)
+   ``demo`` at the reference's data scale (``DataConfig()``: 5,000
+   customers, 10,000 terminals, 245 days, the 153/30 split) with the
+   forest artifact: the first 183 days warm the state columnar, the last
+   62 stream as Debezium envelopes in 65,536-row batches; the profile
+   tables' sizes, the streamed rows, the fused forest kernel once per
+   batch (no other), every probability finite in [0, 1], rows/s, latency
+   and wall; (b) the JAX demo's default size (500 customers, 1,000
+   terminals, 90 days, 45/10) on the card and on the CPU device, for the
+   forest artifact, ``--model logreg`` trained on each device, and the
+   forest on 4 shards (``run_demo`` at ``max_batch_rows`` 4,096: the CPU
+   reference pads each step to 4 × that): counts and flags equal, the
+   stream AUC within 1e-6, each path's kernel once per step; (c) a short
+   checkpointed ``score`` with 3 poisoned rows, then ``ckpt`` (list,
+   ``--verify``, ``--inspect``, a flipped byte → rc 1), ``trace
+   --json``, ``dashboard --flight-record``, ``registry --publish
+   --promote --verify``, ``dlq`` and ``dlq --replay`` (one fused-forest
+   launch for the row that now scores), ``warmup`` and ``verify-device``
+   (rc 0, every signature captured); where the card machine lacks
+   sklearn or pyarrow, ``import-model``, ``demo --model forest``,
+   ``query``, ``sql`` and ``dashboard --data`` exit 2 naming it.
+21. ``kernels`` — one line per the measurement contract, each kernel's
    launches summed over every driven path that launched it.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises and
@@ -302,6 +323,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import importlib.util
 import io
 import json
 import os
@@ -358,6 +380,7 @@ ZIPF_SKEW = 1.1
 EXACT_UNIVERSES = (65_536, 1 << 20, 10_000_000)
 EXACT_COLD_UNIVERSE = 100_000_000
 EXACT_WARM = 2
+SX_BENCH_WARM = 1  # sharded_exact (b): warm batches, held against the CPU
 EXACT_BATCHES = 12
 EXACT_DAY_EVERY = 4
 EXACT_RECLAIM_BATCHES = 48  # day advancing every batch: past the horizon
@@ -5113,7 +5136,7 @@ def phase_sharded_exact(dev, device_info, data: dict) -> dict:
     samplers = {}
     for n_keys in EXACT_UNIVERSES:
         sampler = samplers[n_keys] = ZipfKeySampler(n_keys, ZIPF_SKEW)
-        warm = _zipf_batches(sampler, EXACT_WARM, day_every=1, seed=7,
+        warm = _zipf_batches(sampler, SX_BENCH_WARM, day_every=1, seed=7,
                              rows=SX_BENCH_ROWS)
         main = _zipf_batches(sampler, SX_BENCH_BATCHES,
                              day_every=SX_BENCH_DAY_EVERY, seed=2,
@@ -6326,6 +6349,398 @@ def phase_sharded_sequence(dev, device_info, data: dict) -> dict:
     return {name: 0 for name in KERNELS}
 
 
+# (a): the reference's data scale (DataConfig's defaults) and split
+OPERATOR_REFERENCE = {"customers": 5000, "terminals": 10000, "days": 245,
+                      "seed": 0, "delta-train": 153, "delta-delay": 30,
+                      "delta-test": 30}
+OPERATOR_SMALL = ["--customers", "500", "--terminals", "1000", "--days",
+                  "90", "--delta-train", "45", "--delta-delay", "10"]
+OPERATOR_SHARDS = 4
+# (b): the sharded pair's max_batch_rows. At the CLI's width (65,536) each
+# 4,096-row batch pads to a 131,072-row chunk, which the CPU reference's
+# plain leaf sum (a GEMM over T=100 trees of depth 8) takes seconds for.
+OPERATOR_SHARDED_MAX_ROWS = 4096
+OPERATOR_SCORE_BATCHES = 4  # (c): the score run's 65,536-row batches
+OPERATOR_POISON = (70000, 70001, 90000)  # (c): rows of its second batch
+ATOL_DEMO_AUC = 1e-6
+
+
+@contextlib.contextmanager
+def _recorded_runs():
+    """Every ``run`` of a single or sharded engine inside the block, as
+    (its stats, the sink it was given), outermost calls only."""
+    from real_time_fraud_detection_system_tpu_torch.runtime.engine import (
+        ScoringEngine,
+    )
+    from real_time_fraud_detection_system_tpu_torch.runtime.sharded_engine \
+        import ShardedScoringEngine
+
+    runs = []
+    originals = {cls: cls.__dict__["run"]
+                 for cls in (ScoringEngine, ShardedScoringEngine)}
+
+    def wrap(cls, orig):
+        def run(self, source, sink=None, *args, **kw):
+            stats = orig(self, source, sink, *args, **kw)
+            if type(self) is cls:
+                runs.append((stats, sink))
+            return stats
+        return run
+
+    for cls, orig in originals.items():
+        setattr(cls, "run", wrap(cls, orig))
+    try:
+        yield runs
+    finally:
+        for cls, orig in originals.items():
+            setattr(cls, "run", orig)
+
+
+def _operator_cli(argv: list) -> dict:
+    """``cli.main(argv)`` with its stdout and log captured and the launch
+    counters reset around it: rc, JSON lines, the log's text, launches."""
+    import logging
+
+    from real_time_fraud_detection_system_tpu_torch import cli
+
+    class Keep(logging.Handler):
+        def __init__(self):
+            super().__init__(logging.INFO)
+            self.lines = []
+
+        def emit(self, record):
+            self.lines.append(record.getMessage())
+
+    keep = Keep()
+    root = logging.getLogger()
+    root.addHandler(keep)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc, launches = drive(lambda: cli.main(argv))
+    finally:
+        root.removeHandler(keep)
+    lines = []
+    for ln in out.getvalue().strip().splitlines():
+        try:
+            lines.append(json.loads(ln))
+        except json.JSONDecodeError:
+            lines.append(ln)
+    return {"rc": rc, "lines": lines, "stdout": out.getvalue(),
+            "log": "\n".join(keep.lines), "launches": launches,
+            "seconds": time.perf_counter() - t0}
+
+
+def _demo_batches(runs) -> tuple:
+    """(batches, chunks) over the recorded runs (chunks: sharded only)."""
+    return (sum(int(s["batches"]) for s, _ in runs),
+            sum(int(s.get("chunks", 0)) for s, _ in runs))
+
+
+def phase_operator(dev, device_info, data: dict) -> dict:
+    """The operator surface: (a) ``demo`` at the reference's data scale,
+    (b) small demos on the card against the CPU device, (c) the operator
+    commands over a short checkpointed ``score`` run."""
+    from real_time_fraud_detection_system_tpu_torch import cli, cli_ops
+    from real_time_fraud_detection_system_tpu_torch.io.artifacts import (
+        save_transactions,
+    )
+    from real_time_fraud_detection_system_tpu_torch.io.sink import (
+        DeadLetterSink,
+    )
+    from real_time_fraud_detection_system_tpu_torch.runtime.pipeline import (
+        run_demo,
+    )
+
+    t_phase = time.perf_counter()
+    card = {"card": device_info["smi_name"],
+            "power_limit": device_info["power_limit"]}
+    totals = {name: 0 for name in KERNELS}
+
+    def add(launches: dict) -> None:
+        for name, n in launches.items():
+            totals[name] += n
+
+    with tempfile.TemporaryDirectory() as tmp:
+        model = f"{tmp}/forest.npz"
+        with open(model, "wb") as f:
+            f.write(data["models"]["forest"][2])
+
+        # (a) the demo at the reference's scale ---------------------------
+        txs, ref = data["txs"], OPERATOR_REFERENCE
+        stream_rows = int((txs.tx_time_days >= ref["delta-train"]
+                           + ref["delta-delay"]).sum())
+        with _recorded_runs() as runs:
+            r = _operator_cli([
+                "demo", *(x for k, v in ref.items() for x in (f"--{k}",
+                                                             str(v))),
+                "--model-file", model, "--batch-rows", str(BATCH_ROWS)])
+        check(r["rc"] == 0, f"operator (a) demo exited {r['rc']}")
+        s = r["lines"][-1]
+        batches, _ = _demo_batches(runs)
+        check(s["customers"] == ref["customers"]
+              and s["terminals"] == ref["terminals"],
+              f"operator (a): {s['customers']} customers, "
+              f"{s['terminals']} terminals")
+        check(s["streamed_rows"] == stream_rows
+              and s["warm_rows"] == txs.n - stream_rows,
+              f"operator (a): streamed {s['streamed_rows']} of "
+              f"{stream_rows}")
+        check(len(runs) == 2 and r["launches"] == {
+            **{k: 0 for k in KERNELS}, "fused_forest_leaf_sum": batches},
+            f"operator (a): {r['launches']} for {batches} batches")
+        probs = runs[1][1].sinks[0].concat()["prediction"]
+        check(probs.shape == (stream_rows,) and bool(np.isfinite(probs).all())
+              and probs.min() >= 0.0 and probs.max() <= 1.0,
+              "operator (a): probabilities not finite in [0, 1]")
+        add(r["launches"])
+        emit({"phase": "operator", "part": "a_demo_reference_scale",
+              "customers": s["customers"], "terminals": s["terminals"],
+              "warm_rows": s["warm_rows"], "streamed_rows": s["streamed_rows"],
+              "warm_batches": int(runs[0][0]["batches"]),
+              "stream_batches": int(runs[1][0]["batches"]),
+              "kernel_launches": r["launches"],
+              "rows_per_s": s["rows_per_s"],
+              "latency_p50_ms": s["latency_p50_ms"],
+              "latency_p99_ms": s["latency_p99_ms"],
+              "stream_stage_ms_p50": runs[1][0]["stage_ms_p50"],
+              "stream_auc": s["stream_auc"],
+              "flagged_at_0.5": s["flagged_at_0.5"], "wall_s": s["wall_s"],
+              "command_s": r["seconds"], **card})
+
+        # (b) the card against the CPU device, end to end -----------------
+        # where the card machine has pyarrow, the card's forest demo also
+        # writes its output, which (c) reads with query, sql, dashboard
+        arrow = importlib.util.find_spec("pyarrow") is not None
+        out_dir = f"{tmp}/demo-out"
+        args = cli.build_parser().parse_args(["demo", *OPERATOR_SMALL])
+        shard_cfg = cli_ops.demo_config(args)
+        shard_cfg = shard_cfg.replace(runtime=dataclasses.replace(
+            shard_cfg.runtime, max_batch_rows=OPERATOR_SHARDED_MAX_ROWS))
+        legs = (
+            ("forest", "fused_forest_leaf_sum",
+             lambda d: _operator_cli([
+                 "demo", *OPERATOR_SMALL, "--model-file", model, "--device",
+                 str(d), *(["--out", out_dir] if arrow and d == dev
+                           else [])])),
+            ("logreg", "fused_featurize_score",
+             lambda d: _operator_cli(["demo", *OPERATOR_SMALL, "--model",
+                                      "logreg", "--device", str(d)])),
+            (f"forest_{OPERATOR_SHARDS}_shards", "leaf_sum",
+             lambda d: _run_demo_driven(run_demo, shard_cfg, d, data)),
+        )
+        streamed = {}
+        for leg, own, run in legs:
+            res = {}
+            for d in (dev, "cpu"):
+                with _recorded_runs() as runs:
+                    res[str(d)] = (run(d), runs)
+            got, card_runs = res[str(dev)]
+            want = res["cpu"][0]
+            check(got["rc"] == want["rc"] == 0,
+                  f"operator (b) {leg}: rc {got['rc']}, {want['rc']}")
+            g, w = got["lines"][-1], want["lines"][-1]
+            for k in ("customers", "terminals", "warm_rows",
+                      "streamed_rows", "flagged_at_0.5"):
+                check(g[k] == w[k], f"operator (b) {leg}: {k} {g[k]} on the "
+                                    f"card, {w[k]} on the CPU")
+            auc_err = abs(g["stream_auc"] - w["stream_auc"])
+            check(auc_err <= ATOL_DEMO_AUC,
+                  f"operator (b) {leg}: stream AUC differs by {auc_err}")
+            batches, chunks = _demo_batches(card_runs)
+            steps = chunks if own == "leaf_sum" else batches
+            check(got["launches"] == {**{k: 0 for k in KERNELS},
+                                      own: steps},
+                  f"operator (b) {leg}: {got['launches']} for {steps} "
+                  "steps")
+            add(got["launches"])
+            streamed[leg] = g["streamed_rows"]
+            emit({"phase": "operator", "part": "b_card_vs_cpu", "leg": leg,
+                  "customers": g["customers"], "warm_rows": g["warm_rows"],
+                  "streamed_rows": g["streamed_rows"], "steps": steps,
+                  "kernel_launches": got["launches"],
+                  "stream_auc": g["stream_auc"],
+                  "stream_auc_abs_err_vs_cpu": auc_err,
+                  "flagged_at_0.5": g["flagged_at_0.5"],
+                  "rows_per_s": g["rows_per_s"],
+                  "cpu_rows_per_s": w["rows_per_s"],
+                  "latency_p50_ms": g["latency_p50_ms"],
+                  "wall_s": g["wall_s"], "cpu_wall_s": w["wall_s"], **card})
+
+        # (c) the operator tools over a short score run ---------------------
+        part = txs.slice(slice(0, OPERATOR_SCORE_BATCHES * BATCH_ROWS))
+        part.amount_cents = np.array(part.amount_cents, copy=True)
+        part.amount_cents[list(OPERATOR_POISON)] *= -1
+        save_transactions(f"{tmp}/poisoned.npz", part)
+        ck, dlq = f"{tmp}/ck", f"{tmp}/dlq.jsonl"
+        r = _operator_cli([
+            "score", "--data", f"{tmp}/poisoned.npz", "--model-file", model,
+            "--batch-rows", str(BATCH_ROWS), "--checkpoint-dir", ck,
+            "--max-restarts", "8", "--dead-letter", dlq, "--flight-record",
+            f"{tmp}/flight.jsonl", "--trace-out", f"{tmp}/trace.json"])
+        stats = r["lines"][-1]
+        check(r["rc"] == 0 and stats["dead_letter_rows"] == 3
+              and stats["rows"] == part.n - 3,
+              f"operator (c) score: rc {r['rc']}, {stats}")
+        add(r["launches"])
+        out = {"score": {"rows": stats["rows"], "batches": stats["batches"],
+                         "restarts": stats["restarts"],
+                         "dead_letter_rows": stats["dead_letter_rows"],
+                         "kernel_launches": r["launches"]}}
+
+        def ok(name, argv, rc=0):
+            res = _operator_cli(argv)
+            check(res["rc"] == rc, f"operator (c) {name}: rc {res['rc']} "
+                                   f"(want {rc}): {res['log'][-300:]}")
+            add(res["launches"])
+            out[name] = {"rc": res["rc"], "seconds": res["seconds"]}
+            return res
+
+        lst = ok("ckpt", ["ckpt", "--path", ck])["lines"]
+        check(lst[0]["checkpoints"] >= 1 and lst[0]["corrupt"] == 0,
+              f"operator (c) ckpt: {lst[0]}")
+        ver = ok("ckpt_verify", ["ckpt", "--path", ck, "--verify"])["lines"]
+        latest = os.path.basename(ver[0]["latest"])
+        man = ok("ckpt_inspect", ["ckpt", "--path", ck, "--inspect",
+                                  latest])["lines"][-1]
+        check(man["topology"]["process_count"] == 1
+              and man["feature_state"]["leaves"],
+              "operator (c) ckpt --inspect: no topology or leaves")
+        shutil.copytree(ck, f"{tmp}/ck-bad")
+        with open(f"{tmp}/ck-bad/{latest}", "r+b") as f:
+            f.seek(os.path.getsize(f"{tmp}/ck-bad/{latest}") // 2)
+            byte = f.read(1)
+            f.seek(-1, os.SEEK_CUR)
+            f.write(bytes([byte[0] ^ 0xFF]))
+        bad = ok("ckpt_verify_flipped", ["ckpt", "--path", f"{tmp}/ck-bad",
+                                         "--verify"], rc=1)["lines"]
+        check(bad[0]["corrupt"] == 1, f"operator (c) flipped: {bad[0]}")
+        tr = ok("trace", ["trace", "--trace", f"{tmp}/trace.json",
+                          "--json"])["lines"][-1]
+        check(len(tr["batches"]) >= stats["batches"],
+              f"operator (c) trace: {len(tr['batches'])} batches")
+        dash = ok("dashboard_ops", ["dashboard", "--flight-record",
+                                    f"{tmp}/flight.jsonl", "--out",
+                                    f"{tmp}/ops.html"])["lines"][-1]
+        # the record's last segment: the incarnation that finished the run
+        check(dash["batches"] >= 1 and dash["events"] >= 1
+              and dash["bytes"] > 0, f"operator (c) dashboard: {dash}")
+        reg = f"{tmp}/registry"
+        pub = ok("registry_publish", ["registry", "--path", reg,
+                                      "--publish", model])["lines"][-1]
+        ok("registry_promote", ["registry", "--path", reg, "--promote",
+                                str(pub["published"])])
+        rv = ok("registry_verify", ["registry", "--path", reg,
+                                    "--verify"])["lines"][0]
+        check(rv["versions"] == 1 and rv["corrupt"] == 0
+              and rv["champion"] == pub["published"],
+              f"operator (c) registry --verify: {rv}")
+        insp = ok("dlq", ["dlq", "--path", dlq])["lines"][0]
+        check(insp["rows"] == 3, f"operator (c) dlq: {insp}")
+        # a row quarantined for a fault since fixed: it scores on replay
+        # (through the artifact's kernel); the poisoned rows stay poison
+        clean = {k: np.asarray([v], np.int64) for k, v in {
+            "tx_id": 10 ** 12, "tx_datetime_us": int(
+                START_EPOCH_S * 10 ** 6 + part.tx_time_seconds[0] * 10 ** 6),
+            "customer_id": int(part.customer_id[0]),
+            "terminal_id": int(part.terminal_id[0]),
+            "tx_amount_cents": 4200, "kafka_ts_ms": 0}.items()}
+        sink = DeadLetterSink(dlq)
+        sink.put_rows(clean, reason="crash", error="RuntimeError: fixed",
+                      batch_index=1)
+        sink.close()
+        rep = ok("dlq_replay", ["dlq", "--path", dlq, "--replay",
+                                "--model-file", model])
+        verdicts = {v["tx_id"]: v for v in rep["lines"][1:]}
+        check(rep["lines"][0]["replayed"] == 4
+              and 0.0 <= verdicts[10 ** 12]["prediction"] <= 1.0
+              and sum(bool(v.get("still_poison"))
+                      for v in verdicts.values()) == 3,
+              f"operator (c) dlq --replay: {rep['lines']}")
+        check(rep["launches"] == {**{k: 0 for k in KERNELS},
+                                  "fused_forest_leaf_sum": 1},
+              f"operator (c) dlq --replay launches {rep['launches']}")
+        out["dlq_replay"]["kernel_launches"] = rep["launches"]
+        wu = ok("warmup", ["warmup", "--model-file", model])["lines"][-1]
+        check(wu["buckets"] == [256, 1024, 4096, 16384, 65536],
+              f"operator (c) warmup: {wu}")
+        out["warmup"].update(compile_seconds=wu["compile_seconds"],
+                             total_seconds=wu["total_seconds"])
+        vd = ok("verify_device", ["verify-device", "--json"])
+        report = json.loads(vd["stdout"])
+        check(report["summary"]["gate_failures"] == 0
+              and report["checks"]["capture"]["captured"]
+              == report["signatures_verified"],
+              f"operator (c) verify-device: {report['summary']}")
+        out["verify_device"].update(
+            targets=len(report["targets"]),
+            signatures_captured=report["checks"]["capture"]["captured"])
+
+        if arrow:
+            # the analysis side over the card's demo output
+            n = streamed["forest"]
+            q = ok("query", ["query", "--data", out_dir])["lines"][-1]
+            sq = ok("sql", ["sql", "--data", out_dir, "SELECT COUNT(*) AS n"
+                            " FROM analyzed"])["lines"][-1]
+            dd = ok("dashboard_data", ["dashboard", "--data", out_dir,
+                                       "--out", f"{tmp}/d.html"])["lines"][-1]
+            raw = ok("query_transactions", [
+                "query", "--data", f"{out_dir}/transactions", "--report",
+                "transactions"])["lines"][-1]
+            check(q["transactions"] == sq["n"] == dd["transactions"]
+                  == raw["transactions"] == n,
+                  f"operator (c) analysis of the demo output: {q}, {sq}, "
+                  f"{dd}, {raw} for {n} streamed rows")
+        # the commands whose packages the card machine may lack
+        os.makedirs(f"{tmp}/parts")
+        with open(f"{tmp}/parts/part-00000000.parquet", "wb") as f:
+            f.write(b"PAR1")
+        with open(f"{tmp}/model.pkl", "wb") as f:
+            f.write(b"csklearn.ensemble._forest\nRandomForestClassifier\n.")
+        missing = {}
+        for name, pkg, argv in (
+                ("import_model", "sklearn",
+                 ["import-model", "--model-pkl", f"{tmp}/model.pkl",
+                  "--out-model", f"{tmp}/imported.npz"]),
+                ("demo_train_forest", "sklearn",
+                 ["demo", *OPERATOR_SMALL, "--model", "forest"]),
+                ("query", "pyarrow", ["query", "--data", f"{tmp}/parts"]),
+                ("sql", "pyarrow", ["sql", "--data", f"{tmp}/parts",
+                                    "SELECT 1"]),
+                ("dashboard_data", "pyarrow",
+                 ["dashboard", "--data", f"{tmp}/parts", "--out",
+                  f"{tmp}/d.html"])):
+            if importlib.util.find_spec(pkg) is not None:
+                missing[name] = f"{pkg} is installed"
+                continue
+            res = _operator_cli(argv)
+            text = res["log"] + json.dumps(res["lines"])
+            check(res["rc"] == 2 and pkg in text,
+                  f"operator (c) {name}: rc {res['rc']}, {text[-300:]}")
+            missing[name] = {"rc": res["rc"], "names": pkg}
+        emit({"phase": "operator", "part": "c_tools", **out,
+              "without_package": missing, **card})
+    emit({"phase": "operator", "part": "seconds",
+          "seconds": time.perf_counter() - t_phase})
+    return totals
+
+
+def _run_demo_driven(run_demo, cfg, device, data) -> dict:
+    """``run_demo`` on ``device`` with the forest artifact on
+    ``OPERATOR_SHARDS`` shards, in ``_operator_cli``'s result form."""
+    from real_time_fraud_detection_system_tpu_torch.io.artifacts import (
+        load_model_bytes,
+    )
+
+    model = load_model_bytes(data["models"]["forest"][2], device=device)
+    t0 = time.perf_counter()
+    summary, launches = drive(lambda: run_demo(
+        cfg, model=model, n_devices=OPERATOR_SHARDS, device=device))
+    return {"rc": 0, "lines": [summary], "log": "", "launches": launches,
+            "seconds": time.perf_counter() - t0}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -6382,7 +6797,8 @@ def main() -> int:
     for name, fn in (("sharded", phase_sharded),
                      ("sharded_exact", phase_sharded_exact),
                      ("fleet", phase_fleet),
-                     ("sharded_sequence", phase_sharded_sequence)):
+                     ("sharded_sequence", phase_sharded_sequence),
+                     ("operator", phase_operator)):
         t0 = time.perf_counter()
         add(fn(dev, info, data), name, t0)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start,

@@ -80,9 +80,17 @@ workers and resizes an elastic fleet.
 sequence kind too (its history state sharded by customer); a fleet of
 processes serves every kind but the sequence one, which the JAX ``score``
 refuses there too.
-Not ported yet: object-store input and output (ROADMAP A9) and the other
-JAX subcommands (``datagen``, ``registry``, ``import-model``, the operator
-tools: A9).
+Object stores: ``--out``, ``--model-file``, ``--checkpoint-dir``,
+``--learn-registry`` and ``--cold-store`` take ``s3://bucket/prefix``
+(``io/store.py``; boto3, ``RTFDS_S3_ENDPOINT`` for MinIO).
+The operator subcommands (``cli_ops.py``): ``datagen``, ``demo`` (the
+in-process pipeline, ``runtime/pipeline.py``), ``query``, ``sql``,
+``dashboard``, ``trace``, ``ckpt``, ``dlq``, ``registry``,
+``import-model``, ``connectors``, and the analogs ``warmup`` (builds the
+kernel libraries, captures the graphs) and ``verify-device`` (every
+dispatch signature of template engines captures). The JAX ``bench`` and
+``lint`` have no counterpart here: the port's benchmark is ROADMAP A2, and
+``lint`` checks the JAX package's own source.
 """
 
 from __future__ import annotations
@@ -115,14 +123,30 @@ def _json_line(obj) -> str:
     return json.dumps(clean(obj))
 
 
+def _artifact_sig(path: str):
+    """The change signature of an artifact: a local file's mtime, an
+    ``s3://`` object's ETag (KeyError when it is missing)."""
+    if path.startswith("s3://"):
+        from real_time_fraud_detection_system_tpu_torch.io.artifacts import (
+            _split_s3_url,
+        )
+        from real_time_fraud_detection_system_tpu_torch.io.store import (
+            make_store,
+        )
+
+        url, key = _split_s3_url(path)
+        return make_store(url).head(key)["etag"]
+    return os.stat(path).st_mtime_ns
+
+
 def _make_model_reloader(path: str, kind: str, every_batches: int, log,
                          seed_initial: bool = False, sig_state=None,
                          device=None):
     """Hot model reload: every ``every_batches`` batches re-read the
     artifact at ``path`` and return ``(params, scaler)`` for the engine to
-    swap in between steps, or None. The file's mtime gates the read, so an
-    unchanged artifact costs one stat per interval (the JAX reloader's
-    ETag and digest gates are for object-store artifacts, ROADMAP A9).
+    swap in between steps, or None. The file's mtime (an ``s3://``
+    artifact's ETag, from one HEAD) gates the read, so an unchanged
+    artifact costs one stat per interval.
 
     ``seed_initial=False``: the first due interval always reloads (a
     supervisor's fresh reloader must re-apply the newest artifact over a
@@ -144,8 +168,8 @@ def _make_model_reloader(path: str, kind: str, every_batches: int, log,
     state["n"] = 0
     if seed_initial and state["sig"] is None:
         try:
-            state["sig"] = os.stat(path).st_mtime_ns
-        except OSError as e:
+            state["sig"] = _artifact_sig(path)
+        except (OSError, KeyError) as e:
             log.warning("could not baseline %s for change-gated reload "
                         "(%s); the first interval will reload it", path, e)
 
@@ -154,7 +178,7 @@ def _make_model_reloader(path: str, kind: str, every_batches: int, log,
         if state["n"] % every_batches:
             return None
         try:
-            sig = os.stat(path).st_mtime_ns
+            sig = _artifact_sig(path)
             if state["sig"] is not None and sig == state["sig"]:
                 return None
             m = load_model(path, device=device)
@@ -1519,6 +1543,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="dtype of the tree ensembles' dense path table "
                         "(auto = int8 on CUDA, f32 elsewhere); every mode "
                         "gives the same sums")
+    p.add_argument("--use-pallas", action="store_true",
+                   help="accepted for the JAX flag set; the port serves "
+                        "its fused kernels whenever they admit the model")
     p.add_argument("--start-date", default="2025-04-01")
     p.add_argument("--checkpoint-dir", default="",
                    help="checkpoint the stream here (a local directory, or "
@@ -1719,6 +1746,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--epochs", type=int, default=3)
     _add_device_flag(p)
     p.set_defaults(fn=cmd_select)
+
+    from real_time_fraud_detection_system_tpu_torch.cli_ops import (
+        add_operator_parsers,
+    )
+
+    add_operator_parsers(sub)
     return ap
 
 

@@ -411,8 +411,8 @@ class LearnConfig:
     same live batches, and is promoted (and rolled back) from live
     precision/recall."""
 
-    # Registry location: a local directory ("" = no registry; s3://
-    # waits for ROADMAP A9).
+    # Registry location: a local directory or an s3://bucket/prefix
+    # (store-backed, io/store.py); "" = no registry.
     registry_path: str = ""
     # Publish a candidate version after this many NEW labeled rows have
     # been trained since the last publish.

@@ -1,5 +1,5 @@
-"""Debezium CDC envelope codec for transactions — port of the JAX
-package's ``core/envelope.py``.
+"""Debezium CDC envelope codec — port of the JAX package's
+``core/envelope.py``.
 
 The reference consumes Debezium JSON envelopes from Kafka and decodes them
 row at a time in Spark UDFs: the big-endian signed unscaled-int encoding of
@@ -12,7 +12,9 @@ pass. The C++ scanner (``native/envelope.cc``, loaded by
 
 ``encode_*`` builds byte-identical envelopes for fixtures and replay, so
 sources and tests round-trip without a live Debezium. The profile
-(customers/terminals) envelopes are not ported yet.
+(customers/terminals) envelopes carry plain numeric columns:
+:func:`encode_profile_envelopes` and :func:`decode_profile_envelopes`
+(the demo pipeline's job1/job2, ``runtime/pipeline.py``).
 
 Envelope shape (reference schema at ``kafka_s3_sink_transactions.py:77-126``)::
 
@@ -219,6 +221,98 @@ def decode_transaction_envelopes(
         "op": op,
         "kafka_ts_ms": kts,
     }
+    return cols, ~valid
+
+
+def encode_profile_envelope(
+    table: str,
+    row: dict,
+    op: str = "c",
+    ts_ms: int = 0,
+) -> bytes:
+    """One Debezium envelope for a dimension-table row (customers or
+    terminals, ``kafka_s3_sink_customers.py:51-90``): plain numbers, no
+    binary decimals."""
+    env = {
+        "schema": {
+            "type": "struct",
+            "name": f"debezium.payment.{table}.Envelope",
+        },
+        "payload": {
+            "before": None,
+            "after": {
+                k: (float(v) if isinstance(v, (float, np.floating)) else int(v))
+                for k, v in row.items()
+            },
+            "source": {
+                "connector": "postgresql",
+                "db": "postgres",
+                "schema": "payment",
+                "table": table,
+                "ts_ms": int(ts_ms),
+            },
+            "op": op,
+            "ts_ms": int(ts_ms),
+        },
+    }
+    return json.dumps(env, separators=(",", ":")).encode("utf-8")
+
+
+def encode_profile_envelopes(
+    table: str,
+    columns: dict,
+    ts_ms: int = 0,
+) -> List[bytes]:
+    """Columnar dict → one envelope per row."""
+    names = list(columns)
+    n = len(columns[names[0]]) if names else 0
+    return [
+        encode_profile_envelope(
+            table, {k: columns[k][i] for k in names}, ts_ms=ts_ms)
+        for i in range(n)
+    ]
+
+
+def decode_profile_envelopes(
+    messages: Iterable[bytes],
+    fields: Sequence[Tuple[str, str]],
+    kafka_timestamps_ms: Optional[Sequence[int]] = None,
+) -> Tuple[dict, np.ndarray]:
+    """Dimension-table envelopes → ``(columns, invalid_mask)`` per a
+    ``TableSchema``'s fields, with ``op`` and ``kafka_ts_ms`` appended.
+    Takes ``payload.after`` (``before`` for deletes); unparseable
+    messages, null payloads and rows missing a column are masked
+    (``kafka_s3_sink_customers.py:124-160``)."""
+    msgs = list(messages)
+    n = len(msgs)
+    cols = {name: np.zeros(n, dtype=dt) for name, dt in fields}
+    op = np.zeros(n, dtype=np.int8)
+    valid = np.zeros(n, dtype=bool)
+    op_codes = {"c": 0, "u": 1, "d": 2, "r": 3}
+    for i, m in enumerate(msgs):
+        try:
+            payload = json.loads(m)["payload"]
+        except (ValueError, KeyError, TypeError):
+            continue
+        if payload is None:
+            continue
+        row = payload.get("after") or payload.get("before")
+        if row is None:
+            continue
+        try:
+            for name, _ in fields:
+                cols[name][i] = row[name]
+        except (KeyError, TypeError, ValueError):
+            for name, _ in fields:
+                cols[name][i] = 0
+            continue
+        op[i] = op_codes.get(payload.get("op", "c"), 0)
+        valid[i] = True
+    cols["op"] = op
+    if kafka_timestamps_ms is None:
+        cols["kafka_ts_ms"] = np.zeros(n, dtype=np.int64)
+    else:
+        cols["kafka_ts_ms"] = np.asarray(kafka_timestamps_ms, dtype=np.int64)
     return cols, ~valid
 
 

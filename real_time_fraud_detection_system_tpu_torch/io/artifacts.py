@@ -20,10 +20,13 @@ block's 12 fields in order, ``lnf_g``, ``lnf_b``, ``head_w``,
 ``head_b``). :meth:`TrainedModel.predict_proba` scores raw feature rows
 on the params' device (tree kinds through the leaf-sum kernel where it
 admits the ensemble) and :meth:`TrainedModel.predict_proba_np` on the
-host in NumPy (``score --scorer cpu``). :func:`save_model` writes an
-artifact to a local path (renamed into place). Object-store URLs and the
-corrupt-artifact counter come with the store and the metrics registry
-(A9, A4). :func:`save_transactions` and :func:`load_transactions` read
+host in NumPy (``score --scorer cpu``). :func:`save_model` and
+:func:`load_model` take a local path (written to a temporary name and
+renamed into place) or an ``s3://bucket/key`` URL (``io/store.py``);
+:func:`upload_model` and :func:`download_model` go through any store, the
+download tolerating a missing key as the reference's scorer does. A load
+that fails verification counts ``rtfds_model_artifact_corrupt_total
+{reason}``. :func:`save_transactions` and :func:`load_transactions` read
 and write the transactions tables of ``rtfds datagen``.
 """
 
@@ -332,13 +335,29 @@ def dump_model_bytes(model: TrainedModel) -> bytes:
     return buf.getvalue()
 
 
+def _split_s3_url(path: str):
+    """``s3://bucket/some/key`` → ``("s3://bucket/some", "key")``; a URL
+    without a bucket or an object name raises ValueError."""
+    bucket, _, key = path[len("s3://"):].partition("/")
+    if not bucket or not key or key.endswith("/"):
+        raise ValueError(
+            f"object-store URL needs s3://<bucket>/<key>, got {path!r}")
+    url, _, name = path.rpartition("/")
+    return url, name
+
+
 def save_model(path: str, model: TrainedModel) -> None:
-    """Write ``model`` to a local ``path`` (format v1): the bytes go to
+    """Write ``model`` (format v1) to a local ``path`` — the bytes go to
     ``path + ".tmp"`` and are renamed into place, so a reader never sees
-    a torn file."""
+    a torn file — or to an ``s3://`` URL (one atomic PUT)."""
     if path.startswith("s3://"):
-        raise NotImplementedError("object-store artifacts are not ported "
-                                  "yet (ROADMAP A9, io/store.py)")
+        from real_time_fraud_detection_system_tpu_torch.io.store import (
+            make_store,
+        )
+
+        url, key = _split_s3_url(path)  # validate before serializing
+        make_store(url).put(key, dump_model_bytes(model))
+        return
     data = dump_model_bytes(model)
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
@@ -371,16 +390,37 @@ def _quarantine_artifact(path: str) -> str:
     return stale
 
 
-def load_model(path: str, device=None) -> TrainedModel:
-    """Load a local artifact onto ``device`` (None = CUDA).
+def _count_corrupt(reason: str) -> None:
+    from real_time_fraud_detection_system_tpu_torch.utils.metrics import (
+        get_registry,
+    )
 
-    An artifact that fails its content hash is quarantined (``stale-…``
-    rename) before :class:`CorruptModelError` propagates; a ``truncated``
-    one is left in place (it may be a copy still being written)."""
-    if path.startswith("s3://"):
-        raise NotImplementedError("object-store artifacts are not ported "
-                                  "yet (ROADMAP A9, io/store.py)")
+    get_registry().counter(
+        "rtfds_model_artifact_corrupt_total",
+        "model artifacts that failed load-time verification",
+        reason=reason).inc()
+
+
+def load_model(path: str, device=None) -> TrainedModel:
+    """Load a local artifact or an ``s3://`` one onto ``device`` (None =
+    CUDA).
+
+    A local artifact that fails its content hash is quarantined
+    (``stale-…`` rename) before :class:`CorruptModelError` propagates; a
+    ``truncated`` one is left in place (it may be a copy still being
+    written). Either failure is counted by reason."""
     device = resolve_device(device)
+    if path.startswith("s3://"):
+        from real_time_fraud_detection_system_tpu_torch.io.store import (
+            make_store,
+        )
+
+        url, key = _split_s3_url(path)
+        try:
+            return load_model_bytes(make_store(url).get(key), device=device)
+        except CorruptModelError as e:
+            _count_corrupt(e.reason)
+            raise
     try:
         try:
             with np.load(path, allow_pickle=False) as z:
@@ -388,11 +428,32 @@ def load_model(path: str, device=None) -> TrainedModel:
         except zipfile.BadZipFile as e:
             raise _corrupt_from_badzip(e) from None
     except CorruptModelError as e:
+        _count_corrupt(e.reason)
         if e.reason != "checksum":
             raise
         stale = _quarantine_artifact(path)
         raise CorruptModelError(
             e.reason, f"{e.detail} (quarantined to {stale})") from None
+
+
+def upload_model(store, key: str, model: TrainedModel) -> None:
+    """The reference's artifact upload (``load_initial_data.py:269-287``)."""
+    store.put(key, dump_model_bytes(model))
+
+
+def download_model(store, key: str, default=None, device=None):
+    """Download and load ``key`` from ``store`` onto ``device``; a missing
+    key returns ``default`` (the reference's scorer starts before the
+    first model is published, ``fraud_detection.py:59-82``)."""
+    try:
+        data = store.get(key)
+    except KeyError:
+        return default
+    try:
+        return load_model_bytes(data, device=device)
+    except CorruptModelError as e:
+        _count_corrupt(e.reason)
+        raise
 
 
 def _load_model_npz(npz, device: torch.device) -> TrainedModel:

@@ -62,7 +62,9 @@ before the next step. A save first makes the current stream wait for the
 event recorded behind the step that last wrote the state
 (``EngineState.ready``), then reads it.
 
-Left out until a later slice: the ``ckpt`` command (A9).
+The ``ckpt`` command (``cli_ops.py``) lists, verifies and inspects a
+lineage through :func:`make_checkpointer`, ``verify_all``, ``manifest``
+and :func:`feature_state_report`.
 """
 
 from __future__ import annotations
@@ -170,6 +172,13 @@ def _to_numpy(leaf) -> np.ndarray:
     return np.asarray(leaf)
 
 
+def _fs_leaf_names(feature_state) -> dict:
+    """``fs_i`` → the JAX key path of the feature-state leaf (``ckpt
+    --inspect`` attributes bytes to named planes from these)."""
+    return {f"fs_{i}": path for i, (path, _) in
+            enumerate(tree.leaves_with_path(feature_state))}
+
+
 def _state_arrays(engine_state) -> Tuple[dict, dict]:
     """An EngineState → the npz array dict and the meta dict: the one
     place the on-disk leaf naming lives."""
@@ -179,7 +188,6 @@ def _state_arrays(engine_state) -> Tuple[dict, dict]:
     fstate = getattr(engine_state, "layout_pending", None)
     if fstate is None:
         fstate = engine_state.feature_state
-    fs = tree.leaves_with_path(fstate)
     arrays = {}
     for prefix, sub in (("fs", fstate),
                         ("p", engine_state.params),
@@ -190,10 +198,10 @@ def _state_arrays(engine_state) -> Tuple[dict, dict]:
         "offsets": list(map(int, engine_state.offsets)),
         "batches_done": int(engine_state.batches_done),
         "rows_done": int(engine_state.rows_done),
-        "n_fs": len(fs),
+        "n_fs": len(tree.leaves(fstate)),
         "n_p": len(tree.leaves(engine_state.params)),
         "n_s": len(tree.leaves(engine_state.scaler)),
-        "fs_leaves": {f"fs_{i}": path for i, (path, _) in enumerate(fs)},
+        "fs_leaves": _fs_leaf_names(fstate),
         # the JAX package's topology and lineage stamps: the shard count
         # the feature state is laid out for, and the writer's fleet
         # topology (a fleet process's state holds its residue block only)
@@ -1064,9 +1072,9 @@ class StoreCheckpointer(_CheckpointerBase):
 
 def make_checkpointer(path_or_url: str, keep: int = 3, full_every: int = 1,
                       op_timeout_s: float = 0.0, op_attempts: int = 3):
-    """``file://dir`` → :class:`StoreCheckpointer` over a
-    :class:`~.store.LocalStore`; a local path → :class:`Checkpointer`;
-    ``s3://`` raises (ROADMAP A9)."""
+    """``s3://bucket/prefix`` → :class:`StoreCheckpointer` over an
+    :class:`~.store.S3Store`, ``file://dir`` → one over a
+    :class:`~.store.LocalStore`; a local path → :class:`Checkpointer`."""
     if "://" in path_or_url:
         from real_time_fraud_detection_system_tpu_torch.io.store import (
             make_store,

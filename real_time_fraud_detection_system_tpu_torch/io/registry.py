@@ -19,8 +19,8 @@ are the JAX package's, byte layout and names alike: a registry directory
 written by either package opens in the other.
 
 Storage is the checkpoint plane's backends (``io/checkpoint.py``): a local
-directory (tmp write + atomic rename) or a ``file://`` store with retries
-and per-op timeouts. ``s3://`` raises naming ROADMAP A9. Artifacts load
+directory (tmp write + atomic rename) or an object store (``s3://`` or
+``file://``, ``io/store.py``) with retries and per-op timeouts. Artifacts load
 into host memory (``device="cpu"``); the engine and the shadow scorer move
 them to their device.
 """
@@ -365,9 +365,9 @@ class ModelRegistry:
 
 def make_model_registry(path_or_url: str, op_timeout_s: float = 0.0,
                         op_attempts: int = 3) -> ModelRegistry:
-    """A local directory → a directory-backed registry; ``file://dir`` →
-    the store-backed one (retries, per-op timeout); ``s3://`` raises
-    (object stores are ROADMAP A9)."""
+    """A local directory → a directory-backed registry; ``s3://bucket/
+    prefix`` or ``file://dir`` → the store-backed one (retries, per-op
+    timeout)."""
     if "://" in path_or_url:
         from real_time_fraud_detection_system_tpu_torch.io.store import (
             make_store,

@@ -3,7 +3,11 @@
 
 - :class:`ParquetSink` — one Parquet part file per micro-batch under a
   local directory (``pyarrow`` is imported when one is built, so the
-  package imports without it);
+  package imports without it); :class:`StoreParquetSink` — the same parts
+  in an object store (``io/store.py``, S3/MinIO);
+- :class:`IcebergSink` — appends to an Iceberg ``analyzed_transactions``
+  table through a pyiceberg catalog (:func:`make_iceberg_sink`; the
+  catalog is injectable);
 - :class:`MemorySink` — keeps every batch's columns in memory;
 - :class:`ConsoleSink` — the reference's ``.show()`` analogue;
 - :class:`FanoutSink` — several sinks in order;
@@ -19,8 +23,7 @@ The analyzed-output sinks publish the JAX package's series
 ``rtfds_sink_failures_total``, by ``sink``), and :class:`AsyncSink` its
 queue's ``rtfds_sink_queue_depth`` and
 ``rtfds_sink_backpressure_seconds_total`` (the overload ladder's
-``sink_fill`` reads the depth). Object-store sinks wait for the S3 store
-(ROADMAP A9).
+``sink_fill`` reads the depth).
 """
 
 from __future__ import annotations
@@ -297,6 +300,15 @@ def _part_order(name: str):
     return (1, 0, name)
 
 
+def _part_name(res, seq: int) -> tuple:
+    """The part name of ``res`` (``part-<batch_index>``, or a timestamp
+    and ``seq`` when it has no index) and the next ``seq``."""
+    idx = getattr(res, "batch_index", -1)
+    if idx >= 0:
+        return f"part-{idx:08d}.parquet", seq
+    return f"part-{int(time.time() * 1e3)}-{seq:06d}.parquet", seq + 1
+
+
 class ParquetSink(_SinkTelemetry):
     """One part file per batch: ``<dir>/part-<batch_index>.parquet``.
 
@@ -324,13 +336,7 @@ class ParquetSink(_SinkTelemetry):
         try:
             cols = _result_to_columns(res)
             table = pa.table({k: pa.array(v) for k, v in cols.items()})
-            idx = getattr(res, "batch_index", -1)
-            if idx >= 0:
-                name = f"part-{idx:08d}.parquet"
-            else:
-                name = (f"part-{int(time.time() * 1e3)}-"
-                        f"{self._seq:06d}.parquet")
-                self._seq += 1
+            name, self._seq = _part_name(res, self._seq)
             path = os.path.join(self.directory, name)
             tmp = path + ".tmp"
             pq.write_table(table, tmp)
@@ -358,6 +364,59 @@ class ParquetSink(_SinkTelemetry):
         if not files:
             return {}
         table = pa.concat_tables([pq.read_table(f) for f in files])
+        return {c: table[c].to_numpy() for c in table.column_names}
+
+
+class StoreParquetSink(_SinkTelemetry):
+    """:class:`ParquetSink`'s part-per-batch layout in an object store
+    (``io/store.py``): a replayed batch overwrites its own part, object
+    PUTs are atomic (no temporary name), and ``truncate_after`` is the
+    same restore fence."""
+
+    def __init__(self, store):
+        import pyarrow as pa
+        import pyarrow.parquet as pq
+
+        self._pa, self._pq = pa, pq
+        self.store = store
+        self._seq = 0
+        self._init_sink_metrics("store_parquet")
+
+    def append(self, res) -> None:
+        pa, pq = self._pa, self._pq
+        t0 = time.perf_counter()
+        try:
+            cols = _result_to_columns(res)
+            table = pa.table({k: pa.array(v) for k, v in cols.items()})
+            name, self._seq = _part_name(res, self._seq)
+            buf = pa.BufferOutputStream()
+            pq.write_table(table, buf)
+            data = buf.getvalue().to_pybytes()
+            self.store.put(name, data)
+        except Exception:
+            self._m_failures.inc()
+            raise
+        self._observe_write(t0, len(res.tx_id), len(data))
+
+    def truncate_after(self, batch_index: int) -> None:
+        for key in self.store.list(""):
+            f = key.rsplit("/", 1)[-1]
+            if not (f.startswith("part-") and f.endswith(".parquet")):
+                continue
+            stem = f[len("part-"):-len(".parquet")]
+            if stem.isdigit() and int(stem) > batch_index:
+                self.store.delete(key)
+
+    def read_all(self) -> dict:
+        import io as _io
+
+        pa, pq = self._pa, self._pq
+        keys = sorted((k for k in self.store.list("")
+                       if k.endswith(".parquet")), key=_part_order)
+        if not keys:
+            return {}
+        table = pa.concat_tables(
+            [pq.read_table(_io.BytesIO(self.store.get(k))) for k in keys])
         return {c: table[c].to_numpy() for c in table.column_names}
 
 
@@ -623,10 +682,107 @@ def read_dead_letter(path: str) -> List[dict]:
     raise FileNotFoundError(f"no dead-letter queue at {path!r}")
 
 
-def make_parquet_sink(path: str) -> ParquetSink:
-    """A local directory → :class:`ParquetSink`. Object-store URLs
-    (``s3://``) wait for the port's ``io/store.py`` (ROADMAP A9)."""
-    if "://" in path:
-        raise NotImplementedError(
-            f"object-store sinks are not ported yet (ROADMAP A9): {path!r}")
-    return ParquetSink(path)
+def make_parquet_sink(path_or_url: str, **store_kwargs):
+    """``s3://bucket/prefix`` → :class:`StoreParquetSink` (through
+    :func:`~.store.make_store`, which honours ``RTFDS_S3_ENDPOINT``); a
+    local directory → :class:`ParquetSink`."""
+    if path_or_url.startswith("s3://"):
+        from real_time_fraud_detection_system_tpu_torch.io.store import (
+            make_store,
+        )
+
+        return StoreParquetSink(make_store(path_or_url, **store_kwargs))
+    return ParquetSink(path_or_url)
+
+
+class IcebergSink(_SinkTelemetry):
+    """Append scored rows to an Iceberg ``analyzed_transactions`` table in
+    the reference's column layout: timestamps as microsecond Arrow
+    timestamps, amount and prediction as doubles, window counts as int32.
+
+    ``catalog`` is duck-typed (``load_table``/``create_table``, optionally
+    ``table_exists``), so tests run against a fake without pyiceberg;
+    :func:`make_iceberg_sink` builds a real one."""
+
+    TABLE_DEFAULT = "payment.analyzed_transactions"
+
+    def __init__(self, catalog, table_name: str = TABLE_DEFAULT):
+        self.catalog = catalog
+        self.table_name = table_name
+        self.table = self._load_or_create(catalog, table_name)
+        self._init_sink_metrics("iceberg")
+
+    @staticmethod
+    def arrow_schema():
+        import pyarrow as pa
+
+        fields = [
+            ("tx_id", pa.int64()),
+            ("tx_datetime", pa.timestamp("us")),
+            ("customer_id", pa.int64()),
+            ("terminal_id", pa.int64()),
+            ("tx_amount", pa.float64()),
+        ]
+        for name in FEATURE_NAMES:
+            if name == "TX_AMOUNT":
+                continue
+            t = (pa.int32() if ("NB_TX" in name or "DURING" in name)
+                 else pa.float64())
+            fields.append((name.lower(), t))
+        fields += [("processed_at", pa.timestamp("us")),
+                   ("prediction", pa.float64())]
+        return pa.schema(fields)
+
+    def _load_or_create(self, catalog, name: str):
+        exists = getattr(catalog, "table_exists", None)
+        if exists is not None and not exists(name):
+            return catalog.create_table(name, schema=self.arrow_schema())
+        try:
+            return catalog.load_table(name)
+        except Exception as e:
+            # only a missing table is created; a transient catalog error
+            # (network, auth) surfaces
+            if type(e).__name__ in ("NoSuchTableError", "KeyError"):
+                return catalog.create_table(name, schema=self.arrow_schema())
+            raise
+
+    def _to_arrow(self, res):
+        import pyarrow as pa
+
+        cols = _result_to_columns(res)
+        renamed = {"tx_datetime": "tx_datetime_us",
+                   "processed_at": "processed_at_us"}
+        return pa.table({
+            field.name: pa.array(cols[renamed.get(field.name, field.name)])
+            .cast(field.type)
+            for field in self.arrow_schema()})
+
+    def append(self, res) -> None:
+        t0 = time.perf_counter()
+        try:
+            tbl = self._to_arrow(res)
+            self.table.append(tbl)
+        except Exception:
+            self._m_failures.inc()
+            raise
+        self._observe_write(t0, len(res.tx_id), tbl.nbytes)
+
+
+def make_iceberg_sink(table_name: str = IcebergSink.TABLE_DEFAULT,
+                      catalog_name: str = "default",
+                      catalog: Optional[object] = None,
+                      **catalog_props) -> IcebergSink:
+    """An :class:`IcebergSink` over ``catalog``, or over
+    ``pyiceberg.catalog.load_catalog(catalog_name, **catalog_props)``
+    (ImportError naming pyiceberg where it is missing)."""
+    if catalog is None:
+        try:
+            from pyiceberg.catalog import load_catalog
+        except ImportError as e:
+            raise ImportError(
+                "pyiceberg is not installed; ParquetSink output is Iceberg-"
+                "compatible (add files to a table via any catalog), or "
+                "install pyiceberg in production images."
+            ) from e
+        catalog = load_catalog(catalog_name, **catalog_props)
+    return IcebergSink(catalog, table_name)

@@ -1,20 +1,24 @@
-"""Object-store abstraction — the port's own copy of the local half of
-the JAX package's ``io/store.py``.
+"""Object-store abstraction — the port's own copy of the JAX package's
+``io/store.py``, the MinIO/S3 artifact layer.
 
 - :class:`LocalStore` — a filesystem-backed object store (what a mounted
-  volume looks like), the backend of
-  :class:`~.checkpoint.StoreCheckpointer` in the port;
-- :func:`make_store` — a local path or ``file://`` URL →
-  :class:`LocalStore`. ``s3://`` raises: the S3 client needs boto3, which
-  the port does not depend on yet (ROADMAP A9).
+  volume looks like);
+- :class:`S3Store` — an S3/MinIO client (boto3 is imported only when no
+  client is injected, so tests run against a fake without boto3);
+- :func:`make_store` — ``s3://bucket[/prefix]`` → :class:`S3Store`, a
+  local path or ``file://`` URL → :class:`LocalStore`.
 
-Missing keys raise ``KeyError`` everywhere.
+Missing keys raise ``KeyError`` everywhere; callers that tolerate absence
+(the reference's 404 path) catch it — see
+:func:`~.artifacts.download_model`. Sinks, artifacts, checkpoints, the
+model registry and the cold tier all reach a store through
+:func:`make_store`.
 """
 
 from __future__ import annotations
 
 import os
-from typing import List
+from typing import List, Optional
 
 
 class LocalStore:
@@ -43,6 +47,18 @@ class LocalStore:
         try:
             with open(self._path(key), "rb") as f:
                 return f.read()
+        except FileNotFoundError:
+            raise KeyError(key) from None
+
+    def get_with_meta(self, key: str) -> "tuple[bytes, dict]":
+        """Body and ``{"etag", "size"}`` from one read: the open file is
+        stat'ed before it is read, so under atomic-replace writers the
+        etag describes the bytes returned."""
+        try:
+            with open(self._path(key), "rb") as f:
+                st = os.fstat(f.fileno())
+                return f.read(), {"etag": str(st.st_mtime_ns),
+                                  "size": st.st_size}
         except FileNotFoundError:
             raise KeyError(key) from None
 
@@ -82,12 +98,139 @@ class LocalStore:
         return sorted(out)
 
 
-def make_store(url: str) -> LocalStore:
-    """A local path or ``file://`` URL → :class:`LocalStore`."""
+_MISSING_CODES = ("404", "NoSuchKey", "NotFound")
+
+
+def _is_missing(exc: Exception) -> bool:
+    """True when an S3 client's exception means "no such key": botocore's
+    ``ClientError`` shape (``.response["Error"]["Code"]``), duck-typed so
+    fakes work without botocore."""
+    err = getattr(exc, "response", None)
+    if isinstance(err, dict):
+        return err.get("Error", {}).get("Code") in _MISSING_CODES
+    return False
+
+
+def _meta(resp: dict) -> dict:
+    """``{"etag", "size"}`` of a GetObject or HeadObject response (the
+    last-modified stamp stands in for a missing ETag)."""
+    return {"etag": str(resp.get("ETag", "")) or str(
+                resp.get("LastModified", "")),
+            "size": resp.get("ContentLength")}
+
+
+class S3Store:
+    """S3/MinIO object store. ``client`` is injectable; without one,
+    ``client_kwargs`` (``endpoint_url``, credentials, region) go to
+    ``boto3.client("s3", ...)``, and a missing boto3 raises ImportError."""
+
+    def __init__(self, bucket: str, prefix: str = "", client=None,
+                 **client_kwargs):
+        if client is None:
+            try:
+                import boto3
+            except ImportError as e:
+                raise ImportError(
+                    "boto3 is not installed; use LocalStore for dev, or "
+                    "install boto3 (pip install boto3) in production "
+                    "images."
+                ) from e
+            client = boto3.client("s3", **client_kwargs)
+        self.bucket = bucket
+        self.prefix = prefix.strip("/")
+        self.client = client
+
+    def _key(self, key: str) -> str:
+        return f"{self.prefix}/{key}" if self.prefix else key
+
+    def put(self, key: str, data: bytes) -> None:
+        self.client.put_object(Bucket=self.bucket, Key=self._key(key),
+                               Body=data)
+
+    def _get(self, key: str) -> dict:
+        try:
+            return self.client.get_object(Bucket=self.bucket,
+                                          Key=self._key(key))
+        except Exception as e:
+            if _is_missing(e):
+                raise KeyError(key) from None
+            raise
+
+    @staticmethod
+    def _body(obj: dict) -> bytes:
+        body = obj["Body"]
+        return body.read() if hasattr(body, "read") else body
+
+    def get(self, key: str) -> bytes:
+        return self._body(self._get(key))
+
+    def get_with_meta(self, key: str) -> "tuple[bytes, dict]":
+        """Body and metadata from the same GetObject response, so the etag
+        describes the returned bytes even under a concurrent overwrite."""
+        obj = self._get(key)
+        return self._body(obj), _meta(obj)
+
+    def exists(self, key: str) -> bool:
+        try:
+            self.head(key)
+            return True
+        except KeyError:
+            return False
+
+    def head(self, key: str) -> dict:
+        """``{"etag", "size"}`` from one HEAD request; KeyError when the
+        key is missing."""
+        try:
+            resp = self.client.head_object(Bucket=self.bucket,
+                                           Key=self._key(key))
+        except Exception as e:
+            if _is_missing(e):
+                raise KeyError(key) from None
+            raise
+        return _meta(resp)
+
+    def delete(self, key: str) -> None:
+        self.client.delete_object(Bucket=self.bucket, Key=self._key(key))
+
+    def move(self, src: str, dst: str) -> None:
+        """Server-side copy, then delete (S3 has no rename)."""
+        self.client.copy_object(
+            Bucket=self.bucket, Key=self._key(dst),
+            CopySource={"Bucket": self.bucket, "Key": self._key(src)},
+        )
+        self.client.delete_object(Bucket=self.bucket, Key=self._key(src))
+
+    def list(self, prefix: str = "") -> List[str]:
+        full = self._key(prefix)
+        keys: List[str] = []
+        token: Optional[str] = None
+        while True:
+            kw = {"Bucket": self.bucket, "Prefix": full}
+            if token:
+                kw["ContinuationToken"] = token
+            resp = self.client.list_objects_v2(**kw)
+            for item in resp.get("Contents", []):
+                k = item["Key"]
+                if self.prefix:
+                    k = k[len(self.prefix) + 1:]
+                keys.append(k)
+            if not resp.get("IsTruncated"):
+                break
+            token = resp.get("NextContinuationToken")
+        return sorted(keys)
+
+
+def make_store(url: str, **kwargs):
+    """``s3://bucket[/prefix]`` → :class:`S3Store` (``RTFDS_S3_ENDPOINT``,
+    when set and neither ``endpoint_url`` nor ``client`` is given, points
+    the client at MinIO); a local path or ``file://`` URL →
+    :class:`LocalStore`."""
     if url.startswith("s3://"):
-        raise NotImplementedError(
-            f"S3 object stores are not ported yet (ROADMAP A9; the client "
-            f"needs boto3): {url!r}")
+        bucket, _, prefix = url[len("s3://"):].partition("/")
+        if ("endpoint_url" not in kwargs and "client" not in kwargs
+                and os.environ.get("RTFDS_S3_ENDPOINT")):
+            kwargs["endpoint_url"] = os.environ["RTFDS_S3_ENDPOINT"]
+        return S3Store(bucket, prefix=prefix, **kwargs)
     if url.startswith("file://"):
         url = url[len("file://"):]
     elif "://" in url:

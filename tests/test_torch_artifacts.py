@@ -7,6 +7,8 @@ port loads in the JAX package, whose loader verifies the hash itself.
 Arrays are compared bit for bit: both sides store the same bytes.
 """
 
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -161,10 +163,12 @@ def test_unhashed_v0_artifact_loads():
                                   np.asarray(jmodel.params.w))
 
 
-def test_unported_kinds_raise_naming_their_roadmap_item():
+def test_unported_kinds_raise_naming_their_roadmap_item(monkeypatch):
     """Every kind of the zoo loads now (the mlp below; all of them in
     ``tests/test_torch_zoo.py`` and ``test_torch_sequence.py``); an
-    unknown kind raises, and object-store URLs name ROADMAP A9."""
+    unknown kind raises, and an object-store URL without boto3 raises
+    naming it (``tests/test_torch_store.py`` serves ``s3://`` on a fake
+    client)."""
     rng = np.random.default_rng(0)
     mlp = JTrainedModel(
         kind="mlp", scaler=_jax_model("logreg").scaler,
@@ -175,7 +179,8 @@ def test_unported_kinds_raise_naming_their_roadmap_item():
     with pytest.raises(ValueError, match="unknown model kind"):
         tart.dump_model_bytes(tart.TrainedModel(
             kind="lstm", scaler=None, params=None))
-    with pytest.raises(NotImplementedError, match="A9"):
+    monkeypatch.setitem(sys.modules, "boto3", None)
+    with pytest.raises(ImportError, match="boto3"):
         tart.load_model("s3://bucket/model.npz", device="cpu")
 
 

@@ -38,7 +38,11 @@ dispatch bit for bit. The tiered store across shards: the stacked
 admission on the card equal to the CPU, the sharded exact step,
 compaction and promotion free of host syncs, their four captured
 signatures replayed against eager dispatch (and the CPU) bit for bit,
-and the leaf sum inside the exact step equal to its plain version.
+and the leaf sum inside the exact step equal to its plain version. The
+demo pipeline (``runtime/pipeline.py``) on the card against the CPU
+device: the forest, logreg trained on each device, and the forest on 2
+shards — counts and flags equal, the stream AUC within 1e-6, and the
+path's own kernel the only one launched.
 """
 
 import time
@@ -2731,3 +2735,64 @@ def test_tensor_expert_pipeline_on_cuda_match_cpu(cuda):
     g = res[str(cuda)]
     close(g[-4], g[-3])
     close(g[-2], g[-1])
+
+
+def _demo_config(n_customers=80, n_terminals=160):
+    from real_time_fraud_detection_system_tpu_torch.config import TrainConfig
+
+    return Config(
+        data=DataConfig(n_customers=n_customers, n_terminals=n_terminals,
+                        n_days=40, seed=3),
+        features=FeatureConfig(customer_capacity=256, terminal_capacity=512,
+                               cms_width=1 << 10),
+        train=TrainConfig(delta_train_days=15, delta_delay_days=5,
+                          delta_test_days=5, epochs=2, batch_size=512),
+        runtime=RuntimeConfig(batch_buckets=(1024, 4096),
+                              max_batch_rows=4096))
+
+
+@pytest.mark.parametrize("kind,n_devices,own", [
+    ("forest", 1, "fused_forest_leaf_sum"),
+    ("logreg", 1, "fused_featurize_score"),
+    ("forest", 2, "leaf_sum")], ids=["forest", "logreg", "forest-2"])
+def test_demo_on_cuda_equals_the_cpu_demo(cuda, kind, n_devices, own):
+    """``run_demo`` on the card against the CPU device at a small size:
+    the forest from seeded weights, logreg trained on each device; the
+    counts and flags equal, the stream AUC within 1e-6, and the path's
+    kernel launched on the card (the plain version on the CPU)."""
+    from real_time_fraud_detection_system_tpu_torch.io.artifacts import (
+        TrainedModel,
+        dump_model_bytes,
+        load_model_bytes,
+    )
+    from real_time_fraud_detection_system_tpu_torch.runtime.pipeline import (
+        run_demo,
+    )
+
+    data = None
+    if kind == "forest":
+        data = dump_model_bytes(TrainedModel(
+            "forest", fit_scaler(np.random.default_rng(0).normal(
+                50, 20, (64, 15)), device="cpu"),
+            synthetic_ensemble(12, 5, 15, seed=2, device="cpu")))
+    wrappers = {"fused_forest_leaf_sum": fk.fused_forest_leaf_sum,
+                "leaf_sum": fk.leaf_sum,
+                "fused_featurize_score": sk.fused_featurize_score}
+    out = {}
+    for dev in (cuda, "cpu"):
+        for w in wrappers.values():
+            w.launches = 0
+        model = (load_model_bytes(data, device=dev) if data is not None
+                 else None)
+        out[str(dev)] = run_demo(_demo_config(), model=model,
+                                 model_kind=kind, batch_rows=1024,
+                                 n_devices=n_devices, device=dev)
+        launches = {k: w.launches for k, w in wrappers.items()}
+        if dev == cuda:
+            assert launches[own] > 0
+            assert all(n == 0 for k, n in launches.items() if k != own)
+    got, want = out[str(cuda)], out["cpu"]
+    for k in ("customers", "terminals", "warm_rows", "streamed_rows",
+              "raw_tx_rows", "flagged_at_0.5"):
+        assert got[k] == want[k], k
+    assert got["stream_auc"] == pytest.approx(want["stream_auc"], abs=1e-6)

@@ -16,7 +16,9 @@ affine and floor sources, a sketch exchange, the merge of their states,
 the launcher's worker commands, the elastic policy); another runs the
 sequence kind over shards and the parallel library (``sequence_step``,
 ``tensor_parallel``, ``expert_parallel``, ``pipeline_parallel``, ring and
-Ulysses attention) the same way; the last reads the
+Ulysses attention) the same way; another runs the operator commands
+(``demo``, ``datagen``, a checkpointed ``score``, ``ckpt --verify``,
+``trace``, ``verify-device``); the last reads the
 port's sources (Python, CUDA and CUDA headers) and ``chip_smoke.py`` for
 an import of jax or a dotted reference into the JAX package.
 """
@@ -347,6 +349,60 @@ def test_parallel_library_runs_with_jax_blocked():
                           env={**os.environ, "OMP_NUM_THREADS": "1"})
     assert proc.returncode == 0, proc.stderr
     assert "parallel without jax" in proc.stdout
+
+
+_OPERATOR_WITHOUT_JAX = r"""
+import contextlib, io, json, os, sys, tempfile
+sys.modules["jax"] = None  # any import of jax now raises ImportError
+import numpy as np
+from real_time_fraud_detection_system_tpu_torch import cli
+from real_time_fraud_detection_system_tpu_torch.io.artifacts import (
+    TrainedModel, save_model)
+from real_time_fraud_detection_system_tpu_torch.models.forest import (
+    synthetic_ensemble)
+from real_time_fraud_detection_system_tpu_torch.models.scaler import (
+    fit_scaler)
+
+def run(argv):
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    assert rc == 0, (argv, rc)
+    return json.loads(out.getvalue().strip().splitlines()[-1])
+
+with tempfile.TemporaryDirectory() as d:
+    save_model(f"{d}/m.npz", TrainedModel(
+        "forest", fit_scaler(np.ones((2, 15)), device="cpu"),
+        synthetic_ensemble(3, 3, device="cpu")))
+    s = run(["demo", "--device", "cpu", "--customers", "30", "--terminals",
+             "60", "--days", "12", "--delta-train", "6", "--delta-delay",
+             "2", "--model-file", f"{d}/m.npz", "--batch-rows", "256"])
+    assert s["customers"] == 30 and s["streamed_rows"] > 0, s
+    assert cli.main(["datagen", "--out", f"{d}/t.npz", "--customers", "20",
+                     "--terminals", "40", "--days", "6"]) == 0
+    run(["score", "--device", "cpu", "--data", f"{d}/t.npz", "--model-file",
+         f"{d}/m.npz", "--batch-rows", "128", "--checkpoint-dir", f"{d}/ck",
+         "--max-restarts", "1", "--trace-out", f"{d}/tr.json"])
+    c = run(["ckpt", "--path", f"{d}/ck", "--verify"])
+    assert c["valid"] and c["batches_done"] > 0, c
+    assert cli.main(["verify-device", "--device", "cpu"]) == 0
+    run(["trace", "--trace", f"{d}/tr.json", "--json"])
+assert "jax" not in {m.split(".")[0] for m in sys.modules
+                     if sys.modules[m] is not None}
+print("operator without jax")
+"""
+
+
+def test_operator_commands_run_with_jax_blocked():
+    """``demo`` (the in-process pipeline), ``datagen``, a checkpointed
+    ``score`` and then ``ckpt --verify`` and ``trace`` run where ``import
+    jax`` fails."""
+    proc = subprocess.run([sys.executable, "-c", _OPERATOR_WITHOUT_JAX],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=300,
+                          env={**os.environ, "OMP_NUM_THREADS": "1"})
+    assert proc.returncode == 0, proc.stderr
+    assert "operator without jax" in proc.stdout
 
 
 _FORBIDDEN = [
