@@ -433,6 +433,23 @@ def _reset_slots(ws: WindowState, slots: torch.Tensor,
         col.masked_fill_(m, 0.0)
 
 
+def _swept_rows(ws: WindowState) -> torch.Tensor:
+    """The rows of ``ws.bucket_day`` a compaction pass reads: all of
+    them, a full-table sweep."""
+    return ws.bucket_day
+
+
+def compact_swept_slots(state: FeatureState) -> dict:
+    """Hot-tier slots one :func:`compact_feature_state` pass reads, by
+    table with a key directory: the rows of its :func:`_swept_rows`
+    (over a sharded state, the per-shard passes read its blocks, which
+    add up to the same)."""
+    return {ws_name: int(_swept_rows(getattr(state, ws_name)).shape[0])
+            for dir_name, ws_name in (("customer_dir", "customer"),
+                                      ("terminal_dir", "terminal"))
+            if getattr(state, dir_name) is not None}
+
+
 def compact_feature_state(
     state: FeatureState,
     now_day,  # int or int32 [] — the newest day the stream has seen
@@ -471,7 +488,7 @@ def compact_feature_state(
             counts.append(torch.zeros((), dtype=torch.int32,
                                       device=ws.count.device))
             continue
-        newest = ws.bucket_day.amax(dim=1)  # [slot_cap]
+        newest = _swept_rows(ws).amax(dim=1)  # [slot_cap]
         live = kd.slots >= 0
         newest_e = newest[kd.slots.long().clamp(0, ws.capacity - 1)]
         dead_entry = live & (newest_e < cutoff)

@@ -66,13 +66,14 @@ class _SinkTelemetry:
         self._m_failures = reg.counter(
             "rtfds_sink_failures_total", "failed appends", sink=sink_kind)
 
-    def _observe_write(self, t0: float, rows: int, nbytes: int) -> None:
+    def _observe_write(self, t0: float, rows: int, nbytes: int,
+                       timeline: bool = True) -> None:
         t1 = time.perf_counter()
         self._m_write.observe(t1 - t0)
         self._m_rows.inc(rows)
         if nbytes:
             self._m_bytes.inc(nbytes)
-        if self._tracer.enabled:
+        if timeline and self._tracer.enabled:
             # timeline only (batch=""): on an async sink's writer, or
             # with batches in flight, the current batch is a later one;
             # the engine's sink_write span carries the attribution
@@ -255,10 +256,17 @@ class MemorySink(_SinkTelemetry):
 
     def append(self, res) -> None:
         t0 = time.perf_counter()
-        cols = _result_to_columns(res)
+        # a child of the span open on this thread (the engine's
+        # sink_write); on an async sink's writer, where none is open, a
+        # timeline span (batch="", as _observe_write's): the current
+        # batch is a later one. It stands for the sink's timeline span.
+        batch = None if self._tracer.open_span() else ""
+        with self._tracer.span("sink_write/convert", batch=batch):
+            cols = _result_to_columns(res)
         self.batches.append(cols)
         self._observe_write(t0, len(res.tx_id),
-                            sum(v.nbytes for v in cols.values()))
+                            sum(v.nbytes for v in cols.values()),
+                            timeline=False)
 
     def concat(self) -> dict:
         if not self.batches:

@@ -184,6 +184,7 @@ from real_time_fraud_detection_system_tpu_torch.features.history import (
 from real_time_fraud_detection_system_tpu_torch.features.online import (
     FeatureState,
     compact_feature_state,
+    compact_swept_slots,
     init_feature_state,
     promote_rows,
     state_bytes,
@@ -270,6 +271,11 @@ _WRAPPERS = (forest_kernels.fused_forest_leaf_sum, forest_kernels.leaf_sum,
 # Side-stream runs of each signature before its capture (lazy inits:
 # cuBLAS handles, the autograd engine, the kernels' modules).
 WARMUP_RUNS = 2
+# The port's own series (the JAX engine registers neither): the bytes the
+# loop copies to and from the device, by direction, and the hot-tier slots
+# compaction reads, by table.
+TRANSFER_BYTES = "rtfds_transfer_bytes_total"
+SLOTS_SWEPT = "rtfds_feature_compact_slots_swept_total"
 log = get_logger("engine")
 
 
@@ -508,13 +514,20 @@ class _StepGraph:
     in), its static outputs (cloned right after each replay, so no result
     shares memory with a later replay of any graph of the pool), and the
     launches of each kernel wrapper it recorded, counted at every
-    replay."""
+    replay. ``begun`` is an external timing event that the graph records
+    behind its first kernel (one element's add): the stamp of each
+    replay's first device work (the device track's start), which the next
+    replay records over; ``pending`` holds the last replay's start once
+    read."""
 
-    def __init__(self, graph, inputs: list, outputs, launches: dict):
+    def __init__(self, graph, inputs: list, outputs, launches: dict,
+                 begun=None):
         self.graph = graph
         self.inputs = inputs
         self.outputs = outputs
         self.launches = launches
+        self.begun = begun
+        self.pending = None
 
     def replay(self, *args):
         for dst, src in zip(self.inputs, args):
@@ -732,8 +745,15 @@ class ScoringEngine:
         self._exact = fcfg.key_mode == "exact"
         self._compact_every = fcfg.compact_every if self._exact else 0
         self._max_day = 0
-        # pending host copies of compaction counts: (event, host, apply)
+        # pending host readings, (event, apply, what it reads): compaction
+        # counts and, with the tracer on, the device track's intervals;
+        # applied once the event has completed
         self._meters: deque = deque()
+        # the device track's anchor for this run: (event, perf_counter)
+        self._dev_anchor = None
+        # the counter each graph's first kernel bumps (see _capture_held)
+        self._graph_mark = None
+        self._scope = None  # this run's tracer scope
         # The host cold tier, armed by _init_cold below.
         self._cold = None  # io.coldstore.ColdStore
         self._promoter = None  # io.coldstore.ColdPromoter
@@ -789,9 +809,11 @@ class ScoringEngine:
         - ``rtfds_aot_fallbacks_total`` counts dispatches, after a
           precompile captured graphs, whose signature had no graph and ran
           eagerly (the JAX engine's fallback from an AOT executable to jit);
-        - ``rtfds_fetch_overlap_seconds_total`` adds up, per batch, the
-          time from the side-stream result copies' issue to the loop's
-          wait for them (the head start the copy got);
+        - ``rtfds_transfer_bytes_total{direction}`` counts the bytes of
+          the packed batches copied to the device (``h2d``) and of the
+          results copied back (``d2h``, the side-stream copies or their
+          blocking fallback); on a CPU device, the bytes the same copies
+          hand over;
         - ``rtfds_z_mode{mode}`` is 1 for the dtype of the tree kinds'
           dense path table (``runtime.z_mode``) and ``rtfds_use_pallas``
           1 when the step takes one of the hand-written kernels (the fused
@@ -832,10 +854,12 @@ class ScoringEngine:
             "rtfds_aot_fallbacks_total",
             "dispatches after precompile whose signature had no captured "
             "graph (served eagerly)")
-        self._m_fetch_overlap = reg.counter(
-            "rtfds_fetch_overlap_seconds_total",
-            "seconds from the side-stream result copies' issue to the "
-            "loop's wait for them")
+        self._m_xfer = {
+            d: reg.counter(
+                TRANSFER_BYTES,
+                "bytes of packed batches copied to the device (h2d) and "
+                "of results copied back (d2h)", direction=d)
+            for d in ("h2d", "d2h")}
         self._m_zmode = {
             m: reg.gauge(
                 "rtfds_z_mode",
@@ -905,6 +929,7 @@ class ScoringEngine:
                                feedback=self.feature_cache is not None,
                                scorer=self.scorer)
         self._m_tier = None
+        self._m_swept = {}
         self._predict = None
         self._fused = False
         self.tables = self.leaf_tables = None
@@ -1099,7 +1124,8 @@ class ScoringEngine:
                 "the budget")
 
     def _init_state_telemetry(self) -> None:
-        """The tiered store's series, under the JAX engine's names:
+        """The tiered store's series, under the JAX engine's names, and
+        the port's own ``rtfds_feature_compact_slots_swept_total``:
         registered only when the tiers are live (bytes gauges also when a
         budget is set)."""
         reg = self.metrics
@@ -1107,6 +1133,7 @@ class ScoringEngine:
         self._m_tier = None
         self._m_slots_occ: dict = {}
         self._m_slots_rec: dict = {}
+        self._m_swept: dict = {}
         if self._exact:
             self._m_tier = {
                 t: reg.counter(
@@ -1125,6 +1152,10 @@ class ScoringEngine:
                     "hot-tier slots reclaimed by recency compaction "
                     "(the slot held only history older than "
                     "delay + max(window))", table=t)
+                self._m_swept[t] = reg.counter(
+                    SLOTS_SWEPT,
+                    "hot-tier slots recency compaction read "
+                    "(features.online.compact_swept_slots)", table=t)
         if self._exact or fcfg.state_hbm_budget_mb > 0:
             sb = state_bytes(fcfg, n_shards=self._state_shards())
             for tier in ("dense", "directory", "cms", "total"):
@@ -1172,6 +1203,9 @@ class ScoringEngine:
                 self._append_demotions(dict(zip(("customer", "terminal"),
                                                 out[1])))
             self._record_compaction(out[0])
+        swept = compact_swept_slots(self.state.feature_state)
+        for table, counter in self._m_swept.items():
+            counter.inc(swept.get(table, 0))
 
     def _compact_pass(self, fstate, day):
         """The recency compaction over the state, IN PLACE (the sharded
@@ -1240,7 +1274,7 @@ class ScoringEngine:
         landed = torch.cuda.Event()
         landed.record(side)
         # vals stays referenced until the copy has landed
-        self._meters.append((landed, host, apply, vals))
+        self._meters.append((landed, lambda: apply(host.numpy()), vals))
 
     def _meter_shards(self, reclaimed: np.ndarray,
                       occupied: dict) -> dict:
@@ -1249,15 +1283,16 @@ class ScoringEngine:
         return {}
 
     def _drain_meters(self, wait: bool = False) -> None:
-        """Apply the compaction meters whose host copies have landed (all
-        of them, waiting, with ``wait``)."""
+        """Apply the pending readings (compaction meters, the device
+        track) whose events have completed (all of them, waiting, with
+        ``wait``)."""
         while self._meters:
-            landed, host, apply, _ = self._meters[0]
+            landed, apply = self._meters[0][:2]
             if not wait and not landed.query():
                 return
             landed.synchronize()
             self._meters.popleft()
-            apply(host.numpy())
+            apply()
 
     # -- host cold tier (features.cold_store) ------------------------------
 
@@ -1514,24 +1549,27 @@ class ScoringEngine:
     def _pack(self, cols: dict, n: int, pad: int):
         """The packed ``[7, pad]`` batch on the host: a pinned staging
         entry ``[buffer, event]`` on CUDA, else an int32 tensor."""
-        entry = self._staging.acquire(pad) if self._staging else None
-        out = entry[0].numpy() if entry is not None else None
-        if self.host_prep == "native":
-            packed = native.pack_rows(
-                cols["tx_datetime_us"], cols["customer_id"],
-                cols["terminal_id"], cols["tx_amount_cents"],
-                cols.get("label"), pad, out=out)
-        else:
-            packed = pack_batch(make_batch(
-                customer_id=cols["customer_id"],
-                terminal_id=cols["terminal_id"],
-                tx_datetime_us=cols["tx_datetime_us"],
-                amount_cents=cols["tx_amount_cents"],
-                label=cols.get("label"),
-                pad_to=pad,
-            ))
-            if out is not None:
-                out[...] = packed
+        with self.tracer.span("host_prep/staging_wait", nvtx=self._nvtx):
+            # blocks on the copy that last read the entry
+            entry = self._staging.acquire(pad) if self._staging else None
+        with self.tracer.span("host_prep/pack", nvtx=self._nvtx):
+            out = entry[0].numpy() if entry is not None else None
+            if self.host_prep == "native":
+                packed = native.pack_rows(
+                    cols["tx_datetime_us"], cols["customer_id"],
+                    cols["terminal_id"], cols["tx_amount_cents"],
+                    cols.get("label"), pad, out=out)
+            else:
+                packed = pack_batch(make_batch(
+                    customer_id=cols["customer_id"],
+                    terminal_id=cols["terminal_id"],
+                    tx_datetime_us=cols["tx_datetime_us"],
+                    amount_cents=cols["tx_amount_cents"],
+                    label=cols.get("label"),
+                    pad_to=pad,
+                ))
+                if out is not None:
+                    out[...] = packed
         return entry if entry is not None else torch.from_numpy(packed)
 
     # -- the precompiled step (dispatch inventory, CUDA graphs) -----------
@@ -1642,17 +1680,26 @@ class ScoringEngine:
         cur.wait_stream(side)
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
+        if self._graph_mark is None:
+            self._graph_mark = torch.zeros(1, dtype=torch.int32,
+                                           device=self.device)
         for sg in sigs:
             before = [w.captured for w in _WRAPPERS]
             graph = torch.cuda.CUDAGraph()
+            begun = torch.cuda.Event(enable_timing=True, external=True)
             t = time.perf_counter()
             with torch.cuda.graph(graph, pool=self._pool,
                                   capture_error_mode="thread_local"):
+                # begun behind a one-element kernel: under CUPTI a graph's
+                # leading record node runs as the launch starts, its
+                # kernels only milliseconds later
+                self._graph_mark.add_(1)
+                begun.record()
                 out = self.signature_step(sg)(*inputs[sg.key])
             launches = {w: w.captured - n for w, n in zip(_WRAPPERS, before)
                         if w.captured != n}
             self._graphs[sg.key] = _StepGraph(graph, inputs[sg.key], out,
-                                              launches)
+                                              launches, begun)
             self._captures.note(sg.key, time.perf_counter() - t)
             self._m_precompiled.inc()
         self._graph_form = self._form()
@@ -1706,13 +1753,74 @@ class ScoringEngine:
 
     def _dispatch_step(self, key: tuple, fn: Callable, *args):
         """Replay ``key``'s graph when it was captured, else run ``fn``
-        eagerly: the same device work either way."""
+        eagerly: the same device work either way. With the device track
+        on (:meth:`run` with the tracer, on CUDA), timing events around it
+        become a ``device/<key[0]>`` span, ending behind its last kernel
+        and starting where the eager work is queued or, for a graph, at
+        its first kernel (:meth:`_mark_device`)."""
+        track = self._dev_anchor is not None
+        start = None
+        if track:
+            # the start of eager work, and of a replay whose own stamp is
+            # lost (see _mark_device)
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
         graph = self._graphs.get(key)
         if graph is None:
             if self._graphs:
                 self._m_aot_fallbacks.inc()
-            return fn(*args)
-        return graph.replay(*args)
+            out = fn(*args)
+        else:
+            if track:
+                self._settle_begun(graph)
+            out = graph.replay(*args)
+            if track:
+                graph.pending = [None]
+        if track:
+            self._mark_device(f"device/{key[0]}", start, graph)
+        return out
+
+    def _settle_begun(self, graph: "_StepGraph") -> None:
+        """Before ``graph`` replays again (and re-records ``begun``): the
+        last replay's start from ``begun``, where its stamp has landed
+        (the event is pending from a launch until its node runs)."""
+        pending = graph.pending
+        if pending is not None and pending[0] is None \
+                and graph.begun.query():
+            pending[0] = self._dev_anchor[0].elapsed_time(graph.begun)
+
+    def _mark_device(self, name: str, start, graph=None) -> None:
+        """Queue the device-track span from ``start`` to an event recorded
+        now, put on the host's clock by the run's anchor once both have
+        completed (no sync), attributed to the host span open here. A
+        replayed graph's span starts at its ``begun`` stamp: read when the
+        span is applied if the graph has not replayed since, else as
+        :meth:`_settle_begun` read it, else at ``start``: the stamp is
+        lost only where the next replay was launched before it landed, so
+        this one waited on a busy stream, where ``start``, recorded before
+        the launch, stamps when the work ahead of it ended. (Recorded
+        before a launch onto an idle stream, ``start`` would also hold
+        the launch: under a profiler, milliseconds.)"""
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        anchor, t_anchor = self._dev_anchor
+        host = self.tracer.open_span() or (None, "")
+        tracer = self.tracer
+        pending = graph.pending if graph is not None else None
+
+        def apply() -> None:
+            if pending is not None and pending[0] is None \
+                    and graph.pending is pending:
+                pending[0] = anchor.elapsed_time(graph.begun)
+            t0 = pending[0] if pending is not None else None
+            if t0 is None:
+                t0 = anchor.elapsed_time(start)
+            tracer.add_device_span(
+                name, t_anchor + t0 * 1e-3,
+                t_anchor + anchor.elapsed_time(end) * 1e-3,
+                batch=host[1], launched_by=host[0])
+
+        self._meters.append((end, apply))
 
     # -- emission (full, bf16, selective, alerts-only) ---------------------
 
@@ -1771,7 +1879,8 @@ class ScoringEngine:
         done = torch.cuda.Event()
         done.record(side)
         host["done"] = done
-        host["issue_t"] = time.perf_counter()
+        self._m_xfer["d2h"].inc(sum(v.numel() * v.element_size()
+                                    for v in srcs.values()))
         return host
 
     def _host_results(self, handle: dict):
@@ -1782,32 +1891,38 @@ class ScoringEngine:
         n = handle["n"]
         out: StepOut = handle["out"]
         fetch = handle["fetch"] or {}
-        if "done" in fetch:
-            self._m_fetch_overlap.inc(
-                max(0.0, time.perf_counter() - fetch["issue_t"]))
-            fetch["done"].synchronize()
+        with self.tracer.span("result_wait/fetch_wait", nvtx=self._nvtx):
+            if "done" in fetch:
+                fetch["done"].synchronize()
 
         def host(name: str, t: torch.Tensor) -> np.ndarray:
-            t = fetch[name] if name in fetch else t.cpu()
+            if name in fetch:
+                t = fetch[name]
+            else:
+                self._m_xfer["d2h"].inc(t.numel() * t.element_size())
+                t = t.cpu()
             return (t if t.dtype == torch.float32
                     else t.to(torch.float32)).numpy()
 
-        tier = host("tier", out.tier) if out.tier is not None else None
-        if out.packed is not None:
-            probs, feats = self._unpack_selective(
-                n, out, host("packed", out.packed))
-        else:
-            probs = host("probs", out.probs[:n])
-            if out.feats is not None and self._emit_features_now():
-                feats = host("feats", out.feats[:n])
+        with self.tracer.span("result_wait/decode", nvtx=self._nvtx):
+            tier = host("tier", out.tier) if out.tier is not None else None
+            if out.packed is not None:
+                probs, feats = self._unpack_selective(
+                    n, out, host("packed", out.packed))
             else:
-                # alerts-only, the ladder's degrade, or the sequence kind
-                feats = np.zeros((n, N_FEATURES), np.float32)
-        if self.scorer == "cpu":
-            # the oracle: the host's pure-NumPy predict on the features
-            # the device step emitted (its own probabilities are dropped)
-            probs = self.cpu_model.predict_proba_np(
-                feats.astype(np.float64))
+                probs = host("probs", out.probs[:n])
+                if out.feats is not None and self._emit_features_now():
+                    feats = host("feats", out.feats[:n])
+                else:
+                    # alerts-only, the ladder's degrade, or the sequence
+                    # kind
+                    feats = np.zeros((n, N_FEATURES), np.float32)
+            if self.scorer == "cpu":
+                # the oracle: the host's pure-NumPy predict on the
+                # features the device step emitted (its own probabilities
+                # are dropped)
+                probs = self.cpu_model.predict_proba_np(
+                    feats.astype(np.float64))
         return probs, feats, tier
 
     def _unpack_selective(self, n: int, out: StepOut, flat: np.ndarray):
@@ -1823,7 +1938,9 @@ class ScoringEngine:
         feats = np.zeros((n, N_FEATURES), np.float32)
         if count > cap:
             self.selective_overflows += 1
-            feats = out.feats[:n].cpu().numpy()
+            full = out.feats[:n]
+            self._m_xfer["d2h"].inc(full.numel() * full.element_size())
+            feats = full.cpu().numpy()
         elif count:
             idx = flat[pad + 1:pad + 1 + count].astype(np.int64)
             sel = flat[pad + 1 + cap:pad + 1 + cap + count * N_FEATURES]
@@ -1906,32 +2023,39 @@ class ScoringEngine:
         copies that read them, so the caching allocator cannot hand their
         memory out while the side stream reads it."""
         t0 = time.perf_counter()
-        with self.tracer.span("host_prep", nvtx=self._nvtx):
-            keep = latest_wins_mask_host(cols["tx_id"], cols["kafka_ts_ms"])
-            cols = {k: v[keep] for k, v in cols.items()}
-            validate_ingest_rows(cols)
+        span, nvtx = self.tracer.span, self._nvtx
+        with span("host_prep", nvtx=nvtx):
+            with span("host_prep/dedup", nvtx=nvtx):
+                keep = latest_wins_mask_host(cols["tx_id"],
+                                             cols["kafka_ts_ms"])
+                cols = {k: v[keep] for k, v in cols.items()}
+            with span("host_prep/validate", nvtx=nvtx):
+                validate_ingest_rows(cols)
             n = len(cols["tx_id"])
             pad = bucket_size(n, self.cfg.runtime.batch_buckets)
             host = self._pack(cols, n, pad)
             t1 = time.perf_counter()
-        with self.tracer.span("dispatch", rows=n, pad=pad, nvtx=self._nvtx):
+        with span("dispatch", rows=n, pad=pad, nvtx=nvtx):
             self._note_params_swap()
             if self._recapture:
                 self.precompile()
             key = ("step", 7, pad)
             graph = self._graphs.get(key)
             src = host[0] if isinstance(host, list) else host
-            if graph is not None:
-                packed = graph.inputs[0]
-                packed.copy_(src, non_blocking=True)
-            else:
-                packed = src.to(self.device, non_blocking=True)
-            if isinstance(host, list):
-                host[1] = torch.cuda.Event()
-                host[1].record()
+            with span("dispatch/h2d", nvtx=nvtx):
+                if graph is not None:
+                    packed = graph.inputs[0]
+                    packed.copy_(src, non_blocking=True)
+                else:
+                    packed = src.to(self.device, non_blocking=True)
+                if isinstance(host, list):
+                    host[1] = torch.cuda.Event()
+                    host[1].record()
+            self._m_xfer["h2d"].inc(src.numel() * src.element_size())
             if self._nan_guard:
                 self._snapshot_twins()
-            out = self._dispatch_step(key, self._step, packed)
+            with span("dispatch/replay", nvtx=nvtx):
+                out = self._dispatch_step(key, self._step, packed)
             if self.online_lr > 0.0 and self._loss is not None:
                 # the leaves no longer hold what the last restore wrote
                 self.state.params_crcs = None
@@ -1944,15 +2068,17 @@ class ScoringEngine:
                 step_done = torch.cuda.Event()
                 step_done.record()
                 self.state.ready = step_done
-            fetch = self._issue_host_fetch(out, n, step_done)
+            with span("dispatch/fetch_issue", nvtx=nvtx):
+                fetch = self._issue_host_fetch(out, n, step_done)
         return {"cols": cols, "n": n, "out": out, "fetch": fetch,
                 "t0": t0, "prep_s": t1 - t0,
                 "dispatch_s": time.perf_counter() - t1}
 
     def _finish_batch(self, handle: dict) -> BatchResult:
-        """Wait for this batch's result copies and build its result (the
-        non-finite guard first, when on); then, between steps, the tiered
-        store's compaction and promotions."""
+        """Wait for this batch's result copies and decode them (the
+        non-finite guard next, when on); then the learning hooks, the
+        series and the landed meters; then, between steps, the tiered
+        store's compaction and promotions, and the result."""
         n = handle["n"]
         probs_np, feats_np, tier_np = self._host_results(handle)
         if self._nan_guard:
@@ -1963,30 +2089,33 @@ class ScoringEngine:
             self._m_tier["dense"].inc(float(tier_np[0]))
             self._m_tier["cms"].inc(float(tier_np[1]))
         cols = handle["cols"]
-        self._emit_learning(cols, n, probs_np, feats_np,
-                            handle.get("trace_id"))
-        self.state.batches_done += 1
-        self.state.rows_done += n
-        self._m_batches.inc()
-        self._m_rows.inc(n)
-        self._m_last.set(time.time())
-        self._drain_meters()
+        span, nvtx = self.tracer.span, self._nvtx
+        with span("result_wait/hooks", nvtx=nvtx):
+            self._emit_learning(cols, n, probs_np, feats_np,
+                                handle.get("trace_id"))
+            self.state.batches_done += 1
+            self.state.rows_done += n
+            self._m_batches.inc()
+            self._m_rows.inc(n)
+            self._m_last.set(time.time())
+            self._drain_meters()
         self._maybe_compact()
-        self._maybe_promote()
-        self._devmem.tick()
-        res = BatchResult(
-            tx_id=cols["tx_id"],
-            tx_datetime_us=cols["tx_datetime_us"],
-            customer_id=cols["customer_id"],
-            terminal_id=cols["terminal_id"],
-            amount_cents=cols["tx_amount_cents"],
-            features=feats_np,
-            probs=probs_np,
-            latency_s=(time.perf_counter() - handle["t0"]
-                       - handle.get("waited", 0.0)),
-            batch_index=self.state.batches_done,
-        )
-        self._m_lat.observe(res.latency_s)
+        with span("result_wait/tail", nvtx=nvtx):
+            self._maybe_promote()
+            self._devmem.tick()
+            res = BatchResult(
+                tx_id=cols["tx_id"],
+                tx_datetime_us=cols["tx_datetime_us"],
+                customer_id=cols["customer_id"],
+                terminal_id=cols["terminal_id"],
+                amount_cents=cols["tx_amount_cents"],
+                features=feats_np,
+                probs=probs_np,
+                latency_s=(time.perf_counter() - handle["t0"]
+                           - handle.get("waited", 0.0)),
+                batch_index=self.state.batches_done,
+            )
+            self._m_lat.observe(res.latency_s)
         return res
 
     def _emit_learning(self, cols: dict, n: int, probs_np: np.ndarray,
@@ -2274,6 +2403,27 @@ class ScoringEngine:
         ``pipeline_depth``, ``host_prep_route`` and ``z_mode``; with
         autobatch its target and adjustments, with selective emission
         this run's overflows.
+
+        With the tracer on (``utils/trace.py``), each stage's span has
+        children that cover it, named ``<stage>/<part>``: host prep's
+        ``dedup``, ``validate``, ``staging_wait`` (the pinned ring's wait
+        for an earlier copy) and ``pack``; dispatch's ``h2d``, ``replay``
+        and ``fetch_issue``; the result wait's ``fetch_wait`` (the
+        copies' event alone), ``decode``, ``hooks`` (the learning hooks,
+        the series, the landed meters), ``state_compact`` (every
+        ``compact_every`` batches) and ``tail`` (promotions, the result);
+        the sink's ``convert`` (``MemorySink``, on the engine's thread).
+        On CUDA the run also records the device track:
+        timing events around each replay (``device/step``,
+        ``device/compact``, ``device/promote``), from the graph's first
+        node to behind its last kernel, read back without a sync and put
+        on the host's clock by one anchor taken at the run's start (a
+        synchronize, a recorded event, a ``perf_counter`` reading). The stats then gain ``trace``, of this run alone:
+        ``spans`` (per span name its count, median ms and total self ms),
+        ``device`` (per signature its count, median and mean ms) and
+        ``counters`` (this run's ``transfer_bytes`` by direction and
+        compaction's ``compact_slots_swept`` by table). With the tracer
+        off there is no ``trace`` entry.
         """
         # a restored state's cold lineage: reconcile the store (and fence
         # the promoter) before any batch can touch a demoted key
@@ -2317,6 +2467,15 @@ class ScoringEngine:
         trackers = {k: LatencyTracker() for k in (
             "latency", "source_poll", "host_prep", "dispatch",
             "result_wait", "sink_write")}
+        if self._scope is not None:
+            # a run that raised left its scope open
+            self.tracer.close_scope(self._scope)
+        self._scope = (self.tracer.open_scope() if self.tracer.enabled
+                       else None)
+        self._dev_anchor = None
+        if self._scope is not None and self.device.type == "cuda":
+            self._dev_anchor = self._anchor_device_clock()
+        counts0 = self._trace_counts()
         t_start = time.perf_counter()
         t_cpu0 = time.process_time()
         rows0 = self.state.rows_done
@@ -2560,6 +2719,7 @@ class ScoringEngine:
             self._cold.flush()
             self.state.cold_lineage = self._cold.lineage()
         self._drain_meters(wait=True)
+        self._dev_anchor = None
         wall = time.perf_counter() - t_start
         snaps = {k: t.snapshot() for k, t in trackers.items()}
         p50 = {k: snaps[k].get("p50_ms", 0.0) for k in trackers}
@@ -2595,7 +2755,40 @@ class ScoringEngine:
             # flight: the scope of the bit-identity claim
             stats["exactness_degraded_keys"] = (
                 len(self._degraded_keys) - degraded0)
+        if self._scope is not None:
+            counts = self._trace_counts()
+            stats["trace"] = {
+                **self.tracer.close_scope(self._scope),
+                "counters": {g: {k: v - counts0[g][k]
+                                 for k, v in counts[g].items()}
+                             for g in counts}}
+            self._scope = None
         return stats
+
+    def _anchor_device_clock(self) -> tuple:
+        """The device track's anchor: ``(event, perf_counter seconds)``
+        for an event recorded on an idle stream, which the card stamps
+        while its record call runs; of sixteen tries, the one whose call
+        took the least, at the middle of its two readings (under a
+        profiler most calls take a hundred µs or more, a few far less)."""
+        best = None
+        for _ in range(16):
+            torch.cuda.synchronize(self.device)
+            event = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            event.record()
+            t1 = time.perf_counter()
+            if best is None or t1 - t0 < best[2]:
+                best = (event, (t0 + t1) / 2, t1 - t0)
+        return best[:2]
+
+    def _trace_counts(self) -> dict:
+        """The counters a run's ``trace`` entry reads as deltas: bytes
+        by direction, compaction's slots swept by table."""
+        return {"transfer_bytes": {d: c.value
+                                   for d, c in self._m_xfer.items()},
+                "compact_slots_swept": {t: c.value
+                                        for t, c in self._m_swept.items()}}
 
     def _overload_controller(self, learning, auto, recorder):
         """The ladder for one run, with the engine-side effect of each

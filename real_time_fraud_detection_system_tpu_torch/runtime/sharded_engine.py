@@ -587,6 +587,7 @@ class ShardedScoringEngine(ScoringEngine):
                     dst.copy_(src, non_blocking=True)
                 else:
                     dst = src.to(self.device, non_blocking=True)
+                self._m_xfer["h2d"].inc(src.numel() * src.element_size())
                 if entry is not None:
                     entry[1] = torch.cuda.Event()
                     entry[1].record()
@@ -624,6 +625,7 @@ class ShardedScoringEngine(ScoringEngine):
         original batch positions in one copy, then the history step (the
         routed one for a spill chunk) on the engine's state, in place."""
         dev = host_to_device(packed, self.device)
+        self._m_xfer["h2d"].inc(packed.nbytes)
         st = self.state
         _, probs = self._steps[routed](
             st.feature_state, st.params, unpack_batch(dev[:7]), dev[7])

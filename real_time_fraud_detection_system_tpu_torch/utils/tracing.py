@@ -5,8 +5,8 @@
 
 captures a ``torch.profiler`` trace of the run (the host's ops and, on
 the card, the device's kernels and copies) and writes it into the
-directory as Chrome-trace JSON; :func:`trace_span` names a host-side
-stretch on that timeline (an NVTX range, which Nsight Systems shows too).
+directory as Chrome-trace JSON. The program's own spans
+(``utils/trace.py``) annotate that timeline while it records.
 
 The JAX module's ``enable_compilation_cache`` has no counterpart: it turns
 on XLA's persistent compilation cache, and the port's serving step is
@@ -42,15 +42,3 @@ def profile_to(log_dir: Optional[str]) -> Iterator[None]:
         yield
     prof.export_chrome_trace(os.path.join(
         log_dir, f"trace-{os.getpid()}-{int(time.time() * 1e3)}.json"))
-
-
-@contextlib.contextmanager
-def trace_span(name: str) -> Iterator[None]:
-    """A named host-side NVTX range (CUDA builds of PyTorch)."""
-    import torch
-
-    torch.cuda.nvtx.range_push(name)
-    try:
-        yield
-    finally:
-        torch.cuda.nvtx.range_pop()

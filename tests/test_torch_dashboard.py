@@ -195,7 +195,24 @@ def _score_trace(tmp_path) -> str:
     return str(tmp_path / "trace.json")
 
 
+def _roots_only(trace: dict) -> dict:
+    """The trace without its child spans (those with ``args.parent``)."""
+    return {**trace, "traceEvents": [
+        e for e in trace["traceEvents"]
+        if "parent" not in (e.get("args") or {})]}
+
+
+def _digest(main, path: str, capsys) -> dict:
+    assert main(["trace", "--trace", path, "--json"]) == 0
+    return json.loads(capsys.readouterr().out)
+
+
 def test_trace_command_and_waterfall_equal_jax(tmp_path, capsys):
+    """The port's span trace renders as the JAX package renders it: the
+    waterfall of the whole trace, the ``trace`` command's output on its
+    root spans; on the whole trace the port's digest has the roots' batch
+    phases (the JAX package's digest of the roots), each batch's children
+    and self times beside them, and the same slowest spans."""
     path = _score_trace(tmp_path)
     capsys.readouterr()
     with open(path) as f:
@@ -204,12 +221,25 @@ def test_trace_command_and_waterfall_equal_jax(tmp_path, capsys):
         assert tdash.render_trace_waterfall(trace, trace_id=tid) == \
             jdash.render_trace_waterfall(trace, trace_id=tid)
     assert tdash.render_trace_waterfall({}) == "no spans in trace"
+    roots = str(tmp_path / "roots.json")
+    with open(roots, "w") as f:
+        json.dump(_roots_only(trace), f)
     for flags in (["--json"], [], ["--top-k", "2", "--batch", "b00000003"]):
-        argv = ["trace", "--trace", path, *flags]
+        argv = ["trace", "--trace", roots, *flags]
         assert jcli.main(argv) == 0
         want = capsys.readouterr().out
         assert tcli.main(argv) == 0
         assert capsys.readouterr().out == want
+    got, want = _digest(tcli.main, path, capsys), _digest(jcli.main, path,
+                                                         capsys)
+    for key in ("slowest_spans", "compile_events", "n_events"):
+        assert got[key] == want[key], key
+    assert [{k: v for k, v in b.items() if k not in ("children_ms",
+                                                      "self_ms")}
+            for b in got["batches"]] == _digest(jcli.main, roots,
+                                                capsys)["batches"]
+    assert all("host_prep/pack" in b["children_ms"]
+               for b in got["batches"] if "host_prep" in b["phases_ms"])
     bad = ["trace", "--trace", str(tmp_path / "none.json")]
     assert jcli.main(bad) == tcli.main(bad) == 2
 

@@ -1887,6 +1887,72 @@ def test_nvtx_ranges_open_only_on_cuda(cuda, monkeypatch):
         tracer.clear()
 
 
+@pytest.mark.parametrize("precompile", [False, True])
+def test_device_track_on_cuda_follows_the_host_dispatch(cuda, precompile):
+    """With the tracer on, an exact forest engine on the card records one
+    ``device/step`` per batch and one ``device/compact`` per compaction,
+    eager or replayed: each with a positive duration, launched by its
+    host span (``dispatch/replay``, ``state_compact``) and starting after
+    it began and after the device span before it ended, in the order of
+    those host spans; the run's ``trace`` entry
+    counts them, and the digest's device idle by span adds up to the
+    gaps between them."""
+    from real_time_fraud_detection_system_tpu_torch.utils.trace import (
+        get_tracer,
+        summarize_chrome,
+    )
+
+    tracer = get_tracer()
+    was = tracer.enabled
+    tracer.clear()
+    tracer.configure(enabled=True)
+    try:
+        params, scaler = _graph_model("forest", cuda)
+        cfg = Config(features=FeatureConfig(
+            key_mode="exact", customer_capacity=512, terminal_capacity=1024,
+            compact_every=2),
+            runtime=RuntimeConfig(batch_buckets=(1024,), pipeline_depth=2,
+                                  precompile=precompile))
+        eng = ScoringEngine(cfg, "forest", params, scaler, device=cuda)
+        stats = eng.run(ReplaySource(_whole_dollar_txs(6000), START,
+                                     batch_rows=1000), MemorySink())
+        trace = tracer.export_chrome()
+    finally:
+        tracer.configure(enabled=was)
+        tracer.clear()
+    events = [e for e in trace["traceEvents"] if e["ph"] == "X"]
+    host = {e["args"]["id"]: e for e in events if e["cat"] != "device"}
+    dev = sorted((e for e in events if e["cat"] == "device"),
+                 key=lambda e: e["ts"])
+    launcher = {"device/step": "dispatch/replay",
+                "device/compact": "state_compact"}
+    assert [sum(d["name"] == n for d in dev) for n in launcher] == [
+        stats["batches"], stats["batches"] // 2]
+    for d in dev:
+        h = host[d["args"]["launched_by"]]
+        assert d["dur"] > 0 and h["name"] == launcher[d["name"]]
+        # the anchor puts the card's clock on the host's within a few µs
+        assert d["ts"] >= h["ts"] - 50.0
+    order = [host[d["args"]["launched_by"]]["ts"] for d in dev]
+    assert order == sorted(order)
+    # one stream: a replay's first node runs after the work before it
+    for prev, d in zip(dev, dev[1:]):
+        assert d["ts"] >= prev["ts"] + prev["dur"] - 1.0, (prev, d)
+    device = stats["trace"]["device"]
+    assert {k: v["count"] for k, v in device.items()} == {
+        "device/step": stats["batches"],
+        "device/compact": stats["batches"] // 2}
+    gaps, end = 0.0, dev[0]["ts"]
+    for d in dev:
+        gaps += max(0.0, d["ts"] - end)
+        end = max(end, d["ts"] + d["dur"])
+    digest = summarize_chrome(trace)
+    assert sum(digest["device_idle_by_span"].values()) == pytest.approx(
+        gaps / 1e3, abs=1e-3 * (len(dev) + 1))
+    assert digest["device_window_ms"] == pytest.approx(
+        digest["device_busy_ms"] + gaps / 1e3, abs=1e-3 * (len(dev) + 1))
+
+
 def test_cpu_scorer_on_cuda_rescores_the_card_features(cuda):
     """``scorer="cpu"`` on the card: the step (and its fused kernel) runs
     as ever, and every probability is the host's ``predict_proba_np`` of

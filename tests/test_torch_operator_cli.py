@@ -237,11 +237,30 @@ def test_dlq_replay_as_jax(served, capsys):
                                                     abs=1e-6)
 
 
-def test_trace_json_as_jax(served, capsys):
-    rc, lines = _same(["trace", "--trace", str(served.dir / "trace.json"),
-                       "--json", "--top-k", "3"], capsys)
+def test_trace_json_as_jax(served, capsys, tmp_path):
+    """The JAX ``trace`` digest of the port's trace: its batches are the
+    port's on the root spans alone (the port's also carry each batch's
+    children and self times), the rest is the same."""
+    path = str(served.dir / "trace.json")
+    with open(path) as f:
+        trace = json.load(f)
+    roots = str(tmp_path / "roots.json")
+    with open(roots, "w") as f:
+        json.dump({**trace, "traceEvents": [
+            e for e in trace["traceEvents"]
+            if "parent" not in (e.get("args") or {})]}, f)
+    argv = ["--json", "--top-k", "3"]
+    rc, want = _run(jcli.main, ["trace", "--trace", path, *argv], capsys)
+    trc, got = _run(tcli.main, ["trace", "--trace", path, *argv], capsys)
+    assert rc == trc == 0
+    _, roots_want = _same(["trace", "--trace", roots, *argv], capsys)
+    assert [{k: v for k, v in b.items() if k not in ("children_ms",
+                                                      "self_ms")}
+            for b in got[0]["batches"]] == roots_want[0]["batches"]
+    assert {k: v for k, v in got[0].items() if k != "batches"} == \
+        {k: v for k, v in want[0].items() if k != "batches"}
     # a replayed batch after a restart is traced again
-    assert rc == 0 and len(lines[0]["batches"]) >= served.stats["batches"]
+    assert len(got[0]["batches"]) >= served.stats["batches"]
 
 
 def test_registry_as_jax(served, capsys, tmp_path):
