@@ -348,6 +348,10 @@ INT32_OPS_PER_S = 67e12
 START_EPOCH_S = 1_743_465_600  # 2025-04-01, DataConfig.start_date
 ATOL_LEAF = 1e-5  # leaf sums (both sides add trees in order: expect 0)
 ATOL_SIGMOID = 1e-6  # logreg and gbt probabilities: expf against PyTorch's
+# the sequence kernel's logits and probabilities: float32 sums in another
+# order, each product-add rounded once (__fmaf_rn)
+ATOL_SEQ_LOGIT = 2e-5
+ATOL_SEQ_PROB = 1e-5
 RTOL_FEATURE = 1e-6  # float32 window sums in another order
 # score --scorer cpu against the card's forest scores: the host walks the
 # same trees over the same float32 features the card emitted
@@ -406,7 +410,13 @@ KERNELS = {  # name → (port source, the TPU kernel it replaces)
     "fused_featurize_score": (
         f"{PKG}/csrc/fused_score.cu",
         "real_time_fraud_detection_system_tpu/ops/pallas_kernels.py:129"),
+    "fused_last_logit": (
+        f"{PKG}/csrc/fused_sequence.cu",
+        "none: added for the sequence step"),
 }
+# The sequence kernel's case in phase ``kernel``: the main path's
+# histories (d_model 32, 2 heads, 2 layers, d_ff 64, 8 channels, K 32)
+SEQ_KERNEL_K = 32
 
 
 def emit(obj) -> None:
@@ -462,11 +472,13 @@ def counters() -> dict:
     from real_time_fraud_detection_system_tpu_torch.ops import (
         forest_kernels,
         score_kernels,
+        sequence_kernels,
     )
 
     return {"fused_forest_leaf_sum": forest_kernels.fused_forest_leaf_sum,
             "leaf_sum": forest_kernels.leaf_sum,
-            "fused_featurize_score": score_kernels.fused_featurize_score}
+            "fused_featurize_score": score_kernels.fused_featurize_score,
+            "fused_last_logit": sequence_kernels.fused_last_logit}
 
 
 def phase_device() -> dict:
@@ -489,11 +501,13 @@ def phase_build() -> None:
         cuda_lib,
         forest_kernels,
         score_kernels,
+        sequence_kernels,
     )
 
     sources = {"fused_forest_leaf_sum": forest_kernels.SOURCE,
                "leaf_sum": forest_kernels.LEAF_SUM_SOURCE,
-               "fused_featurize_score": score_kernels.SOURCE}
+               "fused_featurize_score": score_kernels.SOURCE,
+               "fused_last_logit": sequence_kernels.SOURCE}
 
     def build(src):
         t0 = time.perf_counter()
@@ -508,6 +522,7 @@ def phase_build() -> None:
     forest_kernels._library()
     forest_kernels._leaf_sum_library()
     score_kernels._library()
+    sequence_kernels._library()
     for name, (path, report, seconds) in built.items():
         emit({"phase": "build", "kernel": name, "seconds": seconds,
               "all_builds_wall_s": wall,
@@ -815,7 +830,60 @@ def phase_kernel(dev) -> dict:
                                   sargs["b"]], [probs, sfeats],
                        feature_ops + b * (2 * 15 + 1 + 4 + 1),
                        row_bytes=row_bytes), **distinct)})
+    out["fused_last_logit"].update(_sequence_kernel_case(dev))
     return out
+
+
+def _sequence_kernel_case(dev) -> dict:
+    """The sequence step's transformer kernel at the main path's shapes
+    against its plain version (``transformer_last_logit``): random
+    histories at random positions (0 and K-1 among them) for the error,
+    full histories (every position live, the stream's steady state) for
+    the times. No PyTorch call computes this function (no library time)."""
+    from real_time_fraud_detection_system_tpu_torch.models.sequence import (
+        init_transformer,
+        transformer_flops,
+    )
+    from real_time_fraud_detection_system_tpu_torch.ops import (
+        sequence_kernels,
+    )
+    from real_time_fraud_detection_system_tpu_torch.utils import tree
+
+    k, b = SEQ_KERNEL_K, BATCH_ROWS
+    gen = torch.Generator().manual_seed(0)
+    p = init_transformer(32, 2, 2, 64, seed=0, device="cpu")
+    # random norms and biases, not the init's ones and zeros
+    params = tree.to(tree.map(
+        lambda t: t + 0.2 * torch.randn(t.shape, generator=gen)
+        if t.dim() == 1 else t, p), dev)
+    hist = torch.randn(b, k, 8, generator=gen).to(dev)
+    hist[:, 0, 2] = 0.0
+    qpos = torch.randint(0, k, (b,), generator=gen,
+                         dtype=torch.int32).to(dev)
+    qpos[:2] = torch.tensor([0, k - 1], dtype=torch.int32)
+    z = sequence_kernels.fused_last_logit(params, hist, qpos)
+    torch.cuda.synchronize()
+    want = sequence_kernels.fused_last_logit_plain(params, hist, qpos)
+    err = float((z - want).abs().max())
+    perr = float((torch.sigmoid(z) - torch.sigmoid(want)).abs().max())
+    check(err <= ATOL_SEQ_LOGIT and perr <= ATOL_SEQ_PROB,
+          f"fused sequence logits differ by {err} (probabilities {perr})")
+    full = torch.full_like(qpos, k - 1)
+    line = {"max_abs_err": err, "max_abs_prob_err": perr,
+            **_time(lambda: sequence_kernels.fused_last_logit(params, hist,
+                                                              full),
+                    lambda: sequence_kernels.fused_last_logit_plain(
+                        params, hist, full),
+                    _bound([hist, full, *tree.leaves(params)], [z],
+                           transformer_flops(params, b, k)),
+                    random_qpos_ms=graph_ms(
+                        lambda: sequence_kernels.fused_last_logit(
+                            params, hist, qpos), 20),
+                    tile_rows=sequence_kernels.tile_rows(8, 2, 64, k, 2),
+                    smem_bytes=sequence_kernels.smem_bytes(8, 2, 64, k, 2))}
+    emit({"phase": "kernel", "kernel": "fused_last_logit", "rows": b,
+          "history_len": k, **line})
+    return line
 
 
 def _artifact_models(scaler, dev):
@@ -3071,11 +3139,18 @@ def phase_zoo(dev, device_info, data: dict) -> dict:
     models = _zoo_models(data["models"]["forest"][1].scaler, dev)
     batches = _column_batches(data["txs_whole_dollars"], LEARN_BATCHES)
 
-    def served(run, what: str) -> dict:
-        """``drive`` the run: none of the kernels lies on these paths."""
+    def served(run, what: str, own=None) -> dict:
+        """``drive`` the run: ``own`` (the sequence kernel, on the naive
+        attention's paths) launches at least once a batch (a supervised
+        run replays batches), no other kernel launches."""
         stats, launches = drive(run)
         for name, n in launches.items():
-            check(n == 0, f"zoo {what}: {n} launches of {name}")
+            if name == own:
+                check(n >= stats["batches"] > 0,
+                      f"zoo {what}: {n} launches of {name} for "
+                      f"{stats['batches']} batches")
+            else:
+                check(n == 0, f"zoo {what}: {n} launches of {name}")
         return stats
 
     def line(stats) -> dict:
@@ -3239,7 +3314,7 @@ def phase_zoo(dev, device_info, data: dict) -> dict:
                         device=dev)
     sink = _Results()
     stats = served(lambda: eng.run(_ListSource(_copies(sb)), sink),
-                   "(b) sequence")
+                   "(b) sequence", "fused_last_logit")
     check(not any(r.features.any() for r in sink.batches),
           "zoo (b): a feature column is not zero")
     ref = ScoringEngine(scfg, "sequence", scpu.params, scpu.scaler,
@@ -3298,7 +3373,7 @@ def phase_zoo(dev, device_info, data: dict) -> dict:
     eng = ScoringEngine(dcfg, "sequence", sdev.params, sdev.scaler,
                         device=dev)
     stats = served(lambda: eng.run(_ListSource(_copies(zb)), _Results()),
-                   "(d) sequence 2^20")
+                   "(d) sequence 2^20", "fused_last_logit")
     peak = torch.cuda.max_memory_allocated()
     hs = eng.state.feature_state
     check(int(hs.count[:-1].sum()) == SEQ_BATCHES * BATCH_ROWS,
@@ -3331,14 +3406,14 @@ def phase_zoo(dev, device_info, data: dict) -> dict:
     clean = make_engine()
     want = IndexedSink()
     served(lambda: clean.run(_ListSource(_copies(eb)), want),
-           "(e) clean")
+           "(e) clean", "fused_last_logit")
     got = IndexedSink()
     with tempfile.TemporaryDirectory() as tmp:
         rstats = served(lambda: run_with_recovery(
             make_engine, FlakySource(_ListSource(_copies(eb)),
                                      fail_at=(SEQ_CRASH_POLL,)),
             Checkpointer(f"{tmp}/ck"), sink=got, max_restarts=2),
-            "(e) supervised")
+            "(e) supervised", "fused_last_logit")
     check(rstats["restarts"] == 1, f"zoo (e): {rstats['restarts']} restarts")
     _same_batches(got.batches, want.batches, "zoo (e)")
     for (path, x), (_, y) in zip(
@@ -3461,7 +3536,7 @@ def phase_precompile(dev, device_info, data: dict) -> dict:
                           0.0, zipf, "leaf_sum"),
         "mlp": ("mlp", cfg, zoo["mlp"][0], 0.0, _unlabeled(whole), None),
         "sequence_k32": ("sequence", seq_cfg, zoo["sequence"][0], 0.0,
-                         _unlabeled(whole), None),
+                         _unlabeled(whole), "fused_last_logit"),
     }
 
     def served(eng, batches, sink, what: str, own):
@@ -4459,6 +4534,11 @@ def phase_offline(dev, device_info, data: dict) -> dict:
             if kind == "gbt":
                 check(launches["leaf_sum"] == 1,
                       f"offline (b): gbt predict launched {launches}")
+            elif kind == "sequence":
+                # the serving-path evaluation's history steps
+                check(launches["fused_last_logit"] > 0 and sum(
+                    launches.values()) == launches["fused_last_logit"],
+                      f"offline (b): sequence launched {launches}")
             else:
                 check(not any(launches.values()),
                       f"offline (b): {kind} launched {launches}")
@@ -6168,13 +6248,15 @@ def phase_sharded_sequence(dev, device_info, data: dict) -> dict:
                              device=dev, **kw)
 
     def served(eng, bs, what):
-        """``drive`` the run: none of the kernels lies on this path."""
+        """``drive`` the run: the sequence kernel launches at least once a
+        batch (once a shard and chunk), no other kernel launches."""
         res = _Results()
         stats, launches = drive(lambda: eng.run(_ListSource(_copies(bs)),
                                                 res))
         for name, n in launches.items():
-            check(n == 0, f"sharded_sequence {what}: {n} launches of "
-                          f"{name}")
+            check(n >= stats["batches"] if name == "fused_last_logit"
+                  else n == 0,
+                  f"sharded_sequence {what}: {n} launches of {name}")
         check(stats["rows"] == sum(len(b["tx_id"]) for b in bs)
               and bool(np.isfinite(res.probs()).all()),
               f"sharded_sequence {what}: rows or probabilities")

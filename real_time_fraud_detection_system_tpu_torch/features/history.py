@@ -13,7 +13,10 @@ from.
   write the new events, gather each row's own causal history (its
   customer's events up to and including itself, later same-batch events
   excluded by position) and score it at its own position with the causal
-  transformer (``models/sequence.py::transformer_last_logit``).
+  transformer (``models/sequence.py::transformer_last_logit``). On the
+  card, with naive attention and forms the kernel supports, that forward
+  is one kernel (``ops/sequence_kernels.py::fused_last_logit``,
+  ``csrc/fused_sequence.cu``); :func:`serving_path` says which.
 
 Event features mirror ``models/sequence.py::event_features`` channel for
 channel, so a transformer trained on ``build_sequences`` serves unchanged;
@@ -47,6 +50,7 @@ from real_time_fraud_detection_system_tpu_torch.models.sequence import (
     N_EVENT_FEATURES,
     transformer_last_logit,
 )
+from real_time_fraud_detection_system_tpu_torch.ops import sequence_kernels
 from real_time_fraud_detection_system_tpu_torch.parallel.ring_attention \
     import blockwise_attention
 
@@ -62,6 +66,18 @@ def _attn_fn_for(cfg: FeatureConfig, k: int):
         return None
     block = max(16, min(cfg.seq_attn_block, k))
     return lambda q, kk, v: blockwise_attention(q, kk, v, block_size=block)
+
+
+def serving_path(params, cfg: FeatureConfig, device,
+                 k: "int | None" = None) -> str:
+    """The forward :func:`update_and_score` scores with on ``device`` at
+    history length ``k`` (default ``cfg.history_len``): ``"fused"`` (the
+    kernel) or ``"plain"`` (``transformer_last_logit``), by
+    ``ops/sequence_kernels.py::serving_path``."""
+    k = cfg.history_len if k is None else k
+    return sequence_kernels.serving_path(
+        params, device, k, _attn_fn_for(cfg, k),
+        grad=sequence_kernels.needs_grad(params))
 
 
 class HistoryState(NamedTuple):
@@ -221,8 +237,11 @@ def update_and_score(state: HistoryState, params, batch: TxBatch,
     state.last_t.index_put_((torch.where(tail, s_slot, sink),), s_t)
 
     # the last block and the head run at the row's own position only
-    own = transformer_last_logit(params, hist, length - 1,
-                                 attn_fn=_attn_fn_for(cfg, k))
+    if serving_path(params, cfg, dev, k) == "fused":
+        own = sequence_kernels.fused_last_logit(params, hist, length - 1)
+    else:
+        own = transformer_last_logit(params, hist, length - 1,
+                                     attn_fn=_attn_fn_for(cfg, k))
     probs = torch.where(s_valid, torch.sigmoid(own), torch.zeros_like(own))
     out = torch.zeros(b, dtype=torch.float32, device=dev)
     out[order] = probs

@@ -41,8 +41,12 @@ scatter it into the feature state (in place), then
 The sequence kind has its own state and step (:meth:`_init_sequence`):
 the per-customer event rings of ``features/history.py`` and
 ``update_and_score``, which writes the rings in place and scores each row
-with the causal transformer. Its feature matrix is zeros by definition,
-made on the host and never copied from the device. It refuses what the
+with the causal transformer: on the card, where the kernel supports the
+params' forms and the attention is the naive one, one kernel
+(``ops/sequence_kernels.py::fused_last_logit``); the rows each path
+scored are ``rtfds_sequence_rows_scored_total{path}``. Its feature
+matrix is zeros by definition, made on the host and never copied from
+the device. It refuses what the
 JAX engine refuses for it (:func:`check_sequence_serving`):
 ``key_mode="exact"``, online SGD, a feature cache and shadow scoring.
 
@@ -179,6 +183,7 @@ from real_time_fraud_detection_system_tpu_torch.core.batch import (
 from real_time_fraud_detection_system_tpu_torch.device import resolve_device
 from real_time_fraud_detection_system_tpu_torch.features.history import (
     init_history_state,
+    serving_path,
     update_and_score,
 )
 from real_time_fraud_detection_system_tpu_torch.features.online import (
@@ -229,6 +234,7 @@ from real_time_fraud_detection_system_tpu_torch.models.scaler import (
 from real_time_fraud_detection_system_tpu_torch.ops import (
     forest_kernels,
     score_kernels,
+    sequence_kernels,
 )
 from real_time_fraud_detection_system_tpu_torch.ops.dedup import (
     latest_wins_mask_host,
@@ -267,15 +273,18 @@ PHASES = ("source_poll", "host_prep", "dispatch", "result_wait",
           "sink_write")
 # The kernel wrappers whose launches a captured graph replays.
 _WRAPPERS = (forest_kernels.fused_forest_leaf_sum, forest_kernels.leaf_sum,
-             score_kernels.fused_featurize_score)
+             score_kernels.fused_featurize_score,
+             sequence_kernels.fused_last_logit)
 # Side-stream runs of each signature before its capture (lazy inits:
 # cuBLAS handles, the autograd engine, the kernels' modules).
 WARMUP_RUNS = 2
 # The port's own series (the JAX engine registers neither): the bytes the
 # loop copies to and from the device, by direction, and the hot-tier slots
-# compaction reads, by table.
+# compaction reads, by table; the rows the sequence step scored, by the
+# forward it was built with.
 TRANSFER_BYTES = "rtfds_transfer_bytes_total"
 SLOTS_SWEPT = "rtfds_feature_compact_slots_swept_total"
+SEQUENCE_ROWS = "rtfds_sequence_rows_scored_total"
 log = get_logger("engine")
 
 
@@ -872,6 +881,7 @@ class ScoringEngine:
             "rtfds_use_pallas",
             "1 when the step launches a hand-written CUDA kernel (on the "
             "CPU: its plain version)")
+        self._m_seq_rows: dict = {}
 
     @staticmethod
     def _check_emission(cfg: Config, feature_cache,
@@ -939,7 +949,29 @@ class ScoringEngine:
             params=tree.clone(tree.to(params, self.device)),
             scaler=tree.clone(scaler.to(self.device)),
         )
+        self._m_seq_rows = {
+            p: self.metrics.counter(
+                SEQUENCE_ROWS,
+                "rows the sequence step scored, by the forward its step "
+                "was built with (fused: csrc/fused_sequence.cu)", path=p)
+            for p in sequence_kernels.PATHS}
+        self._note_sequence_path()
+
+    def _note_sequence_path(self) -> None:
+        """The sequence step's forward for the live params
+        (``features/history.py::serving_path``), at build and after a
+        swap or restore; the kernel's library is built and loaded here,
+        so one that does not build or load raises from the constructor."""
+        self._seq_path = serving_path(self.state.params, self.cfg.features,
+                                      self.device)
         self._tables_epoch = self.state.params_epoch
+        if self._seq_path == "fused":
+            sequence_kernels._library()
+
+    def _count_sequence_rows(self, n: int) -> None:
+        """A dispatched batch's ``n`` rows, by its step's forward."""
+        if self.kind == "sequence":
+            self._m_seq_rows[self._seq_path].inc(n)
 
     def _derive_tables(self) -> None:
         """The kernels' tables, from the live params' shapes where
@@ -1737,7 +1769,7 @@ class ScoringEngine:
         if self._tables_epoch == self.state.params_epoch:
             return
         if self.kind == "sequence":
-            self._tables_epoch = self.state.params_epoch
+            self._note_sequence_path()
         else:
             self._derive_tables()
         if self._graphs and self._form() != self._graph_form:
@@ -2056,6 +2088,7 @@ class ScoringEngine:
                 self._snapshot_twins()
             with span("dispatch/replay", nvtx=nvtx):
                 out = self._dispatch_step(key, self._step, packed)
+            self._count_sequence_rows(n)
             if self.online_lr > 0.0 and self._loss is not None:
                 # the leaves no longer hold what the last restore wrote
                 self.state.params_crcs = None
@@ -2421,8 +2454,9 @@ class ScoringEngine:
         synchronize, a recorded event, a ``perf_counter`` reading). The stats then gain ``trace``, of this run alone:
         ``spans`` (per span name its count, median ms and total self ms),
         ``device`` (per signature its count, median and mean ms) and
-        ``counters`` (this run's ``transfer_bytes`` by direction and
-        compaction's ``compact_slots_swept`` by table). With the tracer
+        ``counters`` (this run's ``transfer_bytes`` by direction,
+        compaction's ``compact_slots_swept`` by table and the sequence
+        step's ``sequence_rows_scored`` by path). With the tracer
         off there is no ``trace`` entry.
         """
         # a restored state's cold lineage: reconcile the store (and fence
@@ -2784,11 +2818,14 @@ class ScoringEngine:
 
     def _trace_counts(self) -> dict:
         """The counters a run's ``trace`` entry reads as deltas: bytes
-        by direction, compaction's slots swept by table."""
+        by direction, compaction's slots swept by table, the sequence
+        step's rows by path."""
         return {"transfer_bytes": {d: c.value
                                    for d, c in self._m_xfer.items()},
                 "compact_slots_swept": {t: c.value
-                                        for t, c in self._m_swept.items()}}
+                                        for t, c in self._m_swept.items()},
+                "sequence_rows_scored": {
+                    p: c.value for p, c in self._m_seq_rows.items()}}
 
     def _overload_controller(self, learning, auto, recorder):
         """The ladder for one run, with the engine-side effect of each

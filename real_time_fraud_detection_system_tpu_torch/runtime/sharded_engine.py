@@ -607,6 +607,7 @@ class ShardedScoringEngine(ScoringEngine):
                 self.state.params_crcs = None
             self._note_batch_days(cols)
             self._note_cold_touches(cols)
+            self._count_sequence_rows(n)
         return {"cols": cols, "n": n, "parts": parts, "t0": t0,
                 "prep_s": t1 - t0, "dispatch_s": time.perf_counter() - t1}
 

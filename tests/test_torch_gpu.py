@@ -75,6 +75,9 @@ from real_time_fraud_detection_system_tpu_torch.models.scaler import (
 )
 from real_time_fraud_detection_system_tpu_torch.ops import forest_kernels as fk
 from real_time_fraud_detection_system_tpu_torch.ops import score_kernels as sk
+from real_time_fraud_detection_system_tpu_torch.ops import (
+    sequence_kernels as sqk,
+)
 from real_time_fraud_detection_system_tpu_torch.ops.windows import (
     WindowState,
 )
@@ -1321,7 +1324,10 @@ def test_sequence_engine_on_cuda_matches_cpu_engine(cuda, k, block):
     """The history state and the transformer on the card against a CPU
     engine: ``pos``, ``count`` and ``last_t`` equal on rows ``[:C]`` (row
     ``C`` is the sink, written in no fixed order), events within
-    ``atol=1e-6``, probabilities ``1e-5``; the step never syncs."""
+    ``atol=1e-6``, probabilities ``1e-5``; the step never syncs. Naive
+    attention (K=8) scores every row through the fused kernel, blockwise
+    (K=40 over blocks of 16) every row through the plain forward, as the
+    engine's ``SEQUENCE_ROWS`` counter by path counts them."""
     from real_time_fraud_detection_system_tpu_torch.core import batch as cb
     from real_time_fraud_detection_system_tpu_torch.features.history import (
         update_and_score,
@@ -1337,6 +1343,13 @@ def test_sequence_engine_on_cuda_matches_cpu_engine(cuda, k, block):
                                         terminal_capacity=256,
                                         history_len=k, seq_attn_block=block),
                  runtime=RuntimeConfig(batch_buckets=(1024,)))
+    from real_time_fraud_detection_system_tpu_torch.runtime.engine import (
+        SEQUENCE_ROWS,
+    )
+    from real_time_fraud_detection_system_tpu_torch.utils.metrics import (
+        MetricsRegistry,
+    )
+
     batches = _labeled_batches(n_batches=4)
     out = {}
     for dev in ("cpu", cuda):
@@ -1344,9 +1357,15 @@ def test_sequence_engine_on_cuda_matches_cpu_engine(cuda, k, block):
                                   d_ff=64, seed=2, device=dev)
         eng = ScoringEngine(cfg, "sequence", params,
                             Scaler(torch.zeros(15, device=dev),
-                                   torch.ones(15, device=dev)), device=dev)
+                                   torch.ones(15, device=dev)), device=dev,
+                            metrics=MetricsRegistry())
         out[str(dev)] = ([eng.process_batch(dict(c)) for c in batches], eng)
     (rc, ec), (rg, eg) = out["cpu"], out[str(cuda)]
+    path = "fused" if block >= k else "plain"
+    rows = sum(len(c["tx_id"]) for c in batches)
+    for p in ("fused", "plain"):
+        series = eg.metrics.get(SEQUENCE_ROWS, path=p)
+        assert series.value == (rows if p == path else 0), p
     for a, b in zip(rc, rg):
         np.testing.assert_allclose(b.probs, a.probs, atol=1e-5)
         assert not b.features.any()
@@ -1403,14 +1422,15 @@ GRAPH_CASES = {
                      0.0, "leaf_sum"),
     "mlp-sgd": ("mlp", {}, 0.05, None),
     "autoencoder": ("autoencoder", {}, 0.0, None),
-    "sequence": ("sequence", {}, 0.0, None),
+    "sequence": ("sequence", {}, 0.0, "fused_last_logit"),
 }
 
 
 def _wrappers():
     return {"fused_forest_leaf_sum": fk.fused_forest_leaf_sum,
             "leaf_sum": fk.leaf_sum,
-            "fused_featurize_score": sk.fused_featurize_score}
+            "fused_featurize_score": sk.fused_featurize_score,
+            "fused_last_logit": sqk.fused_last_logit}
 
 
 def _graph_model(kind, dev):

@@ -155,7 +155,7 @@ def test_run_trace_entry_names_every_span_and_counts_the_bytes(tracer):
     CPU, and the counters' deltas of this run alone as the configuration
     sets them: 7 int32 rows of the bucket in, 16 float32 columns of each
     row and the 2 float32 tier counts out, every slot of both hot-tier
-    tables swept each compaction."""
+    tables swept each compaction, and no sequence rows."""
     eng = _engine()
     tracer.add_span("before_the_run", time.perf_counter(),
                     time.perf_counter())
@@ -182,7 +182,9 @@ def test_run_trace_entry_names_every_span_and_counts_the_bytes(tracer):
                                "d2h": rows * 16 * 4 + N_BATCHES * 2 * 4},
             "compact_slots_swept": {
                 "customer": N_BATCHES // COMPACT_EVERY * CAPS[0],
-                "terminal": N_BATCHES // COMPACT_EVERY * CAPS[1]}}
+                "terminal": N_BATCHES // COMPACT_EVERY * CAPS[1]},
+            # the sequence step's rows by path: no series on a forest
+            "sequence_rows_scored": {}}
     assert not tracer._scopes
 
 
