@@ -22,7 +22,11 @@ Phases, each printing JSON lines:
    ragged B = 300 and the serving bucket B = 65,536, and at B = 300 with
    NB = 38. The fused kernels read feature-state tables of the default
    capacities by slots drawn over the default dataset's id ranges; beside
-   them ``gathers_ms`` times the row gathers they make unnecessary.
+   them ``gathers_ms`` times the row gathers they make unnecessary. The
+   stamp kernel (``csrc/stamp.cu``) brackets bfloat16 products of about
+   0.2, 1 and 4 ms: each interval between its two stamps against CUDA
+   events recorded just outside them on the same stream, within
+   ``ATOL_STAMP_MS``.
 4. ``main_path`` — the default dataset (``DataConfig()``, seed 0) served
    through ``ScoringEngine.run`` at 65,536-row batches into a
    ``MemorySink``, once per model kind: forest (the fused forest kernel),
@@ -311,7 +315,17 @@ Phases, each printing JSON lines:
    (rc 0, every signature captured); where the card machine lacks
    sklearn or pyarrow, ``import-model``, ``demo --model forest``,
    ``query``, ``sql`` and ``dashboard --data`` exit 2 naming it.
-21. ``kernels`` — one line per the measurement contract, each kernel's
+21. ``dsv2_path`` — DeepSeek-V2's block as the sequence scorer
+   (``models/deepseek_v2.py``) at a reduced width but the cell's depth
+   (a dense layer and four expert layers: 18 stamps a step), in
+   bfloat16, through ``ScoringEngine.run`` from the precompiled graph at
+   depth 2 over 2,048-row batches of a synthetic stream, the tracer on:
+   the stamp kernel 18 times a step and no other kernel, every row
+   counted under ``rtfds_sequence_rows_scored_total{path="dsv2"}``, the
+   ``device/mla`` and ``device/experts`` spans once a step and inside
+   ``device/step``, the expert-slot counter at top-k slots a real
+   position.
+22. ``kernels`` — one line per the measurement contract, each kernel's
    launches summed over every driven path that launched it.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises and
@@ -413,7 +427,26 @@ KERNELS = {  # name → (port source, the TPU kernel it replaces)
     "fused_last_logit": (
         f"{PKG}/csrc/fused_sequence.cu",
         "none: added for the sequence step"),
+    "stamp": (
+        f"{PKG}/csrc/stamp.cu",
+        "none: added to time spans inside a replayed graph"),
 }
+# The stamp kernel's interval against CUDA events just outside it: the
+# two stamps' own runs and the gaps between back-to-back nodes, a few us.
+ATOL_STAMP_MS = 0.008
+# DeepSeek-V2's phase: the cell's depth at a reduced width.
+DSV2_SMOKE = dict(
+    hidden_size=256, num_hidden_layers=5, num_attention_heads=4,
+    kv_lora_rank=64, qk_nope_head_dim=64, qk_rope_head_dim=32,
+    v_head_dim=64, intermediate_size=512, moe_intermediate_size=128,
+    n_routed_experts=16, n_shared_experts=2, num_experts_per_tok=4,
+    first_k_dense_replace=1, rms_norm_eps=1e-6, rope_theta=10000,
+    q_lora_rank=None,
+    rope_scaling=dict(type="yarn", factor=40,
+                      original_max_position_embeddings=4096, beta_fast=32,
+                      beta_slow=1, mscale=0.707, mscale_all_dim=0.707))
+DSV2_ROWS = 2048
+DSV2_BATCHES = 8
 # The sequence kernel's case in phase ``kernel``: the main path's
 # histories (d_model 32, 2 heads, 2 layers, d_ff 64, 8 channels, K 32)
 SEQ_KERNEL_K = 32
@@ -473,12 +506,14 @@ def counters() -> dict:
         forest_kernels,
         score_kernels,
         sequence_kernels,
+        stamp,
     )
 
     return {"fused_forest_leaf_sum": forest_kernels.fused_forest_leaf_sum,
             "leaf_sum": forest_kernels.leaf_sum,
             "fused_featurize_score": score_kernels.fused_featurize_score,
-            "fused_last_logit": sequence_kernels.fused_last_logit}
+            "fused_last_logit": sequence_kernels.fused_last_logit,
+            "stamp": stamp.stamp}
 
 
 def phase_device() -> dict:
@@ -502,12 +537,14 @@ def phase_build() -> None:
         forest_kernels,
         score_kernels,
         sequence_kernels,
+        stamp,
     )
 
     sources = {"fused_forest_leaf_sum": forest_kernels.SOURCE,
                "leaf_sum": forest_kernels.LEAF_SUM_SOURCE,
                "fused_featurize_score": score_kernels.SOURCE,
-               "fused_last_logit": sequence_kernels.SOURCE}
+               "fused_last_logit": sequence_kernels.SOURCE,
+               "stamp": stamp.SOURCE}
 
     def build(src):
         t0 = time.perf_counter()
@@ -523,6 +560,7 @@ def phase_build() -> None:
     forest_kernels._leaf_sum_library()
     score_kernels._library()
     sequence_kernels._library()
+    stamp._library()
     for name, (path, report, seconds) in built.items():
         emit({"phase": "build", "kernel": name, "seconds": seconds,
               "all_builds_wall_s": wall,
@@ -831,7 +869,61 @@ def phase_kernel(dev) -> dict:
                        feature_ops + b * (2 * 15 + 1 + 4 + 1),
                        row_bytes=row_bytes), **distinct)})
     out["fused_last_logit"].update(_sequence_kernel_case(dev))
+    out["stamp"].update(_stamp_case(dev))
     return out
+
+
+def _stamp_case(dev) -> dict:
+    """The stamp kernel around known device work: chains of 1, 5 and 20
+    bfloat16 products of 4,096 (about 0.2, 1 and 4 ms), five times each,
+    a stamp on each side and a CUDA event just outside each stamp, all
+    queued behind a spin so that they run back to back. Each interval
+    between the stamps against the events' elapsed time on the same
+    stream; its error is the largest gap. No PyTorch call writes the
+    card's clock (no plain version, no library time)."""
+    from real_time_fraud_detection_system_tpu_torch.ops import stamp
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    a = torch.randn(4096, 4096, generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    buf = torch.zeros(2, dtype=torch.int64, device=dev)
+
+    def work(n: int) -> None:
+        x = a
+        for _ in range(n):
+            x = x @ a * 0.01
+
+    for n in (1, 5, 20):  # warm: cuBLAS's handle, the kernel's module
+        work(n)
+    stamp.stamp(buf, 0)
+    torch.cuda.synchronize()
+    gaps, spans = [], []
+    for n in (1, 5, 20):
+        for _ in range(5):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            torch.cuda._sleep(20_000_000)  # ~10 ms: the host queues the rest
+            e0.record()
+            stamp.stamp(buf, 0)
+            work(n)
+            stamp.stamp(buf, 1)
+            e1.record()
+            torch.cuda.synchronize()
+            ev_ms = e0.elapsed_time(e1)
+            st_ms = (buf[1] - buf[0]).item() * 1e-6
+            gaps.append(ev_ms - st_ms)
+            spans.append(st_ms)
+    err = max(abs(g) for g in gaps)
+    check(err <= ATOL_STAMP_MS,
+          f"stamp intervals differ from CUDA events by up to {err} ms "
+          f"(gaps {gaps})")
+    line = {"max_abs_err": err, "gaps_ms": gaps, "intervals_ms": spans,
+            "ms": graph_ms(lambda: stamp.stamp(buf, 0), 20),
+            "plain_ms": None, "library_ms": None,
+            **_bound([], [buf[:1]], 0)}
+    emit({"phase": "kernel", "kernel": "stamp", **line})
+    return line
 
 
 def _sequence_kernel_case(dev) -> dict:
@@ -6823,6 +6915,120 @@ def _run_demo_driven(run_demo, cfg, device, data) -> dict:
             "seconds": time.perf_counter() - t0}
 
 
+def _dsv2_batches(n: int, rows: int, n_cust: int, seed: int = 0) -> list:
+    """``n`` column batches of ``rows`` rows: cards drawn from ``n_cust``,
+    times over 20 days in stream order, amounts in cents."""
+    rng = np.random.default_rng(seed)
+    total = n * rows
+    cust = rng.integers(0, n_cust, total).astype(np.int64)
+    t_s = np.sort(rng.integers(0, 20 * 86400, total)).astype(np.int64) \
+        + START_EPOCH_S
+    amount = rng.integers(100, 50_000, total).astype(np.int64)
+    return [{"tx_id": np.arange(s, s + rows, dtype=np.int64),
+             "tx_datetime_us": t_s[s:s + rows] * 1_000_000,
+             "customer_id": cust[s:s + rows],
+             "terminal_id": cust[s:s + rows] % 977,
+             "tx_amount_cents": amount[s:s + rows],
+             "kafka_ts_ms": np.zeros(rows, np.int64),
+             "label": np.full(rows, -1, np.int32)}
+            for s in range(0, total, rows)]
+
+
+def phase_dsv2_path(dev, device_info, data: dict) -> dict:
+    """DeepSeek-V2's block on the serving path; see the module
+    docstring, phase 21."""
+    from real_time_fraud_detection_system_tpu_torch.config import (
+        Config,
+        FeatureConfig,
+        RuntimeConfig,
+    )
+    from real_time_fraud_detection_system_tpu_torch.io.sink import MemorySink
+    from real_time_fraud_detection_system_tpu_torch.models import (
+        deepseek_v2 as dsv2,
+    )
+    from real_time_fraud_detection_system_tpu_torch.models.scaler import (
+        Scaler,
+    )
+    from real_time_fraud_detection_system_tpu_torch.runtime.engine import (
+        EXPERT_SLOTS,
+        SEQUENCE_ROWS,
+        ScoringEngine,
+    )
+    from real_time_fraud_detection_system_tpu_torch.utils import trace
+    from real_time_fraud_detection_system_tpu_torch.utils.metrics import (
+        MetricsRegistry,
+    )
+
+    mcfg = dsv2.DSV2Config.from_dict(DSV2_SMOKE)
+    leaves = dsv2.init_leaves(mcfg, torch.Generator(device=dev)
+                              .manual_seed(0), dev)
+    params = dsv2.params_from_leaves(mcfg, leaves, torch.bfloat16)
+    del leaves
+    per_step = dsv2.n_stamps(params)
+    check(per_step == 18, f"dsv2_path: {per_step} stamps a step")
+    cfg = Config(features=FeatureConfig(customer_capacity=4096,
+                                        terminal_capacity=1024,
+                                        history_len=32),
+                 runtime=RuntimeConfig(batch_buckets=(DSV2_ROWS,),
+                                       max_batch_rows=DSV2_ROWS,
+                                       pipeline_depth=2))
+    reg = MetricsRegistry()
+    eng = ScoringEngine(cfg, "sequence", params,
+                        Scaler(torch.zeros(15, device=dev),
+                               torch.ones(15, device=dev)),
+                        device=dev, metrics=reg)
+    check(eng._seq_path == "dsv2", f"dsv2_path: path {eng._seq_path}")
+    batches = _dsv2_batches(DSV2_BATCHES, DSV2_ROWS, 4096)
+    man = eng.precompile()
+    check(man["graphs"] == 1, f"dsv2_path: {man['graphs']} graphs")
+    sink = MemorySink()
+    tr = trace.get_tracer()
+    tr.reset()
+    tr.configure(enabled=True)
+    try:
+        stats, launches = drive(lambda: eng.run(_ListSource(batches),
+                                                sink))
+    finally:
+        tr.reset()
+    n = stats["batches"]
+    check(n == DSV2_BATCHES and stats["rows"] == n * DSV2_ROWS,
+          f"dsv2_path: {n} batches, {stats['rows']} rows")
+    for name, got in launches.items():
+        want = per_step * n if name == "stamp" else 0
+        check(got == want, f"dsv2_path: {got} launches of {name} for {n} "
+                           f"steps (want {want})")
+    check(reg.get(SEQUENCE_ROWS, path="dsv2").value == n * DSV2_ROWS,
+          "dsv2_path: rows scored by path")
+    probs = np.concatenate([b["prediction"] for b in sink.batches])
+    check(bool(np.isfinite(probs).all()) and probs.std() > 0,
+          "dsv2_path: probabilities not finite or all alike")
+    dev_spans = stats["trace"]["device"]
+    for name in ("device/mla", "device/experts"):
+        check(dev_spans.get(name, {}).get("count") == n,
+              f"dsv2_path: {name} {dev_spans.get(name)}")
+    step_ms = dev_spans["device/step"]["median_ms"]
+    mla_ms = dev_spans["device/mla"]["median_ms"]
+    exp_ms = dev_spans["device/experts"]["median_ms"]
+    check(0 < mla_ms and 0 < exp_ms and mla_ms + exp_ms < step_ms,
+          f"dsv2_path: spans {mla_ms} + {exp_ms} of a {step_ms} ms step")
+    slots = stats["trace"]["counters"]["expert_slots"]
+    check(sum(slots["4"]) == DSV2_SMOKE["num_experts_per_tok"] * n
+          * DSV2_ROWS, "dsv2_path: the last layer's slots")
+    check(reg.family_total(EXPERT_SLOTS) == sum(map(sum, slots.values())),
+          "dsv2_path: the slot counter")
+    emit({"phase": "dsv2_path", "batches": n, "rows": stats["rows"],
+          "kernel_launches": launches, "stamps_per_step": per_step,
+          "rows_per_s": stats["rows_per_s"],
+          "latency_p50_ms": stats["latency_p50_ms"],
+          "step_device_ms": step_ms, "mla_device_ms": mla_ms,
+          "expert_device_ms": exp_ms,
+          "expert_slots_peak_over_mean": max(
+              max(v) * len(v) / sum(v) for v in slots.values() if sum(v)),
+          "card": device_info["smi_name"],
+          "power_limit": device_info["power_limit"]})
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -6880,7 +7086,8 @@ def main() -> int:
                      ("sharded_exact", phase_sharded_exact),
                      ("fleet", phase_fleet),
                      ("sharded_sequence", phase_sharded_sequence),
-                     ("operator", phase_operator)):
+                     ("operator", phase_operator),
+                     ("dsv2_path", phase_dsv2_path)):
         t0 = time.perf_counter()
         add(fn(dev, info, data), name, t0)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start,

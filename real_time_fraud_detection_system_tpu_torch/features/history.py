@@ -16,7 +16,10 @@ from.
   transformer (``models/sequence.py::transformer_last_logit``). On the
   card, with naive attention and forms the kernel supports, that forward
   is one kernel (``ops/sequence_kernels.py::fused_last_logit``,
-  ``csrc/fused_sequence.cu``); :func:`serving_path` says which.
+  ``csrc/fused_sequence.cu``). DeepSeek-V2's block
+  (``models/deepseek_v2.py::DSV2Params``) takes the same histories
+  through its own forward, ``last_logit``. :func:`serving_path` says
+  which.
 
 Event features mirror ``models/sequence.py::event_features`` channel for
 channel, so a transformer trained on ``build_sequences`` serves unchanged;
@@ -46,6 +49,7 @@ from real_time_fraud_detection_system_tpu_torch.config import FeatureConfig
 from real_time_fraud_detection_system_tpu_torch.core.batch import TxBatch
 from real_time_fraud_detection_system_tpu_torch.device import resolve_device
 from real_time_fraud_detection_system_tpu_torch.features.online import _slot
+from real_time_fraud_detection_system_tpu_torch.models import deepseek_v2
 from real_time_fraud_detection_system_tpu_torch.models.sequence import (
     N_EVENT_FEATURES,
     transformer_last_logit,
@@ -68,12 +72,19 @@ def _attn_fn_for(cfg: FeatureConfig, k: int):
     return lambda q, kk, v: blockwise_attention(q, kk, v, block_size=block)
 
 
+# The forwards :func:`serving_path` names.
+PATHS = sequence_kernels.PATHS + ("dsv2",)
+
+
 def serving_path(params, cfg: FeatureConfig, device,
                  k: "int | None" = None) -> str:
     """The forward :func:`update_and_score` scores with on ``device`` at
-    history length ``k`` (default ``cfg.history_len``): ``"fused"`` (the
-    kernel) or ``"plain"`` (``transformer_last_logit``), by
-    ``ops/sequence_kernels.py::serving_path``."""
+    history length ``k`` (default ``cfg.history_len``): ``"dsv2"``
+    (``models/deepseek_v2.py::last_logit``) for DeepSeek-V2's params, else
+    ``"fused"`` (the kernel) or ``"plain"`` (``transformer_last_logit``),
+    by ``ops/sequence_kernels.py::serving_path``."""
+    if isinstance(params, deepseek_v2.DSV2Params):
+        return "dsv2"
     k = cfg.history_len if k is None else k
     return sequence_kernels.serving_path(
         params, device, k, _attn_fn_for(cfg, k),
@@ -147,7 +158,9 @@ def _stable_order(key: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
 
 def update_and_score(state: HistoryState, params, batch: TxBatch,
                      cfg: FeatureConfig, slot_fn=None,
-                     order_key: "torch.Tensor | None" = None
+                     order_key: "torch.Tensor | None" = None,
+                     expert_slots: "torch.Tensor | None" = None,
+                     stamps: "torch.Tensor | None" = None
                      ) -> Tuple[HistoryState, torch.Tensor]:
     """One history update and causal score; returns ``(state, probs [B])``
     in the batch's row order, padded rows scored 0. The state's tensors
@@ -157,6 +170,10 @@ def update_and_score(state: HistoryState, params, batch: TxBatch,
     ``order_key`` [B] breaks same-second ties (default: the row index);
     the sharded step (``parallel/sequence_step.py``) passes both, on one
     shard's block of the stacked state (its last row that block's sink).
+    ``expert_slots`` and ``stamps`` go to DeepSeek-V2's forward
+    (``models/deepseek_v2.py::last_logit``), which counts the expert slots
+    of the valid rows' real positions and stamps its spans; the other
+    forwards take neither.
     """
     c, k = state.capacity, state.history_len
     b = batch.size
@@ -237,7 +254,12 @@ def update_and_score(state: HistoryState, params, batch: TxBatch,
     state.last_t.index_put_((torch.where(tail, s_slot, sink),), s_t)
 
     # the last block and the head run at the row's own position only
-    if serving_path(params, cfg, dev, k) == "fused":
+    path = serving_path(params, cfg, dev, k)
+    if path == "dsv2":
+        real = s_valid[:, None] & (j < length[:, None])
+        own = deepseek_v2.last_logit(params, hist, length - 1, real=real,
+                                     slots=expert_slots, stamps=stamps)
+    elif path == "fused":
         own = sequence_kernels.fused_last_logit(params, hist, length - 1)
     else:
         own = transformer_last_logit(params, hist, length - 1,

@@ -43,7 +43,13 @@ the per-customer event rings of ``features/history.py`` and
 ``update_and_score``, which writes the rings in place and scores each row
 with the causal transformer: on the card, where the kernel supports the
 params' forms and the attention is the naive one, one kernel
-(``ops/sequence_kernels.py::fused_last_logit``); the rows each path
+(``ops/sequence_kernels.py::fused_last_logit``); DeepSeek-V2's params
+(``models/deepseek_v2.py``, any precision) take its own forward, which
+counts each expert's token-slots on the device
+(``rtfds_sequence_expert_slots_total{layer,expert}``, read once at the
+end of a run) and, while the device track records, stamps the bounds of
+its attention and expert layers into a buffer returned with the step's
+outputs (``device/mla``, ``device/experts``). The rows each path
 scored are ``rtfds_sequence_rows_scored_total{path}``. Its feature
 matrix is zeros by definition, made on the host and never copied from
 the device. It refuses what the
@@ -182,6 +188,9 @@ from real_time_fraud_detection_system_tpu_torch.core.batch import (
 )
 from real_time_fraud_detection_system_tpu_torch.device import resolve_device
 from real_time_fraud_detection_system_tpu_torch.features.history import (
+    PATHS as SEQUENCE_PATHS,
+)
+from real_time_fraud_detection_system_tpu_torch.features.history import (
     init_history_state,
     serving_path,
     update_and_score,
@@ -202,6 +211,7 @@ from real_time_fraud_detection_system_tpu_torch.features.online import (
     apply_feedback as state_feedback,
 )
 from real_time_fraud_detection_system_tpu_torch.features.spec import N_FEATURES
+from real_time_fraud_detection_system_tpu_torch.models import deepseek_v2
 from real_time_fraud_detection_system_tpu_torch.models.autoencoder import (
     autoencoder_loss,
     autoencoder_predict_proba,
@@ -235,6 +245,7 @@ from real_time_fraud_detection_system_tpu_torch.ops import (
     forest_kernels,
     score_kernels,
     sequence_kernels,
+    stamp,
 )
 from real_time_fraud_detection_system_tpu_torch.ops.dedup import (
     latest_wins_mask_host,
@@ -274,17 +285,19 @@ PHASES = ("source_poll", "host_prep", "dispatch", "result_wait",
 # The kernel wrappers whose launches a captured graph replays.
 _WRAPPERS = (forest_kernels.fused_forest_leaf_sum, forest_kernels.leaf_sum,
              score_kernels.fused_featurize_score,
-             sequence_kernels.fused_last_logit)
+             sequence_kernels.fused_last_logit, stamp.stamp)
 # Side-stream runs of each signature before its capture (lazy inits:
 # cuBLAS handles, the autograd engine, the kernels' modules).
 WARMUP_RUNS = 2
 # The port's own series (the JAX engine registers neither): the bytes the
 # loop copies to and from the device, by direction, and the hot-tier slots
 # compaction reads, by table; the rows the sequence step scored, by the
-# forward it was built with.
+# forward it was built with; DeepSeek-V2's token-slots by expert layer and
+# expert.
 TRANSFER_BYTES = "rtfds_transfer_bytes_total"
 SLOTS_SWEPT = "rtfds_feature_compact_slots_swept_total"
 SEQUENCE_ROWS = "rtfds_sequence_rows_scored_total"
+EXPERT_SLOTS = "rtfds_sequence_expert_slots_total"
 log = get_logger("engine")
 
 
@@ -486,12 +499,15 @@ class StepOut(NamedTuple):
     ``emit_dtype="bfloat16"``; None for the sequence kind, whose features
     are zeros made on the host); ``tier`` the exact path's ``[dense,
     cms]`` counts; ``packed`` selective emission's one float32 transfer
-    ``[probs(B) | count | idx(cap) | feats(cap·15)]``."""
+    ``[probs(B) | count | idx(cap) | feats(cap·15)]``; ``stamps`` the
+    card's clock at the bounds of DeepSeek-V2's spans
+    (``models/deepseek_v2.py::stamp_slots``), on its path on the card."""
 
     probs: torch.Tensor
     feats: Optional[torch.Tensor] = None
     tier: Optional[torch.Tensor] = None
     packed: Optional[torch.Tensor] = None
+    stamps: Optional[torch.Tensor] = None
 
 
 def pack_selective(probs: torch.Tensor, feats: torch.Tensor,
@@ -882,6 +898,9 @@ class ScoringEngine:
             "1 when the step launches a hand-written CUDA kernel (on the "
             "CPU: its plain version)")
         self._m_seq_rows: dict = {}
+        self._expert_slots: Optional[torch.Tensor] = None
+        self._m_expert_slots: list = []
+        self._stamp_anchor: Optional[tuple] = None
 
     @staticmethod
     def _check_emission(cfg: Config, feature_cache,
@@ -953,8 +972,9 @@ class ScoringEngine:
             p: self.metrics.counter(
                 SEQUENCE_ROWS,
                 "rows the sequence step scored, by the forward its step "
-                "was built with (fused: csrc/fused_sequence.cu)", path=p)
-            for p in sequence_kernels.PATHS}
+                "was built with (fused: csrc/fused_sequence.cu; dsv2: "
+                "models/deepseek_v2.py)", path=p)
+            for p in SEQUENCE_PATHS}
         self._note_sequence_path()
 
     def _note_sequence_path(self) -> None:
@@ -967,6 +987,50 @@ class ScoringEngine:
         self._tables_epoch = self.state.params_epoch
         if self._seq_path == "fused":
             sequence_kernels._library()
+        if self._seq_path == "dsv2":
+            self._init_expert_slots()
+            if self.device.type == "cuda":
+                # the stamps' clock against the host's, once: it launches
+                # and reads, which a run's device track should not see
+                self._stamp_anchor = stamp.clock_anchor(self.device)
+
+    def _init_expert_slots(self) -> None:
+        """DeepSeek-V2's per-expert slot counts: an int64 [expert
+        layers, experts] tensor the step adds to on the device, and its
+        ``EXPERT_SLOTS`` series by layer (the model's layer index) and
+        expert, which :meth:`_read_expert_slots` brings up to date."""
+        params = self.state.params
+        moes = [i for i, l in enumerate(params.layers)
+                if isinstance(l.mlp, deepseek_v2.MoEParams)]
+        shape = (len(moes), params.layers[moes[0]].mlp.router.shape[1]) \
+            if moes else (0, 0)
+        if self._expert_slots is not None \
+                and tuple(self._expert_slots.shape) == shape:
+            return
+        self._expert_slots = torch.zeros(shape, dtype=torch.int64,
+                                         device=self.device)
+        self._expert_slots_read = np.zeros(shape, np.int64)
+        self._m_expert_slots = [
+            [self.metrics.counter(
+                EXPERT_SLOTS, "token-slots DeepSeek-V2's router sent to "
+                "each expert of each expert layer (valid rows' real "
+                "positions)", layer=str(li), expert=str(e))
+             for e in range(shape[1])] for li in moes]
+
+    def _read_expert_slots(self) -> None:
+        """The device's slot counts into ``EXPERT_SLOTS`` (one read:
+        at the end of a run, when nothing is in flight), inside a span of
+        its own, as every copy a run makes is inside one of the loop's."""
+        if self._expert_slots is None or self._seq_path != "dsv2":
+            return
+        with self.tracer.span("expert_slots_read", nvtx=self._nvtx):
+            now = self._expert_slots.cpu().numpy().copy()  # no CPU alias
+        delta = now - self._expert_slots_read
+        self._expert_slots_read = now
+        for row, d in zip(self._m_expert_slots, delta):
+            for c, v in zip(row, d):
+                if v:
+                    c.inc(float(v))
 
     def _count_sequence_rows(self, n: int) -> None:
         """A dispatched batch's ``n`` rows, by its step's forward."""
@@ -1074,10 +1138,20 @@ class ScoringEngine:
         around it in :meth:`_start_batch`."""
         batch = unpack_batch(packed)
         if self.kind == "sequence":
-            _, probs = update_and_score(self.state.feature_state,
-                                        self.state.params, batch,
-                                        self.cfg.features)
-            return StepOut(probs)
+            if self._seq_path != "dsv2":
+                _, probs = update_and_score(self.state.feature_state,
+                                            self.state.params, batch,
+                                            self.cfg.features)
+                return StepOut(probs)
+            stamps = None
+            if self.device.type == "cuda":
+                stamps = torch.zeros(deepseek_v2.n_stamps(self.state.params),
+                                     dtype=torch.int64, device=self.device)
+            _, probs = update_and_score(
+                self.state.feature_state, self.state.params, batch,
+                self.cfg.features, expert_slots=self._expert_slots,
+                stamps=stamps)
+            return StepOut(probs, stamps=stamps)
         fcfg = self.cfg.features
         scaler = self.state.scaler
         params = self.state.params
@@ -1854,6 +1928,24 @@ class ScoringEngine:
 
         self._meters.append((end, apply))
 
+    def _stamp_spans(self, fetch: dict) -> None:
+        """A landed step's stamps as device-track spans: per span name of
+        ``models/deepseek_v2.py::stamp_slots`` the sum of its intervals,
+        laid from its first start, on the host's clock by the stamp anchor
+        taken when the path was chosen (the two clocks drift apart by
+        parts per million), attributed to the host span that issued the
+        copies."""
+        ns = fetch["stamps"].tolist()
+        g0, t0 = self._stamp_anchor
+        sid, tid = fetch.get("stamps_by") or (None, "")
+        for name, pairs in deepseek_v2.stamp_slots(self.state.params).items():
+            if not pairs:
+                continue
+            dur = sum(ns[b] - ns[a] for a, b in pairs) * 1e-9
+            start = t0 + (ns[pairs[0][0]] - g0) * 1e-9
+            self.tracer.add_device_span(name, start, start + dur, batch=tid,
+                                        launched_by=sid)
+
     # -- emission (full, bf16, selective, alerts-only) ---------------------
 
     def _emit_features_now(self) -> bool:
@@ -1903,6 +1995,8 @@ class ScoringEngine:
                 srcs["feats"] = out.feats[:n]
         if out.tier is not None:
             srcs["tier"] = out.tier
+        if out.stamps is not None and self._dev_anchor is not None:
+            srcs["stamps"] = out.stamps
         host = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
                 for k, v in srcs.items()}
         with torch.cuda.stream(side):
@@ -1911,6 +2005,8 @@ class ScoringEngine:
         done = torch.cuda.Event()
         done.record(side)
         host["done"] = done
+        if "stamps" in host:
+            host["stamps_by"] = self.tracer.open_span()
         self._m_xfer["d2h"].inc(sum(v.numel() * v.element_size()
                                     for v in srcs.values()))
         return host
@@ -2114,6 +2210,9 @@ class ScoringEngine:
         store's compaction and promotions, and the result."""
         n = handle["n"]
         probs_np, feats_np, tier_np = self._host_results(handle)
+        fetch = handle.get("fetch")
+        if fetch and "stamps" in fetch:
+            self._stamp_spans(fetch)
         if self._nan_guard:
             res = self._quarantine_nonfinite(handle, probs_np, feats_np)
             if res is not None:
@@ -2451,13 +2550,19 @@ class ScoringEngine:
         ``device/compact``, ``device/promote``), from the graph's first
         node to behind its last kernel, read back without a sync and put
         on the host's clock by one anchor taken at the run's start (a
-        synchronize, a recorded event, a ``perf_counter`` reading). The stats then gain ``trace``, of this run alone:
+        synchronize, a recorded event, a ``perf_counter`` reading); on
+        DeepSeek-V2's path also ``device/mla`` and ``device/experts``, from
+        the card-clock stamps each step returns with its outputs
+        (:meth:`_stamp_spans`). The stats then gain ``trace``, of this run
+        alone:
         ``spans`` (per span name its count, median ms and total self ms),
         ``device`` (per signature its count, median and mean ms) and
         ``counters`` (this run's ``transfer_bytes`` by direction,
-        compaction's ``compact_slots_swept`` by table and the sequence
-        step's ``sequence_rows_scored`` by path). With the tracer
-        off there is no ``trace`` entry.
+        compaction's ``compact_slots_swept`` by table, the sequence
+        step's ``sequence_rows_scored`` by path and, on DeepSeek-V2's
+        path, ``expert_slots``, per expert layer a count by expert, read
+        from the card once at the run's end). With the tracer off there is
+        no ``trace`` entry.
         """
         # a restored state's cold lineage: reconcile the store (and fence
         # the promoter) before any batch can touch a demoted key
@@ -2755,6 +2860,7 @@ class ScoringEngine:
         self._drain_meters(wait=True)
         self._dev_anchor = None
         wall = time.perf_counter() - t_start
+        self._read_expert_slots()
         snaps = {k: t.snapshot() for k, t in trackers.items()}
         p50 = {k: snaps[k].get("p50_ms", 0.0) for k in trackers}
         rows = self.state.rows_done - rows0
@@ -2791,9 +2897,14 @@ class ScoringEngine:
                 len(self._degraded_keys) - degraded0)
         if self._scope is not None:
             counts = self._trace_counts()
+
+            def delta(v, v0):
+                return ([a - b for a, b in zip(v, v0)]
+                        if isinstance(v, list) else v - v0)
+
             stats["trace"] = {
                 **self.tracer.close_scope(self._scope),
-                "counters": {g: {k: v - counts0[g][k]
+                "counters": {g: {k: delta(v, counts0[g][k])
                                  for k, v in counts[g].items()}
                              for g in counts}}
             self._scope = None
@@ -2819,13 +2930,19 @@ class ScoringEngine:
     def _trace_counts(self) -> dict:
         """The counters a run's ``trace`` entry reads as deltas: bytes
         by direction, compaction's slots swept by table, the sequence
-        step's rows by path."""
-        return {"transfer_bytes": {d: c.value
-                                   for d, c in self._m_xfer.items()},
-                "compact_slots_swept": {t: c.value
-                                        for t, c in self._m_swept.items()},
-                "sequence_rows_scored": {
-                    p: c.value for p, c in self._m_seq_rows.items()}}
+        step's rows by path and, on DeepSeek-V2's path, the expert slots
+        (per expert layer, the model's layer index, a list by expert)."""
+        counts = {"transfer_bytes": {d: c.value
+                                     for d, c in self._m_xfer.items()},
+                  "compact_slots_swept": {t: c.value
+                                          for t, c in self._m_swept.items()},
+                  "sequence_rows_scored": {
+                      p: c.value for p, c in self._m_seq_rows.items()}}
+        if self._m_expert_slots:
+            counts["expert_slots"] = {
+                row[0].labels["layer"]: [c.value for c in row]
+                for row in self._m_expert_slots}
+        return counts
 
     def _overload_controller(self, learning, auto, recorder):
         """The ladder for one run, with the engine-side effect of each

@@ -451,6 +451,17 @@ class Tracer:
         with self._lock:
             self._buf.clear()
 
+    def reset(self) -> None:
+        """Back to a fresh tracer: disabled (so the next enable pins the
+        export clock anew), no scope aggregating, no span open on this
+        thread, the ring empty."""
+        self.configure(enabled=False)
+        with self._scope_lock:
+            self._scopes.clear()
+        self._stack().clear()
+        self._done().clear()
+        self.clear()
+
     def export_chrome(self) -> dict:
         """The ring as a Chrome-trace object: complete (``"ph": "X"``)
         events in µs on the Kineto clock, sorted by start, the trace id,

@@ -166,10 +166,12 @@ def _batch(rows=300, seed=1):
 
 
 def test_the_engine_counts_scored_rows_by_path():
-    """``SEQUENCE_ROWS{path}``, ``path`` fused or plain: each dispatched
-    batch's rows under the path its step was built with (plain on the
-    CPU), and ``sequence_rows_scored`` among the counters a run's
-    ``trace`` entry reads; a forest engine registers no such series."""
+    """``SEQUENCE_ROWS{path}``, ``path`` fused, plain or dsv2 (DeepSeek-V2's
+    forward, ``tests/test_torch_dsv2.py``): each dispatched batch's rows
+    under the path its step was built with (plain on the CPU), and
+    ``sequence_rows_scored`` among the counters a run's ``trace`` entry
+    reads, with no expert slots for this transformer; a forest engine
+    registers no such series."""
     reg = MetricsRegistry()
     cfg = Config(features=FCFG, runtime=RuntimeConfig(batch_buckets=(512,)))
     eng = ScoringEngine(cfg, "sequence", _served(),
@@ -180,8 +182,10 @@ def test_the_engine_counts_scored_rows_by_path():
         eng.process_batch(_batch(seed=seed))
     assert reg.get(SEQUENCE_ROWS, path="plain").value == 600
     assert reg.get(SEQUENCE_ROWS, path="fused").value == 0
-    assert set(eng._trace_counts()["sequence_rows_scored"]) == {"fused",
-                                                                "plain"}
+    assert reg.get(SEQUENCE_ROWS, path="dsv2").value == 0
+    counts = eng._trace_counts()
+    assert set(counts["sequence_rows_scored"]) == {"fused", "plain", "dsv2"}
+    assert "expert_slots" not in counts
     # a forest engine registers no such series
     from real_time_fraud_detection_system_tpu_torch.models.forest import (
         synthetic_ensemble,

@@ -98,6 +98,15 @@ def _engine(depth=2):
         device="cpu", metrics=MetricsRegistry())
 
 
+@pytest.fixture(autouse=True)
+def fresh_tracer():
+    """Every test starts from a reset process-wide tracer: a file that ran
+    earlier on the same worker may have left it enabled (its export clock
+    pinned minutes ago), with scopes aggregating or spans open."""
+    ttrace.get_tracer().reset()
+    yield
+
+
 @pytest.fixture
 def tracer():
     tr = ttrace.get_tracer()
